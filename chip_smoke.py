@@ -8,22 +8,45 @@ Phases, each of which exits non-zero when it fails:
 1. device — the card's name and power limit (nvidia-smi) and PyTorch's name;
 2. build  — every kernel of ``jumbo_mae_tpu_tpu_torch/csrc`` with nvcc
    (sm_90a), in parallel, with the ptxas register/spill report;
-3. kernel vs plain — the flash-attention forward kernel against its plain
+3. K1 vs plain — the flash-attention forward kernel against its plain
    PyTorch version on the card, ``o`` and ``lse``: float32 (TF32 off) at
    atol/rtol 1e-5 (sum order), bfloat16 on the same bf16 inputs at atol
-   2e-2, at the serving shapes (ViT-B/16 at 224 px and batch 64, 448 px,
-   the MAE-visible 52-token length, ViT-H/14 with head_dim 80, head_dims
-   32 and 128), plus strided q/k/v views of a fused projection;
-4. kernel timings — the kernel, its plain version and one PyTorch library
-   call (scaled_dot_product_attention, a yardstick the port never calls)
-   at the ViT-B/16 shape, beside the least time the card could take;
-5. the slice — the ViT-B/16 classifier as recipes/finetune_vit_b16.yaml
-   builds it (12 layers, dim 768, 3 CLS tokens, sincos2d, 1000 labels,
-   bf16 compute, random weights from a seed) served through
-   ``InferenceEngine`` (logits, features cls and gap; requests of 1, 5,
-   64 and 70 images) and through ``cli.predict``: shapes, finite values,
-   kernel launches = 12 x dispatches, padding inertness, the float32
-   engine on the card against the float32 engine on the CPU, images/s.
+   2e-2, at the training slice's MAE encoder and decoder shapes, the
+   serving shapes (ViT-B/16 at 224 px and batch 64, 448 px, the
+   MAE-visible 52-token length, ViT-H/14 with head_dim 80, head_dims 32
+   and 128), plus strided q/k/v views of a fused projection;
+4. K2/K3 vs plain — the backward kernels (dq; dk and dv) against the
+   plain backward at the MAE encoder and decoder shapes of the training
+   slice, ViT-B, 448 px, ViT-H/14 and a ragged head_dim-128 shape: float32
+   (TF32 off) at atol/rtol 1e-4, bfloat16 within 3e-2 of the largest
+   reference entry; two runs bit-identical; strided views of a fused
+   projection; pad rows and columns inert (NaN beyond the sequence is
+   never read);
+5. kernel timings — K1 at the ViT-B/16 serving shape, K1 (with lse), K2
+   and K3 at the MAE encoder and decoder shapes: the kernel, its plain
+   version and one
+   PyTorch library call (scaled_dot_product_attention, forward or
+   backward; a yardstick the port never calls), beside the least time
+   the card could take;
+6. the serving slice — the ViT-B/16 classifier as
+   recipes/finetune_vit_b16.yaml builds it (12 layers, dim 768, 3 CLS
+   tokens, sincos2d, 1000 labels, bf16 compute, random weights from a
+   seed) served through ``InferenceEngine`` (logits, features cls and gap;
+   requests of 1, 5, 64 and 70 images) and through ``cli.predict``:
+   shapes, finite values, kernel launches = 12 x dispatches, padding
+   inertness, the float32 engine on the card against the float32 engine
+   on the CPU, images/s;
+7. the training slice — one MAE pretraining step of ViT-L/16 as
+   recipes/pretrain_vit_l16_in1k_800ep.yaml builds it (24 layers, dim
+   1024, mask 0.75, sincos2d, grad_ckpt; decoder 8 x 512 x 16 heads;
+   norm_pix_loss; bf16 compute; AdamW with bf16 mu; random weights from a
+   seed) at batch 128 through ``create_state`` + ``make_train_step`` on
+   ``synthetic_batches``: 3 warm-up and 10 timed steps on one repeated
+   batch; the kernels' launch counts, a finite loss that falls, step ms,
+   images/s, MFU and peak memory;
+8. float32 step, card against CPU — ViT-L widths at 2 encoder layers and
+   1 decoder layer, batch 2, the same weights and mask noise: loss, every
+   gradient and every parameter's change in one AdamW step.
 
 Before the last line it prints the ``{"kernels": [...]}`` line and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
@@ -38,7 +61,13 @@ import subprocess
 import time
 
 VIT_B_SHAPE = (64, 199, 12, 64)  # ViT-B/16 at 224 px, batch 64
+# the training slice: MAE encoder (49 visible + 3 CLS) and decoder (196 + 3)
+# of the ViT-L/16 recipe at batch 128
+ENC_SHAPE = (128, 52, 16, 64)
+DEC_SHAPE = (128, 199, 16, 32)
 KERNEL_SHAPES = [
+    ENC_SHAPE,
+    DEC_SHAPE,
     VIT_B_SHAPE,
     (4, 787, 16, 64),  # ViT-L/16 at 448 px
     (8, 52, 16, 64),  # 49 visible patches + 3 CLS (MAE, mask 0.75)
@@ -46,6 +75,8 @@ KERNEL_SHAPES = [
     (8, 199, 8, 32),  # head_dim 32
     (2, 331, 8, 128),  # head_dim 128
 ]
+# K2/K3 shapes: the training slice's, ViT-B, 448 px, ViT-H/14, head_dim 128
+BWD_SHAPES = [ENC_SHAPE, DEC_SHAPE, VIT_B_SHAPE, (4, 787, 16, 64), (4, 259, 16, 80), (2, 331, 8, 128)]
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -86,13 +117,14 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound_ms(shape, dtype_bytes: int, peak_flops: float) -> tuple[float, str]:
+def attention_bound_ms(shape, dtype_bytes: int, peak_flops: float, lse: bool = False) -> tuple[float, str]:
     """Least time for softmax(q·kᵀ)·v at (B, S, H, D): 4·B·H·S²·D
-    operations over the peak rate, or q, k, v read once and o written
-    once over the memory rate, whichever is larger."""
+    operations over the peak rate, or q, k, v read once and o (and, with
+    ``lse``, the f32 lse per row) written once over the memory rate,
+    whichever is larger."""
     b, s, h, d = shape
     t_ops = 4 * b * h * s * s * d / peak_flops
-    t_bytes = 4 * b * s * h * d * dtype_bytes / PEAK_BYTES
+    t_bytes = (4 * b * s * h * d * dtype_bytes + (4 * b * h * s if lse else 0)) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -124,7 +156,7 @@ def phase_kernels(fa) -> dict:
             check(torch.isfinite(o.float()).all().item(), f"non-finite kernel output at {shape} {name}")
             torch.testing.assert_close(o, ref_o, **tol)
             torch.testing.assert_close(lse, ref_lse, **tol)
-            errs[(name, shape)] = e_o
+            errs[(name, shape)] = max(e_o, e_l)
     # strided inputs: q, k, v as views of one fused (B, S, 3, H, D) projection
     b, s, h, d = VIT_B_SHAPE
     fused = torch.randn((b, s, 3, h, d), device="cuda").to(torch.bfloat16)
@@ -136,12 +168,11 @@ def phase_kernels(fa) -> dict:
     return errs
 
 
-def phase_timings(fa) -> dict:
-    """Phase 4: kernel, plain and library times at the ViT-B/16 shape."""
+def phase_timings(fa) -> None:
+    """Phase 5a: K1, plain and library times at the serving shapes."""
     import torch
     import torch.nn.functional as F
 
-    out = {}
     for shape in (VIT_B_SHAPE, (4, 787, 16, 64)):
         q, k, v = qkv(shape, torch.bfloat16, seed=100)
         ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v))
@@ -154,11 +185,141 @@ def phase_timings(fa) -> dict:
             f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
             f"kernel at {100 * bound / ms:.1f}% of bound"
         )
-        out[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
     q, k, v = qkv(VIT_B_SHAPE, torch.float32, seed=101)
     ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10)
     bound, by = attention_bound_ms(VIT_B_SHAPE, 4, PEAK_F32_FLOPS)
     log(f"timing f32 {VIT_B_SHAPE}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by})")
+
+
+def bwd_bound_ms(shape, products: int, outputs: int) -> tuple[float, str]:
+    """Least time for one backward kernel in bf16 at (B, S, H, D):
+    ``products`` matrix products of 2·B·H·S²·D operations over the peak
+    rate, or q, k, v and dO (2 bytes) and lse and D (f32 per row) read once
+    and ``outputs`` gradients written once over the memory rate. K2 does 3
+    products and writes dq; K3 does 4 and writes dk and dv."""
+    b, s, h, d = shape
+    t_ops = products * 2 * b * h * s * s * d / PEAK_BF16_FLOPS
+    t_bytes = ((4 + outputs) * b * s * h * d * 2 + 2 * b * h * s * 4) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def bwd_inputs(shape, dtype, seed: int, fa):
+    """q, k, v, dO on the card and the forward's o and lse (kernel K1)."""
+    import torch
+
+    q, k, v = qkv(shape, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    do = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    return q, k, v, do, o, lse
+
+
+def phase_bwd_kernels(fa) -> dict:
+    """Phase 4: K2 and K3 against the plain backward, every shape, both
+    dtypes; determinism, strided views, inert padding."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        for i, shape in enumerate(BWD_SHAPES):
+            q, k, v, do, o, lse = bwd_inputs(shape, dtype, 200 + i, fa)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+            line = []
+            for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+                check(g.dtype == dtype and g.shape == r.shape, f"{gname} {shape} {name}: {g.dtype} {tuple(g.shape)}")
+                check(bool(torch.isfinite(g.float()).all()), f"non-finite {gname} at {shape} {name}")
+                err = (g.float() - r.float()).abs().max().item()
+                scale = r.float().abs().max().item()
+                line.append(f"{gname} {err:.3e}/{scale:.3e}")
+                if dtype == torch.float32:
+                    # the same f32 arithmetic, summed in another order
+                    torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+                else:
+                    # P and dS are rounded to bf16 before their products
+                    # (as the Pallas kernels do); the plain version keeps f32
+                    check(err <= 3e-2 * scale, f"bf16 {gname} at {shape}: {err:.3e} > 3e-2 x {scale:.3e}")
+                errs[(name, shape, gname)] = err
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            check(same, f"two runs of K2/K3 differ at {shape} {name}")
+            log(f"K2/K3 {name} {shape}: max|err|/max|ref| {', '.join(line)}; rerun bit-identical {same}")
+
+    b, s, h, d = VIT_B_SHAPE
+    fused = torch.randn((b, s, 4, h, d), device="cuda").to(torch.bfloat16)
+    q, k, v, do = (fused[:, :, i] for i in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    ref = fa.flash_attention_bwd(*(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous())
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)), "K2/K3 on strided views differ from contiguous copies")
+    log("K2/K3 on strided q/k/v/dO views equal contiguous copies: True")
+
+    # pad rows and columns are inert: NaN stored past the sequence in the
+    # same buffers is never read (a read would turn the gradients NaN)
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in ((2, 199, 4, 64), (3, 70, 2, 128), (2, 52, 4, 32)):
+            q, k, v, do, o, lse = bwd_inputs(shape, dtype, 300, fa)
+            ref = fa.flash_attention_bwd(q, k, v, o, lse, do)
+            padded = []
+            for x in (q, k, v, do):
+                buf = torch.full((shape[0], shape[1] + 61, *shape[2:]), float("nan"), dtype=dtype, device="cuda")
+                buf[:, : shape[1]] = x
+                padded.append(buf[:, : shape[1]])
+            got = fa.flash_attention_bwd(*padded[:3], o, lse, padded[3])
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"pad rows/columns change the gradients at {shape}")
+    log("K2/K3 pad rows and columns inert (NaN past the sequence never read): True")
+    return errs
+
+
+def phase_bwd_timings(fa) -> dict:
+    """Phase 5b: K1 (with lse, as training calls it), K2 and K3 at the MAE
+    encoder and decoder shapes, bf16: each kernel, the plain forward or
+    backward (all three gradients), and SDPA's forward, or its backward as
+    (forward + backward) − forward; and K1 + K2 + K3 against the einsum
+    path's forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    def einsum_path(q, k, v):  # models/layers.py's einsum branch
+        probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k).float(), dim=-1).to(v.dtype)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+    out = {}
+    for shape in (ENC_SHAPE, DEC_SHAPE):
+        q, k, v, do, o, lse = bwd_inputs(shape, torch.bfloat16, 400, fa)
+        dd = fa.attention_delta(o, do)
+        k2 = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dd))
+        k3 = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd))
+        plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=dd), iters=10)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2)
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0))
+        both = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qt, kt, vt, scale=1.0), (qt, kt, vt), dot))
+        lib = max(both - fwd, 0.0)
+        # attn_impl="auto" in training: the kernels' forward and backward
+        # against the einsum path's (bf16 scores, f32 softmax, bf16 probs)
+        k1 = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, with_lse=True))
+        k1_plain = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, with_lse=True), iters=10)
+        bound, by = attention_bound_ms(shape, 2, PEAK_BF16_FLOPS, lse=True)
+        out[("K1", shape)] = dict(ms=k1, plain_ms=k1_plain, library_ms=fwd, bound_ms=bound, bound_by=by)
+        log(f"timing K1 bf16 {shape} with lse: kernel {k1:.4f} ms, plain {k1_plain:.4f} ms, sdpa {fwd:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}), kernel at {100 * bound / k1:.1f}% of bound")
+        qe, ke, ve = (x.detach().requires_grad_() for x in (q, k, v))
+        einsum = cuda_ms(lambda: torch.autograd.grad(einsum_path(qe, ke, ve), (qe, ke, ve), do))
+        log(f"training attention bf16 {shape}: K1 + K2 + K3 {k1 + k2 + k3:.4f} ms (+ D), einsum forward "
+            f"and backward {einsum:.4f} ms")
+        out[("einsum", shape)] = dict(kernels_ms=k1 + k2 + k3, einsum_ms=einsum)
+        for name, ms, products, outputs in (("K2", k2, 3, 1), ("K3", k3, 4, 2)):
+            bound, by = bwd_bound_ms(shape, products, outputs)
+            out[(name, shape)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
+            log(f"timing {name} bf16 {shape}: kernel {ms:.4f} ms, plain backward {plain:.4f} ms, "
+                f"sdpa backward {lib:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
+                f"{100 * bound / ms:.1f}% of bound")
     return out
 
 
@@ -253,6 +414,187 @@ def phase_slice(fa, smi: str, cfg, device: str = "cuda", cli_args: tuple = ()) -
     return launches, dispatches
 
 
+def vit_l16_mae():
+    """recipes/pretrain_vit_l16_in1k_800ep.yaml's model and optimizer,
+    built in code (the GPU machine has no PyYAML): warmup 0 and a long
+    cosine, so the 13 steps run near the peak learning rate."""
+    from jumbo_mae_tpu_tpu_torch.models import DecoderConfig, preset
+    from jumbo_mae_tpu_tpu_torch.train.optim import OptimConfig
+
+    enc = preset("vit_l16", labels=None, mask_ratio=0.75, posemb="sincos2d", grad_ckpt=True)
+    dec = DecoderConfig(layers=8, dim=512, heads=16)
+    opt = OptimConfig(name="adamw", learning_rate=1.5e-4, lr_scaling="batch", b1=0.9, b2=0.95,
+                      weight_decay=0.05, mu_dtype="bfloat16", warmup_steps=0, training_steps=10_000)
+    return enc, dec, opt
+
+
+TRAIN_BATCH = 128
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+
+
+def phase_train(fa, smi: str) -> dict:
+    """Phase 7: the ViT-L/16 MAE pretraining step at batch 128, bf16."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
+    from jumbo_mae_tpu_tpu_torch.obs.mfu import H100_PEAK_BF16_TFLOPS, mfu, pretrain_flops_per_image
+    from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
+
+    enc, dec, opt = vit_l16_mae()
+    t0 = time.perf_counter()
+    state = create_state((enc, dec, True), opt, device="cuda", init_seed=0, rng_seed=0,
+                         global_batch_size=TRAIN_BATCH)
+    nparams = sum(p.numel() for p in state.model.parameters())
+    log(f"train state built in {time.perf_counter() - t0:.2f} s: {nparams} params, encoder seq "
+        f"{enc.num_cls_tokens + enc.keep_len}, decoder seq {enc.num_cls_tokens + enc.num_patches}, "
+        f"peak lr {opt.peak_lr(TRAIN_BATCH):.3e}")
+    step = make_train_step(mode="pretrain")
+    batch = next(synthetic_batches(TRAIN_BATCH, enc.image_size, seed=0, distinct=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts set to 0 just before, read just after
+    fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    start.record()
+    for _ in range(TIMED_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t_host
+    counts = {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DQ, "K3": fa.LAUNCHES_BWD_DKV}
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    # every attention call's backward runs K2 then K3 once: one call per
+    # encoder and decoder block. K1 runs in every forward, and again in the
+    # gradient-checkpoint recompute of every encoder block (the decoder is
+    # not checkpointed): per step K2 = K3 = 24 + 8 = 32, K1 = 2·24 + 8 = 56
+    want_bwd = enc.layers + dec.layers
+    want_fwd = (2 if enc.grad_ckpt else 1) * enc.layers + (2 if dec.grad_ckpt else 1) * dec.layers
+    log(f"main path: {steps} steps, launches K1 {counts['K1']} (want {steps} x {want_fwd}), "
+        f"K2 {counts['K2']} and K3 {counts['K3']} (want {steps} x {want_bwd})")
+    check(counts["K2"] == counts["K3"] == steps * want_bwd, "K2/K3 launches per step")
+    check(counts["K1"] == steps * want_fwd, "K1 launches per step")
+
+    vals = [x.item() for x in losses]
+    check(all(np.isfinite(vals)), f"non-finite loss: {vals}")
+    log("loss per step: " + ", ".join(f"{x:.5f}" for x in vals))
+    check(vals[-1] < vals[0] and np.mean(vals[-3:]) < np.mean(vals[:3]), "the loss does not fall over the steps")
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    ips = TRAIN_BATCH * 1e3 / step_ms
+    flops = pretrain_flops_per_image(enc, dec)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    util = mfu(ips, flops)
+    log(f"train step: {step_ms:.2f} ms (CUDA events over {TIMED_STEPS} steps; host clock "
+        f"{host_s / TIMED_STEPS * 1e3:.2f} ms), {ips:.1f} images/s, {flops / 1e9:.1f} GFLOP/image, "
+        f"MFU {100 * util:.2f}% of {H100_PEAK_BF16_TFLOPS:.0f} TFLOP/s, peak memory {peak_gib:.2f} GiB "
+        f"on {smi}")
+    return dict(counts=counts, step_ms=step_ms, images_per_s=ips, mfu=util, peak_gib=peak_gib)
+
+
+def phase_train_f32_vs_cpu() -> None:
+    """Phase 8: one float32 step on the card against the same step on the
+    CPU: ViT-L widths, 2 encoder layers, 1 decoder layer, batch 2, the
+    same weights (seeded CPU init) and the same injected mask noise. Both
+    run the flash path: the kernels on the card, their plain versions on
+    the CPU. The card's AdamW step is held against the CPU's AdamW applied
+    to the card's gradients, so a wrong or skipped update shows even where
+    the step is far below the parameter's scale."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
+    from jumbo_mae_tpu_tpu_torch.train.optim import make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    enc, dec, opt = vit_l16_mae()
+    enc = enc.replace(layers=2, dtype="float32", attn_impl="flash")
+    dec = dec.replace(layers=1, dtype="float32", attn_impl="flash")
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8))
+    noise = torch.from_numpy(rng.random(enc.num_patches).astype(np.float32))
+
+    def adamw_step(model, grads: list) -> tuple[dict, dict, float]:
+        """One AdamW step from ``grads``: the parameters after it and their
+        change, on the CPU (p_after − p_before is exact: the two are within
+        a factor 2), and the step's learning rate."""
+        tx = make_optimizer(opt, global_batch_size=2)
+        state = tx.init(model)
+        params = list(model.parameters())
+        before = [p.detach().cpu().clone() for p in params]
+        tx.update(state, params, grads)
+        after = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        return after, {n: a - b for (n, a), b in zip(after.items(), before)}, state.learning_rate
+
+    res = {}
+    for device in ("cuda", "cpu"):
+        model = MAEPretrainModel(enc, dec, True, device=device, seed=0).train()
+        out = model(images.to(device), mask_noise=noise.to(device))
+        out["loss"].backward()
+        grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+        res[device] = (out["loss"].item(), grads, *adamw_step(model, [p.grad for p in model.parameters()]))
+    (lg, gg, pg, sg, lr), (lc, gc, pc, sc, _) = res["cuda"], res["cpu"]
+    log(f"f32 step cuda vs CPU: loss {lg:.7f} vs {lc:.7f}")
+    np.testing.assert_allclose(lg, lc, rtol=1e-3)
+    worst = 0.0
+    gmax = max(g.abs().max().item() for g in gc.values())
+    for n in gc:
+        scale = gc[n].abs().max().item()
+        err = (gg[n] - gc[n]).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        # 1e-3 of the gradient's scale (two layers of f32 sums in another
+        # order), with a floor of 1e-6 of the largest gradient for tensors
+        # whose true gradient is zero (an attention key bias shifts every
+        # score of a query alike, so both devices return round-off there)
+        check(err <= 1e-3 * scale + 1e-6 * gmax, f"gradient {n}: max diff {err:.3e} vs scale {scale:.3e}")
+
+    flipped = 0
+    for n in pc:
+        scale = pc[n].abs().max().item()
+        diff = (pg[n] - pc[n]).abs()
+        # 1e-3 of the parameter's scale. Adam's first step moves an entry by
+        # lr·g/|g|: where the gradient is a near-cancelled sum its sign may
+        # differ between devices, moving that entry by at most 2·lr(1 + wd|p|)
+        over = diff > 1e-3 * scale
+        flipped += int(over.sum())
+        check(bool((diff[over] <= 2 * lr * (1 + opt.weight_decay * pc[n].abs()[over]) + 1e-3 * scale).all()),
+              f"parameter {n} after one AdamW step: max diff {diff.max().item():.3e}")
+    total = sum(p.numel() for p in pc.values())
+    check(flipped <= max(10, 1e-4 * total), f"{flipped} parameter entries off by more than 1e-3 of scale")
+
+    # The step (about lr = 1e-6 here) is far below 1e-3 of a weight's
+    # scale, so the check above cannot see it: hold the card's step against
+    # the CPU's AdamW applied to the card's gradients from the same weights
+    replay = MAEPretrainModel(enc, dec, True, device="cpu", seed=0).train()
+    after, want, _ = adamw_step(replay, [gg[n] for n, _ in replay.named_parameters()])
+    worst_step = 0.0
+    for n, got in sg.items():
+        scale = want[n].abs().max().item()
+        # 1e-3 of the step's scale, plus one unit in the last place of the
+        # parameter: each device rounds p + step to float32 on its own
+        mag = after[n].abs() + want[n].abs()
+        ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+        diff = (got - want[n]).abs()
+        worst_step = max(worst_step, (diff - ulp).max().item() / max(scale, 1e-30))
+        check(bool((diff <= 1e-3 * scale + ulp).all()),
+              f"parameter {n}: the card's AdamW step differs from the CPU's on the same gradients "
+              f"by {diff.max().item():.3e} (step scale {scale:.3e})")
+    log(f"f32 step cuda vs CPU: every gradient within 1e-3 of its scale (worst {worst:.2e}, floor "
+        f"{1e-6 * gmax:.2e}); params after one AdamW step within 1e-3 of their scale except {flipped} "
+        f"of {total} entries (sign flips of near-zero gradients, each within 2 lr); the card's step "
+        f"equals the CPU's AdamW on the card's gradients within 1e-3 of the step's scale and one ulp "
+        f"(worst {worst_step:.2e})")
+
+
 def main() -> None:
     import torch
 
@@ -276,30 +618,47 @@ def main() -> None:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"ptxas {name}: {line.strip()}")
+        spills = [ln for ln in rep.splitlines() if "spill stores" in ln]
+        check(all(" 0 bytes spill stores" in ln and " 0 bytes spill loads" in ln for ln in spills),
+              f"{name}: ptxas reports register spills")
 
     errs = phase_kernels(fa)
-    timings = phase_timings(fa)
+    bwd_errs = phase_bwd_kernels(fa)
+    phase_timings(fa)
+    bwd_timings = phase_bwd_timings(fa)
     from jumbo_mae_tpu_tpu_torch.models import preset
 
     # recipes/finetune_vit_b16.yaml's model; the CLI builds the same one
     vit_b16 = preset("vit_b16", posemb="sincos2d")
     cli_args = ("--preset", "vit_b16", "--set", "posemb=sincos2d")
-    launches, dispatches = phase_slice(fa, smi, vit_b16, "cuda", cli_args)
+    serve_launches, dispatches = phase_slice(fa, smi, vit_b16, "cuda", cli_args)
+    log(f"serving path: {serve_launches} K1 launches over {dispatches} dispatches")
+    train = phase_train(fa, smi)
+    phase_train_f32_vs_cpu()
 
-    t = timings[VIT_B_SHAPE]
-    kernels = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "jumbo_mae_tpu_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "jumbo_mae_tpu_tpu/ops/pallas/attention.py:84",
-        "launches": launches,
-        "max_abs_err": errs[("bfloat16", VIT_B_SHAPE)],
-        "ms": t["ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
-    }]
+    # every number of the line comes from the training slice (the main
+    # path): launches from its run, errors and times at its decoder shape
+    kernels = []
+    for key, name, src, line, err in (
+        ("K1", "flash_attention_fwd", "flash_fwd.cu", 84, errs[("bfloat16", DEC_SHAPE)]),
+        ("K2", "flash_attention_bwd_dq", "flash_bwd.cu", 120, bwd_errs[("bfloat16", DEC_SHAPE, "dq")]),
+        ("K3", "flash_attention_bwd_dkv", "flash_bwd.cu", 154,
+         max(bwd_errs[("bfloat16", DEC_SHAPE, g)] for g in ("dk", "dv"))),
+    ):
+        t = bwd_timings[(key, DEC_SHAPE)]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"jumbo_mae_tpu_tpu_torch/csrc/{src}",
+            "replaces": f"jumbo_mae_tpu_tpu/ops/pallas/attention.py:{line}",
+            "launches": train["counts"][key],
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -34,17 +34,11 @@
 // Plain C interface, loaded with ctypes: jumbo_flash_fwd returns
 // cudaGetLastError() after the launch (0 on success).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // finite, as in the Pallas kernel
-
-struct Strides {
-  long long b, s, h;  // in elements; the head_dim stride is 1
-};
+using namespace jumbo_flash;
 
 struct Params {
   const void* q;
@@ -62,75 +56,6 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockM = 16 * kWarps;  // query rows per block
 constexpr int kBlockN = 64;           // keys per K/V tile
-// Row padding in bf16 elements: with it, the 32-bit fragment reads of a
-// warp (8 rows x 4 column pairs) fall in 32 distinct banks for every
-// supported head_dim, and rows stay 16-byte aligned for the vector stores.
-constexpr int kPad = 8;
-
-__device__ __forceinline__ uint32_t ld_smem_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a·b for one 16x8x16 tile: a row-major 16x16 bf16, b col-major 16x8
-// bf16, d 16x8 f32. Fragment layout (g = lane/4, t = lane%4):
-//   a[0] = A[g][2t..2t+1]   a[1] = A[g+8][2t..2t+1]
-//   a[2] = A[g][2t+8..+9]   a[3] = A[g+8][2t+8..+9]
-//   b0   = B[2t..2t+1][g]   b1   = B[2t+8..+9][g]
-//   d    = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [row0, row0 + kRows) of one (batch, head) slice into shared memory,
-// row stride D + kPad, 16 bytes per thread per step; rows >= n are zeros.
-template <int D, int kRows>
-__device__ __forceinline__ void load_rows_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long row_stride, int row0,
-                                               int n) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kRows * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
-// V rows [row0, row0 + kBlockN) stored transposed, vt[d][key] with row
-// stride kBlockN + kPad, so the P·V B-fragment (two consecutive keys of
-// one column) is one 32-bit shared-memory read.
-template <int D>
-__device__ __forceinline__ void load_v_transposed(__nv_bfloat16* vt,
-                                                  const __nv_bfloat16* src,
-                                                  long long row_stride,
-                                                  int row0, int n) {
-  constexpr int kChunks = D / 8;
-  for (int i = threadIdx.x; i < kBlockN * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    }
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) vt[(c + j) * (kBlockN + kPad) + r] = e[j];
-  }
-}
 
 template <int D>
 constexpr size_t smem_bytes_bf16() {
@@ -159,7 +84,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.vs.b + h * p.vs.h;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.os.b + h * p.os.h;
 
-  load_rows_bf16<D, kBlockM>(qs, q, p.qs.s, m0, p.Sq);
+  load_rows_bf16<D, kBlockM, kThreads>(qs, q, p.qs.s, m0, p.Sq);
   __syncthreads();
 
   // this warp's 16 query rows as A fragments, one per 16-wide k step
@@ -167,12 +92,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   uint32_t qf[kSteps][4];
   const __nv_bfloat16* qw = qs + warp * 16 * (D + kPad);
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    qf[s][0] = ld_smem_u32(qw + g * (D + kPad) + s * 16 + 2 * t);
-    qf[s][1] = ld_smem_u32(qw + (g + 8) * (D + kPad) + s * 16 + 2 * t);
-    qf[s][2] = ld_smem_u32(qw + g * (D + kPad) + s * 16 + 8 + 2 * t);
-    qf[s][3] = ld_smem_u32(qw + (g + 8) * (D + kPad) + s * 16 + 8 + 2 * t);
-  }
+  for (int s = 0; s < kSteps; ++s) load_a_frag(qf[s], qw, D + kPad, s, g, t);
 
   // online-softmax state for rows g and g+8 of this warp's 16
   float m_run[2] = {kNegInf, kNegInf};
@@ -185,8 +105,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   constexpr int kKeyTiles = kBlockN / 8;
   for (int n0 = 0; n0 < p.Sk; n0 += kBlockN) {
     __syncthreads();  // the previous tile is consumed by every warp
-    load_rows_bf16<D, kBlockN>(ks, k, p.ks.s, n0, p.Sk);
-    load_v_transposed<D>(vt, v, p.vs.s, n0, p.Sk);
+    load_rows_bf16<D, kBlockN, kThreads>(ks, k, p.ks.s, n0, p.Sk);
+    load_rows_transposed_bf16<D, kBlockN, kThreads>(vt, v, p.vs.s, n0, p.Sk);
     __syncthreads();
 
     // scores s = q·kᵀ for 16 rows x 64 keys, f32
@@ -254,10 +174,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) {
       uint32_t a[4];
-      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      acc_to_a_frag(a, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
       for (int j = 0; j < kOutTiles; ++j) {
         const __nv_bfloat16* vr = vt + (j * 8 + g) * (kBlockN + kPad) + kk * 16;
@@ -297,18 +214,6 @@ constexpr size_t smem_bytes_f32() {
 }
 
 template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, int dst_stride,
-                                              const float* src,
-                                              long long row_stride, int rows,
-                                              int row0, int n) {
-  for (int i = threadIdx.x; i < rows * D; i += kF32Threads) {
-    const int r = i / D;
-    const int c = i % D;
-    dst[r * dst_stride + c] = (row0 + r < n) ? src[(row0 + r) * row_stride + c] : 0.f;
-  }
-}
-
-template <int D>
 __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Params p) {
   static_assert(D % 4 == 0, "head_dim must be a multiple of 4");
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -328,7 +233,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Params p) {
   const float* v = static_cast<const float*>(p.v) + b * p.vs.b + h * p.vs.h;
   float* o = static_cast<float*>(p.o) + b * p.os.b + h * p.os.h;
 
-  load_rows_f32<D>(qs, D + 1, q, p.qs.s, kF32Rows, m0, p.Sq);
+  load_rows_f32<D, kF32Threads>(qs, D + 1, q, p.qs.s, kF32Rows, m0, p.Sq);
 
   float m_run = kNegInf, l_run = 0.f;
   constexpr int kCols = D / 4;  // output columns t, t+4, t+8, ...
@@ -339,8 +244,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_fwd_f32(Params p) {
   constexpr int kPerThread = kF32Keys / 4;  // keys t, t+4, ...
   for (int n0 = 0; n0 < p.Sk; n0 += kF32Keys) {
     __syncthreads();
-    load_rows_f32<D>(ks, D + 1, k, p.ks.s, kF32Keys, n0, p.Sk);
-    load_rows_f32<D>(vs, D, v, p.vs.s, kF32Keys, n0, p.Sk);
+    load_rows_f32<D, kF32Threads>(ks, D + 1, k, p.ks.s, kF32Keys, n0, p.Sk);
+    load_rows_f32<D, kF32Threads>(vs, D, v, p.vs.s, kF32Keys, n0, p.Sk);
     __syncthreads();
 
     float s[kPerThread];

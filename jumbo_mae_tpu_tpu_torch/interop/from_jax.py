@@ -1,10 +1,13 @@
-"""The weight bridge: a flax ``JumboViT`` params tree → the port's state_dict.
+"""The weight bridge: a flax params tree → the port's state_dict.
 
-The input is the tree ``JumboViT.init`` lays out, as numpy arrays (nested
-dicts): ``cls_tokens``, ``embed/{proj,pos_embed}``, ``jumbo_mlp/fc{1,2}``,
-``block_i/{attn/{q,k,v,out},ln1,ln2,ln3,ls1,ls2,ls3,mlp/fc{1,2}}``, ``ln``
-and ``head/{fc,bn}``; ``batch_stats`` holds ``head/bn/{mean,var}``. The
-layout changes:
+Two trees are known. A ``JumboViT`` tree as ``JumboViT.init`` lays it out
+(numpy arrays in nested dicts): ``cls_tokens``, ``embed/{proj,pos_embed}``,
+``jumbo_mlp/fc{1,2}``, ``block_i/{attn/{q,k,v,out},ln1,ln2,ln3,ls1,ls2,ls3,
+mlp/fc{1,2}}``, ``ln`` and ``head/{fc,bn}``; ``batch_stats`` holds
+``head/bn/{mean,var}``. And an ``MAEPretrainModel`` tree: ``encoder`` (a
+JumboViT tree without head), ``mask_token``, ``decoder_proj``,
+``decoder/{block_i/{attn,ln1,ln2,mlp,ls1,ls2},ln}`` and ``pixel_proj``.
+The layout changes:
 
 - ``DenseGeneral`` kernels: q/k/v are (D, H, hd) → Linear (H·hd, D); out
   is (H, hd, D) → Linear (D, H·hd);
@@ -13,7 +16,8 @@ layout changes:
 - ``pos_embed`` stays (gh, gw, D);
 - LayerNorm / BatchNorm ``scale`` → ``weight``.
 
-A key this bridge does not know raises ``KeyError``: a tree from another
+The same mapping carries a gradient tree of the same structure. A key
+this bridge does not know raises ``KeyError``: a tree from another
 architecture must not load half-way.
 """
 
@@ -42,16 +46,19 @@ def _unknown(where: str, keys) -> None:
         raise KeyError(f"unknown flax params under {where or 'the root'}: {sorted(keys)}")
 
 
-def _block(out: dict, p: str, blk: dict) -> None:
-    attn = blk["attn"]
+def _attention(out: dict, p: str, attn: dict) -> None:
     for name in ("q", "k", "v"):
         kern = np.asarray(attn[name]["kernel"])  # (D, H, hd)
-        out[f"{p}.attn.{name}.weight"] = _t(kern.reshape(kern.shape[0], -1).T)
-        out[f"{p}.attn.{name}.bias"] = _t(np.asarray(attn[name]["bias"]).reshape(-1))
+        out[f"{p}.{name}.weight"] = _t(kern.reshape(kern.shape[0], -1).T)
+        out[f"{p}.{name}.bias"] = _t(np.asarray(attn[name]["bias"]).reshape(-1))
     kern = np.asarray(attn["out"]["kernel"])  # (H, hd, D)
-    out[f"{p}.attn.out.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
-    out[f"{p}.attn.out.bias"] = _t(attn["out"]["bias"])
-    _unknown(f"{p}.attn", set(attn) - {"q", "k", "v", "out"})
+    out[f"{p}.out.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
+    out[f"{p}.out.bias"] = _t(attn["out"]["bias"])
+    _unknown(p, set(attn) - {"q", "k", "v", "out"})
+
+
+def _block(out: dict, p: str, blk: dict) -> None:
+    _attention(out, f"{p}.attn", blk["attn"])
     for ln in ("ln1", "ln2", "ln3"):
         _norm(out, f"{p}.{ln}", blk[ln])
     for ls in ("ls1", "ls2", "ls3"):
@@ -62,9 +69,42 @@ def _block(out: dict, p: str, blk: dict) -> None:
     _unknown(p, set(blk) - {"attn", "ln1", "ln2", "ln3", "ls1", "ls2", "ls3", "mlp"})
 
 
+def _plain_block(out: dict, p: str, blk: dict) -> None:
+    _attention(out, f"{p}.attn", blk["attn"])
+    for ln in ("ln1", "ln2"):
+        _norm(out, f"{p}.{ln}", blk[ln])
+    for ls in ("ls1", "ls2"):
+        if ls in blk:
+            out[f"{p}.{ls}"] = _t(blk[ls])
+    for fc in ("fc1", "fc2"):
+        _dense(out, f"{p}.mlp.{fc}", blk["mlp"][fc])
+    _unknown(p, set(blk) - {"attn", "ln1", "ln2", "ls1", "ls2", "mlp"})
+
+
+def mae_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """Map a flax ``MAEPretrainModel`` params tree onto the port's
+    ``MAEPretrainModel.state_dict()`` names, as float32 tensors."""
+    out = {f"encoder.{k}": v for k, v in state_dict_from_jax(params["encoder"]).items()}
+    out["mask_token"] = _t(params["mask_token"])
+    _dense(out, "decoder_proj", params["decoder_proj"])
+    _dense(out, "pixel_proj", params["pixel_proj"])
+    dec = params["decoder"]
+    blocks = [k for k in dec if k.startswith("block_")]
+    for key in blocks:
+        _plain_block(out, f"decoder.blocks.{int(key.split('_')[1])}", dec[key])
+    _norm(out, "decoder.ln", dec["ln"])
+    _unknown("decoder", set(dec) - {"ln", *blocks})
+    _unknown("", set(params) - {"encoder", "mask_token", "decoder_proj", "decoder", "pixel_proj"})
+    return out
+
+
 def state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
     """Map a flax ``JumboViT`` params tree (and its BatchNorm statistics)
-    onto the port's ``JumboViT.state_dict()`` names, as float32 tensors."""
+    onto the port's ``JumboViT.state_dict()`` names, as float32 tensors.
+    An ``MAEPretrainModel`` tree (it has an ``encoder``) goes to
+    :func:`mae_state_dict_from_jax`."""
+    if "encoder" in params:
+        return mae_state_dict_from_jax(params)
     out: dict[str, torch.Tensor] = {}
     out["cls_tokens"] = _t(params["cls_tokens"])
     embed = params["embed"]

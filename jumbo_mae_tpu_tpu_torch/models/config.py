@@ -1,10 +1,9 @@
 """Model configuration dataclasses and presets.
 
 Counterpart of ``jumbo_mae_tpu_tpu/models/config.py``: the same frozen
-config with the same fields and defaults, so a config round-trips between
-the two packages. Fields the serving path does not read (``grad_ckpt``,
-``remat_policy``, ``mask_ratio``, ``gather_impl``, ``ring_inner``) stay for
-that reason. ``compute_dtype`` returns a ``torch.dtype``.
+configs with the same fields and defaults, so a config round-trips between
+the two packages. Fields the port does not read yet (``ring_inner``) stay
+for that reason. ``compute_dtype`` returns a ``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -111,21 +110,64 @@ RING_NOT_PORTED = (
     "attn_impl='ring' (sequence-parallel ring attention) is not ported "
     "yet: ROADMAP queue A6, on kernel K4 (queue B4)"
 )
-MAE_NOT_PORTED = (
-    "MAE mode (mask_ratio set, no labels) is not ported yet: ROADMAP "
-    "queue A2 (the pretraining slice)"
+REMAT_NOT_PORTED = (
+    "remat_policy={policy!r} (save matmul outputs, recompute the rest) is "
+    "not ported yet: ROADMAP queue A3; remat_policy='none' recomputes the "
+    "whole block"
 )
 
 
-def require_ported(cfg: JumboViTConfig) -> None:
+def require_ported(cfg: "JumboViTConfig | DecoderConfig") -> None:
     """Raise ``NotImplementedError`` for a config that needs a part of the
     JAX package this port does not have yet, naming the ROADMAP item that
     will bring it. Configs themselves stay constructible, so they
     round-trip; models call this when they are built."""
     if cfg.attn_impl == "ring":
         raise NotImplementedError(RING_NOT_PORTED)
-    if cfg.mask_ratio is not None and not (cfg.labels or 0) > 0:
-        raise NotImplementedError(MAE_NOT_PORTED)
+    if cfg.grad_ckpt and cfg.remat_policy != "none":
+        raise NotImplementedError(REMAT_NOT_PORTED.format(policy=cfg.remat_policy))
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    """MAE decoder configuration (same fields and defaults as the JAX one).
+    Decoder positions are always fixed sincos2d."""
+
+    layers: int = 8
+    dim: int = 512
+    heads: int = 16
+    layerscale: bool = False
+
+    dropout: float = 0.0
+    droppath: float = 0.0
+    grad_ckpt: bool = False
+    remat_policy: RematPolicy = "none"
+
+    dtype: str = "bfloat16"
+    attn_impl: AttnImpl = "auto"
+    ring_inner: str = "einsum"
+
+    def __post_init__(self):
+        if self.heads <= 0 or self.dim % self.heads:
+            raise ValueError(
+                f"decoder dim ({self.dim}) must be divisible by heads "
+                f"({self.heads})"
+            )
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.heads
+
+    @property
+    def hidden_dim(self) -> int:
+        return 4 * self.dim
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return torch_dtype(self.dtype)
+
+    def replace(self, **kw) -> "DecoderConfig":
+        return dataclasses.replace(self, **kw)
 
 
 # Named presets, the same table as the JAX package's.

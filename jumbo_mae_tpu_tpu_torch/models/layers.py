@@ -1,7 +1,7 @@
 """Transformer building blocks for the Jumbo ViT family, in PyTorch.
 
 Counterpart of ``jumbo_mae_tpu_tpu/models/layers.py`` (the unpacked
-serving branches). The flax numerics are kept, not PyTorch's defaults:
+branches). The flax numerics are kept, not PyTorch's defaults:
 
 - params are float32 and every dense layer computes in the config's
   compute dtype (inputs and params cast on use, as flax's ``dtype=`` does);
@@ -11,7 +11,12 @@ serving branches). The flax numerics are kept, not PyTorch's defaults:
 - the einsum attention path materializes scores in the compute dtype and
   runs softmax in float32, then casts the probabilities back;
 - a LayerScale parameter (float32) times a bf16 branch promotes the
-  residual stream to float32, exactly as JAX's type promotion does.
+  residual stream to float32, exactly as JAX's type promotion does;
+- DropPath keeps a whole sample's branch with probability 1 − rate and
+  scales it by 1/(1 − rate), as flax's broadcast ``Dropout`` does, drawing
+  from an explicit generator per site: a block derives each site's seed
+  from the seed it is given, so a gradient-checkpoint recompute draws the
+  same mask.
 
 Parameter names mirror the flax tree (q/k/v/out, fc1/fc2, ln1/ln2/ln3,
 ls1/ls2/ls3), so ``interop/from_jax.py`` maps one onto the other.
@@ -19,13 +24,19 @@ ls1/ls2/ls3), so ``interop/from_jax.py`` maps one onto the other.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from jumbo_mae_tpu_tpu_torch.models.config import RING_NOT_PORTED, JumboViTConfig
+from jumbo_mae_tpu_tpu_torch.models.config import RING_NOT_PORTED, DecoderConfig, JumboViTConfig
 from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention
 from jumbo_mae_tpu_tpu_torch.ops.posemb import sincos2d_positional_embedding
+from jumbo_mae_tpu_tpu_torch.utils.rng import derive_seed, generator
+
+ConfigT = JumboViTConfig | DecoderConfig  # the same attribute surface
 
 TRUNC_STD = 0.02
 LN_EPS = 1e-6
@@ -99,7 +110,7 @@ class Attention(nn.Module):
     queries pre-scaled by head_dim**-0.5, dropout on the probabilities and
     on the output projection."""
 
-    def __init__(self, cfg: JumboViTConfig):
+    def __init__(self, cfg: ConfigT):
         super().__init__()
         self.cfg = cfg
         dt = cfg.compute_dtype
@@ -178,20 +189,83 @@ def make_jumbo_mlp(cfg: JumboViTConfig) -> Mlp:
 
 
 class DropPath(nn.Module):
-    """Stochastic depth: drop the whole residual branch per sample. Inert
-    in eval mode and at rate 0, which is all serving runs; training with
-    a positive rate is the pretraining slice's (ROADMAP queue A2)."""
+    """Stochastic depth: drop the whole residual branch per sample. In
+    training with a positive rate, each sample's branch is kept with
+    probability 1 − rate and scaled by 1/(1 − rate), the mask drawn from
+    ``generator`` (on the input's device); inert in eval mode and at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError(
-                "droppath in training is not ported yet: ROADMAP queue A2"
-            )
-        return x
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError("droppath in training needs an explicit generator")
+        keep_prob = 1.0 - self.rate
+        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator, device=x.device)
+        return torch.where(u < keep_prob, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def droppath_generators(
+    module: nn.Module, rate: float, seed: int | None, device: torch.device, sites: int
+) -> list[torch.Generator | None]:
+    """One generator per DropPath site of a block, each seeded from
+    (seed, site), or ``None``s when DropPath is inert."""
+    if not module.training or rate == 0.0:
+        return [None] * sites
+    if seed is None:
+        raise ValueError("droppath in training needs a seed for the block")
+    return [generator(derive_seed(seed, i), device) for i in range(sites)]
+
+
+def maybe_remat(block: nn.Module, cfg: ConfigT) -> Callable:
+    """The block itself, or the block under gradient checkpointing when
+    ``cfg.grad_ckpt`` is set and a gradient is being recorded: the
+    counterpart of ``config.py``'s ``maybe_remat`` with policy ``"none"``
+    (save the block's inputs, recompute all of it in the backward); the
+    models refuse the other policies when they are built."""
+    if not cfg.grad_ckpt:
+        return block
+
+    def run(*args):
+        if torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
+    return run
+
+
+class PlainBlock(nn.Module):
+    """Pre-norm transformer block of the MAE decoder:
+    ``x + dp1(ls1 · attn(ln1(x)))`` then ``x + dp2(ls2 · mlp(ln2(x)))``;
+    ``ls1``/``ls2`` exist only with ``layerscale``."""
+
+    def __init__(self, cfg: ConfigT):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.compute_dtype
+        self.ln1 = LayerNorm(cfg.dim, dt)
+        self.attn = Attention(cfg)
+        self.ln2 = LayerNorm(cfg.dim, dt)
+        self.mlp = Mlp(cfg.dim, cfg.hidden_dim, cfg.dropout, dt)
+        if cfg.layerscale:
+            self.ls1 = nn.Parameter(torch.full((cfg.dim,), 1e-4))
+            self.ls2 = nn.Parameter(torch.full((cfg.dim,), 1e-4))
+        else:
+            self.ls1 = self.ls2 = None
+        self.dp1 = DropPath(cfg.droppath)
+        self.dp2 = DropPath(cfg.droppath)
+
+    def forward(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+        g1, g2 = droppath_generators(self, self.cfg.droppath, seed, x.device, 2)
+        x = x + self.dp1(_scale(self.ls1, self.attn(self.ln1(x))), g1)
+        return x + self.dp2(_scale(self.ls2, self.mlp(self.ln2(x))), g2)
+
+
+def _scale(ls: torch.Tensor | None, h: torch.Tensor) -> torch.Tensor:
+    return h if ls is None else ls * h
 
 
 class JumboBlock(nn.Module):
@@ -226,22 +300,19 @@ class JumboBlock(nn.Module):
         self.dp2 = DropPath(cfg.droppath)
         self.dp3 = DropPath(cfg.droppath)
 
-    @staticmethod
-    def _scale(ls: torch.Tensor | None, h: torch.Tensor) -> torch.Tensor:
-        return h if ls is None else ls * h
-
-    def forward(self, x: torch.Tensor, jumbo_mlp: Mlp) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, jumbo_mlp: Mlp, seed: int | None = None) -> torch.Tensor:
         cfg = self.cfg
         k = cfg.num_cls_tokens
-        x = x + self.dp1(self._scale(self.ls1, self.attn(self.ln1(x))))
+        g1, g2, g3 = droppath_generators(self, cfg.droppath, seed, x.device, 3)
+        x = x + self.dp1(_scale(self.ls1, self.attn(self.ln1(x))), g1)
 
         cls, patches = x[:, :k, :], x[:, k:, :]
         bs = cls.shape[0]
         cc = self.ln3(cls.reshape(bs, k * cfg.dim))
-        cc = cc + self.dp3(self._scale(self.ls3, jumbo_mlp(cc)))
+        cc = cc + self.dp3(_scale(self.ls3, jumbo_mlp(cc)), g3)
 
         h = self.mlp(self.ln2(patches))
-        patches = patches + self.dp2(self._scale(self.ls2, h))
+        patches = patches + self.dp2(_scale(self.ls2, h), g2)
         return torch.cat([cc.reshape(bs, k, cfg.dim), patches], dim=1)
 
 

@@ -1,16 +1,24 @@
-"""The Jumbo ViT encoder, classify and feature modes.
+"""The Jumbo ViT encoder: MAE, classify and feature modes.
 
 Counterpart of ``jumbo_mae_tpu_tpu/models/vit.py``:
 
+- **MAE mode** (``cfg.mask_ratio`` set, ``cfg.labels`` None/0): after the
+  patch embedding, patch tokens are randomly masked and only the visible
+  ones (plus the CLS tokens) are encoded; returns
+  ``(tokens, mask, ids_restore)``;
 - **classify mode** (``cfg.labels > 0``): the full sequence is encoded; the
   ``num_cls_tokens`` CLS embeddings are concatenated (or the patch tokens
   mean-pooled, ``pooling="gap"``) and fed to the head; returns logits;
 - **feature mode** (``cfg.labels`` None and no ``mask_ratio``): returns the
   normalized token sequence.
 
-MAE mode is the next slice (ROADMAP queue A2) and raises here. The shared
-``jumbo_mlp`` is built once and handed to every block. Inputs are
-normalized NHWC images, as the flax module takes them.
+The shared ``jumbo_mlp`` is built once and handed to every block; with
+``grad_ckpt`` each block runs under gradient checkpointing
+(``layers.maybe_remat``). Inputs are normalized NHWC images, as the flax
+module takes them. Random draws come from explicit generators:
+``generators["noise"]`` for the mask (unless ``mask_noise`` pins it) and
+``generators["dropout"]``, whose seed each block's DropPath sites derive
+theirs from.
 """
 
 from __future__ import annotations
@@ -25,9 +33,25 @@ from jumbo_mae_tpu_tpu_torch.models.layers import (
     LayerNorm,
     PatchEmbed,
     make_jumbo_mlp,
+    maybe_remat,
     trunc_normal_,
 )
+from jumbo_mae_tpu_tpu_torch.ops.masking import random_masking
 from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
+from jumbo_mae_tpu_tpu_torch.utils.rng import derive_seed
+
+Generators = dict[str, torch.Generator]
+
+
+def block_seeds(generators: Generators | None, domain: int, n: int) -> list[int | None]:
+    """The DropPath seed of each of ``n`` blocks: derived from the dropout
+    generator's seed, the stack's ``domain`` and the block index. ``None``s
+    when there is no dropout generator (eval, or no DropPath)."""
+    gen = (generators or {}).get("dropout")
+    if gen is None:
+        return [None] * n
+    base = gen.initial_seed()
+    return [derive_seed(base, domain, i) for i in range(n)]
 
 
 def pool_tokens(tokens: torch.Tensor, num_cls_tokens: int, pooling: str = "cls") -> torch.Tensor:
@@ -75,23 +99,48 @@ class JumboViT(nn.Module):
         if isinstance(self.embed.pos_embed, nn.Parameter):
             trunc_normal_(self.embed.pos_embed, gen)
 
-    def encode(self, images: torch.Tensor) -> torch.Tensor:
-        """Patch embedding, CLS tokens, every block and the final norm:
-        (B, k + num_patches, dim) in the compute dtype."""
-        cfg = self.cfg
-        x = self.embed(images)
+    @property
+    def mae_mode(self) -> bool:
+        return self.head is None and self.cfg.mask_ratio is not None
+
+    def _encode_tokens(self, x: torch.Tensor, generators: Generators | None) -> torch.Tensor:
+        """CLS tokens in front of the patch tokens ``x``, every block (under
+        ``maybe_remat``) and the final norm."""
         cls = self.cls_tokens.to(x.dtype).expand(x.shape[0], -1, -1)
         x = self.drop(torch.cat([cls, x], dim=1))
-        for block in self.blocks:
-            x = block(x, self.jumbo_mlp)
+        run = [maybe_remat(block, self.cfg) for block in self.blocks]
+        for block, seed in zip(run, block_seeds(generators, 0, len(run))):
+            x = block(x, self.jumbo_mlp, seed)
         return self.ln(x)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        x = self.encode(images)
-        if self.head is None:
-            return x
-        pooled = pool_tokens(x, self.cfg.num_cls_tokens, self.cfg.pooling)
-        return self.head(pooled.float())
+    def encode(self, images: torch.Tensor, generators: Generators | None = None) -> torch.Tensor:
+        """Patch embedding, CLS tokens, every block and the final norm:
+        (B, k + num_patches, dim) in the compute dtype."""
+        return self._encode_tokens(self.embed(images), generators)
+
+    def forward(
+        self,
+        images: torch.Tensor,
+        *,
+        mask_noise: torch.Tensor | None = None,
+        generators: Generators | None = None,
+    ):
+        cfg = self.cfg
+        if not self.mae_mode:
+            x = self.encode(images, generators)
+            if self.head is None:
+                return x
+            pooled = pool_tokens(x, cfg.num_cls_tokens, cfg.pooling)
+            return self.head(pooled.float())
+        x, mask, ids_restore = random_masking(
+            self.embed(images),
+            cfg.keep_len,
+            mode=cfg.mask_mode,
+            noise=mask_noise,
+            generator=None if mask_noise is not None else (generators or {}).get("noise"),
+            gather_impl=cfg.gather_impl,
+        )
+        return self._encode_tokens(x, generators), mask, ids_restore
 
     def serve_full(self, images: torch.Tensor, *, pooling: str = "cls") -> dict[str, torch.Tensor]:
         """``{"pooled": ..., "logits": ...}`` (logits when there is a head)

@@ -1,25 +1,26 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers and their plain versions.
 
-Counterpart of ``jumbo_mae_tpu_tpu/ops/pallas/attention.py``'s forward
-(``_fwd_kernel`` launched by ``_flash_fwd``). The kernel is
-``csrc/flash_fwd.cu``; this module checks arguments, allocates the outputs
-and launches it on PyTorch's current stream.
+Counterpart of ``jumbo_mae_tpu_tpu/ops/pallas/attention.py``: the forward
+(``_fwd_kernel``, K1) and the two backward kernels (``_bwd_dq_kernel``,
+K2, and ``_bwd_dkv_kernel``, K3). The kernels are ``csrc/flash_fwd.cu``
+and ``csrc/flash_bwd.cu``; this module checks arguments, allocates the
+outputs and launches them on PyTorch's current stream.
 
-- :func:`flash_attention_fwd` launches the kernel for CUDA tensors — or
-  raises; there is no fallback — and takes the plain version only for CPU
-  tensors. ``LAUNCHES`` counts the kernel launches.
-- :func:`flash_attention_fwd_plain` is the same function in plain PyTorch:
-  scores and softmax in float32, the output cast to the input dtype, lse
-  from ``torch.logsumexp``. It is what the CPU runs and what the kernel is
-  held against on the card.
+- :func:`flash_attention_fwd` launches K1 for CUDA tensors — or raises;
+  there is no fallback — and takes the plain version only for CPU tensors.
+  ``LAUNCHES`` counts K1's launches.
+- :func:`flash_attention_bwd` computes D = rowsum(dO ∘ O)
+  (:func:`attention_delta`, plain torch) and launches K2, then K3, for
+  CUDA tensors; CPU tensors take :func:`flash_attention_bwd_plain`.
+  ``LAUNCHES_BWD_DQ`` and ``LAUNCHES_BWD_DKV`` count their launches.
+- :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`
+  are the same functions in plain PyTorch, float32 inside. They are what
+  the CPU runs and what the kernels are held against on the card.
 
 q, k, v are (batch, seq, heads, head_dim) with q already scaled by
-``head_dim**-0.5``. lse is float32 (batch·heads, seq_q) with row
-``b·heads + h``, the layout of the JAX package.
-
-The backward kernels (K2, K3 in ROADMAP queue B) are not ported yet, so
-the kernel path refuses inputs that require a gradient instead of
-returning an output with no gradient.
+``head_dim**-0.5``; the backward's dq is the gradient w.r.t. that scaled
+q. lse and D are float32 (batch·heads, seq_q) with row ``b·heads + h``,
+the layout of the JAX package.
 """
 
 from __future__ import annotations
@@ -31,9 +32,12 @@ import torch
 HEAD_DIMS = (32, 64, 80, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Kernel launches since the process started (or the caller last reset it).
-# Only the launch below adds to it; the plain version does not.
+# Kernel launches since the process started (or the caller last reset
+# them): K1, K2 and K3. Only the launches below add to them; the plain
+# versions do not.
 LAUNCHES = 0
+LAUNCHES_BWD_DQ = 0
+LAUNCHES_BWD_DKV = 0
 
 
 def flash_attention_fwd_plain(
@@ -104,13 +108,47 @@ def declare_signatures(lib) -> None:
     lib.jumbo_cuda_error_string.restype = ctypes.c_char_p
 
 
-def _library():
+def declare_bwd_signatures(lib) -> None:
+    """Declare the C signatures of ``csrc/flash_bwd.cu``'s entry points:
+    K2 takes 7 pointers, 6 ints and 5 stride triples; K3 8 pointers, 6
+    ints and 6 stride triples; both end with the stream."""
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.jumbo_flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [ll] * 15 + [p]
+    lib.jumbo_flash_bwd_dq.restype = ctypes.c_int
+    lib.jumbo_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [ll] * 18 + [p]
+    lib.jumbo_flash_bwd_dkv.restype = ctypes.c_int
+    lib.jumbo_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.jumbo_cuda_error_string.restype = ctypes.c_char_p
+
+
+_DECLARE = {"flash_fwd": declare_signatures, "flash_bwd": declare_bwd_signatures}
+
+
+def _library(name: str = "flash_fwd"):
     from jumbo_mae_tpu_tpu_torch.ops._build import library
 
-    lib = library("flash_fwd")
-    if lib.jumbo_flash_fwd.argtypes is None:
-        declare_signatures(lib)
+    lib = library(name)
+    if lib.jumbo_cuda_error_string.restype is not ctypes.c_char_p:
+        _DECLARE[name](lib)
     return lib
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: "
+            f"{lib.jumbo_cuda_error_string(err).decode()} (cudaError {err})"
+        )
+
+
+def _device_of(*xs: torch.Tensor) -> torch.device:
+    devices = {x.device for x in xs}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention runs on cuda or cpu, got {dev}")
+    return dev
 
 
 def flash_attention_fwd(
@@ -121,20 +159,10 @@ def flash_attention_fwd(
     CPU tensors take :func:`flash_attention_fwd_plain`. CUDA tensors launch
     the kernel, or raise when it cannot take them."""
     global LAUNCHES
-    devices = {q.device, k.device, v.device}
-    if len(devices) != 1:
-        raise ValueError(f"q, k, v on different devices: {sorted(map(str, devices))}")
-    dev = q.device
+    dev = _device_of(q, k, v)
     if dev.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, with_lse=with_lse)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, got {dev}")
     check_kernel_args(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        raise NotImplementedError(
-            "the flash-attention backward kernels are not ported yet "
-            "(ROADMAP queue B2/B3); use attn_impl='einsum' to train"
-        )
     b, sq, h, d = q.shape
     sk = k.shape[1]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
@@ -149,10 +177,138 @@ def flash_attention_fwd(
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"flash_fwd kernel launch failed: "
-            f"{lib.jumbo_cuda_error_string(err).decode()} (cudaError {err})"
-        )
+    _raise_on(err, lib, "flash_fwd")
     LAUNCHES += 1
     return (o, lse) if with_lse else o
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO ∘ O) in float32, as (batch·heads, seq_q) with row
+    ``b·heads + h`` — the per-row term of the softmax backward, computed
+    before the kernels as the JAX package computes it
+    (``attention.py:293-297``). The lse cotangent of K4 will fold in here
+    as ``D − g_lse``."""
+    b, s, h, _ = o.shape
+    dd = (do.float() * o.float()).sum(-1)  # (b, s, h)
+    return dd.permute(0, 2, 1).reshape(b * h, s)
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor | None,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    delta: torch.Tensor | None = None,
+):
+    """(dq, dk, dv) of softmax(q·kᵀ)·v in plain PyTorch, float32 inside.
+
+    P is recomputed from the forward's lse, P = exp(q·kᵀ − lse), as the
+    kernels do — this is not autograd of the plain forward. Returns the
+    gradients in the input dtypes."""
+    b, sq, h, _ = q.shape
+    if delta is None:
+        delta = attention_delta(o, do)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    p = torch.exp(s - lse.reshape(b, h, sq, 1))
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta.reshape(b, h, sq, 1))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """``x`` if the kernels can read it through its strides, else a
+    contiguous copy (an upstream gradient may arrive in any layout)."""
+    per16 = 16 // x.element_size()
+    ok = x.stride(3) == 1 and x.data_ptr() % 16 == 0 and not any(st % per16 for st in x.stride()[:3])
+    return x if ok else x.contiguous()
+
+
+def _check_bwd_args(q, k, v, do, lse, delta) -> None:
+    """Raise ``ValueError`` for backward inputs the kernels do not take:
+    q, k, v as for the forward; dO like q, read through its strides; lse
+    and D float32 (batch·heads, seq_q), contiguous."""
+    check_kernel_args(q, k, v)
+    b, sq, h, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    check_kernel_args(do, k, v)
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != (b * h, sq) or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(
+                f"{name} must be contiguous float32 {(b * h, sq)}, got {tuple(x.shape)} {x.dtype}"
+            )
+
+
+def _launch_bwd(entry: str, q, k, v, do, lse, delta, outs) -> None:
+    dev = q.device
+    _check_bwd_args(q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    lib = _library("flash_bwd")
+    strides = [st for x in (q, k, v, do, *outs) for st in x.stride()[:3]]
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(x.data_ptr() for x in outs),
+            _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, *strides,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _raise_on(err, lib, entry)
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
+    """dq through K2, written as contiguous (B, S, H, D) in q's dtype.
+    ``delta`` is :func:`attention_delta`. CPU tensors take the plain
+    version."""
+    global LAUNCHES_BWD_DQ
+    if _device_of(q, k, v, do, lse, delta).type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, None, lse, do, delta=delta)[0]
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("jumbo_flash_bwd_dq", q, k, v, do, lse, delta, (dq,))
+    LAUNCHES_BWD_DQ += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) through K3, written as contiguous (B, S, H, D) in k's and
+    v's dtype. CPU tensors take the plain version."""
+    global LAUNCHES_BWD_DKV
+    if _device_of(q, k, v, do, lse, delta).type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, None, lse, do, delta=delta)[1:]
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("jumbo_flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv))
+    LAUNCHES_BWD_DKV += 1
+    return dk, dv
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    delta: torch.Tensor | None = None,
+):
+    """(dq, dk, dv) through the CUDA kernels K2 (dq) then K3 (dk, dv).
+
+    ``delta`` defaults to :func:`attention_delta` of (o, do). CPU tensors
+    take :func:`flash_attention_bwd_plain`. CUDA tensors launch the
+    kernels, or raise when they cannot take them; an upstream gradient
+    the kernels cannot read through its strides is made contiguous."""
+    dev = _device_of(q, k, v, o, lse, do)
+    if dev.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, delta=delta)
+    if delta is None:
+        delta = attention_delta(o, do)
+    do, lse, delta = _kernel_layout(do), lse.contiguous(), delta.contiguous()
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta))

@@ -2,9 +2,12 @@
 
 Counterpart of ``jumbo_mae_tpu_tpu/ops/flash_attention.py``:
 
-- :func:`flash_attention` runs the hand-written CUDA forward kernel
-  (``ops/flash/attention.py``) on CUDA tensors, its plain version on CPU
-  tensors;
+- :func:`flash_attention` is differentiable: a ``torch.autograd.Function``
+  whose forward is the hand-written CUDA kernel K1 (saving o and lse) and
+  whose backward computes D = rowsum(dO ∘ O) and runs K2 then K3
+  (``ops/flash/attention.py``) — the counterpart of the JAX package's
+  ``pallas_flash_attention`` custom_vjp. On CPU tensors the same Function
+  runs the plain forward and the plain backward;
 - :func:`einsum_attention` is the counterpart of ``xla_attention``:
   float32 scores and softmax, probabilities cast to v's dtype.
 """
@@ -13,7 +16,10 @@ from __future__ import annotations
 
 import torch
 
-from jumbo_mae_tpu_tpu_torch.ops.flash.attention import flash_attention_fwd
+from jumbo_mae_tpu_tpu_torch.ops.flash.attention import (
+    flash_attention_bwd,
+    flash_attention_fwd,
+)
 
 
 def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -22,8 +28,28 @@ def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+class FlashAttention(torch.autograd.Function):
+    """softmax(q·kᵀ)·v with the flash kernels on both passes. Saves
+    (q, k, v, o, lse): O(seq) memory, the score matrix is recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = flash_attention_fwd(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, o, lse, do)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q·kᵀ)·v without materializing the score matrix on the GPU.
 
-    q, k, v: (batch, seq, heads, head_dim). Returns the shape of q."""
+    q, k, v: (batch, seq, heads, head_dim). Returns the shape of q. When a
+    gradient is wanted it goes through :class:`FlashAttention`; otherwise
+    the forward kernel runs alone, without writing lse."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v)
     return flash_attention_fwd(q, k, v)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and serving path on the card.
+"""The port's CUDA kernels, serving path and train step on the card.
 
 These tests need an NVIDIA GPU with ``nvcc`` and carry the ``cuda``
 marker; without a card they skip (the decision is taken inside a
@@ -8,16 +8,21 @@ suite's JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX. ``chip_smoke.py`` covers the same ground at
-the full serving shapes and widths; these are the quick checks.
+the full serving and training shapes and widths; these are the quick
+checks.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
 from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine
-from jumbo_mae_tpu_tpu_torch.models import preset
+from jumbo_mae_tpu_tpu_torch.models import DecoderConfig, preset
 from jumbo_mae_tpu_tpu_torch.ops.flash import attention as fa
+from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention
+from jumbo_mae_tpu_tpu_torch.train.optim import OptimConfig
+from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
 
 pytestmark = pytest.mark.cuda
 
@@ -64,10 +69,19 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_fwd(q, k, v)
     q, k, v = _qkv((1, 16, 2, 64), torch.float32)
-    with pytest.raises(NotImplementedError, match="backward"):
-        fa.flash_attention_fwd(q.requires_grad_(), k, v)
+    # inputs that need a gradient now go through K1 and back through K2/K3
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    do = torch.randn_like(q)
+    before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    grads = torch.autograd.grad(flash_attention(*leaves), leaves, do)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == tuple(n + 1 for n in before)
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = torch.autograd.grad(fa.flash_attention_fwd_plain(*plain), plain, do)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
     with pytest.raises(ValueError, match="devices"):
-        fa.flash_attention_fwd(q.detach(), k.cpu(), v)
+        fa.flash_attention_fwd(q, k.cpu(), v)
 
 
 def test_engine_routes_every_block_through_the_kernel(cuda):
@@ -81,3 +95,48 @@ def test_engine_routes_every_block_through_the_kernel(cuda):
     assert out.shape == (11, 10) and np.isfinite(out).all()
     assert eng.dispatches == 2 and fa.LAUNCHES == cfg.layers * 2
     np.testing.assert_allclose(gpu32.logits(x), cpu.logits(x), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(2, 52, 4, 64), (2, 199, 3, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain(cuda, shape, dtype):
+    """K2 (dq) and K3 (dk, dv) against the plain backward: f32 at atol/rtol
+    1e-4 (sum order), bf16 within 3e-2 of the largest reference entry (P
+    and dS rounded to bf16 before their products); two runs bit-identical."""
+    q, k, v = _qkv(shape, dtype)
+    do = torch.randn(shape, device="cuda").to(dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    before = fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == (before[0] + 1, before[1] + 1)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+        else:
+            assert (g.float() - r.float()).abs().max() <= 3e-2 * r.float().abs().max()
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_tiny_mae_train_step_on_the_card(cuda):
+    """Two pretraining steps of a tiny MAE model through the kernels:
+    every attention call of the forward, the checkpoint recompute and the
+    backward is counted, the loss is finite."""
+    enc = preset("vit_t16", labels=None, mask_ratio=0.75, image_size=64, patch_size=8,
+                 heads=2, posemb="sincos2d", grad_ckpt=True)
+    dec = DecoderConfig(layers=1, dim=64, heads=2)
+    state = create_state((enc, dec, True), OptimConfig(warmup_steps=0, training_steps=10, mu_dtype="bfloat16"),
+                         device="cuda", global_batch_size=4)
+    step = make_train_step(guard_nonfinite=True)
+    batches = synthetic_batches(4, 64, distinct=1)
+    fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+    for _ in range(2):
+        state, m = step(state, next(batches))
+        assert np.isfinite(m["loss"].item()) and m["skipped"] == 0.0
+    # per step: K2 = K3 = encoder + decoder layers; K1 twice per checkpointed block
+    assert fa.LAUNCHES_BWD_DQ == fa.LAUNCHES_BWD_DKV == 2 * (enc.layers + dec.layers)
+    assert fa.LAUNCHES == 2 * (2 * enc.layers + dec.layers)
+    assert state.step == 2 and state.opt_state.count == 2

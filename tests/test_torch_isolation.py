@@ -92,9 +92,18 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.infer.bucketing",
         "jumbo_mae_tpu_tpu_torch.infer.engine",
         "jumbo_mae_tpu_tpu_torch.cli.predict",
+        "jumbo_mae_tpu_tpu_torch.ops.patches",
+        "jumbo_mae_tpu_tpu_torch.ops.masking",
+        "jumbo_mae_tpu_tpu_torch.models.mae",
+        "jumbo_mae_tpu_tpu_torch.obs.mfu",
+        "jumbo_mae_tpu_tpu_torch.data.synthetic",
+        "jumbo_mae_tpu_tpu_torch.train.optim",
+        "jumbo_mae_tpu_tpu_torch.train.state",
+        "jumbo_mae_tpu_tpu_torch.train.steps",
     ):
         assert m in mods
-    assert (PORT / "csrc" / "flash_fwd.cu").exists()
+    for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):
+        assert (PORT / "csrc" / src).exists()
 
 
 @pytest.fixture
@@ -119,6 +128,21 @@ def test_model_and_cli_default_to_cuda(no_cuda):
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_entry_points_default_to_cuda(no_cuda):
+    from jumbo_mae_tpu_tpu_torch.models import DecoderConfig
+    from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
+    from jumbo_mae_tpu_tpu_torch.train.optim import OptimConfig
+    from jumbo_mae_tpu_tpu_torch.train.steps import create_state
+
+    enc = TINY.replace(labels=None, mask_ratio=0.75)
+    dec = DecoderConfig(layers=1, dim=32, heads=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MAEPretrainModel(enc, dec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_state((enc, dec), OptimConfig(), global_batch_size=2)
+    assert create_state((enc, dec), OptimConfig(), device="cpu", global_batch_size=2).device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_a_gpu(tmp_path):

@@ -154,8 +154,15 @@ def test_serve_full_matches_forward():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="A2"):
-        JumboViT(preset("vit_t16", labels=None, mask_ratio=0.75, **TINY), device="cpu")
+    """MAE mode (ROADMAP A2) is ported: it builds and returns (tokens, mask,
+    ids_restore) for the visible patches. Ring attention (A6) still raises."""
+    mae = JumboViT(preset("vit_t16", labels=None, mask_ratio=0.75, **TINY), device="cpu")
+    images = normalize_images(torch.from_numpy(random_images(np.random.default_rng(0), 2, SIZE)))
+    with torch.no_grad():
+        tokens, mask, ids_restore = mae(images, mask_noise=torch.rand(64))
+    assert tokens.shape == (2, 3 + 16, 64)  # 64 patches at mask 0.75 keep 16
+    assert mask.shape == (2, 64) and mask.sum().item() == 2 * 48
+    assert ids_restore.shape == (64,)
     with pytest.raises(NotImplementedError, match="A6"):
         JumboViT(preset("vit_t16", attn_impl="ring", **TINY), device="cpu")
 
@@ -172,9 +179,25 @@ def test_same_seed_same_init_and_flax_init_statistics():
 
 
 def test_droppath_is_inert_in_eval_and_unported_in_training():
+    """Inert in eval and at rate 0. In training (ported with the
+    pretraining slice): each sample's branch is kept whole and scaled by
+    1/(1 − rate) or zeroed whole; the mean over many samples stays near
+    the input at rate 0.5; one generator seed gives one result."""
     x = torch.randn(4, 3, 8)
     dp = DropPath(0.5)
     assert dp.eval()(x) is x
     assert DropPath(0.0).train()(x) is x
-    with pytest.raises(NotImplementedError, match="A2"):
-        dp.train()(x)
+    dp.train()
+    with pytest.raises(ValueError, match="generator"):
+        dp(x)
+    ones = torch.ones(4000, 3, 8)
+    y = dp(ones, torch.Generator().manual_seed(0))
+    per_sample = y.reshape(4000, -1)
+    assert set(per_sample.unique().tolist()) <= {0.0, 2.0}
+    assert ((per_sample == per_sample[:, :1]).all(dim=1)).all()  # all or nothing
+    kept = (per_sample[:, 0] > 0).float().mean().item()
+    assert abs(kept - 0.5) < 0.05 and abs(y.mean().item() - 1.0) < 0.1
+    a = dp(x, torch.Generator().manual_seed(3))
+    b = dp(x, torch.Generator().manual_seed(3))
+    assert torch.equal(a, b)
+    assert not torch.equal(a, dp(x, torch.Generator().manual_seed(4)))
