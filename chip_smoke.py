@@ -46,7 +46,29 @@ Phases, each of which exits non-zero when it fails:
    images/s, MFU and peak memory;
 8. float32 step, card against CPU — ViT-L widths at 2 encoder layers and
    1 decoder layer, batch 2, the same weights and mask noise: loss, every
-   gradient and every parameter's change in one AdamW step.
+   gradient and every parameter's change in one AdamW step;
+9. K4 vs plain — ``flash_attention_with_lse`` (K1 writing lse; K2 and K3
+   with D shifted by the lse cotangent) against its plain version, o, lse,
+   dq, dk and dv under random cotangents of both outputs, at the ring hop
+   shape of the training slice and at long-context hop shapes, float32
+   and bfloat16 at the K1/K2/K3 gates; the plain version against torch
+   autograd of an f32 (o, logsumexp) reference; K4's times;
+10. ring op — ``StackedRing`` (the seq axis held in one process) with the
+   flash inner, n = 2 and 4, against full attention on the card, forward
+   and gradients; K4 and K1 launches grow by n per call; the einsum inner
+   at the decoder shape with n = 4;
+11. the sequence-parallel slice — the ViT-L/16 MAE step of phase 7 with
+   ring attention on a seq = 4 one-process mesh (encoder on the flash
+   ring: every hop one K4 call at (4·128, 13, 16, 64); decoder on the
+   einsum ring, 199 tokens padded to 200), through ``create_state`` +
+   ``make_train_step`` under ``set_mesh``: 3 warm-up and 10 timed steps,
+   launch counts derived from layers × hops × passes, a falling loss, step
+   ms, images/s, MFU and peak memory; then one float32 step at ViT-L
+   widths and reduced depth, ring against no ring on the card, loss and
+   every gradient within 1e-3 of scale.
+
+The ring's process-group transport (``ProcessGroupRing`` under NCCL) is
+not run here: NCCL takes one GPU per rank, and this runs on one card.
 
 Before the last line it prints the ``{"kernels": [...]}`` line and the
 nvidia-smi line; the last line is ``{"ok": true, "device": {...}}``.
@@ -81,6 +103,12 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 REQUESTS = (1, 5, 64, 70)
+# the sequence-parallel slice: a seq axis of 4 cuts the 52 encoder tokens
+# into 4 shards of 13; one K4 call per hop over the 4 shards of batch 128
+SEQ = 4
+HOP_SHAPE = (SEQ * 128, 52 // SEQ, 16, 64)
+K4_SHAPES = [HOP_SHAPE, (4, 1024, 16, 64), (2, 787, 16, 80), (2, 331, 8, 128)]
+RING_SHAPES = [ENC_SHAPE, (2, 4096, 16, 64)]
 
 
 def log(msg: str) -> None:
@@ -595,6 +623,338 @@ def phase_train_f32_vs_cpu() -> None:
         f"(worst {worst_step:.2e})")
 
 
+def with_grads(fn, xs, cotangents):
+    """The outputs of ``fn(*xs)`` (one tensor or a tuple) and the gradients
+    of xs under ``cotangents``, from fresh leaves."""
+    import torch
+
+    leaves = [x.detach().requires_grad_() for x in xs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    grads = torch.autograd.grad(outs, leaves, cotangents)
+    return [o.detach() for o in outs] + list(grads)
+
+
+def reference_with_lse(q, k, v):
+    """(o, logsumexp) in float32 by plain torch ops, for autograd."""
+    import torch
+
+    b, s, h, _ = q.shape
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1), v.float())
+    return o, torch.logsumexp(scores, -1).reshape(b * h, s)
+
+
+def k4_inputs(shape, dtype, seed: int):
+    """q, k, v and random cotangents of o (q's dtype) and lse (f32)."""
+    import torch
+
+    q, k, v = qkv(shape, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    b, s, h, _ = shape
+    g_o = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    g_lse = torch.randn((b * h, s), generator=g, device="cuda")
+    return (q, k, v), (g_o, g_lse)
+
+
+def check_grads(name: str, got, ref, dtype) -> float:
+    """K2/K3's gates on gradients: f32 atol/rtol 1e-4, bf16 within 3e-2 of
+    the largest reference entry. Returns the largest error."""
+    import torch
+
+    worst = 0.0
+    for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+        check(g.dtype == r.dtype == dtype and g.shape == r.shape, f"{name} {gname}: {g.dtype} {tuple(g.shape)}")
+        check(bool(torch.isfinite(g.float()).all()), f"non-finite {gname} at {name}")
+        err = (g.float() - r.float()).abs().max().item()
+        scale = r.float().abs().max().item()
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4, msg=f"{name} {gname}")
+        else:
+            check(err <= 3e-2 * scale, f"bf16 {gname} at {name}: {err:.3e} > 3e-2 x {scale:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_k4(fa) -> dict:
+    """Phase 9: K4 against its plain version, with random cotangents of
+    both outputs, at every K4 shape in both dtypes; the plain version
+    against torch autograd of an f32 (o, logsumexp) reference."""
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention_with_lse
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for dtype, tol in ((torch.float32, dict(atol=1e-5, rtol=1e-5)), (torch.bfloat16, dict(atol=2e-2, rtol=0.0))):
+        name = str(dtype).split(".")[-1]
+        for i, shape in enumerate(K4_SHAPES):
+            xs, cots = k4_inputs(shape, dtype, 500 + i)
+            got = with_grads(flash_attention_with_lse, xs, cots)
+            torch.cuda.synchronize()
+            ref = with_grads(fa.flash_attention_with_lse_plain, xs, cots)
+            e_o = (got[0].float() - ref[0].float()).abs().max().item()
+            e_l = (got[1] - ref[1]).abs().max().item()
+            check(got[1].dtype == torch.float32 and got[1].shape == (shape[0] * shape[2], shape[1]), "lse layout")
+            torch.testing.assert_close(got[0], ref[0], **tol, msg=f"K4 o {shape} {name}")
+            torch.testing.assert_close(got[1], ref[1], **tol, msg=f"K4 lse {shape} {name}")
+            e_g = check_grads(f"K4 {shape} {name}", got[2:], ref[2:], dtype)
+            errs[(name, shape)] = max(e_o, e_l, e_g)
+            line = f"K4 {name} {shape}: max|err| o {e_o:.3e}, lse {e_l:.3e}, dq/dk/dv {e_g:.3e}"
+            if dtype == torch.float32:
+                # the plain backward itself, against autograd of the reference
+                auto = with_grads(reference_with_lse, xs, cots)
+                for what, a, b in zip(("o", "lse", "dq", "dk", "dv"), ref, auto):
+                    torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4, msg=f"plain vs autograd {what} {shape}")
+                line += "; plain = autograd of (o, logsumexp) within 1e-4"
+            log(line)
+    return errs
+
+
+def phase_k4_timing(fa) -> dict:
+    """K4's forward + backward (with g_lse) at the hop shape, bf16: the
+    kernels, the plain version and the library's flash attention with
+    logsumexp (whose backward takes no lse cotangent), beside the bound."""
+    import torch
+
+    (q, k, v), (g_o, g_lse) = k4_inputs(HOP_SHAPE, torch.bfloat16, 700)
+
+    def kernels():
+        o, lse = fa.flash_attention_with_lse_fwd(q, k, v)
+        do, delta = fa.lse_cotangents(o, g_o, g_lse)
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, delta=delta)
+
+    def plain():
+        o, lse = fa.flash_attention_fwd_plain(q, k, v, with_lse=True)
+        do, delta = fa.lse_cotangents(o, g_o, g_lse)
+        return fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=delta)
+
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, g_o))  # (B, H, S, D) views
+
+    def library():
+        o, lse, cq, ck, mq, mk, seed, off, _ = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, False, False, scale=1.0)
+        return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+            dot, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, False, seed, off, scale=1.0)
+
+    ms = cuda_ms(kernels)
+    plain_ms = cuda_ms(plain, iters=10)
+    try:
+        lib_ms = cuda_ms(library)
+    except (RuntimeError, TypeError) as exc:  # the yardstick only; the port never calls it
+        log(f"K4 library yardstick unavailable: {exc}")
+        lib_ms = None
+    # the least time: the forward reads q, k, v and writes o and lse; the
+    # backward reads q, k, v, o, dO, lse and g_lse and writes dq, dk, dv;
+    # 2 + 5 products of 2·B·H·S²·D operations
+    b, s, h, d = HOP_SHAPE
+    x, row = b * s * h * d * 2, b * h * s * 4
+    t_bytes = (12 * x + 3 * row) / PEAK_BYTES
+    t_ops = 14 * b * h * s * s * d / PEAK_BF16_FLOPS
+    bound, by = max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+    log(f"timing K4 bf16 {HOP_SHAPE} forward + backward with g_lse: kernels {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, aten flash attention with logsumexp + its backward (no g_lse) {lib_txt}, bound {bound:.4f} ms "
+        f"({by}), kernels at {100 * bound / ms:.1f}% of bound")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+
+
+def full_attention(q, k, v):
+    """Full attention in float32, the ring's reference."""
+    import torch
+
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v.float())
+
+
+def phase_ring_op(fa) -> None:
+    """Phase 10: StackedRing with the flash inner (n = 2, 4) and with the
+    einsum inner (n = 4, decoder shape) against full attention on the
+    card, forward and gradients, f32 and bf16; launches per call; times."""
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention
+    from jumbo_mae_tpu_tpu_torch.parallel import MeshConfig, StackedRing, create_mesh, ring_attention
+    from jumbo_mae_tpu_tpu_torch.parallel import ring_self_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def compare(name, got, ref, dtype):
+        for what, g, r in zip(("out", "dq", "dk", "dv"), got, ref):
+            err = (g.float() - r.float()).abs().max().item()
+            scale = r.float().abs().max().item()
+            check(bool(torch.isfinite(g.float()).all()), f"non-finite {what} at {name}")
+            # f32: the K1–K3 f32 gates widened to 1e-4 for the n-way lse
+            # merge; bf16: within 3e-2 of the largest entry (the K2/K3 gate)
+            limit = 1e-4 * (1 + scale) if dtype == torch.float32 else 3e-2 * scale
+            check(err <= limit, f"{name} {what}: max|err| {err:.3e} > {limit:.3e}")
+        log(f"{name}: out and dq/dk/dv within the {str(dtype).split('.')[-1]} gate of full attention")
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, shape in enumerate(RING_SHAPES):
+            (q, k, v), (g_o, _) = k4_inputs(shape, dtype, 800 + i)
+            ref = with_grads(full_attention, (q, k, v), (g_o.float(),))
+            ref = [ref[0]] + [g.to(dtype) for g in ref[1:]]
+            for n in (2, 4):
+                ring = StackedRing(n)
+
+                def run(q, k, v):
+                    return ring.unshard(ring_attention(*(ring.shard(x) for x in (q, k, v)), ring=ring, inner="flash"))
+
+                before = (fa.LAUNCHES_WITH_LSE, fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+                got = with_grads(run, (q, k, v), (g_o,))
+                torch.cuda.synchronize()
+                grew = [a - b for a, b in zip((fa.LAUNCHES_WITH_LSE, fa.LAUNCHES, fa.LAUNCHES_BWD_DQ,
+                                               fa.LAUNCHES_BWD_DKV), before)]
+                check(grew == [n] * 4, f"ring n={n} launches K4/K1/K2/K3 {grew}, want {n} each")
+                compare(f"ring flash n={n} {shape} {str(dtype).split('.')[-1]}", got, ref, dtype)
+    # the einsum inner on the decoder's uneven length: 199 padded to 200
+    for dtype in (torch.float32, torch.bfloat16):
+        (q, k, v), (g_o, _) = k4_inputs(DEC_SHAPE, dtype, 900)
+        mesh = create_mesh(MeshConfig(data=1, fsdp=1, seq=SEQ), device="cuda", one_process_seq=True)
+        got = with_grads(lambda q, k, v: ring_self_attention(q, k, v, mesh=mesh, inner="einsum"), (q, k, v), (g_o,))
+        ref = with_grads(full_attention, (q, k, v), (g_o.float(),))
+        compare(f"ring einsum n={SEQ} {DEC_SHAPE} {str(dtype).split('.')[-1]}", got, [ref[0]] + [
+            g.to(dtype) for g in ref[1:]], dtype)
+
+    # times, bf16, forward + backward: the flash ring at the encoder shape
+    # against flash attention without the ring, and the einsum ring at the
+    # decoder shape against the einsum path without it
+    from jumbo_mae_tpu_tpu_torch.ops.flash_attention import einsum_attention
+
+    mesh = create_mesh(MeshConfig(data=1, fsdp=1, seq=SEQ), device="cuda", one_process_seq=True)
+    for shape, inner, plain in ((ENC_SHAPE, "flash", flash_attention), (DEC_SHAPE, "einsum", einsum_attention)):
+        (q, k, v), (g_o, _) = k4_inputs(shape, torch.bfloat16, 950)
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        ring_ms = cuda_ms(lambda: torch.autograd.grad(
+            ring_self_attention(*leaves, mesh=mesh, inner=inner), leaves, g_o), iters=20)
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(plain(*leaves), leaves, g_o), iters=20)
+        log(f"timing ring {inner} n={SEQ} bf16 {shape} forward + backward: {ring_ms:.4f} ms; "
+            f"without the ring {plain_ms:.4f} ms")
+
+
+def phase_seq_train(fa, smi: str) -> dict:
+    """Phase 11: the ViT-L/16 MAE step with sequence parallelism on a
+    one-process seq = 4 mesh, bf16, batch 128."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
+    from jumbo_mae_tpu_tpu_torch.obs.mfu import H100_PEAK_BF16_TFLOPS, mfu, pretrain_flops_per_image
+    from jumbo_mae_tpu_tpu_torch.parallel import MeshConfig, create_mesh, set_mesh
+    from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
+
+    enc, dec, opt = vit_l16_mae()
+    enc = enc.replace(attn_impl="ring", ring_inner="flash")
+    dec = dec.replace(attn_impl="ring", ring_inner="einsum")
+    mesh = create_mesh(MeshConfig(data=1, fsdp=1, seq=SEQ), device="cuda", one_process_seq=True)
+    batch = next(synthetic_batches(TRAIN_BATCH, enc.image_size, seed=0, distinct=1))
+    with set_mesh(mesh):
+        state = create_state((enc, dec, True), opt, device="cuda", init_seed=0, rng_seed=0,
+                             global_batch_size=TRAIN_BATCH)
+        step = make_train_step(mode="pretrain")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # ---- the main path: counts set to 0 just before, read just after
+        fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_WITH_LSE = 0
+        losses = []
+        for _ in range(WARMUP_STEPS):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        start.record()
+        for _ in range(TIMED_STEPS):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t_host
+    counts = {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DQ, "K3": fa.LAUNCHES_BWD_DKV, "K4": fa.LAUNCHES_WITH_LSE}
+
+    # a stack on the flash ring makes one K4 call (one K1 launch) per hop
+    # in each forward, again in each gradient-checkpoint recompute, and one
+    # K2 and K3 launch per hop in the backward; the einsum ring none
+    def per_step(cfg, passes: bool) -> int:
+        if cfg.attn_impl != "ring" or cfg.ring_inner != "flash":
+            return 0
+        return cfg.layers * SEQ * ((2 if cfg.grad_ckpt else 1) if passes else 1)
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    want_fwd = per_step(enc, True) + per_step(dec, True)
+    want_bwd = per_step(enc, False) + per_step(dec, False)
+    log(f"main path (sequence parallel, seq {SEQ}): {steps} steps, launches K4 {counts['K4']} and K1 "
+        f"{counts['K1']} (want {steps} x {want_fwd}), K2 {counts['K2']} and K3 {counts['K3']} "
+        f"(want {steps} x {want_bwd})")
+    check(want_fwd > 0 and counts["K4"] == counts["K1"] == steps * want_fwd, "K4/K1 launches per step")
+    check(counts["K2"] == counts["K3"] == steps * want_bwd, "K2/K3 launches per step")
+
+    vals = [x.item() for x in losses]
+    check(all(np.isfinite(vals)), f"non-finite loss: {vals}")
+    log("loss per step (sequence parallel): " + ", ".join(f"{x:.5f}" for x in vals))
+    check(vals[-1] < vals[0] and np.mean(vals[-3:]) < np.mean(vals[:3]), "the loss does not fall over the steps")
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    ips = TRAIN_BATCH * 1e3 / step_ms
+    flops = pretrain_flops_per_image(enc, dec)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    util = mfu(ips, flops)
+    log(f"sequence-parallel train step: {step_ms:.2f} ms (CUDA events over {TIMED_STEPS} steps; host clock "
+        f"{host_s / TIMED_STEPS * 1e3:.2f} ms), {ips:.1f} images/s, {flops / 1e9:.1f} GFLOP/image, "
+        f"MFU {100 * util:.2f}% of {H100_PEAK_BF16_TFLOPS:.0f} TFLOP/s, peak memory {peak_gib:.2f} GiB "
+        f"on {smi}")
+    return dict(counts=counts, step_ms=step_ms, images_per_s=ips, mfu=util, peak_gib=peak_gib)
+
+
+def phase_ring_f32_vs_plain() -> None:
+    """Phase 11b: one float32 step on the card, ring against no ring: ViT-L
+    widths, 2 encoder layers and 1 decoder layer (grad_ckpt on), batch 2,
+    the same weights and mask noise; the encoder on the flash ring and the
+    decoder on the einsum ring of a seq = 4 one-process mesh, against both
+    on the flash kernels without a mesh."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
+    from jumbo_mae_tpu_tpu_torch.parallel import MeshConfig, create_mesh, set_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    enc, dec, _ = vit_l16_mae()
+    enc = enc.replace(layers=2, dtype="float32")
+    dec = dec.replace(layers=1, dtype="float32")
+    rng = np.random.default_rng(1)
+    images = torch.from_numpy(rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)).cuda()
+    noise = torch.from_numpy(rng.random(enc.num_patches).astype(np.float32)).cuda()
+    mesh = create_mesh(MeshConfig(data=1, fsdp=1, seq=SEQ), device="cuda", one_process_seq=True)
+    res = {}
+    for name, e, d, m in (
+        ("ring", enc.replace(attn_impl="ring", ring_inner="flash"), dec.replace(attn_impl="ring"), mesh),
+        ("plain", enc.replace(attn_impl="flash"), dec.replace(attn_impl="flash"), None),
+    ):
+        model = MAEPretrainModel(e, d, True, device="cuda", seed=0).train()
+        with set_mesh(m):
+            out = model(images, mask_noise=noise)
+            out["loss"].backward()
+        res[name] = (out["loss"].item(), {n: p.grad.detach() for n, p in model.named_parameters()})
+    (lr_, gr), (lp, gp) = res["ring"], res["plain"]
+    log(f"f32 step ring vs no ring: loss {lr_:.7f} vs {lp:.7f}")
+    check(abs(lr_ - lp) <= 1e-3 * abs(lp), "f32 loss: ring against no ring")
+    gmax = max(g.abs().max().item() for g in gp.values())
+    worst = 0.0
+    for n in gp:
+        scale = gp[n].abs().max().item()
+        err = (gr[n] - gp[n]).abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        # 1e-3 of the gradient's scale, with the floor of phase 8 (1e-6 of
+        # the largest gradient) for the attention key biases, whose true
+        # gradient is zero
+        check(err <= 1e-3 * scale + 1e-6 * gmax, f"gradient {n}: ring vs no ring {err:.3e} vs scale {scale:.3e}")
+    log(f"f32 step ring vs no ring: every gradient within 1e-3 of its scale and the floor (largest "
+        f"error over scale {worst:.2e}, the zero-gradient key biases included)")
+
+
 def main() -> None:
     import torch
 
@@ -635,6 +995,13 @@ def main() -> None:
     log(f"serving path: {serve_launches} K1 launches over {dispatches} dispatches")
     train = phase_train(fa, smi)
     phase_train_f32_vs_cpu()
+    k4_errs = phase_k4(fa)
+    k4_timing = phase_k4_timing(fa)
+    phase_ring_op(fa)
+    seq_train = phase_seq_train(fa, smi)
+    log(f"sequence-parallel step {seq_train['step_ms']:.2f} ms against {train['step_ms']:.2f} ms without the "
+        f"ring (phase 7), on {smi}")
+    phase_ring_f32_vs_plain()
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape
@@ -659,6 +1026,17 @@ def main() -> None:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    # K4: launches from the sequence-parallel slice (its main path), the
+    # error and times at its hop shape
+    kernels.append({
+        "name": "flash_attention_with_lse",
+        "route": "cuda",
+        "source": "jumbo_mae_tpu_tpu_torch/csrc/flash_fwd.cu + jumbo_mae_tpu_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "jumbo_mae_tpu_tpu/ops/pallas/attention.py:397",
+        "launches": seq_train["counts"]["K4"],
+        "max_abs_err": k4_errs[("bfloat16", HOP_SHAPE)],
+        **k4_timing,
+    })
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -2,8 +2,7 @@
 
 Counterpart of ``jumbo_mae_tpu_tpu/models/config.py``: the same frozen
 configs with the same fields and defaults, so a config round-trips between
-the two packages. Fields the port does not read yet (``ring_inner``) stay
-for that reason. ``compute_dtype`` returns a ``torch.dtype``.
+the two packages. ``compute_dtype`` returns a ``torch.dtype``.
 """
 
 from __future__ import annotations
@@ -14,6 +13,8 @@ from typing import Literal
 
 import torch
 
+from jumbo_mae_tpu_tpu_torch.parallel.ring_attention import INNERS as RING_INNERS
+
 Posemb = Literal["learnable", "sincos2d"]
 Pooling = Literal["cls", "gap"]
 AttnImpl = Literal["einsum", "flash", "ring", "auto"]
@@ -23,6 +24,13 @@ RematPolicy = Literal["none", "dots", "dots_no_batch"]
 
 # the compute dtypes the port serves in (the flash kernel takes these two)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _check_ring_inner(inner: str) -> None:
+    """``ring_inner`` is the hop body of ``attn_impl="ring"``: the online
+    softmax (``"einsum"``) or kernel K4 (``"flash"``)."""
+    if inner not in RING_INNERS:
+        raise ValueError(f"ring_inner must be one of {RING_INNERS}, got {inner!r}")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -74,6 +82,7 @@ class JumboViTConfig:
             raise ValueError(
                 f"dim ({self.dim}) must be divisible by heads ({self.heads})"
             )
+        _check_ring_inner(self.ring_inner)
 
     @property
     def head_dim(self) -> int:
@@ -106,10 +115,6 @@ class JumboViTConfig:
         return dataclasses.replace(self, **kw)
 
 
-RING_NOT_PORTED = (
-    "attn_impl='ring' (sequence-parallel ring attention) is not ported "
-    "yet: ROADMAP queue A6, on kernel K4 (queue B4)"
-)
 REMAT_NOT_PORTED = (
     "remat_policy={policy!r} (save matmul outputs, recompute the rest) is "
     "not ported yet: ROADMAP queue A3; remat_policy='none' recomputes the "
@@ -122,8 +127,6 @@ def require_ported(cfg: "JumboViTConfig | DecoderConfig") -> None:
     JAX package this port does not have yet, naming the ROADMAP item that
     will bring it. Configs themselves stay constructible, so they
     round-trip; models call this when they are built."""
-    if cfg.attn_impl == "ring":
-        raise NotImplementedError(RING_NOT_PORTED)
     if cfg.grad_ckpt and cfg.remat_policy != "none":
         raise NotImplementedError(REMAT_NOT_PORTED.format(policy=cfg.remat_policy))
 
@@ -153,6 +156,7 @@ class DecoderConfig:
                 f"decoder dim ({self.dim}) must be divisible by heads "
                 f"({self.heads})"
             )
+        _check_ring_inner(self.ring_inner)
 
     @property
     def head_dim(self) -> int:

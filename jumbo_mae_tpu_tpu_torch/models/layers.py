@@ -31,9 +31,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from jumbo_mae_tpu_tpu_torch.models.config import RING_NOT_PORTED, DecoderConfig, JumboViTConfig
+from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, JumboViTConfig
 from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention
 from jumbo_mae_tpu_tpu_torch.ops.posemb import sincos2d_positional_embedding
+from jumbo_mae_tpu_tpu_torch.parallel.mesh import ambient_mesh, batch_rand, set_mesh
+from jumbo_mae_tpu_tpu_torch.parallel.ring_attention import ring_self_attention
 from jumbo_mae_tpu_tpu_torch.utils.rng import derive_seed, generator
 
 ConfigT = JumboViTConfig | DecoderConfig  # the same attribute surface
@@ -68,9 +70,8 @@ def resolve_attn_impl(
     Everywhere else it takes the einsum path. The H100 crossover between the
     two has not been measured yet (ROADMAP, open questions); the JAX
     package's 512-token rule was measured on a TPU and does not carry over.
-    Explicit choices pass through."""
-    if impl == "ring":
-        raise NotImplementedError(RING_NOT_PORTED)
+    Explicit choices pass through, ``"ring"`` (sequence parallelism over
+    the ambient mesh) among them."""
     if impl != "auto":
         return impl
     use_flash = (
@@ -130,15 +131,17 @@ class Attention(nn.Module):
         k = self.k(x).view(b, s, heads, hd)
         v = self.v(x).view(b, s, heads, hd)
 
-        if mask is not None and cfg.attn_impl == "flash":
+        # the flash and ring paths take no mask and have no probability
+        # dropout: both are explicit requests, never silently degraded
+        if mask is not None and cfg.attn_impl in ("flash", "ring"):
             raise ValueError(
-                "attn_impl='flash' has no attention-mask support; masked "
-                "attention requires attn_impl='einsum' or 'auto'"
+                f"attn_impl={cfg.attn_impl!r} has no attention-mask support; "
+                "masked attention requires attn_impl='einsum' or 'auto'"
             )
-        if cfg.attn_impl == "flash" and cfg.dropout > 0.0 and not deterministic:
+        if cfg.attn_impl in ("flash", "ring") and cfg.dropout > 0.0 and not deterministic:
             raise ValueError(
-                "attn_impl='flash' has no attention-probability dropout; "
-                "set dropout=0.0 to train"
+                f"attn_impl={cfg.attn_impl!r} has no attention-probability "
+                "dropout; set dropout=0.0 to train"
             )
         impl = resolve_attn_impl(
             cfg.attn_impl,
@@ -148,9 +151,12 @@ class Attention(nn.Module):
             masked=mask is not None,
         )
 
-        if impl == "flash":
-            z = flash_attention(q, k, v).reshape(b, s, cfg.dim)
-            out = self.out(z)
+        if impl in ("flash", "ring"):
+            if impl == "ring":  # tokens shard over the ambient mesh's "seq" axis
+                z = ring_self_attention(q, k, v, inner=cfg.ring_inner)
+            else:
+                z = flash_attention(q, k, v)
+            out = self.out(z.reshape(b, s, cfg.dim))
         else:
             dt = cfg.compute_dtype
             # scores materialize in the compute dtype; softmax runs in f32
@@ -192,7 +198,9 @@ class DropPath(nn.Module):
     """Stochastic depth: drop the whole residual branch per sample. In
     training with a positive rate, each sample's branch is kept with
     probability 1 − rate and scaled by 1/(1 − rate), the mask drawn from
-    ``generator`` (on the input's device); inert in eval mode and at rate 0."""
+    ``generator`` (on the input's device) for the global batch, of which a
+    data rank keeps its rows (``parallel.mesh.batch_rand``); inert in eval
+    mode and at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -204,7 +212,7 @@ class DropPath(nn.Module):
         if generator is None:
             raise ValueError("droppath in training needs an explicit generator")
         keep_prob = 1.0 - self.rate
-        u = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator, device=x.device)
+        u = batch_rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator, device=x.device)
         return torch.where(u < keep_prob, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -225,13 +233,21 @@ def maybe_remat(block: nn.Module, cfg: ConfigT) -> Callable:
     ``cfg.grad_ckpt`` is set and a gradient is being recorded: the
     counterpart of ``config.py``'s ``maybe_remat`` with policy ``"none"``
     (save the block's inputs, recompute all of it in the backward); the
-    models refuse the other policies when they are built."""
+    models refuse the other policies when they are built. The recompute
+    runs under the ambient mesh of the forward: a CUDA backward runs on a
+    thread of PyTorch's own, where no mesh is set."""
     if not cfg.grad_ckpt:
         return block
 
     def run(*args):
         if torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
+            mesh = ambient_mesh()
+
+            def under_mesh(*a):
+                with set_mesh(mesh):
+                    return block(*a)
+
+            return checkpoint(under_mesh, *args, use_reentrant=False)
         return block(*args)
 
     return run

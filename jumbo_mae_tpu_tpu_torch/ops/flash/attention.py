@@ -16,6 +16,14 @@ outputs and launches them on PyTorch's current stream.
 - :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`
   are the same functions in plain PyTorch, float32 inside. They are what
   the CPU runs and what the kernels are held against on the card.
+- K4 (``pallas_flash_attention_with_lse``, ``attention.py:396-433``) is no
+  tile program of its own: it is K1 returning lse, and K2 + K3 with D
+  shifted by the lse cotangent, ``D ← D − g_lse`` (``attention.py:298-305``;
+  ∂lse/∂s_j = p_j, so ds = p·(dp − (D − g_lse))). Its forward wrapper
+  :func:`flash_attention_with_lse_fwd` counts in ``LAUNCHES_WITH_LSE``;
+  :func:`lse_cotangents` turns (g_o, g_lse) into the kernels' (dO, D).
+  :func:`flash_attention_with_lse_plain` is its plain version, with a
+  plain backward taking both cotangents.
 
 q, k, v are (batch, seq, heads, head_dim) with q already scaled by
 ``head_dim**-0.5``; the backward's dq is the gradient w.r.t. that scaled
@@ -38,6 +46,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
+LAUNCHES_WITH_LSE = 0  # K4's forward (its K1 launch counts in LAUNCHES too)
 
 
 def flash_attention_fwd_plain(
@@ -182,15 +191,20 @@ def flash_attention_fwd(
     return (o, lse) if with_lse else o
 
 
-def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+def attention_delta(
+    o: torch.Tensor, do: torch.Tensor, g_lse: torch.Tensor | None = None
+) -> torch.Tensor:
     """D = rowsum(dO ∘ O) in float32, as (batch·heads, seq_q) with row
     ``b·heads + h`` — the per-row term of the softmax backward, computed
     before the kernels as the JAX package computes it
-    (``attention.py:293-297``). The lse cotangent of K4 will fold in here
-    as ``D − g_lse``."""
+    (``attention.py:293-297``). K4's lse cotangent ``g_lse`` (same layout,
+    any strides and float dtype) folds in as ``D − g_lse``."""
     b, s, h, _ = o.shape
     dd = (do.float() * o.float()).sum(-1)  # (b, s, h)
-    return dd.permute(0, 2, 1).reshape(b * h, s)
+    dd = dd.permute(0, 2, 1).reshape(b * h, s)
+    if g_lse is not None:
+        dd = dd - g_lse.float().reshape(b * h, s)
+    return dd.contiguous()
 
 
 def flash_attention_bwd_plain(
@@ -312,3 +326,52 @@ def flash_attention_bwd(
     do, lse, delta = _kernel_layout(do), lse.contiguous(), delta.contiguous()
     dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
     return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+
+
+def flash_attention_with_lse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """K4's forward: ``(o, lse)`` through K1, lse float32 (B·H, S_q).
+
+    CPU tensors take :func:`flash_attention_fwd_plain`; a launch on CUDA
+    tensors adds one to ``LAUNCHES_WITH_LSE`` (and K1's to ``LAUNCHES``)."""
+    global LAUNCHES_WITH_LSE
+    if _device_of(q, k, v).type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, with_lse=True)
+    out = flash_attention_fwd(q, k, v, with_lse=True)
+    LAUNCHES_WITH_LSE += 1
+    return out
+
+
+def lse_cotangents(
+    o: torch.Tensor, g_o: torch.Tensor | None, g_lse: torch.Tensor | None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's backward inputs ``(dO, D)`` from the cotangents of o and lse:
+    ``None`` stands for zero (an output the caller did not use), so
+    ``g_o=None`` gives dO = 0 and ``g_lse=None`` no shift of D."""
+    do = torch.zeros_like(o) if g_o is None else g_o
+    return do, attention_delta(o, do, g_lse)
+
+
+class _WithLsePlain(torch.autograd.Function):
+    """K4 in plain PyTorch: the plain forward, and the plain backward
+    (P recomputed from lse) with D shifted by −g_lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.set_materialize_grads(False)
+        o, lse = flash_attention_fwd_plain(q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g_o, g_lse):
+        if g_o is None and g_lse is None:
+            return None, None, None
+        q, k, v, o, lse = ctx.saved_tensors
+        do, delta = lse_cotangents(o, g_o, g_lse)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, delta=delta)
+
+
+def flash_attention_with_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """K4's plain version: ``(o, lse)``, differentiable in both through the
+    plain backward — the oracle the kernels are held against on the card."""
+    return _WithLsePlain.apply(q, k, v)

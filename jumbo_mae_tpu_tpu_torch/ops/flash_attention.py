@@ -8,6 +8,10 @@ Counterpart of ``jumbo_mae_tpu_tpu/ops/flash_attention.py``:
   (``ops/flash/attention.py``) — the counterpart of the JAX package's
   ``pallas_flash_attention`` custom_vjp. On CPU tensors the same Function
   runs the plain forward and the plain backward;
+- :func:`flash_attention_with_lse` is K4, the counterpart of
+  ``pallas_flash_attention_with_lse``: ``(o, lse)`` differentiable in
+  both, the lse cotangent folded into K2/K3 as ``D − g_lse``. Ring
+  attention's flash hops merge in lse space through it;
 - :func:`einsum_attention` is the counterpart of ``xla_attention``:
   float32 scores and softmax, probabilities cast to v's dtype.
 """
@@ -19,6 +23,8 @@ import torch
 from jumbo_mae_tpu_tpu_torch.ops.flash.attention import (
     flash_attention_bwd,
     flash_attention_fwd,
+    flash_attention_with_lse_fwd,
+    lse_cotangents,
 )
 
 
@@ -53,3 +59,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v)
     return flash_attention_fwd(q, k, v)
+
+
+class FlashAttentionWithLse(torch.autograd.Function):
+    """(o, lse) with the flash kernels: K1 writing lse forward; K2 then K3
+    backward with D = rowsum(dO ∘ O) − g_lse. An unused output's cotangent
+    arrives as ``None`` (materialization off) and counts as zero."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.set_materialize_grads(False)
+        o, lse = flash_attention_with_lse_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g_o, g_lse):
+        if g_o is None and g_lse is None:
+            return None, None, None
+        q, k, v, o, lse = ctx.saved_tensors
+        do, delta = lse_cotangents(o, g_o, g_lse)
+        return flash_attention_bwd(q, k, v, o, lse, do, delta=delta)
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)``: o = softmax(q·kᵀ)·v in q's shape and dtype, lse the
+    float32 log-sum-exp of each query row's scores as (batch·heads, seq_q),
+    row ``b·heads + h`` (the JAX layout). Differentiable in both outputs."""
+    return FlashAttentionWithLse.apply(q, k, v)

@@ -2,7 +2,8 @@
 
 Counterpart of ``jumbo_mae_tpu_tpu/ops/masking.py``. ``shared`` mode draws
 one permutation for the whole batch (the reference's behaviour);
-``per_sample`` draws one per sample. The noise is uniform, drawn from an
+``per_sample`` draws one per sample, for the global batch of which a data
+rank keeps its rows. The noise is uniform, drawn from an
 explicit ``torch.Generator`` on the tensor's device, or injected through
 ``noise=`` to pin the permutation (fixed eval masks, parity tests).
 Argsorts are stable, as ``jnp.argsort`` is, so ties break alike.
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Literal
 
 import torch
+
+from jumbo_mae_tpu_tpu_torch.parallel.mesh import batch_rand
 
 MaskMode = Literal["shared", "per_sample"]
 GatherImpl = Literal["take", "onehot"]
@@ -73,7 +76,10 @@ def random_masking(
     if noise is None:
         if generator is None:
             raise ValueError("random_masking needs a generator when no noise is injected")
-        noise = torch.rand(expected, generator=generator, device=x.device, dtype=torch.float32)
+        if mode == "shared":
+            noise = torch.rand(expected, generator=generator, device=x.device, dtype=torch.float32)
+        else:  # drawn for the global batch; a data rank keeps its rows
+            noise = batch_rand(expected, generator=generator, device=x.device)
     noise = noise.to(x.device)
     ids_shuffle = torch.argsort(noise, dim=-1, stable=True)
     ids_restore = torch.argsort(ids_shuffle, dim=-1, stable=True)

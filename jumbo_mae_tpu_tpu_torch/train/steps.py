@@ -1,8 +1,10 @@
-"""Single-device state creation, the train step and the eval step.
+"""State creation, the train step and the eval step.
 
-Counterpart of ``jumbo_mae_tpu_tpu/train/steps.py`` for one card
+Counterpart of ``jumbo_mae_tpu_tpu/train/steps.py``
 (``create_sharded_state`` → :func:`create_state`), in PyTorch's idiom:
 the state is updated in place and returned, and a step runs eagerly.
+Parameters are replicated: every process builds the same weights from
+``init_seed``.
 
 - ``grad_accum == 1``: batch leaves are (batch, ...); ``grad_accum > 1``:
   (accum, micro, ...), the gradients of the micro-batches summed in
@@ -17,6 +19,14 @@ the state is updated in place and returned, and a step runs eagerly.
   and ``skipped`` (``faults/sentinel.py:40-58`` in the JAX package).
 - The metrics are ``loss`` and ``learning_rate`` (the rate of the
   optimizer's last update); the per-sample loss stays out.
+- The step runs under the ambient mesh (``parallel.set_mesh``). With a
+  ``data`` axis above 1 each data rank passes its own rows of the global
+  batch (``synthetic_batches(..., shard=(rank, ranks))``); the gradients
+  and the loss are averaged over the data group (all-reduce, then divide
+  by its size) before the guard and the optimizer, and the random masks
+  are drawn for the global batch, so the step equals one process on the
+  global batch. Seq ranks need no all-reduce: ring attention hands every
+  seq rank the whole gradient, so their parameter gradients are equal.
 
 Classification (``mode="classify"``), per-layer diagnostics (``diag``) and
 pipeline parallelism raise, naming ROADMAP A4, A7 and A6.
@@ -28,10 +38,12 @@ from typing import Any, Callable, Literal
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, JumboViTConfig
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
+from jumbo_mae_tpu_tpu_torch.parallel.mesh import ambient_mesh
 from jumbo_mae_tpu_tpu_torch.train.optim import AdamW, OptimConfig, make_optimizer
 from jumbo_mae_tpu_tpu_torch.train.state import EVAL_DOMAIN, TrainState
 from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
@@ -87,6 +99,21 @@ def _to_device(x: Any, device: torch.device) -> torch.Tensor:
     return t.to(device, non_blocking=True)
 
 
+def _average_over_data(grads: list[torch.Tensor], loss: torch.Tensor) -> torch.Tensor:
+    """Average ``grads`` (in place) and ``loss`` over the ambient mesh's
+    data group, in one all-reduce; returns the averaged loss."""
+    mesh = ambient_mesh()
+    group = None if mesh is None else mesh.group("data")
+    if group is None:
+        return loss
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).to(grads[0].dtype)])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    parts = flat.split([g.numel() for g in grads] + [1])
+    torch._foreach_copy_(grads, [c.view_as(g) for c, g in zip(parts, grads)])
+    return parts[-1].reshape(()).to(loss.dtype)
+
+
 def make_train_step(
     *,
     mode: Mode = "pretrain",
@@ -119,6 +146,7 @@ def make_train_step(
             loss_sum = loss_sum + out["loss"].detach()
         loss = loss_sum / grad_accum
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        loss = _average_over_data(grads, loss)
         if grad_accum > 1:  # the JAX step scales by 1/accum, then by grad_mult
             torch._foreach_mul_(grads, 1.0 / grad_accum)
         if grad_mult != 1.0:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the training time goes: the port's ViT-L/16 MAE step on one GPU.
 
-    python3 scripts/torch_train_profile.py [--batch 128] [--out runs/torch_train_profile.json]
+    python3 scripts/torch_train_profile.py [--batch 128] [--seq 4] [--out runs/torch_train_profile.json]
 
 Builds the pretraining step as chip_smoke.py does
 (recipes/pretrain_vit_l16_in1k_800ep.yaml's model and optimizer, bf16
@@ -17,6 +17,10 @@ and ``make_train_step``, and measures on the card:
   (matrix products, the flash kernels K1/K2/K3, casts and copies,
   elementwise, reductions and norms, the optimizer's foreach kernels,
   the patch convolution), and the device's idle share of the step.
+
+``--seq N`` (N > 1) profiles the sequence-parallel step of chip_smoke.py
+instead: the encoder on the flash ring and the decoder on the einsum ring
+of a one-process seq = N mesh, the whole step under ``set_mesh``.
 
 Prints a summary and writes the numbers as JSON to ``--out``. Needs a
 CUDA device; exits non-zero without one.
@@ -65,6 +69,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=5, help="timed steps")
+    ap.add_argument("--seq", type=int, default=1, help="ring attention over a one-process seq axis of this size")
     ap.add_argument("--out", default=str(REPO / "runs" / "torch_train_profile.json"))
     args = ap.parse_args()
 
@@ -77,6 +82,7 @@ def main() -> None:
     from chip_smoke import vit_l16_mae
     from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
     from jumbo_mae_tpu_tpu_torch.obs.mfu import mfu, pretrain_flops_per_image
+    from jumbo_mae_tpu_tpu_torch.parallel import MeshConfig, create_mesh, set_mesh
     from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
 
     smi = subprocess.run(
@@ -84,51 +90,57 @@ def main() -> None:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     enc, dec, opt = vit_l16_mae()
-    state = create_state((enc, dec, True), opt, device="cuda", global_batch_size=args.batch)
-    step = make_train_step()
-    batch = next(synthetic_batches(args.batch, enc.image_size, distinct=1))
-    for _ in range(3):
-        state, _ = step(state, batch)
-    torch.cuda.synchronize()
-
-    def events():
-        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
-    start, end = events()
-    start.record()
-    for _ in range(args.steps):
-        state, _ = step(state, batch)
-    end.record()
-    torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / args.steps
-
-    # host enqueue time of one step, the card idle before it
-    t0 = time.perf_counter()
-    state, _ = step(state, batch)
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-
-    # forward / backward / optimizer split, the calls the step makes
-    model, params = state.model.train(), list(state.model.parameters())
-    images = torch.from_numpy(batch["images"]).cuda()
-    marks = [events() for _ in range(3)]
-    for p in params:
-        p.grad = None
-    marks[0][0].record()
-    out = model(images, generators=state.step_generators())
-    marks[0][1].record()
-    marks[1][0].record()
-    out["loss"].backward()
-    marks[1][1].record()
-    marks[2][0].record()
-    state.tx.update(state.opt_state, params, [p.grad for p in params])
-    marks[2][1].record()
-    torch.cuda.synchronize()
-    split = {k: a.elapsed_time(b) for k, (a, b) in zip(("forward", "backward", "optimizer"), marks)}
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        state, _ = step(state, batch)
+    mesh = None
+    if args.seq > 1:
+        enc = enc.replace(attn_impl="ring", ring_inner="flash")
+        dec = dec.replace(attn_impl="ring", ring_inner="einsum")
+        mesh = create_mesh(MeshConfig(data=1, fsdp=1, seq=args.seq), device="cuda", one_process_seq=True)
+    with set_mesh(mesh):
+        state = create_state((enc, dec, True), opt, device="cuda", global_batch_size=args.batch)
+        step = make_train_step()
+        batch = next(synthetic_batches(args.batch, enc.image_size, distinct=1))
+        for _ in range(3):
+            state, _ = step(state, batch)
         torch.cuda.synchronize()
+
+        def events():
+            return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+        start, end = events()
+        start.record()
+        for _ in range(args.steps):
+            state, _ = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms = start.elapsed_time(end) / args.steps
+
+        # host enqueue time of one step, the card idle before it
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+
+        # forward / backward / optimizer split, the calls the step makes
+        model, params = state.model.train(), list(state.model.parameters())
+        images = torch.from_numpy(batch["images"]).cuda()
+        marks = [events() for _ in range(3)]
+        for p in params:
+            p.grad = None
+        marks[0][0].record()
+        out = model(images, generators=state.step_generators())
+        marks[0][1].record()
+        marks[1][0].record()
+        out["loss"].backward()
+        marks[1][1].record()
+        marks[2][0].record()
+        state.tx.update(state.opt_state, params, [p.grad for p in params])
+        marks[2][1].record()
+        torch.cuda.synchronize()
+        split = {k: a.elapsed_time(b) for k, (a, b) in zip(("forward", "backward", "optimizer"), marks)}
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
     kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA), key=dev_us, reverse=True)
     kernel_ms = sum(dev_us(e) for e in kernels) / 1e3
     groups: dict[str, list] = {}
@@ -141,6 +153,7 @@ def main() -> None:
         "device": smi,
         "torch": torch.__version__,
         "batch": args.batch,
+        "seq": args.seq,
         "step_ms": step_ms,
         "images_per_s": ips,
         "mfu": mfu(ips, pretrain_flops_per_image(enc, dec)),

@@ -153,8 +153,9 @@ def test_resolve_explicit_and_ring():
     kw = dict(device_type="cuda", dropout=0.0, deterministic=True)
     assert resolve_attn_impl("einsum", **kw) == "einsum"
     assert resolve_attn_impl("flash", **dict(kw, device_type="cpu")) == "flash"
-    with pytest.raises(NotImplementedError, match="B4"):
-        resolve_attn_impl("ring", **kw)
+    # sequence parallelism is ported: "ring" passes through on every device
+    assert resolve_attn_impl("ring", **kw) == "ring"
+    assert resolve_attn_impl("ring", **dict(kw, device_type="cpu", masked=True)) == "ring"
 
 
 def test_importing_kernel_modules_builds_nothing():

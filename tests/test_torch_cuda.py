@@ -140,3 +140,55 @@ def test_tiny_mae_train_step_on_the_card(cuda):
     assert fa.LAUNCHES_BWD_DQ == fa.LAUNCHES_BWD_DKV == 2 * (enc.layers + dec.layers)
     assert fa.LAUNCHES == 2 * (2 * enc.layers + dec.layers)
     assert state.step == 2 and state.opt_state.count == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain_with_lse_cotangent(cuda, dtype):
+    """K4 (K1 with lse; K2/K3 with D − g_lse) against its plain version
+    under random cotangents of o and lse, at the K1/K2/K3 gates."""
+    from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention_with_lse
+
+    shape = (8, 13, 4, 64)
+    q, k, v = _qkv(shape, dtype, seed=5)
+    g_o = torch.randn(shape, device="cuda").to(dtype)
+    g_lse = torch.randn((shape[0] * shape[2], shape[1]), device="cuda")
+    out = {}
+    for name, fn in (("kernel", flash_attention_with_lse), ("plain", fa.flash_attention_with_lse_plain)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        before = fa.LAUNCHES_WITH_LSE
+        o, lse = fn(*leaves)
+        out[name] = [o, lse, *torch.autograd.grad((o, lse), leaves, (g_o, g_lse))]
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES_WITH_LSE == before + (name == "kernel")
+    tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=2e-2, rtol=0.0)
+    for g, r in zip(out["kernel"][:2], out["plain"][:2]):
+        torch.testing.assert_close(g.detach(), r.detach(), **tol)
+    for g, r in zip(out["kernel"][2:], out["plain"][2:]):
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
+        else:
+            assert (g.float() - r.float()).abs().max() <= 3e-2 * r.float().abs().max()
+
+
+def test_seq_parallel_mae_step_on_the_card(cuda):
+    """Two steps of a tiny MAE model with the encoder on the flash ring and
+    the decoder on the einsum ring of a one-process seq = 4 mesh: one K4
+    call per hop, in the forward and again in the checkpoint recompute."""
+    from jumbo_mae_tpu_tpu_torch.parallel import MeshConfig, create_mesh, set_mesh
+
+    enc = preset("vit_t16", labels=None, mask_ratio=0.75, image_size=64, patch_size=8, heads=2,
+                 posemb="sincos2d", grad_ckpt=True, attn_impl="ring", ring_inner="flash",
+                 num_cls_tokens=4)  # 4 CLS + 16 visible = 20 tokens: 4 shards of 5
+    dec = DecoderConfig(layers=1, dim=64, heads=2, attn_impl="ring")
+    mesh = create_mesh(MeshConfig(data=1, fsdp=1, seq=4), device="cuda", one_process_seq=True)
+    with set_mesh(mesh):
+        state = create_state((enc, dec, True), OptimConfig(warmup_steps=0, training_steps=10), device="cuda",
+                             global_batch_size=4)
+        step = make_train_step()
+        batches = synthetic_batches(4, 64, distinct=1)
+        fa.LAUNCHES = fa.LAUNCHES_WITH_LSE = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+        for _ in range(2):
+            state, m = step(state, next(batches))
+            assert np.isfinite(m["loss"].item())
+    assert fa.LAUNCHES_WITH_LSE == fa.LAUNCHES == 2 * 2 * enc.layers * 4
+    assert fa.LAUNCHES_BWD_DQ == fa.LAUNCHES_BWD_DKV == 2 * enc.layers * 4

@@ -100,6 +100,9 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.train.optim",
         "jumbo_mae_tpu_tpu_torch.train.state",
         "jumbo_mae_tpu_tpu_torch.train.steps",
+        "jumbo_mae_tpu_tpu_torch.parallel",
+        "jumbo_mae_tpu_tpu_torch.parallel.mesh",
+        "jumbo_mae_tpu_tpu_torch.parallel.ring_attention",
     ):
         assert m in mods
     for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):

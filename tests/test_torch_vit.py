@@ -29,6 +29,7 @@ from jumbo_mae_tpu_tpu_torch.interop import state_dict_from_jax
 from jumbo_mae_tpu_tpu_torch.models import JumboViT, pool_tokens, preset
 from jumbo_mae_tpu_tpu_torch.models.layers import DropPath
 from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
+from jumbo_mae_tpu_tpu_torch.parallel import MeshConfig, create_mesh
 from torch_port_util import random_batch_stats, random_images, random_jumbo_params, rel_err
 
 SIZE = 32
@@ -155,7 +156,9 @@ def test_serve_full_matches_forward():
 
 def test_unported_modes_raise():
     """MAE mode (ROADMAP A2) is ported: it builds and returns (tokens, mask,
-    ids_restore) for the visible patches. Ring attention (A6) still raises."""
+    ids_restore) for the visible patches. Ring attention is ported too (A6,
+    the data and seq axes): the ring model builds. An fsdp axis above 1
+    (FSDP2, the rest of A6) still raises."""
     mae = JumboViT(preset("vit_t16", labels=None, mask_ratio=0.75, **TINY), device="cpu")
     images = normalize_images(torch.from_numpy(random_images(np.random.default_rng(0), 2, SIZE)))
     with torch.no_grad():
@@ -163,8 +166,10 @@ def test_unported_modes_raise():
     assert tokens.shape == (2, 3 + 16, 64)  # 64 patches at mask 0.75 keep 16
     assert mask.shape == (2, 64) and mask.sum().item() == 2 * 48
     assert ids_restore.shape == (64,)
+    ring = JumboViT(preset("vit_t16", attn_impl="ring", ring_inner="flash", **TINY), device="cpu")
+    assert all(b.attn.cfg.attn_impl == "ring" for b in ring.blocks)
     with pytest.raises(NotImplementedError, match="A6"):
-        JumboViT(preset("vit_t16", attn_impl="ring", **TINY), device="cpu")
+        create_mesh(MeshConfig(data=1, fsdp=2), device="cpu")
 
 
 def test_same_seed_same_init_and_flax_init_statistics():
