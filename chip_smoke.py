@@ -14,7 +14,12 @@ Phases, each of which exits non-zero when it fails:
    2e-2, at the training slice's MAE encoder and decoder shapes, the
    serving shapes (ViT-B/16 at 224 px and batch 64, 448 px, the
    MAE-visible 52-token length, ViT-H/14 with head_dim 80, head_dims 32
-   and 128), plus strided q/k/v views of a fused projection;
+   and 128), every tile edge of the wgmma kernel (S = 64, 65, 128, 129,
+   257 around its 64-row tiles; S = 1, 8, 9, 16, 17, 32, 33 where its
+   shape rule packs 16, 8, 4, 2 or 1 heads per tile; the ring hop
+   512x13x16x64; head_dims 32, 80, 128 at short and ragged lengths) and
+   Sq != Sk both ways, packed and not; two bf16 runs bit-identical; plus
+   strided q/k/v views of a fused projection;
 4. K2/K3 vs plain — the backward kernels (dq; dk and dv) against the
    plain backward at the MAE encoder and decoder shapes of the training
    slice, ViT-B, 448 px, ViT-H/14 and a ragged head_dim-128 shape: float32
@@ -22,12 +27,15 @@ Phases, each of which exits non-zero when it fails:
    reference entry; two runs bit-identical; strided views of a fused
    projection; pad rows and columns inert (NaN beyond the sequence is
    never read);
-5. kernel timings — K1 at the ViT-B/16 serving shape, K1 (with lse), K2
-   and K3 at the MAE encoder and decoder shapes: the kernel, its plain
-   version and one
-   PyTorch library call (scaled_dot_product_attention, forward or
-   backward; a yardstick the port never calls), beside the least time
-   the card could take;
+5. kernel timings — K1 at the main path's four shapes (ViT-B/16
+   serving; the MAE decoder, encoder and ring hop with lse) and 448 px,
+   with the wrapper's host µs per call; K2 and K3 at the MAE encoder and
+   decoder shapes; for each kernel its plain version and one PyTorch
+   library call (scaled_dot_product_attention, forward or backward; a
+   yardstick the port never calls), beside the least time the card could
+   take. Every time is device ms per call from CUDA-graph replay (the
+   wrapper's host time exceeds the kernel's, so eager launches would time
+   the host), each kernel's eager back-to-back time beside it;
 6. the serving slice — the ViT-B/16 classifier as
    recipes/finetune_vit_b16.yaml builds it (12 layers, dim 768, 3 CLS
    tokens, sincos2d, 1000 labels, bf16 compute, random weights from a
@@ -96,6 +104,45 @@ KERNEL_SHAPES = [
     (4, 259, 16, 80),  # ViT-H/14 at 224 px
     (8, 199, 8, 32),  # head_dim 32
     (2, 331, 8, 128),  # head_dim 128
+    # K1's tile edges. Rows and keys around the 64-row tiles: 64/65,
+    # 128/129, 257. The shape rule packs 2^p heads of a batch row into one
+    # 64-row tile while 64 / 2^(p+1) >= max(Sq, Sk) and 2^p < H: at H = 16,
+    # 16 heads for 1-4 positions, 8 for 5-8, 4 for 9-16 (the 13-token ring
+    # hop), 2 for 17-32 and 1 from 33 on, so S = 1, 8/9, 16/17, 32/33 sit
+    # on its edges. Head_dims 32, 80 and 128 at short and ragged lengths,
+    # with H = 12 and 6 leaving the last packed tile part empty.
+    (8, 1, 16, 64),
+    (4, 8, 16, 64),
+    (4, 9, 16, 64),
+    (8, 13, 16, 64),
+    (4, 16, 16, 64),
+    (4, 17, 16, 64),
+    (4, 32, 16, 64),
+    (4, 33, 16, 64),
+    (4, 64, 8, 64),
+    (4, 65, 8, 64),
+    (2, 128, 8, 64),
+    (2, 129, 8, 64),
+    (2, 257, 4, 64),
+    (512, 13, 16, 64),
+    (3, 13, 12, 32),
+    (2, 129, 4, 32),
+    (2, 13, 4, 80),
+    (2, 65, 4, 128),
+    (2, 13, 6, 128),
+]
+# K1 with Sq != Sk, (q shape, Sk): one tile per head both ways (and one
+# query row against 65 keys at head_dim 128); packed
+# tiles with Sq > Sk (4 and 8 heads, the second 8 of H = 12 part empty)
+# and Sq < Sk (2 heads)
+CROSS_SHAPES = [
+    ((2, 40, 4, 64), 130),
+    ((4, 13, 16, 64), 52),
+    ((2, 199, 4, 32), 7),
+    ((4, 13, 16, 64), 7),
+    ((4, 1, 16, 64), 20),
+    ((2, 5, 12, 32), 3),
+    ((2, 1, 8, 128), 65),
 ]
 # K2/K3 shapes: the training slice's, ViT-B, 448 px, ViT-H/14, head_dim 128
 BWD_SHAPES = [ENC_SHAPE, DEC_SHAPE, VIT_B_SHAPE, (4, 787, 16, 64), (4, 259, 16, 80), (2, 331, 8, 128)]
@@ -156,12 +203,16 @@ def attention_bound_ms(shape, dtype_bytes: int, peak_flops: float, lse: bool = F
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def qkv(shape, dtype, seed: int):
+def qkv(shape, dtype, seed: int, sk: int | None = None):
+    """q (B, S, H, D) scaled by head_dim**-0.5, and k, v of ``sk`` keys
+    (default S), from a seeded generator on the card."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=g, device="cuda") for _ in range(3))
-    return (q * shape[-1] ** -0.5).to(dtype), k.to(dtype), v.to(dtype)
+    b, s, h, d = shape
+    q = torch.randn(shape, generator=g, device="cuda")
+    k, v = (torch.randn((b, s if sk is None else sk, h, d), generator=g, device="cuda") for _ in range(2))
+    return (q * d**-0.5).to(dtype), k.to(dtype), v.to(dtype)
 
 
 def phase_kernels(fa) -> dict:
@@ -171,20 +222,27 @@ def phase_kernels(fa) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = {}
+    cases = [(shape, None) for shape in KERNEL_SHAPES] + CROSS_SHAPES
     for dtype, tol in ((torch.float32, dict(atol=1e-5, rtol=1e-5)), (torch.bfloat16, dict(atol=2e-2, rtol=0.0))):
-        for i, shape in enumerate(KERNEL_SHAPES):
-            q, k, v = qkv(shape, dtype, seed=i)
+        for i, (shape, sk) in enumerate(cases):
+            q, k, v = qkv(shape, dtype, seed=i, sk=sk)
             o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
             torch.cuda.synchronize()
             ref_o, ref_lse = fa.flash_attention_fwd_plain(q, k, v, with_lse=True)
             e_o = (o.float() - ref_o.float()).abs().max().item()
             e_l = (lse - ref_lse).abs().max().item()
             name = str(dtype).split(".")[-1]
-            log(f"kernel {name} {shape}: max|o-plain| {e_o:.3e}  max|lse-plain| {e_l:.3e}")
+            line = f"kernel {name} {shape} sk {k.shape[1]}: max|o-plain| {e_o:.3e}  max|lse-plain| {e_l:.3e}"
             check(torch.isfinite(o.float()).all().item(), f"non-finite kernel output at {shape} {name}")
             torch.testing.assert_close(o, ref_o, **tol)
             torch.testing.assert_close(lse, ref_lse, **tol)
-            errs[(name, shape)] = max(e_o, e_l)
+            if dtype == torch.bfloat16:  # no atomics: a second run is bit-identical
+                o2, lse2 = fa.flash_attention_fwd(q, k, v, with_lse=True)
+                same = torch.equal(o, o2) and torch.equal(lse, lse2)
+                check(same, f"two bf16 runs of K1 differ at {shape} sk {k.shape[1]}")
+                line += "; rerun bit-identical"
+            log(line)
+            errs[(name, shape, k.shape[1])] = max(e_o, e_l)
     # strided inputs: q, k, v as views of one fused (B, S, 3, H, D) projection
     b, s, h, d = VIT_B_SHAPE
     fused = torch.randn((b, s, 3, h, d), device="cuda").to(torch.bfloat16)
@@ -196,27 +254,91 @@ def phase_kernels(fa) -> dict:
     return errs
 
 
-def phase_timings(fa) -> None:
-    """Phase 5a: K1, plain and library times at the serving shapes."""
+def graph_ms(fn, per_graph: int = 20, reps: int = 20) -> float:
+    """Device ms per call of ``fn``: ``per_graph`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events. Where the
+    wrapper's host time (~30 µs) exceeds the kernel's, back-to-back eager
+    launches leave the card idle between them and time the host; a replay
+    sends the captured launches back to back."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    for _ in range(3):
+        graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * per_graph)
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host µs per call of ``fn``: ``time.perf_counter`` over ``calls``
+    calls without a sync (after 50 warm-up calls)."""
+    import torch
+
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def phase_timings(fa) -> dict:
+    """Phase 5a: K1 in bf16 at the main path's four shapes (ViT-B serving;
+    the MAE decoder and encoder and the ring hop, with lse, as training
+    calls it) and at 448 px: device time per call from CUDA-graph replay
+    (``ms``, the plain version, SDPA's forward) and from eager back-to-back
+    launches (``eager_ms``, the method of the earlier kernels lines), the
+    least time the card could take, and the wrapper's host µs per call;
+    K1 in f32 at the ViT-B shape."""
     import torch
     import torch.nn.functional as F
 
-    for shape in (VIT_B_SHAPE, (4, 787, 16, 64)):
+    out = {}
+    shapes = ((VIT_B_SHAPE, False), (DEC_SHAPE, True), (ENC_SHAPE, True), (HOP_SHAPE, True),
+              ((4, 787, 16, 64), False))
+    for shape, lse in shapes:
         q, k, v = qkv(shape, torch.bfloat16, seed=100)
-        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v))
-        plain_ms = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v), iters=10)
+
+        def k1():
+            return fa.flash_attention_fwd(q, k, v, with_lse=lse)
+
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, S, D) views
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0))
-        bound, by = attention_bound_ms(shape, 2, PEAK_BF16_FLOPS)
+        ms, eager = graph_ms(k1), cuda_ms(k1, iters=200, warmup=20)
+        lib_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0))
+        plain_ms = graph_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, with_lse=lse), per_graph=5, reps=10)
+        bound, by = attention_bound_ms(shape, 2, PEAK_BF16_FLOPS, lse=lse)
+        host = host_us(k1)
+        out[shape] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                          eager_ms=eager, host_us=host)
         log(
-            f"timing bf16 {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-            f"kernel at {100 * bound / ms:.1f}% of bound"
+            f"timing K1 bf16 {shape}{' with lse' if lse else ''}: kernel {ms:.4f} ms (eager back to back "
+            f"{eager:.4f} ms), plain {plain_ms:.4f} ms, sdpa forward {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by}), kernel at {100 * bound / ms:.1f}% of bound; host {host:.2f} us per call"
         )
     q, k, v = qkv(VIT_B_SHAPE, torch.float32, seed=101)
-    ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v), iters=10)
+    ms = graph_ms(lambda: fa.flash_attention_fwd(q, k, v), per_graph=5, reps=5)
     bound, by = attention_bound_ms(VIT_B_SHAPE, 4, PEAK_F32_FLOPS)
     log(f"timing f32 {VIT_B_SHAPE}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return out
 
 
 def bwd_bound_ms(shape, products: int, outputs: int) -> tuple[float, str]:
@@ -303,12 +425,13 @@ def phase_bwd_kernels(fa) -> dict:
     return errs
 
 
-def phase_bwd_timings(fa) -> dict:
-    """Phase 5b: K1 (with lse, as training calls it), K2 and K3 at the MAE
-    encoder and decoder shapes, bf16: each kernel, the plain forward or
-    backward (all three gradients), and SDPA's forward, or its backward as
-    (forward + backward) − forward; and K1 + K2 + K3 against the einsum
-    path's forward and backward."""
+def phase_bwd_timings(fa, k1_timings: dict) -> dict:
+    """Phase 5b: K2 and K3 at the MAE encoder and decoder shapes, bf16:
+    each kernel, the plain backward (all three gradients), and SDPA's
+    backward as (forward + backward) − forward; and K1 (phase 5a) + K2 + K3
+    against the einsum path's forward and backward. Device ms per call
+    from CUDA-graph replay, as phase 5a; each kernel's eager back-to-back
+    time beside it."""
     import torch
     import torch.nn.functional as F
 
@@ -320,32 +443,37 @@ def phase_bwd_timings(fa) -> dict:
     for shape in (ENC_SHAPE, DEC_SHAPE):
         q, k, v, do, o, lse = bwd_inputs(shape, torch.bfloat16, 400, fa)
         dd = fa.attention_delta(o, do)
-        k2 = cuda_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, dd))
-        k3 = cuda_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd))
-        plain = cuda_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=dd), iters=10)
+        def k2_call():
+            return fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
+
+        def k3_call():
+            return fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd)
+
+        k2, k3 = graph_ms(k2_call), graph_ms(k3_call)
+        eager = {"K2": cuda_ms(k2_call), "K3": cuda_ms(k3_call)}
+        plain = graph_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=dd), per_graph=5, reps=10)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         dot = do.transpose(1, 2)
-        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0))
-        both = cuda_ms(lambda: torch.autograd.grad(
+        fwd = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=1.0))
+        both = graph_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qt, kt, vt, scale=1.0), (qt, kt, vt), dot))
         lib = max(both - fwd, 0.0)
-        # attn_impl="auto" in training: the kernels' forward and backward
-        # against the einsum path's (bf16 scores, f32 softmax, bf16 probs)
-        k1 = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, with_lse=True))
-        k1_plain = cuda_ms(lambda: fa.flash_attention_fwd_plain(q, k, v, with_lse=True), iters=10)
-        bound, by = attention_bound_ms(shape, 2, PEAK_BF16_FLOPS, lse=True)
-        out[("K1", shape)] = dict(ms=k1, plain_ms=k1_plain, library_ms=fwd, bound_ms=bound, bound_by=by)
-        log(f"timing K1 bf16 {shape} with lse: kernel {k1:.4f} ms, plain {k1_plain:.4f} ms, sdpa {fwd:.4f} ms, "
-            f"bound {bound:.4f} ms ({by}), kernel at {100 * bound / k1:.1f}% of bound")
+        # attn_impl="auto" in training: the kernels' forward (K1's time from
+        # phase 5a) and backward against the einsum path's (bf16 scores, f32
+        # softmax, bf16 probs), all by graph replay
+        k1 = k1_timings[shape]["ms"]
         qe, ke, ve = (x.detach().requires_grad_() for x in (q, k, v))
-        einsum = cuda_ms(lambda: torch.autograd.grad(einsum_path(qe, ke, ve), (qe, ke, ve), do))
+        einsum = graph_ms(lambda: torch.autograd.grad(einsum_path(qe, ke, ve), (qe, ke, ve), do), per_graph=5,
+                          reps=10)
         log(f"training attention bf16 {shape}: K1 + K2 + K3 {k1 + k2 + k3:.4f} ms (+ D), einsum forward "
             f"and backward {einsum:.4f} ms")
         out[("einsum", shape)] = dict(kernels_ms=k1 + k2 + k3, einsum_ms=einsum)
         for name, ms, products, outputs in (("K2", k2, 3, 1), ("K3", k3, 4, 2)):
             bound, by = bwd_bound_ms(shape, products, outputs)
-            out[(name, shape)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by)
-            log(f"timing {name} bf16 {shape}: kernel {ms:.4f} ms, plain backward {plain:.4f} ms, "
+            out[(name, shape)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
+                                      eager_ms=eager[name])
+            log(f"timing {name} bf16 {shape}: kernel {ms:.4f} ms (eager back to back {eager[name]:.4f} ms), "
+                f"plain backward {plain:.4f} ms, "
                 f"sdpa backward {lib:.4f} ms, bound {bound:.4f} ms ({by}), kernel at "
                 f"{100 * bound / ms:.1f}% of bound")
     return out
@@ -714,7 +842,9 @@ def phase_k4(fa) -> dict:
 def phase_k4_timing(fa) -> dict:
     """K4's forward + backward (with g_lse) at the hop shape, bf16: the
     kernels, the plain version and the library's flash attention with
-    logsumexp (whose backward takes no lse cotangent), beside the bound."""
+    logsumexp (whose backward takes no lse cotangent), beside the bound;
+    device ms per call from CUDA-graph replay, and the kernels' eager
+    back-to-back time."""
     import torch
 
     (q, k, v), (g_o, g_lse) = k4_inputs(HOP_SHAPE, torch.bfloat16, 700)
@@ -737,10 +867,10 @@ def phase_k4_timing(fa) -> dict:
         return torch.ops.aten._scaled_dot_product_flash_attention_backward(
             dot, qt, kt, vt, o, lse, cq, ck, mq, mk, 0.0, False, seed, off, scale=1.0)
 
-    ms = cuda_ms(kernels)
-    plain_ms = cuda_ms(plain, iters=10)
+    ms, eager = graph_ms(kernels), cuda_ms(kernels)
+    plain_ms = graph_ms(plain, per_graph=5, reps=10)
     try:
-        lib_ms = cuda_ms(library)
+        lib_ms = graph_ms(library)
     except (RuntimeError, TypeError) as exc:  # the yardstick only; the port never calls it
         log(f"K4 library yardstick unavailable: {exc}")
         lib_ms = None
@@ -753,10 +883,11 @@ def phase_k4_timing(fa) -> dict:
     t_ops = 14 * b * h * s * s * d / PEAK_BF16_FLOPS
     bound, by = max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
     lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-    log(f"timing K4 bf16 {HOP_SHAPE} forward + backward with g_lse: kernels {ms:.4f} ms, plain {plain_ms:.4f} "
+    log(f"timing K4 bf16 {HOP_SHAPE} forward + backward with g_lse: kernels {ms:.4f} ms (eager back to back "
+        f"{eager:.4f} ms), plain {plain_ms:.4f} "
         f"ms, aten flash attention with logsumexp + its backward (no g_lse) {lib_txt}, bound {bound:.4f} ms "
         f"({by}), kernels at {100 * bound / ms:.1f}% of bound")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by, eager_ms=eager)
 
 
 def full_attention(q, k, v):
@@ -984,8 +1115,8 @@ def main() -> None:
 
     errs = phase_kernels(fa)
     bwd_errs = phase_bwd_kernels(fa)
-    phase_timings(fa)
-    bwd_timings = phase_bwd_timings(fa)
+    k1_timings = phase_timings(fa)
+    bwd_timings = phase_bwd_timings(fa, k1_timings)
     from jumbo_mae_tpu_tpu_torch.models import preset
 
     # recipes/finetune_vit_b16.yaml's model; the CLI builds the same one
@@ -1004,15 +1135,19 @@ def main() -> None:
     phase_ring_f32_vs_plain()
 
     # every number of the line comes from the training slice (the main
-    # path): launches from its run, errors and times at its decoder shape
+    # path): launches from its run, errors and times at its decoder shape.
+    # ms, plain_ms and library_ms are device ms per call from CUDA-graph
+    # replay for every kernel; eager_ms is the kernel's time over eager
+    # back-to-back launches, which the wrapper's host time bounds where it
+    # exceeds the kernel's (the method of the lines before graph replay)
     kernels = []
     for key, name, src, line, err in (
-        ("K1", "flash_attention_fwd", "flash_fwd.cu", 84, errs[("bfloat16", DEC_SHAPE)]),
+        ("K1", "flash_attention_fwd", "flash_fwd.cu", 84, errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1])]),
         ("K2", "flash_attention_bwd_dq", "flash_bwd.cu", 120, bwd_errs[("bfloat16", DEC_SHAPE, "dq")]),
         ("K3", "flash_attention_bwd_dkv", "flash_bwd.cu", 154,
          max(bwd_errs[("bfloat16", DEC_SHAPE, g)] for g in ("dk", "dv"))),
     ):
-        t = bwd_timings[(key, DEC_SHAPE)]
+        t = k1_timings[DEC_SHAPE] if key == "K1" else bwd_timings[(key, DEC_SHAPE)]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1025,6 +1160,7 @@ def main() -> None:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "eager_ms": t["eager_ms"],
         })
     # K4: launches from the sequence-parallel slice (its main path), the
     # error and times at its hop shape

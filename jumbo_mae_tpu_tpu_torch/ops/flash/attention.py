@@ -38,6 +38,8 @@ import ctypes
 import torch
 
 HEAD_DIMS = (32, 64, 80, 128)
+# head_dims whose bf16 forward loads through TMA tensor maps (80 does not)
+TMA_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the process started (or the caller last reset
@@ -64,45 +66,56 @@ def flash_attention_fwd_plain(
     return o, torch.logsumexp(s, dim=-1).reshape(b * h, sq)
 
 
-def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def check_kernel_args(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, forward: bool = True
+) -> None:
     """Raise ``ValueError`` for anything the kernel does not take.
 
     It takes (B, S, H, D) tensors of one dtype (float32 or bfloat16) with
     k and v of one shape, q sharing their batch, heads and head_dim;
     head_dim in :data:`HEAD_DIMS`; a unit innermost stride; and 16-byte
     alignment of the base pointer and of every other stride, which its
-    vector loads need. Devices are checked by the caller."""
-    if not (q.dim() == k.dim() == v.dim() == 4):
+    vector loads need. The bf16 forward (``forward``) at
+    :data:`TMA_HEAD_DIMS` loads through TMA tensor maps, which also need
+    every stride of a dimension longer than 1 positive and below 2**40
+    bytes (no broadcast views). Devices are checked by the caller.
+
+    Each tensor's shape and strides are read once: the wrapper runs this
+    on every launch, and the step that launches it is host-bound."""
+    qs, ks, vs = q.shape, k.shape, v.shape
+    if not (len(qs) == len(ks) == len(vs) == 4):
         raise ValueError(
-            "q, k, v must be 4-D (batch, seq, heads, head_dim), got "
-            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+            f"q, k, v must be 4-D (batch, seq, heads, head_dim), got {tuple(qs)}, {tuple(ks)}, {tuple(vs)}"
         )
-    if k.shape != v.shape:
-        raise ValueError(f"k and v shapes differ: {tuple(k.shape)} vs {tuple(v.shape)}")
-    b, _, h, d = q.shape
-    if (k.shape[0], k.shape[2], k.shape[3]) != (b, h, d):
-        raise ValueError(
-            f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree on batch, "
-            "heads or head_dim"
-        )
-    if 0 in q.shape or 0 in k.shape:
+    if ks != vs:
+        raise ValueError(f"k and v shapes differ: {tuple(ks)} vs {tuple(vs)}")
+    b, _, h, d = qs
+    if (ks[0], ks[2], ks[3]) != (b, h, d):
+        raise ValueError(f"q {tuple(qs)} and k {tuple(ks)} disagree on batch, heads or head_dim")
+    if 0 in qs or 0 in ks:
         raise ValueError("q, k, v must be non-empty")
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"dtype {q.dtype} not supported; use float32 or bfloat16")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"dtype {dtype} not supported; use float32 or bfloat16")
+    if not (dtype == k.dtype == v.dtype):
+        raise ValueError(f"q, k, v dtypes differ: {dtype}, {k.dtype}, {v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the kernel; have {HEAD_DIMS}")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} and heads {h} must each be <= 65535")
-    per16 = 16 // q.element_size()
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
-            raise ValueError(f"{name} must have a unit head_dim stride, got {x.stride()}")
-        if any(st % per16 for st in x.stride()[:3]) or x.data_ptr() % 16:
+    size = 4 if dtype == torch.float32 else 2
+    per16 = 16 // size
+    tma = forward and size == 2 and d in TMA_HEAD_DIMS
+    for name, x, shape in (("q", q, qs), ("k", k, ks), ("v", v, vs)):
+        st = x.stride()
+        if st[3] != 1:
+            raise ValueError(f"{name} must have a unit head_dim stride, got {st}")
+        if st[0] % per16 or st[1] % per16 or st[2] % per16 or x.data_ptr() % 16:
+            raise ValueError(f"{name} strides {st} and base pointer must be 16-byte aligned")
+        if tma and any(n > 1 and not 0 < s * size < 1 << 40 for n, s in zip(shape[:3], st[:3])):
             raise ValueError(
-                f"{name} strides {x.stride()} and base pointer must be "
-                "16-byte aligned"
+                f"{name} strides {st}: the TMA tensor map needs each stride of a dimension "
+                "longer than 1 in (0, 2**40) bytes"
             )
 
 
@@ -173,19 +186,20 @@ def flash_attention_fwd(
         return flash_attention_fwd_plain(q, k, v, with_lse=with_lse)
     check_kernel_args(q, k, v)
     b, sq, h, d = q.shape
-    sk = k.shape[1]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=dev) if with_lse else None
     lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.jumbo_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            _DTYPE_CODES[q.dtype], b, h, sq, sk, d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            stream,
-        )
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
+        _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+    )
+    if dev.index == torch.cuda.current_device():
+        err = lib.jumbo_flash_fwd(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:  # the launch goes to the current device: make it q's
+        with torch.cuda.device(dev):
+            err = lib.jumbo_flash_fwd(*args, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, "flash_fwd")
     LAUNCHES += 1
     return (o, lse) if with_lse else o
@@ -248,11 +262,11 @@ def _check_bwd_args(q, k, v, do, lse, delta) -> None:
     """Raise ``ValueError`` for backward inputs the kernels do not take:
     q, k, v as for the forward; dO like q, read through its strides; lse
     and D float32 (batch·heads, seq_q), contiguous."""
-    check_kernel_args(q, k, v)
+    check_kernel_args(q, k, v, forward=False)
     b, sq, h, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} {q.dtype}")
-    check_kernel_args(do, k, v)
+    check_kernel_args(do, k, v, forward=False)
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != (b * h, sq) or x.dtype != torch.float32 or not x.is_contiguous():
             raise ValueError(

@@ -126,6 +126,9 @@ def _bad_cases():
         "misaligned stride": [torch.zeros(2, 199, 4, 66, dtype=torch.bfloat16)[..., :64]] * 3,
         "misaligned base": [torch.zeros(2 * 199 * 4 * 64 + 1, dtype=torch.bfloat16)[1:].view(2, 199, 4, 64)] * 3,
         "empty": _ok(s=0),
+        # the bf16 forward's TMA tensor maps need positive strides
+        "broadcast batch (TMA)": [x[:1].expand(2, -1, -1, -1) for x in (q, k, v)],
+        "broadcast heads (TMA)": [x[:, :, :1].expand(-1, -1, 4, -1) for x in (q, k, v)],
     }
 
 
@@ -133,6 +136,21 @@ def _bad_cases():
 def test_check_kernel_args_rejects(case):
     with pytest.raises(ValueError):
         fa.check_kernel_args(*_bad_cases()[case])
+
+
+def test_tma_stride_rule_binds_only_the_bf16_forward():
+    """Broadcast (stride-0) views are refused only where TMA loads them:
+    the bf16 forward at head_dim 32, 64 and 128. The f32 forward, head_dim
+    80 (mma.sync, plain loads) and the backward kernels take them; a
+    dimension of extent 1 may have any stride."""
+    bf16 = [x[:1].expand(2, -1, -1, -1) for x in _ok()]
+    fa.check_kernel_args(*bf16, forward=False)
+    fa.check_kernel_args(*[x[:1].expand(2, -1, -1, -1) for x in _ok(dtype=torch.float32)])
+    fa.check_kernel_args(*[x[:1].expand(2, -1, -1, -1) for x in _ok(d=80)])
+    fa.check_kernel_args(*[x[:1].expand(1, -1, -1, -1) for x in _ok()])
+    with pytest.raises(ValueError, match="TMA"):
+        fa.check_kernel_args(*bf16)
+    assert set(fa.TMA_HEAD_DIMS) < set(fa.HEAD_DIMS) and 80 not in fa.TMA_HEAD_DIMS
 
 
 @pytest.mark.parametrize(

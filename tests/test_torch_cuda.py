@@ -12,6 +12,9 @@ the full serving and training shapes and widths; these are the quick
 checks.
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -42,7 +45,21 @@ def _qkv(shape, dtype, seed=0):
     return (q * shape[-1] ** -0.5).to(dtype), k.to(dtype), v.to(dtype)
 
 
-@pytest.mark.parametrize("shape", [(2, 199, 4, 64), (3, 52, 2, 32), (1, 259, 3, 80), (2, 70, 2, 128)])
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# K1's shapes are chip_smoke.py's (its main-path shapes and every tile
+# edge), after four quick ones
+_CS = _chip_smoke()
+EDGE_SHAPES = [(2, 199, 4, 64), (3, 52, 2, 32), (1, 259, 3, 80), (2, 70, 2, 128), *_CS.KERNEL_SHAPES]
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda, shape, dtype):
     q, k, v = _qkv(shape, dtype)
@@ -54,14 +71,21 @@ def test_kernel_matches_plain(cuda, shape, dtype):
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=2e-2, rtol=0.0)
     torch.testing.assert_close(o, ref_o, **tol)
     torch.testing.assert_close(lse, ref_lse, **tol)
+    if dtype == torch.bfloat16:  # no atomics: a rerun is bit-identical
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
-def test_kernel_cross_lengths(cuda):
-    q, _, _ = _qkv((2, 40, 4, 64), torch.bfloat16, seed=1)
-    _, k, v = _qkv((2, 130, 4, 64), torch.bfloat16, seed=2)
-    torch.testing.assert_close(
-        fa.flash_attention_fwd(q, k, v), fa.flash_attention_fwd_plain(q, k, v), atol=2e-2, rtol=0.0
-    )
+@pytest.mark.parametrize("shape,sk", _CS.CROSS_SHAPES)
+def test_kernel_cross_lengths(cuda, shape, sk):
+    q, _, _ = _qkv(shape, torch.bfloat16, seed=1)
+    _, k, v = _qkv((shape[0], sk, *shape[2:]), torch.bfloat16, seed=2)
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    ref_o, ref_lse = fa.flash_attention_fwd_plain(q, k, v, with_lse=True)
+    torch.testing.assert_close(o, ref_o, atol=2e-2, rtol=0.0)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-2, rtol=0.0)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
