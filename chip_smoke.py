@@ -22,15 +22,18 @@ Phases, each of which exits non-zero when it fails:
    strided q/k/v views of a fused projection;
 4. K2/K3 vs plain — the backward kernels (dq; dk and dv) against the
    plain backward at the MAE encoder and decoder shapes of the training
-   slice, ViT-B, 448 px, ViT-H/14 and a ragged head_dim-128 shape: float32
-   (TF32 off) at atol/rtol 1e-4, bfloat16 within 3e-2 of the largest
-   reference entry; two runs bit-identical; strided views of a fused
-   projection; pad rows and columns inert (NaN beyond the sequence is
-   never read);
+   slice, ViT-B, 448 px, ViT-H/14 and a ragged head_dim-128 shape, and at
+   every tile and packing edge of the wgmma kernels (``BWD_SHAPES``, the
+   ring hop among them) and K1's Sq != Sk cases: float32 (TF32 off) at
+   atol/rtol 1e-4, bfloat16 within 3e-2 of the largest reference entry;
+   two runs bit-identical; strided views of a fused projection and
+   broadcast dO, k and v equal to contiguous copies; pad rows and columns
+   inert (NaN beyond the sequence is never read), packed tiles included;
 5. kernel timings — K1 at the main path's four shapes (ViT-B/16
    serving; the MAE decoder, encoder and ring hop with lse) and 448 px,
-   with the wrapper's host µs per call; K2 and K3 at the MAE encoder and
-   decoder shapes; for each kernel its plain version and one PyTorch
+   with the wrapper's host µs per call; K2, K3 and the D pass before them
+   at the MAE encoder and decoder shapes and the ring hop, D + K2 + K3
+   against SDPA's backward; for each kernel its plain version and one PyTorch
    library call (scaled_dot_product_attention, forward or backward; a
    yardstick the port never calls), beside the least time the card could
    take. Every time is device ms per call from CUDA-graph replay (the
@@ -144,8 +147,6 @@ CROSS_SHAPES = [
     ((2, 5, 12, 32), 3),
     ((2, 1, 8, 128), 65),
 ]
-# K2/K3 shapes: the training slice's, ViT-B, 448 px, ViT-H/14, head_dim 128
-BWD_SHAPES = [ENC_SHAPE, DEC_SHAPE, VIT_B_SHAPE, (4, 787, 16, 64), (4, 259, 16, 80), (2, 331, 8, 128)]
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -156,6 +157,42 @@ SEQ = 4
 HOP_SHAPE = (SEQ * 128, 52 // SEQ, 16, 64)
 K4_SHAPES = [HOP_SHAPE, (4, 1024, 16, 64), (2, 787, 16, 80), (2, 331, 8, 128)]
 RING_SHAPES = [ENC_SHAPE, (2, 4096, 16, 64)]
+# K2/K3 shapes: the training slice's, ViT-B, 448 px, ViT-H/14 (head_dim 80,
+# which keeps the mma.sync kernels), head_dim 128; then every tile edge of
+# the wgmma kernels, which tile and pack as K1 does: rows and keys around
+# the 64-row tiles (64/65, 128/129); S = 1, 8/9, 13, 16/17, 32/33 at H = 16
+# on the edges of the heads-per-tile rule (16, 8, 4, 2, 1 heads), with
+# H = 12 and 6 leaving the last packed tile part empty; the ring hop;
+# head_dims 32 and 128 packed and ragged. Sq != Sk: K1's CROSS_SHAPES.
+BWD_SHAPES = [
+    ENC_SHAPE,
+    DEC_SHAPE,
+    VIT_B_SHAPE,
+    (4, 787, 16, 64),
+    (4, 259, 16, 80),
+    (2, 331, 8, 128),
+    (8, 1, 16, 64),
+    (4, 8, 16, 64),
+    (4, 9, 16, 64),
+    (8, 13, 16, 64),
+    (4, 16, 16, 64),
+    (4, 17, 16, 64),
+    (4, 32, 16, 64),
+    (4, 33, 16, 64),
+    (4, 64, 8, 64),
+    (4, 65, 8, 64),
+    (2, 128, 8, 64),
+    (2, 129, 8, 64),
+    HOP_SHAPE,
+    (3, 13, 12, 32),
+    (2, 9, 6, 64),
+    (2, 1, 16, 32),
+    (2, 129, 4, 32),
+    (2, 13, 4, 80),
+    (2, 17, 16, 128),
+    (2, 65, 4, 128),
+    (2, 13, 6, 128),
+]
 
 
 def log(msg: str) -> None:
@@ -173,6 +210,24 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def build_kernels(_build, names: list[str] | None = None) -> float:
+    """Phase 2: build the kernel sources (default all) in parallel, log
+    ptxas's registers and spills per kernel, fail on any spill. Returns
+    the seconds the build took."""
+    t0 = time.perf_counter()
+    reports = _build.build(names)
+    dt = time.perf_counter() - t0
+    log(f"build: {len(names or _build.sources())} kernel source(s) in {dt:.2f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"ptxas {name}: {line.strip()}")
+        spills = [ln for ln in rep.splitlines() if "spill stores" in ln]
+        check(all(" 0 bytes spill stores" in ln and " 0 bytes spill loads" in ln for ln in spills),
+              f"{name}: ptxas reports register spills")
+    return dt
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -353,11 +408,12 @@ def bwd_bound_ms(shape, products: int, outputs: int) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def bwd_inputs(shape, dtype, seed: int, fa):
-    """q, k, v, dO on the card and the forward's o and lse (kernel K1)."""
+def bwd_inputs(shape, dtype, seed: int, fa, sk: int | None = None):
+    """q, k, v (``sk`` keys, default S), dO on the card and the forward's o
+    and lse (kernel K1)."""
     import torch
 
-    q, k, v = qkv(shape, dtype, seed)
+    q, k, v = qkv(shape, dtype, seed, sk=sk)
     g = torch.Generator(device="cuda").manual_seed(seed + 1000)
     do = torch.randn(shape, generator=g, device="cuda").to(dtype)
     o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
@@ -365,39 +421,31 @@ def bwd_inputs(shape, dtype, seed: int, fa):
 
 
 def phase_bwd_kernels(fa) -> dict:
-    """Phase 4: K2 and K3 against the plain backward, every shape, both
-    dtypes; determinism, strided views, inert padding."""
+    """Phase 4: K2 and K3 against the plain backward, every shape and
+    Sq != Sk case, both dtypes; determinism, strided and broadcast views,
+    inert padding."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     errs = {}
+    cases = [(shape, None) for shape in BWD_SHAPES] + CROSS_SHAPES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
-        for i, shape in enumerate(BWD_SHAPES):
-            q, k, v, do, o, lse = bwd_inputs(shape, dtype, 200 + i, fa)
+        for i, (shape, sk) in enumerate(cases):
+            q, k, v, do, o, lse = bwd_inputs(shape, dtype, 200 + i, fa, sk=sk)
             got = fa.flash_attention_bwd(q, k, v, o, lse, do)
             torch.cuda.synchronize()
             ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-            line = []
-            for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
-                check(g.dtype == dtype and g.shape == r.shape, f"{gname} {shape} {name}: {g.dtype} {tuple(g.shape)}")
-                check(bool(torch.isfinite(g.float()).all()), f"non-finite {gname} at {shape} {name}")
-                err = (g.float() - r.float()).abs().max().item()
-                scale = r.float().abs().max().item()
-                line.append(f"{gname} {err:.3e}/{scale:.3e}")
-                if dtype == torch.float32:
-                    # the same f32 arithmetic, summed in another order
-                    torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
-                else:
-                    # P and dS are rounded to bf16 before their products
-                    # (as the Pallas kernels do); the plain version keeps f32
-                    check(err <= 3e-2 * scale, f"bf16 {gname} at {shape}: {err:.3e} > 3e-2 x {scale:.3e}")
-                errs[(name, shape, gname)] = err
+            grads = check_grads(f"{shape} sk {k.shape[1]} {name}", got, ref, dtype, sk=k.shape[1])
+            for gname, (err, _) in grads.items():
+                errs[(name, shape, k.shape[1], gname)] = err
+            line = [f"{gname} {err:.3e}/{scale:.3e}" for gname, (err, scale) in grads.items()]
             again = fa.flash_attention_bwd(q, k, v, o, lse, do)
             same = all(torch.equal(a, b) for a, b in zip(got, again))
-            check(same, f"two runs of K2/K3 differ at {shape} {name}")
-            log(f"K2/K3 {name} {shape}: max|err|/max|ref| {', '.join(line)}; rerun bit-identical {same}")
+            check(same, f"two runs of K2/K3 differ at {shape} sk {k.shape[1]} {name}")
+            log(f"K2/K3 {name} {shape} sk {k.shape[1]}: max|err|/max|ref| {', '.join(line)}; "
+                f"rerun bit-identical {same}")
 
     b, s, h, d = VIT_B_SHAPE
     fused = torch.randn((b, s, 4, h, d), device="cuda").to(torch.bfloat16)
@@ -408,10 +456,26 @@ def phase_bwd_kernels(fa) -> dict:
     check(all(torch.equal(a, b) for a, b in zip(got, ref)), "K2/K3 on strided views differ from contiguous copies")
     log("K2/K3 on strided q/k/v/dO views equal contiguous copies: True")
 
+    # broadcast views (stride 0, which no TMA tensor map describes): dO of
+    # o.sum() and k, v shared over the batch give the gradients of their
+    # contiguous copies
+    for shape in (DEC_SHAPE, HOP_SHAPE, (2, 70, 4, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, o, lse = bwd_inputs(shape, dtype, 350, fa)
+            views = {"dO": (q, k, v, do[:1].expand(shape)),
+                     "k, v": (q, k[:1].expand(shape), v[:1].expand(shape), do)}
+            for what, (qb, kb, vb, dob) in views.items():
+                o, lse = fa.flash_attention_fwd(qb.contiguous(), kb.contiguous(), vb.contiguous(), with_lse=True)
+                got = fa.flash_attention_bwd(qb, kb, vb, o, lse, dob)
+                ref = fa.flash_attention_bwd(*(x.contiguous() for x in (qb, kb, vb)), o, lse, dob.contiguous())
+                check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                      f"K2/K3 with broadcast {what} differ from contiguous copies at {shape} {dtype}")
+    log("K2/K3 on broadcast dO and k, v views equal contiguous copies: True")
+
     # pad rows and columns are inert: NaN stored past the sequence in the
     # same buffers is never read (a read would turn the gradients NaN)
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((2, 199, 4, 64), (3, 70, 2, 128), (2, 52, 4, 32)):
+        for shape in ((2, 199, 4, 64), (3, 70, 2, 128), (2, 52, 4, 32), (4, 13, 16, 64), (2, 9, 12, 32)):
             q, k, v, do, o, lse = bwd_inputs(shape, dtype, 300, fa)
             ref = fa.flash_attention_bwd(q, k, v, o, lse, do)
             padded = []
@@ -425,24 +489,30 @@ def phase_bwd_kernels(fa) -> dict:
     return errs
 
 
-def phase_bwd_timings(fa, k1_timings: dict) -> dict:
-    """Phase 5b: K2 and K3 at the MAE encoder and decoder shapes, bf16:
-    each kernel, the plain backward (all three gradients), and SDPA's
-    backward as (forward + backward) − forward; and K1 (phase 5a) + K2 + K3
-    against the einsum path's forward and backward. Device ms per call
-    from CUDA-graph replay, as phase 5a; each kernel's eager back-to-back
-    time beside it."""
+def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
+    """Phase 5b: K2 and K3 at the MAE encoder and decoder shapes and the
+    ring hop, bf16: each kernel, the plain backward (all three gradients),
+    SDPA's backward as (forward + backward) − forward, and the D pass
+    (``attention_delta``) that runs before the kernels, so D + K2 + K3
+    stands against SDPA's backward, which computes its own D; and K1
+    (phase 5a) + K2 + K3 against the einsum path's forward and backward.
+    Device ms per call from CUDA-graph replay, as phase 5a; each kernel's
+    eager back-to-back time beside it. The einsum comparison needs
+    ``k1_timings`` (phase 5a's result) and is left out without it."""
     import torch
     import torch.nn.functional as F
+
+    k1_timings = k1_timings or {}
 
     def einsum_path(q, k, v):  # models/layers.py's einsum branch
         probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k).float(), dim=-1).to(v.dtype)
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
     out = {}
-    for shape in (ENC_SHAPE, DEC_SHAPE):
+    for shape in (ENC_SHAPE, DEC_SHAPE, HOP_SHAPE):
         q, k, v, do, o, lse = bwd_inputs(shape, torch.bfloat16, 400, fa)
         dd = fa.attention_delta(o, do)
+
         def k2_call():
             return fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
 
@@ -458,16 +528,25 @@ def phase_bwd_timings(fa, k1_timings: dict) -> dict:
         both = graph_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qt, kt, vt, scale=1.0), (qt, kt, vt), dot))
         lib = max(both - fwd, 0.0)
-        # attn_impl="auto" in training: the kernels' forward (K1's time from
-        # phase 5a) and backward against the einsum path's (bf16 scores, f32
-        # softmax, bf16 probs), all by graph replay
-        k1 = k1_timings[shape]["ms"]
-        qe, ke, ve = (x.detach().requires_grad_() for x in (q, k, v))
-        einsum = graph_ms(lambda: torch.autograd.grad(einsum_path(qe, ke, ve), (qe, ke, ve), do), per_graph=5,
-                          reps=10)
-        log(f"training attention bf16 {shape}: K1 + K2 + K3 {k1 + k2 + k3:.4f} ms (+ D), einsum forward "
-            f"and backward {einsum:.4f} ms")
-        out[("einsum", shape)] = dict(kernels_ms=k1 + k2 + k3, einsum_ms=einsum)
+        # D = rowsum(dO ∘ O): reads o and dO, writes one f32 per row
+        b, sq, h, d = shape
+        d_ms = graph_ms(lambda: fa.attention_delta(o, do))
+        d_bound = (2 * b * sq * h * d * 2 + b * h * sq * 4) / PEAK_BYTES * 1e3
+        out[("D", shape)] = dict(ms=d_ms, bound_ms=d_bound, bound_by="bytes")
+        log(f"timing D (attention_delta) bf16 {shape}: {d_ms:.4f} ms, bound {d_bound:.4f} ms (bytes); "
+            f"D + K2 + K3 {d_ms + k2 + k3:.4f} ms against sdpa backward {lib:.4f} ms "
+            f"({(d_ms + k2 + k3) / lib:.2f}x)")
+        if shape in k1_timings:
+            # attn_impl="auto" in training: the kernels' forward (K1's time
+            # from phase 5a) and backward against the einsum path's (bf16
+            # scores, f32 softmax, bf16 probs), all by graph replay
+            k1 = k1_timings[shape]["ms"]
+            qe, ke, ve = (x.detach().requires_grad_() for x in (q, k, v))
+            einsum = graph_ms(lambda: torch.autograd.grad(einsum_path(qe, ke, ve), (qe, ke, ve), do),
+                              per_graph=5, reps=10)
+            log(f"training attention bf16 {shape}: K1 + D + K2 + K3 {k1 + d_ms + k2 + k3:.4f} ms, einsum "
+                f"forward and backward {einsum:.4f} ms")
+            out[("einsum", shape)] = dict(kernels_ms=k1 + d_ms + k2 + k3, einsum_ms=einsum)
         for name, ms, products, outputs in (("K2", k2, 3, 1), ("K3", k3, 4, 2)):
             bound, by = bwd_bound_ms(shape, products, outputs)
             out[(name, shape)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
@@ -785,12 +864,18 @@ def k4_inputs(shape, dtype, seed: int):
     return (q, k, v), (g_o, g_lse)
 
 
-def check_grads(name: str, got, ref, dtype) -> float:
-    """K2/K3's gates on gradients: f32 atol/rtol 1e-4, bf16 within 3e-2 of
-    the largest reference entry. Returns the largest error."""
+def check_grads(name: str, got, ref, dtype, sk: int | None = None) -> dict:
+    """K2/K3's gates on (dq, dk, dv): f32 atol/rtol 1e-4 (the same
+    arithmetic summed in another order), bf16 within 3e-2 of the largest
+    reference entry (P and dS are rounded to bf16 before their products,
+    as the Pallas kernels do; the plain version keeps f32). With one key
+    (``sk == 1``) the softmax has no gradient: dq and dk are 0 exactly,
+    and the kernel's and the plain version's values are both f32 rounding
+    of dP − D, so there they are held to the f32 gate in bf16 too.
+    Returns {gradient: (max abs error, max abs reference)}."""
     import torch
 
-    worst = 0.0
+    out = {}
     for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
         check(g.dtype == r.dtype == dtype and g.shape == r.shape, f"{name} {gname}: {g.dtype} {tuple(g.shape)}")
         check(bool(torch.isfinite(g.float()).all()), f"non-finite {gname} at {name}")
@@ -798,10 +883,12 @@ def check_grads(name: str, got, ref, dtype) -> float:
         scale = r.float().abs().max().item()
         if dtype == torch.float32:
             torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4, msg=f"{name} {gname}")
+        elif sk == 1 and gname != "dv":
+            check(err <= 1e-4, f"bf16 {gname} at {name} (one key, exactly 0): {err:.3e} > 1e-4")
         else:
             check(err <= 3e-2 * scale, f"bf16 {gname} at {name}: {err:.3e} > 3e-2 x {scale:.3e}")
-        worst = max(worst, err)
-    return worst
+        out[gname] = (err, scale)
+    return out
 
 
 def phase_k4(fa) -> dict:
@@ -826,7 +913,7 @@ def phase_k4(fa) -> dict:
             check(got[1].dtype == torch.float32 and got[1].shape == (shape[0] * shape[2], shape[1]), "lse layout")
             torch.testing.assert_close(got[0], ref[0], **tol, msg=f"K4 o {shape} {name}")
             torch.testing.assert_close(got[1], ref[1], **tol, msg=f"K4 lse {shape} {name}")
-            e_g = check_grads(f"K4 {shape} {name}", got[2:], ref[2:], dtype)
+            e_g = max(err for err, _ in check_grads(f"K4 {shape} {name}", got[2:], ref[2:], dtype).values())
             errs[(name, shape)] = max(e_o, e_l, e_g)
             line = f"K4 {name} {shape}: max|err| o {e_o:.3e}, lse {e_l:.3e}, dq/dk/dv {e_g:.3e}"
             if dtype == torch.float32:
@@ -1102,16 +1189,7 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
-    t0 = time.perf_counter()
-    reports = _build.build()
-    log(f"build: {len(_build.sources())} kernel source(s) in {time.perf_counter() - t0:.2f} s")
-    for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                log(f"ptxas {name}: {line.strip()}")
-        spills = [ln for ln in rep.splitlines() if "spill stores" in ln]
-        check(all(" 0 bytes spill stores" in ln and " 0 bytes spill loads" in ln for ln in spills),
-              f"{name}: ptxas reports register spills")
+    build_kernels(_build)
 
     errs = phase_kernels(fa)
     bwd_errs = phase_bwd_kernels(fa)
@@ -1143,9 +1221,9 @@ def main() -> None:
     kernels = []
     for key, name, src, line, err in (
         ("K1", "flash_attention_fwd", "flash_fwd.cu", 84, errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1])]),
-        ("K2", "flash_attention_bwd_dq", "flash_bwd.cu", 120, bwd_errs[("bfloat16", DEC_SHAPE, "dq")]),
+        ("K2", "flash_attention_bwd_dq", "flash_bwd.cu", 120, bwd_errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1], "dq")]),
         ("K3", "flash_attention_bwd_dkv", "flash_bwd.cu", 154,
-         max(bwd_errs[("bfloat16", DEC_SHAPE, g)] for g in ("dk", "dv"))),
+         max(bwd_errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1], g)] for g in ("dk", "dv"))),
     ):
         t = k1_timings[DEC_SHAPE] if key == "K1" else bwd_timings[(key, DEC_SHAPE)]
         kernels.append({

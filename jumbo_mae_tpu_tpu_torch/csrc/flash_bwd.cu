@@ -10,52 +10,101 @@
 // Replaces: `_bwd_dq_kernel` (K2) and `_bwd_dkv_kernel` (K3), launched by
 // `_flash_bwd`, in jumbo_mae_tpu_tpu/ops/pallas/attention.py. Same
 // contract: q arrives already scaled, so dq is the gradient w.r.t. the
-// scaled q; key columns >= Sk get P = 0; P and dS are cast to the operand
-// dtype before each product they feed, products accumulate in f32.
+// scaled q; key columns >= Sk get P = 0; query rows >= Sq contribute
+// exactly 0 to dk and dv; P and dS are rounded to bf16 before each product
+// they feed, products accumulate in f32.
 //
 // Two kernels, no atomics: each output element is owned by one block,
 // which sums its terms in a fixed order, so two runs give bit-identical
 // gradients (the TPU design chose this too). K2's block owns a 64-row q
-// tile and loops over K/V tiles; K3's block owns a key tile and loops over
-// q tiles.
-//
-// Pad rows and columns are masked by the kernels themselves (no pad copy,
-// unlike Pallas, which padded S to 128): K2 zeroes P for keys >= Sk; K3
-// zeroes P for query rows >= Sq, whose lse, D and dO loads are guarded,
-// so they contribute exactly 0 to dk and dv.
+// tile and loops over K/V tiles; K3's block owns a 64-key tile and loops
+// over q tiles.
 //
 // What bounds it on an H100: at the MAE shapes (S = 52 and 199, head_dim
 // 64 and 32) K2 does 3 and K3 4 products of 2·S²·D flops per (batch,
 // head) against q, k, v, dO, lse and D read once and the gradients
 // written once; with S this short that is under the card's ~295 bf16
-// flops per byte, so the bound is bytes. What the design does about it:
-// P and dS never leave registers (the mma.sync accumulator layout is
-// reused as the next product's A fragment), each block reads its own
-// tile once and streams the other operand's tiles through shared memory.
-// Simple first: synchronous loads, no double buffering; wgmma, TMA and a
-// tile ring are later work.
+// flops per byte, so the bound is bytes. What costs the time is not the
+// bytes or the tensor cores but the elementwise work per score (an FMA,
+// an ex2, a subtract, a multiply and a bf16 pack, K3 twice the packs),
+// which both kernels pay, and each block's serial chains (products,
+// wait, elementwise, products, wait), which only other resident blocks
+// can hide; padding past the sequence costs the same per score.
+//
+// Tried (K2 + K3 at the MAE decoder shape by graph replay, on an NVIDIA
+// H100 80GB HBM3 at 700 W; PERF.md has the table): per-tile mask
+// specialisation, the largest single gain (0.359 -> 0.276 ms); narrower
+// products under a tighter register bound (-> 0.214); a 3-slot ring
+// (-> 0.210); 16-column K2 products at head_dim 32 (K2 0.088 -> 0.086).
+// Register bounds that force spills (4 blocks at head_dim 64, 5 for K3 at
+// 32) ran slower or only as fast, and the build refuses spills.
+//
+// The bf16 kernels for head_dim 32, 64 and 128 (flash_bwd_dq_wgmma,
+// flash_bwd_dkv_wgmma) follow K1's design (flash_fwd.cu):
+//  - warp specialised: one producer warp starts TMA loads through 4-D
+//    tensor maps over the strided (B, S, H, D) views, one consumer
+//    warpgroup computes;
+//  - the block's own pair of tiles (Q and dO in K2, K and V in K3) is
+//    loaded once; the other pair (K and V in K2, Q and dO in K3) streams
+//    through a ring of 3 slots under full/empty mbarriers, so the next
+//    tiles' loads overlap this tile's products;
+//  - K2: S = Q·Kᵀ and dP = dO·Vᵀ are wgmma SS products (both operands
+//    K-major in swizzled shared memory); dS = P ∘ (dP − D) is rounded to
+//    bf16 in registers, where the accumulator layout already is wgmma's A
+//    layout, and dq += dS·K is an RS product with K read through the
+//    descriptor's transpose bit from the ring slot itself;
+//  - K3: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are SS products; Pᵀ and dSᵀ go to bf16
+//    registers and feed dv += Pᵀ·dO and dk += dSᵀ·Q as RS products, dO and
+//    Q read through the transpose bit from the ring slots. No transposed
+//    copy is made anywhere;
+//  - a tile is taken in narrow products of 16 or 32 columns (keys in K2,
+//    query rows in K3), each its own chain of SS products, elementwise
+//    work and RS products: few score registers are live, so the register
+//    bound admits 3-5 blocks an SM at head_dim 32 and 64, which hide each
+//    other's chains; the elementwise work per score is specialised per
+//    tile (no mask, a ragged end, packed heads), so a full tile pays
+//    nothing for masking;
+//  - lse and D cannot come through TMA (a tensor map needs 16-byte
+//    strides; an lse row is Sq x 4 bytes). K2's consumer threads load
+//    their two rows' values into registers; K3's producer warp loads the
+//    streamed tile's 64 values of each into a shared-memory slot beside the
+//    ring slot (plain 4-byte loads, gathered from rows b·H + h in a packed
+//    tile) and each of its lanes arrives on the slot's full barrier;
+//  - exponentials are 2^(s·log2 e − lse·log2 e), one FMA and one ex2;
+//  - a ragged last tile runs a narrower product (N = 16 or 32), and tiles
+//    are sized to the sequence by K1's rule, chosen on the host: for
+//    max(Sq, Sk) <= 32 a 64-row tile packs 2-16 heads of one batch row
+//    (row r is position s0 + (r >> log_pack) of head h0 + (r & pm); 4
+//    heads at the 13-token ring hop) under a block-diagonal mask;
+//  - rows past the sequence arrive from TMA as zeros and are never
+//    stored; a masked score gives P = dS = 0 exactly.
+// Swizzle: a 128-byte row for head_dim 64 and 128, 64 bytes for 32.
+// Helpers live in hopper.cuh.
+//
+// Shape-selected variants kept from the first port:
+//  - head_dim 80 (ViT-H/14) in bf16 runs flash_bwd_dq_bf16 and
+//    flash_bwd_dkv_bf16: mma.sync m16n8k16, 4 warps of 16 rows, plain
+//    16-byte loads and transposed copies in shared memory. 160-byte rows
+//    fit no wgmma swizzle atom;
+//  - float32 runs plain FMA in full f32 (no TF32), 32-row tiles with 4
+//    threads per row. This is the exact path parity runs take.
 //
 // Layout: q, k, v and dO are (B, S, H, D) read through strides (innermost
 // stride 1); lse and D are f32 (B*H, Sq) with row b*H + h (K1's lse
 // layout); dq, dk and dv are written through strides in the input dtype.
 //
-// Two instantiations per head_dim (32, 64, 80, 128):
-//  - bf16: 4 warps of 16 rows, mma.sync m16n8k16 with f32 accumulation.
-//    K2: 64 q rows per block, 64-key tiles. K3: 64 keys per block; the q
-//    tile is 64 rows up to head_dim 80 and 32 rows at 128, so that the
-//    two (16 x head_dim) f32 accumulators of dk and dv plus the (16 x
-//    q tile) score tiles fit in registers without spills.
-//  - f32: plain FMA in full f32 (no TF32), 32-row tiles with 4 threads per
-//    row. This is the exact path parity runs take.
-//
 // Plain C interface, loaded with ctypes: each entry point returns
 // cudaGetLastError() after its launch (0 on success).
 
+#include <type_traits>
+
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace jumbo_flash;
+namespace hp = jumbo_hopper;
 
 struct BwdParams {
   const void* q;
@@ -71,19 +120,452 @@ struct BwdParams {
   int B, H, Sq, Sk;
 };
 
-// ---------------------------------------------------------------- bf16 path
+// ------------------------------------- bf16 path (K2, K3): wgmma + TMA
+
+constexpr int kWgRows = 64;           // rows of every tile: q rows (K2) or keys (K3) per block
+constexpr int kStages = 3;            // ring slots of the streamed pair of tiles
+constexpr int kWgThreads = 128 + 32;  // one consumer warpgroup and the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct BwdTile : hp::SwizzledTile<D> {
+  // the block's own pair of tiles and kStages slots of the streamed pair,
+  // + 1024 bytes for alignment
+  static constexpr size_t kSmem = 1024 + (2 + 2 * kStages) * hp::SwizzledTile<D>::kTileBytes;
+  // columns per product (keys in K2, query rows in K3) and the blocks per
+  // SM the registers must allow, chosen on the H100 (PERF.md): narrow
+  // products keep few score registers live, so more blocks run at once
+  // and hide each other's serial chains (at head_dim 32: K2 at 72
+  // registers, 5 blocks; K3 at 88, 4 blocks). At head_dim 128 the
+  // accumulators alone take 64 (K2) and 128 (K3) registers: one block.
+  static constexpr int kDqCols = D == 32 ? 16 : D == 64 ? 32 : 64;
+  static constexpr int kDkvCols = D == 128 ? 32 : 16;
+  static constexpr int kMinBlocksDq = D == 32 ? 5 : D == 64 ? 3 : 1;
+  static constexpr int kMinBlocksDkv = D == 32 ? 4 : D == 64 ? 3 : 1;
+};
+
+struct WgParams {
+  void* out0;          // K2: dq; K3: dk
+  void* out1;          // K3: dv
+  const float* lse;    // (B*H, Sq)
+  const float* delta;  // (B*H, Sq)
+  Strides os0, os1;
+  int B, H, Sq, Sk;
+  int log_pack;  // 2^log_pack heads share one 64-row tile
+};
+
+// Stores rows r0 and r0 + 8 of an m64nD accumulator as bf16, each to its
+// (position, head) through the strides; rows past Sq/Sk or H are skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(void* out, const Strides& os, const float (&x)[D / 2], int r0,
+                                           int t, int s0, int h0, int b, int log_pack, int S, int H) {
+  __nv_bfloat16* base = static_cast<__nv_bfloat16*>(out);
+  const int pm = (1 << log_pack) - 1;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const int s = s0 + (row >> log_pack);
+    const int h = h0 + (row & pm);
+    if (s >= S || h >= H) continue;
+    __nv_bfloat16* dst = base + b * os.b + s * os.s + h * os.h;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dst + j * 8 + 2 * t) = pack_bf16x2(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// How a tile's columns (keys in K2, query rows in K3) are masked, chosen
+// per tile so that a full tile pays nothing for it: kNoMask, every column
+// holds one; kRagged, one head whose sequence ends inside the tile
+// (columns >= lim masked); kPacked, 2^log_pack heads, where a column must
+// be the row's head at a position below lim.
+enum MaskKind { kNoMask, kRagged, kPacked };
+
+// The rows a consumer thread owns and its place in the row's quad.
+struct RowInfo {
+  int t;         // lane % 4: columns 2t, 2t+1 of every 8-column chunk
+  int head[2];   // the packed head of rows r0 and r0 + 8 (0 when unpacked)
+  int log_pack;  // 2^log_pack heads per tile
+};
+
+template <MaskKind kMask>
+__device__ __forceinline__ bool keep_col(int c, int r, int lim, const RowInfo& ri) {
+  if constexpr (kMask == kNoMask) {
+    return true;
+  } else if constexpr (kMask == kRagged) {
+    return c < lim;
+  } else {
+    return (c >> ri.log_pack) < lim && (c & ((1 << ri.log_pack) - 1)) == ri.head[r];
+  }
+}
+
+// f(width, c0) over the first `cols` columns of a tile, in products of
+// kCols columns at most, each at the narrowest width (16, 32 or 64) that
+// holds what is left.
+template <int kCols, typename F>
+__device__ __forceinline__ void for_each_chunk(int cols, F&& f) {
+  for (int c0 = 0; c0 < cols; c0 += kCols) {
+    const int left = cols - c0;
+    if (kCols == 16 || left <= 16) {
+      f(std::integral_constant<int, 16>{}, c0);
+    } else if (kCols == 32 || left <= 32) {
+      f(std::integral_constant<int, 32>{}, c0);
+    } else if constexpr (kCols == 64) {
+      f(std::integral_constant<int, 64>{}, c0);
+    }
+  }
+}
+
+// Keys [c0, c0 + kKeys) of one K/V tile for K2's consumer warpgroup:
+// S = Q·Kᵀ and dP = dO·Vᵀ; P = 2^(S·log2 e − lse·log2 e); dS = P ∘ (dP −
+// D), 0 on masked columns, rounded to bf16; dq += dS·K. `lim` is the
+// number of the tile's positions that hold keys.
+template <int D, int kKeys, MaskKind kMask>
+__device__ __forceinline__ void dq_cols(float (&dq)[D / 2], uint32_t q_tile, uint32_t do_tile,
+                                        uint32_t k_tile, uint32_t v_tile, int c0, int lim, const RowInfo& ri,
+                                        const float (&lse2)[2], const float (&dd)[2]) {
+  using T = hp::SwizzledTile<D>;
+  float s[kKeys / 2], dp[kKeys / 2];
+#pragma unroll
+  for (int i = 0; i < kKeys / 2; ++i) s[i] = dp[i] = 0.f;
+  const uint64_t desc_q = T::kmajor(q_tile, 0), desc_k = T::kmajor(k_tile, c0);
+  const uint64_t desc_do = T::kmajor(do_tile, 0), desc_v = T::kmajor(v_tile, c0);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    hp::wgmma_ss<kKeys>(s, desc_q + T::k_step(kk), desc_k + T::k_step(kk), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    hp::wgmma_ss<kKeys>(dp, desc_do + T::k_step(kk), desc_v + T::k_step(kk), kk > 0);
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait_all();
+  hp::fence_operands(s);
+  hp::fence_operands(dp);
+
+#pragma unroll
+  for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const bool keep = keep_col<kMask>(c0 + 8 * j + 2 * ri.t + (e & 1), r, lim, ri);
+      const float pr = hp::fast_exp2(fmaf(s[4 * j + e], kLog2e, -lse2[r]));
+      s[4 * j + e] = keep ? pr * (dp[4 * j + e] - dd[r]) : 0.f;
+    }
+  }
+
+  // dq += dS·K: keys 16kk..16kk+15 as the A fragment, K's rows of the step
+  // as B, MN-major through the transpose bit
+  uint32_t a[kKeys / 16][4];
+  acc_to_a<kKeys>(a, s);
+  const uint64_t desc_kt = T::mnmajor(k_tile, c0);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) hp::wgmma_rs<D>(dq, a[kk], desc_kt + T::mn_step(kk));
+  hp::wgmma_commit();
+  hp::wgmma_wait_all();
+  hp::fence_operands(dq);
+  hp::fence_operands(a);
+}
+
+// One K/V tile for K2: its first `cols` columns (only they can hold keys).
+template <int D, MaskKind kMask>
+__device__ __forceinline__ void dq_tile(int cols, float (&dq)[D / 2], uint32_t q_tile, uint32_t do_tile,
+                                        uint32_t k_tile, uint32_t v_tile, int lim, const RowInfo& ri,
+                                        const float (&lse2)[2], const float (&dd)[2]) {
+  for_each_chunk<BwdTile<D>::kDqCols>(cols, [&](auto n, int c0) {
+    dq_cols<D, decltype(n)::value, kMask>(dq, q_tile, do_tile, k_tile, v_tile, c0, lim, ri, lse2, dd);
+  });
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDq)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                       WgParams p) {
+  using T = BwdTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // own_full, full[], empty[]
+
+  const uint32_t q_tile = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t do_tile = q_tile + T::kTileBytes;
+  const uint32_t k_smem = do_tile + T::kTileBytes;  // kStages K tiles, then kStages V tiles
+  const uint32_t v_smem = k_smem + kStages * T::kTileBytes;
+  const uint32_t own_full = hp::smem_u32(&bars[0]);
+  const uint32_t full0 = hp::smem_u32(&bars[1]);
+  const uint32_t empty0 = hp::smem_u32(&bars[1 + kStages]);
+
+  const int pm = (1 << p.log_pack) - 1;
+  const int rows_s = kWgRows >> p.log_pack;  // sequence positions per tile
+  const int s0 = blockIdx.x * rows_s;
+  const int h0 = blockIdx.y << p.log_pack;
+  const int b = blockIdx.z;
+  const int n_tiles = (p.Sk + rows_s - 1) / rows_s;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(own_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(full0 + 8 * s, 1);
+      hp::mbar_init(empty0 + 8 * s, 4);  // one arrival per consumer warp
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---- the producer warp: one lane starts every load
+    if (lane == 0) {
+      hp::mbar_arrive_expect_tx(own_full, 2 * T::kTileBytes);
+      for (int pn = 0; pn < T::kPanels; ++pn) {
+        const uint32_t off = pn * T::kPanelBytes;
+        hp::tma_load_4d(q_tile + off, &tm_q, own_full, pn * T::kPanelCols, h0, s0, b);
+        hp::tma_load_4d(do_tile + off, &tm_do, own_full, pn * T::kPanelCols, h0, s0, b);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % kStages;
+        hp::mbar_wait(empty0 + 8 * st, ((n / kStages) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * st;
+        hp::mbar_arrive_expect_tx(full, 2 * T::kTileBytes);
+        for (int pn = 0; pn < T::kPanels; ++pn) {
+          const uint32_t off = st * T::kTileBytes + pn * T::kPanelBytes;
+          hp::tma_load_4d(k_smem + off, &tm_k, full, pn * T::kPanelCols, h0, n * rows_s, b);
+          hp::tma_load_4d(v_smem + off, &tm_v, full, pn * T::kPanelCols, h0, n * rows_s, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: rows r0 = 16·warp + lane / 4 and r0 + 8,
+  // with their lse (times log2 e) and D in registers; pad rows read nothing
+  const int r0 = 16 * warp + (lane >> 2);
+  const RowInfo ri{lane & 3, {r0 & pm, (r0 + 8) & pm}, p.log_pack};
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const int sq = s0 + (row >> p.log_pack);
+    const int h = h0 + (row & pm);
+    const bool ok = sq < p.Sq && h < p.H;
+    const long long i = (static_cast<long long>(b) * p.H + h) * p.Sq + sq;
+    lse2[r] = ok ? p.lse[i] * kLog2e : 0.f;
+    dd[r] = ok ? p.delta[i] : 0.f;
+  }
+
+  float dq[D / 2];  // chunk j (columns 8j..8j+7) in dq[4j..4j+3]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  hp::mbar_wait(own_full, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = n % kStages;
+    hp::mbar_wait(full0 + 8 * st, (n / kStages) & 1);
+    const uint32_t k_tile = k_smem + st * T::kTileBytes;
+    const uint32_t v_tile = v_smem + st * T::kTileBytes;
+    // positions of this tile that hold keys, and the columns they fill
+    const int lim = min(rows_s, p.Sk - n * rows_s);
+    const int cols = lim << p.log_pack;
+    if (p.log_pack > 0) {
+      dq_tile<D, kPacked>(cols, dq, q_tile, do_tile, k_tile, v_tile, lim, ri, lse2, dd);
+    } else if (lim < kWgRows) {
+      dq_tile<D, kRagged>(cols, dq, q_tile, do_tile, k_tile, v_tile, lim, ri, lse2, dd);
+    } else {
+      dq_tile<D, kNoMask>(cols, dq, q_tile, do_tile, k_tile, v_tile, lim, ri, lse2, dd);
+    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(empty0 + 8 * st);  // this warp is done with the slot
+  }
+  store_rows<D>(p.out0, p.os0, dq, r0, ri.t, s0, h0, b, p.log_pack, p.Sq, p.H);
+}
+
+// Columns [c0, c0 + N) of one streamed q tile for K3's consumer
+// warpgroup: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ; Pᵀ = 2^(Sᵀ·log2 e − lse·log2 e)
+// and dSᵀ = Pᵀ ∘ (dPᵀ − D), both 0 on masked columns (query rows past the
+// sequence, other heads' rows) and rounded to bf16 for dv += Pᵀ·dO and
+// dk += dSᵀ·Q. lse2 and dd hold the tile's 64 per-row values (lse times
+// log2 e, D); `lim` is the number of the tile's positions that hold rows.
+template <int D, int N, MaskKind kMask>
+__device__ __forceinline__ void dkv_cols(float (&dk)[D / 2], float (&dv)[D / 2], uint32_t k_tile,
+                                         uint32_t v_tile, uint32_t q_tile, uint32_t do_tile, int c0,
+                                         const float* lse2, const float* dd, int lim, const RowInfo& ri) {
+  using T = hp::SwizzledTile<D>;
+  float s[N / 2], dp[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = dp[i] = 0.f;
+  const uint64_t desc_k = T::kmajor(k_tile, 0), desc_q = T::kmajor(q_tile, c0);
+  const uint64_t desc_v = T::kmajor(v_tile, 0), desc_do = T::kmajor(do_tile, c0);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    hp::wgmma_ss<N>(s, desc_k + T::k_step(kk), desc_q + T::k_step(kk), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    hp::wgmma_ss<N>(dp, desc_v + T::k_step(kk), desc_do + T::k_step(kk), kk > 0);
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait_all();
+  hp::fence_operands(s);
+  hp::fence_operands(dp);
+
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = c0 + 8 * j + 2 * ri.t;  // this thread's columns c and c + 1
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + c);
+    const float2 d2 = *reinterpret_cast<const float2*>(dd + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool keep = keep_col<kMask>(c + (e & 1), e >> 1, lim, ri);
+      const float pr = hp::fast_exp2(fmaf(s[4 * j + e], kLog2e, -((e & 1) ? l2.y : l2.x)));
+      s[4 * j + e] = keep ? pr : 0.f;
+      dp[4 * j + e] = keep ? pr * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x)) : 0.f;
+    }
+  }
+
+  // dv += Pᵀ·dO and dk += dSᵀ·Q: q rows c0 + 16kk.. as the k step, dO and
+  // Q MN-major through the transpose bit
+  uint32_t ap[N / 16][4], ads[N / 16][4];
+  acc_to_a<N>(ap, s);
+  acc_to_a<N>(ads, dp);
+  const uint64_t desc_dot = T::mnmajor(do_tile, c0), desc_qt = T::mnmajor(q_tile, c0);
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    hp::wgmma_rs<D>(dv, ap[kk], desc_dot + T::mn_step(kk));
+    hp::wgmma_rs<D>(dk, ads[kk], desc_qt + T::mn_step(kk));
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait_all();
+  hp::fence_operands(dk);
+  hp::fence_operands(dv);
+  hp::fence_operands(ap);
+  hp::fence_operands(ads);
+}
+
+// One q tile for K3: its first `cols` columns (only they can hold rows).
+template <int D, MaskKind kMask>
+__device__ __forceinline__ void dkv_tile(int cols, float (&dk)[D / 2], float (&dv)[D / 2], uint32_t k_tile,
+                                         uint32_t v_tile, uint32_t q_tile, uint32_t do_tile, const float* lse2,
+                                         const float* dd, int lim, const RowInfo& ri) {
+  for_each_chunk<BwdTile<D>::kDkvCols>(cols, [&](auto n, int c0) {
+    dkv_cols<D, decltype(n)::value, kMask>(dk, dv, k_tile, v_tile, q_tile, do_tile, c0, lse2, dd, lim, ri);
+  });
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDkv)
+    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                        WgParams p) {
+  using T = BwdTile<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // own_full, full[], empty[]
+  __shared__ __align__(16) float lse_s[kStages][kWgRows];  // lse·log2 e of the slot's q rows
+  __shared__ __align__(16) float dd_s[kStages][kWgRows];   // D of the slot's q rows
+
+  const uint32_t k_tile = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_tile = k_tile + T::kTileBytes;
+  const uint32_t q_smem = v_tile + T::kTileBytes;  // kStages Q tiles, then kStages dO tiles
+  const uint32_t do_smem = q_smem + kStages * T::kTileBytes;
+  const uint32_t own_full = hp::smem_u32(&bars[0]);
+  const uint32_t full0 = hp::smem_u32(&bars[1]);
+  const uint32_t empty0 = hp::smem_u32(&bars[1 + kStages]);
+
+  const int pm = (1 << p.log_pack) - 1;
+  const int rows_s = kWgRows >> p.log_pack;
+  const int s0 = blockIdx.x * rows_s;  // this block's first key position
+  const int h0 = blockIdx.y << p.log_pack;
+  const int b = blockIdx.z;
+  const int n_tiles = (p.Sq + rows_s - 1) / rows_s;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    hp::mbar_init(own_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(full0 + 8 * s, 1 + 32);  // the TMA arrival and one per producer lane
+      hp::mbar_init(empty0 + 8 * s, 4);      // one arrival per consumer warp
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---- the producer warp: lane 0 starts the TMA loads,
+                    // every lane loads lse and D of two of the tile's rows
+    if (lane == 0) {
+      hp::mbar_arrive_expect_tx(own_full, 2 * T::kTileBytes);
+      for (int pn = 0; pn < T::kPanels; ++pn) {
+        const uint32_t off = pn * T::kPanelBytes;
+        hp::tma_load_4d(k_tile + off, &tm_k, own_full, pn * T::kPanelCols, h0, s0, b);
+        hp::tma_load_4d(v_tile + off, &tm_v, own_full, pn * T::kPanelCols, h0, s0, b);
+      }
+    }
+    for (int n = 0; n < n_tiles; ++n) {
+      const int st = n % kStages;
+      hp::mbar_wait(empty0 + 8 * st, ((n / kStages) & 1) ^ 1);
+      const uint32_t full = full0 + 8 * st;
+      if (lane == 0) {
+        hp::mbar_arrive_expect_tx(full, 2 * T::kTileBytes);
+        for (int pn = 0; pn < T::kPanels; ++pn) {
+          const uint32_t off = st * T::kTileBytes + pn * T::kPanelBytes;
+          hp::tma_load_4d(q_smem + off, &tm_q, full, pn * T::kPanelCols, h0, n * rows_s, b);
+          hp::tma_load_4d(do_smem + off, &tm_do, full, pn * T::kPanelCols, h0, n * rows_s, b);
+        }
+      }
+      for (int r = lane; r < kWgRows; r += 32) {
+        const int sq = n * rows_s + (r >> p.log_pack);
+        const int h = h0 + (r & pm);
+        const bool ok = sq < p.Sq && h < p.H;
+        const long long i = (static_cast<long long>(b) * p.H + h) * p.Sq + sq;
+        lse_s[st][r] = ok ? p.lse[i] * kLog2e : 0.f;
+        dd_s[st][r] = ok ? p.delta[i] : 0.f;
+      }
+      hp::mbar_arrive(full);  // release: this lane's two rows are stored
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: key rows r0 = 16·warp + lane / 4 and r0 + 8
+  const int r0 = 16 * warp + (lane >> 2);
+  const RowInfo ri{lane & 3, {r0 & pm, (r0 + 8) & pm}, p.log_pack};
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  hp::mbar_wait(own_full, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int st = n % kStages;
+    hp::mbar_wait(full0 + 8 * st, (n / kStages) & 1);
+    const uint32_t q_tile = q_smem + st * T::kTileBytes;
+    const uint32_t do_tile = do_smem + st * T::kTileBytes;
+    // positions of this tile that hold query rows, and the columns they fill
+    const int lim = min(rows_s, p.Sq - n * rows_s);
+    const int cols = lim << p.log_pack;
+    if (p.log_pack > 0) {
+      dkv_tile<D, kPacked>(cols, dk, dv, k_tile, v_tile, q_tile, do_tile, lse_s[st], dd_s[st], lim, ri);
+    } else if (lim < kWgRows) {
+      dkv_tile<D, kRagged>(cols, dk, dv, k_tile, v_tile, q_tile, do_tile, lse_s[st], dd_s[st], lim, ri);
+    } else {
+      dkv_tile<D, kNoMask>(cols, dk, dv, k_tile, v_tile, q_tile, do_tile, lse_s[st], dd_s[st], lim, ri);
+    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(empty0 + 8 * st);  // this warp is done with the slot
+  }
+  store_rows<D>(p.out0, p.os0, dk, r0, ri.t, s0, h0, b, p.log_pack, p.Sk, p.H);
+  store_rows<D>(p.out1, p.os1, dv, r0, ri.t, s0, h0, b, p.log_pack, p.Sk, p.H);
+}
+
+// ------------------------------------------ bf16 path, head_dim 80: mma.sync
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kDqRows = 16 * kWarps;  // K2: q rows per block
 constexpr int kDqKeys = 64;           // K2: keys per K/V tile
 constexpr int kDkvKeys = 16 * kWarps; // K3: keys per block
-
-// K3's q tile: see the register budget in the header comment.
-template <int D>
-__host__ __device__ constexpr int dkv_q_rows() {
-  return D <= 80 ? 64 : 32;
-}
+constexpr int kDkvQ = 64;             // K3: q rows per streamed tile
 
 template <int D>
 constexpr size_t smem_dq_bf16() {
@@ -207,7 +689,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(BwdParams p) {
 
 template <int D>
 constexpr size_t smem_dkv_bf16() {
-  constexpr int kQ = dkv_q_rows<D>();
+  constexpr int kQ = kDkvQ;
   // ks, vs [kDkvKeys][D+kPad]; qs, dos [kQ][D+kPad]; qt, dot [D][kQ+kPad];
   // lse, D [kQ] f32
   return sizeof(__nv_bfloat16) * (2 * kDkvKeys * (D + kPad) + 2 * kQ * (D + kPad) +
@@ -218,7 +700,7 @@ constexpr size_t smem_dkv_bf16() {
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(BwdParams p) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int kQ = dkv_q_rows<D>();
+  constexpr int kQ = kDkvQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int ld = D + kPad;
   constexpr int ldt = kQ + kPad;
@@ -514,11 +996,69 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dkv_f32(BwdParams p) {
 
 // ------------------------------------------------------------------ launch
 
+// Heads per 64-row tile, K1's rule: as many as fit both lengths into 64
+// rows, up to H's next power of two; one head for lengths over 32.
+int pack_log(const BwdParams& p) {
+  int lp = 0;
+  const int longest = p.Sq > p.Sk ? p.Sq : p.Sk;
+  while ((kWgRows >> (lp + 1)) >= longest && (1 << lp) < p.H) ++lp;
+  return lp;
+}
+
+// Tensor maps of q, k, v and dO (in that order), boxes of one swizzled
+// panel by 2^lp heads by 64 >> lp positions.
+template <int D>
+cudaError_t encode_maps(CUtensorMap (&m)[4], const BwdParams& p, int lp) {
+  constexpr int pw = hp::SwizzledTile<D>::kPanelCols;
+  const int rows_s = kWgRows >> lp;
+  const struct {
+    const void* base;
+    int S;
+    Strides st;
+  } views[4] = {{p.q, p.Sq, p.qs}, {p.k, p.Sk, p.ks}, {p.v, p.Sk, p.vs}, {p.dout, p.Sq, p.dos}};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = hp::encode_bshd(&m[i], views[i].base, p.B, views[i].S, p.H, D, views[i].st.b,
+                                            views[i].st.s, views[i].st.h, pw, 1 << lp, rows_s);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// K2 (dq, `dkv` false) or K3 (dk, dv) through the wgmma kernels; a block
+// per 64-row tile of q rows (K2) or keys (K3).
+template <int D, bool dkv>
+cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
+  using T = BwdTile<D>;
+  const int lp = pack_log(p);
+  CUtensorMap m[4];
+  cudaError_t err = encode_maps<D>(m, p, lp);
+  if (err != cudaSuccess) return err;
+  WgParams w;
+  w.out0 = dkv ? p.dk : p.dq;
+  w.out1 = p.dv;
+  w.lse = p.lse;
+  w.delta = p.delta;
+  w.os0 = dkv ? p.dks : p.dqs;
+  w.os1 = p.dvs;
+  w.B = p.B;
+  w.H = p.H;
+  w.Sq = p.Sq;
+  w.Sk = p.Sk;
+  w.log_pack = lp;
+  const auto kernel = dkv ? flash_bwd_dkv_wgmma<D> : flash_bwd_dq_wgmma<D>;
+  static std::atomic<unsigned long long> smem_set{0};
+  err = allow_smem(kernel, T::kSmem, smem_set);
+  if (err != cudaSuccess) return err;
+  const int rows_s = kWgRows >> lp;
+  const dim3 grid(((dkv ? p.Sk : p.Sq) + rows_s - 1) / rows_s, (p.H + (1 << lp) - 1) >> lp, p.B);
+  kernel<<<grid, kWgThreads, T::kSmem, stream>>>(m[0], m[1], m[2], m[3], w);
+  return cudaGetLastError();
+}
+
 template <typename Kernel>
-cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
-                          const BwdParams& p, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem, const BwdParams& p,
+                          cudaStream_t stream, std::atomic<unsigned long long>& smem_set) {
+  const cudaError_t err = allow_smem(kernel, smem, smem_set);
   if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -527,21 +1067,33 @@ cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem,
 template <int D>
 cudaError_t launch_dq(const BwdParams& p, int dtype, cudaStream_t stream) {
   if (dtype == 1) {
-    const dim3 grid((p.Sq + kDqRows - 1) / kDqRows, p.H, p.B);
-    return launch_kernel(flash_bwd_dq_bf16<D>, grid, kThreads, smem_dq_bf16<D>(), p, stream);
+    if constexpr (D == 80) {
+      static std::atomic<unsigned long long> smem_set{0};
+      const dim3 grid((p.Sq + kDqRows - 1) / kDqRows, p.H, p.B);
+      return launch_kernel(flash_bwd_dq_bf16<D>, grid, kThreads, smem_dq_bf16<D>(), p, stream, smem_set);
+    } else {
+      return launch_wgmma<D, false>(p, stream);
+    }
   }
+  static std::atomic<unsigned long long> smem_set{0};
   const dim3 grid((p.Sq + kF32Rows - 1) / kF32Rows, p.H, p.B);
-  return launch_kernel(flash_bwd_dq_f32<D>, grid, kF32Threads, smem_bwd_f32<D>(), p, stream);
+  return launch_kernel(flash_bwd_dq_f32<D>, grid, kF32Threads, smem_bwd_f32<D>(), p, stream, smem_set);
 }
 
 template <int D>
 cudaError_t launch_dkv(const BwdParams& p, int dtype, cudaStream_t stream) {
   if (dtype == 1) {
-    const dim3 grid((p.Sk + kDkvKeys - 1) / kDkvKeys, p.H, p.B);
-    return launch_kernel(flash_bwd_dkv_bf16<D>, grid, kThreads, smem_dkv_bf16<D>(), p, stream);
+    if constexpr (D == 80) {
+      static std::atomic<unsigned long long> smem_set{0};
+      const dim3 grid((p.Sk + kDkvKeys - 1) / kDkvKeys, p.H, p.B);
+      return launch_kernel(flash_bwd_dkv_bf16<D>, grid, kThreads, smem_dkv_bf16<D>(), p, stream, smem_set);
+    } else {
+      return launch_wgmma<D, true>(p, stream);
+    }
   }
+  static std::atomic<unsigned long long> smem_set{0};
   const dim3 grid((p.Sk + kF32Rows - 1) / kF32Rows, p.H, p.B);
-  return launch_kernel(flash_bwd_dkv_f32<D>, grid, kF32Threads, smem_bwd_f32<D>(), p, stream);
+  return launch_kernel(flash_bwd_dkv_f32<D>, grid, kF32Threads, smem_bwd_f32<D>(), p, stream, smem_set);
 }
 
 bool valid(int dtype, int B, int H, int Sq, int Sk) {

@@ -5,6 +5,8 @@
 
 #pragma once
 
+#include <atomic>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,6 +69,20 @@ __device__ __forceinline__ void acc_to_a_frag(uint32_t (&a)[4], const float (&lo
   a[1] = pack_bf16x2(lo[2], lo[3]);
   a[2] = pack_bf16x2(hi[0], hi[1]);
   a[3] = pack_bf16x2(hi[2], hi[3]);
+}
+
+// The bf16 A fragments of a wgmma m64nN accumulator, whose chunk j
+// (columns 8j..8j+7) is x[4j..4j+3] in the mma.sync layout: k step kk
+// (columns 16kk..16kk+15) is chunks 2kk and 2kk+1.
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    a[kk][0] = pack_bf16x2(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16x2(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16x2(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16x2(x[8 * kk + 6], x[8 * kk + 7]);
+  }
 }
 
 // Rows [row0, row0 + kRows) of one (batch, head) slice into shared memory,
@@ -132,6 +148,21 @@ __device__ __forceinline__ void load_row_scalars(float* dst, const float* src,
   for (int i = threadIdx.x; i < rows; i += kThreads) {
     dst[i] = (row0 + i < n) ? src[row0 + i] : 0.f;
   }
+}
+
+// The maximum dynamic shared memory of `kernel`, raised once per device
+// (`done` holds one bit per device ordinal), not on every launch.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 }  // namespace jumbo_flash

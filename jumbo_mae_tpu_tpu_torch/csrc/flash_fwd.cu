@@ -64,8 +64,6 @@
 // Plain C interface, loaded with ctypes: jumbo_flash_fwd returns a
 // cudaError_t after the launch (0 on success).
 
-#include <atomic>
-
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -84,20 +82,6 @@ struct Params {
   int B, H, Sq, Sk;
 };
 
-// The maximum dynamic shared memory of `kernel`, raised once per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
-
 // ------------------------------------------------- bf16 path: wgmma + TMA
 
 constexpr int kTileRows = 64;  // query rows per block = keys per K/V tile
@@ -105,15 +89,8 @@ constexpr int kStages = 2;     // K/V ring slots (3 measured no faster)
 constexpr int kThreads = 128 + 32;  // one consumer warpgroup and the producer warp
 
 template <int D>
-struct WgTile {
-  static constexpr int kPanelCols = D < 64 ? D : 64;     // columns per swizzled panel
-  static constexpr int kPanels = D / kPanelCols;
-  static constexpr int kRowBytes = kPanelCols * 2;       // 64 or 128: the swizzle
-  static constexpr int kPanelBytes = kTileRows * kRowBytes;
-  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 64 rows x D
-  static constexpr int kAtomBytes = 8 * kRowBytes;       // one 8-row swizzle atom
-  static constexpr hp::SwizzleBytes kSwizzle = kRowBytes == 128 ? hp::kSwizzle128 : hp::kSwizzle64;
-  static constexpr size_t kSmem = 1024 + (1 + 2 * kStages) * kTileBytes;  // + alignment
+struct WgTile : hp::SwizzledTile<D> {
+  static constexpr size_t kSmem = 1024 + (1 + 2 * kStages) * hp::SwizzledTile<D>::kTileBytes;  // + alignment
   // blocks per SM the registers must allow: 4 (96 registers a thread) for
   // head_dim <= 64, where more blocks in flight hide each block's serial
   // product -> softmax -> product chain; head_dim 128 needs ~160 registers
@@ -127,30 +104,6 @@ struct WgParams {
   int B, H, Sq, Sk;
   int log_pack;  // 2^log_pack heads share one 64-row tile
 };
-
-template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&a)[4],
-                                           uint64_t desc) {
-  if constexpr (D == 32) {
-    hp::wgmma_rs_m64n32k16(o, a, desc);
-  } else if constexpr (D == 64) {
-    hp::wgmma_rs_m64n64k16(o, a, desc);
-  } else {
-    hp::wgmma_rs_m64n128k16(o, a, desc);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void qk_product(float (&s)[N / 2], uint64_t desc_q, uint64_t desc_k,
-                                           int scale_d) {
-  if constexpr (N == 16) {
-    hp::wgmma_ss_m64n16k16(s, desc_q, desc_k, scale_d);
-  } else if constexpr (N == 32) {
-    hp::wgmma_ss_m64n32k16(s, desc_q, desc_k, scale_d);
-  } else {
-    hp::wgmma_ss_m64n64k16(s, desc_q, desc_k, scale_d);
-  }
-}
 
 // The rows a consumer thread owns, and its place in the row's quad.
 struct RowInfo {
@@ -173,14 +126,11 @@ __device__ __forceinline__ void attend_tile(float (&o)[D / 2], float (&m_run)[2]
   float s[kKeys / 2];
 #pragma unroll
   for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
-  // a k step moves the descriptors' start address (bits 0-13, in 16 bytes)
-  const uint64_t desc_q = hp::smem_desc(q_tile, 16, T::kAtomBytes, T::kSwizzle);
-  const uint64_t desc_k = hp::smem_desc(k_tile, 16, T::kAtomBytes, T::kSwizzle);
+  const uint64_t desc_q = T::kmajor(q_tile, 0), desc_k = T::kmajor(k_tile, 0);
   hp::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t off = (kk * 16 / T::kPanelCols) * T::kPanelBytes + (kk * 16 % T::kPanelCols) * 2;
-    qk_product<kKeys>(s, desc_q + (off >> 4), desc_k + (off >> 4), kk > 0);
+    hp::wgmma_ss<kKeys>(s, desc_q + T::k_step(kk), desc_k + T::k_step(kk), kk > 0);
   }
   hp::wgmma_commit();
   hp::wgmma_wait_all();
@@ -240,19 +190,11 @@ __device__ __forceinline__ void attend_tile(float (&o)[D / 2], float (&m_run)[2]
   // o += P·V: keys 16kk..16kk+15 (chunks 2kk, 2kk+1) as the A fragment,
   // V's 16 rows of the step as B, MN-major
   uint32_t a[kKeys / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
-    a[kk][0] = pack_bf16x2(s[8 * kk], s[8 * kk + 1]);
-    a[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
-    a[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
-    a[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
-  }
-  const uint64_t desc_v = hp::smem_desc(v_tile, T::kPanelBytes, T::kAtomBytes, T::kSwizzle);
+  acc_to_a<kKeys>(a, s);
+  const uint64_t desc_v = T::mnmajor(v_tile, 0);
   hp::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
-    pv_product<D>(o, a[kk], desc_v + ((kk * 16 * T::kRowBytes) >> 4));
-  }
+  for (int kk = 0; kk < kKeys / 16; ++kk) hp::wgmma_rs<D>(o, a[kk], desc_v + T::mn_step(kk));
   hp::wgmma_commit();
   hp::wgmma_wait_all();
   hp::fence_operands(o);

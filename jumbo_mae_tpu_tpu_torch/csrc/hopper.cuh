@@ -240,6 +240,69 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d (+)= A·Bᵀ over one 16-deep k step, both operands K-major in shared
+// memory: the m64nNk16 product of width N (16, 32 or 64).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  if constexpr (N == 16) {
+    wgmma_ss_m64n16k16(d, desc_a, desc_b, scale_d);
+  } else if constexpr (N == 32) {
+    wgmma_ss_m64n32k16(d, desc_a, desc_b, scale_d);
+  } else {
+    static_assert(N == 64, "wgmma_ss: N is 16, 32 or 64");
+    wgmma_ss_m64n64k16(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// d += A·B over one 16-deep k step, A from registers, B MN-major in shared
+// memory: the m64nNk16 product of width N (32, 64 or 128).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 32) {
+    wgmma_rs_m64n32k16(d, a, desc_b);
+  } else if constexpr (N == 64) {
+    wgmma_rs_m64n64k16(d, a, desc_b);
+  } else {
+    static_assert(N == 128, "wgmma_rs: N is 32, 64 or 128");
+    wgmma_rs_m64n128k16(d, a, desc_b);
+  }
+}
+
+// A 64-row bf16 tile of head_dim D as TMA writes it with the swizzle of
+// its row: panels of 64 columns (one of D columns for head_dim 32), each
+// 64 rows of kRowBytes, 1024-byte aligned.
+template <int D>
+struct SwizzledTile {
+  static constexpr int kRows = 64;
+  static constexpr int kPanelCols = D < 64 ? D : 64;     // columns per swizzled panel
+  static constexpr int kPanels = D / kPanelCols;
+  static constexpr int kRowBytes = kPanelCols * 2;       // 64 or 128: the swizzle
+  static constexpr int kPanelBytes = kRows * kRowBytes;
+  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 64 rows x D
+  static constexpr int kAtomBytes = 8 * kRowBytes;       // one 8-row swizzle atom
+  static constexpr SwizzleBytes kSwizzle = kRowBytes == 128 ? kSwizzle128 : kSwizzle64;
+
+  // The tile as a K-major operand (rows are M or N, columns are k) starting
+  // at row `row0` (a multiple of 8); `k_step(kk)` is added for k step kk.
+  __device__ static uint64_t kmajor(uint32_t tile, int row0) {
+    return smem_desc(tile + row0 * kRowBytes, 16, kAtomBytes, kSwizzle);
+  }
+  __device__ static uint64_t k_step(int kk) {
+    return static_cast<uint64_t>(((kk * 16 / kPanelCols) * kPanelBytes + (kk * 16 % kPanelCols) * 2) >> 4);
+  }
+  // The tile as an MN-major B operand through the transpose bit (rows are
+  // k, columns are N) starting at row `row0` (a multiple of 16); a k step
+  // of 16 rows adds `mn_step(kk)`.
+  __device__ static uint64_t mnmajor(uint32_t tile, int row0) {
+    return smem_desc(tile + row0 * kRowBytes, kPanelBytes, kAtomBytes, kSwizzle);
+  }
+  __device__ static uint64_t mn_step(int kk) {
+    return static_cast<uint64_t>((kk * 16 * kRowBytes) >> 4);
+  }
+};
+
 // ------------------------------------------------------------- the host
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -11,7 +11,9 @@ outputs and launches them on PyTorch's current stream.
   ``LAUNCHES`` counts K1's launches.
 - :func:`flash_attention_bwd` computes D = rowsum(dO ∘ O)
   (:func:`attention_delta`, plain torch) and launches K2, then K3, for
-  CUDA tensors; CPU tensors take :func:`flash_attention_bwd_plain`.
+  CUDA tensors; CPU tensors take :func:`flash_attention_bwd_plain`. In
+  bf16 at :data:`TMA_HEAD_DIMS` both load through TMA tensor maps, so a
+  view no map can describe (a broadcast gradient) is copied first.
   ``LAUNCHES_BWD_DQ`` and ``LAUNCHES_BWD_DKV`` count their launches.
 - :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`
   are the same functions in plain PyTorch, float32 inside. They are what
@@ -38,7 +40,8 @@ import ctypes
 import torch
 
 HEAD_DIMS = (32, 64, 80, 128)
-# head_dims whose bf16 forward loads through TMA tensor maps (80 does not)
+# head_dims whose bf16 kernels (forward and backward) load through TMA
+# tensor maps (80 does not)
 TMA_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,6 +69,13 @@ def flash_attention_fwd_plain(
     return o, torch.logsumexp(s, dim=-1).reshape(b * h, sq)
 
 
+def _tma_ok(shape, strides, size: int) -> bool:
+    """Whether a TMA tensor map can describe a (B, S, H, D) view of
+    ``size``-byte elements: each stride of a dimension longer than 1 in
+    (0, 2**40) bytes."""
+    return all(n < 2 or 0 < st * size < 1 << 40 for n, st in zip(shape[:3], strides[:3]))
+
+
 def check_kernel_args(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, forward: bool = True
 ) -> None:
@@ -75,10 +85,12 @@ def check_kernel_args(
     k and v of one shape, q sharing their batch, heads and head_dim;
     head_dim in :data:`HEAD_DIMS`; a unit innermost stride; and 16-byte
     alignment of the base pointer and of every other stride, which its
-    vector loads need. The bf16 forward (``forward``) at
-    :data:`TMA_HEAD_DIMS` loads through TMA tensor maps, which also need
-    every stride of a dimension longer than 1 positive and below 2**40
-    bytes (no broadcast views). Devices are checked by the caller.
+    vector loads and TMA tensor maps need. The bf16 forward (``forward``)
+    at :data:`TMA_HEAD_DIMS` loads through TMA tensor maps, which also
+    need every stride of a dimension longer than 1 positive and below
+    2**40 bytes (no broadcast views: :func:`_tma_ok`). The bf16 backward
+    loads through them too, but copies such a view (a gradient may arrive
+    as one) instead of refusing it. Devices are checked by the caller.
 
     Each tensor's shape and strides are read once: the wrapper runs this
     on every launch, and the step that launches it is host-bound."""
@@ -112,7 +124,7 @@ def check_kernel_args(
             raise ValueError(f"{name} must have a unit head_dim stride, got {st}")
         if st[0] % per16 or st[1] % per16 or st[2] % per16 or x.data_ptr() % 16:
             raise ValueError(f"{name} strides {st} and base pointer must be 16-byte aligned")
-        if tma and any(n > 1 and not 0 < s * size < 1 << 40 for n, s in zip(shape[:3], st[:3])):
+        if tma and not _tma_ok(shape, st, size):
             raise ValueError(
                 f"{name} strides {st}: the TMA tensor map needs each stride of a dimension "
                 "longer than 1 in (0, 2**40) bytes"
@@ -278,15 +290,20 @@ def _launch_bwd(entry: str, q, k, v, do, lse, delta, outs) -> None:
     dev = q.device
     _check_bwd_args(q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
+    if q.dtype == torch.bfloat16 and d in TMA_HEAD_DIMS:  # the wgmma kernels load through TMA
+        q, k, v, do = (x if _tma_ok(x.shape, x.stride(), 2) else x.contiguous() for x in (q, k, v, do))
     lib = _library("flash_bwd")
-    strides = [st for x in (q, k, v, do, *outs) for st in x.stride()[:3]]
-    with torch.cuda.device(dev):
-        err = getattr(lib, entry)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(x.data_ptr() for x in outs),
-            _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, *strides,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), *(x.data_ptr() for x in outs),
+        _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+        *(st for x in (q, k, v, do, *outs) for st in x.stride()[:3]),
+    )
+    if dev.index == torch.cuda.current_device():
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:  # the launch goes to the current device: make it q's
+        with torch.cuda.device(dev):
+            err = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, lib, entry)
 
 

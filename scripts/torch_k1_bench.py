@@ -1,30 +1,39 @@
 #!/usr/bin/env python3
-"""K1 (the flash-attention forward) of one checkout of the port, on one NVIDIA GPU.
+"""The flash-attention kernels of one checkout of the port, on one NVIDIA GPU.
 
-    python3 scripts/torch_k1_bench.py [--root DIR] [--out FILE.json]
-    python3 scripts/torch_k1_bench.py --base DIR [--root DIR] [--pairs 10] [--out FILE.json]
+    python3 scripts/torch_k1_bench.py [--root DIR] [--phases fwd,bwd] [--out FILE.json]
+    python3 scripts/torch_k1_bench.py --base DIR [--root DIR] [--phases ...] [--pairs 10] [--out FILE.json]
 
 Loads ``jumbo_mae_tpu_tpu_torch`` from ``--root`` (default: this checkout)
 and everything else from this checkout's ``chip_smoke.py``, so an older
 checkout is held to the same shapes, gates and clocks. It builds the
-kernels there and runs:
+kernels there and runs, for the phases asked for (default both):
 
-1. chip_smoke's phase 3: K1 against its plain version at every tile edge
-   and Sq != Sk case, bf16 and f32, bf16 reruns bit-identical, strided
-   views of a fused projection equal to contiguous copies;
-2. chip_smoke's phase 5a: K1 at the main path's four shapes and 448 px,
-   device ms per call from CUDA-graph replay and from eager launches,
-   its plain version, SDPA's forward, the bound, and the host µs per
-   wrapper call;
-3. the host µs per call at the encoder shape split into the argument
-   checks, the two output allocations and the C entry alone (tensor-map
-   encodes and the launch).
+- ``fwd``, K1 (the forward):
+  1. chip_smoke's phase 3: K1 against its plain version at every tile
+     edge and Sq != Sk case, bf16 and f32, bf16 reruns bit-identical,
+     strided views of a fused projection equal to contiguous copies;
+  2. chip_smoke's phase 5a: K1 at the main path's four shapes and 448 px,
+     device ms per call from CUDA-graph replay and from eager launches,
+     its plain version, SDPA's forward, the bound, and the host µs per
+     wrapper call;
+  3. the host µs per call at the encoder shape split into the argument
+     checks, the two output allocations and the C entry alone (tensor-map
+     encodes and the launch);
+- ``bwd``, K2 and K3 (the backward):
+  1. chip_smoke's phase 4: K2 and K3 against the plain backward at every
+     shape of ``BWD_SHAPES`` and K1's Sq != Sk cases, both dtypes, reruns
+     bit-identical, strided and broadcast views, inert padding;
+  2. chip_smoke's phase 5b: K2, K3 and the D pass at the MAE encoder and
+     decoder shapes and the ring hop by graph replay, beside the plain
+     backward, SDPA's backward and the bounds (with ``fwd``, also K1 + D +
+     K2 + K3 against the einsum path).
 
 With ``--base DIR`` it runs itself on ``--base`` and on ``--root`` in
 processes of their own, in the order base, new, new, base, until each
 side has run ``--pairs`` times, and prints per side the median and
-quartiles of the host µs per call at each main-path shape and of the C
-entry's, and the median device ms.
+quartiles of every time it took (device ms per kernel and shape; host µs
+per K1 wrapper call and of its C entry).
 
 Exits non-zero on any disagreement. Prints one JSON object as its last
 line and writes it to ``--out``.
@@ -39,7 +48,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent.parent
@@ -74,7 +82,7 @@ def host_parts(cs, fa, shape) -> dict:
     )
 
 
-def run_one(root: Path) -> dict:
+def run_one(root: Path, phases: set[str]) -> dict:
     sys.path.insert(0, str(root))
     import torch
 
@@ -85,20 +93,34 @@ def run_one(root: Path) -> dict:
     from jumbo_mae_tpu_tpu_torch.ops.flash import attention as fa
 
     smi = cs.nvidia_smi_line()
-    cs.log(f"k1_bench: package from {root}; {smi}; torch {torch.__version__}")
-    t0 = time.perf_counter()
-    _build.build(["flash_fwd"])
-    build_s = time.perf_counter() - t0
-    errs = cs.phase_kernels(fa)
-    timings = cs.phase_timings(fa)
-    parts = host_parts(cs, fa, cs.ENC_SHAPE)
-    cs.log("host µs per call at the encoder shape: " + ", ".join(f"{n} {t:.2f}" for n, t in parts.items()))
-    return dict(
-        root=str(root), device=smi, build_s=build_s,
-        max_abs_err_bf16=max(e for (name, *_), e in errs.items() if name == "bfloat16"),
-        timings=[dict(shape=list(shape), **row) for shape, row in timings.items()],
-        host_parts=parts,
-    )
+    cs.log(f"k1_bench: package from {root}; {smi}; torch {torch.__version__}; phases {sorted(phases)}")
+    build_s = cs.build_kernels(_build, ["flash_fwd", "flash_bwd"] if "bwd" in phases else ["flash_fwd"])
+    res = dict(root=str(root), device=smi, build_s=build_s, metrics={})
+    metrics = res["metrics"]  # flat: name -> one number, what --base compares
+    timings = {}
+    if "fwd" in phases:
+        errs = cs.phase_kernels(fa)
+        timings = cs.phase_timings(fa)
+        parts = host_parts(cs, fa, cs.ENC_SHAPE)
+        cs.log("host µs per call at the encoder shape: " + ", ".join(f"{n} {t:.2f}" for n, t in parts.items()))
+        res["max_abs_err_bf16_fwd"] = max(e for (name, *_), e in errs.items() if name == "bfloat16")
+        res["timings"] = [dict(shape=list(shape), **row) for shape, row in timings.items()]
+        res["host_parts"] = parts
+        for shape, row in timings.items():
+            metrics[f"K1 {shape} ms"] = row["ms"]
+            metrics[f"K1 {shape} host_us"] = row["host_us"]
+        metrics["K1 C entry host_us"] = parts["c_entry_us"]
+    if "bwd" in phases:
+        errs = cs.phase_bwd_kernels(fa)
+        bwd = cs.phase_bwd_timings(fa, timings)
+        res["max_abs_err_bf16_bwd"] = max(e for (name, *_), e in errs.items() if name == "bfloat16")
+        res["bwd_timings"] = [dict(kernel=key, shape=list(shape), **row) for (key, shape), row in bwd.items()]
+        for (key, shape), row in bwd.items():
+            if key in ("K2", "K3", "D"):
+                metrics[f"{key} {shape} ms"] = row["ms"]
+            if key == "K2":
+                metrics[f"sdpa backward {shape} ms"] = row["library_ms"]
+    return res
 
 
 def quartiles(xs: list[float]) -> dict:
@@ -106,7 +128,7 @@ def quartiles(xs: list[float]) -> dict:
     return dict(q1=q1, median=med, q3=q3)
 
 
-def run_ab(base: Path, new: Path, pairs: int) -> dict:
+def run_ab(base: Path, new: Path, pairs: int, phases: set[str]) -> dict:
     order = []
     while len(order) < 2 * pairs:
         order += ["base", "new", "new", "base"]
@@ -117,44 +139,39 @@ def run_ab(base: Path, new: Path, pairs: int) -> dict:
             out = Path(tmp) / f"{i}.json"
             root = base if side == "base" else new
             proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--root", str(root),
-                                   "--out", str(out)], capture_output=True, text=True, timeout=900)
+                                   "--phases", ",".join(sorted(phases)), "--out", str(out)],
+                                  capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
                 raise SystemExit(f"[k1_bench] FAIL: run {i} ({side}) exited {proc.returncode}:\n"
                                  f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
             rep = json.loads(out.read_text())
             runs[side].append(rep)
-            print(f"[k1_bench] run {i:2d} {side:4s}: host us per call "
-                  + ", ".join(f"{t['host_us']:.2f}" for t in rep["timings"])
-                  + f"; C entry {rep['host_parts']['c_entry_us']:.2f}", flush=True)
+            print(f"[k1_bench] run {i:2d} {side:4s}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in rep["metrics"].items()), flush=True)
     summary = {}
     for side, reps in runs.items():
-        rows = {}
-        for j, row in enumerate(reps[0]["timings"]):
-            rows[str(tuple(row["shape"]))] = dict(
-                host_us=quartiles([r["timings"][j]["host_us"] for r in reps]),
-                ms_median=statistics.median(r["timings"][j]["ms"] for r in reps),
-            )
-        rows["c_entry_us"] = quartiles([r["host_parts"]["c_entry_us"] for r in reps])
-        summary[side] = rows
-        for key, row in rows.items():
-            h = row if key == "c_entry_us" else row["host_us"]
-            extra = "" if key == "c_entry_us" else f"; device {row['ms_median']:.4f} ms"
-            print(f"[k1_bench] {side:4s} {key}: host us median {h['median']:.2f} (quartiles {h['q1']:.2f}, "
-                  f"{h['q3']:.2f}){extra}", flush=True)
+        summary[side] = {key: quartiles([r["metrics"][key] for r in reps]) for key in reps[0]["metrics"]}
+        for key, q in summary[side].items():
+            print(f"[k1_bench] {side:4s} {key}: median {q['median']:.4f} (quartiles {q['q1']:.4f}, "
+                  f"{q['q3']:.4f})", flush=True)
     return dict(base=str(base), new=str(new), order=order, summary=summary, runs=runs)
 
 
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[1])
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--base", type=Path, default=None, help="A/B against this checkout")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--phases", default="fwd,bwd", help="comma-separated: fwd (K1), bwd (K2, K3)")
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args()
+    phases = set(args.phases.split(","))
+    if not phases or not phases <= {"fwd", "bwd"}:
+        ap.error(f"--phases takes fwd and/or bwd, got {args.phases!r}")
     if args.base is not None:
-        res = run_ab(args.base.resolve(), args.root.resolve(), args.pairs)
+        res = run_ab(args.base.resolve(), args.root.resolve(), args.pairs, phases)
     else:
-        res = run_one(args.root.resolve())
+        res = run_one(args.root.resolve(), phases)
     text = json.dumps(res)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

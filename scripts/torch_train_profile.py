@@ -16,7 +16,8 @@ and ``make_train_step``, and measures on the card:
 - a ``torch.profiler`` trace of one step: device time by kernel, grouped
   (matrix products, the flash kernels K1/K2/K3, casts and copies,
   elementwise, reductions and norms, the optimizer's foreach kernels,
-  the patch convolution), and the device's idle share of the step.
+  the patch convolution), each flash kernel by name (which instantiation
+  ran), and the device's idle share of the step.
 
 ``--seq N`` (N > 1) profiles the sequence-parallel step of chip_smoke.py
 instead: the encoder on the flash ring and the decoder on the einsum ring
@@ -164,6 +165,9 @@ def main() -> None:
         "kernel_launches": sum(e.count for e in kernels),
         "groups": {k: {"device_ms": v[0], "calls": v[1]} for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])},
         "top": [{"name": e.key[:100], "device_ms": dev_us(e) / 1e3, "calls": e.count} for e in kernels[:25]],
+        # every flash kernel by name: which instantiation the step ran
+        "flash": [{"name": e.key, "device_ms": dev_us(e) / 1e3, "calls": e.count}
+                  for e in kernels if "flash_" in e.key],
     }
     print(f"step {step_ms:.2f} ms ({ips:.1f} images/s, MFU {100 * report['mfu']:.2f}%), host enqueue "
           f"{enqueue_ms:.2f} ms, kernels {kernel_ms:.2f} ms in {report['kernel_launches']} launches, idle share "
@@ -172,6 +176,9 @@ def main() -> None:
     for k, v in report["groups"].items():
         print(f"  {v['device_ms']:9.3f} ms  x{v['calls']:<6d} {k}")
     for row in report["top"]:
+        print(f"  {row['device_ms']:9.3f} ms  x{row['calls']:<5d} {row['name']}")
+    print("flash kernels:")
+    for row in report["flash"]:
         print(f"  {row['device_ms']:9.3f} ms  x{row['calls']:<5d} {row['name']}")
     print(smi)
     out = Path(args.out)

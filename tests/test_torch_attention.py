@@ -153,6 +153,20 @@ def test_tma_stride_rule_binds_only_the_bf16_forward():
     assert set(fa.TMA_HEAD_DIMS) < set(fa.HEAD_DIMS) and 80 not in fa.TMA_HEAD_DIMS
 
 
+def test_tma_rule_names_the_views_the_backward_copies():
+    """The bf16 backward copies a view no TMA tensor map describes instead
+    of refusing it: ``_tma_ok`` is false for a broadcast dimension longer
+    than 1 and true for contiguous tensors, fused-projection views and a
+    dimension of extent 1 with any stride."""
+    x = torch.zeros((2, 9, 4, 64), dtype=torch.bfloat16)
+    fused = torch.zeros((2, 9, 3, 4, 64), dtype=torch.bfloat16)[:, :, 1]
+    for ok in (x, fused, x[:1].expand(1, -1, -1, -1), x[:, :1]):
+        assert fa._tma_ok(ok.shape, ok.stride(), 2)
+    for bad in (x[:1].expand(2, -1, -1, -1), x[:, :1].expand(-1, 9, -1, -1), x[:, :, :1].expand(-1, -1, 4, -1)):
+        assert not fa._tma_ok(bad.shape, bad.stride(), 2)
+    assert not fa._tma_ok((2, 9, 4, 64), (1 << 40, 256, 64, 1), 2)
+
+
 @pytest.mark.parametrize(
     "kw,want",
     [
@@ -245,19 +259,36 @@ def _grads_pallas(q, k, v, do):
     return jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
 
 
-@pytest.mark.parametrize("s", [52, 199])
-@pytest.mark.parametrize("d", [32, 64])
-def test_plain_backward_matches_pallas_interpret(s, d):
+@pytest.mark.parametrize(
+    "b,sq,sk,h,d",
+    [
+        pytest.param(2, 52, 52, 3, 32, id="32-52"),
+        pytest.param(2, 199, 199, 3, 32, id="32-199"),
+        pytest.param(2, 52, 52, 3, 64, id="64-52"),
+        pytest.param(2, 199, 199, 3, 64, id="64-199"),
+        # where the card's kernels tile differently: 4 heads packed per
+        # 64-row tile at the ring hop's 13 tokens (H = 16), 16 heads at one
+        # token, head_dim 128 (K3 in 32-row halves), Sq != Sk both ways
+        pytest.param(1, 13, 13, 16, 64, id="hop13-h16"),
+        pytest.param(2, 1, 1, 16, 32, id="s1-h16"),
+        pytest.param(1, 33, 33, 2, 128, id="d128"),
+        pytest.param(1, 13, 52, 16, 64, id="sq13-sk52"),
+        pytest.param(1, 40, 7, 4, 32, id="sq40-sk7"),
+    ],
+)
+def test_plain_backward_matches_pallas_interpret(b, sq, sk, h, d):
     """flash_attention_bwd_plain (P recomputed from lse, D = rowsum(dO∘O))
     against jax.grad of the Pallas custom_vjp, whose backward is K2 and
     K3. float32, atol 2e-5: the same arithmetic summed in another order."""
-    q, k, v = qkv(s=s, d=d, seed=10)
+    q, k, v = qkv(b=b, s=sq, h=h, d=d, seed=10)
+    if sk != sq:
+        _, k, v = qkv(b=b, s=sk, h=h, d=d, seed=12)
     do = np.random.default_rng(11).standard_normal(q.shape).astype(np.float32)
     ref = _grads_pallas(q, k, v, do)
     o, lse = fa.flash_attention_fwd_plain(*as_torch(q, k, v), with_lse=True)
     got = fa.flash_attention_bwd_plain(*as_torch(q, k, v), o, lse, torch.from_numpy(do))
-    for g, r in zip(got, ref):
-        assert g.dtype == torch.float32 and g.shape == q.shape
+    for g, r, x in zip(got, ref, (q, k, v)):
+        assert g.dtype == torch.float32 and g.shape == x.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=2e-5)
 
 

@@ -121,28 +121,60 @@ def test_engine_routes_every_block_through_the_kernel(cuda):
     np.testing.assert_allclose(gpu32.logits(x), cpu.logits(x), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("shape", [(2, 52, 4, 64), (2, 199, 3, 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_kernels_match_plain(cuda, shape, dtype):
-    """K2 (dq) and K3 (dk, dv) against the plain backward: f32 at atol/rtol
-    1e-4 (sum order), bf16 within 3e-2 of the largest reference entry (P
-    and dS rounded to bf16 before their products); two runs bit-identical."""
-    q, k, v = _qkv(shape, dtype)
+# K2/K3's shapes are chip_smoke.py's (every tile and packing edge of the
+# wgmma kernels, the ring hop), after two quick ones
+BWD_EDGE_SHAPES = [(2, 52, 4, 64), (2, 199, 3, 32), *_CS.BWD_SHAPES]
+
+
+def _bwd_case(shape, dtype, sk=None, seed=0):
+    q, k, v = _qkv(shape, dtype, seed)
+    if sk is not None:
+        _, k, v = _qkv((shape[0], sk, *shape[2:]), dtype, seed + 1)
     do = torch.randn(shape, device="cuda").to(dtype)
     o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("shape", BWD_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain(cuda, shape, dtype):
+    """K2 (dq) and K3 (dk, dv) against the plain backward at chip_smoke's
+    gates (``check_grads``): f32 at atol/rtol 1e-4 (sum order), bf16
+    within 3e-2 of the largest reference entry (P and dS rounded to bf16
+    before their products); two runs bit-identical."""
+    q, k, v, o, lse, do = _bwd_case(shape, dtype)
     before = fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV
     got = fa.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == (before[0] + 1, before[1] + 1)
     ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-    for g, r in zip(got, ref):
-        assert g.dtype == dtype and g.shape == r.shape
-        if dtype == torch.float32:
-            torch.testing.assert_close(g, r, atol=1e-4, rtol=1e-4)
-        else:
-            assert (g.float() - r.float()).abs().max() <= 3e-2 * r.float().abs().max()
+    _CS.check_grads(f"{shape}", got, ref, dtype, sk=shape[1])
     again = fa.flash_attention_bwd(q, k, v, o, lse, do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape,sk", _CS.CROSS_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_cross_lengths(cuda, shape, sk, dtype):
+    """K2 and K3 with Sq != Sk, packed and not (K1's cross cases)."""
+    q, k, v, o, lse, do = _bwd_case(shape, dtype, sk=sk, seed=3)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    _CS.check_grads(f"{shape} sk {sk}", got, ref, dtype, sk=sk)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(2, 199, 4, 32), (4, 13, 16, 64), (2, 70, 2, 128)])
+def test_backward_takes_broadcast_views(cuda, shape):
+    """A broadcast dO (the gradient of o.sum()) and broadcast k, v, which no
+    TMA tensor map describes, give the gradients of their contiguous copies."""
+    q, k, v, _, _, do = _bwd_case(shape, torch.bfloat16, seed=4)
+    for qb, kb, vb, dob in ((q, k, v, do[:1].expand(shape)), (q, k[:1].expand(shape), v[:1].expand(shape), do)):
+        o, lse = fa.flash_attention_fwd(qb.contiguous(), kb.contiguous(), vb.contiguous(), with_lse=True)
+        got = fa.flash_attention_bwd(qb, kb, vb, o, lse, dob)
+        ref = fa.flash_attention_bwd(*(x.contiguous() for x in (qb, kb, vb)), o, lse, dob.contiguous())
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
 def test_tiny_mae_train_step_on_the_card(cuda):
