@@ -20,20 +20,25 @@ Phases, each of which exits non-zero when it fails:
    512x13x16x64; head_dims 32, 80, 128 at short and ragged lengths) and
    Sq != Sk both ways, packed and not; two bf16 runs bit-identical; plus
    strided q/k/v views of a fused projection;
-4. K2/K3 vs plain — the backward kernels (dq; dk and dv) against the
-   plain backward at the MAE encoder and decoder shapes of the training
-   slice, ViT-B, 448 px, ViT-H/14 and a ragged head_dim-128 shape, and at
-   every tile and packing edge of the wgmma kernels (``BWD_SHAPES``, the
-   ring hop among them) and K1's Sq != Sk cases: float32 (TF32 off) at
+4. K2/K3 vs plain — the backward kernels (dq and D; dk and dv) against
+   the plain backward at the MAE encoder and decoder shapes of the
+   training slice, ViT-B, 448 px, ViT-H/14 and a ragged head_dim-128
+   shape, and at every tile and packing edge of the wgmma kernels
+   (``BWD_SHAPES``, the ring hop among them) and K1's Sq != Sk cases,
+   without and with a random lse cotangent: float32 (TF32 off) at
    atol/rtol 1e-4, bfloat16 within 3e-2 of the largest reference entry;
-   two runs bit-identical; strided views of a fused projection and
-   broadcast dO, k and v equal to contiguous copies; pad rows and columns
-   inert (NaN beyond the sequence is never read), packed tiles included;
+   the D that K2 writes against ``attention_delta`` within 1e-5 of
+   max(1, max|D|); two runs bit-identical; strided views of a fused
+   projection and broadcast dO, k and v equal to contiguous copies; pad
+   rows and columns inert (NaN beyond the sequence in q, k, v, dO and O is
+   never read), packed tiles included; K2 and K3 keep their blocks per SM;
 5. kernel timings — K1 at the main path's four shapes (ViT-B/16
    serving; the MAE decoder, encoder and ring hop with lse) and 448 px,
-   with the wrapper's host µs per call; K2, K3 and the D pass before them
-   at the MAE encoder and decoder shapes and the ring hop, D + K2 + K3
-   against SDPA's backward; for each kernel its plain version and one PyTorch
+   with the wrapper's host µs per call; K2 (which computes D) and K3 at
+   the MAE encoder and decoder shapes and the ring hop, K2 + K3 against
+   SDPA's backward, the standalone D pass (``attention_delta``, the cost
+   K2 took over) beside them; ``FlashAttention`` forward + backward
+   against SDPA's; for each kernel its plain version and one PyTorch
    library call (scaled_dot_product_attention, forward or backward; a
    yardstick the port never calls), beside the least time the card could
    take. Every time is device ms per call from CUDA-graph replay (the
@@ -53,8 +58,10 @@ Phases, each of which exits non-zero when it fails:
    norm_pix_loss; bf16 compute; AdamW with bf16 mu; random weights from a
    seed) at batch 128 through ``create_state`` + ``make_train_step`` on
    ``synthetic_batches``: 3 warm-up and 10 timed steps on one repeated
-   batch; the kernels' launch counts, a finite loss that falls, step ms,
-   images/s, MFU and peak memory;
+   batch; the kernels' launch counts, no call of the plain D pass, a
+   finite loss that falls, step ms, images/s, MFU and peak memory; then
+   preset vit_t16 (head_dim 16, which no kernel takes) served and trained
+   as it is, ``attn_impl="auto"`` taking the einsum path;
 8. float32 step, card against CPU — ViT-L widths at 2 encoder layers and
    1 decoder layer, batch 2, the same weights and mask noise: loss, every
    gradient and every parameter's change in one AdamW step;
@@ -73,8 +80,8 @@ Phases, each of which exits non-zero when it fails:
    ring: every hop one K4 call at (4·128, 13, 16, 64); decoder on the
    einsum ring, 199 tokens padded to 200), through ``create_state`` +
    ``make_train_step`` under ``set_mesh``: 3 warm-up and 10 timed steps,
-   launch counts derived from layers × hops × passes, a falling loss, step
-   ms, images/s, MFU and peak memory; then one float32 step at ViT-L
+   launch counts derived from layers × hops × passes, no call of the plain
+   D pass, a falling loss, step ms, images/s, MFU and peak memory; then one float32 step at ViT-L
    widths and reduced depth, ring against no ring on the card, loss and
    every gradient within 1e-3 of scale.
 
@@ -89,6 +96,8 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import subprocess
 import time
@@ -396,15 +405,17 @@ def phase_timings(fa) -> dict:
     return out
 
 
-def bwd_bound_ms(shape, products: int, outputs: int) -> tuple[float, str]:
+def bwd_bound_ms(shape, products: int, tensors: int, rows: int) -> tuple[float, str]:
     """Least time for one backward kernel in bf16 at (B, S, H, D):
     ``products`` matrix products of 2·B·H·S²·D operations over the peak
-    rate, or q, k, v and dO (2 bytes) and lse and D (f32 per row) read once
-    and ``outputs`` gradients written once over the memory rate. K2 does 3
-    products and writes dq; K3 does 4 and writes dk and dv."""
+    rate, or ``tensors`` (B, S, H, D) bf16 tensors and ``rows`` f32 values
+    per row each read or written once over the memory rate. K2 does 3
+    products, reads q, k, v, dO, O and lse (and K4's g_lse) and writes dq
+    and D: 6 tensors and 2 rows (3 with g_lse); K3 does 4, reads q, k, v,
+    dO, lse and D and writes dk and dv: 6 tensors and 2 rows."""
     b, s, h, d = shape
     t_ops = products * 2 * b * h * s * s * d / PEAK_BF16_FLOPS
-    t_bytes = ((4 + outputs) * b * s * h * d * 2 + 2 * b * h * s * 4) / PEAK_BYTES
+    t_bytes = (tensors * b * s * h * d * 2 + rows * b * h * s * 4) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -420,41 +431,110 @@ def bwd_inputs(shape, dtype, seed: int, fa, sk: int | None = None):
     return q, k, v, do, o, lse
 
 
+def folds_delta(fa) -> bool:
+    """Whether the package's K2 computes D itself (this checkout) or takes
+    it from the plain D pass (an older checkout, as
+    scripts/torch_k1_bench.py --base loads one)."""
+    return "g_lse" in inspect.signature(fa.flash_attention_bwd).parameters
+
+
+def kernel_bwd(fa, q, k, v, o, lse, do, g_lse=None):
+    """(dq, dk, dv) through the kernels, with K4's lse cotangent ``g_lse``
+    (or none): K2 computes D here; an older checkout's kernels take it from
+    the D pass."""
+    if folds_delta(fa):
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, g_lse=g_lse)
+    return fa.flash_attention_bwd(q, k, v, o, lse, do, delta=fa.attention_delta(o, do, g_lse))
+
+
+@contextlib.contextmanager
+def counting_delta_passes(fa):
+    """Count the calls of the plain D pass (``attention_delta``) in the
+    block: ``with counting_delta_passes(fa) as calls: ...; calls[0]``."""
+    calls = [0]
+    plain = fa.attention_delta
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return plain(*args, **kwargs)
+
+    fa.attention_delta = counted
+    try:
+        yield calls
+    finally:
+        fa.attention_delta = plain
+
+
+def check_delta(name: str, got, want) -> float:
+    """K2's D against ``attention_delta``: within 1e-5 of max(1, max|D|).
+    Both accumulate the row's products in f32 (a bf16 product is exact in
+    f32, an f32 one is rounded once, or fused) in another order: K2 each
+    quad lane a quarter of the row, then two shuffles; torch its own
+    reduction. Returns the error over the scale."""
+    import torch
+
+    check(got.shape == want.shape and got.dtype == torch.float32, f"D layout at {name}")
+    check(bool(torch.isfinite(got).all()), f"non-finite D at {name}")
+    err = (got - want).abs().max().item()
+    scale = max(1.0, want.abs().max().item())
+    check(err <= 1e-5 * scale, f"D at {name}: max|K2 − attention_delta| {err:.3e} > 1e-5 x {scale:.3e}")
+    return err / scale
+
+
 def phase_bwd_kernels(fa) -> dict:
     """Phase 4: K2 and K3 against the plain backward, every shape and
-    Sq != Sk case, both dtypes; determinism, strided and broadcast views,
-    inert padding."""
+    Sq != Sk case, both dtypes, without and with a random lse cotangent;
+    K2's D against the plain D pass; determinism, strided and broadcast
+    views, inert padding; K2's and K3's blocks per SM."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    errs = {}
+    folds = folds_delta(fa)
+    errs, d_worst = {}, 0.0
     cases = [(shape, None) for shape in BWD_SHAPES] + CROSS_SHAPES
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         for i, (shape, sk) in enumerate(cases):
             q, k, v, do, o, lse = bwd_inputs(shape, dtype, 200 + i, fa, sk=sk)
-            got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-            torch.cuda.synchronize()
-            ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
-            grads = check_grads(f"{shape} sk {k.shape[1]} {name}", got, ref, dtype, sk=k.shape[1])
-            for gname, (err, _) in grads.items():
-                errs[(name, shape, k.shape[1], gname)] = err
-            line = [f"{gname} {err:.3e}/{scale:.3e}" for gname, (err, scale) in grads.items()]
-            again = fa.flash_attention_bwd(q, k, v, o, lse, do)
-            same = all(torch.equal(a, b) for a, b in zip(got, again))
-            check(same, f"two runs of K2/K3 differ at {shape} sk {k.shape[1]} {name}")
-            log(f"K2/K3 {name} {shape} sk {k.shape[1]}: max|err|/max|ref| {', '.join(line)}; "
-                f"rerun bit-identical {same}")
+            b, sq, h, _ = shape
+            g = torch.Generator(device="cuda").manual_seed(2000 + i)
+            for g_lse in (None, torch.randn((b * h, sq), generator=g, device="cuda")):
+                case = f"{shape} sk {k.shape[1]} {name}{' g_lse' if g_lse is not None else ''}"
+                got = kernel_bwd(fa, q, k, v, o, lse, do, g_lse)
+                torch.cuda.synchronize()
+                want_d = fa.attention_delta(o, do, g_lse)
+                ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=want_d)
+                # one key and no lse cotangent: dq and dk are 0 exactly
+                grads = check_grads(case, got, ref, dtype, sk=k.shape[1] if g_lse is None else None)
+                for gname, (err, _) in grads.items():
+                    key = (name, shape, k.shape[1], gname)
+                    errs[key] = max(err, errs.get(key, 0.0))
+                line = [f"{gname} {err:.3e}/{scale:.3e}" for gname, (err, scale) in grads.items()]
+                again = kernel_bwd(fa, q, k, v, o, lse, do, g_lse)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                if folds:  # the D that K2 wrote, from a launch of its own
+                    _, d1 = fa.flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)
+                    _, d2 = fa.flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)
+                    same = same and torch.equal(d1, d2)
+                    d_err = check_delta(case, d1, want_d)
+                    d_worst = max(d_worst, d_err)
+                    line.append(f"D {d_err:.3e} of max(1, |D|)")
+                check(same, f"two runs of K2/K3 differ at {case}")
+                log(f"K2/K3 {case}: max|err|/max|ref| {', '.join(line)}; rerun bit-identical {same}")
+    if folds:
+        log(f"K2's D against attention_delta at every case, both dtypes, with and without g_lse: worst "
+            f"{d_worst:.3e} of max(1, max|D|) (gate 1e-5)")
 
     b, s, h, d = VIT_B_SHAPE
-    fused = torch.randn((b, s, 4, h, d), device="cuda").to(torch.bfloat16)
-    q, k, v, do = (fused[:, :, i] for i in range(4))
+    fused = torch.randn((b, s, 5, h, d), device="cuda").to(torch.bfloat16)
+    q, k, v, do, o_view = (fused[:, :, i] for i in range(5))
     o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    ref = fa.flash_attention_bwd(*(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous())
+    o_view.copy_(o)
+    got = kernel_bwd(fa, q, k, v, o_view, lse, do)
+    ref = kernel_bwd(fa, *(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous())
     check(all(torch.equal(a, b) for a, b in zip(got, ref)), "K2/K3 on strided views differ from contiguous copies")
-    log("K2/K3 on strided q/k/v/dO views equal contiguous copies: True")
+    log("K2/K3 on strided q/k/v/dO/O views equal contiguous copies: True")
 
     # broadcast views (stride 0, which no TMA tensor map describes): dO of
     # o.sum() and k, v shared over the batch give the gradients of their
@@ -466,43 +546,76 @@ def phase_bwd_kernels(fa) -> dict:
                      "k, v": (q, k[:1].expand(shape), v[:1].expand(shape), do)}
             for what, (qb, kb, vb, dob) in views.items():
                 o, lse = fa.flash_attention_fwd(qb.contiguous(), kb.contiguous(), vb.contiguous(), with_lse=True)
-                got = fa.flash_attention_bwd(qb, kb, vb, o, lse, dob)
-                ref = fa.flash_attention_bwd(*(x.contiguous() for x in (qb, kb, vb)), o, lse, dob.contiguous())
+                got = kernel_bwd(fa, qb, kb, vb, o, lse, dob)
+                ref = kernel_bwd(fa, *(x.contiguous() for x in (qb, kb, vb)), o, lse, dob.contiguous())
                 check(all(torch.equal(a, b) for a, b in zip(got, ref)),
                       f"K2/K3 with broadcast {what} differ from contiguous copies at {shape} {dtype}")
     log("K2/K3 on broadcast dO and k, v views equal contiguous copies: True")
 
     # pad rows and columns are inert: NaN stored past the sequence in the
-    # same buffers is never read (a read would turn the gradients NaN)
+    # same buffers (q, k, v, dO and O) is never read (a read would turn the
+    # gradients or D NaN)
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((2, 199, 4, 64), (3, 70, 2, 128), (2, 52, 4, 32), (4, 13, 16, 64), (2, 9, 12, 32)):
             q, k, v, do, o, lse = bwd_inputs(shape, dtype, 300, fa)
-            ref = fa.flash_attention_bwd(q, k, v, o, lse, do)
+            g_lse = torch.randn((shape[0] * shape[2], shape[1]), device="cuda")
+            ref = kernel_bwd(fa, q, k, v, o, lse, do, g_lse)
             padded = []
-            for x in (q, k, v, do):
+            for x in (q, k, v, do, o):
                 buf = torch.full((shape[0], shape[1] + 61, *shape[2:]), float("nan"), dtype=dtype, device="cuda")
                 buf[:, : shape[1]] = x
                 padded.append(buf[:, : shape[1]])
-            got = fa.flash_attention_bwd(*padded[:3], o, lse, padded[3])
+            pq, pk, pv, pdo, po = padded
+            got = kernel_bwd(fa, pq, pk, pv, po, lse, pdo, g_lse)
             check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"pad rows/columns change the gradients at {shape}")
-    log("K2/K3 pad rows and columns inert (NaN past the sequence never read): True")
+            if folds:
+                d_pad = fa.flash_attention_bwd_dq(pq, pk, pv, pdo, po, lse, g_lse)[1]
+                d_ref = fa.flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)[1]
+                check(torch.equal(d_pad, d_ref), f"pad rows change K2's D at {shape}")
+    log("K2/K3 pad rows and columns inert (NaN past the sequence in q, k, v, dO and O never read): True")
+
+    if hasattr(fa, "blocks_per_sm"):
+        # the O tile K2 loads for D must not cost a resident block: the
+        # blocks an SM holds, against the register bound each kernel is
+        # built for (BwdTile<D>::kMinBlocksDq / kMinBlocksDkv)
+        want = {("K2", 32): 5, ("K2", 64): 3, ("K2", 128): 1, ("K3", 32): 4, ("K3", 64): 3, ("K3", 128): 1}
+        held = {key: fa.blocks_per_sm(*key) for key in want}
+        log("blocks per SM (bf16 wgmma kernels): " + ", ".join(
+            f"{kern} at head_dim {d} {n} (built for {want[(kern, d)]})" for (kern, d), n in held.items()))
+        check(all(held[key] >= n for key, n in want.items()), f"a backward kernel lost a block per SM: {held}")
     return errs
+
+
+def attention_fb_bound_ms(shape, g_lse: bool = False) -> tuple[float, str]:
+    """Least time for attention's forward and then its backward in bf16 at
+    (B, S, H, D), as two calls: the forward reads q, k, v and writes o and
+    lse; the backward reads q, k, v, o, dO and lse (and K4's g_lse) and
+    writes dq, dk and dv: 12 tensors and 2 (3) f32 values per row over the
+    memory rate, or 2 + 5 products of 2·B·H·S²·D operations over the peak
+    rate."""
+    b, s, h, d = shape
+    t_bytes = (12 * b * s * h * d * 2 + (3 if g_lse else 2) * b * h * s * 4) / PEAK_BYTES
+    t_ops = 14 * b * h * s * s * d / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
 def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
     """Phase 5b: K2 and K3 at the MAE encoder and decoder shapes and the
-    ring hop, bf16: each kernel, the plain backward (all three gradients),
-    SDPA's backward as (forward + backward) − forward, and the D pass
-    (``attention_delta``) that runs before the kernels, so D + K2 + K3
-    stands against SDPA's backward, which computes its own D; and K1
-    (phase 5a) + K2 + K3 against the einsum path's forward and backward.
-    Device ms per call from CUDA-graph replay, as phase 5a; each kernel's
-    eager back-to-back time beside it. The einsum comparison needs
-    ``k1_timings`` (phase 5a's result) and is left out without it."""
+    ring hop, bf16: each kernel (K2 computing D), the plain backward (all
+    three gradients), SDPA's backward as (forward + backward) − forward,
+    which computes its own D, so K2 + K3 stands against it; the standalone
+    D pass (``attention_delta``, which K2's D replaced and an older
+    checkout still runs first) beside them; and at the MAE shapes
+    ``FlashAttention`` (K1 + K2 + K3 through autograd) forward + backward
+    against SDPA's and the einsum path's. Device ms per call from
+    CUDA-graph replay, as phase 5a; each kernel's eager back-to-back time
+    beside it. The einsum comparison needs ``k1_timings`` (phase 5a's
+    result) and is left out without it."""
     import torch
     import torch.nn.functional as F
 
     k1_timings = k1_timings or {}
+    folds = folds_delta(fa)
 
     def einsum_path(q, k, v):  # models/layers.py's einsum branch
         probs = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k).float(), dim=-1).to(v.dtype)
@@ -511,10 +624,16 @@ def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
     out = {}
     for shape in (ENC_SHAPE, DEC_SHAPE, HOP_SHAPE):
         q, k, v, do, o, lse = bwd_inputs(shape, torch.bfloat16, 400, fa)
-        dd = fa.attention_delta(o, do)
+        if folds:
+            def k2_call():
+                return fa.flash_attention_bwd_dq(q, k, v, do, o, lse)
 
-        def k2_call():
-            return fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
+            dd = k2_call()[1]
+        else:  # an older checkout: K2 reads the D pass's output
+            dd = fa.attention_delta(o, do)
+
+            def k2_call():
+                return fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
 
         def k3_call():
             return fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd)
@@ -528,14 +647,33 @@ def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
         both = graph_ms(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(qt, kt, vt, scale=1.0), (qt, kt, vt), dot))
         lib = max(both - fwd, 0.0)
-        # D = rowsum(dO ∘ O): reads o and dO, writes one f32 per row
+        # the D pass: reads o and dO, writes one f32 per row
         b, sq, h, d = shape
         d_ms = graph_ms(lambda: fa.attention_delta(o, do))
         d_bound = (2 * b * sq * h * d * 2 + b * h * sq * 4) / PEAK_BYTES * 1e3
         out[("D", shape)] = dict(ms=d_ms, bound_ms=d_bound, bound_by="bytes")
-        log(f"timing D (attention_delta) bf16 {shape}: {d_ms:.4f} ms, bound {d_bound:.4f} ms (bytes); "
-            f"D + K2 + K3 {d_ms + k2 + k3:.4f} ms against sdpa backward {lib:.4f} ms "
-            f"({(d_ms + k2 + k3) / lib:.2f}x)")
+        bwd_ms = k2 + k3 + (0.0 if folds else d_ms)
+        out[("backward", shape)] = dict(ms=bwd_ms, library_ms=lib)
+        what = "K2 (with D) + K3" if folds else "D pass + K2 + K3"
+        log(f"timing backward bf16 {shape}: {what} {bwd_ms:.4f} ms against sdpa backward {lib:.4f} ms "
+            f"({bwd_ms / lib:.2f}x); the standalone D pass (attention_delta) {d_ms:.4f} ms, bound "
+            f"{d_bound:.4f} ms (bytes)")
+        if shape in (ENC_SHAPE, DEC_SHAPE):
+            # FlashAttention (the counterpart of pallas_flash_attention):
+            # forward + backward through autograd, against SDPA's
+            from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention
+
+            qa, ka, va = (x.detach().requires_grad_() for x in (q, k, v))
+            fb = graph_ms(lambda: torch.autograd.grad(flash_attention(qa, ka, va), (qa, ka, va), do))
+            fb_plain = graph_ms(lambda: torch.autograd.grad(
+                fa.flash_attention_fwd_plain(qa, ka, va), (qa, ka, va), do), per_graph=5, reps=10)
+            bound, by = attention_fb_bound_ms(shape)
+            out[("FlashAttention", shape)] = dict(ms=fb, plain_ms=fb_plain, library_ms=both, bound_ms=bound,
+                                                  bound_by=by, eager_ms=cuda_ms(lambda: torch.autograd.grad(
+                                                      flash_attention(qa, ka, va), (qa, ka, va), do)))
+            log(f"timing FlashAttention bf16 {shape} forward + backward: {fb:.4f} ms against sdpa forward + "
+                f"backward {both:.4f} ms ({fb / both:.2f}x), plain {fb_plain:.4f} ms, bound {bound:.4f} ms "
+                f"({by}), at {100 * bound / fb:.1f}% of bound")
         if shape in k1_timings:
             # attn_impl="auto" in training: the kernels' forward (K1's time
             # from phase 5a) and backward against the einsum path's (bf16
@@ -544,11 +682,12 @@ def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
             qe, ke, ve = (x.detach().requires_grad_() for x in (q, k, v))
             einsum = graph_ms(lambda: torch.autograd.grad(einsum_path(qe, ke, ve), (qe, ke, ve), do),
                               per_graph=5, reps=10)
-            log(f"training attention bf16 {shape}: K1 + D + K2 + K3 {k1 + d_ms + k2 + k3:.4f} ms, einsum "
+            log(f"training attention bf16 {shape}: K1 + {what} {k1 + bwd_ms:.4f} ms, einsum "
                 f"forward and backward {einsum:.4f} ms")
-            out[("einsum", shape)] = dict(kernels_ms=k1 + d_ms + k2 + k3, einsum_ms=einsum)
-        for name, ms, products, outputs in (("K2", k2, 3, 1), ("K3", k3, 4, 2)):
-            bound, by = bwd_bound_ms(shape, products, outputs)
+            out[("einsum", shape)] = dict(kernels_ms=k1 + bwd_ms, einsum_ms=einsum)
+        # K2 reads O beside q, k, v, dO and writes D (an older K2 read D)
+        for name, ms, products, tensors in (("K2", k2, 3, 6 if folds else 5), ("K3", k3, 4, 6)):
+            bound, by = bwd_bound_ms(shape, products, tensors, 2)
             out[(name, shape)] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound, bound_by=by,
                                       eager_ms=eager[name])
             log(f"timing {name} bf16 {shape}: kernel {ms:.4f} ms (eager back to back {eager[name]:.4f} ms), "
@@ -692,20 +831,23 @@ def phase_train(fa, smi: str) -> dict:
     # ---- the main path: counts set to 0 just before, read just after
     fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
     losses = []
-    for _ in range(WARMUP_STEPS):
-        state, m = step(state, batch)
-        losses.append(m["loss"])
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t_host = time.perf_counter()
-    start.record()
-    for _ in range(TIMED_STEPS):
-        state, m = step(state, batch)
-        losses.append(m["loss"])
-    end.record()
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t_host
+    with counting_delta_passes(fa) as delta_passes:
+        for _ in range(WARMUP_STEPS):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t_host = time.perf_counter()
+        start.record()
+        for _ in range(TIMED_STEPS):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t_host
     counts = {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DQ, "K3": fa.LAUNCHES_BWD_DKV}
+    log(f"main path: the plain D pass (attention_delta) ran {delta_passes[0]} times (K2 computes D)")
+    check(delta_passes[0] == 0, "the backward ran the plain D pass on the card")
 
     steps = WARMUP_STEPS + TIMED_STEPS
     # every attention call's backward runs K2 then K3 once: one call per
@@ -830,6 +972,44 @@ def phase_train_f32_vs_cpu() -> None:
         f"(worst {worst_step:.2e})")
 
 
+def phase_auto_head_dims(fa) -> None:
+    """Preset vit_t16 as it is (head_dim 16, which no kernel takes), served
+    through ``InferenceEngine`` and trained two steps through
+    ``create_state`` + ``make_train_step``, with a decoder at head_dim 256
+    (the recipes' ``dec_heads=2``): ``attn_impl="auto"`` takes the einsum
+    path there, so nothing raises and no kernel launches; outputs and the
+    loss are finite."""
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
+    from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine
+    from jumbo_mae_tpu_tpu_torch.models import DecoderConfig, preset
+    from jumbo_mae_tpu_tpu_torch.train.optim import OptimConfig
+    from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
+
+    cfg = preset("vit_t16", image_size=32, patch_size=4, labels=10, posemb="sincos2d")
+    engine = InferenceEngine(cfg, max_batch=8, device="cuda")
+    images = np.random.default_rng(0).integers(0, 256, (11, 32, 32, 3), dtype=np.uint8)
+    fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+    logits = engine.logits(images)
+    check(logits.shape == (11, 10) and bool(np.isfinite(logits).all()), "vit_t16 logits")
+    enc = preset("vit_t16", labels=None, mask_ratio=0.75, image_size=64, patch_size=8, posemb="sincos2d",
+                 grad_ckpt=True)
+    dec = DecoderConfig(layers=1, dim=512, heads=2)
+    state = create_state((enc, dec, True), OptimConfig(warmup_steps=0, training_steps=10), device="cuda",
+                         global_batch_size=4)
+    step, batches = make_train_step(), synthetic_batches(4, 64, distinct=1)
+    losses = []
+    for _ in range(2):
+        state, m = step(state, next(batches))
+        losses.append(m["loss"].item())
+    counts = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    check(bool(np.isfinite(losses).all()), f"vit_t16 losses {losses}")
+    check(counts == (0, 0, 0), f"head_dims 16 and 256 launched kernels {counts}")
+    log(f"auto at head_dims 16 and 256 (vit_t16 as it is, dec_heads=2): served 11 images and trained 2 steps "
+        f"(losses {losses[0]:.5f}, {losses[1]:.5f}) on the einsum path, 0 kernel launches")
+
+
 def with_grads(fn, xs, cotangents):
     """The outputs of ``fn(*xs)`` (one tensor or a tuple) and the gradients
     of xs under ``cotangents``, from fresh leaves."""
@@ -869,9 +1049,10 @@ def check_grads(name: str, got, ref, dtype, sk: int | None = None) -> dict:
     arithmetic summed in another order), bf16 within 3e-2 of the largest
     reference entry (P and dS are rounded to bf16 before their products,
     as the Pallas kernels do; the plain version keeps f32). With one key
-    (``sk == 1``) the softmax has no gradient: dq and dk are 0 exactly,
-    and the kernel's and the plain version's values are both f32 rounding
-    of dP − D, so there they are held to the f32 gate in bf16 too.
+    (``sk == 1``, passed only without an lse cotangent) the softmax has no
+    gradient: dq and dk are 0 exactly, and the kernel's and the plain
+    version's values are both f32 rounding of dP − D, so there they are
+    held to the f32 gate in bf16 too.
     Returns {gradient: (max abs error, max abs reference)}."""
     import torch
 
@@ -936,15 +1117,13 @@ def phase_k4_timing(fa) -> dict:
 
     (q, k, v), (g_o, g_lse) = k4_inputs(HOP_SHAPE, torch.bfloat16, 700)
 
-    def kernels():
+    def kernels():  # K1 with lse, then K2 (D − g_lse inside) and K3
         o, lse = fa.flash_attention_with_lse_fwd(q, k, v)
-        do, delta = fa.lse_cotangents(o, g_o, g_lse)
-        return fa.flash_attention_bwd(q, k, v, o, lse, do, delta=delta)
+        return kernel_bwd(fa, q, k, v, o, lse, g_o, g_lse)
 
     def plain():
         o, lse = fa.flash_attention_fwd_plain(q, k, v, with_lse=True)
-        do, delta = fa.lse_cotangents(o, g_o, g_lse)
-        return fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=delta)
+        return fa.flash_attention_bwd_plain(q, k, v, o, lse, g_o, delta=fa.attention_delta(o, g_o, g_lse))
 
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, g_o))  # (B, H, S, D) views
 
@@ -961,14 +1140,7 @@ def phase_k4_timing(fa) -> dict:
     except (RuntimeError, TypeError) as exc:  # the yardstick only; the port never calls it
         log(f"K4 library yardstick unavailable: {exc}")
         lib_ms = None
-    # the least time: the forward reads q, k, v and writes o and lse; the
-    # backward reads q, k, v, o, dO, lse and g_lse and writes dq, dk, dv;
-    # 2 + 5 products of 2·B·H·S²·D operations
-    b, s, h, d = HOP_SHAPE
-    x, row = b * s * h * d * 2, b * h * s * 4
-    t_bytes = (12 * x + 3 * row) / PEAK_BYTES
-    t_ops = 14 * b * h * s * s * d / PEAK_BF16_FLOPS
-    bound, by = max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+    bound, by = attention_fb_bound_ms(HOP_SHAPE, g_lse=True)
     lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
     log(f"timing K4 bf16 {HOP_SHAPE} forward + backward with g_lse: kernels {ms:.4f} ms (eager back to back "
         f"{eager:.4f} ms), plain {plain_ms:.4f} "
@@ -1077,20 +1249,23 @@ def phase_seq_train(fa, smi: str) -> dict:
         # ---- the main path: counts set to 0 just before, read just after
         fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = fa.LAUNCHES_WITH_LSE = 0
         losses = []
-        for _ in range(WARMUP_STEPS):
-            state, m = step(state, batch)
-            losses.append(m["loss"])
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t_host = time.perf_counter()
-        start.record()
-        for _ in range(TIMED_STEPS):
-            state, m = step(state, batch)
-            losses.append(m["loss"])
-        end.record()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t_host
+        with counting_delta_passes(fa) as delta_passes:
+            for _ in range(WARMUP_STEPS):
+                state, m = step(state, batch)
+                losses.append(m["loss"])
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+            start.record()
+            for _ in range(TIMED_STEPS):
+                state, m = step(state, batch)
+                losses.append(m["loss"])
+            end.record()
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t_host
     counts = {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DQ, "K3": fa.LAUNCHES_BWD_DKV, "K4": fa.LAUNCHES_WITH_LSE}
+    log(f"main path (sequence parallel): the plain D pass ran {delta_passes[0]} times (K2 computes D − g_lse)")
+    check(delta_passes[0] == 0, "the ring step's backward ran the plain D pass on the card")
 
     # a stack on the flash ring makes one K4 call (one K1 launch) per hop
     # in each forward, again in each gradient-checkpoint recompute, and one
@@ -1204,6 +1379,7 @@ def main() -> None:
     log(f"serving path: {serve_launches} K1 launches over {dispatches} dispatches")
     train = phase_train(fa, smi)
     phase_train_f32_vs_cpu()
+    phase_auto_head_dims(fa)
     k4_errs = phase_k4(fa)
     k4_timing = phase_k4_timing(fa)
     phase_ring_op(fa)
@@ -1240,6 +1416,20 @@ def main() -> None:
             "library_ms": t["library_ms"],
             "eager_ms": t["eager_ms"],
         })
+    # FlashAttention, the counterpart of pallas_flash_attention (the plain
+    # custom_vjp over K1-K3): forward + backward through autograd at the
+    # decoder shape against SDPA's forward + backward; launches are its
+    # backward passes on the training slice (each one K2 and one K3; its
+    # forwards are K1's launches), the error the worst of K2/K3's there
+    kernels.append({
+        "name": "FlashAttention (flash_attention forward + backward)",
+        "route": "cuda",
+        "source": "jumbo_mae_tpu_tpu_torch/csrc/flash_fwd.cu + jumbo_mae_tpu_tpu_torch/csrc/flash_bwd.cu",
+        "replaces": "jumbo_mae_tpu_tpu/ops/pallas/attention.py:355",
+        "launches": train["counts"]["K2"],
+        "max_abs_err": max(bwd_errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1], g)] for g in ("dq", "dk", "dv")),
+        **bwd_timings[("FlashAttention", DEC_SHAPE)],
+    })
     # K4: launches from the sequence-parallel slice (its main path), the
     # error and times at its hop shape
     kernels.append({

@@ -4,8 +4,14 @@
 //   K3 (dkv): dv = Σ_q Pᵀ·dO,   dk = Σ_q (P ∘ (dO·Vᵀ − D))ᵀ·Q
 //
 // with P = exp(q·kᵀ − lse) recomputed from the forward's lse, and
-// D = rowsum(dO ∘ O) computed before the kernels (plain torch, as the JAX
-// package computes it outside its kernels).
+// D = rowsum(dO ∘ O) − g_lse computed by K2 for its own rows: the JAX
+// package computes D outside its kernels (`_flash_bwd`, the per-row
+// prologue, with K4's lse cotangent g_lse), and a separate pass over O and
+// dO cost more than K2 and K3 together at the MAE shapes. K2 reads its
+// rows' O tile beside their dO tile, sums dO·O per row in f32, subtracts
+// g_lse where one is given, uses that D in its own dS and writes it to an
+// f32 (B*H, Sq) buffer, from which K3 (launched after it on the same
+// stream) reads it.
 //
 // Replaces: `_bwd_dq_kernel` (K2) and `_bwd_dkv_kernel` (K3), launched by
 // `_flash_bwd`, in jumbo_mae_tpu_tpu/ops/pallas/attention.py. Same
@@ -22,12 +28,12 @@
 //
 // What bounds it on an H100: at the MAE shapes (S = 52 and 199, head_dim
 // 64 and 32) K2 does 3 and K3 4 products of 2·S²·D flops per (batch,
-// head) against q, k, v, dO, lse and D read once and the gradients
-// written once; with S this short that is under the card's ~295 bf16
-// flops per byte, so the bound is bytes. What costs the time is not the
-// bytes or the tensor cores but the elementwise work per score (an FMA,
-// an ex2, a subtract, a multiply and a bf16 pack, K3 twice the packs),
-// which both kernels pay, and each block's serial chains (products,
+// head) against q, k, v, dO, lse and D (K2 also O and g_lse) read once
+// and the gradients (K2 also D) written once; with S this short that is
+// under the card's ~295 bf16 flops per byte, so the bound is bytes. What
+// costs the time is not the bytes or the tensor cores but the elementwise
+// work per score (an FMA, an ex2, a subtract, a multiply and a bf16 pack,
+// K3 twice the packs), which both kernels pay, and each block's serial chains (products,
 // wait, elementwise, products, wait), which only other resident blocks
 // can hide; padding past the sequence costs the same per score.
 //
@@ -44,8 +50,8 @@
 //  - warp specialised: one producer warp starts TMA loads through 4-D
 //    tensor maps over the strided (B, S, H, D) views, one consumer
 //    warpgroup computes;
-//  - the block's own pair of tiles (Q and dO in K2, K and V in K3) is
-//    loaded once; the other pair (K and V in K2, Q and dO in K3) streams
+//  - the block's own tiles (Q, dO and O in K2, K and V in K3) are loaded
+//    once; the other pair (K and V in K2, Q and dO in K3) streams
 //    through a ring of 3 slots under full/empty mbarriers, so the next
 //    tiles' loads overlap this tile's products;
 //  - K2: S = Q·Kᵀ and dP = dO·Vᵀ are wgmma SS products (both operands
@@ -64,7 +70,12 @@
 //    other's chains; the elementwise work per score is specialised per
 //    tile (no mask, a ragged end, packed heads), so a full tile pays
 //    nothing for masking;
-//  - lse and D cannot come through TMA (a tensor map needs 16-byte
+//  - K2's D: each quad of consumer threads owns rows r0 and r0 + 8 and
+//    sums dO·O over them, each lane a quarter of the 16-byte chunks read
+//    from the swizzled tiles, then two shuffles; one lane per row stores
+//    D (pad rows and packed rows of absent heads store nothing, and TMA
+//    fills them with zeros, so they never read memory past the sequence);
+//  - lse, g_lse and D cannot come through TMA (a tensor map needs 16-byte
 //    strides; an lse row is Sq x 4 bytes). K2's consumer threads load
 //    their two rows' values into registers; K3's producer warp loads the
 //    streamed tile's 64 values of each into a shared-memory slot beside the
@@ -89,9 +100,11 @@
 //  - float32 runs plain FMA in full f32 (no TF32), 32-row tiles with 4
 //    threads per row. This is the exact path parity runs take.
 //
-// Layout: q, k, v and dO are (B, S, H, D) read through strides (innermost
-// stride 1); lse and D are f32 (B*H, Sq) with row b*H + h (K1's lse
-// layout); dq, dk and dv are written through strides in the input dtype.
+// Layout: q, k, v, dO and O are (B, S, H, D) read through strides
+// (innermost stride 1); lse, g_lse and D are f32 (B*H, Sq) with row
+// b*H + h (K1's lse layout); dq, dk and dv are written through strides in
+// the input dtype. The mma.sync and f32 kernels read O and dO for D with
+// plain loads, each quad's lanes a quarter of a row.
 //
 // Plain C interface, loaded with ctypes: each entry point returns
 // cudaGetLastError() after its launch (0 on success).
@@ -111,12 +124,14 @@ struct BwdParams {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;    // (B*H, Sq)
-  const float* delta;  // (B*H, Sq), rowsum(dO ∘ O)
+  const void* o;        // K2: the forward's output
+  const float* lse;     // (B*H, Sq)
+  const float* g_lse;   // K2: (B*H, Sq), lse's cotangent (K4), or null
+  float* delta;         // (B*H, Sq), rowsum(dO ∘ O) − g_lse: K2 writes, K3 reads
   void* dq;
   void* dk;
   void* dv;
-  Strides qs, ks, vs, dos, dqs, dks, dvs;
+  Strides qs, ks, vs, dos, os, dqs, dks, dvs;
   int B, H, Sq, Sk;
 };
 
@@ -129,9 +144,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct BwdTile : hp::SwizzledTile<D> {
-  // the block's own pair of tiles and kStages slots of the streamed pair,
-  // + 1024 bytes for alignment
-  static constexpr size_t kSmem = 1024 + (2 + 2 * kStages) * hp::SwizzledTile<D>::kTileBytes;
+  // the block's own tiles (Q, dO and O in K2; K and V in K3) and kStages
+  // slots of the streamed pair, + 1024 bytes for alignment. K2's O tile
+  // keeps its 5 and 3 blocks an SM at head_dim 32 and 64 (37 and 73 KB a
+  // block against the SM's 228 KB); chip_smoke.py checks the count.
+  static constexpr size_t kSmemDq = 1024 + (3 + 2 * kStages) * hp::SwizzledTile<D>::kTileBytes;
+  static constexpr size_t kSmemDkv = 1024 + (2 + 2 * kStages) * hp::SwizzledTile<D>::kTileBytes;
   // columns per product (keys in K2, query rows in K3) and the blocks per
   // SM the registers must allow, chosen on the H100 (PERF.md): narrow
   // products keep few score registers live, so more blocks run at once
@@ -148,7 +166,8 @@ struct WgParams {
   void* out0;          // K2: dq; K3: dk
   void* out1;          // K3: dv
   const float* lse;    // (B*H, Sq)
-  const float* delta;  // (B*H, Sq)
+  const float* g_lse;  // K2: (B*H, Sq) or null
+  float* delta;        // (B*H, Sq): K2 writes, K3 reads
   Strides os0, os1;
   int B, H, Sq, Sk;
   int log_pack;  // 2^log_pack heads share one 64-row tile
@@ -280,18 +299,34 @@ __device__ __forceinline__ void dq_tile(int cols, float (&dq)[D / 2], uint32_t q
   });
 }
 
+// dO·O summed over row `row` of the swizzled dO and O tiles, by the 4
+// lanes of a quad: lane t reads the 16-byte chunks t, t + 4, ... of both;
+// every lane returns the same sum.
+template <int D>
+__device__ __forceinline__ float tile_row_dot(uint32_t do_tile, uint32_t o_tile, int row, int t) {
+  using T = hp::SwizzledTile<D>;
+  float acc = 0.f;
+#pragma unroll
+  for (int c = t; c < D / 8; c += 4) {
+    const uint32_t off = T::chunk_offset(row, c);
+    acc = dot8_bf16(hp::ld_shared_v4(do_tile + off), hp::ld_shared_v4(o_tile + off), acc);
+  }
+  return quad_sum(acc);
+}
+
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDq)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                       WgParams p) {
+                       const __grid_constant__ CUtensorMap tm_o, WgParams p) {
   using T = BwdTile<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // own_full, full[], empty[]
 
   const uint32_t q_tile = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t do_tile = q_tile + T::kTileBytes;
-  const uint32_t k_smem = do_tile + T::kTileBytes;  // kStages K tiles, then kStages V tiles
+  const uint32_t o_tile = do_tile + T::kTileBytes;
+  const uint32_t k_smem = o_tile + T::kTileBytes;  // kStages K tiles, then kStages V tiles
   const uint32_t v_smem = k_smem + kStages * T::kTileBytes;
   const uint32_t own_full = hp::smem_u32(&bars[0]);
   const uint32_t full0 = hp::smem_u32(&bars[1]);
@@ -318,11 +353,12 @@ __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDq)
 
   if (warp == 4) {  // ---- the producer warp: one lane starts every load
     if (lane == 0) {
-      hp::mbar_arrive_expect_tx(own_full, 2 * T::kTileBytes);
+      hp::mbar_arrive_expect_tx(own_full, 3 * T::kTileBytes);
       for (int pn = 0; pn < T::kPanels; ++pn) {
         const uint32_t off = pn * T::kPanelBytes;
         hp::tma_load_4d(q_tile + off, &tm_q, own_full, pn * T::kPanelCols, h0, s0, b);
         hp::tma_load_4d(do_tile + off, &tm_do, own_full, pn * T::kPanelCols, h0, s0, b);
+        hp::tma_load_4d(o_tile + off, &tm_o, own_full, pn * T::kPanelCols, h0, s0, b);
       }
       for (int n = 0; n < n_tiles; ++n) {
         const int st = n % kStages;
@@ -340,19 +376,22 @@ __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDq)
   }
 
   // ---- the consumer warpgroup: rows r0 = 16·warp + lane / 4 and r0 + 8,
-  // with their lse (times log2 e) and D in registers; pad rows read nothing
+  // with their lse (times log2 e), g_lse and D in registers; pad rows read
+  // nothing
   const int r0 = 16 * warp + (lane >> 2);
   const RowInfo ri{lane & 3, {r0 & pm, (r0 + 8) & pm}, p.log_pack};
   float lse2[2], dd[2];
+  long long idx[2];
+  bool ok[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     const int sq = s0 + (row >> p.log_pack);
     const int h = h0 + (row & pm);
-    const bool ok = sq < p.Sq && h < p.H;
-    const long long i = (static_cast<long long>(b) * p.H + h) * p.Sq + sq;
-    lse2[r] = ok ? p.lse[i] * kLog2e : 0.f;
-    dd[r] = ok ? p.delta[i] : 0.f;
+    ok[r] = sq < p.Sq && h < p.H;
+    idx[r] = (static_cast<long long>(b) * p.H + h) * p.Sq + sq;
+    lse2[r] = ok[r] ? p.lse[idx[r]] * kLog2e : 0.f;
+    dd[r] = ok[r] && p.g_lse != nullptr ? -p.g_lse[idx[r]] : 0.f;
   }
 
   float dq[D / 2];  // chunk j (columns 8j..8j+7) in dq[4j..4j+3]
@@ -360,6 +399,13 @@ __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDq)
   for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
 
   hp::mbar_wait(own_full, 0);
+  // D = rowsum(dO ∘ O) − g_lse of both rows; lane 0 of the quad stores it
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float sum = tile_row_dot<D>(do_tile, o_tile, r0 + 8 * r, ri.t);
+    dd[r] = ok[r] ? sum + dd[r] : 0.f;
+    if (ok[r] && ri.t == 0) p.delta[idx[r]] = dd[r];
+  }
   for (int n = 0; n < n_tiles; ++n) {
     const int st = n % kStages;
     hp::mbar_wait(full0 + 8 * st, (n / kStages) & 1);
@@ -598,19 +644,31 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(BwdParams p) {
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.ks.b + h * p.ks.h;
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.vs.b + h * p.vs.h;
   const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) + b * p.dos.b + h * p.dos.h;
+  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) + b * p.os.b + h * p.os.h;
   __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq) + b * p.dqs.b + h * p.dqs.h;
 
   load_rows_bf16<D, kDqRows, kThreads>(qs, q, p.qs.s, m0, p.Sq);
   load_rows_bf16<D, kDqRows, kThreads>(dos, dout, p.dos.s, m0, p.Sq);
 
-  // lse and D of rows g and g+8 of this warp's 16; pad rows read nothing
+  // lse of rows g and g+8 of this warp's 16, and their D = rowsum(dO ∘ O)
+  // − g_lse, each quad's lanes summing the 16-byte chunks t, t + 4, ...;
+  // lane 0 of the quad stores D. Pad rows read nothing
   const int rows[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
   float lse_r[2], dd_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const bool ok = rows[r] < p.Sq;
+    float dsum = 0.f;
+    if (ok) {
+      for (int c = t; c < D / 8; c += 4) {
+        dsum = dot8_bf16(*reinterpret_cast<const uint4*>(dout + rows[r] * p.dos.s + 8 * c),
+                         *reinterpret_cast<const uint4*>(o + rows[r] * p.os.s + 8 * c), dsum);
+      }
+    }
+    dsum = quad_sum(dsum);
     lse_r[r] = ok ? p.lse[bh * p.Sq + rows[r]] : 0.f;
-    dd_r[r] = ok ? p.delta[bh * p.Sq + rows[r]] : 0.f;
+    dd_r[r] = ok ? dsum - (p.g_lse != nullptr ? p.g_lse[bh * p.Sq + rows[r]] : 0.f) : 0.f;
+    if (ok && t == 0) p.delta[bh * p.Sq + rows[r]] = dd_r[r];
   }
 
   constexpr int kSteps = D / 16;
@@ -856,12 +914,21 @@ __global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32(BwdParams p) {
   const float* k = static_cast<const float*>(p.k) + b * p.ks.b + h * p.ks.h;
   const float* v = static_cast<const float*>(p.v) + b * p.vs.b + h * p.vs.h;
   const float* dout = static_cast<const float*>(p.dout) + b * p.dos.b + h * p.dos.h;
+  const float* o = static_cast<const float*>(p.o) + b * p.os.b + h * p.os.h;
   float* dq = static_cast<float*>(p.dq) + b * p.dqs.b + h * p.dqs.h;
 
   load_rows_f32<D, kF32Threads>(qs, D + 1, q, p.qs.s, kF32Rows, m0, p.Sq);
   load_rows_f32<D, kF32Threads>(dos, D + 1, dout, p.dos.s, kF32Rows, m0, p.Sq);
+  // D = rowsum(dO ∘ O) − g_lse of this row: the quad's lanes sum columns
+  // t, t + 4, ...; lane 0 stores it. Pad rows read nothing
+  float dsum = 0.f;
+  if (row < p.Sq) {
+    for (int c = t; c < D; c += 4) dsum = fmaf(dout[row * p.dos.s + c], o[row * p.os.s + c], dsum);
+  }
+  dsum = quad_sum(dsum);
   const float lse_r = row < p.Sq ? p.lse[bh * p.Sq + row] : 0.f;
-  const float dd_r = row < p.Sq ? p.delta[bh * p.Sq + row] : 0.f;
+  const float dd_r = row < p.Sq ? dsum - (p.g_lse != nullptr ? p.g_lse[bh * p.Sq + row] : 0.f) : 0.f;
+  if (row < p.Sq && t == 0) p.delta[bh * p.Sq + row] = dd_r;
 
   constexpr int kCols = D / 4;  // output columns t, t+4, t+8, ...
   float acc[kCols];
@@ -1005,18 +1072,18 @@ int pack_log(const BwdParams& p) {
   return lp;
 }
 
-// Tensor maps of q, k, v and dO (in that order), boxes of one swizzled
-// panel by 2^lp heads by 64 >> lp positions.
+// Tensor maps of q, k, v, dO and (K2) O, in that order, boxes of one
+// swizzled panel by 2^lp heads by 64 >> lp positions.
 template <int D>
-cudaError_t encode_maps(CUtensorMap (&m)[4], const BwdParams& p, int lp) {
+cudaError_t encode_maps(CUtensorMap* m, int n, const BwdParams& p, int lp) {
   constexpr int pw = hp::SwizzledTile<D>::kPanelCols;
   const int rows_s = kWgRows >> lp;
   const struct {
     const void* base;
     int S;
     Strides st;
-  } views[4] = {{p.q, p.Sq, p.qs}, {p.k, p.Sk, p.ks}, {p.v, p.Sk, p.vs}, {p.dout, p.Sq, p.dos}};
-  for (int i = 0; i < 4; ++i) {
+  } views[5] = {{p.q, p.Sq, p.qs}, {p.k, p.Sk, p.ks}, {p.v, p.Sk, p.vs}, {p.dout, p.Sq, p.dos}, {p.o, p.Sq, p.os}};
+  for (int i = 0; i < n; ++i) {
     const cudaError_t err = hp::encode_bshd(&m[i], views[i].base, p.B, views[i].S, p.H, D, views[i].st.b,
                                             views[i].st.s, views[i].st.h, pw, 1 << lp, rows_s);
     if (err != cudaSuccess) return err;
@@ -1024,19 +1091,20 @@ cudaError_t encode_maps(CUtensorMap (&m)[4], const BwdParams& p, int lp) {
   return cudaSuccess;
 }
 
-// K2 (dq, `dkv` false) or K3 (dk, dv) through the wgmma kernels; a block
-// per 64-row tile of q rows (K2) or keys (K3).
+// K2 (dq and D, `dkv` false) or K3 (dk, dv) through the wgmma kernels; a
+// block per 64-row tile of q rows (K2) or keys (K3).
 template <int D, bool dkv>
 cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
   using T = BwdTile<D>;
   const int lp = pack_log(p);
-  CUtensorMap m[4];
-  cudaError_t err = encode_maps<D>(m, p, lp);
+  CUtensorMap m[5];
+  cudaError_t err = encode_maps<D>(m, dkv ? 4 : 5, p, lp);
   if (err != cudaSuccess) return err;
   WgParams w;
   w.out0 = dkv ? p.dk : p.dq;
   w.out1 = p.dv;
   w.lse = p.lse;
+  w.g_lse = p.g_lse;
   w.delta = p.delta;
   w.os0 = dkv ? p.dks : p.dqs;
   w.os1 = p.dvs;
@@ -1045,14 +1113,41 @@ cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
   w.Sq = p.Sq;
   w.Sk = p.Sk;
   w.log_pack = lp;
-  const auto kernel = dkv ? flash_bwd_dkv_wgmma<D> : flash_bwd_dq_wgmma<D>;
-  static std::atomic<unsigned long long> smem_set{0};
-  err = allow_smem(kernel, T::kSmem, smem_set);
-  if (err != cudaSuccess) return err;
   const int rows_s = kWgRows >> lp;
   const dim3 grid(((dkv ? p.Sk : p.Sq) + rows_s - 1) / rows_s, (p.H + (1 << lp) - 1) >> lp, p.B);
-  kernel<<<grid, kWgThreads, T::kSmem, stream>>>(m[0], m[1], m[2], m[3], w);
+  static std::atomic<unsigned long long> smem_set{0};
+  if constexpr (dkv) {
+    err = allow_smem(flash_bwd_dkv_wgmma<D>, T::kSmemDkv, smem_set);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_wgmma<D><<<grid, kWgThreads, T::kSmemDkv, stream>>>(m[0], m[1], m[2], m[3], w);
+  } else {
+    err = allow_smem(flash_bwd_dq_wgmma<D>, T::kSmemDq, smem_set);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_wgmma<D><<<grid, kWgThreads, T::kSmemDq, stream>>>(m[0], m[1], m[2], m[3], m[4], w);
+  }
   return cudaGetLastError();
+}
+
+// Blocks an SM holds of the bf16 K2 (`dkv` false) or K3 kernel at head_dim
+// D, from the occupancy calculator: its registers, threads and shared
+// memory.
+template <int D, bool dkv>
+cudaError_t blocks_per_sm(int* blocks) {
+  using T = BwdTile<D>;
+  if constexpr (D == 80) {
+    return dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dkv_bf16<D>, kThreads,
+                                                               smem_dkv_bf16<D>())
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dq_bf16<D>, kThreads,
+                                                               smem_dq_bf16<D>());
+  } else {
+    static std::atomic<unsigned long long> smem_set{0};
+    const size_t smem = dkv ? T::kSmemDkv : T::kSmemDq;
+    const auto kernel = dkv ? reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<D>)
+                            : reinterpret_cast<const void*>(flash_bwd_dq_wgmma<D>);
+    const cudaError_t err = allow_smem(kernel, smem, smem_set);
+    if (err != cudaSuccess) return err;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWgThreads, smem);
+  }
 }
 
 template <typename Kernel>
@@ -1105,16 +1200,18 @@ bool valid(int dtype, int B, int H, int Sq, int Sk) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, for
-// (batch, seq, head); the head_dim stride must be 1. lse and delta are
-// f32 (B*H, Sq). Each returns a cudaError_t (0 = success). Shapes are
-// validated by the caller.
-int jumbo_flash_bwd_dq(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq, int dtype, int B, int H, int Sq, int Sk, int D,
+// (batch, seq, head); the head_dim stride must be 1. lse, g_lse and delta
+// are f32 (B*H, Sq); K2 writes delta (rowsum(dO ∘ O) − g_lse; g_lse may be
+// null) and K3 reads it. Each returns a cudaError_t (0 = success). Shapes
+// are validated by the caller.
+int jumbo_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* o,
+                       const void* lse, const void* g_lse, void* delta, void* dq,
+                       int dtype, int B, int H, int Sq, int Sk, int D,
                        long long q_sb, long long q_ss, long long q_sh,
                        long long k_sb, long long k_ss, long long k_sh,
                        long long v_sb, long long v_ss, long long v_sh,
                        long long do_sb, long long do_ss, long long do_sh,
+                       long long o_sb, long long o_ss, long long o_sh,
                        long long dq_sb, long long dq_ss, long long dq_sh,
                        void* stream) {
   if (!valid(dtype, B, H, Sq, Sk)) return static_cast<int>(cudaErrorInvalidValue);
@@ -1123,13 +1220,16 @@ int jumbo_flash_bwd_dq(const void* q, const void* k, const void* v,
   p.k = k;
   p.v = v;
   p.dout = dout;
+  p.o = o;
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.g_lse = static_cast<const float*>(g_lse);
+  p.delta = static_cast<float*>(delta);
   p.dq = dq;
   p.qs = {q_sb, q_ss, q_sh};
   p.ks = {k_sb, k_ss, k_sh};
   p.vs = {v_sb, v_ss, v_sh};
   p.dos = {do_sb, do_ss, do_sh};
+  p.os = {o_sb, o_ss, o_sh};
   p.dqs = {dq_sb, dq_ss, dq_sh};
   p.B = B;
   p.H = H;
@@ -1163,7 +1263,7 @@ int jumbo_flash_bwd_dkv(const void* q, const void* k, const void* v,
   p.v = v;
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
+  p.delta = static_cast<float*>(const_cast<void*>(delta));
   p.dk = dk;
   p.dv = dv;
   p.qs = {q_sb, q_ss, q_sh};
@@ -1182,6 +1282,19 @@ int jumbo_flash_bwd_dkv(const void* q, const void* k, const void* v,
     case 64: return static_cast<int>(launch_dkv<64>(p, dtype, s));
     case 80: return static_cast<int>(launch_dkv<80>(p, dtype, s));
     case 128: return static_cast<int>(launch_dkv<128>(p, dtype, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Blocks an SM holds of the bf16 K2 (which = 0) or K3 (1) kernel at
+// head_dim D, written to *blocks. Returns a cudaError_t.
+int jumbo_flash_bwd_blocks_per_sm(int which, int D, int* blocks) {
+  const bool dkv = which != 0;
+  switch (D) {
+    case 32: return static_cast<int>(dkv ? blocks_per_sm<32, true>(blocks) : blocks_per_sm<32, false>(blocks));
+    case 64: return static_cast<int>(dkv ? blocks_per_sm<64, true>(blocks) : blocks_per_sm<64, false>(blocks));
+    case 80: return static_cast<int>(dkv ? blocks_per_sm<80, true>(blocks) : blocks_per_sm<80, false>(blocks));
+    case 128: return static_cast<int>(dkv ? blocks_per_sm<128, true>(blocks) : blocks_per_sm<128, false>(blocks));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -34,6 +34,29 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// acc + Σ a_i·b_i over the 8 bf16 pairs of two 16-byte chunks, in f32, in
+// a fixed order.
+__device__ __forceinline__ float dot8_bf16(const uint4& a, const uint4& b, float acc) {
+  const uint32_t* x = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + i));
+    const float2 fy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(y + i));
+    acc = fmaf(fx.x, fy.x, acc);
+    acc = fmaf(fx.y, fy.y, acc);
+  }
+  return acc;
+}
+
+// The sum of `x` over the 4 lanes of a quad (lanes 4k..4k+3), the same
+// bits in each: (x0 + x1) + (x2 + x3) in every lane, as f32 addition
+// commutes.
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
 // d += a·b for one 16x8x16 tile: a row-major 16x16 bf16, b col-major 16x8
 // bf16, d 16x8 f32. Fragment layout (g = lane/4, t = lane%4):
 //   a[0] = A[g][2t..2t+1]   a[1] = A[g+8][2t..2t+1]

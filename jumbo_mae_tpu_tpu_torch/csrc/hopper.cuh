@@ -84,6 +84,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// 16 bytes of shared memory at `addr` (16-byte aligned).
+__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
 // 2^x on the special-function unit (flush-to-zero; 2^-huge is 0).
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
@@ -300,6 +309,15 @@ struct SwizzledTile {
   }
   __device__ static uint64_t mn_step(int kk) {
     return static_cast<uint64_t>((kk * 16 * kRowBytes) >> 4);
+  }
+  // The byte offset in the tile of row `row`'s 16-byte chunk `c` (columns
+  // 8c..8c+7), where TMA's swizzle put it: inside a panel, the chunk index
+  // (address bits 4..6 at 128 bytes, 4..5 at 64) is XORed with bits 7..9
+  // (7..8) of the unswizzled offset (CUTLASS's Swizzle<3,4,3>, <2,4,3>).
+  __device__ static uint32_t chunk_offset(int row, int c) {
+    constexpr int kChunks = kPanelCols / 8;  // chunks per panel row
+    const uint32_t off = row * kRowBytes + (c % kChunks) * 16;
+    return (c / kChunks) * kPanelBytes + (off ^ (((off >> 7) & (kChunks - 1)) << 4));
   }
 };
 

@@ -12,11 +12,14 @@ branches). The flax numerics are kept, not PyTorch's defaults:
   runs softmax in float32, then casts the probabilities back;
 - a LayerScale parameter (float32) times a bf16 branch promotes the
   residual stream to float32, exactly as JAX's type promotion does;
-- DropPath keeps a whole sample's branch with probability 1 − rate and
-  scales it by 1/(1 − rate), as flax's broadcast ``Dropout`` does, drawing
-  from an explicit generator per site: a block derives each site's seed
-  from the seed it is given, so a gradient-checkpoint recompute draws the
-  same mask.
+- Dropout keeps each entry, and DropPath a whole sample's branch, with
+  probability 1 − rate and scales it by 1/(1 − rate), as flax's
+  ``Dropout`` (broadcast, for DropPath) does. Each site draws from an
+  explicit generator of its own, for the global batch: a block derives
+  each site's seed from the seed it is given, so a gradient-checkpoint
+  recompute draws the same mask, every data layout draws the same masks,
+  and (seed, step, micro) replays them. No site draws from torch's
+  default generator.
 
 Parameter names mirror the flax tree (q/k/v/out, fc1/fc2, ln1/ln2/ln3,
 ls1/ls2/ls3), so ``interop/from_jax.py`` maps one onto the other.
@@ -32,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, JumboViTConfig
+from jumbo_mae_tpu_tpu_torch.ops.flash.attention import HEAD_DIMS, KERNEL_DTYPES
 from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention
 from jumbo_mae_tpu_tpu_torch.ops.posemb import sincos2d_positional_embedding
 from jumbo_mae_tpu_tpu_torch.parallel.mesh import ambient_mesh, batch_rand, set_mesh
@@ -61,21 +65,30 @@ def resolve_attn_impl(
     device_type: str,
     dropout: float,
     deterministic: bool,
+    head_dim: int,
+    dtype: torch.dtype,
     masked: bool = False,
 ) -> str:
     """Resolve ``attn_impl="auto"`` to a concrete path for one call.
 
-    On a CUDA device, ``"auto"`` takes the hand-written flash kernel for
-    every call with no mask and no active dropout (the kernel has neither).
-    Everywhere else it takes the einsum path. The H100 crossover between the
-    two has not been measured yet (ROADMAP, open questions); the JAX
-    package's 512-token rule was measured on a TPU and does not carry over.
-    Explicit choices pass through, ``"ring"`` (sequence parallelism over
-    the ambient mesh) among them."""
+    On a CUDA device, ``"auto"`` takes the hand-written flash kernels only
+    where they run: a head_dim in :data:`~jumbo_mae_tpu_tpu_torch.ops.flash.attention.HEAD_DIMS`,
+    a float32 or bfloat16 compute dtype, no mask and no active dropout (the
+    kernels have neither). At the MAE shapes they beat the einsum path
+    forward and backward on the H100 (PERF.md); any other call, and every
+    call off CUDA, takes the einsum path, so no config ``"auto"`` accepts
+    fails on the card. The JAX package's 512-token rule was measured on a
+    TPU and does not carry over. Explicit choices pass through: an explicit
+    ``"flash"`` raises where the kernels cannot run, and ``"ring"``
+    (sequence parallelism over the ambient mesh) is taken as asked."""
     if impl != "auto":
         return impl
     use_flash = (
-        device_type == "cuda" and not masked and (dropout == 0.0 or deterministic)
+        device_type == "cuda"
+        and head_dim in HEAD_DIMS
+        and dtype in KERNEL_DTYPES
+        and not masked
+        and (dropout == 0.0 or deterministic)
     )
     return "flash" if use_flash else "einsum"
 
@@ -119,10 +132,12 @@ class Attention(nn.Module):
         self.k = Dense(cfg.dim, cfg.dim, dt)
         self.v = Dense(cfg.dim, cfg.dim, dt)
         self.out = Dense(cfg.dim, cfg.dim, dt)
-        self.attn_drop = nn.Dropout(cfg.dropout)
-        self.out_drop = nn.Dropout(cfg.dropout)
+        self.attn_drop = Dropout(cfg.dropout)
+        self.out_drop = Dropout(cfg.dropout)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, mask: torch.Tensor | None = None, seed: int | None = None
+    ) -> torch.Tensor:
         cfg = self.cfg
         deterministic = not self.training
         b, s, _ = x.shape
@@ -148,8 +163,11 @@ class Attention(nn.Module):
             device_type=x.device.type,
             dropout=cfg.dropout,
             deterministic=deterministic,
+            head_dim=hd,
+            dtype=q.dtype,
             masked=mask is not None,
         )
+        g_attn, g_out = site_generators(self, cfg.dropout, seed, x.device, 2)
 
         if impl in ("flash", "ring"):
             if impl == "ring":  # tokens shard over the ambient mesh's "seq" axis
@@ -164,12 +182,12 @@ class Attention(nn.Module):
             scores = logits.float()
             if mask is not None:
                 scores = scores.masked_fill(~mask, float("-inf"))
-            probs = self.attn_drop(torch.softmax(scores, dim=-1).to(dt))
+            probs = self.attn_drop(torch.softmax(scores, dim=-1).to(dt), g_attn)
             z = torch.einsum("bhqk,bkhd->bhqd", probs, v)  # head-major
             # the output projection contracts (h, d) from the head-major layout
             w = self.out.weight.to(dt).view(cfg.dim, heads, hd)
             out = torch.einsum("bhqd,ohd->bqo", z, w) + self.out.bias.to(dt)
-        return self.out_drop(out)
+        return self.out_drop(out, g_out)
 
 
 class Mlp(nn.Module):
@@ -180,12 +198,13 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Dense(dim, hidden_dim, dtype)
         self.fc2 = Dense(hidden_dim, dim, dtype)
-        self.drop1 = nn.Dropout(dropout)
-        self.drop2 = nn.Dropout(dropout)
+        self.drop1 = Dropout(dropout)
+        self.drop2 = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.drop1(F.gelu(self.fc1(x), approximate="tanh"))
-        return self.drop2(self.fc2(x))
+    def forward(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
+        g1, g2 = site_generators(self, self.drop1.rate, seed, x.device, 2)
+        x = self.drop1(F.gelu(self.fc1(x), approximate="tanh"), g1)
+        return self.drop2(self.fc2(x), g2)
 
 
 def make_jumbo_mlp(cfg: JumboViTConfig) -> Mlp:
@@ -194,13 +213,14 @@ def make_jumbo_mlp(cfg: JumboViTConfig) -> Mlp:
     return Mlp(k * cfg.dim, 4 * k * cfg.dim, cfg.dropout, cfg.compute_dtype)
 
 
-class DropPath(nn.Module):
-    """Stochastic depth: drop the whole residual branch per sample. In
-    training with a positive rate, each sample's branch is kept with
-    probability 1 − rate and scaled by 1/(1 − rate), the mask drawn from
-    ``generator`` (on the input's device) for the global batch, of which a
-    data rank keeps its rows (``parallel.mesh.batch_rand``); inert in eval
-    mode and at rate 0."""
+class Dropout(nn.Module):
+    """Dropout of each entry. In training with a positive rate, an entry is
+    kept with probability 1 − rate and scaled by 1/(1 − rate), the mask
+    drawn from ``generator`` (on the input's device) for the global batch,
+    of which a data rank keeps its rows (``parallel.mesh.batch_rand``);
+    inert in eval mode and at rate 0."""
+
+    per_sample = False  # one draw per entry (False) or per sample (True)
 
     def __init__(self, rate: float):
         super().__init__()
@@ -210,22 +230,42 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         if generator is None:
-            raise ValueError("droppath in training needs an explicit generator")
+            raise ValueError(f"{type(self).__name__.lower()} in training needs an explicit generator")
         keep_prob = 1.0 - self.rate
-        u = batch_rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator, device=x.device)
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1) if self.per_sample else x.shape
+        u = batch_rand(shape, generator=generator, device=x.device)
         return torch.where(u < keep_prob, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def droppath_generators(
+class DropPath(Dropout):
+    """Stochastic depth: :class:`Dropout` of the whole residual branch per
+    sample."""
+
+    per_sample = True
+
+
+def site_generators(
     module: nn.Module, rate: float, seed: int | None, device: torch.device, sites: int
 ) -> list[torch.Generator | None]:
-    """One generator per DropPath site of a block, each seeded from
-    (seed, site), or ``None``s when DropPath is inert."""
+    """One generator per dropout or DropPath site of a module, each seeded
+    from (seed, site), or ``None``s when the sites are inert (eval mode or
+    rate 0)."""
     if not module.training or rate == 0.0:
         return [None] * sites
     if seed is None:
-        raise ValueError("droppath in training needs a seed for the block")
+        raise ValueError(f"dropout and droppath in training need a seed ({type(module).__name__})")
     return [generator(derive_seed(seed, i), device) for i in range(sites)]
+
+
+# A block's seed, given to its DropPath sites as (seed, 0..2), seeds its
+# sub-modules' dropout sites through (seed, site) with these sites
+ATTN_SITE, MLP_SITE, JUMBO_MLP_SITE = 3, 4, 5
+
+
+def sub_seed(seed: int | None, site: int) -> int | None:
+    """The seed a block hands to its sub-module ``site``; ``None`` without
+    one."""
+    return None if seed is None else derive_seed(seed, site)
 
 
 def maybe_remat(block: nn.Module, cfg: ConfigT) -> Callable:
@@ -275,9 +315,9 @@ class PlainBlock(nn.Module):
         self.dp2 = DropPath(cfg.droppath)
 
     def forward(self, x: torch.Tensor, seed: int | None = None) -> torch.Tensor:
-        g1, g2 = droppath_generators(self, self.cfg.droppath, seed, x.device, 2)
-        x = x + self.dp1(_scale(self.ls1, self.attn(self.ln1(x))), g1)
-        return x + self.dp2(_scale(self.ls2, self.mlp(self.ln2(x))), g2)
+        g1, g2 = site_generators(self, self.cfg.droppath, seed, x.device, 2)
+        x = x + self.dp1(_scale(self.ls1, self.attn(self.ln1(x), seed=sub_seed(seed, ATTN_SITE))), g1)
+        return x + self.dp2(_scale(self.ls2, self.mlp(self.ln2(x), sub_seed(seed, MLP_SITE))), g2)
 
 
 def _scale(ls: torch.Tensor | None, h: torch.Tensor) -> torch.Tensor:
@@ -319,15 +359,15 @@ class JumboBlock(nn.Module):
     def forward(self, x: torch.Tensor, jumbo_mlp: Mlp, seed: int | None = None) -> torch.Tensor:
         cfg = self.cfg
         k = cfg.num_cls_tokens
-        g1, g2, g3 = droppath_generators(self, cfg.droppath, seed, x.device, 3)
-        x = x + self.dp1(_scale(self.ls1, self.attn(self.ln1(x))), g1)
+        g1, g2, g3 = site_generators(self, cfg.droppath, seed, x.device, 3)
+        x = x + self.dp1(_scale(self.ls1, self.attn(self.ln1(x), seed=sub_seed(seed, ATTN_SITE))), g1)
 
         cls, patches = x[:, :k, :], x[:, k:, :]
         bs = cls.shape[0]
         cc = self.ln3(cls.reshape(bs, k * cfg.dim))
-        cc = cc + self.dp3(_scale(self.ls3, jumbo_mlp(cc)), g3)
+        cc = cc + self.dp3(_scale(self.ls3, jumbo_mlp(cc, sub_seed(seed, JUMBO_MLP_SITE))), g3)
 
-        h = self.mlp(self.ln2(patches))
+        h = self.mlp(self.ln2(patches), sub_seed(seed, MLP_SITE))
         patches = patches + self.dp2(_scale(self.ls2, h), g2)
         return torch.cat([cc.reshape(bs, k, cfg.dim), patches], dim=1)
 

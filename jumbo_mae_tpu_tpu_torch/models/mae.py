@@ -28,7 +28,7 @@ from jumbo_mae_tpu_tpu_torch.models.layers import (
     maybe_remat,
     trunc_normal_,
 )
-from jumbo_mae_tpu_tpu_torch.models.vit import Generators, JumboViT, block_seeds
+from jumbo_mae_tpu_tpu_torch.models.vit import DECODER_DOMAIN, Generators, JumboViT, block_seeds
 from jumbo_mae_tpu_tpu_torch.ops.masking import unshuffle_with_mask_tokens
 from jumbo_mae_tpu_tpu_torch.ops.patches import extract_patches, patch_mse_loss_per_sample
 from jumbo_mae_tpu_tpu_torch.ops.posemb import sincos2d_positional_embedding
@@ -54,7 +54,7 @@ class MAEDecoder(nn.Module):
         k = self.num_cls_tokens
         x = torch.cat([x[:, :k, :], x[:, k:, :] + self.pos_embed.to(x.dtype)], dim=1)
         run = [maybe_remat(block, self.cfg) for block in self.blocks]
-        for block, seed in zip(run, block_seeds(generators, 1, len(run))):
+        for block, seed in zip(run, block_seeds(generators, DECODER_DOMAIN, len(run))):
             x = block(x, seed)
         return self.ln(x)
 

@@ -17,8 +17,8 @@ The shared ``jumbo_mlp`` is built once and handed to every block; with
 (``layers.maybe_remat``). Inputs are normalized NHWC images, as the flax
 module takes them. Random draws come from explicit generators:
 ``generators["noise"]`` for the mask (unless ``mask_noise`` pins it) and
-``generators["dropout"]``, whose seed each block's DropPath sites derive
-theirs from.
+``generators["dropout"]``, whose seed each block's dropout and DropPath
+sites, and the embedding dropout, derive theirs from.
 """
 
 from __future__ import annotations
@@ -29,11 +29,13 @@ from torch import nn
 from jumbo_mae_tpu_tpu_torch.models.config import JumboViTConfig, require_ported
 from jumbo_mae_tpu_tpu_torch.models.layers import (
     ClassifierHead,
+    Dropout,
     JumboBlock,
     LayerNorm,
     PatchEmbed,
     make_jumbo_mlp,
     maybe_remat,
+    site_generators,
     trunc_normal_,
 )
 from jumbo_mae_tpu_tpu_torch.ops.masking import random_masking
@@ -42,11 +44,15 @@ from jumbo_mae_tpu_tpu_torch.utils.rng import derive_seed
 
 Generators = dict[str, torch.Generator]
 
+# the domains of block_seeds: the encoder's blocks, the decoder's, and the
+# encoder's embedding dropout
+ENCODER_DOMAIN, DECODER_DOMAIN, EMBED_DOMAIN = 0, 1, 2
+
 
 def block_seeds(generators: Generators | None, domain: int, n: int) -> list[int | None]:
-    """The DropPath seed of each of ``n`` blocks: derived from the dropout
-    generator's seed, the stack's ``domain`` and the block index. ``None``s
-    when there is no dropout generator (eval, or no DropPath)."""
+    """The dropout and DropPath seed of each of ``n`` blocks: derived from
+    the dropout generator's seed, the stack's ``domain`` and the block
+    index. ``None``s when there is no dropout generator (eval)."""
     gen = (generators or {}).get("dropout")
     if gen is None:
         return [None] * n
@@ -82,7 +88,7 @@ class JumboViT(nn.Module):
         self.jumbo_mlp = make_jumbo_mlp(cfg)
         self.blocks = nn.ModuleList(JumboBlock(cfg) for _ in range(cfg.layers))
         self.ln = LayerNorm(cfg.dim, cfg.compute_dtype)
-        self.drop = nn.Dropout(cfg.dropout)
+        self.drop = Dropout(cfg.dropout)
         self.head = None
         if (cfg.labels or 0) > 0:
             in_features = cfg.dim if cfg.pooling == "gap" else k * cfg.dim
@@ -107,9 +113,10 @@ class JumboViT(nn.Module):
         """CLS tokens in front of the patch tokens ``x``, every block (under
         ``maybe_remat``) and the final norm."""
         cls = self.cls_tokens.to(x.dtype).expand(x.shape[0], -1, -1)
-        x = self.drop(torch.cat([cls, x], dim=1))
+        (g,) = site_generators(self, self.cfg.dropout, block_seeds(generators, EMBED_DOMAIN, 1)[0], x.device, 1)
+        x = self.drop(torch.cat([cls, x], dim=1), g)
         run = [maybe_remat(block, self.cfg) for block in self.blocks]
-        for block, seed in zip(run, block_seeds(generators, 0, len(run))):
+        for block, seed in zip(run, block_seeds(generators, ENCODER_DOMAIN, len(run))):
             x = block(x, self.jumbo_mlp, seed)
         return self.ln(x)
 

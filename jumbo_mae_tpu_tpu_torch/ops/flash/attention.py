@@ -9,28 +9,31 @@ outputs and launches them on PyTorch's current stream.
 - :func:`flash_attention_fwd` launches K1 for CUDA tensors — or raises;
   there is no fallback — and takes the plain version only for CPU tensors.
   ``LAUNCHES`` counts K1's launches.
-- :func:`flash_attention_bwd` computes D = rowsum(dO ∘ O)
-  (:func:`attention_delta`, plain torch) and launches K2, then K3, for
-  CUDA tensors; CPU tensors take :func:`flash_attention_bwd_plain`. In
-  bf16 at :data:`TMA_HEAD_DIMS` both load through TMA tensor maps, so a
-  view no map can describe (a broadcast gradient) is copied first.
+- :func:`flash_attention_bwd` launches K2, then K3, for CUDA tensors; CPU
+  tensors take :func:`flash_attention_bwd_plain`. K2 computes the
+  per-row term D = rowsum(dO ∘ O) − g_lse of its own rows (the JAX
+  package's prologue, ``attention.py:293-305``), uses it and writes it
+  for K3, so no separate D pass runs on the card. In bf16 at
+  :data:`TMA_HEAD_DIMS` both load through TMA tensor maps, so a view no
+  map can describe (a broadcast gradient) is copied first.
   ``LAUNCHES_BWD_DQ`` and ``LAUNCHES_BWD_DKV`` count their launches.
-- :func:`flash_attention_fwd_plain` and :func:`flash_attention_bwd_plain`
-  are the same functions in plain PyTorch, float32 inside. They are what
-  the CPU runs and what the kernels are held against on the card.
+- :func:`flash_attention_fwd_plain`, :func:`attention_delta` and
+  :func:`flash_attention_bwd_plain` are the same functions in plain
+  PyTorch, float32 inside. They are what the CPU runs and what the
+  kernels are held against on the card.
 - K4 (``pallas_flash_attention_with_lse``, ``attention.py:396-433``) is no
   tile program of its own: it is K1 returning lse, and K2 + K3 with D
   shifted by the lse cotangent, ``D ← D − g_lse`` (``attention.py:298-305``;
-  ∂lse/∂s_j = p_j, so ds = p·(dp − (D − g_lse))). Its forward wrapper
-  :func:`flash_attention_with_lse_fwd` counts in ``LAUNCHES_WITH_LSE``;
-  :func:`lse_cotangents` turns (g_o, g_lse) into the kernels' (dO, D).
-  :func:`flash_attention_with_lse_plain` is its plain version, with a
-  plain backward taking both cotangents.
+  ∂lse/∂s_j = p_j, so ds = p·(dp − (D − g_lse))), which K2 subtracts.
+  Its forward wrapper :func:`flash_attention_with_lse_fwd` counts in
+  ``LAUNCHES_WITH_LSE``; :func:`lse_cotangents` turns an absent o
+  cotangent into zeros. :func:`flash_attention_with_lse_plain` is its
+  plain version, with a plain backward taking both cotangents.
 
 q, k, v are (batch, seq, heads, head_dim) with q already scaled by
 ``head_dim**-0.5``; the backward's dq is the gradient w.r.t. that scaled
-q. lse and D are float32 (batch·heads, seq_q) with row ``b·heads + h``,
-the layout of the JAX package.
+q. lse, g_lse and D are float32 (batch·heads, seq_q) with row
+``b·heads + h``, the layout of the JAX package.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ HEAD_DIMS = (32, 64, 80, 128)
 # tensor maps (80 does not)
 TMA_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_DTYPES = tuple(_DTYPE_CODES)  # the dtypes the kernels take
 
 # Kernel launches since the process started (or the caller last reset
 # them): K1, K2 and K3. Only the launches below add to them; the plain
@@ -144,13 +148,16 @@ def declare_signatures(lib) -> None:
 
 def declare_bwd_signatures(lib) -> None:
     """Declare the C signatures of ``csrc/flash_bwd.cu``'s entry points:
-    K2 takes 7 pointers, 6 ints and 5 stride triples; K3 8 pointers, 6
-    ints and 6 stride triples; both end with the stream."""
+    K2 takes 9 pointers (q, k, v, dO, O, lse, g_lse, D, dq), 6 ints and 6
+    stride triples; K3 8 pointers, 6 ints and 6 stride triples; both end
+    with the stream. The occupancy query takes two ints and a pointer."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.jumbo_flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [ll] * 15 + [p]
+    lib.jumbo_flash_bwd_dq.argtypes = [p] * 9 + [i] * 6 + [ll] * 18 + [p]
     lib.jumbo_flash_bwd_dq.restype = ctypes.c_int
     lib.jumbo_flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [ll] * 18 + [p]
     lib.jumbo_flash_bwd_dkv.restype = ctypes.c_int
+    lib.jumbo_flash_bwd_blocks_per_sm.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.jumbo_flash_bwd_blocks_per_sm.restype = ctypes.c_int
     lib.jumbo_cuda_error_string.argtypes = [ctypes.c_int]
     lib.jumbo_cuda_error_string.restype = ctypes.c_char_p
 
@@ -200,19 +207,13 @@ def flash_attention_fwd(
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=dev) if with_lse else None
-    lib = _library()
     args = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
     )
-    if dev.index == torch.cuda.current_device():
-        err = lib.jumbo_flash_fwd(*args, torch.cuda.current_stream(dev).cuda_stream)
-    else:  # the launch goes to the current device: make it q's
-        with torch.cuda.device(dev):
-            err = lib.jumbo_flash_fwd(*args, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, lib, "flash_fwd")
+    _call(_library(), "jumbo_flash_fwd", dev, args)
     LAUNCHES += 1
     return (o, lse) if with_lse else o
 
@@ -221,10 +222,11 @@ def attention_delta(
     o: torch.Tensor, do: torch.Tensor, g_lse: torch.Tensor | None = None
 ) -> torch.Tensor:
     """D = rowsum(dO ∘ O) in float32, as (batch·heads, seq_q) with row
-    ``b·heads + h`` — the per-row term of the softmax backward, computed
-    before the kernels as the JAX package computes it
-    (``attention.py:293-297``). K4's lse cotangent ``g_lse`` (same layout,
-    any strides and float dtype) folds in as ``D − g_lse``."""
+    ``b·heads + h`` — the per-row term of the softmax backward, as the JAX
+    package computes it before its kernels (``attention.py:293-297``).
+    K4's lse cotangent ``g_lse`` (same layout, any strides and float
+    dtype) folds in as ``D − g_lse``. The plain version of the D that K2
+    computes on the card: the CPU path and the oracle."""
     b, s, h, _ = o.shape
     dd = (do.float() * o.float()).sum(-1)  # (b, s, h)
     dd = dd.permute(0, 2, 1).reshape(b * h, s)
@@ -246,8 +248,9 @@ def flash_attention_bwd_plain(
     """(dq, dk, dv) of softmax(q·kᵀ)·v in plain PyTorch, float32 inside.
 
     P is recomputed from the forward's lse, P = exp(q·kᵀ − lse), as the
-    kernels do — this is not autograd of the plain forward. Returns the
-    gradients in the input dtypes."""
+    kernels do — this is not autograd of the plain forward. ``delta``
+    defaults to :func:`attention_delta` of (o, do). Returns the gradients
+    in the input dtypes."""
     b, sq, h, _ = q.shape
     if delta is None:
         delta = attention_delta(o, do)
@@ -270,35 +273,37 @@ def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
     return x if ok else x.contiguous()
 
 
-def _check_bwd_args(q, k, v, do, lse, delta) -> None:
+def _check_bwd_args(q, k, v, do, rows: dict, o=None) -> None:
     """Raise ``ValueError`` for backward inputs the kernels do not take:
-    q, k, v as for the forward; dO like q, read through its strides; lse
-    and D float32 (batch·heads, seq_q), contiguous."""
+    q, k, v as for the forward; dO (and K2's O) like q, read through
+    their strides; the per-row ``rows`` (lse, and g_lse or D) float32
+    (batch·heads, seq_q), contiguous."""
     check_kernel_args(q, k, v, forward=False)
     b, sq, h, _ = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype:
-        raise ValueError(f"dO {tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} {q.dtype}")
-    check_kernel_args(do, k, v, forward=False)
-    for name, x in (("lse", lse), ("delta", delta)):
-        if x.shape != (b * h, sq) or x.dtype != torch.float32 or not x.is_contiguous():
+    for name, x in (("dO", do), ("O", o)):
+        if x is None:
+            continue
+        if x.shape != q.shape or x.dtype != q.dtype:
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} must match q {tuple(q.shape)} {q.dtype}")
+        check_kernel_args(x, k, v, forward=False)
+    for name, x in rows.items():
+        if x is not None and (x.shape != (b * h, sq) or x.dtype != torch.float32 or not x.is_contiguous()):
             raise ValueError(
                 f"{name} must be contiguous float32 {(b * h, sq)}, got {tuple(x.shape)} {x.dtype}"
             )
 
 
-def _launch_bwd(entry: str, q, k, v, do, lse, delta, outs) -> None:
-    dev = q.device
-    _check_bwd_args(q, k, v, do, lse, delta)
-    b, sq, h, d = q.shape
-    if q.dtype == torch.bfloat16 and d in TMA_HEAD_DIMS:  # the wgmma kernels load through TMA
-        q, k, v, do = (x if _tma_ok(x.shape, x.stride(), 2) else x.contiguous() for x in (q, k, v, do))
-    lib = _library("flash_bwd")
-    args = (
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), *(x.data_ptr() for x in outs),
-        _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
-        *(st for x in (q, k, v, do, *outs) for st in x.stride()[:3]),
-    )
+def _tma_views(q, *xs):
+    """q and ``xs`` as the bf16 wgmma kernels read them: a view no TMA
+    tensor map describes (a broadcast gradient) becomes a contiguous copy."""
+    if q.dtype == torch.bfloat16 and q.shape[3] in TMA_HEAD_DIMS:
+        return tuple(x if _tma_ok(x.shape, x.stride(), 2) else x.contiguous() for x in (q, *xs))
+    return (q, *xs)
+
+
+def _call(lib, entry: str, dev: torch.device, args) -> None:
+    """Launch the C entry point on ``dev``'s current stream; raise on a
+    CUDA error."""
     if dev.index == torch.cuda.current_device():
         err = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
     else:  # the launch goes to the current device: make it q's
@@ -307,28 +312,51 @@ def _launch_bwd(entry: str, q, k, v, do, lse, delta, outs) -> None:
     _raise_on(err, lib, entry)
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
-    """dq through K2, written as contiguous (B, S, H, D) in q's dtype.
-    ``delta`` is :func:`attention_delta`. CPU tensors take the plain
-    version."""
+def flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dq, delta)`` through K2: dq as contiguous (B, S, H, D) in q's
+    dtype, and the D that K2 computed and used, D = rowsum(dO ∘ O) − g_lse
+    (no shift without ``g_lse``), float32 (B·H, S_q) for K3. CPU tensors
+    take the plain versions (:func:`attention_delta` for D)."""
     global LAUNCHES_BWD_DQ
-    if _device_of(q, k, v, do, lse, delta).type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, None, lse, do, delta=delta)[0]
+    ins = (q, k, v, do, o, lse) if g_lse is None else (q, k, v, do, o, lse, g_lse)
+    if _device_of(*ins).type == "cpu":
+        delta = attention_delta(o, do, g_lse)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, delta=delta)[0], delta
+    _check_bwd_args(q, k, v, do, {"lse": lse, "g_lse": g_lse}, o=o)
+    b, sq, h, d = q.shape
+    q, k, v, do, o = _tma_views(q, k, v, do, o)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("jumbo_flash_bwd_dq", q, k, v, do, lse, delta, (dq,))
+    delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        None if g_lse is None else g_lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+        *(st for x in (q, k, v, do, o, dq) for st in x.stride()[:3]),
+    )
+    _call(_library("flash_bwd"), "jumbo_flash_bwd_dq", q.device, args)
     LAUNCHES_BWD_DQ += 1
-    return dq
+    return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) through K3, written as contiguous (B, S, H, D) in k's and
-    v's dtype. CPU tensors take the plain version."""
+    v's dtype; ``delta`` is the D that K2 returned. CPU tensors take the
+    plain version."""
     global LAUNCHES_BWD_DKV
     if _device_of(q, k, v, do, lse, delta).type == "cpu":
         return flash_attention_bwd_plain(q, k, v, None, lse, do, delta=delta)[1:]
+    _check_bwd_args(q, k, v, do, {"lse": lse, "delta": delta})
+    b, sq, h, d = q.shape
+    q, k, v, do = _tma_views(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("jumbo_flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv))
+    args = (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(),
+        _DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+        *(st for x in (q, k, v, do, dk, dv) for st in x.stride()[:3]),
+    )
+    _call(_library("flash_bwd"), "jumbo_flash_bwd_dkv", q.device, args)
     LAUNCHES_BWD_DKV += 1
     return dk, dv
 
@@ -341,22 +369,37 @@ def flash_attention_bwd(
     lse: torch.Tensor,
     do: torch.Tensor,
     *,
-    delta: torch.Tensor | None = None,
+    g_lse: torch.Tensor | None = None,
 ):
-    """(dq, dk, dv) through the CUDA kernels K2 (dq) then K3 (dk, dv).
+    """(dq, dk, dv) through the CUDA kernels: K2 (dq, and D = rowsum(dO ∘
+    O) − g_lse, ``g_lse`` being K4's lse cotangent or ``None``), then K3
+    (dk, dv) with the D that K2 wrote.
 
-    ``delta`` defaults to :func:`attention_delta` of (o, do). CPU tensors
-    take :func:`flash_attention_bwd_plain`. CUDA tensors launch the
-    kernels, or raise when they cannot take them; an upstream gradient
-    the kernels cannot read through its strides is made contiguous."""
+    CPU tensors take :func:`flash_attention_bwd_plain` with
+    :func:`attention_delta`. CUDA tensors launch the kernels, or raise when
+    they cannot take them; an upstream gradient the kernels cannot read
+    through its strides is made contiguous, and ``g_lse`` reaches K2 as
+    contiguous float32 (B·H, S_q)."""
     dev = _device_of(q, k, v, o, lse, do)
     if dev.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, delta=delta)
-    if delta is None:
-        delta = attention_delta(o, do)
-    do, lse, delta = _kernel_layout(do), lse.contiguous(), delta.contiguous()
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, delta=attention_delta(o, do, g_lse))
+    do, o, lse = _kernel_layout(do), _kernel_layout(o), lse.contiguous()
+    if g_lse is not None:
+        b, sq, h, _ = q.shape
+        g_lse = g_lse.to(torch.float32).reshape(b * h, sq).contiguous()
+    dq, delta = flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)
     return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+
+
+def blocks_per_sm(kernel: str, head_dim: int) -> int:
+    """Blocks an SM holds of the bf16 backward kernel ``"K2"`` or ``"K3"`` at
+    ``head_dim``, from the CUDA occupancy calculator on the current device
+    (its registers, threads and shared memory). Builds the library."""
+    lib = _library("flash_bwd")
+    out = ctypes.c_int(0)
+    _raise_on(lib.jumbo_flash_bwd_blocks_per_sm(int(kernel == "K3"), head_dim, ctypes.byref(out)), lib,
+              "occupancy")
+    return out.value
 
 
 def flash_attention_with_lse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -372,14 +415,11 @@ def flash_attention_with_lse_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return out
 
 
-def lse_cotangents(
-    o: torch.Tensor, g_o: torch.Tensor | None, g_lse: torch.Tensor | None
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """K4's backward inputs ``(dO, D)`` from the cotangents of o and lse:
-    ``None`` stands for zero (an output the caller did not use), so
-    ``g_o=None`` gives dO = 0 and ``g_lse=None`` no shift of D."""
-    do = torch.zeros_like(o) if g_o is None else g_o
-    return do, attention_delta(o, do, g_lse)
+def lse_cotangents(o: torch.Tensor, g_o: torch.Tensor | None) -> torch.Tensor:
+    """K4's dO from the cotangent of o: ``None`` stands for zero (an output
+    the caller did not use). An absent lse cotangent is passed on as
+    ``g_lse=None``, no shift of D."""
+    return torch.zeros_like(o) if g_o is None else g_o
 
 
 class _WithLsePlain(torch.autograd.Function):
@@ -398,8 +438,8 @@ class _WithLsePlain(torch.autograd.Function):
         if g_o is None and g_lse is None:
             return None, None, None
         q, k, v, o, lse = ctx.saved_tensors
-        do, delta = lse_cotangents(o, g_o, g_lse)
-        return flash_attention_bwd_plain(q, k, v, o, lse, do, delta=delta)
+        do = lse_cotangents(o, g_o)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, delta=attention_delta(o, do, g_lse))
 
 
 def flash_attention_with_lse_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):

@@ -4,13 +4,13 @@ Counterpart of ``jumbo_mae_tpu_tpu/ops/flash_attention.py``:
 
 - :func:`flash_attention` is differentiable: a ``torch.autograd.Function``
   whose forward is the hand-written CUDA kernel K1 (saving o and lse) and
-  whose backward computes D = rowsum(dO ∘ O) and runs K2 then K3
-  (``ops/flash/attention.py``) — the counterpart of the JAX package's
+  whose backward runs K2 (which computes D = rowsum(dO ∘ O) for its
+  rows) then K3 (``ops/flash/attention.py``) — the counterpart of the JAX package's
   ``pallas_flash_attention`` custom_vjp. On CPU tensors the same Function
   runs the plain forward and the plain backward;
 - :func:`flash_attention_with_lse` is K4, the counterpart of
   ``pallas_flash_attention_with_lse``: ``(o, lse)`` differentiable in
-  both, the lse cotangent folded into K2/K3 as ``D − g_lse``. Ring
+  both, the lse cotangent folded into K2's D as ``D − g_lse``. Ring
   attention's flash hops merge in lse space through it;
 - :func:`einsum_attention` is the counterpart of ``xla_attention``:
   float32 scores and softmax, probabilities cast to v's dtype.
@@ -62,9 +62,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 class FlashAttentionWithLse(torch.autograd.Function):
-    """(o, lse) with the flash kernels: K1 writing lse forward; K2 then K3
-    backward with D = rowsum(dO ∘ O) − g_lse. An unused output's cotangent
-    arrives as ``None`` (materialization off) and counts as zero."""
+    """(o, lse) with the flash kernels: K1 writing lse forward; K2 (which
+    computes D = rowsum(dO ∘ O) − g_lse) then K3 backward. An unused
+    output's cotangent arrives as ``None`` (materialization off) and counts
+    as zero."""
 
     @staticmethod
     def forward(ctx, q, k, v):
@@ -78,8 +79,7 @@ class FlashAttentionWithLse(torch.autograd.Function):
         if g_o is None and g_lse is None:
             return None, None, None
         q, k, v, o, lse = ctx.saved_tensors
-        do, delta = lse_cotangents(o, g_o, g_lse)
-        return flash_attention_bwd(q, k, v, o, lse, do, delta=delta)
+        return flash_attention_bwd(q, k, v, o, lse, lse_cotangents(o, g_o), g_lse=g_lse)
 
 
 def flash_attention_with_lse(

@@ -22,12 +22,18 @@ kernels there and runs, for the phases asked for (default both):
      encodes and the launch);
 - ``bwd``, K2 and K3 (the backward):
   1. chip_smoke's phase 4: K2 and K3 against the plain backward at every
-     shape of ``BWD_SHAPES`` and K1's Sq != Sk cases, both dtypes, reruns
+     shape of ``BWD_SHAPES`` and K1's Sq != Sk cases, both dtypes, with
+     and without an lse cotangent, K2's D against the plain D pass, reruns
      bit-identical, strided and broadcast views, inert padding;
-  2. chip_smoke's phase 5b: K2, K3 and the D pass at the MAE encoder and
-     decoder shapes and the ring hop by graph replay, beside the plain
-     backward, SDPA's backward and the bounds (with ``fwd``, also K1 + D +
-     K2 + K3 against the einsum path).
+  2. chip_smoke's phase 5b: K2 (computing D), K3, the whole backward and
+     the standalone D pass at the MAE encoder and decoder shapes and the
+     ring hop by graph replay, beside the plain backward, SDPA's backward
+     and the bounds; FlashAttention forward + backward against SDPA's
+     (with ``fwd``, also K1 + K2 + K3 against the einsum path).
+
+An older checkout whose K2 takes D from the plain D pass
+(``attention_delta``) runs the same phases through that pass
+(chip_smoke's ``folds_delta``): its backward is D + K2 + K3.
 
 With ``--base DIR`` it runs itself on ``--base`` and on ``--root`` in
 processes of their own, in the order base, new, new, base, until each
@@ -116,10 +122,12 @@ def run_one(root: Path, phases: set[str]) -> dict:
         res["max_abs_err_bf16_bwd"] = max(e for (name, *_), e in errs.items() if name == "bfloat16")
         res["bwd_timings"] = [dict(kernel=key, shape=list(shape), **row) for (key, shape), row in bwd.items()]
         for (key, shape), row in bwd.items():
-            if key in ("K2", "K3", "D"):
+            if key in ("K2", "K3", "D", "backward", "FlashAttention"):
                 metrics[f"{key} {shape} ms"] = row["ms"]
             if key == "K2":
                 metrics[f"sdpa backward {shape} ms"] = row["library_ms"]
+            if key == "FlashAttention":
+                metrics[f"sdpa forward + backward {shape} ms"] = row["library_ms"]
     return res
 
 

@@ -167,27 +167,63 @@ def test_tma_rule_names_the_views_the_backward_copies():
     assert not fa._tma_ok((2, 9, 4, 64), (1 << 40, 256, 64, 1), 2)
 
 
+_BF16_64 = dict(head_dim=64, dtype=torch.bfloat16)
+
+
 @pytest.mark.parametrize(
     "kw,want",
     [
-        (dict(device_type="cuda", dropout=0.0, deterministic=True), "flash"),
-        (dict(device_type="cuda", dropout=0.1, deterministic=True), "flash"),
-        (dict(device_type="cuda", dropout=0.1, deterministic=False), "einsum"),
-        (dict(device_type="cuda", dropout=0.0, deterministic=True, masked=True), "einsum"),
-        (dict(device_type="cpu", dropout=0.0, deterministic=True), "einsum"),
+        (dict(device_type="cuda", dropout=0.0, deterministic=True, **_BF16_64), "flash"),
+        (dict(device_type="cuda", dropout=0.1, deterministic=True, **_BF16_64), "flash"),
+        (dict(device_type="cuda", dropout=0.1, deterministic=False, **_BF16_64), "einsum"),
+        (dict(device_type="cuda", dropout=0.0, deterministic=True, masked=True, **_BF16_64), "einsum"),
+        (dict(device_type="cpu", dropout=0.0, deterministic=True, **_BF16_64), "einsum"),
+        # auto takes the kernels only where they run: a kernel head_dim
+        # (preset vit_t16 and the smoke recipe have 16, dec_heads=2 256)
+        # and a kernel dtype
+        (dict(device_type="cuda", dropout=0.0, deterministic=True, head_dim=16, dtype=torch.bfloat16), "einsum"),
+        (dict(device_type="cuda", dropout=0.0, deterministic=True, head_dim=256, dtype=torch.bfloat16), "einsum"),
+        (dict(device_type="cuda", dropout=0.0, deterministic=True, head_dim=64, dtype=torch.float16), "einsum"),
+        (dict(device_type="cuda", dropout=0.0, deterministic=True, head_dim=64, dtype=torch.bfloat16), "flash"),
+        (dict(device_type="cuda", dropout=0.0, deterministic=True, head_dim=32, dtype=torch.float32), "flash"),
+        (dict(device_type="cuda", dropout=0.0, deterministic=True, head_dim=80, dtype=torch.bfloat16), "flash"),
+        (dict(device_type="cuda", dropout=0.0, deterministic=True, head_dim=128, dtype=torch.float32), "flash"),
     ],
 )
 def test_resolve_auto(kw, want):
     assert resolve_attn_impl("auto", **kw) == want
 
 
+def test_resolve_auto_follows_the_kernel_head_dims():
+    """auto's head_dims are the kernels' own: every one of HEAD_DIMS in
+    either kernel dtype takes them, and nothing else does."""
+    for d in range(8, 260, 8):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            want = "flash" if d in fa.HEAD_DIMS and dtype in fa.KERNEL_DTYPES else "einsum"
+            got = resolve_attn_impl("auto", device_type="cuda", dropout=0.0, deterministic=True,
+                                    head_dim=d, dtype=dtype)
+            assert got == want, (d, dtype)
+
+
 def test_resolve_explicit_and_ring():
-    kw = dict(device_type="cuda", dropout=0.0, deterministic=True)
+    kw = dict(device_type="cuda", dropout=0.0, deterministic=True, **_BF16_64)
     assert resolve_attn_impl("einsum", **kw) == "einsum"
     assert resolve_attn_impl("flash", **dict(kw, device_type="cpu")) == "flash"
     # sequence parallelism is ported: "ring" passes through on every device
     assert resolve_attn_impl("ring", **kw) == "ring"
     assert resolve_attn_impl("ring", **dict(kw, device_type="cpu", masked=True)) == "ring"
+
+
+def test_explicit_flash_still_raises_where_the_kernel_cannot_run():
+    """An explicit "flash" passes through at head_dim 16 (no silent
+    fallback), and the kernel's argument check then refuses the call."""
+    kw = dict(device_type="cuda", dropout=0.0, deterministic=True, dtype=torch.bfloat16)
+    assert resolve_attn_impl("flash", head_dim=16, **kw) == "flash"
+    q, k, v = as_torch(*qkv(s=9, d=16, seed=3), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 16"):
+        fa.check_kernel_args(q, k, v)
+    with pytest.raises(ValueError, match="float16"):
+        fa.check_kernel_args(*as_torch(*qkv(s=9, d=64, seed=3), dtype=torch.float16))
 
 
 def test_importing_kernel_modules_builds_nothing():
@@ -331,18 +367,27 @@ def test_delta_layout_and_lse_cotangent_seam():
 
 
 def test_per_kernel_wrappers_take_the_plain_path_on_cpu():
-    """flash_attention_bwd_dq (K2) and flash_attention_bwd_dkv (K3) return
-    the plain version's gradients for CPU tensors and count no launch."""
+    """flash_attention_bwd_dq (K2) returns the plain dq and, as its D,
+    attention_delta(o, do, g_lse); flash_attention_bwd_dkv (K3) takes that
+    D and returns the plain dk, dv; on CPU tensors no launch is counted.
+    Without and with K4's lse cotangent."""
     q, k, v = as_torch(*qkv(s=30, d=64, seed=15))
-    do = torch.from_numpy(np.random.default_rng(16).standard_normal(q.shape).astype(np.float32))
+    rng = np.random.default_rng(16)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32))
     o, lse = fa.flash_attention_fwd_plain(q, k, v, with_lse=True)
-    dd = fa.attention_delta(o, do)
     counts = fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, dd)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, dd)
+    for g_lse in (None, torch.from_numpy(rng.standard_normal((2 * 3, 30)).astype(np.float32))):
+        dd = fa.attention_delta(o, do, g_lse)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)
+        assert torch.equal(delta, dd) and delta.shape == (6, 30) and delta.dtype == torch.float32
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=dd)
+        for got, want in zip((dq, dk, dv), ref):
+            assert torch.equal(got, want)
+        # the whole backward takes the same plain path, g_lse folded into D
+        for got, want in zip(fa.flash_attention_bwd(q, k, v, o, lse, do, g_lse=g_lse), ref):
+            assert torch.equal(got, want)
     assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == counts
-    for got, ref in zip((dq, dk, dv), fa.flash_attention_bwd_plain(q, k, v, o, lse, do)):
-        assert torch.equal(got, ref)
 
 
 def test_plain_backward_keeps_input_dtypes():
@@ -353,20 +398,25 @@ def test_plain_backward_keeps_input_dtypes():
 
 
 _BWD_STUB = r"""
-long long seen_dq[29];
+long long seen_dq[34];
 long long seen_dkv[33];
-int jumbo_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                       const void* lse, const void* dd, const void* dq,
+int jumbo_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* o,
+                       const void* lse, const void* g_lse, const void* dd, const void* dq,
                        int dtype, int B, int H, int Sq, int Sk, int D,
                        long long s0, long long s1, long long s2, long long s3, long long s4,
                        long long s5, long long s6, long long s7, long long s8, long long s9,
                        long long s10, long long s11, long long s12, long long s13, long long s14,
-                       void* stream) {
-  long long v_[29] = {(long long)q, (long long)k, (long long)v, (long long)o, (long long)lse,
-                      (long long)dd, (long long)dq, dtype, B, H, Sq, Sk, D, s0, s1, s2, s3, s4,
-                      s5, s6, s7, s8, s9, s10, s11, s12, s13, s14, (long long)stream};
-  for (int i = 0; i < 29; ++i) seen_dq[i] = v_[i];
+                       long long s15, long long s16, long long s17, void* stream) {
+  long long v_[34] = {(long long)q, (long long)k, (long long)v, (long long)dout, (long long)o,
+                      (long long)lse, (long long)g_lse, (long long)dd, (long long)dq,
+                      dtype, B, H, Sq, Sk, D, s0, s1, s2, s3, s4, s5, s6, s7, s8, s9, s10,
+                      s11, s12, s13, s14, s15, s16, s17, (long long)stream};
+  for (int i = 0; i < 34; ++i) seen_dq[i] = v_[i];
   return 5;
+}
+int jumbo_flash_bwd_blocks_per_sm(int which, int D, int* blocks) {
+  *blocks = 10 * which + D;
+  return 0;
 }
 int jumbo_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* o,
                         const void* lse, const void* dd, const void* dk, const void* dv,
@@ -404,10 +454,11 @@ def test_ctypes_signature_of_the_backward_kernels(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "library", lambda name: stub)
     lib = fa._library("flash_bwd")
     ints = [1, 128, 16, 199, 199, 32]
-    args = [*[(1 << 40) + i for i in range(7)], *ints, *[(1 << 33) + i for i in range(15)], (1 << 41) + 1]
+    args = [*[(1 << 40) + i for i in range(9)], *ints, *[(1 << 33) + i for i in range(18)], (1 << 41) + 1]
     assert lib.jumbo_flash_bwd_dq(*args) == 5
-    assert list((ctypes.c_longlong * 29).in_dll(stub, "seen_dq")) == args
+    assert list((ctypes.c_longlong * 34).in_dll(stub, "seen_dq")) == args
     args = [*[(1 << 40) + i for i in range(8)], *ints, *[(1 << 34) + i for i in range(18)], (1 << 41) + 2]
     assert lib.jumbo_flash_bwd_dkv(*args) == 6
     assert list((ctypes.c_longlong * 33).in_dll(stub, "seen_dkv")) == args
     assert lib.jumbo_cuda_error_string(5) == b"stub error"
+    assert fa.blocks_per_sm("K3", 64) == 74 and fa.blocks_per_sm("K2", 32) == 32

@@ -108,8 +108,21 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         fa.flash_attention_fwd(q, k.cpu(), v)
 
 
-def test_engine_routes_every_block_through_the_kernel(cuda):
-    cfg = preset("vit_t16", heads=2, image_size=32, patch_size=4, labels=10, posemb="sincos2d")
+def _kernel_stack(cfg) -> bool:
+    """Whether attn_impl="auto" sends the stack's attention to the kernels
+    on the card: a kernel head_dim (the compute dtypes here are kernel
+    dtypes)."""
+    return cfg.head_dim in fa.HEAD_DIMS
+
+
+# preset vit_t16 as it is (head_dim 16: auto takes the einsum path), and at
+# head_dim 32 (the kernels)
+@pytest.mark.parametrize("heads", [4, 2])
+def test_engine_routes_every_block_through_the_kernel(cuda, heads):
+    """Every block's attention goes through K1 where the kernel takes the
+    head_dim, and through the einsum path where it does not; both serve,
+    and the f32 engine on the card matches the CPU's."""
+    cfg = preset("vit_t16", image_size=32, patch_size=4, labels=10, posemb="sincos2d", heads=heads)
     eng = InferenceEngine(cfg, max_batch=8, device="cuda")
     cpu = InferenceEngine(cfg, max_batch=8, dtype="float32", device="cpu")
     gpu32 = InferenceEngine(cfg, max_batch=8, dtype="float32", device="cuda")
@@ -117,7 +130,7 @@ def test_engine_routes_every_block_through_the_kernel(cuda):
     fa.LAUNCHES, eng.dispatches = 0, 0
     out = eng.logits(x)
     assert out.shape == (11, 10) and np.isfinite(out).all()
-    assert eng.dispatches == 2 and fa.LAUNCHES == cfg.layers * 2
+    assert eng.dispatches == 2 and fa.LAUNCHES == (cfg.layers * 2 if _kernel_stack(cfg) else 0)
     np.testing.assert_allclose(gpu32.logits(x), cpu.logits(x), rtol=1e-4, atol=1e-4)
 
 
@@ -144,13 +157,36 @@ def test_backward_kernels_match_plain(cuda, shape, dtype):
     before their products); two runs bit-identical."""
     q, k, v, o, lse, do = _bwd_case(shape, dtype)
     before = fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    with _CS.counting_delta_passes(fa) as delta_passes:
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
     torch.cuda.synchronize()
     assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == (before[0] + 1, before[1] + 1)
+    assert delta_passes[0] == 0
     ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do)
     _CS.check_grads(f"{shape}", got, ref, dtype, sk=shape[1])
     again = fa.flash_attention_bwd(q, k, v, o, lse, do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", BWD_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_writes_the_plain_delta(cuda, shape, dtype):
+    """The D that K2 computes and writes equals attention_delta(o, do,
+    g_lse) within 1e-5 of max(1, max|D|) (chip_smoke's ``check_delta``:
+    f32 sums in another order), without and with an lse cotangent; its
+    gradients stay within the K2/K3 gates; reruns are bit-identical."""
+    q, k, v, o, lse, do = _bwd_case(shape, dtype, seed=6)
+    b, sq, h, _ = shape
+    for g_lse in (None, torch.randn((b * h, sq), device="cuda")):
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)
+        want = fa.attention_delta(o, do, g_lse)
+        _CS.check_delta(f"{shape}", delta, want)
+        ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=want)
+        got = (dq, *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta))
+        # one key and no lse cotangent: dq and dk are 0 exactly
+        _CS.check_grads(f"{shape}", got, ref, dtype, sk=shape[1] if g_lse is None else None)
+        dq2, delta2 = fa.flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)
+        assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
 
 
 @pytest.mark.parametrize("shape,sk", _CS.CROSS_SHAPES)
@@ -178,23 +214,29 @@ def test_backward_takes_broadcast_views(cuda, shape):
 
 
 def test_tiny_mae_train_step_on_the_card(cuda):
-    """Two pretraining steps of a tiny MAE model through the kernels:
-    every attention call of the forward, the checkpoint recompute and the
-    backward is counted, the loss is finite."""
+    """Two pretraining steps of a tiny MAE model: preset vit_t16 as it is
+    (head_dim 16, the einsum path) and a decoder at head_dim 32 (the
+    kernels). Every attention call of the kernels' stacks in the forward,
+    the checkpoint recompute and the backward is counted, the plain D pass
+    never runs, the loss is finite."""
     enc = preset("vit_t16", labels=None, mask_ratio=0.75, image_size=64, patch_size=8,
-                 heads=2, posemb="sincos2d", grad_ckpt=True)
+                 posemb="sincos2d", grad_ckpt=True)
     dec = DecoderConfig(layers=1, dim=64, heads=2)
     state = create_state((enc, dec, True), OptimConfig(warmup_steps=0, training_steps=10, mu_dtype="bfloat16"),
                          device="cuda", global_batch_size=4)
     step = make_train_step(guard_nonfinite=True)
     batches = synthetic_batches(4, 64, distinct=1)
     fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
-    for _ in range(2):
-        state, m = step(state, next(batches))
-        assert np.isfinite(m["loss"].item()) and m["skipped"] == 0.0
-    # per step: K2 = K3 = encoder + decoder layers; K1 twice per checkpointed block
-    assert fa.LAUNCHES_BWD_DQ == fa.LAUNCHES_BWD_DKV == 2 * (enc.layers + dec.layers)
-    assert fa.LAUNCHES == 2 * (2 * enc.layers + dec.layers)
+    with _CS.counting_delta_passes(fa) as delta_passes:
+        for _ in range(2):
+            state, m = step(state, next(batches))
+            assert np.isfinite(m["loss"].item()) and m["skipped"] == 0.0
+    assert delta_passes[0] == 0
+    # per step: K2 = K3 = the kernels' layers; K1 twice per checkpointed block
+    enc_l, dec_l = (c.layers if _kernel_stack(c) else 0 for c in (enc, dec))
+    assert not _kernel_stack(enc) and _kernel_stack(dec)
+    assert fa.LAUNCHES_BWD_DQ == fa.LAUNCHES_BWD_DKV == 2 * (enc_l + dec_l)
+    assert fa.LAUNCHES == 2 * (2 * enc_l + dec_l)
     assert state.step == 2 and state.opt_state.count == 2
 
 

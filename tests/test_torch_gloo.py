@@ -11,11 +11,12 @@
   parameters at 1e-2 of the learning rate (attention key biases, whose
   true gradient is zero, within Adam's bound of one learning rate per
   step), as in tests/test_torch_train.py. DropPath and per-sample masks
-  are on, so the draws for the global batch are checked too.
+  are on, so the draws for the global batch are checked too; a second
+  job adds dropout 0.1 at every site (the einsum path).
 
 Each job runs ``tests/torch_gloo_workers.py`` in two subprocesses that
 meet through a ``FileStore`` in the test's temporary directory, with a
-time limit; together the two jobs take about 10 s on a CPU.
+time limit; together the three jobs take about 11 s on a CPU.
 """
 
 import os
@@ -72,9 +73,7 @@ def test_process_group_ring_equals_stacked_ring(tmp_path):
         assert all(torch.equal(a, b) for a, b in zip(ranks[0][case], ranks[1][case]))
 
 
-def test_data_parallel_step_equals_one_process(tmp_path):
-    ranks = run_job("data", tmp_path)
-    want = workers.step_results((0, 1))
+def check_data_parallel(ranks, want) -> None:
     lr = workers.OPT.learning_rate
     for got in ranks:
         np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-6)
@@ -83,3 +82,16 @@ def test_data_parallel_step_equals_one_process(tmp_path):
             torch.testing.assert_close(got["params"][n], p, atol=atol, rtol=0, msg=n)
     assert ranks[0]["loss"] == ranks[1]["loss"]
     assert all(torch.equal(ranks[0]["params"][n], ranks[1]["params"][n]) for n in want["params"])
+
+
+def test_data_parallel_step_equals_one_process(tmp_path):
+    check_data_parallel(run_job("data", tmp_path), workers.step_results((0, 1)))
+
+
+def test_data_parallel_step_with_dropout_equals_one_process(tmp_path):
+    """Dropout 0.1 at every site, on the einsum path: each data rank keeps
+    its rows of masks drawn for the global batch from the step's stream,
+    so two ranks take the steps of one process on the global batch."""
+    want = workers.step_results((0, 1), workers.DROPOUT)
+    assert want["loss"] != workers.step_results((0, 1))["loss"]  # the masks are drawn
+    check_data_parallel(run_job("data_dropout", tmp_path), want)

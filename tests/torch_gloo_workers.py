@@ -29,6 +29,7 @@ RING_CASES = (("einsum", 16), ("flash", 16), ("einsum", 19))
 SIZE = 32
 GLOBAL_BATCH = 8
 STEPS = 2
+DROPOUT = 0.1  # the data_dropout job's rate
 OPT = topt.OptimConfig(learning_rate=1e-3, lr_scaling="none", warmup_steps=1, training_steps=10, weight_decay=0.05)
 
 
@@ -51,18 +52,19 @@ def ring_results(mesh) -> dict:
     return out
 
 
-def mae_state():
+def mae_state(dropout: float = 0.0):
     """A tiny MAE state with DropPath and per-sample masking, so both draw
-    per sample of the global batch."""
+    per sample of the global batch; with ``dropout``, every dropout site
+    of the encoder and decoder (the einsum path) draws per entry of it."""
     enc = preset("vit_t16", labels=None, mask_ratio=0.75, image_size=SIZE, patch_size=8, posemb="sincos2d",
-                 dtype="float32", droppath=0.25, mask_mode="per_sample")
-    dec = DecoderConfig(layers=1, dim=32, heads=2, dtype="float32")
+                 dtype="float32", droppath=0.25, mask_mode="per_sample", dropout=dropout, attn_impl="einsum")
+    dec = DecoderConfig(layers=1, dim=32, heads=2, dtype="float32", dropout=dropout, attn_impl="einsum")
     return create_state((enc, dec, True), OPT, device="cpu", init_seed=3, rng_seed=4, global_batch_size=256)
 
 
-def step_results(shard: tuple[int, int]) -> dict:
+def step_results(shard: tuple[int, int], dropout: float = 0.0) -> dict:
     """Losses and parameters after ``STEPS`` steps on this rank's rows."""
-    state, step = mae_state(), make_train_step()
+    state, step = mae_state(dropout), make_train_step()
     batches = synthetic_batches(GLOBAL_BATCH, SIZE, seed=5, shard=shard)
     losses = []
     for _ in range(STEPS):
@@ -76,10 +78,10 @@ def main(job: str, rank: int, world: int, store: str, out: str) -> None:
     try:
         if job == "ring":
             res = ring_results(create_mesh(MeshConfig(data=1, fsdp=1, seq=world), device="cpu"))
-        elif job == "data":
+        elif job in ("data", "data_dropout"):
             mesh = create_mesh(MeshConfig(data=world), device="cpu")
             with set_mesh(mesh):
-                res = step_results((mesh.data_rank, world))
+                res = step_results((mesh.data_rank, world), DROPOUT if job == "data_dropout" else 0.0)
         else:
             raise ValueError(f"unknown job {job!r}")
         torch.save(res, out)
