@@ -83,7 +83,27 @@ Phases, each of which exits non-zero when it fails:
    launch counts derived from layers × hops × passes, no call of the plain
    D pass, a falling loss, step ms, images/s, MFU and peak memory; then one float32 step at ViT-L
    widths and reduced depth, ring against no ring on the card, loss and
-   every gradient within 1e-3 of scale.
+   every gradient within 1e-3 of scale;
+12. image backends — which of cv2, PIL and torchvision import here, and
+   the decode and resize backends the port's data path takes;
+13. the driver — ViT-L/16 MAE pretraining from
+   recipes/pretrain_vit_l16_in1k_800ep.yaml through ``cli.train.main`` in
+   this process (batch 128, 0.75 epochs of 1024 toy images = 6 steps,
+   warmup 0, 4 data workers, wandb off), on toy tar shards at 224 px
+   written here first (1024 train, 256 valid, 256 a shard): launch counts
+   set to 0 just before and read just after (K1 = 56 and K2 = K3 = 32 per
+   train step, K1 = 32 per eval batch), every loss finite, a ``val/loss``
+   in the metrics JSONL, the first batch not the synthetic one, a
+   committed ``ckpt/last``; images/s through the CLI, the host's wait for
+   batches, the save's blocking and writing seconds and bytes, the step
+   against phase 7's;
+14. resume at full width — 3 steps, then ``run.resume=true`` to 6, in a
+   second output directory, against phase 13's 6 straight steps: the
+   per-step digests of the host batches identical, the state restored at
+   step 3 equal to the state saved there bit for bit, the losses of steps
+   4-6 within rtol 1e-3; whether they are bit-equal, and whether one step
+   repeats exactly from the same state with and without
+   ``torch.use_deterministic_algorithms``.
 
 The ring's process-group transport (``ProcessGroupRing`` under NCCL) is
 not run here: NCCL takes one GPU per rank, and this runs on one card.
@@ -99,8 +119,13 @@ from __future__ import annotations
 import contextlib
 import inspect
 import json
+import shutil
 import subprocess
+import tempfile
 import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
 
 VIT_B_SHAPE = (64, 199, 12, 64)  # ViT-B/16 at 224 px, batch 64
 # the training slice: MAE encoder (49 visible + 3 CLS) and decoder (196 + 3)
@@ -1348,6 +1373,284 @@ def phase_ring_f32_vs_plain() -> None:
         f"error over scale {worst:.2e}, the zero-gradient key biases included)")
 
 
+# ---------------------------------------------------------------- the driver
+
+RECIPE = "recipes/pretrain_vit_l16_in1k_800ep.yaml"
+# the recipe at batch 128 on 1024 toy images: 0.75 epochs = 6 steps
+DRIVER_SETS = ["run.train_batch_size=128", "run.valid_batch_size=128", "data.dataset_size=1024", "run.epochs=0.75",
+               "optim.warmup_epochs=0", "data.workers=4", "run.use_wandb=false"]
+DRIVER_STEPS = 6
+
+
+def phase_backends() -> dict:
+    """Phase 12: which image packages import here, and the decode and
+    resize backends the port's data path takes."""
+    import importlib
+
+    from jumbo_mae_tpu_tpu_torch.data import decode, transforms
+
+    found = {}
+    for name in ("cv2", "PIL", "torchvision"):
+        try:
+            mod = importlib.import_module(name)
+            found[name] = getattr(mod, "__version__", "?")
+        except ImportError:
+            found[name] = None
+    out = {"packages": found, "decode": decode.backend(), "resize": transforms.backend()}
+    log(f"image backends: {json.dumps(out)}")
+    check(out["decode"] != "none", "no image decoder (cv2 or PIL) on this machine")
+    return out
+
+
+def _digest(images) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha1(np.ascontiguousarray(images).tobytes()).hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def instrumented_driver(fa):
+    """Record what one ``cli.train.main`` run does, without changing it:
+    the digest of every host batch the loader hands out (in order), every
+    train step's fetched metrics, the K1 launches and batches of every
+    evaluation, every checkpoint save and restore. Launches are counted
+    over the whole run; the caller sets the counts to 0 before it."""
+    from jumbo_mae_tpu_tpu_torch.cli import train as cli
+    from jumbo_mae_tpu_tpu_torch.data.loader import TrainLoader
+    from jumbo_mae_tpu_tpu_torch.train import engine as engine_mod
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer, host_state
+
+    rec = {"digests": [], "loader_wait_s": [], "metrics": [], "eval_k1": 0, "eval_batches": 0,
+           "saves": [], "restores": [], "ckpt": None}
+    saved = (TrainLoader.__next__, engine_mod.fetch_metrics, cli.evaluate, Checkpointer.save, Checkpointer.restore)
+    next_batch, fetch, evaluate, save, restore = saved
+
+    def loader_next(self):
+        t0 = time.perf_counter()
+        batch = next_batch(self)
+        rec["loader_wait_s"].append(time.perf_counter() - t0)
+        rec["digests"].append(_digest(batch["images"]))
+        return batch
+
+    def fetch_metrics(window):
+        host = fetch(window)
+        rec["metrics"] += [m for m in host if "learning_rate" in m]
+        return host
+
+    def counted_evaluate(eval_step, state, batches):
+        k1 = fa.LAUNCHES
+        n = [0]
+
+        def counted():
+            for b in batches:
+                n[0] += 1
+                yield b
+
+        out = evaluate(eval_step, state, counted())
+        rec["eval_k1"] += fa.LAUNCHES - k1
+        rec["eval_batches"] += n[0]
+        return out
+
+    def recorded_save(self, step, state, metrics=None, extra=None):
+        rec["ckpt"] = self
+        rec["saves"].append({"step": step, "state": state, "extra": extra})
+        return save(self, step, state, metrics=metrics, extra=extra)
+
+    def recorded_restore(self, state, **kw):
+        out = restore(self, state, **kw)
+        rec["restores"].append(host_state(out[0]))  # as restored, before the steps move it
+        rec["live"] = out[0]
+        return out
+
+    TrainLoader.__next__, engine_mod.fetch_metrics, cli.evaluate = loader_next, fetch_metrics, counted_evaluate
+    Checkpointer.save, Checkpointer.restore = recorded_save, recorded_restore
+    try:
+        yield rec
+    finally:
+        (TrainLoader.__next__, engine_mod.fetch_metrics, cli.evaluate, Checkpointer.save,
+         Checkpointer.restore) = saved
+
+
+def run_driver(fa, argv: list[str], *, keep_state_at: int | None = None) -> dict:
+    """One ``cli.train.main(argv)`` run with the launch counts set to 0 just
+    before and read just after. ``keep_state_at``: keep a host copy of the
+    state saved at that step (for the resume check)."""
+    from jumbo_mae_tpu_tpu_torch.cli import train as cli
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import host_state
+
+    with instrumented_driver(fa) as rec:
+        if keep_state_at is not None:
+            from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer
+
+            inner = Checkpointer.save
+
+            def keep(self, step, state, metrics=None, extra=None):
+                if step == keep_state_at:
+                    rec["kept"] = host_state(state)
+                return inner(self, step, state, metrics=metrics, extra=extra)
+
+            Checkpointer.save = keep
+        t0 = time.perf_counter()
+        fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+        cli.main(argv)
+        rec["counts"] = {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DQ, "K3": fa.LAUNCHES_BWD_DKV}
+        rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _jsonl(out_dir: Path) -> list[dict]:
+    name = "pretrain_vit_l16_in1k_800ep"
+    return [json.loads(x) for x in (out_dir / name / f"{name}-metrics.jsonl").read_text().splitlines() if x.strip()]
+
+
+def phase_driver(fa, smi: str, tmp: Path, train_step_ms: float) -> dict:
+    """Phase 13: ViT-L/16 MAE pretraining from its recipe through the CLI's
+    ``main`` in this process, on toy shards at 224 px written here first
+    (1024 train, 256 valid images, 256 per shard): 4 worker interpreters,
+    the CUDA-stream prefetch, a sanity eval, 6 steps, the final eval and
+    the checkpoint."""
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
+    from jumbo_mae_tpu_tpu_torch.data.toy import write_toy_shards
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+
+    t0 = time.perf_counter()
+    urls = write_toy_shards(tmp / "shards", image_size=224, n_train=1024, n_val=256, shard_size=256)
+    log(f"driver: toy shards (1024 train, 256 valid, 224 px PNG) written in {time.perf_counter() - t0:.1f} s")
+    sets = DRIVER_SETS + [f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}"]
+    out = tmp / "a"
+    rec = run_driver(fa, ["--config", str(HERE / RECIPE), "--set", *sets, f"run.output_dir={out}"])
+    steps = len(rec["metrics"])
+    check(steps == DRIVER_STEPS, f"the driver ran {steps} steps, want {DRIVER_STEPS}")
+    losses = [m["loss"] for m in rec["metrics"]]
+    check(all(np.isfinite(losses)), f"non-finite loss through the CLI: {losses}")
+    check(all(m.get("skipped", 0.0) == 0.0 for m in rec["metrics"]), "the guard skipped a step")
+    log("driver: loss per step " + ", ".join(f"{x:.5f}" for x in losses))
+
+    # launches: every train step K1 56 and K2 = K3 32 (phase 7's count);
+    # every eval batch one K1 per block, no backward
+    c = rec["counts"]
+    check(rec["eval_batches"] == 4 and rec["eval_k1"] == 4 * 32,
+          f"eval: {rec['eval_batches']} batches, {rec['eval_k1']} K1 launches (want 4 and 128)")
+    train_k1 = c["K1"] - rec["eval_k1"]
+    log(f"driver: launches over the run K1 {c['K1']} ({train_k1} in {steps} train steps, {rec['eval_k1']} in "
+        f"{rec['eval_batches']} eval batches), K2 {c['K2']}, K3 {c['K3']}")
+    check(train_k1 == 56 * steps, "K1 launches per train step through the CLI")
+    check(c["K2"] == c["K3"] == 32 * steps, "K2/K3 launches per train step through the CLI")
+
+    synthetic = next(synthetic_batches(TRAIN_BATCH, 224, seed=0))["images"]
+    check(rec["digests"][0] != _digest(synthetic), "the first batch is the synthetic one, not the shards'")
+    records = _jsonl(out)
+    vals = [r["val/loss"] for r in records if "val/loss" in r]
+    check(len(vals) == 1 and np.isfinite(vals[0]) and vals[0] > 0, f"val/loss in the metrics JSONL: {vals}")
+    ck = Checkpointer(CheckpointConfig(str(out / "pretrain_vit_l16_in1k_800ep" / "ckpt")))
+    check(ck.latest_step() == DRIVER_STEPS, f"ckpt/last holds {ck.committed_steps()}, want a committed step 6")
+
+    summary = [r for r in records if "perf/images_per_sec" in r][-1]
+    saver = rec["ckpt"]
+    ips = summary["perf/images_per_sec"]
+    step_ms = TRAIN_BATCH * 1e3 / ips
+    steady_wait = rec["loader_wait_s"][2:DRIVER_STEPS]
+    res = dict(
+        counts=c, step_ms=step_ms, images_per_s=ips, mfu=summary["perf/mfu"], losses=losses, val_loss=vals[0],
+        data_wait_s_per_step=summary["perf/data_wait_s_per_step"],
+        loader_wait_s=float(np.mean(steady_wait)), save_s=saver.last_save_s, write_s=saver.last_write_s,
+        save_bytes=saver.last_save_bytes, wall_s=rec["wall_s"], digests=rec["digests"][:DRIVER_STEPS],
+    )
+    log(f"driver: {ips:.1f} images/s through cli/train.py ({step_ms:.2f} ms a step over steps 3-6 by the "
+        f"CLI's StepTimer; phase 7's step on one repeated batch {train_step_ms:.2f} ms), MFU "
+        f"{100 * res['mfu']:.2f}%, on {smi}")
+    log(f"driver: host seconds waiting for a batch per step {res['data_wait_s_per_step']:.4f} (CLI window, steps "
+        f"1-6), in the loader's __next__ {res['loader_wait_s']:.4f} (mean of its calls 3-6), on {smi}")
+    log(f"driver: checkpoint at step 6: {res['save_s']:.3f} s blocking (device to host), {res['write_s']:.3f} s "
+        f"writing on the writer thread, {res['save_bytes']} bytes, on {smi}")
+    log(f"driver: the whole main() call {res['wall_s']:.1f} s (state build, sanity eval, 6 steps, eval, save)")
+    return res
+
+
+def phase_resume(fa, smi: str, tmp: Path, straight: dict) -> dict:
+    """Phase 14: 3 steps, then ``run.resume=true`` to 6, in a second output
+    directory, against phase 13's 6 straight steps: the host batches'
+    digests per step identical, the state restored at step 3 equal to the
+    state saved there bit for bit, the losses of steps 4-6 within rtol
+    1e-3 (the gather's backward accumulates with atomics on the card, so
+    exact equality is the CPU test's gate). Then whether
+    ``torch.use_deterministic_algorithms`` makes a step repeat exactly."""
+    import numpy as np
+    import torch
+
+    urls = {"train": f"{tmp}/shards/train-{{0000..0003}}.tar", "val": f"{tmp}/shards/val-{{0000..0000}}.tar"}
+    sets = DRIVER_SETS + [f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}",
+                          f"run.output_dir={tmp / 'b'}"]
+    first = run_driver(fa, ["--config", str(HERE / RECIPE), "--set", *sets, "run.epochs=0.375",
+                            "optim.training_steps=6"], keep_state_at=3)
+    second = run_driver(fa, ["--config", str(HERE / RECIPE), "--set", *sets, "run.resume=true"])
+    check(len(first["metrics"]) == 3 and len(second["metrics"]) == 3, "3 + 3 steps")
+    digests = first["digests"][:3] + second["digests"][:3]
+    check(digests == straight["digests"], f"per-step batch digests differ:\n{digests}\n{straight['digests']}")
+    log(f"resume: the 6 batch digests equal the straight run's: {digests}")
+
+    kept, restored = first["kept"], second["restores"][0]
+    check(restored["step"] == kept["step"] == 3, "the restore is at step 3")
+    check(kept["model"].keys() == restored["model"].keys(), "the restored state has other entries")
+    same = all(torch.equal(restored["model"][k], v) for k, v in kept["model"].items())
+    pairs = list(zip(restored["opt"]["mu"] + restored["opt"]["nu"], kept["opt"]["mu"] + kept["opt"]["nu"], strict=True))
+    same &= all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+    same &= all(restored["opt"][k] == kept["opt"][k] for k in ("count", "learning_rate")) and restored["seed"] == kept["seed"]
+    check(same, "the state restored at step 3 differs from the state saved there")
+    log("resume: the state restored at step 3 equals the saved one bit for bit (parameters, buffers, mu, nu, "
+        "count, learning rate, seed)")
+
+    a, b = straight["losses"][3:], [m["loss"] for m in second["metrics"]]
+    rel = [abs(x - y) / abs(x) for x, y in zip(a, b)]
+    log(f"resume: steps 4-6 loss straight {a}, resumed {b}, relative differences {rel}")
+    check(max(rel) <= 1e-3, "resumed losses beyond rtol 1e-3")
+    exact = a == b
+    det = _determinism(second["live"])
+    log(f"resume: steps 4-6 losses bit-equal: {exact}; one step repeated from the same state: "
+        f"{json.dumps(det)}, on {smi}")
+    return dict(rel=rel, exact=exact, **det)
+
+
+def _determinism(state) -> dict:
+    """Take one step twice from the same state, with the default algorithms
+    and with ``torch.use_deterministic_algorithms(True, warn_only=True)``:
+    are the losses and every parameter bit-equal?"""
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
+    from jumbo_mae_tpu_tpu_torch.train.steps import make_train_step
+
+    step = make_train_step(guard_nonfinite=True)
+    batch = next(synthetic_batches(TRAIN_BATCH, state.model.encoder_cfg.image_size, seed=5))
+    params = list(state.model.parameters())
+    start = ([p.detach().clone() for p in params], [m.clone() for m in state.opt_state.mu],
+             [n.clone() for n in state.opt_state.nu], state.opt_state.count, state.opt_state.learning_rate, state.step)
+
+    def once():
+        with torch.no_grad():
+            for p, s in zip(params, start[0]):
+                p.copy_(s)
+        state.opt_state.mu = [m.clone() for m in start[1]]
+        state.opt_state.nu = [n.clone() for n in start[2]]
+        state.opt_state.count, state.opt_state.learning_rate, state.step = start[3], start[4], start[5]
+        _, m = step(state, batch)
+        return m["loss"].item(), [p.detach().clone() for p in params]
+
+    out = {}
+    for name, det in (("default", False), ("deterministic", True)):
+        torch.use_deterministic_algorithms(det, warn_only=True)
+        try:
+            (l1, p1), (l2, p2) = once(), once()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out[name] = {"loss_equal": l1 == l2, "params_equal": all(torch.equal(x, y) for x, y in zip(p1, p2))}
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1387,6 +1690,18 @@ def main() -> None:
     log(f"sequence-parallel step {seq_train['step_ms']:.2f} ms against {train['step_ms']:.2f} ms without the "
         f"ring (phase 7), on {smi}")
     phase_ring_f32_vs_plain()
+    backends = phase_backends()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_driver_"))
+    try:
+        driver = phase_driver(fa, smi, tmp, train["step_ms"])
+        resume = phase_resume(fa, smi, tmp, driver)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "save_s", "write_s",
+            "save_bytes")
+    summary = {"backends": backends, **{k: driver[k] for k in keys}, "phase7_step_ms": train["step_ms"],
+               "resume": resume}
+    log(f"cli/train.py: {json.dumps(summary)} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -1408,6 +1723,7 @@ def main() -> None:
             "source": f"jumbo_mae_tpu_tpu_torch/csrc/{src}",
             "replaces": f"jumbo_mae_tpu_tpu/ops/pallas/attention.py:{line}",
             "launches": train["counts"][key],
+            "cli_launches": driver["counts"][key],
             "max_abs_err": err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -95,8 +95,10 @@ def create_state(
 
 
 def _to_device(x: Any, device: torch.device) -> torch.Tensor:
+    """A batch leaf on ``device``; a tensor already there (the CUDA-stream
+    prefetch's) passes through untouched."""
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))
-    return t.to(device, non_blocking=True)
+    return t if t.device == device else t.to(device, non_blocking=True)
 
 
 def _average_over_data(grads: list[torch.Tensor], loss: torch.Tensor) -> torch.Tensor:

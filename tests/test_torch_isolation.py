@@ -3,7 +3,9 @@
 - ``jumbo_mae_tpu_tpu_torch/`` and ``chip_smoke.py`` never import JAX, its
   libraries or the JAX package (an AST scan of every import statement);
 - every module of the port imports in a fresh interpreter where importing
-  any of those raises;
+  any of those raises, and so does importing PyYAML, PIL or cv2 (the port
+  must run without them); ``cli.train.main`` trains ``smoke_cpu.yaml`` on
+  the CPU in such an interpreter;
 - the entry points default to the GPU and raise when there is none,
   instead of carrying on on the CPU;
 - no kernel is built at import time.
@@ -25,7 +27,10 @@ from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "jumbo_mae_tpu_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "jumbo_mae_tpu_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "jumbo_mae_tpu_tpu", "yaml")
+# blocked beside FORBIDDEN in the fresh interpreter: the port imports PIL
+# and cv2 only lazily or under try, and must run without any of these
+OPTIONAL = ("yaml", "PIL", "cv2")
 TINY = preset("vit_t16", image_size=32, patch_size=4)
 
 
@@ -58,10 +63,26 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
 
 
+def _blocked_interpreter(body: str, timeout: int = 120) -> subprocess.CompletedProcess:
+    """Run ``body`` in a fresh interpreter where importing JAX, the JAX
+    package, PyYAML, PIL or cv2 raises."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {FORBIDDEN + OPTIONAL!r}:\n"
+        "    sys.modules[name] = None  # any import of it now raises\n"
+        + body
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=timeout,
+    )
+
+
 def test_every_module_imports_with_jax_blocked():
     code = (
         "import importlib, sys\n"
-        f"for name in {FORBIDDEN!r}:\n"
+        f"for name in {FORBIDDEN + OPTIONAL!r}:\n"
         "    sys.modules[name] = None  # any import of it now raises\n"
         f"for mod in {port_modules()!r}:\n"
         "    importlib.import_module(mod)\n"
@@ -76,6 +97,19 @@ def test_every_module_imports_with_jax_blocked():
     )
     assert res.returncode == 0, res.stderr
     assert "imported" in res.stdout
+
+
+def test_cli_train_runs_without_jax_yaml_pil_or_cv2(tmp_path):
+    res = _blocked_interpreter(
+        "from jumbo_mae_tpu_tpu_torch.cli.train import main\n"
+        f"main(['--config', 'recipes/smoke_cpu.yaml', '--device', 'cpu', '--set', 'run.output_dir={tmp_path}'])\n"
+        "from jumbo_mae_tpu_tpu_torch.data import decode, transforms\n"
+        "print('backends', decode.backend(), transforms.backend())\n",
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "[train] done:" in res.stdout and "backends none PIL" in res.stdout
+    assert (tmp_path / "smoke_cpu" / "ckpt" / "last" / "10" / "COMMIT").is_file()
 
 
 def test_module_list_covers_the_slice():
@@ -103,6 +137,21 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.parallel",
         "jumbo_mae_tpu_tpu_torch.parallel.mesh",
         "jumbo_mae_tpu_tpu_torch.parallel.ring_attention",
+        "jumbo_mae_tpu_tpu_torch.config",
+        "jumbo_mae_tpu_tpu_torch.data.shards",
+        "jumbo_mae_tpu_tpu_torch.data.tario",
+        "jumbo_mae_tpu_tpu_torch.data.resize",
+        "jumbo_mae_tpu_tpu_torch.data.decode",
+        "jumbo_mae_tpu_tpu_torch.data.transforms",
+        "jumbo_mae_tpu_tpu_torch.data.loader",
+        "jumbo_mae_tpu_tpu_torch.data._worker",
+        "jumbo_mae_tpu_tpu_torch.data.toy",
+        "jumbo_mae_tpu_tpu_torch.train.checkpoint",
+        "jumbo_mae_tpu_tpu_torch.train.engine",
+        "jumbo_mae_tpu_tpu_torch.utils.logging",
+        "jumbo_mae_tpu_tpu_torch.utils.meters",
+        "jumbo_mae_tpu_tpu_torch.utils.summary",
+        "jumbo_mae_tpu_tpu_torch.cli.train",
     ):
         assert m in mods
     for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):
