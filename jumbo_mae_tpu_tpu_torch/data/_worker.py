@@ -36,7 +36,7 @@ def _run(cfg_json: str) -> None:
     cfg = DataConfig(**spec["data"])
     start_epoch = spec.get("start_epoch", 0)
     cursor = StreamCursor(start_epoch, spec.get("skip_samples", 0))
-    ledger = ShardLedger(preconsumed=spec.get("shard_preconsumed"))
+    ledger = ShardLedger()
     stream = train_sample_stream(
         cfg,
         process_index=spec["process_index"],
@@ -47,7 +47,6 @@ def _run(cfg_json: str) -> None:
         skip_samples=spec.get("skip_samples", 0),
         cursor=cursor,
         ledger=ledger,
-        epoch_shard_override=spec.get("epoch_shard_override"),
     )
     out = sys.stdout.buffer
     for batch in batch_train_samples(stream, spec["batch_size"], cfg.repeats, cursor=cursor, ledger=ledger):

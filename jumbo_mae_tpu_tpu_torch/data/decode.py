@@ -4,9 +4,9 @@ Counterpart of ``jumbo_mae_tpu_tpu/data/decode.py``, with its backend
 order: OpenCV first, PIL for what cv2 rejects or where cv2 is absent. Both
 are imported only here, cv2 under ``try`` at import and PIL lazily, so a
 machine without either still imports the module. Corrupt images return
-``None`` so the pipeline can skip them; a payload nothing here can decode
-(neither package installed) logs a warning naming the missing packages
-and returns ``None`` too — never a wrong array.
+``None`` so the pipeline can skip them. With neither package installed,
+:func:`decode_image` raises ``ImportError`` naming both: the stream stops
+at once instead of skipping every sample, and never yields a wrong array.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ except ImportError:  # pragma: no cover
     cv2 = None
 
 IMAGE_EXTS = ("jpg", "jpeg", "png", "ppm", "bmp", "webp")
+NO_BACKEND = "cannot decode images: neither cv2 (opencv-python) nor PIL (Pillow) is installed"
 
 
 def backend() -> str:
@@ -41,7 +42,8 @@ def backend() -> str:
 
 
 def decode_image(payload: bytes) -> np.ndarray | None:
-    """Decode image bytes to (H, W, 3) RGB uint8, or None if undecodable."""
+    """Decode image bytes to (H, W, 3) RGB uint8, or None if undecodable.
+    Raises ``ImportError`` when neither cv2 nor PIL imports."""
     if cv2 is not None:
         buf = np.frombuffer(payload, np.uint8)
         bgr = cv2.imdecode(buf, cv2.IMREAD_COLOR)
@@ -50,7 +52,9 @@ def decode_image(payload: bytes) -> np.ndarray | None:
     try:
         from PIL import Image
     except ImportError:
-        logger.warning("cannot decode an image (%d bytes): neither cv2 nor PIL is installed", len(payload))
+        if cv2 is None:
+            raise ImportError(NO_BACKEND) from None
+        logger.warning("undecodable image (%d bytes): cv2 rejected it and PIL is not installed", len(payload))
         return None
     try:
         with Image.open(io.BytesIO(payload)) as im:

@@ -170,7 +170,6 @@ def train_sample_stream(
     skip_samples: int = 0,
     cursor: StreamCursor | None = None,
     ledger: ShardLedger | None = None,
-    epoch_shard_override: list | None = None,
 ) -> Iterator[tuple[np.ndarray, int]]:
     """Infinite (image, label) stream for one (process, worker) pair.
 
@@ -178,8 +177,7 @@ def train_sample_stream(
     epoch: shard order, shuffle draws and decode replay, the augmentation
     is skipped, and per-sample generators keep the rest of the stream
     bit-identical to an uninterrupted one. ``ledger`` tracks which epoch
-    shards have been fully yielded; ``epoch_shard_override`` replaces the
-    stripe of the starting epoch with ``(global_index, url)`` pairs."""
+    shards have been fully yielded."""
     shards = expand_shards(cfg.train_shards)
     transform = TrainTransform(cfg)
     retry = _retry_policy(cfg)
@@ -188,17 +186,14 @@ def train_sample_stream(
     while True:
         rng = np.random.default_rng((cfg.seed, 1, process_index, worker_index, epoch))
         order = shuffle_shards(shards, seed=cfg.seed, epoch=epoch)
-        if epoch_shard_override is not None and epoch == start_epoch:
-            epoch_pairs = [(int(g), str(u)) for g, u in epoch_shard_override]
-        else:
-            gidx = split_shards(
-                list(range(len(order))),  # type: ignore[arg-type]
-                process_index=process_index,
-                process_count=process_count,
-                worker_index=worker_index,
-                worker_count=worker_count,
-            )
-            epoch_pairs = [(g, order[g]) for g in gidx]
+        gidx = split_shards(
+            list(range(len(order))),  # type: ignore[arg-type]
+            process_index=process_index,
+            process_count=process_count,
+            worker_index=worker_index,
+            worker_count=worker_count,
+        )
+        epoch_pairs = [(g, order[g]) for g in gidx]
 
         def decoded():
             # one shard per iter_shards_samples call, so the ledger sees
@@ -377,17 +372,17 @@ class TrainLoader:
         process_count: int = 1,
         start_epoch: int = 0,
         cursor: dict | None = None,
-        epoch_shard_override: list | None = None,
-        shard_preconsumed: dict | None = None,
     ):
         if cfg.use_native:
             raise NotImplementedError(NATIVE_NOT_PORTED)
         if batch_size % max(1, cfg.repeats):
             raise ValueError(f"repeats ({cfg.repeats}) must divide the per-process batch size ({batch_size})")
         TrainTransform(cfg)  # refuse an unported augmentation here, not in a worker
+        if decode.backend() == "none":
+            raise ImportError(decode.NO_BACKEND)
         n_streams = 1 if cfg.workers <= 0 else cfg.workers
         stripe = len(expand_shards(cfg.train_shards)[process_index::process_count])
-        if epoch_shard_override is None and stripe < n_streams:
+        if stripe < n_streams:
             # a stream without shards would read nothing forever
             raise ValueError(
                 f"{n_streams} data stream(s) but this process's stripe has {stripe} shard(s); "
@@ -397,7 +392,6 @@ class TrainLoader:
         self.batch_size = batch_size
         self.wait_s = 0.0
         self._workers: list[_Worker] = []
-        self._override_epoch: int | None = None
         if cursor is not None:
             if cursor.get("native_threads") is not None:
                 raise ValueError(
@@ -416,15 +410,13 @@ class TrainLoader:
             self.batches_yielded = 0
         self._cursors = list(starts)
         self._shard_states: list = [None] * n_streams
-        if epoch_shard_override is not None:
-            self._override_epoch = min(e for e, _ in starts)
         print(
             f"[data] train loader: {cfg.workers} worker(s), decode backend {decode.backend()}, "
             f"resize backend {transforms.backend()}",
             flush=True,
         )
         if cfg.workers <= 0:
-            led = ShardLedger(preconsumed=shard_preconsumed)
+            led = ShardLedger()
             track = StreamCursor(*starts[0])
             self._stream = train_sample_stream(
                 cfg,
@@ -434,7 +426,6 @@ class TrainLoader:
                 skip_samples=starts[0][1],
                 cursor=track,
                 ledger=led,
-                epoch_shard_override=epoch_shard_override,
             )
             self._inline = batch_train_samples(self._stream, batch_size, cfg.repeats, cursor=track, ledger=led)
             return
@@ -451,24 +442,13 @@ class TrainLoader:
                 "start_epoch": starts[w][0],
                 "skip_samples": starts[w][1],
             }
-            if epoch_shard_override is not None:
-                # worker w owns every W-th pair of the process's stripe
-                spec["epoch_shard_override"] = [[int(g), str(u)] for g, u in epoch_shard_override[w :: cfg.workers]]
-            if shard_preconsumed is not None:
-                spec["shard_preconsumed"] = shard_preconsumed
             self._workers.append(_Worker(spec, per_worker_q))
 
     def snapshot(self) -> dict | None:
-        """The resume cursor as of the last batch ``__next__`` returned.
-        While a stream is still inside an ``epoch_shard_override`` epoch
-        the snapshot carries ``override_epoch``: its offsets were measured
-        on the override stripe."""
+        """The resume cursor as of the last batch ``__next__`` returned."""
         if not self._cursors:
             return None
-        snap = {"workers": [list(c) for c in self._cursors], "batches": self.batches_yielded}
-        if self._override_epoch is not None and any(e <= self._override_epoch for e, _ in self._cursors):
-            snap["override_epoch"] = self._override_epoch
-        return snap
+        return {"workers": [list(c) for c in self._cursors], "batches": self.batches_yielded}
 
     def shard_snapshot(self) -> dict | None:
         """This process's consumed-shard state merged across its streams,

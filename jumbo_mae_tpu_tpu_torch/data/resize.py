@@ -58,7 +58,7 @@ class ShardLedger:
 
     ``preconsumed`` seeds the ledger with shards consumed by EARLIER
     generations (the merged set a resized resume subtracted when it built
-    the stream's ``epoch_shard_override``). Without the seed, a fresh
+    the stripe of its resumed epoch from; ROADMAP A6). Without the seed, a fresh
     generation's ``shard_cursor`` snapshots would record only its own
     consumption, and the NEXT resize would re-assign everything consumed
     before the first one — snapshots must stay cumulative across

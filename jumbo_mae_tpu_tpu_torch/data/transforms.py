@@ -40,8 +40,15 @@ if cv2 is not None:
 
 
 def backend() -> str:
-    """The backend :func:`resize` takes: ``"cv2"``, else ``"PIL"``."""
-    return "cv2" if cv2 is not None else "PIL"
+    """The backend :func:`resize` takes: ``"cv2"``, ``"PIL"``, or
+    ``"none"`` when neither imports."""
+    if cv2 is not None:
+        return "cv2"
+    try:
+        import PIL.Image  # noqa: F401
+    except ImportError:
+        return "none"
+    return "PIL"
 
 
 def resize(img: np.ndarray, size: tuple[int, int], interpolation: str = "bicubic") -> np.ndarray:
@@ -51,7 +58,10 @@ def resize(img: np.ndarray, size: tuple[int, int], interpolation: str = "bicubic
         return img
     if cv2 is not None:
         return cv2.resize(img, (w, h), interpolation=_CV2_INTERP[interpolation])
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ImportError("cannot resize images: neither cv2 (opencv-python) nor PIL (Pillow) is installed") from None
 
     pil = Image.fromarray(img).resize(
         (w, h), {"bicubic": Image.BICUBIC, "bilinear": Image.BILINEAR, "nearest": Image.NEAREST, "area": Image.BOX}[interpolation]

@@ -66,6 +66,29 @@ def dev_us(evt) -> float:
     return 0.0
 
 
+def kernel_report(prof, top: int = 25) -> dict:
+    """A finished ``torch.profiler`` trace's device time: the total, the
+    launches, the groups of :data:`GROUPS`, the ``top`` kernels and every
+    flash kernel by name."""
+    from torch.autograd import DeviceType
+
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA), key=dev_us, reverse=True)
+    groups: dict[str, list] = {}
+    for e in kernels:
+        g = groups.setdefault(group_of(e.key), [0.0, 0])
+        g[0] += dev_us(e) / 1e3
+        g[1] += e.count
+    return {
+        "kernel_ms": sum(dev_us(e) for e in kernels) / 1e3,
+        "kernel_launches": sum(e.count for e in kernels),
+        "groups": {k: {"device_ms": v[0], "calls": v[1]} for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])},
+        "top": [{"name": e.key[:100], "device_ms": dev_us(e) / 1e3, "calls": e.count} for e in kernels[:top]],
+        # every flash kernel by name: which instantiation the step ran
+        "flash": [{"name": e.key, "device_ms": dev_us(e) / 1e3, "calls": e.count}
+                  for e in kernels if "flash_" in e.key],
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--batch", type=int, default=128)
@@ -75,7 +98,6 @@ def main() -> None:
     args = ap.parse_args()
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
@@ -142,13 +164,8 @@ def main() -> None:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             state, _ = step(state, batch)
             torch.cuda.synchronize()
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA), key=dev_us, reverse=True)
-    kernel_ms = sum(dev_us(e) for e in kernels) / 1e3
-    groups: dict[str, list] = {}
-    for e in kernels:
-        g = groups.setdefault(group_of(e.key), [0.0, 0])
-        g[0] += dev_us(e) / 1e3
-        g[1] += e.count
+    kernels = kernel_report(prof)
+    kernel_ms = kernels["kernel_ms"]
     ips = args.batch * 1e3 / step_ms
     report = {
         "device": smi,
@@ -160,14 +177,8 @@ def main() -> None:
         "mfu": mfu(ips, pretrain_flops_per_image(enc, dec)),
         "host_enqueue_ms": enqueue_ms,
         "split_ms": split,
-        "kernel_ms": kernel_ms,
         "idle_share": max(0.0, 1.0 - kernel_ms / step_ms),
-        "kernel_launches": sum(e.count for e in kernels),
-        "groups": {k: {"device_ms": v[0], "calls": v[1]} for k, v in sorted(groups.items(), key=lambda kv: -kv[1][0])},
-        "top": [{"name": e.key[:100], "device_ms": dev_us(e) / 1e3, "calls": e.count} for e in kernels[:25]],
-        # every flash kernel by name: which instantiation the step ran
-        "flash": [{"name": e.key, "device_ms": dev_us(e) / 1e3, "calls": e.count}
-                  for e in kernels if "flash_" in e.key],
+        **kernels,
     }
     print(f"step {step_ms:.2f} ms ({ips:.1f} images/s, MFU {100 * report['mfu']:.2f}%), host enqueue "
           f"{enqueue_ms:.2f} ms, kernels {kernel_ms:.2f} ms in {report['kernel_launches']} launches, idle share "

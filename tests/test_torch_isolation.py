@@ -17,6 +17,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -108,8 +109,39 @@ def test_cli_train_runs_without_jax_yaml_pil_or_cv2(tmp_path):
         timeout=300,
     )
     assert res.returncode == 0, res.stderr[-3000:]
-    assert "[train] done:" in res.stdout and "backends none PIL" in res.stdout
+    assert "[train] done:" in res.stdout and "backends none none" in res.stdout
     assert (tmp_path / "smoke_cpu" / "ckpt" / "last" / "10" / "COMMIT").is_file()
+
+
+def test_images_without_cv2_or_pil_raise_naming_both(tmp_path):
+    """With neither cv2 nor PIL, decoding a JPEG, resizing and starting a
+    train loader raise ImportError naming both packages; nothing returns
+    an array or skips the sample."""
+    from PIL import Image
+
+    jpg = tmp_path / "x.jpg"
+    Image.fromarray(np.random.default_rng(0).integers(0, 256, (8, 8, 3), dtype=np.uint8)).save(jpg)
+    res = _blocked_interpreter(
+        "import numpy as np\n"
+        "from jumbo_mae_tpu_tpu_torch.data import decode, transforms\n"
+        "from jumbo_mae_tpu_tpu_torch.data.loader import DataConfig, TrainLoader\n"
+        f"payload = open({str(jpg)!r}, 'rb').read()\n"
+        "calls = {'decode': lambda: decode.decode_image(payload),\n"
+        "         'resize': lambda: transforms.resize(np.zeros((4, 4, 3), np.uint8), (2, 2)),\n"
+        "         'loader': lambda: TrainLoader(DataConfig(train_shards='s-{0000..0003}.tar', workers=0), 4)}\n"
+        "for name, call in calls.items():\n"
+        "    try:\n"
+        "        call()\n"
+        "    except ImportError as e:\n"
+        "        print(name, 'raised:', e)\n"
+        "    else:\n"
+        "        print(name, 'did not raise')\n"
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.splitlines()
+    assert [ln.split()[0] for ln in lines] == ["decode", "resize", "loader"]
+    for ln in lines:
+        assert "raised:" in ln and "cv2" in ln and "PIL" in ln, ln
 
 
 def test_module_list_covers_the_slice():
