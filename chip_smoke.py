@@ -103,7 +103,36 @@ Phases, each of which exits non-zero when it fails:
    step 3 equal to the state saved there bit for bit, the losses of steps
    4-6 equal (their relative differences logged); whether one step
    repeats exactly from the same state with and without
-   ``torch.use_deterministic_algorithms``.
+   ``torch.use_deterministic_algorithms``;
+15. a ViT-B/16 MAE save — 2 steps of
+   recipes/pretrain_vit_b16_in1k_1600ep.yaml through ``cli.train.main``
+   (batch 128, 4 workers) on phase 13's shards, ending in ``ckpt/last``;
+16. finetuning — recipes/finetune_vit_b16.yaml as written (RandAugment,
+   Mixup/CutMix, label smoothing, droppath, AdamW with layer decay)
+   warm-started from phase 15's save through ``cli.train.main`` (batch
+   256 train and eval, 6 steps, warmup 0, 4 workers): the merge loads
+   every trunk parameter, keeps the head fresh and drops the decoder;
+   K1 = K2 = K3 = 12 a train step and K1 = 12 an eval batch; finite
+   losses; ``val/acc1``/``val/acc5`` in the JSONL; a committed ``best``;
+   ``run.eval_only`` from ``best`` reproduces the evaluation exactly;
+   images/s, MFU, the loader wait and the step's host time; then one
+   float32 classify step (ViT-B widths, 2 layers, mixup and CutMix
+   pinned) on the card against the CPU: loss and gradients within 1e-3
+   of scale, the AdamW + layer-decay step against the CPU's;
+17. linear probing — recipes/linear_lars_vit_l16.yaml warm-started from
+   phase 13's ViT-L/16 save (batch 256, 6 steps): K1 = 24 and
+   K2 = K3 = 0 a step, every trunk parameter bit-unchanged under LARS,
+   the head and the BatchNorm statistics moved, finite losses,
+   ``val/acc1`` in the JSONL;
+18. the toy proof (ROADMAP A4's gate) — tests/test_learning_e2e.py's toy
+   MAE pretraining (600 steps) and GAP linear probes (400 steps) from it
+   and from a random init, through ``cli.train.main`` on 32 px toy
+   shards written here, in a fresh process with PyTorch's default
+   settings: the pretrained probe above the random one by 0.1 and by
+   1.5x, and above 0.25.
+
+Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
+NaN past the sequence inert, and time them there against SDPA.
 
 The ring's process-group transport (``ProcessGroupRing`` under NCCL) is
 not run here: NCCL takes one GPU per rank, and this runs on one card.
@@ -121,6 +150,7 @@ import inspect
 import json
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -128,6 +158,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parent
 
 VIT_B_SHAPE = (64, 199, 12, 64)  # ViT-B/16 at 224 px, batch 64
+# the finetune slice: ViT-B/16 at 224 px (196 patches + 3 CLS) at its batch 256
+FT_SHAPE = (256, 199, 12, 64)
 # the training slice: MAE encoder (49 visible + 3 CLS) and decoder (196 + 3)
 # of the ViT-L/16 recipe at batch 128
 ENC_SHAPE = (128, 52, 16, 64)
@@ -136,6 +168,7 @@ KERNEL_SHAPES = [
     ENC_SHAPE,
     DEC_SHAPE,
     VIT_B_SHAPE,
+    FT_SHAPE,
     (4, 787, 16, 64),  # ViT-L/16 at 448 px
     (8, 52, 16, 64),  # 49 visible patches + 3 CLS (MAE, mask 0.75)
     (4, 259, 16, 80),  # ViT-H/14 at 224 px
@@ -202,6 +235,7 @@ BWD_SHAPES = [
     ENC_SHAPE,
     DEC_SHAPE,
     VIT_B_SHAPE,
+    FT_SHAPE,
     (4, 787, 16, 64),
     (4, 259, 16, 80),
     (2, 331, 8, 128),
@@ -340,6 +374,18 @@ def phase_kernels(fa) -> dict:
     ref = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
     check(torch.equal(o, ref), "strided q/k/v views disagree with contiguous copies")
     log("kernel on strided q/k/v views equals contiguous copies: True")
+    # pad rows are inert at the finetune shape: NaN stored past the 199
+    # tokens in the same buffers is never read
+    q, k, v = qkv(FT_SHAPE, torch.bfloat16, seed=77)
+    ref, ref_lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+    padded = []
+    for x in (q, k, v):
+        buf = torch.full((FT_SHAPE[0], FT_SHAPE[1] + 57, *FT_SHAPE[2:]), float("nan"), dtype=x.dtype, device="cuda")
+        buf[:, : FT_SHAPE[1]] = x
+        padded.append(buf[:, : FT_SHAPE[1]])
+    o, lse = fa.flash_attention_fwd(*padded, with_lse=True)
+    check(torch.equal(o, ref) and torch.equal(lse, ref_lse), f"pad rows change K1's output at {FT_SHAPE}")
+    log(f"kernel at {FT_SHAPE} with NaN past the sequence equals the contiguous run: True")
     return errs
 
 
@@ -391,9 +437,9 @@ def host_us(fn, calls: int = 1000) -> float:
 
 
 def phase_timings(fa) -> dict:
-    """Phase 5a: K1 in bf16 at the main path's four shapes (ViT-B serving;
-    the MAE decoder and encoder and the ring hop, with lse, as training
-    calls it) and at 448 px: device time per call from CUDA-graph replay
+    """Phase 5a: K1 in bf16 at the main paths' shapes (ViT-B serving; the
+    MAE decoder and encoder, the ring hop and the finetune batch, with lse,
+    as training calls it) and at 448 px: device time per call from CUDA-graph replay
     (``ms``, the plain version, SDPA's forward) and from eager back-to-back
     launches (``eager_ms``, the method of the earlier kernels lines), the
     least time the card could take, and the wrapper's host µs per call;
@@ -403,7 +449,7 @@ def phase_timings(fa) -> dict:
 
     out = {}
     shapes = ((VIT_B_SHAPE, False), (DEC_SHAPE, True), (ENC_SHAPE, True), (HOP_SHAPE, True),
-              ((4, 787, 16, 64), False))
+              ((4, 787, 16, 64), False), (FT_SHAPE, True))
     for shape, lse in shapes:
         q, k, v = qkv(shape, torch.bfloat16, seed=100)
 
@@ -581,7 +627,8 @@ def phase_bwd_kernels(fa) -> dict:
     # same buffers (q, k, v, dO and O) is never read (a read would turn the
     # gradients or D NaN)
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in ((2, 199, 4, 64), (3, 70, 2, 128), (2, 52, 4, 32), (4, 13, 16, 64), (2, 9, 12, 32)):
+        for shape in ((2, 199, 4, 64), (8, 199, 12, 64), (3, 70, 2, 128), (2, 52, 4, 32), (4, 13, 16, 64),
+                      (2, 9, 12, 32)):
             q, k, v, do, o, lse = bwd_inputs(shape, dtype, 300, fa)
             g_lse = torch.randn((shape[0] * shape[2], shape[1]), device="cuda")
             ref = kernel_bwd(fa, q, k, v, o, lse, do, g_lse)
@@ -625,13 +672,13 @@ def attention_fb_bound_ms(shape, g_lse: bool = False) -> tuple[float, str]:
 
 
 def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
-    """Phase 5b: K2 and K3 at the MAE encoder and decoder shapes and the
-    ring hop, bf16: each kernel (K2 computing D), the plain backward (all
+    """Phase 5b: K2 and K3 at the MAE encoder and decoder shapes, the ring
+    hop and the finetune batch, bf16: each kernel (K2 computing D), the plain backward (all
     three gradients), SDPA's backward as (forward + backward) − forward,
     which computes its own D, so K2 + K3 stands against it; the standalone
     D pass (``attention_delta``, which K2's D replaced and an older
-    checkout still runs first) beside them; and at the MAE shapes
-    ``FlashAttention`` (K1 + K2 + K3 through autograd) forward + backward
+    checkout still runs first) beside them; and at the MAE and finetune
+    shapes ``FlashAttention`` (K1 + K2 + K3 through autograd) forward + backward
     against SDPA's and the einsum path's. Device ms per call from
     CUDA-graph replay, as phase 5a; each kernel's eager back-to-back time
     beside it. The einsum comparison needs ``k1_timings`` (phase 5a's
@@ -647,7 +694,7 @@ def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
     out = {}
-    for shape in (ENC_SHAPE, DEC_SHAPE, HOP_SHAPE):
+    for shape in (ENC_SHAPE, DEC_SHAPE, HOP_SHAPE, FT_SHAPE):
         q, k, v, do, o, lse = bwd_inputs(shape, torch.bfloat16, 400, fa)
         if folds:
             def k2_call():
@@ -683,7 +730,7 @@ def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
         log(f"timing backward bf16 {shape}: {what} {bwd_ms:.4f} ms against sdpa backward {lib:.4f} ms "
             f"({bwd_ms / lib:.2f}x); the standalone D pass (attention_delta) {d_ms:.4f} ms, bound "
             f"{d_bound:.4f} ms (bytes)")
-        if shape in (ENC_SHAPE, DEC_SHAPE):
+        if shape in (ENC_SHAPE, DEC_SHAPE, FT_SHAPE):
             # FlashAttention (the counterpart of pallas_flash_attention):
             # forward + backward through autograd, against SDPA's
             from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention
@@ -1521,8 +1568,7 @@ def run_driver(fa, argv: list[str], *, keep_state_at: int | None = None, before_
     return rec
 
 
-def _jsonl(out_dir: Path) -> list[dict]:
-    name = "pretrain_vit_l16_in1k_800ep"
+def _jsonl(out_dir: Path, name: str = "pretrain_vit_l16_in1k_800ep") -> list[dict]:
     return [json.loads(x) for x in (out_dir / name / f"{name}-metrics.jsonl").read_text().splitlines() if x.strip()]
 
 
@@ -1674,6 +1720,366 @@ def _determinism(state) -> dict:
     return out
 
 
+MAE_B16_RECIPE = "recipes/pretrain_vit_b16_in1k_1600ep.yaml"
+FT_RECIPE = "recipes/finetune_vit_b16.yaml"
+LINEAR_RECIPE = "recipes/linear_lars_vit_l16.yaml"
+CLASSIFY_BATCH = 256
+CLASSIFY_STEPS = 6
+# the classify runs on the 1024 toy images: batch 256 (the finetune
+# recipe's 1024 does not fit one card without grad_ckpt), 1.5 epochs = 6
+# steps, warmup 0, 4 workers, wandb off
+CLASSIFY_SETS = [f"run.train_batch_size={CLASSIFY_BATCH}", f"run.valid_batch_size={CLASSIFY_BATCH}",
+                 "data.dataset_size=1024", "run.epochs=1.5", "optim.warmup_epochs=0", "data.workers=4",
+                 "run.use_wandb=false"]
+
+
+@contextlib.contextmanager
+def recorded_warm_start():
+    """Record what ``cli.train``'s warm start merged (the merge's name
+    lists) and the classifier's head right after it, without changing
+    the run."""
+    from jumbo_mae_tpu_tpu_torch.cli import train as cli
+
+    rec = {}
+    real = cli._warm_start
+
+    def warm_start(model, path):
+        stats = real(model, path)
+        rec["stats"] = stats
+        rec["head"] = {n: p.detach().cpu().clone() for n, p in model.named_parameters() if n.startswith("model.head.")}
+        return stats
+
+    cli._warm_start = warm_start
+    try:
+        yield rec
+    finally:
+        cli._warm_start = real
+
+
+def check_merge(stats: dict, trunk: list[str], head: list[str], what: str) -> None:
+    """Every trunk parameter loaded, none resized or skipped, the head new
+    (fresh), the MAE save's decoder dropped (unused by the classifier)."""
+    check(sorted(stats["loaded"]) == sorted(trunk), f"{what}: the merge loaded {len(stats['loaded'])} of "
+          f"{len(trunk)} trunk parameters")
+    check(not stats["resized"] and not stats["skipped"] and not stats["unused"], f"{what}: resized/skipped/unused "
+          f"{stats['resized']} {stats['skipped']} {stats['unused']}")
+    check(sorted(stats["new"]) == sorted(head), f"{what}: fresh (not in the save) {stats['new']}, want the head")
+    dropped = stats["dropped"]
+    check(any(n.startswith("decoder.") for n in dropped) and all(not n.startswith("encoder.") for n in dropped),
+          f"{what}: the MAE save's decoder was not dropped: {dropped[:5]}")
+    log(f"{what}: merge {len(stats['loaded'])} trunk parameters loaded, {len(stats['new'])} head parameters "
+        f"fresh, {len(dropped)} tensors of the MAE save dropped (decoder, mask token, projections)")
+
+
+def phase_mae_b16_save(fa, tmp: Path, urls: dict) -> Path:
+    """Phase 15: a ViT-B/16 MAE save to warm-start from: 2 steps of
+    recipes/pretrain_vit_b16_in1k_1600ep.yaml through ``cli.train.main``
+    at batch 128 on phase 13's shards, 4 workers; a committed ckpt/last."""
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+
+    sets = ["run.train_batch_size=128", "run.valid_batch_size=128", "data.dataset_size=1024", "run.epochs=0.25",
+            "optim.warmup_epochs=0", "data.workers=4", "run.use_wandb=false", f"data.train_shards={urls['train']}",
+            f"data.valid_shards={urls['val']}", f"run.output_dir={tmp / 'b16'}"]
+    rec = run_driver(fa, ["--config", str(HERE / MAE_B16_RECIPE), "--set", *sets])
+    losses = [m["loss"] for m in rec["metrics"]]
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"ViT-B/16 MAE: losses {losses}")
+    ckdir = tmp / "b16" / "pretrain_vit_b16_in1k_1600ep" / "ckpt"
+    check(Checkpointer(CheckpointConfig(str(ckdir))).latest_step() == 2, "ViT-B/16 MAE: no committed ckpt/last at 2")
+    log(f"ViT-B/16 MAE save: 2 steps, losses {losses}, launches K1 {rec['counts']['K1']} K2 {rec['counts']['K2']} "
+        f"K3 {rec['counts']['K3']}, ckpt/last/2 in {rec['wall_s']:.1f} s")
+    return ckdir
+
+
+def phase_finetune(fa, smi: str, tmp: Path, urls: dict, mae_ckpt: Path) -> dict:
+    """Phase 16: finetune ViT-B/16 from recipes/finetune_vit_b16.yaml as
+    written (RandAugment rand-m9-mstd0.5-inc1, Mixup 0.8 / CutMix 1.0,
+    label smoothing 0.1, droppath 0.1, AdamW with layer_decay 0.75),
+    warm-started from phase 15's MAE save, through ``cli.train.main``:
+    batch 256 train and eval, 6 steps, warmup 0, 4 workers. Gates: the
+    merge, K1 = K2 = K3 = 12 a train step and K1 = 12 an eval batch,
+    finite losses, ``val/acc1``/``val/acc5`` in the JSONL, a committed
+    ``best``; then ``run.eval_only=true run.resume=true
+    run.eval_which=best`` reproduces that evaluation exactly."""
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+
+    name = "finetune_vit_b16"
+    sets = CLASSIFY_SETS + [f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}",
+                            f"run.output_dir={tmp / 'ft'}", f"run.pretrained_ckpt={mae_ckpt}"]
+    with recorded_warm_start() as ws:
+        rec = run_driver(fa, ["--config", str(HERE / FT_RECIPE), "--set", *sets])
+    head = sorted(ws["head"])
+    layers = 12
+    trunk = [n for n in ws["stats"]["loaded"] + ws["stats"]["new"] if not n.startswith("model.head.")]
+    check_merge(ws["stats"], trunk, head, "finetune")
+    steps = len(rec["metrics"])
+    losses = [m["loss"] for m in rec["metrics"]]
+    check(steps == CLASSIFY_STEPS and all(np.isfinite(losses)), f"finetune: {steps} steps, losses {losses}")
+    c = rec["counts"]
+    train_k1 = c["K1"] - rec["eval_k1"]
+    log(f"finetune: launches K1 {c['K1']} ({train_k1} in {steps} train steps, {rec['eval_k1']} in "
+        f"{rec['eval_batches']} eval batches), K2 {c['K2']}, K3 {c['K3']}")
+    check(rec["eval_batches"] > 0 and rec["eval_k1"] == layers * rec["eval_batches"], "finetune: K1 per eval batch")
+    check(train_k1 == layers * steps and c["K2"] == c["K3"] == layers * steps, "finetune: K1/K2/K3 per train step")
+    records = _jsonl(tmp / "ft", name)
+    vals = [r for r in records if "val/acc1" in r]
+    check(len(vals) == 1 and "val/acc5" in vals[0] and np.isfinite(vals[0]["val/loss"]),
+          f"finetune: val/acc1 and val/acc5 in the metrics JSONL: {vals}")
+    ck = Checkpointer(CheckpointConfig(str(tmp / "ft" / name / "ckpt")))
+    check(ck.latest_step("best") == CLASSIFY_STEPS, f"finetune: no committed best ({ck.committed_steps('best')})")
+    summary = [r for r in records if "perf/images_per_sec" in r][-1]
+    ips = summary["perf/images_per_sec"]
+    res = dict(counts=c, losses=losses, val=vals[0], images_per_s=ips, step_ms=CLASSIFY_BATCH * 1e3 / ips,
+               mfu=summary["perf/mfu"], data_wait_s_per_step=summary["perf/data_wait_s_per_step"],
+               loader_wait_s=float(np.mean(rec["loader_wait_s"][2:steps])),
+               dispatch_s=float(np.mean(rec["dispatch_s"][2:steps])), wall_s=rec["wall_s"])
+    log(f"finetune: losses {losses}; val {json.dumps({k: vals[0][k] for k in ('val/loss', 'val/acc1', 'val/acc5')})}")
+    log(f"finetune: {ips:.1f} images/s ({res['step_ms']:.2f} ms a step over steps 3-6 by the CLI's StepTimer), "
+        f"MFU {100 * res['mfu']:.2f}% (classify count), host seconds waiting for a batch per step "
+        f"{res['data_wait_s_per_step']:.4f}, in the loader's __next__ {res['loader_wait_s']:.4f}, in the "
+        f"train-step call {res['dispatch_s']:.4f}, on {smi}")
+
+    # evaluate-and-exit from best: the same metrics, exactly
+    ev = run_driver(fa, ["--config", str(HERE / FT_RECIPE), "--set", *sets, "run.eval_only=true", "run.resume=true",
+                         "run.eval_which=best"])
+    again = [r for r in _jsonl(tmp / "ft", name) if "val/acc1" in r]
+    check(len(again) == 2, "eval_only logged no evaluation")
+    keys = ("val/loss", "val/acc1", "val/acc5")
+    same = all(again[1][k] == vals[0][k] for k in keys) and again[1]["step"] == vals[0]["step"]
+    check(same and not ev["metrics"] and ev["counts"]["K2"] == 0,
+          f"eval_only from best: {again[1]} against the run's {vals[0]}")
+    log(f"finetune: run.eval_only from best (step {again[1]['step']}) reproduces the run's evaluation exactly; "
+        f"K1 {ev['counts']['K1']} in {ev['eval_batches']} eval batches, no train step")
+    return res
+
+
+def phase_classify_f32_vs_cpu() -> None:
+    """Phase 16b: one float32 classify step on the card against the same
+    step on the CPU: ViT-B widths at 2 layers, 1000 labels, batch 2, label
+    smoothing 0.1 and Mixup/CutMix pinned through ``mixup_draws=`` (CutMix
+    and mixup each once), the same weights; the loss and every gradient
+    within 1e-3 of scale, and the card's AdamW + layer-decay step against
+    the CPU's on the card's gradients."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.models import preset
+    from jumbo_mae_tpu_tpu_torch.models.classifier import ClassificationModel
+    from jumbo_mae_tpu_tpu_torch.ops.mixup import sample_draws
+    from jumbo_mae_tpu_tpu_torch.train.optim import OptimConfig, make_optimizer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = preset("vit_b16", posemb="sincos2d", layers=2, dtype="float32", attn_impl="flash")
+    opt = OptimConfig(learning_rate=3e-3, lr_scaling="none", layer_decay=0.75, warmup_steps=0, training_steps=10)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8))
+    labels = torch.from_numpy(rng.integers(0, 1000, 2))
+    # one model a device, put back to its initial weights before each use
+    models = {device: ClassificationModel(cfg, 0.8, 1.0, 0.1, device=device, seed=0).train()
+              for device in ("cuda", "cpu")}
+    initial = {device: {n: t.clone() for n, t in m.state_dict().items()} for device, m in models.items()}
+
+    def fresh(device: str):
+        model = models[device]
+        model.load_state_dict(initial[device])
+        model.zero_grad(set_to_none=True)
+        return model
+
+    for take_mixup in (True, False):
+        while True:  # draws whose coin picks mixup, then CutMix
+            draws = sample_draws(rng, 2, 0.8, 1.0)
+            if (draws["coin"] > 0.5) == take_mixup:
+                break
+        res = {}
+        for device in ("cuda", "cpu"):
+            model = fresh(device)
+            out = model(images.to(device), labels.to(device), mixup_draws=draws)
+            out["loss"].mean().backward()
+            grads = {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+            tx = make_optimizer(opt, 2, num_layers=cfg.layers)
+            state = tx.init(model)
+            before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+            tx.update(state, list(model.parameters()), [p.grad for p in model.parameters()])
+            step = {n: p.detach().cpu() - before[n] for n, p in model.named_parameters()}
+            res[device] = (out["loss"].detach().cpu(), grads, step, before)
+        (lg, gg, sg, _), (lc, gc, _, bc) = res["cuda"], res["cpu"]
+        check(bool(torch.allclose(lg, lc, rtol=1e-3, atol=0)), f"f32 classify loss cuda {lg} vs cpu {lc}")
+        gmax = max(g.abs().max().item() for g in gc.values())
+        worst = 0.0
+        for n in gc:
+            scale = gc[n].abs().max().item()
+            err = (gg[n] - gc[n]).abs().max().item()
+            if scale > 1e-3 * gmax:  # the floor holds the tensors whose true gradient is zero
+                worst = max(worst, err / scale)
+            check(err <= 1e-3 * scale + 1e-6 * gmax, f"classify gradient {n}: max diff {err:.3e} vs scale {scale:.3e}")
+        # the card's step against the CPU optimizer on the card's gradients
+        replay = fresh("cpu")
+        tx = make_optimizer(opt, 2, num_layers=cfg.layers)
+        state = tx.init(replay)
+        tx.update(state, list(replay.parameters()), [gg[n] for n, _ in replay.named_parameters()])
+        worst_step = 0.0
+        for n, p in replay.named_parameters():
+            want = p.detach() - bc[n]
+            scale = want.abs().max().item()
+            mag = p.detach().abs() + want.abs()
+            ulp = torch.nextafter(mag, torch.full_like(mag, float("inf"))) - mag
+            diff = (sg[n] - want).abs()
+            worst_step = max(worst_step, (diff - ulp).max().item() / max(scale, 1e-30))
+            check(bool((diff <= 1e-3 * scale + ulp).all()), f"classify step {n}: the card's AdamW + layer decay "
+                  f"differs from the CPU's on the same gradients by {diff.max().item():.3e} (scale {scale:.3e})")
+        log(f"f32 classify step cuda vs CPU ({'mixup' if take_mixup else 'CutMix'} pinned): loss {lg.mean():.7f} vs "
+            f"{lc.mean():.7f}; every gradient within 1e-3 of its scale, with a floor of 1e-6 of the largest (worst "
+            f"{worst:.2e} among tensors above 1e-3 of the largest); the card's AdamW + "
+            f"layer-decay step equals the CPU's on its gradients (worst {worst_step:.2e} of the step's scale)")
+
+
+def phase_linear(fa, smi: str, tmp: Path, urls: dict, mae_l16_ckpt: Path) -> dict:
+    """Phase 17: linear probe ViT-L/16 from recipes/linear_lars_vit_l16.yaml
+    (LARS, the BatchNorm head, the trunk frozen) warm-started from phase
+    13's ViT-L/16 MAE save, through ``cli.train.main`` at batch 256 for 6
+    steps. Gates: the merge; K1 = 24 and K2 = K3 = 0 a step; every trunk
+    parameter bit-unchanged (the save after 6 steps against the MAE
+    save's encoder); the head and the BatchNorm statistics moved; finite
+    losses; ``val/acc1`` in the JSONL."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import read_state
+
+    name = "linear_lars_vit_l16"
+    sets = CLASSIFY_SETS + [f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}",
+                            f"run.output_dir={tmp / 'lin'}", f"run.pretrained_ckpt={mae_l16_ckpt}"]
+    with recorded_warm_start() as ws:
+        rec = run_driver(fa, ["--config", str(HERE / LINEAR_RECIPE), "--set", *sets])
+    trunk = [n for n in ws["stats"]["loaded"] + ws["stats"]["new"] if not n.startswith("model.head.")]
+    check_merge(ws["stats"], trunk, sorted(ws["head"]), "linear probe")
+    steps = len(rec["metrics"])
+    losses = [m["loss"] for m in rec["metrics"]]
+    check(steps == CLASSIFY_STEPS and all(np.isfinite(losses)), f"linear probe: {steps} steps, losses {losses}")
+    c = rec["counts"]
+    train_k1 = c["K1"] - rec["eval_k1"]
+    log(f"linear probe: launches K1 {c['K1']} ({train_k1} in {steps} train steps, {rec['eval_k1']} in "
+        f"{rec['eval_batches']} eval batches), K2 {c['K2']}, K3 {c['K3']}")
+    check(train_k1 == 24 * steps and c["K2"] == c["K3"] == 0, "linear probe: K1 = 24 and K2 = K3 = 0 a step")
+    check(rec["eval_k1"] == 24 * rec["eval_batches"], "linear probe: K1 per eval batch")
+    after = read_state(tmp / "lin" / name / "ckpt")["model"]
+    mae = read_state(mae_l16_ckpt)["model"]
+    same = [torch.equal(after[n], mae["encoder." + n[len("model."):]]) for n in trunk]
+    check(all(same), f"linear probe: {same.count(False)} trunk parameters moved under LARS")
+    moved = {n: not torch.equal(after[n], ws["head"][n]) for n in ws["head"]}
+    check(all(moved.values()), f"linear probe: head parameters unchanged: {moved}")
+    rm, rv = after["model.head.bn.running_mean"], after["model.head.bn.running_var"]
+    check(bool(rm.abs().max() > 0) and not torch.equal(rv, torch.ones_like(rv)), "linear probe: BatchNorm stats unchanged")
+    vals = [r for r in _jsonl(tmp / "lin", name) if "val/acc1" in r]
+    check(len(vals) == 1 and np.isfinite(vals[0]["val/loss"]), f"linear probe: val/acc1 in the metrics JSONL: {vals}")
+    records = [r for r in _jsonl(tmp / "lin", name) if "perf/images_per_sec" in r]
+    ips = records[-1]["perf/images_per_sec"]
+    res = dict(counts=c, losses=losses, val=vals[0], images_per_s=ips, step_ms=CLASSIFY_BATCH * 1e3 / ips,
+               mfu=records[-1]["perf/mfu"], dispatch_s=float(np.mean(rec["dispatch_s"][2:steps])), wall_s=rec["wall_s"])
+    log(f"linear probe: {len(trunk)} trunk parameters bit-unchanged after {steps} LARS steps; head and BatchNorm "
+        f"statistics moved; losses {losses}; val/acc1 {vals[0]['val/acc1']}; {ips:.1f} images/s "
+        f"({res['step_ms']:.2f} ms a step), MFU {100 * res['mfu']:.2f}% (classify count: 3x forward, though the "
+        f"trunk runs no backward), train-step call {res['dispatch_s']:.4f} s, on {smi}")
+    return res
+
+
+TOY_PT_STEPS, TOY_PR_STEPS = 600, 400
+
+
+def _toy_overrides(tmp: Path, shards: dict, extra: list[str]) -> list[str]:
+    """tests/test_learning_e2e.py's ``_overrides``, without
+    ``data.valid_cache`` (ROADMAP A3)."""
+    return [f"data.train_shards={shards['train']}", f"data.valid_shards={shards['val']}", "data.image_size=32",
+            "data.crop_mode=none", "data.hflip=0.0", "data.workers=0", "run.synthetic_data=false",
+            "run.use_wandb=false", "run.sanity_eval=false", "model.preset=vit_t16"] + extra
+
+
+def toy_probe_proof(tmp: Path, device: str = "cuda", *, pt_steps: int = TOY_PT_STEPS,
+                    pr_steps: int = TOY_PR_STEPS, seed: int = 0, runs=("pretrained", "random")) -> dict:
+    """ROADMAP A4's gate, tests/test_learning_e2e.py's pretrain-then-probe
+    proof through ``cli.train.main``: for ``"pretrained"`` in ``runs``, toy
+    MAE pretraining (``pt_steps``), then the GAP linear probe (SGD,
+    ``pr_steps``) from that save; for ``"random"``, the same probe from a
+    random init. Every run is seeded with ``seed`` (0, the test's, by
+    default). Returns the probes' final ``val/acc1`` and the seconds."""
+    from jumbo_mae_tpu_tpu_torch.cli import train as cli
+    from jumbo_mae_tpu_tpu_torch.data.toy import toy_pretrain_hparams, write_toy_shards
+
+    recipe = str(HERE / "recipes" / "smoke_cpu.yaml")
+    shards = write_toy_shards(tmp / "toyshards", n_train=2048, n_val=512)
+    dev = ["--device", device]
+
+    def probe(name: str, pretrained: str | None) -> float:
+        extra = [f"run.output_dir={tmp}/{name}", f"run.name={name}", "run.mode=linear", f"run.seed={seed}",
+                 f"run.init_seed={seed}", f"run.training_steps={pr_steps}", "run.train_batch_size=64",
+                 "run.valid_batch_size=64", f"run.eval_interval={pr_steps}", "run.log_interval=800",
+                 "model.overrides={image_size: 32, patch_size: 4, layers: 4, posemb: sincos2d, dtype: float32, "
+                 "labels: 10, pooling: gap}", "model.criterion=ce", "optim.name=sgd", "optim.learning_rate=0.3",
+                 "optim.lr_scaling=none", "optim.momentum=0.9", "optim.warmup_steps=0",
+                 f"optim.training_steps={pr_steps}"]
+        if pretrained:
+            extra.append(f"run.pretrained_ckpt={pretrained}")
+        cli.main(["--config", recipe, *dev, "--set", *_toy_overrides(tmp, shards, extra)])
+        return [r for r in _jsonl(tmp / name, name) if "val/acc1" in r][-1]["val/acc1"]
+
+    res = {}
+    if "pretrained" in runs:
+        t0 = time.perf_counter()
+        cli.main(["--config", recipe, *dev, "--set", *_toy_overrides(tmp, shards, [
+            f"run.output_dir={tmp}/pt", "run.name=toy_pretrain"] + toy_pretrain_hparams(pt_steps, seed=seed))])
+        t1 = time.perf_counter()
+        res["acc_pt"] = probe("probe_pt", f"{tmp}/pt/toy_pretrain/ckpt")
+        res.update(pt_val_loss=[r for r in _jsonl(tmp / "pt", "toy_pretrain") if "val/loss" in r][-1]["val/loss"],
+                   pretrain_s=t1 - t0, probe_pt_s=time.perf_counter() - t1)
+    if "random" in runs:
+        t0 = time.perf_counter()
+        res["acc_rand"] = probe("probe_rand", None)
+        res["probe_rand_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_toy_proof(smi: str, tmp: Path) -> dict:
+    """Phase 18: the toy pretrain-then-probe proof on the card, with the
+    JAX test's gates: the pretrained probe beats the random one by more
+    than 0.1, and by more than 1.5x, and reads above 0.25.
+
+    It runs in two child processes at once, one pretraining and probing
+    from the save, one probing from a random init, each with PyTorch's
+    defaults as a user's ``cli.train`` would have them. The float32
+    phases before it turn cuDNN's TF32 off in this process (the toy
+    model's patch convolution is its one cuDNN call), and run here the
+    proof did not repeat from run to run; in a fresh process it repeats
+    bit for bit."""
+    code = ("import json, sys; from pathlib import Path; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "tmp = Path(sys.argv[2]); res = chip_smoke.toy_probe_proof(tmp, runs=(sys.argv[3],)); "
+            "(tmp / 'result.json').write_text(json.dumps(res))")
+    dirs = {which: tmp / which for which in ("pretrained", "random")}
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(HERE), str(d), which]) for which, d in dirs.items()]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(codes == [0, 0], f"toy proof: the child processes exited with {codes}")
+    res = {}
+    for d in dirs.values():
+        res.update(json.loads((d / "result.json").read_text()))
+    a, r = res["acc_pt"], res["acc_rand"]
+    log(f"toy proof: probe val/acc1 pretrained {a:.4f}, random init {r:.4f} (pretrain val/loss "
+        f"{res['pt_val_loss']:.5f}; pretrain {res['pretrain_s']:.1f} s, then its probe {res['probe_pt_s']:.1f} s; "
+        f"the random-init probe beside them {res['probe_rand_s']:.1f} s), on {smi}")
+    check(a > r + 0.1, f"toy proof: pretrained probe {a} not above random {r} + 0.1")
+    check(a > 1.5 * r, f"toy proof: pretrained probe {a} not above 1.5 x random {r}")
+    check(a > 0.25, f"toy proof: pretrained probe {a} not above 0.25")
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -1718,6 +2124,18 @@ def main() -> None:
     try:
         driver = phase_driver(fa, smi, tmp, train["step_ms"])
         resume = phase_resume(fa, smi, tmp, driver)
+        t0 = time.perf_counter()
+        mae_b16 = phase_mae_b16_save(fa, tmp, driver["urls"])
+        t1 = time.perf_counter()
+        finetune = phase_finetune(fa, smi, tmp, driver["urls"], mae_b16)
+        t2 = time.perf_counter()
+        phase_classify_f32_vs_cpu()
+        t3 = time.perf_counter()
+        # phase 13's ViT-L/16 save, read before its directory goes
+        linear = phase_linear(fa, smi, tmp, driver["urls"], tmp / "a" / "pretrain_vit_l16_in1k_800ep" / "ckpt")
+        t4 = time.perf_counter()
+        log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
+            f"{t4 - t3:.1f}; phases 1-14 took {t0 - t_start:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
@@ -1725,6 +2143,16 @@ def main() -> None:
     summary = {"backends": backends, **{k: driver[k] for k in keys}, "phase7_step_ms": train["step_ms"],
                "resume": resume}
     log(f"cli/train.py: {json.dumps(summary)} on {smi}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_toy_"))
+    t0 = time.perf_counter()
+    try:
+        toy = phase_toy_proof(smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"seconds: phase 18 {time.perf_counter() - t0:.1f}")
+    classify = {"finetune": {k: v for k, v in finetune.items() if k != "counts"},
+                "linear": {k: v for k, v in linear.items() if k != "counts"}, "toy_proof": toy}
+    log(f"classify paths: {json.dumps(classify)} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -1733,6 +2161,9 @@ def main() -> None:
     # back-to-back launches, which the wrapper's host time bounds where it
     # exceeds the kernel's (the method of the lines before graph replay)
     kernels = []
+    ft_err = {"K1": errs[("bfloat16", FT_SHAPE, FT_SHAPE[1])],
+              "K2": bwd_errs[("bfloat16", FT_SHAPE, FT_SHAPE[1], "dq")],
+              "K3": max(bwd_errs[("bfloat16", FT_SHAPE, FT_SHAPE[1], g)] for g in ("dk", "dv"))}
     for key, name, src, line, err in (
         ("K1", "flash_attention_fwd", "flash_fwd.cu", 84, errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1])]),
         ("K2", "flash_attention_bwd_dq", "flash_bwd.cu", 120, bwd_errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1], "dq")]),
@@ -1740,6 +2171,7 @@ def main() -> None:
          max(bwd_errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1], g)] for g in ("dk", "dv"))),
     ):
         t = k1_timings[DEC_SHAPE] if key == "K1" else bwd_timings[(key, DEC_SHAPE)]
+        ft = k1_timings[FT_SHAPE] if key == "K1" else bwd_timings[(key, FT_SHAPE)]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -1747,6 +2179,8 @@ def main() -> None:
             "replaces": f"jumbo_mae_tpu_tpu/ops/pallas/attention.py:{line}",
             "launches": train["counts"][key],
             "cli_launches": driver["counts"][key],
+            "finetune_launches": finetune["counts"][key],
+            "linear_launches": linear["counts"][key],
             "max_abs_err": err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -1754,6 +2188,8 @@ def main() -> None:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "eager_ms": t["eager_ms"],
+            "finetune_max_abs_err": ft_err[key],
+            **{f"finetune_{k}": ft[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
         })
     # FlashAttention, the counterpart of pallas_flash_attention (the plain
     # custom_vjp over K1-K3): forward + backward through autograd at the
@@ -1766,8 +2202,11 @@ def main() -> None:
         "source": "jumbo_mae_tpu_tpu_torch/csrc/flash_fwd.cu + jumbo_mae_tpu_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "jumbo_mae_tpu_tpu/ops/pallas/attention.py:355",
         "launches": train["counts"]["K2"],
+        "finetune_launches": finetune["counts"]["K2"],
+        "linear_launches": linear["counts"]["K2"],
         "max_abs_err": max(bwd_errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1], g)] for g in ("dq", "dk", "dv")),
         **bwd_timings[("FlashAttention", DEC_SHAPE)],
+        **{f"finetune_{k}": v for k, v in bwd_timings[("FlashAttention", FT_SHAPE)].items() if k != "eager_ms"},
     })
     # K4: launches from the sequence-parallel slice (its main path), the
     # error and times at its hop shape

@@ -1,32 +1,46 @@
-"""Training entry point: MAE pretraining driven by a YAML recipe.
+"""Training entry point: MAE pretraining, finetuning and linear probing,
+driven by a YAML recipe.
 
-Counterpart of ``jumbo_mae_tpu_tpu/cli/train.py`` for ``mode: pretrain``:
+Counterpart of ``jumbo_mae_tpu_tpu/cli/train.py``:
 
     python -m jumbo_mae_tpu_tpu_torch.cli.train --config recipes/pretrain_vit_l16_in1k_800ep.yaml \\
         --set data.train_shards=... data.valid_shards=... run.output_dir=runs
+    python -m jumbo_mae_tpu_tpu_torch.cli.train --config recipes/finetune_vit_b16.yaml \\
+        --set run.pretrained_ckpt=runs/pretrain_vit_b16_in1k_1600ep/ckpt data.train_shards=... data.valid_shards=...
+    python -m jumbo_mae_tpu_tpu_torch.cli.train --config recipes/finetune_vit_b16.yaml \\
+        --set run.eval_only=true run.resume=true run.eval_which=best data.valid_shards=...
     python -m jumbo_mae_tpu_tpu_torch.cli.train --config recipes/smoke_cpu.yaml --device cpu
 
-The run: the recipe's model and AdamW (``train/steps.py``), synthetic or
-tar-shard data through worker interpreters (``data/loader.py``) copied to
-the card on a side CUDA stream, a sanity eval before step 1, eval at
-``eval_interval`` and at the end (padded valid rows masked out),
-checkpoints at every eval and every ``ckpt_every`` steps
-(``train/checkpoint.py``), ``run.resume`` from the newest save with the
-sample-exact data cursor (or, without one, the stream restarted at the
-resumed step's epoch), a checkpoint on SIGTERM/SIGINT at the next step
-boundary, and a metrics JSONL with images/s and ``perf/mfu`` against one
-H100's bf16 peak (``obs/mfu.py``). The step drops non-finite updates
-(``run.sentinel``, its device guard).
+The run: the recipe's model (``run.mode``: ``pretrain`` builds the MAE
+model; ``finetune`` the classifier; ``linear`` the classifier with its
+trunk frozen and a BatchNorm head) and optimizer (``train/steps.py``,
+``train/optim.py``), synthetic or tar-shard data through worker
+interpreters (``data/loader.py``) copied to the card on a side CUDA
+stream, a warm start from a port checkpoint (``run.pretrained_ckpt``: the
+encoder of an MAE save merged into the classifier's trunk, then the
+optimizer built on the merged weights), a sanity eval before step 1, eval
+at ``eval_interval`` and at the end (padded valid rows masked out;
+``val/loss``, and ``val/acc1``/``val/acc5`` when classifying),
+checkpoints at every eval and every ``ckpt_every`` steps with ``best`` by
+``val/loss`` (pretraining) or ``val/acc1`` (``train/checkpoint.py``),
+``run.resume`` from the newest save with the sample-exact data cursor (or,
+without one, the stream restarted at the resumed step's epoch), a
+checkpoint on SIGTERM/SIGINT at the next step boundary, and a metrics
+JSONL with images/s and ``perf/mfu`` against one H100's bf16 peak
+(``obs/mfu.py``). The step drops non-finite updates (``run.sentinel``, its
+device guard). ``run.eval_only`` evaluates and exits: from the ``last`` or
+``best`` save (``run.resume=true``, ``run.eval_which``) or a warm start,
+with an identity optimizer so no moment reaches the card.
 
 Everything runs on ``"cuda"`` unless ``--device cpu`` (``device="cpu"``)
 asks for the CPU. What the port does not have yet raises, naming its
-ROADMAP item: finetuning and linear probing and warm starts (A4); FSDP,
-tensor and pipeline parallelism, ``--distributed`` and ``--elastic`` (A6);
-fault plans, telemetry, publishing, traces, diagnostics, the hang watchdog
-and SLOs (A7); ``eval_only`` and the ``"dots"`` remat policies (A3's
-remainder). The platform layers a recipe has on by default — the rollback
-sentinel, journal, retrace sentinel, fleet beacons and memory watch — are
-named once at start as not ported (A7) and the run goes on without them.
+ROADMAP item: FSDP, tensor and pipeline parallelism, ``--distributed`` and
+``--elastic`` (A6); fault plans, telemetry, publishing, traces,
+diagnostics, the hang watchdog and SLOs (A7); the ``"dots"`` remat
+policies (A3's remainder). The platform layers a recipe has on by default
+— the rollback sentinel, journal, retrace sentinel, fleet beacons and
+memory watch — are named once at start as not ported (A7) and the run
+goes on without them.
 """
 
 from __future__ import annotations
@@ -42,14 +56,15 @@ import torch
 from jumbo_mae_tpu_tpu_torch.config import TrainConfig, config_to_dict, load_config
 from jumbo_mae_tpu_tpu_torch.data.loader import TrainLoader, prefetch_to_device, split_for_accum, valid_loader
 from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
+from jumbo_mae_tpu_tpu_torch.models.classifier import ClassificationModel
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, preset
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
-from jumbo_mae_tpu_tpu_torch.obs.mfu import mfu, pretrain_flops_per_image
+from jumbo_mae_tpu_tpu_torch.obs.mfu import classify_flops_per_image, mfu, pretrain_flops_per_image
 from jumbo_mae_tpu_tpu_torch.parallel.mesh import create_mesh
 from jumbo_mae_tpu_tpu_torch.train import engine as engine_mod
-from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer
+from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer, load_pretrained_params
 from jumbo_mae_tpu_tpu_torch.train.engine import EXIT_OK, RunEngine, exit_code_for
-from jumbo_mae_tpu_tpu_torch.train.optim import make_optimizer
+from jumbo_mae_tpu_tpu_torch.train.optim import Identity, make_optimizer
 from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_eval_step, make_train_step
 from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
 from jumbo_mae_tpu_tpu_torch.utils.logging import MetricLogger, StepTimer
@@ -69,12 +84,11 @@ DEFAULT_LAYERS_NOT_PORTED = {
 
 def _refuse_unported(cfg: TrainConfig) -> None:
     """Raise for every setting that needs a part of the JAX package the
-    port does not have yet, naming its ROADMAP item."""
+    port does not have yet, naming its ROADMAP item, and for the settings
+    the JAX driver refuses."""
     run, mesh = cfg.run, cfg.mesh
-    if run.mode != "pretrain":
-        raise NotImplementedError(NOT_PORTED.format(what=f"run.mode={run.mode!r} (finetuning, linear probing)", item="A4"))
-    if run.pretrained_ckpt:
-        raise NotImplementedError(NOT_PORTED.format(what="run.pretrained_ckpt (warm start)", item="A4"))
+    if run.mode not in ("pretrain", "finetune", "linear"):
+        raise ValueError(f"run.mode must be pretrain, finetune or linear, got {run.mode!r}")
     if mesh.pipe > 1:
         raise NotImplementedError(NOT_PORTED.format(what="mesh.pipe > 1 (the GPipe pipeline)", item="A6"))
     a7 = {
@@ -90,21 +104,39 @@ def _refuse_unported(cfg: TrainConfig) -> None:
     asked = [k for k, on in a7.items() if on]
     if asked:
         raise NotImplementedError(NOT_PORTED.format(what=", ".join(asked) + " (the platform layers)", item="A7"))
-    if run.eval_only:
-        raise NotImplementedError(NOT_PORTED.format(what="run.eval_only", item="A3's remainder"))
-    if run.eval_which != "last":
-        raise ValueError(f"run.eval_which={run.eval_which!r} needs run.eval_only, which is not ported")
+    if run.eval_only and not (cfg.data.valid_shards or run.synthetic_data):
+        raise ValueError("run.eval_only requires validation data (data.valid_shards or run.synthetic_data)")
+    if run.eval_which not in ("last", "best"):
+        raise ValueError(f"run.eval_which must be 'last' or 'best', got {run.eval_which!r}")
+    if run.eval_which != "last" and not (run.eval_only and run.resume):
+        # only the eval_only + resume restore reads the slot; elsewhere it
+        # would be dropped without a word
+        raise ValueError("run.eval_which=best requires run.eval_only=true AND run.resume=true")
 
 
 def build_model(cfg: TrainConfig, *, device: str | torch.device = "cuda"):
-    """The MAE model of the recipe with weights from ``run.init_seed``, its
-    encoder config, and its train FLOPs per image."""
+    """The recipe's model with weights from ``run.init_seed``, its encoder
+    config, and its train FLOPs per image: the MAE model in pretraining,
+    the classifier otherwise (``linear`` freezes the trunk and adds the
+    BatchNorm head)."""
     m = cfg.model
-    enc = preset(m.preset, labels=None, **{"mask_ratio": 0.75, **m.overrides})
-    dec = DecoderConfig(**{"layers": m.dec_layers, "dim": m.dec_dim, "heads": m.dec_heads, "dtype": m.dec_dtype,
-                           **m.dec_overrides})
-    model = MAEPretrainModel(enc, dec, m.norm_pix_loss, device=device, seed=cfg.run.init_seed)
-    return model, enc, pretrain_flops_per_image(enc, dec)
+    if cfg.run.mode == "pretrain":
+        enc = preset(m.preset, labels=None, **{"mask_ratio": 0.75, **m.overrides})
+        dec = DecoderConfig(**{"layers": m.dec_layers, "dim": m.dec_dim, "heads": m.dec_heads,
+                               "dtype": m.dec_dtype, **m.dec_overrides})
+        model = MAEPretrainModel(enc, dec, m.norm_pix_loss, device=device, seed=cfg.run.init_seed)
+        return model, enc, pretrain_flops_per_image(enc, dec)
+    linear = cfg.run.mode == "linear"
+    enc = preset(m.preset, **{"mask_ratio": None, "linear_probing": linear, "batch_norm": linear, **m.overrides})
+    model = ClassificationModel(
+        enc, mixup_alpha=m.mixup, cutmix_alpha=m.cutmix, label_smoothing=m.label_smoothing,
+        criterion=m.criterion, device=device, seed=cfg.run.init_seed,
+    )
+    return model, enc, classify_flops_per_image(enc)
+
+
+def _model_keys(cfg: TrainConfig) -> tuple[str, ...]:
+    return ("images",) if cfg.run.mode == "pretrain" else ("images", "labels")
 
 
 def make_train_iterator(
@@ -113,6 +145,7 @@ def make_train_iterator(
     start_step: int = 0,
     data_cursor: dict | None = None,
     *,
+    num_labels: int = 1000,
     device: str | torch.device = "cuda",
 ):
     """The train batches, copied to ``device`` ahead of the step.
@@ -133,7 +166,9 @@ def make_train_iterator(
     cursor_log: dict[int, dict] = {}
     shard_log: dict[int, dict] = {}
     if run.synthetic_data:
-        it = synthetic_batches(per_process, data.image_size, grad_accum=run.grad_accum, seed=run.seed)
+        # the model's class count: a label >= labels one-hots to a zero row
+        labels = None if run.mode == "pretrain" else num_labels
+        it = synthetic_batches(per_process, data.image_size, labels=labels, grad_accum=run.grad_accum, seed=run.seed)
         source = None
     else:
         try:
@@ -157,25 +192,28 @@ def make_train_iterator(
                 yield b
 
         it = (split_for_accum(b, run.grad_accum) for b in tracked())
-    it = ({"images": b["images"]} for b in it)  # pretraining reads the images only
+    keys = _model_keys(cfg)  # pretraining reads the images only
+    it = ({k: b[k] for k in keys} for b in it)
     return prefetch_to_device(it, device), source, cursor_log, shard_log
 
 
-def make_valid_iterator(cfg: TrainConfig, per_process: int, *, device: str | torch.device = "cuda"):
+def make_valid_iterator(cfg: TrainConfig, per_process: int, *, num_labels: int = 1000,
+                        device: str | torch.device = "cuda"):
     """A factory of fresh eval iterators on ``device``, or ``None`` without
     validation data. Synthetic data gives 4 batches from ``seed + 1``."""
+    keys = (*_model_keys(cfg), "valid")
     if cfg.run.synthetic_data:
-        def gen():
-            it = synthetic_batches(per_process, cfg.data.image_size, seed=cfg.run.seed + 1)
-            for _, batch in zip(range(4), it):
-                yield {"images": batch["images"], "valid": np.ones((per_process,), bool)}
+        labels = None if cfg.run.mode == "pretrain" else num_labels
 
-        return lambda: prefetch_to_device(gen(), device)
+        def gen():
+            it = synthetic_batches(per_process, cfg.data.image_size, labels=labels, seed=cfg.run.seed + 1)
+            for _, batch in zip(range(4), it):
+                yield {**batch, "valid": np.ones((per_process,), bool)}
+
+        return lambda: prefetch_to_device(({k: b[k] for k in keys} for b in gen()), device)
     if not cfg.data.valid_shards:
         return None
-    return lambda: prefetch_to_device(
-        ({"images": b["images"], "valid": b["valid"]} for b in valid_loader(cfg.data, per_process)), device
-    )
+    return lambda: prefetch_to_device(({k: b[k] for k in keys} for b in valid_loader(cfg.data, per_process)), device)
 
 
 def evaluate(eval_step, state, batches) -> dict[str, float]:
@@ -190,9 +228,23 @@ def evaluate(eval_step, state, batches) -> dict[str, float]:
     return {f"val/{k}": v / n for k, v in totals.items()}
 
 
+def _warm_start(model, path: str) -> dict:
+    """Merge the port checkpoint under ``path`` into ``model``'s
+    parameters in place (``load_pretrained_params``); returns the merge's
+    name lists."""
+    stats: dict = {}
+    params = dict(model.named_parameters())
+    merged = load_pretrained_params(path, params, stats=stats)
+    with torch.no_grad():
+        for name, p in params.items():
+            if merged[name] is not p:
+                p.copy_(merged[name])
+    return stats
+
+
 def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
-    """Run the configured pretraining; returns the last logged metrics and
-    ``_exit_reason``."""
+    """Run the configured training (or, with ``run.eval_only``, one
+    evaluation); returns the last logged metrics and ``_exit_reason``."""
     _refuse_unported(cfg)
     dev = resolve_device(device)
     run = cfg.run
@@ -204,14 +256,35 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         print("[train] not ported yet (ROADMAP A7), running without: " + "; ".join(skipped))
     per_process = run.train_batch_size
     per_process_valid = max(1, run.valid_batch_size)
+    mode = "pretrain" if run.mode == "pretrain" else "classify"
 
-    model, _, flops_per_image = build_model(cfg, device=dev)
-    ckpt = Checkpointer(cfg.checkpoint_config())
-    resuming = run.resume and ckpt.latest_step() is not None
-    state = create_state(model, make_optimizer(cfg.optim, run.train_batch_size), device=dev,
-                         init_seed=run.init_seed, rng_seed=run.seed)
+    model, enc_cfg, flops_per_image = build_model(cfg, device=dev)
+    # an eval_only run without resume never saves: no checkpoint directory
+    ckpt = None if run.eval_only and not run.resume else Checkpointer(cfg.checkpoint_config())
+    resuming = run.resume and ckpt is not None and ckpt.latest_step(run.eval_which) is not None
+    if run.eval_only and run.resume and not resuming:
+        # a restore asked for and impossible must not fall through to
+        # plausible-looking metrics of a random init
+        raise FileNotFoundError(
+            f"run.eval_only with run.resume=true but no '{run.eval_which}' checkpoint under "
+            f"{cfg.checkpoint_config().directory}"
+        )
+    if run.pretrained_ckpt and not resuming:
+        # the merge comes first, into the float32 model, so the optimizer
+        # (and its master weights) is built on the merged parameters; a
+        # resume overwrites both
+        _warm_start(model, run.pretrained_ckpt)
+    # evaluation takes no step: the identity optimizer keeps no moments
+    tx = (Identity(cfg.optim.param_dtype) if run.eval_only
+          else make_optimizer(cfg.optim, run.train_batch_size, num_layers=enc_cfg.layers))
+    state = create_state(model, tx, device=dev, init_seed=run.init_seed, rng_seed=run.seed)
     start_step, data_cursor = 0, None
-    if resuming:
+    if resuming and run.eval_only:
+        # parameters, buffers, step and seed; the optimizer's bytes are never read
+        state, _ = ckpt.restore_eval(state, which=run.eval_which)
+        start_step = state.step
+        print(f"[train] restored '{run.eval_which}' step {start_step} for evaluation")
+    elif resuming:
         state, extra = ckpt.restore(
             state, fallback_steps=2,
             on_fallback=lambda a, b, err: print(f"[train] checkpoint step {a} unreadable ({err}); trying step {b}"),
@@ -220,8 +293,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         data_cursor = extra.get("data_cursor")
         print(f"[train] resumed from step {start_step} in {ckpt.last_restore_s:.2f} s")
 
-    train_step = make_train_step(mode="pretrain", grad_accum=run.grad_accum, guard_nonfinite=run.sentinel)
-    eval_step = make_eval_step(mode="pretrain")
+    eval_step = make_eval_step(mode=mode)
     print(param_summary(state.model))
     run_dir = Path(run.output_dir) / run.name
     logger = MetricLogger(
@@ -229,12 +301,26 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         wandb_project=run.wandb_project, wandb_entity=run.wandb_entity,
         wandb_tags=tuple(run.wandb_tags), wandb_id=run.wandb_id,
     )
-    valid_factory = make_valid_iterator(cfg, per_process_valid, device=dev)
+    num_labels = enc_cfg.labels or 1000
+    valid_factory = make_valid_iterator(cfg, per_process_valid, num_labels=num_labels, device=dev)
+    if run.eval_only:
+        try:
+            if not (resuming or run.pretrained_ckpt):
+                print("[eval] WARNING: eval_only on a fresh random init; set run.pretrained_ckpt or "
+                      "run.resume=true to restore weights")
+            val = evaluate(eval_step, state, valid_factory())
+            logger.log(val, step=start_step)
+            print(f"[eval] step {start_step}: {val}")
+            return {**val, "_exit_reason": "completed"}
+        finally:
+            logger.close()
+
+    train_step = make_train_step(mode=mode, grad_accum=run.grad_accum, guard_nonfinite=run.sentinel)
     if run.sanity_eval and valid_factory is not None:
         print("[train] sanity eval:", evaluate(eval_step, state, valid_factory()))
 
     train_iter, source, cursor_log, shard_log = make_train_iterator(
-        cfg, per_process, start_step, data_cursor, device=dev
+        cfg, per_process, start_step, data_cursor, num_labels=num_labels, device=dev
     )
     try:
         meter = AverageMeter()

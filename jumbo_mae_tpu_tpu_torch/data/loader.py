@@ -19,10 +19,10 @@ round-robin order, which makes a sample-exact resume possible
 (:meth:`TrainLoader.snapshot`). :func:`prefetch_to_device` copies batches
 to the card from pinned memory on a side CUDA stream.
 
-This module imports torch only inside :func:`prefetch_to_device`. The
-native C++ reader (``use_native``) and the validation cache
-(``valid_cache``) are ROADMAP A3's remainder, and RandAugment
-(``auto_augment``) is A4's; each raises here.
+This module imports torch only inside :func:`prefetch_to_device`, and PIL
+only when ``auto_augment`` names a policy. The native C++ reader
+(``use_native``) and the validation cache (``valid_cache``) are ROADMAP
+A3's remainder; each raises here.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ import numpy as np
 
 from jumbo_mae_tpu_tpu_torch.data import decode, transforms
 from jumbo_mae_tpu_tpu_torch.data.decode import decode_image, decode_label, find_image_key
+from jumbo_mae_tpu_tpu_torch.data.randaugment import auto_augment_factory
 from jumbo_mae_tpu_tpu_torch.data.resize import ShardLedger, merge_shard_states
 from jumbo_mae_tpu_tpu_torch.data.shards import expand_shards, shuffle_shards, split_shards
 from jumbo_mae_tpu_tpu_torch.data.tario import RetryPolicy, iter_shards_samples
@@ -60,7 +61,6 @@ from jumbo_mae_tpu_tpu_torch.data.transforms import (
 
 NATIVE_NOT_PORTED = "data.use_native (the native C++ tar reader) is not ported yet: ROADMAP queue A3's remainder"
 VALCACHE_NOT_PORTED = "data.valid_cache (the validation-sample cache) is not ported yet: ROADMAP queue A3's remainder"
-AUTOAUG_NOT_PORTED = "data.auto_augment={policy!r} (RandAugment, for finetuning) is not ported yet: ROADMAP queue A4"
 
 
 @dataclass(frozen=True)
@@ -119,12 +119,12 @@ def _aug_rng(seed: int, process_index: int, worker_index: int, epoch: int, idx: 
 
 
 class TrainTransform:
-    """Per-sample train augmentation chain: crop → flip → jitter → erasing."""
+    """Per-sample train augmentation chain: crop → flip → policy
+    (``data.auto_augment``, ``data/randaugment.py``) → jitter → erasing."""
 
     def __init__(self, cfg: DataConfig):
-        if cfg.auto_augment not in ("", "none"):
-            raise NotImplementedError(AUTOAUG_NOT_PORTED.format(policy=cfg.auto_augment))
         self.cfg = cfg
+        self.policy = auto_augment_factory(cfg.auto_augment)
 
     def __call__(self, rng: np.random.Generator, img: np.ndarray) -> np.ndarray:
         cfg = self.cfg
@@ -135,6 +135,8 @@ class TrainTransform:
         else:
             img = resize(img, (cfg.image_size, cfg.image_size))
         img = random_hflip(rng, img, cfg.hflip)
+        if self.policy is not None:
+            img = self.policy(rng, img)
         if cfg.color_jitter > 0:
             img = color_jitter(rng, img, cfg.color_jitter)
         if cfg.random_erasing > 0:
@@ -377,7 +379,7 @@ class TrainLoader:
             raise NotImplementedError(NATIVE_NOT_PORTED)
         if batch_size % max(1, cfg.repeats):
             raise ValueError(f"repeats ({cfg.repeats}) must divide the per-process batch size ({batch_size})")
-        TrainTransform(cfg)  # refuse an unported augmentation here, not in a worker
+        TrainTransform(cfg)  # a policy without PIL raises here, not in a worker
         if decode.backend() == "none":
             raise ImportError(decode.NO_BACKEND)
         n_streams = 1 if cfg.workers <= 0 else cfg.workers

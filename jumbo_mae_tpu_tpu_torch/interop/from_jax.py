@@ -18,13 +18,42 @@ The layout changes:
 
 The same mapping carries a gradient tree of the same structure. A key
 this bridge does not know raises ``KeyError``: a tree from another
-architecture must not load half-way.
+architecture must not load half-way. :func:`flax_path` is the map the
+other way, from a state_dict name to its flax path.
 """
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
+
+_NORMS = re.compile(r"ln\d?|bn")
+_STATS = {"running_mean": "mean", "running_var": "var"}
+
+
+def flax_path(name: str) -> tuple[str, ...]:
+    """The flax path of the port's state_dict entry ``name``: the inverse of
+    this bridge's map, for the trees it knows (a ``ClassificationModel``'s
+    trunk is ``model.<JumboViT name>`` on both sides). ``blocks.i`` is
+    ``block_i``; a norm's ``weight`` is ``scale`` and every other
+    ``weight`` a ``kernel``; BatchNorm's ``running_mean``/``running_var``
+    are ``mean``/``var`` of ``batch_stats``."""
+    parts = name.split(".")
+    out: list[str] = []
+    i = 0
+    while i < len(parts):
+        if parts[i] == "blocks":
+            out.append(f"block_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    if out[-1] == "weight":
+        out[-1] = "scale" if len(out) > 1 and _NORMS.fullmatch(out[-2]) else "kernel"
+    out[-1] = _STATS.get(out[-1], out[-1])
+    return tuple(out)
 
 
 def _t(x) -> torch.Tensor:
@@ -133,6 +162,14 @@ def state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> dict[s
                 raise KeyError("the head has a BatchNorm but batch_stats has no head/bn")
             out["head.bn.running_mean"] = _t(stats["mean"])
             out["head.bn.running_var"] = _t(stats["var"])
-            out["head.bn.num_batches_tracked"] = torch.tensor(0)
         _unknown("head", set(head) - {"fc", "bn"})
     return out
+
+
+def classifier_state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
+    """Map a flax ``ClassificationModel`` tree (its ``JumboViT`` under
+    ``model``) and its BatchNorm statistics onto the port's
+    ``ClassificationModel.state_dict()`` names."""
+    _unknown("", set(params) - {"model"})
+    stats = (batch_stats or {}).get("model")
+    return {f"model.{k}": v for k, v in state_dict_from_jax(params["model"], stats).items()}

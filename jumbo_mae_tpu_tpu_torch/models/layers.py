@@ -115,7 +115,7 @@ class LayerNorm(nn.LayerNorm):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
         return y.to(self.compute_dtype)
 
 
@@ -400,19 +400,52 @@ class PatchEmbed(nn.Module):
         return x.reshape(x.shape[0], -1, cfg.dim)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over (batch, features), in float32.
+
+    Training normalizes with the batch mean and the **biased** batch
+    variance, computed as flax computes them (``E[x²] − E[x]²``, clamped
+    at 0), and keeps that biased variance in ``running_var``
+    (``nn.BatchNorm1d`` keeps the unbiased one); the running statistics
+    move as ``momentum · old + (1 − momentum) · batch`` with flax's
+    momentum 0.99; eps 1e-5. Eval normalizes with the running statistics.
+    The statistics are those of the rows this process holds: one process
+    holds the global batch (``train/steps.py`` refuses a data axis above 1
+    with a BatchNorm head)."""
+
+    def __init__(self, features: int, momentum: float = 0.99, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if self.training:
+            mean = x.mean(0)
+            var = torch.clamp_min((x * x).mean(0) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (x - mean) * mul + self.bias.float()
+
+
 class ClassifierHead(nn.Module):
-    """Linear head over the pooled features, with an optional BatchNorm
-    (linear-probe mode). Runs in float32. The BatchNorm follows flax:
-    eps 1e-5 and momentum 0.99, which is PyTorch momentum 0.01."""
+    """Linear head over the pooled features, with an optional
+    :class:`BatchNorm` (linear-probe mode). Runs in float32."""
 
     def __init__(self, in_features: int, labels: int, batch_norm: bool):
         super().__init__()
-        self.bn = (
-            nn.BatchNorm1d(in_features, eps=1e-5, momentum=0.01) if batch_norm else None
-        )
+        self.bn = BatchNorm(in_features) if batch_norm else None
         self.fc = nn.Linear(in_features, labels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.bn is not None:
             x = self.bn(x)
-        return self.fc(x)
+        return F.linear(x, self.fc.weight.float(), self.fc.bias.float())

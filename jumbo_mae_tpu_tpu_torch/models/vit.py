@@ -8,7 +8,9 @@ Counterpart of ``jumbo_mae_tpu_tpu/models/vit.py``:
   ``(tokens, mask, ids_restore)``;
 - **classify mode** (``cfg.labels > 0``): the full sequence is encoded; the
   ``num_cls_tokens`` CLS embeddings are concatenated (or the patch tokens
-  mean-pooled, ``pooling="gap"``) and fed to the head; returns logits;
+  mean-pooled, ``pooling="gap"``) and fed to the head; returns logits.
+  ``cfg.linear_probing`` runs the trunk without autograd (the JAX model's
+  ``stop_gradient``): the trunk's parameters get no gradient;
 - **feature mode** (``cfg.labels`` None and no ``mask_ratio``): returns the
   normalized token sequence.
 
@@ -134,7 +136,13 @@ class JumboViT(nn.Module):
     ):
         cfg = self.cfg
         if not self.mae_mode:
-            x = self.encode(images, generators)
+            if self.head is not None and cfg.linear_probing:
+                # the JAX model stops gradients at the trunk's output: no
+                # autograd graph, so no backward kernel runs for the trunk
+                with torch.no_grad():
+                    x = self.encode(images, generators)
+            else:
+                x = self.encode(images, generators)
             if self.head is None:
                 return x
             pooled = pool_tokens(x, cfg.num_cls_tokens, cfg.pooling)

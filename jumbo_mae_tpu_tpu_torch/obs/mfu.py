@@ -1,7 +1,7 @@
 """Analytic FLOP counting for the Jumbo-MAE workloads.
 
 Counterpart of the counting half of ``jumbo_mae_tpu_tpu/obs/mfu.py``
-(``_attention_flops`` … ``pretrain_flops_per_image``), copied: matmul
+(``_attention_flops`` … ``classify_flops_per_image``), copied: matmul
 FLOPs only, counted from the configs, so MFU = achieved / peak is
 comparable across runs. The JAX module's peak table is for TPUs; the
 port reads MFU against one H100's dense bf16 peak.
@@ -59,6 +59,18 @@ def pretrain_flops_per_image(enc_cfg, dec_cfg, *, training: bool = True) -> floa
         enc_cfg, dec_cfg
     )
     return fwd * (3.0 if training else 1.0)  # bwd ≈ 2× fwd
+
+
+def classify_flops_per_image(enc_cfg, *, training: bool = True) -> float:
+    """The classifier's FLOPs per image: the full-sequence encoder and the
+    head over ``num_cls_tokens · dim`` features, times 3 in training. Kept
+    as the JAX package counts it in linear-probe mode too, where the trunk
+    runs no backward: there it counts about three times the FLOPs the step
+    does."""
+    fwd = encoder_flops_per_image(enc_cfg, masked=False)
+    if enc_cfg.labels:
+        fwd += 2 * enc_cfg.num_cls_tokens * enc_cfg.dim * enc_cfg.labels
+    return fwd * (3.0 if training else 1.0)
 
 
 def mfu(images_per_s: float, flops_per_image: float, peak_tflops: float = H100_PEAK_BF16_TFLOPS) -> float:

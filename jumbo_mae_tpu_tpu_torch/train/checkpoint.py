@@ -5,9 +5,12 @@ Counterpart of ``jumbo_mae_tpu_tpu/train/checkpoint.py``'s
 Orbax, which the port cannot read or write). A save holds everything a
 resume needs to take the same next step:
 
-- the model's parameters and buffers (``state_dict``);
-- the AdamW state: ``mu`` and ``nu`` in their stored dtypes, ``count``
-  and the last learning rate;
+- the model's parameters and buffers (``state_dict``: BatchNorm
+  statistics included);
+- the optimizer's state, whatever the optimizer: every per-parameter
+  tensor list of ``OptState.slots()`` (AdamW's and LAMB's ``mu`` and
+  ``nu`` in their stored dtypes, LARS' and SGD's ``trace``, the
+  ``master`` weights) by name, ``count`` and the last learning rate;
 - the train ``step`` and the stream ``seed``;
 - ``extra`` as JSON (the data cursor, the shard cursor).
 
@@ -24,7 +27,15 @@ The save blocks the caller only for the device → host copy; the files are
 written by a writer thread (``async_save``), which :meth:`Checkpointer.wait`
 joins, raising what it raised. :meth:`Checkpointer.restore` walks back past
 a save that fails to load — torn, truncated or uncommitted — over at most
-``fallback_steps`` older saves.
+``fallback_steps`` older saves. :meth:`Checkpointer.restore_eval` restores
+what evaluation needs — parameters, buffers, the step and the seed — and
+never reads the optimizer's bytes (the file is memory-mapped).
+
+Warm starts (counterparts of the JAX package's ``resize_posemb``,
+``merge_pretrained_params``, ``require_loaded`` and
+``load_pretrained_params``) read the port's own saves: the encoder of an
+MAE save (``encoder.*``) goes to a classifier's trunk (``model.*``), the
+decoder is dropped and the head stays fresh.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 
 STATE_FILE = "state.pt"
@@ -80,9 +92,11 @@ def _committed(d: Path) -> list[int]:
     return [s for s in _step_dirs(d) if (d / str(s) / COMMIT_FILE).is_file()]
 
 
-def _load_save(d: Path) -> tuple[dict, dict]:
+def _load_save(d: Path, *, mmap: bool = False) -> tuple[dict, dict]:
     """(payload, extra) of the save in ``d``; raises if it is uncommitted,
-    torn (a size that disagrees with its commit marker) or unreadable."""
+    torn (a size that disagrees with its commit marker) or unreadable.
+    ``mmap``: map the file instead of reading it, so a tensor the caller
+    never touches is never read."""
     if not (d / COMMIT_FILE).is_file():
         raise FileNotFoundError(f"checkpoint {d} has no {COMMIT_FILE} marker (an uncommitted save)")
     sizes = json.loads((d / COMMIT_FILE).read_text())["sizes"]
@@ -90,7 +104,7 @@ def _load_save(d: Path) -> tuple[dict, dict]:
         got = (d / name).stat().st_size
         if got != size:
             raise OSError(f"checkpoint file {d / name} has {got} bytes, its commit says {size} (a torn save)")
-    payload = torch.load(d / STATE_FILE, map_location="cpu", weights_only=True)
+    payload = torch.load(d / STATE_FILE, map_location="cpu", weights_only=True, mmap=mmap)
     return payload, json.loads((d / EXTRA_FILE).read_text())
 
 
@@ -108,8 +122,7 @@ def host_state(state) -> dict:
         "opt": {
             "count": int(opt.count),
             "learning_rate": float(opt.learning_rate),
-            "mu": [host(m) for m in opt.mu],
-            "nu": [host(n) for n in opt.nu],
+            **{name: [host(t) for t in ts] for name, ts in opt.slots().items()},
         },
         "step": int(state.step),
         "seed": int(state.seed),
@@ -296,19 +309,45 @@ class Checkpointer:
             return state, extra
         raise AssertionError("unreachable")  # the loop returns or raises
 
+    def restore_eval(self, state, *, which: str = "last"):
+        """Restore only what evaluation needs into ``state`` in place — the
+        parameters, the buffers (BatchNorm statistics), the step and the
+        seed — from the newest committed save of ``which``; returns
+        ``(state, extra)``. The optimizer state is left as it is
+        (pair this with the ``Identity`` optimizer) and its bytes are never
+        read: the file is memory-mapped and only the model's tensors are
+        touched."""
+        committed = self.committed_steps(which)
+        if not committed:
+            raise FileNotFoundError(f"no committed '{which}' checkpoint under {self.root}")
+        payload, extra = _load_save(self.root / which / str(committed[0]), mmap=True)
+        with torch.no_grad():
+            state.model.load_state_dict(payload["model"])
+        state.step = int(payload["step"])
+        state.seed = int(payload["seed"])
+        return state, extra
+
     @staticmethod
     @torch.no_grad()
     def _apply(state, payload: dict) -> None:
         state.model.load_state_dict(payload["model"])
         opt, saved = state.opt_state, payload["opt"]
-        if len(saved["mu"]) != len(opt.mu) or len(saved["nu"]) != len(opt.nu):
-            raise ValueError("the checkpoint's optimizer state does not match the model")
-        for live, stored in zip(opt.mu + opt.nu, saved["mu"] + saved["nu"]):
-            if live.shape != stored.shape:
-                raise ValueError(f"optimizer moment of shape {tuple(stored.shape)} in the checkpoint, {tuple(live.shape)} live")
-            if live.dtype != stored.dtype:
-                print(f"[ckpt] WARNING: casting a stored {stored.dtype} moment to the configured {live.dtype}")
-            live.copy_(stored)
+        for name, live_list in opt.slots().items():
+            stored_list = saved.get(name)
+            if stored_list is None or len(stored_list) != len(live_list):
+                raise ValueError(
+                    f"the checkpoint's optimizer state has no {name!r} of {len(live_list)} tensors "
+                    f"(it holds {sorted(k for k in saved if k not in ('count', 'learning_rate'))}): another optimizer "
+                    "or another model"
+                )
+            for live, stored in zip(live_list, stored_list):
+                if live.shape != stored.shape:
+                    raise ValueError(
+                        f"optimizer {name} of shape {tuple(stored.shape)} in the checkpoint, {tuple(live.shape)} live"
+                    )
+                if live.dtype != stored.dtype:
+                    print(f"[ckpt] WARNING: casting a stored {stored.dtype} {name} to the configured {live.dtype}")
+                live.copy_(stored)
         opt.count = int(saved["count"])
         opt.learning_rate = float(saved["learning_rate"])
         state.step = int(payload["step"])
@@ -318,11 +357,170 @@ class Checkpointer:
 def read_state(directory: str | Path, which: str = "last", step: int | None = None) -> dict:
     """The saved payload (host tensors) of a committed save under a
     checkpoint ``directory``: the newest of ``which`` unless ``step`` is
-    given. Reads only."""
+    given. Reads only, and only the tensors the caller touches (the file
+    is memory-mapped)."""
     d = Path(directory) / which
     if step is None:
         steps = _committed(d) if d.is_dir() else []
         if not steps:
             raise FileNotFoundError(f"no committed '{which}' checkpoint under {directory}")
         step = steps[0]
-    return _load_save(d / str(step))[0]
+    return _load_save(d / str(step), mmap=True)[0]
+
+
+# ---------------------------------------------------------------- warm starts
+
+POSEMB_NAMES = ("pos_embed", "posemb", "wpe")
+# the encoder is ``encoder`` in an MAEPretrainModel and ``model`` in a
+# ClassificationModel; warm starts cross that boundary
+ENCODER_KEYS = ("encoder", "model")
+
+
+def _triangle_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of ``jax.image.resize``'s linear
+    method along one axis (``compute_weight_mat``): the triangle kernel at
+    half-pixel centres, widened by the downscale factor (antialiasing),
+    normalized over the input; a sample outside the input weighs 0."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))  # a Python float, as JAX computes it, then float32
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0), f32(1) - np.abs(x))
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps), w / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample >= f32(-0.5)) & (sample <= f32(n_in - 0.5))
+    return np.where(inside[None, :], w, f32(0)).astype(f32)
+
+
+def resize_posemb(posemb: np.ndarray, target_shape: tuple[int, ...]) -> np.ndarray:
+    """Resize an (H, W, D) or (1, H, W, D) positional-embedding grid to
+    another grid size as ``jax.image.resize(..., method="bilinear")`` does
+    (antialiased when it shrinks): float32 separable triangle-kernel
+    weights, in numpy. A grid of the target shape comes back as it is."""
+    posemb = np.asarray(posemb)
+    if posemb.shape == tuple(target_shape):
+        return posemb
+    if posemb.ndim != len(target_shape) or posemb.ndim not in (3, 4):
+        raise ValueError(f"posemb resize expects (H,W,D) or (1,H,W,D) grids, got {posemb.shape} → {target_shape}")
+    h_ax = posemb.ndim - 3
+    out = posemb.astype(np.float32)
+    for ax in (h_ax, h_ax + 1):
+        n_in, n_out = out.shape[ax], int(target_shape[ax])
+        if n_in == n_out:
+            continue
+        w = _triangle_weights(n_in, n_out)
+        out = np.moveaxis(np.tensordot(out, w, axes=([ax], [0])), -1, ax)
+    return out.astype(posemb.dtype)
+
+
+def merge_pretrained_params(
+    pretrained: dict[str, torch.Tensor],
+    init_params: dict[str, torch.Tensor],
+    *,
+    verbose: bool = True,
+    stats: dict | None = None,
+) -> dict[str, torch.Tensor]:
+    """Merge ``pretrained`` into ``init_params`` by name:
+
+    - the same name and shape → the pretrained value (in the init's dtype);
+    - a positional-embedding grid of another H/W → :func:`resize_posemb`;
+    - any other shape mismatch (a head for another label count) → the
+      fresh init;
+    - names only in ``init_params`` (a new head) → the fresh init.
+
+    Prints the JAX package's summary. ``stats`` receives its ``loaded``,
+    ``resized``, ``skipped`` (shape mismatch) and ``unused`` (only in
+    ``pretrained``) name lists, and ``new`` (only in ``init_params``)."""
+    merged: dict[str, torch.Tensor] = {}
+    loaded, resized, skipped, new = [], [], [], []
+    for name, init_val in init_params.items():
+        if name not in pretrained:
+            merged[name] = init_val
+            new.append(name)
+            continue
+        val = pretrained[name]
+        if tuple(val.shape) == tuple(init_val.shape):
+            merged[name] = val.to(init_val.dtype)
+            loaded.append(name)
+        elif name.rsplit(".", 1)[-1] in POSEMB_NAMES and val.dim() in (3, 4):
+            grid = resize_posemb(val.float().numpy(), tuple(init_val.shape))
+            merged[name] = torch.from_numpy(grid).to(init_val.dtype)
+            resized.append(name)
+        else:
+            merged[name] = init_val
+            skipped.append(name)
+    unused = [n for n in pretrained if n not in init_params]
+    if stats is not None:
+        stats.update(loaded=loaded, resized=resized, skipped=skipped, unused=unused, new=new)
+    if verbose:
+        print(
+            f"[checkpoint] pretrained merge: {len(loaded)} loaded, {len(resized)} resized, "
+            f"{len(skipped)} shape-mismatch (fresh), {len(unused)} unused"
+        )
+        for what, names in (("resized", resized), ("fresh", skipped)):
+            for n in sorted(names):
+                print(f"[checkpoint]   {what}: {n}")
+        for n in sorted(unused)[:20]:
+            print(f"[checkpoint]   unused: {n}")
+        if new:
+            print(f"[checkpoint]   not in the checkpoint, kept fresh: {', '.join(sorted(new)[:20])}")
+    return merged
+
+
+def require_loaded(stats: dict, source, target_desc: str) -> None:
+    """Exit unless a :func:`merge_pretrained_params` call (through its
+    ``stats``) loaded something: a random init passed off as a warm start
+    is worse than failing."""
+    if not (stats.get("loaded") or stats.get("resized")):
+        raise SystemExit(
+            f"--ckpt {source} loaded 0 params into {target_desc} — wrong preset/shape or an unrelated params tree"
+        )
+
+
+def load_params_tree(path: str | Path) -> dict[str, torch.Tensor]:
+    """The saved model tensors of a port checkpoint: a checkpoint directory
+    (its newest committed ``last`` save) or one step directory."""
+    p = Path(path)
+    if (p / STATE_FILE).is_file():
+        return _load_save(p, mmap=True)[0]["model"]
+    return read_state(p)["model"]
+
+
+def _subtree(names, key: str) -> bool:
+    return any(n.startswith(key + ".") for n in names)
+
+
+def load_pretrained_params(
+    path: str | Path,
+    init_params: dict[str, torch.Tensor],
+    *,
+    verbose: bool = True,
+    stats: dict | None = None,
+) -> dict[str, torch.Tensor]:
+    """Load a port checkpoint's parameters and merge them into
+    ``init_params`` (a model's ``named_parameters()``; BatchNorm
+    statistics stay fresh, as the JAX merge leaves ``batch_stats``).
+
+    It finds the encoder on both sides (``encoder.`` in an MAE save,
+    ``model.`` in a classifier) and merges across the rename: an MAE
+    save's decoder, mask token and projections are dropped (listed in
+    ``stats["dropped"]``), a classifier's head stays fresh. Where either
+    side has no encoder subtree, the trees merge whole."""
+    tree = load_params_tree(path)
+    src_key = next((k for k in ENCODER_KEYS if _subtree(tree, k)), None)
+    dst_key = next((k for k in ENCODER_KEYS if _subtree(init_params, k)), None)
+    if src_key is None or dst_key is None:
+        return merge_pretrained_params(tree, init_params, verbose=verbose, stats=stats)
+    sp, dp = src_key + ".", dst_key + "."
+    src = {n[len(sp):]: v for n, v in tree.items() if n.startswith(sp)}
+    dst = {n[len(dp):]: v for n, v in init_params.items() if n.startswith(dp)}
+    sub: dict = {}
+    merged = merge_pretrained_params(src, dst, verbose=verbose, stats=sub)
+    dropped = [n for n in tree if not n.startswith(sp)]
+    if stats is not None:
+        stats.update({k: [dp + n if k != "unused" else sp + n for n in v] for k, v in sub.items()})
+        stats["dropped"] = dropped
+    if verbose and dropped:
+        print(f"[checkpoint]   dropped outside {src_key!r}: {len(dropped)} tensors (e.g. {sorted(dropped)[0]})")
+    return {**init_params, **{dp + n: v for n, v in merged.items()}}

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from jumbo_mae_tpu_tpu_torch.train.optim import AdamW, AdamWState
+from jumbo_mae_tpu_tpu_torch.train.optim import Identity, Optimizer, OptState
 from jumbo_mae_tpu_tpu_torch.utils.rng import derive_seed, generator
 
 # Stable stream ids, the JAX package's.
@@ -33,8 +33,8 @@ class TrainState:
     steps (guarded skips included); the optimizer keeps its own count."""
 
     model: nn.Module
-    tx: AdamW
-    opt_state: AdamWState
+    tx: Optimizer | Identity
+    opt_state: OptState
     step: int
     seed: int
 

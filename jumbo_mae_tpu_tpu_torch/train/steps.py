@@ -28,8 +28,21 @@ Parameters are replicated: every process builds the same weights from
   global batch. Seq ranks need no all-reduce: ring attention hands every
   seq rank the whole gradient, so their parameter gradients are equal.
 
-Classification (``mode="classify"``), per-layer diagnostics (``diag``) and
-pipeline parallelism raise, naming ROADMAP A4, A7 and A6.
+``mode="classify"`` trains a ``ClassificationModel``: the batch
+holds ``images`` and ``labels`` (int or soft; under ``grad_accum`` both
+carry the micro axis), the BatchNorm head runs in train mode, and the
+metrics are ``loss``, ``acc1``, ``acc5`` (batch means) and
+``learning_rate``. Torch moves the BatchNorm running statistics inside
+the forward, before the guard decides, so a guarded skip puts them back
+(the JAX step's ``jnp.where(finite, new, old)``). Its eval step sums
+``loss``, ``acc1`` and ``acc5`` over the valid rows, with negative labels
+(padding) taken as 0. The JAX step computes BatchNorm statistics and the
+Mixup permutation over the global batch; the port refuses both on a data
+axis above 1 until the statistics are reduced and the batch gathered over
+the data group (ROADMAP A6).
+
+Per-layer diagnostics (``diag``) and pipeline parallelism raise, naming
+ROADMAP A7 and A6.
 """
 
 from __future__ import annotations
@@ -42,29 +55,49 @@ import torch.distributed as dist
 from torch import nn
 
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, JumboViTConfig
+from jumbo_mae_tpu_tpu_torch.models.layers import BatchNorm
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
 from jumbo_mae_tpu_tpu_torch.parallel.mesh import ambient_mesh
-from jumbo_mae_tpu_tpu_torch.train.optim import AdamW, OptimConfig, make_optimizer
+from jumbo_mae_tpu_tpu_torch.train.optim import Identity, OptimConfig, Optimizer, make_optimizer
 from jumbo_mae_tpu_tpu_torch.train.state import EVAL_DOMAIN, TrainState
 from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
 
 Mode = Literal["pretrain", "classify"]
 
-CLASSIFY_NOT_PORTED = "mode='classify' (finetuning, linear probing) is not ported yet: ROADMAP queue A4"
+GLOBAL_BATCH_NOT_PORTED = (
+    "{what} on a data axis above 1 is not ported yet: ROADMAP queue A6 (the JAX step computes it over the "
+    "global batch; the port would compute it over each rank's rows)"
+)
 DIAG_NOT_PORTED = "diag=True (per-layer-group diagnostics) is not ported yet: ROADMAP queue A7"
 PIPE_NOT_PORTED = "pipe_microbatches > 0 (pipeline parallelism) is not ported yet: ROADMAP queue A6"
 
 
 def _check_mode(mode: Mode) -> None:
-    if mode == "classify":
-        raise NotImplementedError(CLASSIFY_NOT_PORTED)
-    if mode != "pretrain":
+    if mode not in ("pretrain", "classify"):
         raise ValueError(f"unknown mode {mode!r}")
+
+
+def _batchnorm_stats(model: nn.Module) -> list[torch.Tensor]:
+    """The running statistics of every BatchNorm in ``model``."""
+    return [t for m in model.modules() if isinstance(m, BatchNorm) for t in (m.running_mean, m.running_var)]
+
+
+def _refuse_global_batch_ops(model: nn.Module) -> None:
+    """A data axis above 1 with a BatchNorm or Mixup/CutMix: the JAX step
+    takes their statistics and permutation over the global batch, which
+    the port has no collective for yet."""
+    mesh = ambient_mesh()
+    if mesh is None or mesh.data_size <= 1:
+        return
+    if _batchnorm_stats(model):
+        raise NotImplementedError(GLOBAL_BATCH_NOT_PORTED.format(what="a BatchNorm head (its batch statistics)"))
+    if getattr(model, "mixes", False):
+        raise NotImplementedError(GLOBAL_BATCH_NOT_PORTED.format(what="Mixup/CutMix (its batch permutation)"))
 
 
 def create_state(
     model_or_cfgs: nn.Module | tuple,
-    optim: OptimConfig | AdamW,
+    optim: OptimConfig | Optimizer | Identity,
     *,
     device: str | torch.device = "cuda",
     init_seed: int = 0,
@@ -78,7 +111,11 @@ def create_state(
     :class:`MAEPretrainModel` is built with weights from ``init_seed``.
     ``optim`` is an optimizer from ``make_optimizer``, or an
     :class:`OptimConfig` (then ``global_batch_size`` sets the peak lr).
-    ``rng_seed`` seeds the per-step noise and dropout streams."""
+    ``rng_seed`` seeds the per-step noise, dropout and mixup streams.
+    An optimizer with ``low_precision`` (``OptimConfig.param_dtype``)
+    keeps float32 copies of the parameters as given as its master
+    weights, and the parameters are then stored in that dtype (BatchNorm
+    statistics stay float32)."""
     dev = resolve_device(device)
     if isinstance(model_or_cfgs, nn.Module):
         model = model_or_cfgs.to(dev)
@@ -90,8 +127,14 @@ def create_state(
     if isinstance(optim, OptimConfig):
         if global_batch_size is None:
             raise ValueError("an OptimConfig needs global_batch_size for its peak learning rate")
-        optim = make_optimizer(optim, global_batch_size)
-    return TrainState(model=model, tx=optim, opt_state=optim.init(model), step=0, seed=rng_seed)
+        enc = getattr(model, "encoder_cfg", None)  # the encoder depth for layer-wise lr decay
+        optim = make_optimizer(optim, global_batch_size, num_layers=None if enc is None else enc.layers)
+    opt_state = optim.init(model)
+    if optim.low_precision is not None:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.data = p.data.to(optim.low_precision)
+    return TrainState(model=model, tx=optim, opt_state=opt_state, step=0, seed=rng_seed)
 
 
 def _to_device(x: Any, device: torch.device) -> torch.Tensor:
@@ -101,19 +144,29 @@ def _to_device(x: Any, device: torch.device) -> torch.Tensor:
     return t if t.device == device else t.to(device, non_blocking=True)
 
 
-def _average_over_data(grads: list[torch.Tensor], loss: torch.Tensor) -> torch.Tensor:
-    """Average ``grads`` (in place) and ``loss`` over the ambient mesh's
-    data group, in one all-reduce; returns the averaged loss."""
+def _average_over_data(params: list[torch.Tensor], grads: list[torch.Tensor | None],
+                       scalars: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Average ``grads`` (in place; a ``None`` becomes zeros, as every rank
+    must send the same layout) and the scalar metrics over the ambient
+    mesh's data group, in one all-reduce; returns the averaged scalars."""
     mesh = ambient_mesh()
     group = None if mesh is None else mesh.group("data")
     if group is None:
-        return loss
-    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).to(grads[0].dtype)])
+        return scalars
+    for i, (p, g) in enumerate(zip(params, grads)):
+        if g is None:
+            grads[i] = torch.zeros_like(p)
+    dt = grads[0].dtype
+    flat = torch.cat([g.reshape(-1) for g in grads] + [m.reshape(1).to(dt) for m in scalars])
     dist.all_reduce(flat, group=group)
     flat /= dist.get_world_size(group)
-    parts = flat.split([g.numel() for g in grads] + [1])
+    parts = flat.split([g.numel() for g in grads] + [1] * len(scalars))
     torch._foreach_copy_(grads, [c.view_as(g) for c, g in zip(parts, grads)])
-    return parts[-1].reshape(()).to(loss.dtype)
+    return [c.reshape(()).to(m.dtype) for c, m in zip(parts[len(grads):], scalars)]
+
+
+def _micro(x: torch.Tensor, grad_accum: int) -> list[torch.Tensor]:
+    return [x] if grad_accum == 1 else list(x)
 
 
 def make_train_step(
@@ -132,36 +185,51 @@ def make_train_step(
         raise NotImplementedError(PIPE_NOT_PORTED)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    names = ("loss",) if mode == "pretrain" else ("loss", "acc1", "acc5")
 
     def train_step(state: TrainState, batch: dict, inject=None) -> tuple[TrainState, dict]:
         loss_mult, grad_mult = (1.0, 1.0) if inject is None else (float(inject[0]), float(inject[1]))
         model = state.model.train()
+        _refuse_global_batch_ops(model)
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        images = _to_device(batch["images"], state.device)
-        micro_images = [images] if grad_accum == 1 else list(images)
-        loss_sum = torch.zeros((), device=state.device)
-        for micro, x in enumerate(micro_images):
-            out = model(x, generators=state.step_generators(micro=micro))
+        images = _micro(_to_device(batch["images"], state.device), grad_accum)
+        labels = _micro(_to_device(batch["labels"], state.device), grad_accum) if mode == "classify" else None
+        stats = _batchnorm_stats(model)
+        stats_before = [t.clone() for t in stats] if guard_nonfinite else []
+        sums = {k: torch.zeros((), device=state.device) for k in names}
+        for micro, x in enumerate(images):
+            gens = state.step_generators(micro=micro)
+            if labels is None:
+                out = model(x, generators=gens)
+            else:
+                out = {k: v.mean() for k, v in model(x, labels[micro], generators=gens).items()}
             (out["loss"] * loss_mult).backward()
-            loss_sum = loss_sum + out["loss"].detach()
-        loss = loss_sum / grad_accum
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        loss = _average_over_data(grads, loss)
+            for k in names:
+                sums[k] = sums[k] + out[k].detach()
+        # a parameter the step did not differentiate (a linear probe's trunk)
+        # keeps a None gradient: zeros to the guard and the optimizer
+        grads = [p.grad for p in params]
+        avg = _average_over_data(params, grads, [sums[k] / grad_accum for k in names])
+        metrics: dict[str, Any] = dict(zip(names, avg))
+        live = [g for g in grads if g is not None]
         if grad_accum > 1:  # the JAX step scales by 1/accum, then by grad_mult
-            torch._foreach_mul_(grads, 1.0 / grad_accum)
+            torch._foreach_mul_(live, 1.0 / grad_accum)
         if grad_mult != 1.0:
-            torch._foreach_mul_(grads, grad_mult)
-        metrics: dict[str, Any] = {"loss": loss}
+            torch._foreach_mul_(live, grad_mult)
         apply = True
         if guard_nonfinite:
-            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-            finite = bool(torch.isfinite(loss * loss_mult).item() and torch.isfinite(grad_norm).item())
+            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(live)))
+            finite = bool(torch.isfinite(metrics["loss"] * loss_mult).item() and torch.isfinite(grad_norm).item())
             metrics |= {"grad_norm": grad_norm, "skipped": 0.0 if finite else 1.0}
             apply = finite
         if apply:
             state.tx.update(state.opt_state, params, grads)
+        elif stats:
+            # the forward moved the BatchNorm statistics before the guard
+            # decided; a skipped step leaves them as they were
+            torch._foreach_copy_(stats, stats_before)
         for p in params:
             p.grad = None
         state.step += 1
@@ -172,11 +240,12 @@ def make_train_step(
 
 
 def make_eval_step(*, mode: Mode = "pretrain") -> Callable[..., dict]:
-    """Build ``eval_step(state, batch, batch_idx=0) -> sums``: the sum of
-    the per-sample loss over ``valid`` samples and ``num_samples``, the
-    valid count; the caller divides at the end (an exact weighted mean
-    with ragged last batches). ``batch_idx`` varies the mask draw, on a
-    stream kept apart from training's."""
+    """Build ``eval_step(state, batch, batch_idx=0) -> sums``: the sums of
+    the per-sample metrics over ``valid`` samples (``loss`` in pretraining;
+    ``loss``, ``acc1`` and ``acc5`` in classification) and
+    ``num_samples``, the valid count; the caller divides at the end (an
+    exact weighted mean with ragged last batches). ``batch_idx`` varies the
+    MAE mask draw, on a stream kept apart from training's."""
     _check_mode(mode)
 
     @torch.no_grad()
@@ -189,7 +258,15 @@ def make_eval_step(*, mode: Mode = "pretrain") -> Callable[..., dict]:
             if valid is None
             else _to_device(valid, state.device).float()
         )
-        out = model(images, generators=state.step_generators(micro=batch_idx, domain=EVAL_DOMAIN))
-        return {"loss": (out["loss_per_sample"] * valid).sum(), "num_samples": valid.sum()}
+        if mode == "pretrain":
+            out = model(images, generators=state.step_generators(micro=batch_idx, domain=EVAL_DOMAIN))
+            per_sample = {"loss": out["loss_per_sample"]}
+        else:
+            labels = _to_device(batch["labels"], state.device)
+            out = model(images, torch.where(labels >= 0, labels, torch.zeros_like(labels)))
+            per_sample = {k: out[k] for k in ("loss", "acc1", "acc5")}
+        sums = {k: (v * valid).sum() for k, v in per_sample.items()}
+        sums["num_samples"] = valid.sum()
+        return sums
 
     return eval_step

@@ -12,6 +12,10 @@
 - ``valid_loader`` keeps the pad contract (``valid=False``, ``label=-1``)
   as the JAX one does;
 - ``write_toy_shards`` decodes to ``toy_examples``' arrays;
+- RandAugment, AugMix and AutoAugment (``data/randaugment.py``) give the
+  JAX policies' outputs bit for bit from the same generator, and loader
+  batches with ``auto_augment`` equal the JAX ``TrainLoader``'s, inline
+  and with worker processes;
 - a worker runs where torch cannot be imported; the prefetch passes host
   batches through on the CPU; unported options raise, naming ROADMAP.
 """
@@ -36,7 +40,9 @@ from jumbo_mae_tpu_tpu.data import shards as jshards
 from jumbo_mae_tpu_tpu.data import tario as jtario
 from jumbo_mae_tpu_tpu.data import toy as jtoy
 from jumbo_mae_tpu_tpu_torch.data import decode as tdecode
+from jumbo_mae_tpu_tpu.data import randaugment as jaug
 from jumbo_mae_tpu_tpu_torch.data import loader as tloader
+from jumbo_mae_tpu_tpu_torch.data import randaugment as taug
 from jumbo_mae_tpu_tpu_torch.data import resize as tresize
 from jumbo_mae_tpu_tpu_torch.data import shards as tshards
 from jumbo_mae_tpu_tpu_torch.data import tario as ttario
@@ -314,8 +320,43 @@ def test_more_workers_than_shards_raises(shard_dir):
 
 
 def test_unported_data_options_raise(shard_dir):
-    for kw, item in ((dict(use_native=True), "A3"), (dict(auto_augment="rand-m9-mstd0.5-inc1"), "A4")):
-        with pytest.raises(NotImplementedError, match=item):
-            tloader.TrainLoader(_cfgs(shard_dir, **kw)[0], 4)
+    # auto_augment (A4) runs since finetuning was ported
+    with pytest.raises(NotImplementedError, match="A3"):
+        tloader.TrainLoader(_cfgs(shard_dir, use_native=True)[0], 4)
+    tloader.TrainLoader(_cfgs(shard_dir, auto_augment="rand-m9-mstd0.5-inc1")[0], 4).close()
     with pytest.raises(NotImplementedError, match="A3"):
         tloader.valid_loader(_cfgs(shard_dir, valid_cache="x")[0], 4)
+
+
+POLICIES = ["rand-m9-mstd0.5-inc1", "rand-m5-n3-p0.9", "rand-m7", "augmix-m3-w3-d2", "augmix-m5-a0.5",
+            "original", "original-mstd0.5"]
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_augment_policies_match_jax_bit_for_bit(policy):
+    rng = np.random.default_rng(1)
+    for seed in range(6):
+        h, w = (int(x) for x in rng.integers(16, 40, 2))
+        img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        got = taug.auto_augment_factory(policy)(np.random.default_rng(seed), img)
+        want = jaug.auto_augment_factory(policy)(np.random.default_rng(seed), img)
+        assert got.dtype == want.dtype == np.uint8 and got.shape == img.shape
+        np.testing.assert_array_equal(got, want, err_msg=f"{policy} seed {seed}")
+    assert taug.auto_augment_factory("none") is None and taug.auto_augment_factory("") is None
+    with pytest.raises(ValueError, match="bad policy token"):
+        taug.auto_augment_factory("rand-x")
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_train_loader_with_auto_augment_matches_jax(shard_dir, workers):
+    tcfg, jcfg = _cfgs(shard_dir, workers=workers, hflip=0.5, min_scale=0.3, auto_augment="rand-m9-mstd0.5-inc1",
+                       color_jitter=0.3, random_erasing=0.25)
+    n = 24 // 4 + 2  # past the first epoch
+    got = _take(tloader.TrainLoader(tcfg, 4), n)
+    want = _take(jloader.TrainLoader(jcfg, 4), n)
+    plain = _take(tloader.TrainLoader(_cfgs(shard_dir, workers=workers, hflip=0.5, min_scale=0.3,
+                                            color_jitter=0.3, random_erasing=0.25)[0], 4), n)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(g["images"], w["images"], err_msg=f"batch {i}")
+        np.testing.assert_array_equal(g["labels"], w["labels"], err_msg=f"batch {i}")
+    assert any(not np.array_equal(g["images"], p["images"]) for g, p in zip(got, plain))

@@ -6,6 +6,8 @@
   any of those raises, and so does importing PyYAML, PIL or cv2 (the port
   must run without them); ``cli.train.main`` trains ``smoke_cpu.yaml`` on
   the CPU in such an interpreter;
+- an augmentation policy without PIL raises ``ImportError`` naming it, at
+  the policy and at the loader, while the rest of the port runs;
 - the entry points default to the GPU and raise when there is none,
   instead of carrying on on the CPU;
 - no kernel is built at import time.
@@ -144,6 +146,28 @@ def test_images_without_cv2_or_pil_raise_naming_both(tmp_path):
         assert "raised:" in ln and "cv2" in ln and "PIL" in ln, ln
 
 
+def test_augment_policy_without_pil_raises_naming_it(tmp_path):
+    """RandAugment needs PIL: with it blocked, asking for a policy (or a
+    loader with one) raises ImportError naming PIL; no policy needs none."""
+    res = _blocked_interpreter(
+        "from jumbo_mae_tpu_tpu_torch.data import randaugment\n"
+        "from jumbo_mae_tpu_tpu_torch.data.loader import DataConfig, TrainTransform\n"
+        "assert randaugment.auto_augment_factory('none') is None\n"
+        "TrainTransform(DataConfig())\n"
+        "for call in (lambda: randaugment.auto_augment_factory('rand-m9-mstd0.5-inc1'),\n"
+        "             lambda: TrainTransform(DataConfig(auto_augment='augmix-m3'))):\n"
+        "    try:\n"
+        "        call()\n"
+        "    except ImportError as e:\n"
+        "        print('raised:', e)\n"
+        "    else:\n"
+        "        print('did not raise')\n"
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.splitlines()
+    assert len(lines) == 2 and all("raised:" in ln and "PIL" in ln for ln in lines), lines
+
+
 def test_module_list_covers_the_slice():
     mods = set(port_modules())
     for m in (
@@ -184,6 +208,9 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.utils.meters",
         "jumbo_mae_tpu_tpu_torch.utils.summary",
         "jumbo_mae_tpu_tpu_torch.cli.train",
+        "jumbo_mae_tpu_tpu_torch.ops.mixup",
+        "jumbo_mae_tpu_tpu_torch.models.classifier",
+        "jumbo_mae_tpu_tpu_torch.data.randaugment",
     ):
         assert m in mods
     for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):

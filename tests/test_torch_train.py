@@ -141,12 +141,17 @@ def test_weight_decay_set_equals_jax_kernel_mask():
 
 
 def test_optimizer_and_step_options_not_ported_raise():
-    for kw in (dict(name="lamb"), dict(name="lars"), dict(name="sgd"), dict(layer_decay=0.75),
-               dict(clip_grad=1.0), dict(param_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="A4"):
-            topt.make_optimizer(topt.OptimConfig(**kw), 256)
-    with pytest.raises(NotImplementedError, match="A4"):
-        make_train_step(mode="classify")
+    # A4's options build since finetuning and linear probing were ported;
+    # layer decay needs the encoder depth, as the JAX make_optimizer does
+    for kw in (dict(name="lamb"), dict(name="lars"), dict(name="sgd"), dict(clip_grad=1.0),
+               dict(param_dtype="bfloat16")):
+        topt.make_optimizer(topt.OptimConfig(**kw), 256)
+    with pytest.raises(ValueError, match="num_layers"):
+        topt.make_optimizer(topt.OptimConfig(layer_decay=0.75), 256)
+    topt.make_optimizer(topt.OptimConfig(layer_decay=0.75), 256, num_layers=2)
+    make_train_step(mode="classify")
+    with pytest.raises(ValueError, match="mode"):
+        make_train_step(mode="regress")
     with pytest.raises(NotImplementedError, match="A7"):
         make_train_step(diag=True)
     with pytest.raises(NotImplementedError, match="A6"):

@@ -60,3 +60,39 @@ def rel_err(got: np.ndarray, ref: np.ndarray) -> float:
     got = np.asarray(got, np.float64)
     ref = np.asarray(ref, np.float64)
     return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def jax_mixup_draws(key, batch: int, mixup_alpha: float, cutmix_alpha: float) -> dict:
+    """The draws ``jumbo_mae_tpu_tpu.ops.mixup.mixup_cutmix`` makes from
+    ``key``, split as it splits it, in the port's ``draws=`` layout."""
+    import jax
+
+    km, kc, kflip = jax.random.split(key, 3)
+    draws = {}
+    if mixup_alpha > 0:
+        k1, k2 = jax.random.split(km)
+        draws["mixup_ratio"] = np.asarray(jax.random.beta(k1, mixup_alpha, mixup_alpha))
+        draws["mixup_perm"] = np.asarray(jax.random.permutation(k2, batch))
+    if cutmix_alpha > 0:
+        k1, k2, k3 = jax.random.split(kc, 3)
+        draws["cutmix_ratio"] = np.asarray(jax.random.beta(k1, cutmix_alpha, cutmix_alpha))
+        draws["cutmix_center"] = np.asarray(jax.random.uniform(k2, (2,)))
+        draws["cutmix_perm"] = np.asarray(jax.random.permutation(k3, batch))
+    if mixup_alpha > 0 and cutmix_alpha > 0:
+        draws["coin"] = np.asarray(jax.random.uniform(kflip))
+    return draws
+
+
+def flax_init_shapes(module, *args, **kwargs) -> dict:
+    """The variables ``module.init(*args, **kwargs)`` makes, without running
+    it (``jax.eval_shape``): numpy zeros of its shapes, the BatchNorm
+    ``var`` ones as flax initializes it. The parameters are placeholders
+    for ``random_jumbo_params`` to redraw."""
+    import jax
+
+    key = jax.random.key(0)
+    rngs = {"params": key, "mixup": key, "dropout": key}
+    shapes = jax.eval_shape(lambda: module.init(rngs, *args, **kwargs))
+    return jax.tree_util.tree_map_with_path(
+        lambda kp, s: (np.ones if kp[-1].key == "var" else np.zeros)(s.shape, s.dtype), shapes
+    )
