@@ -44,11 +44,12 @@ Phases, each of which exits non-zero when it fails:
    take. Every time is device ms per call from CUDA-graph replay (the
    wrapper's host time exceeds the kernel's, so eager launches would time
    the host), each kernel's eager back-to-back time beside it;
-6. the serving slice — the ViT-B/16 classifier as
-   recipes/finetune_vit_b16.yaml builds it (12 layers, dim 768, 3 CLS
-   tokens, sincos2d, 1000 labels, bf16 compute, random weights from a
-   seed) served through ``InferenceEngine`` (logits, features cls and gap;
-   requests of 1, 5, 64 and 70 images) and through ``cli.predict``:
+6. the serving slice — the ViT-B/16 classifier of
+   recipes/finetune_vit_b16.yaml (12 layers, dim 768, 3 CLS tokens,
+   sincos2d, 1000 labels, bf16 compute, random weights from the recipe's
+   ``run.init_seed``) served through ``InferenceEngine`` built from the
+   recipe (logits, features cls and gap; requests of 1, 5, 64 and 70
+   images) and through ``cli.predict --config``:
    shapes, finite values, kernel launches = 12 x dispatches, padding
    inertness, the float32 engine on the card against the float32 engine
    on the CPU, images/s;
@@ -130,6 +131,23 @@ Phases, each of which exits non-zero when it fails:
    shards written here, in a fresh process with PyTorch's default
    settings: the pretrained probe above the random one by 0.1 and by
    1.5x, and above 0.25.
+19. serving the saves (run after phase 17, while the saves of phases 13,
+   16 and 17 exist) through ``cli.predict.main`` in this process, on 70
+   PNG files written from phase 13's validation shard and decoded by the
+   port: ViT-B/16 logits from phase 16's ``best`` (K1 = 12 a dispatch,
+   one JSON line an image, within bf16 relative error 1e-2 of the
+   classifier ``Checkpointer.restore_eval`` restores, top-1 identical);
+   its features and int8 (the package's parity gates, feature cosine >=
+   0.999 and top-1 agreement >= 0.98; compression and int8 bytes);
+   ViT-L/16 linear-probe logits from phase 17's save (K1 = 24 a dispatch,
+   the BatchNorm statistics bit-equal to the save's); the ViT-L/16
+   reconstruction from phase 13's save (K1 = 32 a dispatch, 147 of 196
+   patches masked), then twice with the encoder cache (the second call
+   all hits, 8 K1 a decode dispatch; both bit-equal to the fused path);
+   ``--serve`` within bf16 tolerance of the direct path; the float32
+   engine on the card against the CPU's. Restore seconds and bytes,
+   ms a dispatch and images/s at buckets 1, 8, 64 in bf16 and int8, the
+   reconstruction cold and warm, and the warmup's seconds.
 
 Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
 NaN past the sequence inert, and time them there against SDPA.
@@ -164,6 +182,10 @@ FT_SHAPE = (256, 199, 12, 64)
 # of the ViT-L/16 recipe at batch 128
 ENC_SHAPE = (128, 52, 16, 64)
 DEC_SHAPE = (128, 199, 16, 32)
+# the serving slice's reconstruction of ViT-L/16 at bucket 64: its encoder
+# and decoder, without lse
+RECON_ENC_SHAPE = (64, 52, 16, 64)
+RECON_DEC_SHAPE = (64, 199, 16, 32)
 KERNEL_SHAPES = [
     ENC_SHAPE,
     DEC_SHAPE,
@@ -439,7 +461,8 @@ def host_us(fn, calls: int = 1000) -> float:
 def phase_timings(fa) -> dict:
     """Phase 5a: K1 in bf16 at the main paths' shapes (ViT-B serving; the
     MAE decoder and encoder, the ring hop and the finetune batch, with lse,
-    as training calls it) and at 448 px: device time per call from CUDA-graph replay
+    as training calls it; the served reconstruction's encoder and decoder
+    at bucket 64) and at 448 px: device time per call from CUDA-graph replay
     (``ms``, the plain version, SDPA's forward) and from eager back-to-back
     launches (``eager_ms``, the method of the earlier kernels lines), the
     least time the card could take, and the wrapper's host µs per call;
@@ -449,7 +472,7 @@ def phase_timings(fa) -> dict:
 
     out = {}
     shapes = ((VIT_B_SHAPE, False), (DEC_SHAPE, True), (ENC_SHAPE, True), (HOP_SHAPE, True),
-              ((4, 787, 16, 64), False), (FT_SHAPE, True))
+              ((4, 787, 16, 64), False), (FT_SHAPE, True), (RECON_ENC_SHAPE, False), (RECON_DEC_SHAPE, False))
     for shape, lse in shapes:
         q, k, v = qkv(shape, torch.bfloat16, seed=100)
 
@@ -769,21 +792,25 @@ def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
     return out
 
 
-def phase_slice(fa, smi: str, cfg, device: str = "cuda", cli_args: tuple = ()) -> tuple[int, int]:
-    """Phase 5: the serving slice on ``cfg``. Returns (launches,
-    dispatches) of the main-path run."""
+def phase_slice(fa, smi: str, recipe: str, device: str = "cuda") -> tuple[int, int]:
+    """Phase 6: the serving slice on the model of ``recipe`` (random
+    weights from its ``run.init_seed``). Returns (launches, dispatches)
+    of the main-path run."""
     import numpy as np
     import torch
 
     from jumbo_mae_tpu_tpu_torch.cli import predict
+    from jumbo_mae_tpu_tpu_torch.config import load_config
     from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine
     from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
 
     t0 = time.perf_counter()
-    engine = InferenceEngine(cfg, max_batch=64, init_seed=0, device=device)
-    nparams = sum(p.numel() for p in engine.model.parameters())
+    engine = InferenceEngine(load_config(HERE / recipe), max_batch=64, device=device)
+    model = engine.model("logits")
+    cfg = model.cfg
+    nparams = sum(p.numel() for p in model.parameters())
     log(f"engine built in {time.perf_counter() - t0:.2f} s: {nparams} params, "
-        f"seq {cfg.num_cls_tokens + cfg.num_patches}, {engine.cfg.dtype}")
+        f"seq {cfg.num_cls_tokens + cfg.num_patches}, {cfg.dtype}")
     size, layers = cfg.image_size, cfg.layers
     rng = np.random.default_rng(0)
     images = rng.integers(0, 256, (max(REQUESTS), size, size, 3), dtype=np.uint8)
@@ -828,26 +855,26 @@ def phase_slice(fa, smi: str, cfg, device: str = "cuda", cli_args: tuple = ()) -
     for _ in range(reps):
         engine.logits(batch)
     dt = time.perf_counter() - t0
-    log(f"throughput: {64 * reps / dt:.1f} images/s (logits, bucket 64, {engine.cfg.dtype}, "
+    log(f"throughput: {64 * reps / dt:.1f} images/s (logits, bucket 64, {cfg.dtype}, "
         f"host clock incl. upload and fetch) on {smi}")
     with torch.inference_mode():
-        xn = normalize_images(torch.from_numpy(batch).to(engine.device), dtype=engine.cfg.compute_dtype)
-        fwd_ms = cuda_ms(lambda: engine.model(xn), iters=10, warmup=2)
+        xn = normalize_images(torch.from_numpy(batch).to(engine.device), dtype=cfg.compute_dtype)
+        fwd_ms = cuda_ms(lambda: model(xn), iters=10, warmup=2)
     log(f"device forward, bucket 64: {fwd_ms:.3f} ms ({64e3 / fwd_ms:.1f} images/s); "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del engine
+    del engine, model
 
     # ---- cli.predict, the user's entry point: 8 images, one dispatch
     before = fa.LAUNCHES
-    predict.main([*cli_args, "--task", "logits", "--synthetic", "8", "--max-batch", "64"])
+    predict.main(["--config", str(HERE / recipe), "--task", "logits", "--synthetic", "8", "--max-batch", "64"])
     check(fa.LAUNCHES - before == layers, f"cli.predict made {fa.LAUNCHES - before} launches, want {layers}")
     log(f"cli.predict served 8 images through {layers} kernel launches")
 
     # ---- float32 on the card against float32 on the CPU, same weights
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev32 = InferenceEngine(cfg, dtype="float32", max_batch=64, init_seed=0, device=device)
-    cpu32 = InferenceEngine(cfg, dtype="float32", max_batch=64, init_seed=0, device="cpu")
+    dev32 = InferenceEngine(load_config(HERE / recipe), dtype="float32", max_batch=64, device=device)
+    cpu32 = InferenceEngine(load_config(HERE / recipe), dtype="float32", max_batch=64, device="cpu")
     small = images[:2]
     for task, kw in (("logits", {}), ("features", {"pool": "cls"})):
         g = dev32.predict(small, task=task, **kw)
@@ -1053,14 +1080,16 @@ def phase_auto_head_dims(fa) -> None:
     loss are finite."""
     import numpy as np
 
+    from jumbo_mae_tpu_tpu_torch.config import load_config
     from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
     from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine
     from jumbo_mae_tpu_tpu_torch.models import DecoderConfig, preset
     from jumbo_mae_tpu_tpu_torch.train.optim import OptimConfig
     from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
 
-    cfg = preset("vit_t16", image_size=32, patch_size=4, labels=10, posemb="sincos2d")
-    engine = InferenceEngine(cfg, max_batch=8, device="cuda")
+    # recipes/smoke_cpu.yaml's vit_t16 (32 px, patch 4, sincos2d) in bf16
+    recipe = load_config(HERE / "recipes" / "smoke_cpu.yaml", ["model.overrides.dtype=bfloat16"])
+    engine = InferenceEngine(recipe, labels=10, max_batch=8, device="cuda")
     images = np.random.default_rng(0).integers(0, 256, (11, 32, 32, 3), dtype=np.uint8)
     fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
     logits = engine.logits(images)
@@ -2079,6 +2108,271 @@ def phase_toy_proof(smi: str, tmp: Path) -> dict:
     check(a > 0.25, f"toy proof: pretrained probe {a} not above 0.25")
     return res
 
+SERVE_IMAGES = 70
+
+
+def _serve_files(urls: dict, out: Path, n: int = SERVE_IMAGES) -> list[str]:
+    """The first ``n`` PNGs of phase 13's first validation shard, written
+    out as image files (their bytes as the shard holds them)."""
+    import tarfile
+
+    out.mkdir(parents=True, exist_ok=True)
+    files = []
+    with tarfile.open(urls["val"].split("{", 1)[0] + "0000.tar") as tar:
+        for m in tar.getmembers():
+            if m.name.endswith(".png") and len(files) < n:
+                f = out / Path(m.name).name
+                f.write_bytes(tar.extractfile(m).read())
+                files.append(str(f))
+    check(len(files) == n, f"phase 13's validation shard gave {len(files)} images, want {n}")
+    return files
+
+
+@contextlib.contextmanager
+def recorded_engines():
+    """Record every engine ``cli.predict`` builds, without changing it."""
+    from jumbo_mae_tpu_tpu_torch.cli import predict
+
+    made = []
+    real = predict.InferenceEngine
+
+    class Recorded(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    predict.InferenceEngine = Recorded
+    try:
+        yield made
+    finally:
+        predict.InferenceEngine = real
+
+
+def cli_predict(fa, argv: list[str]) -> dict:
+    """One ``cli.predict.main(argv)`` in this process, K1's count set to 0
+    just before and read just after; its stdout, ``.npz``, engine and
+    seconds."""
+    import io
+
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.cli import predict
+
+    buf = io.StringIO()
+    with recorded_engines() as made, contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        fa.LAUNCHES = 0
+        out = predict.main(argv)
+        k1 = fa.LAUNCHES
+        wall = time.perf_counter() - t0
+    (engine,) = made
+    return {"k1": k1, "out": dict(np.load(out)), "stdout": buf.getvalue(), "engine": engine, "wall_s": wall}
+
+
+def bucket_timings(engine, images, task: str = "logits", reps: int = 10) -> dict:
+    """Host-clock ms per dispatch (upload, forward, fetch) and images/s of
+    ``task`` at buckets 1, 8 and 64, after one warm call each."""
+    out = {}
+    for b in (1, 8, 64):
+        batch = images[:b]
+        engine.predict(batch, task=task)
+        compute = 0.0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            engine.predict(batch, task=task)
+            compute += engine.last_breakdown()["compute_s"]
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        out[b] = {"ms": ms, "images_per_s": b / ms * 1e3, "compute_ms": compute / reps * 1e3}
+    return out
+
+
+def phase_serve_saves(fa, smi: str, tmp: Path, urls: dict) -> dict:
+    """Phase 19: serving the saves of phases 13, 16 and 17 from their
+    recipes through ``cli.predict.main`` in this process, on 70 image
+    files written from phase 13's validation shard. Gates: ViT-B/16 logits
+    from the finetune ``best`` with K1 = 12 x dispatches, one JSON line an
+    image, within bf16 relative error 1e-2 of the classifier
+    ``Checkpointer.restore_eval`` restores, top-1 identical; features and
+    int8 of that save with the package's parity gates; the ViT-L/16 linear
+    probe with K1 = 24 x dispatches and the save's BatchNorm statistics
+    bit-equal in the engine; the ViT-L/16 reconstruction with K1 = 32 a
+    dispatch, 147 of 196 patches masked, and with the encoder cache twice:
+    the second call all hits and 8 K1 a decode dispatch, both bit-equal to
+    the fused path; ``--serve`` within bf16 tolerance of the direct path;
+    the float32 engine on the card against the CPU's. Logs restore
+    seconds and bytes, images/s and ms a dispatch at buckets 1, 8 and 64
+    (bf16 and int8), the reconstruction cold and warm, and the warmup."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.cli.predict import load_image
+    from jumbo_mae_tpu_tpu_torch.cli.train import build_model
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+    from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine, parity_report
+    from jumbo_mae_tpu_tpu_torch.infer.quant import FEATURE_COSINE_MIN, TOP1_AGREEMENT_MIN
+    from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer, restore_inference_state
+    from jumbo_mae_tpu_tpu_torch.train.optim import Identity
+    from jumbo_mae_tpu_tpu_torch.train.steps import create_state
+
+    t_start = time.perf_counter()
+    out_dir = tmp / "serve"
+    files = _serve_files(urls, out_dir / "images")
+    n = len(files)
+    dispatches = -(-n // 64)  # a 64-image bucket and an 8-image one
+    ft = tmp / "ft" / "finetune_vit_b16" / "ckpt"
+    lin = tmp / "lin" / "linear_lars_vit_l16" / "ckpt"
+    mae = tmp / "a" / "pretrain_vit_l16_in1k_800ep" / "ckpt"
+    ft_cfg = load_config(HERE / FT_RECIPE)
+    images = np.stack([load_image(f, 224, ft_cfg.data.test_crop_ratio) for f in files])
+    res: dict = {"images": n, "restore": {}}
+    serve_k1 = 0
+
+    def restored(name: str, engine, task: str) -> None:
+        res["restore"][name] = {"s": engine.restore_s, "bytes": engine.restore_bytes, "build_s": engine.build_s[task]}
+        log(f"serve: restored {name}: {engine.restore_bytes} bytes mapped in {engine.restore_s:.3f} s, the {task} "
+            f"model built and the save read into it in {engine.build_s[task]:.3f} s, on {smi}")
+
+    # ---- 1. ViT-B/16 logits from the finetune best
+    b16 = ["--config", str(HERE / FT_RECIPE), "--ckpt", str(ft), "--images", *files, "--max-batch", "64"]
+    r = cli_predict(fa, [*b16, "--task", "logits", "--out", str(out_dir / "b16_logits.npz")])
+    e1 = r["engine"]
+    serve_k1 += r["k1"]
+    restored("ViT-B/16 finetune best", e1, "logits")
+    lines = [json.loads(x) for x in r["stdout"].splitlines() if x.startswith('{"image"')]
+    check([x["image"] for x in lines] == files and all(len(x["classes"]) == 5 for x in lines),
+          f"serve: {len(lines)} JSON lines for {n} images")
+    logits = r["out"]["logits"]
+    check(logits.shape == (n, 1000) and bool(np.isfinite(logits).all()), f"serve: logits {logits.shape}")
+    check(e1.dispatches == dispatches and r["k1"] == 12 * e1.dispatches,
+          f"serve: ViT-B/16 logits made {r['k1']} K1 launches in {e1.dispatches} dispatches, want 12 a dispatch")
+    model, enc, _ = build_model(ft_cfg, device="cuda")
+    state = create_state(model, Identity(ft_cfg.optim.param_dtype), device="cuda", init_seed=ft_cfg.run.init_seed)
+    state, _ = Checkpointer(CheckpointConfig(str(ft))).restore_eval(state, which="best")
+    with torch.inference_mode():
+        x = normalize_images(torch.from_numpy(images).cuda(), dtype=enc.compute_dtype)
+        ref = np.concatenate([state.model.model(x[i : i + 64]).float().cpu().numpy() for i in range(0, n, 64)])
+    del model, state
+    rel = float(np.linalg.norm(logits - ref) / np.linalg.norm(ref))
+    top1 = bool(np.array_equal(logits.argmax(-1), ref.argmax(-1)))
+    log(f"serve: ViT-B/16 logits of {n} files, {r['k1']} K1 in {e1.dispatches} dispatches, {len(lines)} JSON lines; "
+        f"against restore_eval's classifier: relative error {rel:.3e}, max abs {np.abs(logits - ref).max():.3e}, "
+        f"top-1 identical {top1}")
+    check(rel <= 1e-2 and top1, f"serve: logits against restore_eval's classifier, relative error {rel:.3e}")
+    res["b16_logits"] = {"k1": r["k1"], "dispatches": e1.dispatches, "rel_err": rel, "wall_s": r["wall_s"]}
+
+    # ---- 2. the same save as features and as int8
+    r = cli_predict(fa, [*b16, "--task", "features", "--pool", "cls", "--out", str(out_dir / "b16_feats.npz")])
+    serve_k1 += r["k1"]
+    e2 = r["engine"]
+    feats = r["out"]["features"]
+    check(feats.shape == (n, 3 * 768) and bool(np.isfinite(feats).all()) and r["k1"] == 12 * e2.dispatches,
+          f"serve: features {feats.shape}, {r['k1']} K1 in {e2.dispatches} dispatches")
+    r = cli_predict(fa, [*b16, "--task", "logits", "--quant", "int8", "--out", str(out_dir / "b16_int8.npz")])
+    serve_k1 += r["k1"]
+    e3 = r["engine"]
+    check(r["k1"] == 12 * e3.dispatches, f"serve: int8 logits made {r['k1']} K1 in {e3.dispatches} dispatches")
+    pf = parity_report(e2, e3, images, task="features", pool="cls")
+    pl = parity_report(e1, e3, images, task="logits")
+    qrep = e3.quant_reports["logits"]
+    log(f"serve: int8 parity features {json.dumps(pf)}; logits {json.dumps(pl)}; compression "
+        f"{qrep['compression']}, int8 weights on the card {qrep['int8_bytes']} bytes (f32 {qrep['bytes_before']})")
+    check(pf["cosine_min"] >= FEATURE_COSINE_MIN and pl["top1_agreement"] >= TOP1_AGREEMENT_MIN,
+          "serve: int8 parity gates")
+    res["int8"] = {"features": pf, "logits": pl, "compression": qrep["compression"], "int8_bytes": qrep["int8_bytes"]}
+    res["buckets"] = {"bf16": bucket_timings(e1, images), "int8": bucket_timings(e3, images)}
+    for dt, t in res["buckets"].items():
+        log(f"serve: ViT-B/16 logits {dt}: " + ", ".join(
+            f"bucket {b} {v['ms']:.3f} ms a dispatch ({v['compute_ms']:.3f} until synced), {v['images_per_s']:.1f} images/s"
+            for b, v in t.items()) + f", on {smi}")
+    before = sum(e1.compile_counts.values())
+    first = e1.warmup(("logits",))
+    res["warmup_s"] = e1.warmup_s
+    log(f"serve: warmup of the logits ladder {sorted({b for _, b in e1.compile_counts})}: {first} first runs "
+        f"(after {before}) in {e1.warmup_s:.3f} s, on {smi}")
+
+    # ---- 5. --serve: single-image submits through the MicroBatcher
+    r = cli_predict(fa, [*b16, "--task", "logits", "--serve", "--max-delay-ms", "5", "--out",
+                         str(out_dir / "b16_serve.npz")])
+    sizes = next(x for x in r["stdout"].splitlines() if "micro-batch sizes" in x).split(": ", 1)[1]
+    served = r["out"]["logits"]
+    rel_s = float(np.linalg.norm(served - logits) / np.linalg.norm(logits))
+    log(f"serve: --serve batch sizes {sizes}; rows against the direct path: relative error {rel_s:.3e}, "
+        f"top-1 agreement {float((served.argmax(-1) == logits.argmax(-1)).mean()):.4f}, {r['k1']} K1")
+    check(rel_s <= 1e-2 and served.shape == logits.shape, f"serve: --serve rows, relative error {rel_s:.3e}")
+    res["serve"] = {"batch_sizes": sizes, "rel_err": rel_s}
+
+    # ---- 3. the ViT-L/16 linear probe with its BatchNorm statistics
+    r = cli_predict(fa, ["--config", str(HERE / LINEAR_RECIPE), "--ckpt", str(lin), "--images", *files,
+                         "--max-batch", "64", "--task", "logits", "--out", str(out_dir / "l16_logits.npz")])
+    serve_k1 += r["k1"]
+    e4 = r["engine"]
+    restored("ViT-L/16 linear probe", e4, "logits")
+    bn = e4.model("logits").head.bn
+    stats = restore_inference_state(lin)[1]
+    same = all(torch.equal(getattr(bn, k).cpu(), stats[f"model.head.bn.{k}"]) for k in ("running_mean", "running_var"))
+    check(r["k1"] == 24 * e4.dispatches and bool(np.isfinite(r["out"]["logits"]).all()) and same,
+          f"serve: ViT-L/16 probe {r['k1']} K1 in {e4.dispatches} dispatches, BatchNorm statistics equal {same}")
+    log(f"serve: ViT-L/16 linear probe logits, {r['k1']} K1 in {e4.dispatches} dispatches; the head's BatchNorm "
+        f"statistics bit-equal to the save's")
+    del e4
+
+    # ---- 4. the ViT-L/16 reconstruction, fused, then the encoder cache
+    mae_args = ["--config", str(HERE / RECIPE), "--ckpt", str(mae), "--images", *files, "--max-batch", "64",
+                "--task", "reconstruct", "--seed", "3", "--out", str(out_dir / "recon.npz")]
+    r = cli_predict(fa, mae_args)
+    serve_k1 += r["k1"]
+    e5 = r["engine"]
+    restored("ViT-L/16 MAE", e5, "reconstruct")
+    fused = r["out"]
+    check(r["k1"] == 32 * e5.dispatches and fused["reconstruction"].shape == (n, 196, 768)
+          and bool((fused["mask"].sum(1) == 147).all()) and bool(np.isfinite(fused["reconstruction"]).all()),
+          f"serve: reconstruction {r['k1']} K1 in {e5.dispatches} dispatches, masked per row "
+          f"{sorted(set(fused['mask'].sum(1).tolist()))}")
+    t0 = time.perf_counter()
+    e5.reconstruct(images, seed=3)
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    del e5
+    cached = InferenceEngine(load_config(HERE / RECIPE), ckpt=str(mae), max_batch=64, encoder_cache=128)
+    # the model built and both halves run once at the request's buckets
+    # (warmup leaves the cache empty): the cold call times the cache alone
+    cached.warmup(("reconstruct",), buckets=(8, 64))
+    calls = []
+    for _ in range(2):
+        fa.LAUNCHES, cached.dispatches = 0, 0
+        t0 = time.perf_counter()
+        got = cached.reconstruct(images, seed=3)
+        calls.append({"ms": (time.perf_counter() - t0) * 1e3, "k1": fa.LAUNCHES, "dispatches": cached.dispatches,
+                      **cached.encoder_cache_stats()})
+        serve_k1 += fa.LAUNCHES
+        check(np.array_equal(got["reconstruction"], fused["reconstruction"]) and np.array_equal(got["mask"], fused["mask"]),
+              "serve: the cached reconstruction differs from the fused path")
+    cold, warm = calls
+    # cold: the encoder's 24 K1 and the decoder's 8 in each of their dispatches
+    check(cold["k1"] == 32 * dispatches and cold["dispatches"] == 2 * dispatches and cold["misses"] == n,
+          f"serve: cold cached call {cold}")
+    check(warm["k1"] == 8 * warm["dispatches"] and warm["dispatches"] == dispatches and warm["hits"] == n,
+          f"serve: warm cached call {warm}")
+    log(f"serve: reconstruction fused {fused_ms:.1f} ms for {n} images; with the encoder cache cold {cold['ms']:.1f} "
+        f"ms ({cold['k1']} K1), warm {warm['ms']:.1f} ms ({warm['k1']} K1 in {warm['dispatches']} decode dispatches, "
+        f"{warm['hits'] - cold['hits']} hits), {warm['bytes']} bytes cached; both bit-equal to the fused path, on {smi}")
+    res["reconstruct"] = {"fused_ms": fused_ms, "cold": cold, "warm": warm, "warmup_s": cached.warmup_s}
+    del cached
+
+    # ---- 6. the float32 engine on the card against the CPU's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = InferenceEngine(ft_cfg, ckpt=str(ft), dtype="float32", max_batch=64).logits(images[:4])
+    c = InferenceEngine(ft_cfg, ckpt=str(ft), dtype="float32", max_batch=64, device="cpu").logits(images[:4])
+    scale = float(np.abs(c).max())
+    log(f"serve: f32 logits of the finetune save, card against CPU: max abs diff {np.abs(g - c).max():.3e}, "
+        f"max |cpu| {scale:.3e}")
+    np.testing.assert_allclose(g, c, rtol=1e-3, atol=1e-3 * scale)
+    res["serve_launches"] = serve_k1
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"serve: phase 19 in {res['seconds']:.1f} s, {serve_k1} K1 launches on its main paths")
+    return res
+
 
 def main() -> None:
     import torch
@@ -2102,12 +2396,7 @@ def main() -> None:
     bwd_errs = phase_bwd_kernels(fa)
     k1_timings = phase_timings(fa)
     bwd_timings = phase_bwd_timings(fa, k1_timings)
-    from jumbo_mae_tpu_tpu_torch.models import preset
-
-    # recipes/finetune_vit_b16.yaml's model; the CLI builds the same one
-    vit_b16 = preset("vit_b16", posemb="sincos2d")
-    cli_args = ("--preset", "vit_b16", "--set", "posemb=sincos2d")
-    serve_launches, dispatches = phase_slice(fa, smi, vit_b16, "cuda", cli_args)
+    serve_launches, dispatches = phase_slice(fa, smi, FT_RECIPE, "cuda")
     log(f"serving path: {serve_launches} K1 launches over {dispatches} dispatches")
     train = phase_train(fa, smi)
     phase_train_f32_vs_cpu()
@@ -2134,8 +2423,11 @@ def main() -> None:
         # phase 13's ViT-L/16 save, read before its directory goes
         linear = phase_linear(fa, smi, tmp, driver["urls"], tmp / "a" / "pretrain_vit_l16_in1k_800ep" / "ckpt")
         t4 = time.perf_counter()
+        # the saves of phases 13, 16 and 17, served before their directory goes
+        served = phase_serve_saves(fa, smi, tmp, driver["urls"])
+        t5 = time.perf_counter()
         log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
-            f"{t4 - t3:.1f}; phases 1-14 took {t0 - t_start:.1f}")
+            f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}; phases 1-14 took {t0 - t_start:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
@@ -2153,6 +2445,7 @@ def main() -> None:
     classify = {"finetune": {k: v for k, v in finetune.items() if k != "counts"},
                 "linear": {k: v for k, v in linear.items() if k != "counts"}, "toy_proof": toy}
     log(f"classify paths: {json.dumps(classify)} on {smi}")
+    log(f"serving from the saves: {json.dumps({k: v for k, v in served.items() if k != 'buckets'})} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -2181,6 +2474,7 @@ def main() -> None:
             "cli_launches": driver["counts"][key],
             "finetune_launches": finetune["counts"][key],
             "linear_launches": linear["counts"][key],
+            **({"serve_launches": served["serve_launches"]} if key == "K1" else {}),
             "max_abs_err": err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -198,10 +198,12 @@ def make_train_iterator(
 
 
 def make_valid_iterator(cfg: TrainConfig, per_process: int, *, num_labels: int = 1000,
-                        device: str | torch.device = "cuda"):
+                        device: str | torch.device = "cuda", keys: tuple[str, ...] | None = None):
     """A factory of fresh eval iterators on ``device``, or ``None`` without
-    validation data. Synthetic data gives 4 batches from ``seed + 1``."""
-    keys = (*_model_keys(cfg), "valid")
+    validation data. Synthetic data gives 4 batches from ``seed + 1``.
+    A batch holds ``keys`` where the data has them (default: what the
+    eval step reads, and ``valid``)."""
+    keys = (*_model_keys(cfg), "valid") if keys is None else keys
     if cfg.run.synthetic_data:
         labels = None if cfg.run.mode == "pretrain" else num_labels
 
@@ -210,10 +212,12 @@ def make_valid_iterator(cfg: TrainConfig, per_process: int, *, num_labels: int =
             for _, batch in zip(range(4), it):
                 yield {**batch, "valid": np.ones((per_process,), bool)}
 
-        return lambda: prefetch_to_device(({k: b[k] for k in keys} for b in gen()), device)
-    if not cfg.data.valid_shards:
+        batches = gen
+    elif cfg.data.valid_shards:
+        batches = lambda: valid_loader(cfg.data, per_process)  # noqa: E731
+    else:
         return None
-    return lambda: prefetch_to_device(({k: b[k] for k in keys} for b in valid_loader(cfg.data, per_process)), device)
+    return lambda: prefetch_to_device(({k: b[k] for k in keys if k in b} for b in batches()), device)
 
 
 def evaluate(eval_step, state, batches) -> dict[str, float]:

@@ -69,7 +69,8 @@ class MAEPretrainModel(nn.Module):
     Parameters are float32 and initialized as flax initializes them (the
     encoder as :class:`JumboViT` does; ``mask_token`` and every decoder
     dense weight truncated normal std 0.02, zero biases, LayerScale 1e-4),
-    from CPU generators seeded from ``seed``, then moved to ``device``."""
+    from CPU generators seeded from ``seed``, then moved to ``device``
+    (``init_weights=False`` skips the draws, as :class:`JumboViT` does)."""
 
     def __init__(
         self,
@@ -79,6 +80,7 @@ class MAEPretrainModel(nn.Module):
         *,
         device: str | torch.device = "cuda",
         seed: int = 0,
+        init_weights: bool = True,
     ):
         super().__init__()
         dev = resolve_device(device)
@@ -88,19 +90,60 @@ class MAEPretrainModel(nn.Module):
         self.encoder_cfg = encoder_cfg
         self.decoder_cfg = decoder_cfg
         self.norm_pix_loss = norm_pix_loss
-        self.encoder = JumboViT(enc, device="cpu", seed=seed)
+        self.encoder = JumboViT(enc, device="cpu", seed=seed, init_weights=init_weights)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, decoder_cfg.dim))
         self.decoder_proj = Dense(enc.dim, decoder_cfg.dim, decoder_cfg.compute_dtype)
         self.decoder = MAEDecoder(decoder_cfg, enc.grid, enc.num_cls_tokens)
         self.pixel_proj = Dense(decoder_cfg.dim, enc.patch_size**2 * 3, torch.float32)
-        gen = torch.Generator().manual_seed(seed + 1)
-        trunc_normal_(self.mask_token, gen)
-        for mod in (self.decoder_proj, self.pixel_proj, *self.decoder.modules()):
-            if isinstance(mod, nn.Linear):
-                trunc_normal_(mod.weight, gen)
-                nn.init.zeros_(mod.bias)
+        if init_weights:
+            gen = torch.Generator().manual_seed(seed + 1)
+            trunc_normal_(self.mask_token, gen)
+            for mod in (self.decoder_proj, self.pixel_proj, *self.decoder.modules()):
+                if isinstance(mod, nn.Linear):
+                    trunc_normal_(mod.weight, gen)
+                    nn.init.zeros_(mod.bias)
         self.to(dev)
         self.eval()
+
+    def encode_normalized(
+        self,
+        x: torch.Tensor,
+        *,
+        mask_noise: torch.Tensor | None = None,
+        generators: Generators | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Masked encoder → ``decoder_proj`` on normalized images: the
+        tokens at the decoder width, the mask and ``ids_restore``."""
+        tokens, mask, ids_restore = self.encoder(x, mask_noise=mask_noise, generators=generators)
+        return self.decoder_proj(tokens), mask, ids_restore
+
+    def mae_encode(
+        self,
+        images: torch.Tensor,
+        *,
+        mask_noise: torch.Tensor | None = None,
+        generators: Generators | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The first half of the reconstruction forward (the JAX engine's
+        ``_mae_encode``): normalize → masked encoder → ``decoder_proj``.
+        Everything that depends only on (image, mask): the part a serving
+        cache keeps."""
+        x = normalize_images(images, dtype=self.encoder_cfg.compute_dtype)
+        return self.encode_normalized(x, mask_noise=mask_noise, generators=generators)
+
+    def mae_decode(
+        self, tokens: torch.Tensor, ids_restore: torch.Tensor, generators: Generators | None = None
+    ) -> torch.Tensor:
+        """The second half (``_mae_decode``): mask-token unshuffle →
+        decoder → ``pixel_proj``; the float32 per-patch prediction. Row
+        independent throughout (per-token norms, attention within a
+        sample, a per-sample gather), so zero pad rows stay inert.
+        ``ids_restore`` is 1-D (shared mode) or one row per sample."""
+        k = self.encoder_cfg.num_cls_tokens
+        cls, visible = tokens[:, :k, :], tokens[:, k:, :]
+        full = unshuffle_with_mask_tokens(visible, self.mask_token, ids_restore, impl=self.encoder_cfg.gather_impl)
+        decoded = self.decoder(torch.cat([cls, full], dim=1), generators)
+        return self.pixel_proj(decoded[:, k:, :].float())
 
     def forward(
         self,
@@ -111,15 +154,10 @@ class MAEPretrainModel(nn.Module):
         return_reconstruction: bool = False,
     ) -> dict[str, torch.Tensor]:
         enc_cfg = self.encoder_cfg
-        k = enc_cfg.num_cls_tokens
         images = normalize_images(images, dtype=enc_cfg.compute_dtype)
-
-        tokens, mask, ids_restore = self.encoder(images, mask_noise=mask_noise, generators=generators)
-        tokens = self.decoder_proj(tokens)
-        cls, visible = tokens[:, :k, :], tokens[:, k:, :]
-        full = unshuffle_with_mask_tokens(visible, self.mask_token, ids_restore, impl=enc_cfg.gather_impl)
-        decoded = self.decoder(torch.cat([cls, full], dim=1), generators)
-        pred = self.pixel_proj(decoded[:, k:, :].float())
+        # the two halves the serving engine runs apart, in this order
+        tokens, mask, ids_restore = self.encode_normalized(images, mask_noise=mask_noise, generators=generators)
+        pred = self.mae_decode(tokens, ids_restore, generators)
 
         target = extract_patches(images.float(), enc_cfg.patch_size)
         if self.norm_pix_loss:

@@ -77,9 +77,14 @@ class JumboViT(nn.Module):
     (truncated normal std 0.02 for dense, conv and learnable positional
     weights; zero biases and CLS tokens; LayerScale 1e-4) from a CPU
     ``torch.Generator`` seeded with ``seed``, then moved to ``device`` —
-    the same seed gives the same weights on every device."""
+    the same seed gives the same weights on every device.
+    ``init_weights=False`` skips those draws (the weights are then
+    PyTorch's construction values), for a caller that overwrites every
+    parameter."""
 
-    def __init__(self, cfg: JumboViTConfig, *, device: str | torch.device = "cuda", seed: int = 0):
+    def __init__(
+        self, cfg: JumboViTConfig, *, device: str | torch.device = "cuda", seed: int = 0, init_weights: bool = True
+    ):
         super().__init__()
         require_ported(cfg)
         dev = resolve_device(device)
@@ -95,7 +100,8 @@ class JumboViT(nn.Module):
         if (cfg.labels or 0) > 0:
             in_features = cfg.dim if cfg.pooling == "gap" else k * cfg.dim
             self.head = ClassifierHead(in_features, cfg.labels, cfg.batch_norm)
-        self._init_weights(torch.Generator().manual_seed(seed))
+        if init_weights:
+            self._init_weights(torch.Generator().manual_seed(seed))
         self.to(dev)
         self.eval()
 

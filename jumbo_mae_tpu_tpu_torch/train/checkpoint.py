@@ -29,7 +29,8 @@ joins, raising what it raised. :meth:`Checkpointer.restore` walks back past
 a save that fails to load — torn, truncated or uncommitted — over at most
 ``fallback_steps`` older saves. :meth:`Checkpointer.restore_eval` restores
 what evaluation needs — parameters, buffers, the step and the seed — and
-never reads the optimizer's bytes (the file is memory-mapped).
+never reads the optimizer's bytes (the file is memory-mapped);
+:func:`restore_inference_state` reads what serving needs the same way.
 
 Warm starts (counterparts of the JAX package's ``resize_posemb``,
 ``merge_pretrained_params``, ``require_loaded`` and
@@ -366,6 +367,64 @@ def read_state(directory: str | Path, which: str = "last", step: int | None = No
             raise FileNotFoundError(f"no committed '{which}' checkpoint under {directory}")
         step = steps[0]
     return _load_save(d / str(step), mmap=True)[0]
+
+
+# ---------------------------------------------------------------- serving
+
+BATCH_STATS = ("running_mean", "running_var")
+ORBAX_NOT_PORTED = (
+    "{path} is {what}, which the port cannot read (the card has no JAX): convert it "
+    "first, ROADMAP queue A3.3; the port serves its own saves"
+)
+
+
+def split_batch_stats(sd: dict[str, torch.Tensor]) -> tuple[dict, dict | None]:
+    """``(params, batch_stats)`` of a saved ``state_dict``: the BatchNorm
+    running statistics apart (``None`` when there are none), as flax keeps
+    ``batch_stats`` beside ``params``."""
+    stats = {n: t for n, t in sd.items() if n.rsplit(".", 1)[-1] in BATCH_STATS}
+    params = {n: t for n, t in sd.items() if n not in stats}
+    return params, (stats or None)
+
+
+def _looks_like_orbax(p: Path) -> bool:
+    """An Orbax layout: step directories of its own (``_CHECKPOINT_METADATA``,
+    an item directory per step) where the port writes ``state.pt``."""
+    for d in (p, *(p / s for s in ("best", "last"))):
+        if not d.is_dir():
+            continue
+        for step in d.iterdir():
+            if step.is_dir() and step.name.isdigit() and not (step / STATE_FILE).exists():
+                if (step / "_CHECKPOINT_METADATA").exists() or (step / "state").is_dir():
+                    return True
+    return False
+
+
+def restore_inference_state(path: str | Path) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
+    """``(params, batch_stats)`` for serving, from a port save: the saved
+    model's tensors by ``state_dict`` name, the BatchNorm statistics apart
+    (``None`` for a save without BatchNorm; a linear probe's head has
+    them). The JAX package's ``restore_inference_state``.
+
+    ``path`` is a checkpoint directory (its newest committed ``best``
+    save, then ``last``, then step directories directly under ``path``)
+    or one step directory. The file is memory-mapped and only the model's
+    tensors are touched, so the optimizer's bytes are never read. An
+    Orbax directory or a ``.msgpack`` file raises naming ROADMAP A3.3."""
+    s = str(path)
+    if s.endswith(".msgpack"):
+        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=s, what="a flax .msgpack params file"))
+    p = Path(s)
+    if (p / STATE_FILE).is_file():
+        return split_batch_stats(_load_save(p, mmap=True)[0]["model"])
+    for sub in ("best", "last", "."):
+        root = p / sub
+        steps = _committed(root) if root.is_dir() else []
+        if steps:
+            return split_batch_stats(_load_save(root / str(steps[0]), mmap=True)[0]["model"])
+    if p.is_dir() and _looks_like_orbax(p):
+        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=s, what="an Orbax checkpoint"))
+    raise FileNotFoundError(f"no committed checkpoint under {s} (best/, last/ or step directories)")
 
 
 # ---------------------------------------------------------------- warm starts

@@ -3,8 +3,8 @@
 
     python3 scripts/torch_serve_profile.py [--out runs/torch_serve_profile.json]
 
-Builds the ViT-B/16 classifier as recipes/finetune_vit_b16.yaml builds it
-(bf16 compute, random weights from a seed) in ``InferenceEngine`` and
+Builds the ViT-B/16 classifier from recipes/finetune_vit_b16.yaml (bf16
+compute, random weights from its ``run.init_seed``) in ``InferenceEngine`` and
 measures, on the card:
 
 - the device forward time of every bucket of the ladder (CUDA events);
@@ -59,10 +59,10 @@ def profile_forward(engine, batch, bucket_report: dict) -> dict:
 
     with torch.inference_mode():
         xn = normalize_images(torch.from_numpy(batch).cuda(), dtype=torch.bfloat16)
-        engine.model(xn)
+        engine.model("logits")(xn)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            engine.model(xn)
+            engine.model("logits")(xn)
             torch.cuda.synchronize()
 
     def dev_us(evt) -> float:
@@ -102,16 +102,15 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_serve_profile: no CUDA device")
+    from jumbo_mae_tpu_tpu_torch.config import load_config
     from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine, pow2_rungs
-    from jumbo_mae_tpu_tpu_torch.models import preset
     from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    cfg = preset("vit_b16", posemb="sincos2d")
-    engine = InferenceEngine(cfg, max_batch=64, init_seed=0, device="cuda")
+    engine = InferenceEngine(load_config(REPO / "recipes" / "finetune_vit_b16.yaml"), max_batch=64, device="cuda")
     images = np.random.default_rng(0).integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
     report = {"device": smi, "torch": torch.__version__, "buckets": {}}
 
@@ -119,7 +118,7 @@ def main() -> None:
         batch = images[:bucket]
         with torch.inference_mode():
             xn = normalize_images(torch.from_numpy(batch).cuda(), dtype=torch.bfloat16)
-            fwd = cuda_ms(lambda: engine.model(xn))
+            fwd = cuda_ms(lambda: engine.model("logits")(xn))
         engine.logits(batch)
         reps = 10
         t0 = time.perf_counter()

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from jumbo_mae_tpu_tpu_torch.config import load_config
 from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
 from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine
 from jumbo_mae_tpu_tpu_torch.models import DecoderConfig, preset
@@ -28,6 +29,7 @@ from jumbo_mae_tpu_tpu_torch.train.optim import OptimConfig
 from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
 
 pytestmark = pytest.mark.cuda
+RECIPE = Path(__file__).resolve().parent.parent / "recipes" / "smoke_cpu.yaml"
 
 
 @pytest.fixture
@@ -122,16 +124,52 @@ def test_engine_routes_every_block_through_the_kernel(cuda, heads):
     """Every block's attention goes through K1 where the kernel takes the
     head_dim, and through the einsum path where it does not; both serve,
     and the f32 engine on the card matches the CPU's."""
-    cfg = preset("vit_t16", image_size=32, patch_size=4, labels=10, posemb="sincos2d", heads=heads)
-    eng = InferenceEngine(cfg, max_batch=8, device="cuda")
-    cpu = InferenceEngine(cfg, max_batch=8, dtype="float32", device="cpu")
-    gpu32 = InferenceEngine(cfg, max_batch=8, dtype="float32", device="cuda")
+    recipe = load_config(RECIPE, [f"model.overrides.heads={heads}", "model.overrides.dtype=bfloat16"])
+    cfg = preset("vit_t16", image_size=32, patch_size=4, heads=heads)
+    eng = InferenceEngine(recipe, max_batch=8, labels=10, device="cuda")
+    cpu = InferenceEngine(recipe, max_batch=8, labels=10, dtype="float32", device="cpu")
+    gpu32 = InferenceEngine(recipe, max_batch=8, labels=10, dtype="float32", device="cuda")
     x = np.random.default_rng(0).integers(0, 256, (11, 32, 32, 3), dtype=np.uint8)
     fa.LAUNCHES, eng.dispatches = 0, 0
     out = eng.logits(x)
     assert out.shape == (11, 10) and np.isfinite(out).all()
     assert eng.dispatches == 2 and fa.LAUNCHES == (cfg.layers * 2 if _kernel_stack(cfg) else 0)
     np.testing.assert_allclose(gpu32.logits(x), cpu.logits(x), rtol=1e-4, atol=1e-4)
+
+
+def test_served_save_and_int8_on_the_card_match_the_cpu(cuda, tmp_path):
+    """A port save (weights at O(1) scale from a seed) served on the card
+    and on the CPU: float32 logits, features and the reconstruction within
+    1e-4; the int8 engine likewise, its weights int8 on the card."""
+    from jumbo_mae_tpu_tpu_torch.cli.train import build_model
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+
+    sets = ["model.overrides.heads=2", "model.dec_layers=1", "model.dec_dim=64", "model.dec_heads=2",
+            "model.dec_dtype=float32"]
+    x = np.random.default_rng(1).integers(0, 256, (5, 32, 32, 3), dtype=np.uint8)
+    for mode, task in (("linear", "logits"), ("pretrain", "reconstruct")):
+        labels = [] if mode == "pretrain" else ["model.overrides.labels=10"]
+        recipe = load_config(RECIPE, [*sets, f"run.mode={mode}", *labels])
+        model, _, _ = build_model(recipe, device="cpu")
+        g = torch.Generator().manual_seed(3)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) / max(1.0, p.shape[-1] ** 0.5))
+        state = create_state(model, OptimConfig(), device="cpu", global_batch_size=8)
+        Checkpointer(CheckpointConfig(str(tmp_path / mode), async_save=False)).save(1, state)
+        for quant in (None, "int8"):
+            kw = dict(ckpt=str(tmp_path / mode), max_batch=8, quant=quant, dtype="float32")
+            card = InferenceEngine(recipe, device="cuda", **kw)
+            cpu = InferenceEngine(recipe, device="cpu", **kw)
+            for t in ("features", task):
+                a, b = card.predict(x, task=t), cpu.predict(x, task=t)
+                for key in (a if isinstance(a, dict) else {"out": a}):
+                    ga = a[key] if isinstance(a, dict) else a
+                    gb = b[key] if isinstance(b, dict) else b
+                    np.testing.assert_allclose(ga, gb, rtol=1e-4, atol=1e-4, err_msg=f"{mode} {quant} {t} {key}")
+            if quant:
+                bufs = [b for n, b in card.model("features").named_buffers() if n.endswith("weight_q")]
+                assert bufs and all(b.dtype == torch.int8 and b.is_cuda for b in bufs)
 
 
 # K2/K3's shapes are chip_smoke.py's (every tile and packing edge of the

@@ -1,9 +1,10 @@
 """The port's InferenceEngine against the JAX InferenceEngine, on the CPU.
 
-The JAX engine is built as tests/test_infer_engine.py builds it (the
-smoke_cpu recipe at float32, no warm cache); both engines then serve the
-same weights, drawn at O(1) scale from a seeded numpy generator, and the
-same uint8 images. float32, atol 1e-4 / rtol 1e-4 (sum order only).
+Both engines are built from the same recipe (smoke_cpu at float32, as
+tests/test_infer_engine.py builds the JAX one, no warm cache) and then
+serve the same weights through ``swap_weights``, drawn at O(1) scale from
+a seeded numpy generator, and the same uint8 images. float32, atol 1e-4 /
+rtol 1e-4 (sum order only).
 """
 
 from pathlib import Path
@@ -22,8 +23,8 @@ from jumbo_mae_tpu_tpu_torch.infer import (
     bucket_for,
     pow2_rungs,
 )
-from jumbo_mae_tpu_tpu_torch.models import preset
-from torch_port_util import random_batch_stats, random_images, random_jumbo_params, rel_err
+from jumbo_mae_tpu_tpu_torch.config import load_config as port_load_config
+from torch_port_util import port_tree, random_batch_stats, random_images, random_jumbo_params, rel_err
 
 RECIPE = Path(__file__).resolve().parent.parent / "recipes" / "smoke_cpu.yaml"
 RECIPE_OVERRIDES = [
@@ -33,10 +34,7 @@ RECIPE_OVERRIDES = [
     "model.dec_heads=2",
     "model.dec_dtype=float32",
 ]
-# the port's config of the same model: recipes/smoke_cpu.yaml's model section
-PORT_CFG = preset(
-    "vit_t16", mask_ratio=0.75, posemb="sincos2d", image_size=32, patch_size=4, dtype="float32"
-)
+PORT_CFG = port_load_config(RECIPE, RECIPE_OVERRIDES)
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -53,10 +51,8 @@ def engines():
     params = random_jumbo_params(init["params"], rng)
     stats = random_batch_stats(init["batch_stats"], rng)
     jeng.swap_weights(params, stats)
-    peng = InferenceEngine(
-        PORT_CFG, labels=10, batch_norm=True, params=params, batch_stats=stats,
-        max_batch=8, device="cpu",
-    )
+    peng = InferenceEngine(PORT_CFG, labels=10, batch_norm=True, max_batch=8, device="cpu")
+    peng.swap_weights(*port_tree(params, stats))
     return jeng, peng, params
 
 
@@ -102,13 +98,14 @@ def test_padding_is_inert(engines):
 def test_buckets_follow_the_ladder(engines, monkeypatch):
     _, peng, _ = engines
     seen = []
-    real = peng.dispatch
+    real = peng._dispatch
 
-    def spy(task, imgs, *, pool=None):
-        seen.append(imgs.shape[0])
-        return real(task, imgs, pool=pool)
+    def spy(task, pool, bucket, args, n):
+        assert all(a.shape[0] == bucket for a in args)
+        seen.append(bucket)
+        return real(task, pool, bucket, args, n)
 
-    monkeypatch.setattr(peng, "dispatch", spy)
+    monkeypatch.setattr(peng, "_dispatch", spy)
     for n in (1, 2, 3, 5, 8, 9, 17):
         peng.logits(images(n, seed=5))
     # 9 → 8 + 1 and 17 → 8 + 8 + 1: chunks of max_batch, each padded
@@ -143,34 +140,52 @@ def test_request_validation(engines):
         peng.features(np.zeros((2, 32, 32, 4), np.uint8))
     with pytest.raises(ValueError):
         peng.features(images(2), pool="max")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="unknown task"):
+        peng.predict(images(2), task="bogus")
+    # reconstruct grafts the whole tree, and an encoder tree holds no MAE
+    # model's names: refused, as the JAX engine refuses it
+    with pytest.raises(SystemExit, match="0 params"):
         peng.predict(images(2), task="reconstruct")
     # a single HWC image is a batch of one
     assert peng.features(images(1)[0]).shape == (1, 3 * 64)
 
 
+def seeded(init_seed, extra=()):
+    return port_load_config(RECIPE, [*RECIPE_OVERRIDES, f"run.init_seed={init_seed}", *extra])
+
+
 def test_dtype_override_and_init_seed():
     x = images(3, seed=7)
-    f32 = InferenceEngine(PORT_CFG, labels=10, init_seed=3, max_batch=4, device="cpu")
-    again = InferenceEngine(PORT_CFG, labels=10, init_seed=3, max_batch=4, device="cpu")
-    other = InferenceEngine(PORT_CFG, labels=10, init_seed=4, max_batch=4, device="cpu")
-    bf16 = InferenceEngine(PORT_CFG, labels=10, init_seed=3, max_batch=4, dtype="bfloat16", device="cpu")
-    assert bf16.cfg.compute_dtype == torch.bfloat16 and f32.cfg.compute_dtype == torch.float32
+    f32 = InferenceEngine(seeded(3), labels=10, max_batch=4, device="cpu")
+    again = InferenceEngine(seeded(3), labels=10, max_batch=4, device="cpu")
+    other = InferenceEngine(seeded(4), labels=10, max_batch=4, device="cpu")
+    bf16 = InferenceEngine(seeded(3), labels=10, max_batch=4, dtype="bfloat16", device="cpu")
+    assert bf16._enc.compute_dtype == torch.bfloat16 and f32._enc.compute_dtype == torch.float32
     ref = f32.features(x)
     assert np.array_equal(again.features(x), ref)
     assert not np.allclose(other.features(x), ref)
     got = bf16.features(x)
     assert got.dtype == np.float32 and rel_err(got, ref) <= 3e-2
-    # serving forces the stochastic and MAE knobs off
-    assert f32.cfg.mask_ratio is None and f32.cfg.dropout == 0.0 and f32.cfg.droppath == 0.0
+    # serving forces the stochastic and MAE knobs off, last: a recipe
+    # that sets them does not turn them back on
+    noisy = InferenceEngine(seeded(3, ["model.overrides.dropout=0.3", "model.overrides.droppath=0.2"]),
+                            max_batch=4, device="cpu")
+    for eng in (f32, noisy):
+        assert eng._enc.mask_ratio is None and eng._enc.dropout == 0.0 and eng._enc.droppath == 0.0
+    assert np.array_equal(noisy.features(x), ref)
 
 
 def test_logits_need_labels_and_params_must_fit():
     eng = InferenceEngine(PORT_CFG, labels=0, max_batch=4, device="cpu")
     with pytest.raises(ValueError, match="label"):
         eng.logits(images(1))
-    with pytest.raises(KeyError):
-        InferenceEngine(PORT_CFG, params={"cls_tokens": np.zeros((1, 3, 64), np.float32)}, device="cpu")
+    # an unrelated tree loads nothing and is refused, leaving the old
+    # weights live (the JAX engine's require_loaded guard)
+    live = InferenceEngine(PORT_CFG, max_batch=4, device="cpu")
+    before = live.features(images(2))
+    with pytest.raises(SystemExit, match="0 params"):
+        live.swap_weights({"other.weight": torch.zeros(3, 2)})
+    assert np.array_equal(live.features(images(2)), before)
 
 
 def test_trunk_only_params_serve_features_and_keep_the_head_at_init(engines):
@@ -178,8 +193,10 @@ def test_trunk_only_params_serve_features_and_keep_the_head_at_init(engines):
     its init (the JAX engine's graft does the same)."""
     jeng, _, params = engines
     trunk = {k: v for k, v in params.items() if k != "head"}
-    eng = InferenceEngine(PORT_CFG, labels=10, params=trunk, init_seed=5, max_batch=8, device="cpu")
-    fresh = InferenceEngine(PORT_CFG, labels=10, init_seed=5, max_batch=8, device="cpu")
+    eng = InferenceEngine(seeded(5), labels=10, max_batch=8, device="cpu")
+    fresh = InferenceEngine(seeded(5), labels=10, max_batch=8, device="cpu")
+    eng.swap_weights(*port_tree(trunk))
     x = images(3, seed=8)
     np.testing.assert_allclose(eng.features(x), jeng.features(x), **TOL)
-    assert torch.equal(eng.model.head.fc.weight, fresh.model.head.fc.weight)
+    assert torch.equal(eng.model("logits").head.fc.weight, fresh.model("logits").head.fc.weight)
+    assert eng.load_stats["logits"]["new"] == ["head.fc.weight", "head.fc.bias"]

@@ -8,8 +8,10 @@
   the CPU in such an interpreter;
 - an augmentation policy without PIL raises ``ImportError`` naming it, at
   the policy and at the loader, while the rest of the port runs;
-- the entry points default to the GPU and raise when there is none,
-  instead of carrying on on the CPU;
+- the entry points (the engine, ``cli.predict``, ``cli.train`` and the
+  tools) default to the GPU and raise when there is none, instead of
+  carrying on on the CPU; a save is served and its features exported in
+  the blocked interpreter;
 - no kernel is built at import time.
 """
 
@@ -24,8 +26,10 @@ import pytest
 import torch
 
 from jumbo_mae_tpu_tpu_torch.cli import predict
+from jumbo_mae_tpu_tpu_torch.config import load_config
 from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine
 from jumbo_mae_tpu_tpu_torch.models import JumboViT, preset
+from jumbo_mae_tpu_tpu_torch.tools import extract_features, knn_probe
 from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
 
 REPO = Path(__file__).resolve().parent.parent
@@ -35,6 +39,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "jumbo_mae_tpu_t
 # and cv2 only lazily or under try, and must run without any of these
 OPTIONAL = ("yaml", "PIL", "cv2")
 TINY = preset("vit_t16", image_size=32, patch_size=4)
+SMOKE = str(REPO / "recipes" / "smoke_cpu.yaml")
 
 
 def port_files():
@@ -113,6 +118,28 @@ def test_cli_train_runs_without_jax_yaml_pil_or_cv2(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "[train] done:" in res.stdout and "backends none none" in res.stdout
     assert (tmp_path / "smoke_cpu" / "ckpt" / "last" / "10" / "COMMIT").is_file()
+
+
+def test_a_save_is_served_without_jax_yaml_pil_or_cv2(tmp_path):
+    """A smoke pretraining save, then cli.predict (features, the cached
+    reconstruction, int8) and extract_features over it, in an
+    interpreter where JAX, PyYAML, PIL and cv2 cannot import."""
+    res = _blocked_interpreter(
+        "from jumbo_mae_tpu_tpu_torch.cli import predict, train\n"
+        "from jumbo_mae_tpu_tpu_torch.tools import extract_features\n"
+        "import numpy as np\n"
+        f"out = {str(tmp_path)!r}\n"
+        f"train.main(['--config', {SMOKE!r}, '--device', 'cpu', '--set', 'run.output_dir=' + out])\n"
+        "ck = out + '/smoke_cpu/ckpt'\n"
+        f"base = ['--config', {SMOKE!r}, '--ckpt', ck, '--synthetic', '3', '--device', 'cpu']\n"
+        "f = np.load(predict.main(base + ['--task', 'features', '--quant', 'int8', '--out', out + '/f.npz']))\n"
+        "r = np.load(predict.main(base + ['--task', 'reconstruct', '--encoder-cache', '4', '--out', out + '/r.npz']))\n"
+        f"e = np.load(extract_features.main([{SMOKE!r}, '--ckpt', ck, '--device', 'cpu', '--out', out + '/e.npz']))\n"
+        "print('shapes', f['features'].shape, r['reconstruction'].shape, e['features'].shape)\n",
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "shapes (3, 192) (3, 64, 48) (64, 192)" in res.stdout, res.stdout[-2000:]
 
 
 def test_images_without_cv2_or_pil_raise_naming_both(tmp_path):
@@ -211,6 +238,11 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.ops.mixup",
         "jumbo_mae_tpu_tpu_torch.models.classifier",
         "jumbo_mae_tpu_tpu_torch.data.randaugment",
+        "jumbo_mae_tpu_tpu_torch.infer.quant",
+        "jumbo_mae_tpu_tpu_torch.infer.batching",
+        "jumbo_mae_tpu_tpu_torch.tools",
+        "jumbo_mae_tpu_tpu_torch.tools.extract_features",
+        "jumbo_mae_tpu_tpu_torch.tools.knn_probe",
     ):
         assert m in mods
     for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):
@@ -224,16 +256,20 @@ def no_cuda(monkeypatch):
 
 def test_engine_defaults_to_cuda_and_raises_without_it(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
-        InferenceEngine(TINY)
+        InferenceEngine(load_config(SMOKE))
     # the explicit CPU request works
-    assert InferenceEngine(TINY, device="cpu", max_batch=2).device.type == "cpu"
+    assert InferenceEngine(load_config(SMOKE), device="cpu", max_batch=2).device.type == "cpu"
 
 
 def test_model_and_cli_default_to_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         JumboViT(TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
-        predict.main(["--preset", "vit_t16", "--set", "image_size=32", "patch_size=4", "--synthetic", "1"])
+        predict.main(["--config", SMOKE, "--synthetic", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_features.main([SMOKE, "--out", "unused.npz"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        knn_probe.main([SMOKE, SMOKE, "--set", "run.mode=finetune"])
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     with pytest.raises(ValueError):

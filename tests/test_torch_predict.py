@@ -1,0 +1,139 @@
+"""The port's ``cli.predict`` against the JAX package's, on the CPU.
+
+Both CLIs serve the same weights (flax trees at O(1) scale from a seeded
+numpy generator: a ``.msgpack`` for the JAX CLI, a port ``Checkpointer``
+save for the port's) on the same PNG files, which every decoder reads
+exactly (a JPEG can differ by an LSB between cv2 and PIL), through the
+smoke recipe at ``--dtype float32``: every task's ``.npz`` within atol /
+rtol 1e-4. The reconstruction's mask is pinned to the JAX CLI's (see
+tests/test_torch_reconstruct.py). Then ``--serve`` against the direct
+path, an undecodable file, and the flags of layers still to port.
+"""
+
+import json
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from jumbo_mae_tpu_tpu.cli.predict import main as jax_main
+from jumbo_mae_tpu_tpu.config import load_config as jax_load_config
+from jumbo_mae_tpu_tpu.infer import InferenceEngine as JaxEngine
+from jumbo_mae_tpu_tpu.train.checkpoint import export_params_msgpack
+from jumbo_mae_tpu_tpu_torch.cli import predict
+from jumbo_mae_tpu_tpu_torch.config import load_config
+from jumbo_mae_tpu_tpu_torch.infer import engine as engine_mod
+from torch_port_util import port_save, random_jumbo_params
+
+RECIPE = Path(__file__).resolve().parent.parent / "recipes" / "smoke_cpu.yaml"
+BASE = ["model.overrides.dtype=float32", "model.dec_layers=1", "model.dec_dim=32", "model.dec_heads=2",
+        "model.dec_dtype=float32"]
+CLASSIFY = BASE + ["run.mode=finetune", "model.overrides.labels=10"]
+TOL = dict(atol=1e-4, rtol=1e-4)
+SHAPES = [(40, 50), (64, 48), (32, 32)]
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    from PIL import Image
+
+    root = tmp_path_factory.mktemp("predict")
+    rng = np.random.default_rng(0)
+    files = []
+    for i, (h, w) in enumerate(SHAPES):
+        f = root / f"im{i}.png"
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(f)
+        files.append(str(f))
+    out = {"files": files, "root": root}
+    jeng = JaxEngine(jax_load_config(RECIPE, CLASSIFY), max_batch=4, warm_cache=False)
+    for kind, task, sets in (("classify", "logits", CLASSIFY), ("mae", "reconstruct", BASE)):
+        init = jax.tree_util.tree_map(np.asarray, jeng._task(task)["variables"]["params"])
+        params = random_jumbo_params(init, np.random.default_rng(7))
+        msgpack = root / f"{kind}.msgpack"
+        export_params_msgpack({"model": params} if kind == "classify" else params, str(msgpack))
+        port_save(root / kind, load_config(RECIPE, sets), params)
+        out[kind] = {"msgpack": str(msgpack), "save": str(root / kind), "sets": sets}
+    return out
+
+
+def _args(setup, kind, task, out, *, jax_side=False, extra=()):
+    ck = setup[kind]
+    return ["--config", str(RECIPE), "--ckpt", ck["msgpack"] if jax_side else ck["save"], "--task", task,
+            "--images", *setup["files"], "--max-batch", "4", "--dtype", "float32", "--out", str(out),
+            *(["--no-warmcache"] if jax_side else ["--device", "cpu"]), *extra, "--set", *ck["sets"]]
+
+
+@pytest.mark.parametrize(
+    "kind,task,extra",
+    [("classify", "logits", ()), ("classify", "features", ("--pool", "gap")), ("mae", "features", ("--pool", "cls")),
+     ("mae", "features", ("--pool", "tokens")), ("mae", "reconstruct", ("--seed", "3")),
+     ("mae", "reconstruct", ("--seed", "3", "--encoder-cache", "4"))],
+)
+def test_cli_matches_jax(setup, tmp_path, monkeypatch, kind, task, extra):
+    jax_extra = tuple(a for a in extra if a not in ("--encoder-cache", "4"))
+    ref = np.load(jax_main(_args(setup, kind, task, tmp_path / "jax.npz", jax_side=True, extra=jax_extra)))
+    if task == "reconstruct":
+        noise = torch.from_numpy(ref["mask"][0] + np.arange(64, dtype=np.float32) / 64 * 1e-3)
+        monkeypatch.setattr(engine_mod, "reconstruct_noise", lambda seed, n: noise.clone())
+    got = np.load(predict.main(_args(setup, kind, task, tmp_path / "port.npz", extra=extra)))
+    assert sorted(got.files) == sorted(ref.files)
+    for key in ref.files:
+        assert got[key].shape == ref[key].shape and got[key].dtype == np.float32
+        np.testing.assert_allclose(got[key], ref[key], **TOL)
+
+
+def test_cli_prints_one_json_line_per_image(setup, tmp_path, capsys):
+    predict.main(_args(setup, "classify", "logits", tmp_path / "l.npz", extra=("--topk", "3")))
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    assert [ln["image"] for ln in lines] == setup["files"]
+    logits = np.load(tmp_path / "l.npz")["logits"]
+    for ln, row in zip(lines, logits):
+        assert ln["classes"] == np.argsort(-row)[:3].tolist() and len(ln["probs"]) == 3
+        assert ln["probs"] == sorted(ln["probs"], reverse=True)
+
+
+@pytest.mark.parametrize("task", ["features", "reconstruct"])
+def test_serve_equals_direct(setup, tmp_path, capsys, task):
+    kind = "mae"
+    direct = np.load(predict.main(_args(setup, kind, task, tmp_path / "d.npz")))
+    served = np.load(predict.main(_args(setup, kind, task, tmp_path / "s.npz",
+                                        extra=("--serve", "--max-delay-ms", "20", "--max-queue", "8"))))
+    assert "micro-batch sizes" in capsys.readouterr().out
+    for key in direct.files:
+        np.testing.assert_allclose(served[key], direct[key], rtol=1e-5, atol=1e-5)
+
+
+def test_warmup_quant_and_synthetic(setup, tmp_path, capsys):
+    out = predict.main(["--config", str(RECIPE), "--set", *BASE, "--ckpt", setup["mae"]["save"], "--task", "features",
+                        "--synthetic", "5", "--max-batch", "4", "--warmup", "--quant", "int8", "--device", "cpu",
+                        "--out", str(tmp_path / "q.npz")])
+    text = capsys.readouterr().out
+    assert "warmup: 3 first run(s)" in text and "restored" in text
+    assert np.load(out)["features"].shape == (5, 3 * 64)
+
+
+def test_undecodable_file_raises_with_its_name(setup, tmp_path):
+    bad = tmp_path / "broken.png"
+    bad.write_bytes(b"\x89PNG\r\n\x1a\n not an image")
+    args = _args(setup, "classify", "logits", tmp_path / "x.npz")
+    args[args.index("--images") + 1] = str(bad)
+    with pytest.raises(ValueError, match="broken.png"):
+        predict.main(args)
+
+
+def test_images_xor_synthetic(setup):
+    with pytest.raises(SystemExit):
+        predict.main(["--config", str(RECIPE), "--device", "cpu"])
+    with pytest.raises(SystemExit):
+        predict.main(["--config", str(RECIPE), "--device", "cpu", "--synthetic", "2", "--images", setup["files"][0]])
+
+
+@pytest.mark.parametrize("flag", sorted(predict.UNPORTED))
+def test_unported_flag_refused_with_its_roadmap_item(flag):
+    dest, item = predict.UNPORTED[flag]
+    value = [] if flag in predict._FLAGS_TAKING_NO_VALUE else ["1"]
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue " + item.split(" ")[0]) as exc:
+        predict.main(["--config", str(RECIPE), "--synthetic", "1", "--device", "cpu", flag, *value])
+    assert flag in str(exc.value) and item in str(exc.value)

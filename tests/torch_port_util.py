@@ -51,6 +51,43 @@ def random_batch_stats(tree: dict, rng: np.random.Generator) -> dict:
     }}}
 
 
+def port_tree(params: dict, batch_stats: dict | None = None) -> tuple[dict, dict | None]:
+    """A flax ``JumboViT`` or ``MAEPretrainModel`` tree (and its BatchNorm
+    statistics) as the port keeps a restored save: ``state_dict`` names,
+    the running statistics apart (``InferenceEngine.swap_weights``'s
+    arguments)."""
+    from jumbo_mae_tpu_tpu_torch.interop.from_jax import state_dict_from_jax
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import split_batch_stats
+
+    return split_batch_stats(state_dict_from_jax(params, batch_stats))
+
+
+def port_save(directory, cfg, params: dict, batch_stats: dict | None = None, *, optim: str = "adamw",
+              step: int = 1) -> dict:
+    """Write a save of the recipe's model (``cli.train.build_model``:
+    the MAE model in pretraining, else the classifier) holding the flax
+    tree ``params`` (an MAE tree, or a classifier's ``JumboViT`` tree and
+    its BatchNorm statistics) with the port's ``Checkpointer``, optimizer
+    state and all; returns the saved ``state_dict``."""
+    from jumbo_mae_tpu_tpu_torch.cli.train import build_model
+    from jumbo_mae_tpu_tpu_torch.interop.from_jax import classifier_state_dict_from_jax, mae_state_dict_from_jax
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
+    from jumbo_mae_tpu_tpu_torch.train.optim import OptimConfig
+    from jumbo_mae_tpu_tpu_torch.train.steps import create_state
+
+    model, _, _ = build_model(cfg, device="cpu")
+    if cfg.run.mode == "pretrain":
+        sd = mae_state_dict_from_jax(params)
+    else:
+        sd = classifier_state_dict_from_jax({"model": params}, None if batch_stats is None else {"model": batch_stats})
+    model.load_state_dict(sd)
+    state = create_state(model, OptimConfig(name=optim), device="cpu", global_batch_size=8)
+    ck = Checkpointer(CheckpointConfig(str(directory), async_save=False))
+    ck.save(step, state, metrics={"val/loss": 1.0})
+    ck.close()
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
 def random_images(rng: np.random.Generator, n: int, size: int) -> np.ndarray:
     return rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
 
