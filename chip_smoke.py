@@ -50,7 +50,8 @@ Phases, each of which exits non-zero when it fails:
    ``run.init_seed``) served through ``InferenceEngine`` built from the
    recipe (logits, features cls and gap; requests of 1, 5, 64 and 70
    images) and through ``cli.predict --config``:
-   shapes, finite values, kernel launches = 12 x dispatches, padding
+   shapes, finite values, kernel launches = 12 x (dispatches + captures:
+   each graph's eager first run launches too), padding
    inertness, the float32 engine on the card against the float32 engine
    on the CPU, images/s;
 7. the training slice — one MAE pretraining step of ViT-L/16 as
@@ -134,20 +135,36 @@ Phases, each of which exits non-zero when it fails:
 19. serving the saves (run after phase 17, while the saves of phases 13,
    16 and 17 exist) through ``cli.predict.main`` in this process, on 70
    PNG files written from phase 13's validation shard and decoded by the
-   port: ViT-B/16 logits from phase 16's ``best`` (K1 = 12 a dispatch,
+   port (K1 counted per forward: a replay, or a capture's eager first
+   run): ViT-B/16 logits from phase 16's ``best`` (K1 = 12 a forward,
    one JSON line an image, within bf16 relative error 1e-2 of the
    classifier ``Checkpointer.restore_eval`` restores, top-1 identical);
    its features and int8 (the package's parity gates, feature cosine >=
    0.999 and top-1 agreement >= 0.98; compression and int8 bytes);
-   ViT-L/16 linear-probe logits from phase 17's save (K1 = 24 a dispatch,
+   ViT-L/16 linear-probe logits from phase 17's save (K1 = 24 a forward,
    the BatchNorm statistics bit-equal to the save's); the ViT-L/16
-   reconstruction from phase 13's save (K1 = 32 a dispatch, 147 of 196
+   reconstruction from phase 13's save (K1 = 32 a forward, 147 of 196
    patches masked), then twice with the encoder cache (the second call
    all hits, 8 K1 a decode dispatch; both bit-equal to the fused path);
    ``--serve`` within bf16 tolerance of the direct path; the float32
    engine on the card against the CPU's. Restore seconds and bytes,
    ms a dispatch and images/s at buckets 1, 8, 64 in bf16 and int8, the
    reconstruction cold and warm, and the warmup's seconds.
+20. the replicated serving tier (after phase 19, on its 70 PNGs and
+   phase 16's ``best``): every engine dispatch on the card replays a CUDA
+   graph captured per (task, bucket); ViT-B/16 logits at buckets 1, 8
+   and 64 from graphs beside the same model's eager forward with the
+   same upload and fetch (top-1 identical, bf16 relative error <= 1e-2,
+   bit-equality reported), K1 = 12 a replay and 12 K1 kernels in a
+   ``torch.profiler`` trace of one bucket-64 replay; ``compile_counts``
+   flat over 50 requests after ``warmup`` and across ``swap_weights`` +
+   ``restore_snapshot`` (the rollback bit-equal); capture and first-run
+   seconds and pool bytes per bucket; the packed mix 224:0.5, 160:0.3,
+   96:0.2 (``packed_parity`` cosine >= 0.999, top-1 1.0, in bf16 and
+   float32; the token pad; ms a packed dispatch against one dispatch per
+   resolution); ``cli.predict --serve --replicas 2``, then ``--pack``
+   with ``--swap-watch``: a push promoted, a corrupt copy rolled back at
+   parity, every request served.
 
 Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
 NaN past the sequence inert, and time them there against SDPA.
@@ -170,6 +187,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -825,15 +843,18 @@ def phase_slice(fa, smi: str, recipe: str, device: str = "cuda") -> tuple[int, i
         for pool in ("cls", "gap"):
             outs[(pool, n)] = engine.features(images[:n], pool=pool)
     launches, dispatches = fa.LAUNCHES, engine.dispatches
+    captures = sum(engine.compile_counts.values())
     for (what, n), out in outs.items():
         check(out.shape == (n, widths[what]) and out.dtype == np.float32,
               f"{what} for {n} images has shape {out.shape} {out.dtype}")
         check(bool(np.isfinite(out).all()), f"{what} for {n} images is not finite")
     want = sum(-(-n // 64) for n in REQUESTS) * 3
-    log(f"main path: {dispatches} dispatches (expected {want}), "
-        f"{launches} flash launches ({layers} x dispatches = {layers * dispatches})")
+    # every dispatch replays a graph; each capture ran its forward once
+    # eagerly first, so K1 ran layers x (dispatches + captures) times
+    log(f"main path: {dispatches} dispatches (expected {want}) through {captures} captured graphs, "
+        f"{launches} flash launches ({layers} x (dispatches + captures) = {layers * (dispatches + captures)})")
     check(dispatches == want, "dispatch count")
-    check(launches == layers * dispatches, "flash launches != layers x dispatches")
+    check(launches == layers * (dispatches + captures), "flash launches != layers x (dispatches + captures)")
     check(np.array_equal(outs[("logits", 70)][:64], outs[("logits", 64)]),
           "the first 64 rows of a 70-image request differ from the 64-image request")
 
@@ -864,11 +885,12 @@ def phase_slice(fa, smi: str, recipe: str, device: str = "cuda") -> tuple[int, i
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del engine, model
 
-    # ---- cli.predict, the user's entry point: 8 images, one dispatch
+    # ---- cli.predict, the user's entry point: 8 images, one dispatch (its
+    # graph's eager first run, then the replay)
     before = fa.LAUNCHES
     predict.main(["--config", str(HERE / recipe), "--task", "logits", "--synthetic", "8", "--max-batch", "64"])
-    check(fa.LAUNCHES - before == layers, f"cli.predict made {fa.LAUNCHES - before} launches, want {layers}")
-    log(f"cli.predict served 8 images through {layers} kernel launches")
+    check(fa.LAUNCHES - before == 2 * layers, f"cli.predict made {fa.LAUNCHES - before} launches, want {2 * layers}")
+    log(f"cli.predict served 8 images through {2 * layers} kernel launches (a capture's first run and a replay)")
 
     # ---- float32 on the card against float32 on the CPU, same weights
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2169,6 +2191,12 @@ def cli_predict(fa, argv: list[str]) -> dict:
     return {"k1": k1, "out": dict(np.load(out)), "stdout": buf.getvalue(), "engine": engine, "wall_s": wall}
 
 
+def ran(engine) -> int:
+    """Forwards an engine ran on the card: one replay a dispatch, and one
+    eager first run before each capture."""
+    return engine.dispatches + sum(engine.compile_counts.values())
+
+
 def bucket_timings(engine, images, task: str = "logits", reps: int = 10) -> dict:
     """Host-clock ms per dispatch (upload, forward, fetch) and images/s of
     ``task`` at buckets 1, 8 and 64, after one warm call each."""
@@ -2190,7 +2218,7 @@ def phase_serve_saves(fa, smi: str, tmp: Path, urls: dict) -> dict:
     """Phase 19: serving the saves of phases 13, 16 and 17 from their
     recipes through ``cli.predict.main`` in this process, on 70 image
     files written from phase 13's validation shard. Gates: ViT-B/16 logits
-    from the finetune ``best`` with K1 = 12 x dispatches, one JSON line an
+    from the finetune ``best`` with K1 = 12 a forward, one JSON line an
     image, within bf16 relative error 1e-2 of the classifier
     ``Checkpointer.restore_eval`` restores, top-1 identical; features and
     int8 of that save with the package's parity gates; the ViT-L/16 linear
@@ -2244,8 +2272,9 @@ def phase_serve_saves(fa, smi: str, tmp: Path, urls: dict) -> dict:
           f"serve: {len(lines)} JSON lines for {n} images")
     logits = r["out"]["logits"]
     check(logits.shape == (n, 1000) and bool(np.isfinite(logits).all()), f"serve: logits {logits.shape}")
-    check(e1.dispatches == dispatches and r["k1"] == 12 * e1.dispatches,
-          f"serve: ViT-B/16 logits made {r['k1']} K1 launches in {e1.dispatches} dispatches, want 12 a dispatch")
+    check(e1.dispatches == dispatches and r["k1"] == 12 * ran(e1),
+          f"serve: ViT-B/16 logits made {r['k1']} K1 launches in {e1.dispatches} dispatches, want 12 a dispatch "
+          "and 12 a capture's first run")
     model, enc, _ = build_model(ft_cfg, device="cuda")
     state = create_state(model, Identity(ft_cfg.optim.param_dtype), device="cuda", init_seed=ft_cfg.run.init_seed)
     state, _ = Checkpointer(CheckpointConfig(str(ft))).restore_eval(state, which="best")
@@ -2266,12 +2295,12 @@ def phase_serve_saves(fa, smi: str, tmp: Path, urls: dict) -> dict:
     serve_k1 += r["k1"]
     e2 = r["engine"]
     feats = r["out"]["features"]
-    check(feats.shape == (n, 3 * 768) and bool(np.isfinite(feats).all()) and r["k1"] == 12 * e2.dispatches,
+    check(feats.shape == (n, 3 * 768) and bool(np.isfinite(feats).all()) and r["k1"] == 12 * ran(e2),
           f"serve: features {feats.shape}, {r['k1']} K1 in {e2.dispatches} dispatches")
     r = cli_predict(fa, [*b16, "--task", "logits", "--quant", "int8", "--out", str(out_dir / "b16_int8.npz")])
     serve_k1 += r["k1"]
     e3 = r["engine"]
-    check(r["k1"] == 12 * e3.dispatches, f"serve: int8 logits made {r['k1']} K1 in {e3.dispatches} dispatches")
+    check(r["k1"] == 12 * ran(e3), f"serve: int8 logits made {r['k1']} K1 in {e3.dispatches} dispatches")
     pf = parity_report(e2, e3, images, task="features", pool="cls")
     pl = parity_report(e1, e3, images, task="logits")
     qrep = e3.quant_reports["logits"]
@@ -2288,7 +2317,7 @@ def phase_serve_saves(fa, smi: str, tmp: Path, urls: dict) -> dict:
     before = sum(e1.compile_counts.values())
     first = e1.warmup(("logits",))
     res["warmup_s"] = e1.warmup_s
-    log(f"serve: warmup of the logits ladder {sorted({b for _, b in e1.compile_counts})}: {first} first runs "
+    log(f"serve: warmup of the logits ladder {sorted({b for _, b in e1.compile_counts})}: {first} captures "
         f"(after {before}) in {e1.warmup_s:.3f} s, on {smi}")
 
     # ---- 5. --serve: single-image submits through the MicroBatcher
@@ -2311,7 +2340,7 @@ def phase_serve_saves(fa, smi: str, tmp: Path, urls: dict) -> dict:
     bn = e4.model("logits").head.bn
     stats = restore_inference_state(lin)[1]
     same = all(torch.equal(getattr(bn, k).cpu(), stats[f"model.head.bn.{k}"]) for k in ("running_mean", "running_var"))
-    check(r["k1"] == 24 * e4.dispatches and bool(np.isfinite(r["out"]["logits"]).all()) and same,
+    check(r["k1"] == 24 * ran(e4) and bool(np.isfinite(r["out"]["logits"]).all()) and same,
           f"serve: ViT-L/16 probe {r['k1']} K1 in {e4.dispatches} dispatches, BatchNorm statistics equal {same}")
     log(f"serve: ViT-L/16 linear probe logits, {r['k1']} K1 in {e4.dispatches} dispatches; the head's BatchNorm "
         f"statistics bit-equal to the save's")
@@ -2325,13 +2354,17 @@ def phase_serve_saves(fa, smi: str, tmp: Path, urls: dict) -> dict:
     e5 = r["engine"]
     restored("ViT-L/16 MAE", e5, "reconstruct")
     fused = r["out"]
-    check(r["k1"] == 32 * e5.dispatches and fused["reconstruction"].shape == (n, 196, 768)
+    check(r["k1"] == 32 * ran(e5) and fused["reconstruction"].shape == (n, 196, 768)
           and bool((fused["mask"].sum(1) == 147).all()) and bool(np.isfinite(fused["reconstruction"]).all()),
           f"serve: reconstruction {r['k1']} K1 in {e5.dispatches} dispatches, masked per row "
           f"{sorted(set(fused['mask'].sum(1).tolist()))}")
     t0 = time.perf_counter()
     e5.reconstruct(images, seed=3)
     fused_ms = (time.perf_counter() - t0) * 1e3
+    res["graphs"] = {"b16_logits": e1.graph_stats(), "l16_reconstruct": e5.graph_stats()}
+    log(f"serve: graphs captured on demand (bucket 64 first: its pool growth is its own pool) — ViT-B/16 logits "
+        f"{json.dumps(res['graphs']['b16_logits'])}; ViT-L/16 reconstruct {json.dumps(res['graphs']['l16_reconstruct'])}"
+        f", on {smi}")
     del e5
     cached = InferenceEngine(load_config(HERE / RECIPE), ckpt=str(mae), max_batch=64, encoder_cache=128)
     # the model built and both halves run once at the request's buckets
@@ -2371,6 +2404,285 @@ def phase_serve_saves(fa, smi: str, tmp: Path, urls: dict) -> dict:
     res["serve_launches"] = serve_k1
     res["seconds"] = time.perf_counter() - t_start
     log(f"serve: phase 19 in {res['seconds']:.1f} s, {serve_k1} K1 launches on its main paths")
+    return res
+
+
+PACK_MIX = "224:0.5,160:0.3,96:0.2"
+
+
+def cli_predict_pool(fa, argv: list[str], beside=None) -> dict:
+    """``cli.predict.main(argv)`` with replicas in this process, K1's count
+    set to 0 just before and read just after; its stdout, ``.npz``, the
+    engines it built and seconds. ``beside(stdout_so_far)`` runs on a
+    thread of its own meanwhile (the pushes of a swap watch)."""
+    import io
+
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.cli import predict
+
+    buf = io.StringIO()
+    side = threading.Thread(target=beside, args=(buf.getvalue,), daemon=True) if beside else None
+    with recorded_engines() as made, contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        fa.LAUNCHES = 0
+        if side is not None:
+            side.start()
+        out = predict.main(argv)
+        k1 = fa.LAUNCHES
+        wall = time.perf_counter() - t0
+    if side is not None:
+        side.join(timeout=60)
+    return {"k1": k1, "out": dict(np.load(out)), "stdout": buf.getvalue(), "engines": made, "wall_s": wall}
+
+
+def wait_for(read, text: str, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while text not in read():
+        check(time.monotonic() < deadline, f"no {text!r} in the CLI's output after {timeout_s} s")
+        time.sleep(0.02)
+
+
+def corrupt_copy(src: Path, dst: Path) -> None:
+    """A committed save at ``dst`` whose model weights are ``src``'s
+    scrambled (every matrix reversed along its first axis, times -3): it
+    restores, grafts and serves, and its features point elsewhere."""
+    import torch
+
+    payload = torch.load(src / "state.pt", map_location="cpu", weights_only=True)
+    payload["model"] = {k: -3.0 * v.flip(0) if v.is_floating_point() and v.dim() > 1 else v
+                        for k, v in payload["model"].items()}
+    dst.mkdir(parents=True)
+    torch.save(payload, dst / "state.pt")
+    shutil.copy2(src / "extra.json", dst / "extra.json")
+    sizes = {name: (dst / name).stat().st_size for name in ("state.pt", "extra.json")}
+    (dst / "COMMIT").write_text(json.dumps({"step": 0, "sizes": sizes}))
+
+
+def timed_alternating(fns: dict, reps: int) -> dict:
+    """Host-clock ms per call of each function, called in turns (a, b, b,
+    a, ...) so a drift of the card's clocks falls on both; the median."""
+    import numpy as np
+
+    times: dict = {k: [] for k in fns}
+    order = list(fns)
+    for i in range(reps):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            fns[k]()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def phase_replicated(fa, smi: str, tmp: Path, urls: dict) -> dict:
+    """Phase 20: the replicated serving tier on phase 16's ViT-B/16
+    finetune ``best`` and phase 19's PNG files. Each step sets K1's count
+    to 0 just before it and reads it just after. Gates: every dispatch
+    replays a graph; the ladder's captures counted in ``compile_counts``
+    and flat over 50 requests and across ``swap_weights`` +
+    ``restore_snapshot`` (the rollback bit-equal); K1 = 12 a replay, a
+    profiler trace of one bucket-64 replay showing the K1 kernel 12 times;
+    graph against eager at buckets 1, 8, 64 (top-1 identical, bf16
+    relative error <= 1e-2); the packed mix's parity against the
+    unpacked graphs (cosine >= 0.999 and top-1 1.0, in bf16 and in
+    float32) with no K1 in packed or embed graphs;
+    ``cli.predict --serve --replicas 2`` and ``--pack`` with a promoted
+    push and a corrupt push rejected at parity, every request served."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from jumbo_mae_tpu_tpu_torch.cli.predict import draw_sizes, load_image, parse_mix
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+    from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine
+    from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import restore_inference_state
+
+    t_start = time.perf_counter()
+    res: dict = {}
+    ft = tmp / "ft" / "finetune_vit_b16" / "ckpt"
+    mae16 = tmp / "b16" / "pretrain_vit_b16_in1k_1600ep" / "ckpt"
+    files = sorted(str(p) for p in (tmp / "serve" / "images").glob("*.png"))
+    check(len(files) == SERVE_IMAGES, f"replicated: phase 19's {len(files)} files")
+    cfg = load_config(HERE / FT_RECIPE)
+    ratio = cfg.data.test_crop_ratio
+    images = np.stack([load_image(f, 224, ratio) for f in files])
+
+    # ---- 1. the ladder captured, bucket 64 first (its pool growth is its own pool)
+    eng = InferenceEngine(cfg, ckpt=str(ft), max_batch=64)
+    fa.LAUNCHES = 0
+    captures = eng.warmup(("logits",), buckets=(64, 32, 16, 8, 4, 2, 1), workers=1)
+    gs = eng.graph_stats()
+    check(captures == 7 and fa.LAUNCHES == 12 * 2 * 7,
+          f"replicated: warmup made {captures} captures and {fa.LAUNCHES} K1 (want 7 and 12 x 2 x 7)")
+    check(all(v["launches"] == {"LAUNCHES": 12} for v in gs.values()), f"replicated: launches a replay {gs}")
+    res["capture"] = {k: {x: v[x] for x in ("first_run_s", "capture_s", "pool_bytes")} for k, v in gs.items()}
+    res["warmup_s"] = eng.warmup_s
+    log(f"replicated: the logits ladder captured in {eng.warmup_s:.3f} s (the model's build included): "
+        + ", ".join(f"{k} first run {v['first_run_s'] * 1e3:.1f} ms, capture {v['capture_s'] * 1e3:.1f} ms, "
+                    f"pool +{v['pool_bytes'] / 2**20:.1f} MiB" for k, v in gs.items()) + f", on {smi}")
+
+    # ---- 2. graph against eager: the same upload and fetch, buckets 1, 8, 64
+    model = eng.model("logits")
+
+    def eager(batch):
+        with torch.inference_mode():
+            x = torch.from_numpy(batch).cuda()
+            return model(normalize_images(x, dtype=eng._enc.compute_dtype)).float().cpu().numpy()
+
+    res["ladder"] = {}
+    for b in (1, 8, 64):
+        batch = images[:b]
+        fa.LAUNCHES, eng.dispatches = 0, 0
+        g = eng.logits(batch)
+        k1 = fa.LAUNCHES
+        check(eng.dispatches == 1 and k1 == 12, f"replicated: bucket {b} made {k1} K1 in {eng.dispatches} dispatches")
+        e = eager(batch)
+        rel = float(np.linalg.norm(g - e) / np.linalg.norm(e))
+        top1 = bool(np.array_equal(g.argmax(-1), e.argmax(-1)))
+        check(rel <= 1e-2 and top1, f"replicated: graph against eager at bucket {b}: relative error {rel:.3e}")
+        ms = timed_alternating({"graph": lambda: eng.logits(batch), "eager": lambda: eager(batch)}, 20)
+        res["ladder"][b] = {**ms, "rel_err": rel, "bit_equal": bool(np.array_equal(g, e)), "k1": k1}
+        log(f"replicated: bucket {b}: graph {ms['graph']:.3f} ms a dispatch, eager {ms['eager']:.3f} ms (upload, "
+            f"forward, fetch; medians of 20 in turns), {b / ms['graph'] * 1e3:.1f} images/s; graph against eager "
+            f"relative error {rel:.3e}, bit-equal {np.array_equal(g, e)}, top-1 identical; {k1} K1, on {smi}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.logits(images[:64])
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    traced = sum(1 for n in names if "flash_fwd" in n)
+    check(traced == 12, f"replicated: a bucket-64 replay's trace shows the K1 kernel {traced} times")
+    res["trace_k1"] = traced
+    log(f"replicated: torch.profiler trace of one bucket-64 replay: {traced} K1 kernels "
+        f"({sorted({n for n in names if 'flash' in n})}), {len(names)} device events")
+
+    # ---- 3. compile counts flat: 50 requests, then a swap and its rollback
+    counts = dict(eng.compile_counts)
+    rng = np.random.default_rng(20)
+    fa.LAUNCHES, eng.dispatches = 0, 0
+    for n in rng.integers(1, 65, 50):
+        eng.logits(images[:n])
+    check(eng.compile_counts == counts and fa.LAUNCHES == 12 * eng.dispatches == 12 * 50,
+          f"replicated: 50 requests captured {eng.compile_counts} (was {counts}), {fa.LAUNCHES} K1")
+    before = eng.logits(images)
+    snap = eng.swap_weights(*restore_inference_state(mae16), ckpt=str(mae16))
+    swapped = eng.logits(images)
+    eng.restore_snapshot(snap)
+    back = eng.logits(images)
+    check(eng.compile_counts == counts, f"replicated: the swap captured {eng.compile_counts}")
+    check(not np.array_equal(swapped, before) and np.array_equal(back, before),
+          "replicated: the swap did not serve the new tree, or the rollback is not bit-equal")
+    log(f"replicated: 50 requests (sizes 1-64) and a swap to phase 15's MAE encoder + rollback made no capture "
+        f"({sum(counts.values())} graphs); the swap moved the logits, the rollback bit-equal to before")
+
+    # ---- 4. the packed mix: parity, pad, ms a dispatch
+    sizes = draw_sizes(parse_mix(PACK_MIX), len(files), np.random.RandomState(0))
+    pim = [load_image(f, s, ratio) for f, s in zip(files, sizes)]
+    lengths = [eng.seq_len(s) for s in sizes]
+    fa.LAUNCHES = 0
+    par_f = eng.packed_parity(pim, "features")
+    par_l = eng.packed_parity(pim, "logits")
+    k1_parity = fa.LAUNCHES
+    pg = eng.graph_stats()
+    no_k1 = all(not v["launches"] for k, v in pg.items() if ".packed:" in k or ".embed@" in k)
+    check(no_k1 and all(v["launches"] == {"LAUNCHES": 12} for k, v in pg.items() if ".full:" in k),
+          f"replicated: K1 in the packed path's graphs {pg}")
+    check(par_f["feature_cosine_min"] >= 0.999 and par_l["logits_top1_agree"] == 1.0,
+          f"replicated: packed parity features {par_f['feature_cosine_min']}, logits {par_l['logits_top1_agree']}")
+    # one scheduler group: the requests whose tokens fill a 4096 budget
+    group, tok = [], 0
+    for im, n in zip(pim, lengths):
+        if tok + n <= 4096:
+            group.append(im)
+            tok += n
+    fa.LAUNCHES = 0
+    eng.predict_packed(group, "logits")
+    bd = eng.last_breakdown()
+    k1_packed = fa.LAUNCHES
+    check(k1_packed == 0, f"replicated: a packed dispatch launched K1 {k1_packed} times")
+
+    def unpacked():  # the image-bucketed path: one dispatch per resolution
+        by = {}
+        for im in group:
+            by.setdefault(im.shape[0], []).append(im)
+        for res_ims in by.values():
+            eng._reset_breakdown()
+            eng._per_resolution(res_ims, "logits.full:cls")
+
+    unpacked()
+    ms = timed_alternating({"packed": lambda: eng.predict_packed(group, "logits"), "by_resolution": unpacked}, 10)
+    f32 = InferenceEngine(cfg, ckpt=str(ft), max_batch=64, dtype="float32")
+    par32 = f32.packed_parity(pim, ["logits", "features"] * (len(pim) // 2))
+    check(par32["logits_top1_agree"] == 1.0 and par32["feature_cosine_min"] >= 0.999999,
+          f"replicated: float32 packed parity {par32['logits_top1_agree']}, {par32['feature_cosine_min']}")
+    res["packed"] = {"sizes": {s: sizes.count(s) for s in sorted(set(sizes))}, "tokens": sorted(set(lengths)),
+                     "cosine_min": par_f["feature_cosine_min"], "top1": par_l["logits_top1_agree"],
+                     "f32_top1": par32["logits_top1_agree"], "f32_cosine_min": par32["feature_cosine_min"],
+                     "group": len(group), "group_tokens": tok, "budget": bd["bucket"],
+                     "pad_fraction": bd["pad_fraction"], **{f"{k}_ms": v for k, v in ms.items()},
+                     "k1_parity": k1_parity, "k1_packed": k1_packed}
+    log(f"replicated: packed mix {res['packed']['sizes']} ({sorted(set(lengths))} tokens) of {len(pim)} files: "
+        f"parity bf16 cosine_min {par_f['feature_cosine_min']:.6f}, top-1 {par_l['logits_top1_agree']:.4f}; f32 "
+        f"top-1 {par32['logits_top1_agree']}, cosine_min {par32['feature_cosine_min']:.8f}; a {len(group)}-request "
+        f"group ({tok} tokens) in a {bd['bucket']}-token rung, token pad {bd['pad_fraction']:.4f}, "
+        f"{ms['packed']:.3f} ms a packed dispatch (embeds included) against {ms['by_resolution']:.3f} ms by "
+        f"resolution; K1 0 in packed and embed graphs, 12 in each parity forward, on {smi}")
+    del eng, model, f32
+
+    # ---- 5. through the CLI: --serve --replicas 2, then --pack with pushes
+    base = ["--config", str(HERE / FT_RECIPE), "--ckpt", str(ft), "--images", *files, "--max-batch", "64",
+            "--task", "logits", "--serve", "--replicas", "2", "--warmup"]
+    r = cli_predict_pool(fa, [*base, "--out", str(tmp / "serve" / "pool.npz")])
+    engines = r["engines"]
+    check(f"pool served {SERVE_IMAGES}/{SERVE_IMAGES} ok (0 failed)" in r["stdout"] and len(engines) == 2,
+          f"replicated: --replicas 2: {r['stdout'][-800:]}")
+    check(r["k1"] == 12 * sum(ran(e) for e in engines),
+          f"replicated: --replicas 2 made {r['k1']} K1, want 12 x {sum(ran(e) for e in engines)}")
+    direct = np.load(tmp / "serve" / "b16_logits.npz")["logits"]
+    rel = float(np.linalg.norm(r["out"]["logits"] - direct) / np.linalg.norm(direct))
+    check(rel <= 1e-2, f"replicated: the pool's logits against phase 19's direct path: {rel:.3e}")
+    res["pool"] = {"k1": r["k1"], "wall_s": r["wall_s"], "rel_err": rel,
+                   "dispatches": [e.dispatches for e in engines]}
+    log(f"replicated: cli.predict --serve --replicas 2 --warmup served {SERVE_IMAGES} files in {r['wall_s']:.2f} s "
+        f"(engines built and warmed included), {r['k1']} K1, dispatches {res['pool']['dispatches']}, against "
+        f"the direct path relative error {rel:.3e}")
+
+    watch = tmp / "push"
+    watch.mkdir()
+    staged = tmp / "staged"
+    last = ft / "last"
+    last_step = last / sorted((p.name for p in last.iterdir() if p.name.isdigit()), key=int)[-1]
+    shutil.copytree(last_step, staged / "a_last")
+    corrupt_copy(last_step, staged / "b_corrupt")
+
+    def push(read):
+        # what the watched directory holds when the watcher starts is its
+        # baseline: push as traffic starts (after the parity gate); the
+        # watcher takes both in one sweep, in name order
+        wait_for(read, "pack parity: pass=True")
+        (staged / "a_last").rename(watch / "a_last")
+        (staged / "b_corrupt").rename(watch / "b_corrupt")
+
+    r = cli_predict_pool(fa, [*base, "--pack", "--pack-resolutions", PACK_MIX, "--pack-parity-n", "16",
+                              "--max-delay-ms", "100", "--interarrival-ms", "60", "--swap-watch", str(watch),
+                              "--swap-poll-s", "0.1", "--swap-canary-requests", "4", "--swap-canary-timeout-s", "10",
+                              "--out", str(tmp / "serve" / "packed.npz")], beside=push)
+    out = r["stdout"]
+    lines = [x for x in out.splitlines() if "swap " in x or "pack " in x or "pool served" in x]
+    check(f"pool served {SERVE_IMAGES}/{SERVE_IMAGES} ok (0 failed)" in out and "pack parity: pass=True" in out,
+          f"replicated: --pack: {out[-1500:]}")
+    check("swap a_last: verdict=promoted stage=promote" in out, f"replicated: the push was not promoted: {lines}")
+    check("swap b_corrupt: verdict=rolled_back stage=parity" in out, f"replicated: the corrupt push: {lines}")
+    packed_k1 = {k: v["launches"] for e in r["engines"] for k, v in e.graph_stats().items() if ".packed:" in k}
+    check(packed_k1 and not any(packed_k1.values()), f"replicated: packed graphs' launches {packed_k1}")
+    check(r["out"]["logits"].shape == (SERVE_IMAGES, 1000) and bool(np.isfinite(r["out"]["logits"]).all()),
+          "replicated: the packed logits")
+    res["pack_cli"] = {"k1": r["k1"], "wall_s": r["wall_s"], "lines": lines,
+                       "graphs": sorted({k for e in r["engines"] for k in e.graph_stats()})}
+    log(f"replicated: cli.predict --replicas 2 --pack {PACK_MIX} with two pushes: " + "; ".join(lines)
+        + f"; {r['k1']} K1 in {r['wall_s']:.2f} s; graphs {res['pack_cli']['graphs']}")
+    res["seconds"] = time.perf_counter() - t_start
+    res["k1"] = res["pool"]["k1"] + r["k1"]
+    log(f"replicated: phase 20 in {res['seconds']:.1f} s")
     return res
 
 
@@ -2426,8 +2738,10 @@ def main() -> None:
         # the saves of phases 13, 16 and 17, served before their directory goes
         served = phase_serve_saves(fa, smi, tmp, driver["urls"])
         t5 = time.perf_counter()
+        replicated = phase_replicated(fa, smi, tmp, driver["urls"])
+        t6 = time.perf_counter()
         log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
-            f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}; phases 1-14 took {t0 - t_start:.1f}")
+            f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}, phase 20 {t6 - t5:.1f}; phases 1-14 took {t0 - t_start:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
@@ -2446,6 +2760,7 @@ def main() -> None:
                 "linear": {k: v for k, v in linear.items() if k != "counts"}, "toy_proof": toy}
     log(f"classify paths: {json.dumps(classify)} on {smi}")
     log(f"serving from the saves: {json.dumps({k: v for k, v in served.items() if k != 'buckets'})} on {smi}")
+    log(f"the replicated serving tier: {json.dumps(replicated)} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -2474,7 +2789,8 @@ def main() -> None:
             "cli_launches": driver["counts"][key],
             "finetune_launches": finetune["counts"][key],
             "linear_launches": linear["counts"][key],
-            **({"serve_launches": served["serve_launches"]} if key == "K1" else {}),
+            **({"serve_launches": served["serve_launches"], "replicated_launches": replicated["k1"]}
+               if key == "K1" else {}),
             "max_abs_err": err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -1,5 +1,8 @@
-"""Serving: the inference engine (``infer/engine.py``), int8 weights
-(``infer/quant.py``) and the micro-batcher (``infer/batching.py``)."""
+"""Serving: the inference engine (``infer/engine.py``, a CUDA graph per
+(task, bucket)), int8 weights (``infer/quant.py``), the micro-batcher
+(``infer/batching.py``), token packing (``infer/packing.py``) and the
+supervised replica pool with its weight-swap controller
+(``infer/replicaset.py``)."""
 
 from jumbo_mae_tpu_tpu_torch.infer.batching import (
     DeadlineExceededError,
@@ -21,16 +24,26 @@ from jumbo_mae_tpu_tpu_torch.infer.quant import (
     parity_report,
     quantize_params,
 )
+from jumbo_mae_tpu_tpu_torch.infer.replicaset import (
+    PoolUnhealthyError,
+    ReplicaSet,
+    RetriesExhaustedError,
+    WeightSwapController,
+)
 
 __all__ = [
     "DeadlineExceededError",
     "InferenceEngine",
     "MicroBatcher",
     "OversizedBatchError",
+    "PoolUnhealthyError",
     "QuantizedTensor",
     "QueueFullError",
+    "ReplicaSet",
     "ResolutionMismatchError",
+    "RetriesExhaustedError",
     "ShutdownError",
+    "WeightSwapController",
     "bucket_for",
     "parity_report",
     "pow2_rungs",

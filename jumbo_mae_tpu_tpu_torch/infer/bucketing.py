@@ -1,9 +1,11 @@
 """The serving bucket ladder.
 
-A copy of the part of ``jumbo_mae_tpu_tpu/infer/bucketing.py`` that the
-engine uses: requests pad up to a power-of-two bucket capped at
-``max_batch``, so the number of distinct batch shapes the model sees is
-log2(max_batch)+1, not one per request size.
+A copy of ``jumbo_mae_tpu_tpu/infer/bucketing.py``: requests pad up to a
+power-of-two bucket capped at ``max_batch``, so the number of distinct
+batch shapes the model sees is log2(max_batch)+1, not one per request
+size. The packed path buckets its rows and segment slots with
+:func:`ceil_pow2`; the continuous scheduler aligns partial batches with
+:func:`floor_bucket`.
 """
 
 from __future__ import annotations
@@ -31,6 +33,29 @@ def bucket_for(n: int, max_batch: int) -> int:
     while b < n:
         b <<= 1
     return min(b, max_batch)
+
+
+def floor_bucket(k: int, max_batch: int) -> int:
+    """Largest pad bucket <= ``k``: a batch of exactly this size runs with
+    no pad rows."""
+    if k >= max_batch:
+        return max_batch
+    b = 1
+    while b * 2 <= k:
+        b *= 2
+    return b
+
+
+def ceil_pow2(n: int) -> int:
+    """Smallest power of two >= ``n``, with no cap: the packed path's row
+    and segment-slot counts bucket this way, so the distinct packed shapes
+    stay logarithmic."""
+    if n <= 0:
+        raise ValueError(f"need a positive count, got {n}")
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
 
 
 def pow2_rungs(max_value: int) -> tuple[int, ...]:

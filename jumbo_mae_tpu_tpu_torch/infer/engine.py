@@ -1,9 +1,9 @@
 """The batched inference engine: restore a recipe's save once, serve
-bucket-padded forwards.
+bucket-padded forwards, one CUDA graph per (task, bucket).
 
-Counterpart of ``jumbo_mae_tpu_tpu/infer/engine.py`` without the
-token-packed path, the warm cache, the metrics and the publisher (ROADMAP
-A5, A7). The contracts kept from the JAX engine:
+Counterpart of ``jumbo_mae_tpu_tpu/infer/engine.py`` without the warm
+cache, the metrics and the publisher (ROADMAP A5, A7). The contracts kept
+from the JAX engine:
 
 - **Restore once.** ``ckpt`` is read a single time per process through
   :func:`~jumbo_mae_tpu_tpu_torch.train.checkpoint.restore_inference_state`
@@ -25,15 +25,51 @@ A5, A7). The contracts kept from the JAX engine:
   dequantization), so a pad row cannot change a valid row; valid rows
   are sliced on the host and callers never see padding.
 - **Outputs are float32** numpy arrays, whatever the compute dtype.
-- **First runs.** The JAX engine compiles one executable per (task,
-  bucket); here a "compile" is the first run of a (task, bucket), counted
-  in ``compile_counts``. That first run builds the kernels the task
-  launches (``nvcc`` and the library load, at first use), so after
-  :meth:`InferenceEngine.warmup` a request never waits on a build.
-- **Hot swap.** :meth:`InferenceEngine.swap_weights` builds new task
-  models aside and swaps the task dict under the lock: a request serves
-  entirely old or entirely new weights, and live parameters are never
-  written in place. :meth:`InferenceEngine.restore_snapshot` rolls back.
+- **One executable per (task key, bucket): a captured CUDA graph.** The
+  JAX engine compiles one executable per key and counts compiles in
+  ``compile_counts``. Here, on ``"cuda"``, the first dispatch of a key
+  runs its forward eagerly once on the capture stream (the kernels'
+  ``nvcc`` builds, cuBLAS handles and workspaces, the tensor-map entry
+  point, the normalization and positional tables all come into being
+  there), then captures it into a ``torch.cuda.CUDAGraph`` over static
+  input buffers allocated outside the graph. Each capture adds one to
+  ``compile_counts[key]`` and calls ``on_compile(task_key, bucket)``.
+  Every dispatch, the first included, copies its padded inputs into
+  pinned host staging, then into the static buffers, replays the graph
+  and fetches. Keys: ``features:<pool>``, ``logits``, ``reconstruct``,
+  ``reconstruct.enc``, ``reconstruct.dec``, and the packed path's
+  ``<tree>.embed@<res>``, ``<tree>.full:<pool>@<res>`` and
+  ``<tree>.packed:<pool>@r<rows>s<smax>`` (bucket: the token budget).
+  :meth:`InferenceEngine.warmup` returns the captures it made; after it
+  the request path captures nothing. A failed capture raises: the card
+  never serves the eager path. On the CPU (``device="cpu"``) the forward
+  runs eagerly and a key's first run counts as its "compile".
+- **Kernel launches under replay.** K1's wrapper counts launches in
+  Python (``ops/flash/attention.py`` ``LAUNCHES*``), and a replay runs no
+  Python. Each graph records the counters' growth while it was captured,
+  takes it back out (a capture launches nothing on the card), and adds
+  it on every replay, so the counters keep counting kernel launches on
+  the card.
+- **Concurrency.** Static buffers and the graphs' memory are shared
+  state: each engine has one memory pool for all its graphs and one
+  replay lock. A request holds the lock from its first copy-in to its
+  last fetch (every chunk of it), so two threads, two keys or a weight
+  copy never overlap on one engine; the device runs one stream, so the
+  lock costs the overlap of host copies only. The pool then holds the
+  largest graph's intermediates, not their sum. Captures of all engines
+  in the process run one at a time (a module lock) in
+  ``thread_local`` capture mode, and no dispatch synchronizes the whole
+  device, so replicas replay while another engine captures.
+- **Hot swap, zero captures.** A graph bakes in its parameters'
+  addresses, so :meth:`InferenceEngine.swap_weights` builds each built
+  task's model aside (fresh init, graft, quantization: a tree that does
+  not graft raises there, leaving the old weights live), then, under the
+  replay lock, copies the live models' weights to the host as the
+  snapshot and copies the new values into the live models' own storage.
+  :meth:`InferenceEngine.restore_snapshot` copies the snapshot back under
+  the lock, so a rollback serves bit-equal outputs to before the swap.
+  ``compile_counts`` stays flat across both; a request sees entirely old
+  or entirely new weights.
 - **int8.** ``quant="int8"`` quantizes each task's matmul weights after
   the graft (``infer/quant.py``): the card holds int8 and dequantizes on
   use.
@@ -43,12 +79,22 @@ A5, A7). The contracts kept from the JAX engine:
   the decoder width, mask, ``ids_restore``) are kept on the host in an
   N-entry LRU keyed by (image bytes, seed), optionally bounded in bytes
   too; repeats pay only the decoder.
+- **Token-packed serving.** :meth:`InferenceEngine.predict_packed` serves
+  square, patch-aligned images of mixed resolutions (non-native ones
+  need ``posemb="sincos2d"``) and the encoder-sharing tasks in one
+  dispatch: per-resolution patch embedding, a deterministic
+  first-fit-decreasing pack into a power-of-two token-budget rung
+  (``infer/packing.py``), one packed forward whose attention is masked
+  block-diagonally per segment. Masked attention runs on the einsum
+  path, as in the JAX package (the kernels take no mask).
+  :meth:`InferenceEngine.packed_parity` holds it against the unpacked
+  forward at each request's resolution.
 
 The shared-mode mask of ``reconstruct`` comes from
 :func:`reconstruct_noise`: host noise from ``torch.Generator("cpu")``
-seeded with ``seed``, so the card and the CPU mask alike. The JAX engine
-draws from ``jax.random.key(seed)``, which torch cannot reproduce: one
-seed gives another mask in the two packages.
+seeded with ``seed``, a static input of the graph, so the card and the
+CPU mask alike. The JAX engine draws from ``jax.random.key(seed)``, which
+torch cannot reproduce: one seed gives another mask in the two packages.
 
 The label count of ``logits`` is ``labels=``, else the recipe's
 ``model.overrides.labels``, else, for a finetune or linear recipe, the
@@ -63,21 +109,25 @@ unless ``device="cpu"`` is passed.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import threading
 import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable
 
 import numpy as np
 import torch
 
 from jumbo_mae_tpu_tpu_torch.config import TrainConfig
-from jumbo_mae_tpu_tpu_torch.infer.bucketing import OversizedBatchError, bucket_for, pow2_rungs
+from jumbo_mae_tpu_tpu_torch.infer import packing
+from jumbo_mae_tpu_tpu_torch.infer.bucketing import OversizedBatchError, bucket_for, ceil_pow2, pow2_rungs
 from jumbo_mae_tpu_tpu_torch.infer.quant import quantize_module
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, preset
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
 from jumbo_mae_tpu_tpu_torch.models.vit import JumboViT, pool_tokens
+from jumbo_mae_tpu_tpu_torch.ops.flash import attention as flash
 from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import (
     ENCODER_KEYS,
@@ -89,15 +139,27 @@ from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
 
 POOLS = ("cls", "gap", "tokens")
 
+# the kernel launch counters of ops/flash/attention.py, kept true under replay
+LAUNCH_COUNTERS = ("LAUNCHES", "LAUNCHES_WITH_LSE", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV")
+_COUNTS_LOCK = threading.Lock()
+# one capture at a time in the process: a capture's eager first run and
+# its capture never overlap another engine's
+_CAPTURE_LOCK = threading.Lock()
+
 
 class ResolutionMismatchError(ValueError):
     """Input resolution differs from the engine's native square size.
+    Typed so a scheduler or router can send the request to the
+    token-packed path, which takes any patch-aligned resolution.
     ``expected`` is that size; ``got`` the offending (H, W)."""
 
     def __init__(self, expected: int, got: tuple[int, int]):
         self.expected = int(expected)
         self.got = (int(got[0]), int(got[1]))
-        super().__init__(f"engine serves {expected}px inputs, got {got[0]}x{got[1]} — resize upstream")
+        super().__init__(
+            f"engine serves {expected}px inputs, got {got[0]}x{got[1]} — resize upstream or route to the "
+            "token-packed path (predict_packed)"
+        )
 
 
 def reconstruct_noise(seed: int, num_patches: int) -> torch.Tensor:
@@ -135,6 +197,61 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _launch_counts() -> dict[str, int]:
+    return {name: getattr(flash, name) for name in LAUNCH_COUNTERS}
+
+
+def _add_launches(delta: dict[str, int], sign: int = 1) -> None:
+    with _COUNTS_LOCK:
+        for name, d in delta.items():
+            if d:
+                setattr(flash, name, getattr(flash, name) + sign * d)
+
+
+def _weights(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The tensors a forward reads and a swap replaces: parameters and
+    persistent buffers (int8 weights and scales, BatchNorm statistics)."""
+    return model.state_dict(keep_vars=True)
+
+
+@torch.no_grad()
+def _copy_weights(live: torch.nn.Module, new: dict[str, torch.Tensor]) -> None:
+    """``new``'s values into ``live``'s own storage (the addresses its
+    graphs read)."""
+    for name, t in _weights(live).items():
+        t.copy_(new[name])
+
+
+class _Graph:
+    """One captured (task key, bucket): the graph, its static inputs (and
+    their pinned host staging), its outputs, the launch-counter growth
+    one replay stands for, the model whose storage it reads, and what it
+    cost: the eager first run's and the capture's seconds, and the bytes
+    the engine's pool grew by."""
+
+    def __init__(self, graph, pinned, static, outputs, launches, model, first_run_s, capture_s, pool_bytes):
+        self.graph = graph
+        self.pinned = pinned
+        self.static = static
+        self.outputs = outputs
+        self.launches = launches
+        self.model = model
+        self.first_run_s = first_run_s
+        self.capture_s = capture_s
+        self.pool_bytes = pool_bytes
+
+    def run(self, host: tuple[torch.Tensor, ...]):
+        """Copy in, replay, wait for the stream. The caller holds the
+        engine's replay lock until it has fetched the outputs."""
+        for pin, dev, t in zip(self.pinned, self.static, host):
+            pin.copy_(t)
+            dev.copy_(pin, non_blocking=True)
+        self.graph.replay()
+        _add_launches(self.launches)
+        torch.cuda.current_stream(self.static[0].device).synchronize()
+        return self.outputs
+
+
 class InferenceEngine:
     """Restore a recipe's checkpoint once; serve bucket-batched forwards.
 
@@ -146,7 +263,9 @@ class InferenceEngine:
     "linear"``) shape the ``logits`` head. ``quant="int8"`` serves the
     weight-only quantized forward. ``encoder_cache`` /
     ``encoder_cache_bytes`` bound the reconstruction encoder's LRU
-    (shared mask mode only)."""
+    (shared mask mode only). ``max_tokens`` tops the packed path's
+    token-budget rungs. ``on_compile(task_key, bucket)`` is called at
+    every capture (every first run on the CPU)."""
 
     def __init__(
         self,
@@ -155,11 +274,13 @@ class InferenceEngine:
         ckpt: str = "",
         dtype: str | None = None,
         max_batch: int = 64,
+        max_tokens: int = 4096,
         labels: int | None = None,
         batch_norm: bool | None = None,
         quant: str | None = None,
         encoder_cache: int = 0,
         encoder_cache_bytes: int = 0,
+        on_compile: Callable[[str, int], None] | None = None,
         device: str | torch.device = "cuda",
     ):
         if max_batch < 1:
@@ -169,6 +290,9 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_batch = int(max_batch)
+        # the packed path's rung ceiling (4096 covers 896 px at patch 16)
+        self.max_tokens = int(max_tokens)
+        self.on_compile = on_compile
         m = cfg.model
         overrides = dict(m.overrides)
         if dtype is not None:
@@ -226,11 +350,14 @@ class InferenceEngine:
         self.build_s: dict[str, float] = {}
         self._tasks: dict[str, dict] = {}  # task -> {"model"}
         self.compile_counts: dict[tuple[str, int], int] = {}
+        self._graphs: dict[tuple[str, int], _Graph] = {}
+        self._pool = None  # the graphs' shared memory pool, made at the first capture
+        self._capture_stream: torch.cuda.Stream | None = None
         self.dispatches = 0  # device calls made, one per padded bucket
         self.warmup_s = 0.0
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()  # the task dict and the restored tree
+        self._replay_lock = threading.RLock()  # a request's device work, a weight copy
         self._count_lock = threading.Lock()
-        self._key_locks: dict[tuple[str, int], threading.Lock] = {}
         self._tls = threading.local()
 
     # ---------------------------------------------------------------- tasks
@@ -322,44 +449,62 @@ class InferenceEngine:
 
     def swap_weights(self, params: dict, batch_stats: dict | None = None, *, ckpt: str = "") -> dict:
         """Serve a new tree (``state_dict`` names → tensors, as
-        :func:`restore_inference_state` returns it): every built task is
-        rebuilt aside (fresh init, graft, quantization) and swapped in
-        under the lock, so each request serves entirely old or entirely
-        new weights. Returns a snapshot of the previous weights for
-        :meth:`restore_snapshot`; raises, leaving the old weights live,
-        when the tree does not graft."""
+        :func:`restore_inference_state` returns it). Every built task's
+        model is rebuilt aside (fresh init, graft, quantization); then,
+        under the replay lock, the live models' weights are copied to the
+        host as the snapshot and the new values into the live models' own
+        storage, so the captured graphs serve them without a capture and
+        each request serves entirely old or entirely new weights. Returns
+        the snapshot for :meth:`restore_snapshot`; raises, leaving the old
+        weights live, when the tree does not graft."""
         tree = {n: torch.as_tensor(v) for n, v in params.items()}
         stats = None if batch_stats is None else {n: torch.as_tensor(v) for n, v in batch_stats.items()}
         with self._lock:
-            snap = {"ckpt": self._ckpt, "tree": self._ckpt_tree, "stats": self._ckpt_stats,
-                    "tasks": dict(self._tasks), "load_stats": dict(self.load_stats)}
+            # a task mid-build holds this lock: it is in ``built`` or builds
+            # from the new tree
+            prev = {"ckpt": self._ckpt, "tree": self._ckpt_tree, "stats": self._ckpt_stats,
+                    "load_stats": dict(self.load_stats)}
             built = sorted(self._tasks)
             self._ckpt, self._ckpt_tree, self._ckpt_stats = str(ckpt), tree, stats
         try:
-            rebuilt = {task: self._build_task(task) for task in built}
+            fresh = {task: _weights(self._build_task(task)["model"]) for task in built}
         except BaseException:
             with self._lock:
-                self._ckpt, self._ckpt_tree, self._ckpt_stats = snap["ckpt"], snap["tree"], snap["stats"]
-                self.load_stats = snap["load_stats"]
+                self._ckpt, self._ckpt_tree, self._ckpt_stats = prev["ckpt"], prev["tree"], prev["stats"]
+                self.load_stats = prev["load_stats"]
             raise
-        with self._lock:
-            self._tasks.update(rebuilt)
+        with self._replay_lock:
+            snap = {**prev, "weights": {}}
+            for task in built:
+                live = self._tasks[task]["model"]
+                snap["weights"][task] = {n: t.detach().to("cpu", copy=True) for n, t in _weights(live).items()}
+                _copy_weights(live, fresh[task])
+            self._sync()
         self._clear_encoder_cache()  # cached encoder outputs are weight-dependent
         return snap
 
     def restore_snapshot(self, snap: dict) -> None:
-        """Reinstate a :meth:`swap_weights` snapshot (rollback). Tasks first
-        built after the swap are dropped, to rebuild from the restored
-        tree."""
-        with self._lock:
+        """Reinstate a :meth:`swap_weights` snapshot (rollback): the
+        snapshot's weights are copied back into the live models under the
+        replay lock, so the graphs serve bit-equal outputs to before the
+        swap. Tasks first built after the swap are dropped, with their
+        graphs, to rebuild from the restored tree."""
+        with self._replay_lock, self._lock:
             self._ckpt, self._ckpt_tree, self._ckpt_stats = snap["ckpt"], snap["tree"], snap["stats"]
             self.load_stats = dict(snap["load_stats"])
             for task in list(self._tasks):
-                if task in snap["tasks"]:
-                    self._tasks[task] = snap["tasks"][task]
+                if task in snap["weights"]:
+                    _copy_weights(self._tasks[task]["model"], snap["weights"][task])
                 else:
                     del self._tasks[task]
+                    for key in [k for k in self._graphs if self._base_task(k[0]) == task]:
+                        del self._graphs[key]
+            self._sync()
         self._clear_encoder_cache()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _clear_encoder_cache(self) -> None:
         with self._enc_cache_lock:
@@ -372,28 +517,46 @@ class InferenceEngine:
     def _task_key(task: str, pool: str | None) -> str:
         return f"{task}:{pool}" if pool else task
 
-    def _upload(self, x) -> torch.Tensor:
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
-        return x.to(self.device)
+    @staticmethod
+    def _base_task(task: str) -> str:
+        """The task whose model a key runs: ``reconstruct.enc`` and the
+        packed keys (``features.packed:cls@r1s4``) share their base's."""
+        return task.split(".", 1)[0]
 
-    def _forward(self, task: str, pool: str | None, model, args):
-        """One padded bucket through ``task``'s model, on the device."""
+    def _host_args(self, task: str, model, args) -> tuple[torch.Tensor, ...]:
+        """A dispatch's inputs as host tensors, the graph's static inputs:
+        a reconstruction's seed becomes its mask noise."""
+        if task in ("reconstruct", "reconstruct.enc"):
+            images, seed = args
+            args = (images, reconstruct_noise(seed, model.encoder_cfg.num_patches))
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray) else a for a in args)
+
+    def _forward(self, task: str, pool: str | None, model, x: tuple[torch.Tensor, ...]):
+        """One padded bucket through ``task``'s model, its inputs already on
+        the device. Nothing here syncs the host: it is what a graph
+        captures."""
+        dt = self._enc.compute_dtype
         if task in ("features", "logits"):
-            (images,) = args
-            x = normalize_images(self._upload(images), dtype=self._enc.compute_dtype)
+            (images,) = x
+            h = normalize_images(images, dtype=dt)
             if task == "logits":
-                return model(x).float()
-            tokens = model.encode(x)
+                return model(h).float()
+            tokens = model.encode(h)
             out = tokens if pool == "tokens" else pool_tokens(tokens, self._enc.num_cls_tokens, pool)
             return out.float()
+        if ".embed@" in task:
+            (images,) = x
+            return model.embed_patches(normalize_images(images, dtype=dt)).float()
+        if ".full:" in task:
+            (images,) = x
+            return model.serve_full(normalize_images(images, dtype=dt), pooling=task.split(".full:", 1)[1].split("@")[0])
+        if ".packed:" in task:
+            return model.serve_packed(*x, pooling=task.split(".packed:", 1)[1].split("@")[0])
         if task == "reconstruct.dec":
-            tokens, mask, ids = args
-            pred = model.mae_decode(self._upload(tokens), self._upload(ids).long())
-            return {"reconstruction": pred.float(), "mask": mask}
-        images, seed = args
-        noise = reconstruct_noise(seed, model.encoder_cfg.num_patches)
-        tokens, mask, ids = model.mae_encode(self._upload(images), mask_noise=noise)
+            tokens, mask, ids = x
+            return {"reconstruction": model.mae_decode(tokens, ids.long()).float(), "mask": mask}
+        images, noise = x
+        tokens, mask, ids = model.mae_encode(images, mask_noise=noise)
         if task == "reconstruct":
             return {"reconstruction": model.mae_decode(tokens, ids).float(), "mask": mask.float()}
         # reconstruct.enc: shared mode's one permutation, materialized per
@@ -401,42 +564,103 @@ class InferenceEngine:
         ids = ids.expand(images.shape[0], -1) if ids.dim() == 1 else ids
         return {"tokens": tokens, "mask": mask.float(), "ids": ids.int()}
 
-    def _execute(self, task: str, pool: str | None, args, n: int):
-        """Run and fetch one bucket; returns ``(rows, compute_s, fetch_s)``."""
-        model = self._task(task.split(".", 1)[0])["model"]
+    def _capture(self, key: tuple[str, int], task: str, pool: str | None, model, host) -> _Graph:
+        """The first dispatch of ``key`` on the card: the forward once
+        eagerly on the capture stream, then captured over static inputs
+        into the engine's pool. Raises when anything fails: there is no
+        eager fallback on the card."""
+        dev = self.device
+        pinned = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in host)
+        static = tuple(torch.empty(t.shape, dtype=t.dtype, device=dev) for t in host)
+        with _CAPTURE_LOCK:
+            if self._capture_stream is None:
+                self._capture_stream = torch.cuda.Stream(dev)
+                self._pool = torch.cuda.graph_pool_handle()
+            stream = self._capture_stream
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream), torch.inference_mode():
+                for pin, d, t in zip(pinned, static, host):
+                    pin.copy_(t)
+                    d.copy_(pin, non_blocking=True)
+                t0 = time.perf_counter()
+                self._forward(task, pool, model, static)  # the eager first run
+                stream.synchronize()
+                first_run_s = time.perf_counter() - t0
+                before, reserved = _launch_counts(), torch.cuda.memory_reserved(dev)
+                graph = torch.cuda.CUDAGraph()
+                t0 = time.perf_counter()
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                try:
+                    outputs = self._forward(task, pool, model, static)
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+                capture_s = time.perf_counter() - t0
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            after = _launch_counts()
+            launches = {n: after[n] - before[n] for n in LAUNCH_COUNTERS}
+            _add_launches(launches, -1)  # a capture launches nothing on the card
+            pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        g = _Graph(graph, pinned, static, outputs, launches, model, first_run_s, capture_s, pool_bytes)
+        self._graphs[key] = g
+        return g
+
+    def _execute(self, key: tuple[str, int], task: str, pool: str | None, args, n: int):
+        """Run and fetch one bucket; returns ``(rows, compute_s, fetch_s)``.
+        On the card: replay ``key``'s graph, capturing it first."""
+        model = self._task(self._base_task(task))["model"]
+        host = self._host_args(task, model, args)
         with self._count_lock:
             self.dispatches += 1
-        with torch.inference_mode():
+        if self.device.type == "cuda":
+            g = self._graphs.get(key)
+            if g is None:
+                g = self._capture(key, task, pool, model, host)
+                self._compiled(key)
             t0 = time.perf_counter()
-            out = self._forward(task, pool, model, args)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            t1 = time.perf_counter()
-            out = _fetch(out, n, numpy=task != "reconstruct.enc")
+            out = g.run(host)
+        else:
+            first = key not in self.compile_counts
+            with torch.inference_mode():
+                t0 = time.perf_counter()
+                out = self._forward(task, pool, model, host)
+            if first:
+                self._compiled(key)
+        t1 = time.perf_counter()
+        out = _fetch(out, n, numpy=task != "reconstruct.enc")
         return out, t1 - t0, time.perf_counter() - t1
 
-    def _compile_lock(self, key: tuple[str, int]) -> threading.Lock:
-        with self._lock:
-            return self._key_locks.setdefault(key, threading.Lock())
+    def _compiled(self, key: tuple[str, int]) -> None:
+        self.compile_counts[key] = self.compile_counts.get(key, 0) + 1
+        if self.on_compile is not None:
+            self.on_compile(*key)
 
     def _dispatch(self, task: str, pool: str | None, bucket: int, args, n: int):
-        """One padded bucket; the first run of a (task, bucket) holds its
-        lock and counts in ``compile_counts``."""
+        """One padded bucket under the replay lock (the task is built
+        before it is taken)."""
         key = (self._task_key(task, pool), bucket)
-        if key not in self.compile_counts:
-            self._task(task.split(".", 1)[0])  # built outside the key lock
-            with self._compile_lock(key):
-                if key not in self.compile_counts:
-                    res = self._execute(task, pool, args, n)
-                    self.compile_counts[key] = 1
-                    return res
-        return self._execute(task, pool, args, n)
+        self._task(self._base_task(task))
+        with self._replay_lock:
+            return self._execute(key, task, pool, args, n)
 
     def dispatch(self, task: str, images, *, pool: str | None = None) -> np.ndarray:
         """Run one already-padded bucket of ``features`` or ``logits``
         (uint8 NHWC, len <= max_batch) and return every row."""
         images = np.asarray(images)
         return self._dispatch(task, pool, images.shape[0], (images,), images.shape[0])[0]
+
+    def graph_stats(self) -> dict[str, dict]:
+        """Per captured key (``"<task key>/b<bucket>"``): the seconds of its
+        eager first run and of its capture, the pool's growth in bytes at
+        its capture (the memory the graph added to the engine's shared
+        pool) and the launches one replay stands for."""
+        return {
+            f"{k[0]}/b{k[1]}": {"first_run_s": g.first_run_s, "capture_s": g.capture_s, "pool_bytes": g.pool_bytes,
+                                 "launches": {n: d for n, d in g.launches.items() if d}}
+            for k, g in self._graphs.items()
+        }
 
     def _record(self, bucket: int, n: int, compute_s: float, fetch_s: float) -> None:
         bd = self._tls.bd
@@ -477,7 +701,9 @@ class InferenceEngine:
 
     def last_breakdown(self) -> dict | None:
         """The compute/fetch/bucket/pad breakdown of the most recent predict
-        on the calling thread (``None`` before any)."""
+        on the calling thread (``None`` before any). After
+        :meth:`predict_packed`, ``bucket`` is the token budget and
+        ``pad_fraction`` the packed dispatch's token pad."""
         bd = getattr(self._tls, "bd", None)
         if bd is None:
             return None
@@ -512,13 +738,12 @@ class InferenceEngine:
         buckets: tuple[int, ...] | None = None,
         workers: int | None = None,
     ) -> int:
-        """Run every (task, bucket) the workload will hit once, on zeros, so
-        no request pays a first run: that first run builds the kernels the
-        task launches (``nvcc`` and the library load happen at first use).
+        """Dispatch every (task, bucket) the workload will hit once, on
+        zeros, so no request pays a capture (or, on the CPU, a first run).
         Default buckets: :func:`pow2_rungs` of ``max_batch``. Returns the
-        number of first runs made; ``warmup_s`` is the ladder's seconds.
-        The ladder runs on ``workers`` threads (default up to 4); each
-        (task, bucket) runs first exactly once."""
+        number of captures made; ``warmup_s`` is the ladder's seconds. The
+        ladder runs on ``workers`` threads (default up to 4): the task
+        builds overlap, the device work takes the replay lock in turn."""
         if buckets is None:
             buckets = pow2_rungs(self.max_batch)
         else:
@@ -542,10 +767,10 @@ class InferenceEngine:
         self.warmup_s = time.perf_counter() - t0
         return sum(self.compile_counts.values()) - before
 
-    def _warm(self, task: str, pool: str | None, bucket: int) -> None:
-        size = self.image_size
+    def _warm(self, task: str, pool: str | None, bucket: int, size: int | None = None) -> None:
+        size = size or self.image_size
         images = np.zeros((bucket, size, size, 3), np.uint8)
-        if task in ("features", "logits"):
+        if task in ("features", "logits") or ".embed@" in task or ".full:" in task:
             args: tuple = (images,)
         elif task == "reconstruct.dec":
             enc = self.model("reconstruct").encoder_cfg
@@ -560,7 +785,9 @@ class InferenceEngine:
 
     def _predict(self, task: str, images, *, pool: str | None = None, extra: tuple = ()):
         self._reset_breakdown()
-        return self._chunks(task, pool, (self._check_images(images),), extra)
+        images = self._check_images(images)
+        with self._replay_lock:
+            return self._chunks(task, pool, (images,), extra)
 
     def features(self, images, *, pool: str = "cls") -> np.ndarray:
         """Pooled (or full-token) float32 encoder features, one row per image."""
@@ -621,6 +848,10 @@ class InferenceEngine:
         a result. Duplicates within a request encode once."""
         self._reset_breakdown()
         images = self._check_images(images)
+        with self._replay_lock:
+            return self._reconstruct_cached_locked(images, seed)
+
+    def _reconstruct_cached_locked(self, images: np.ndarray, seed: int) -> dict[str, np.ndarray]:
         n = images.shape[0]
         keys = [hashlib.sha1(images[i].tobytes()).hexdigest() + f":{seed}" for i in range(n)]
         rows: list[tuple | None] = [None] * n
@@ -633,9 +864,7 @@ class InferenceEngine:
                     rows[i] = hit
                 else:
                     miss_idx.setdefault(k, []).append(i)
-        hits = n - sum(len(v) for v in miss_idx.values())
-        with self._enc_cache_lock:
-            self.encoder_cache_hits += hits
+            self.encoder_cache_hits += n - sum(len(v) for v in miss_idx.values())
             self.encoder_cache_misses += len(miss_idx)
         if miss_idx:
             miss_images = np.stack([images[idxs[0]] for idxs in miss_idx.values()])
@@ -660,7 +889,7 @@ class InferenceEngine:
         tokens, mask, ids = (torch.stack([r[j] for r in rows]) for j in range(3))
         return self._chunks("reconstruct.dec", None, (tokens, mask, ids))
 
-    # ------------------------------------------------------------- packing
+    # ------------------------------------------------- token-packed serving
 
     def seq_len(self, size: int) -> int:
         """Token count of one request at a square resolution:
@@ -674,3 +903,177 @@ class InferenceEngine:
                 "patch-aligned inputs"
             )
         return self._enc.num_cls_tokens + (size // p) ** 2
+
+    def _check_packed_request(self, imgs: list, task_list: list) -> list[int]:
+        """Validate a packed request mix; returns each request's tokens."""
+        lengths = []
+        for i, im in enumerate(imgs):
+            if im.ndim != 3 or im.shape[-1] != 3:
+                raise ValueError(f"packed request {i}: expected one (H, W, 3) uint8 image, got {im.shape}")
+            h, w = int(im.shape[0]), int(im.shape[1])
+            if h != w:
+                raise ValueError(f"packed request {i}: expected a square image, got {h}x{w}")
+            if h != self.image_size and self._enc.posemb != "sincos2d":
+                raise ValueError(
+                    f"packed request {i} is {h}px but the engine's native size is {self.image_size}px and "
+                    f"posemb={self._enc.posemb!r} is resolution-locked — serve mixed resolutions with "
+                    "posemb='sincos2d'"
+                )
+            lengths.append(self.seq_len(h))
+        bad = sorted({t for t in task_list if t not in ("features", "logits")})
+        if bad:
+            raise ValueError(f"packed serving covers the encoder-sharing tasks features/logits; got {bad}")
+        return lengths
+
+    @staticmethod
+    def _by_resolution(imgs: list) -> dict[int, list[int]]:
+        by_res: dict[int, list[int]] = {}
+        for i, im in enumerate(imgs):
+            by_res.setdefault(int(im.shape[0]), []).append(i)
+        return dict(sorted(by_res.items()))
+
+    def _per_resolution(self, imgs: list, task: str) -> list:
+        """``task`` (an embed or full key's stem, ``@<res>`` appended) over
+        the images of each resolution in image-count buckets; one output
+        row per request, in request order."""
+        out: list = [None] * len(imgs)
+        for res, idxs in self._by_resolution(imgs).items():
+            stack = np.stack([imgs[i] for i in idxs]).astype(np.uint8, copy=False)
+            for off in range(0, len(idxs), self.max_batch):
+                got = self._run(f"{task}@{res}", None, (stack[off : off + self.max_batch],))
+                for j, i_req in enumerate(idxs[off : off + self.max_batch]):
+                    out[i_req] = {k: v[j] for k, v in got.items()} if isinstance(got, dict) else got[j]
+        return out
+
+    def _embed_requests(self, imgs: list, tree_task: str) -> list[np.ndarray]:
+        """Stage one of the packed path: each request's (n_patches, dim)
+        float32 patch tokens, from per-resolution embed dispatches."""
+        return self._per_resolution(imgs, f"{tree_task}.embed")
+
+    def _packed_plan(self, lengths: list[int], max_tokens: int | None):
+        rungs = packing.budget_rungs(int(max_tokens or self.max_tokens))
+        budget, plan = packing.choose_budget(lengths, rungs)
+        return budget, plan, ceil_pow2(plan.rows), ceil_pow2(plan.max_segments)
+
+    def predict_packed(self, images, tasks="features", *, pool: str = "cls", max_tokens: int | None = None) -> list:
+        """Serve a mixed-resolution, mixed-task request list in ONE
+        token-packed dispatch instead of one padded image bucket per
+        ``(task, shape)``.
+
+        ``images``: square, patch-aligned ``(H, W, 3)`` uint8 arrays
+        (non-native sizes need ``posemb='sincos2d'``). ``tasks``: one task
+        name or one per request, from ``features``/``logits`` (when any
+        request wants logits the pack runs on the logits task's model,
+        whose encoder is the same graft). Returns one float32 row per
+        request, in request order. The packed key is
+        ``<tree>.packed:<pool>@r<rows>s<smax>`` with the token budget as
+        its bucket; ``last_breakdown()["pad_fraction"]`` is the dispatch's
+        token pad."""
+        if pool not in ("cls", "gap"):
+            raise ValueError(f"packed serving pools per segment: pool must be 'cls' or 'gap', got {pool!r}")
+        imgs = [np.asarray(im) for im in images]
+        n = len(imgs)
+        if n == 0:
+            return []
+        task_list = [tasks] * n if isinstance(tasks, str) else list(tasks)
+        if len(task_list) != n:
+            raise ValueError(f"{n} images but {len(task_list)} tasks — pass one task name or one per request")
+        lengths = self._check_packed_request(imgs, task_list)
+        tree_task = "logits" if "logits" in task_list else "features"
+        self._reset_breakdown()
+        k = self._enc.num_cls_tokens
+        budget, plan, rows_b, smax_b = self._packed_plan(lengths, max_tokens)
+        arrays = packing.build_arrays(plan, k, rows=rows_b, max_segments=smax_b)
+        with self._replay_lock:
+            buf = packing.place_tokens(plan, self._embed_requests(imgs, tree_task), k, rows=rows_b)
+            task_key = f"{tree_task}.packed:{pool}@r{rows_b}s{smax_b}"
+            args = (buf, arrays["segment_ids"], arrays["cls_pos"], arrays["cls_index"])
+            out, compute_s, fetch_s = self._dispatch(task_key, None, budget, args, rows_b)
+        # the embed stage's buckets are small beside the packed dispatch:
+        # the pad reported is the packed dispatch's, in tokens
+        bd = self._tls.bd
+        bd["compute_s"] += compute_s
+        bd["fetch_s"] += fetch_s
+        bd["bucket"] = budget
+        bd["pad_rows"] = rows_b * budget - plan.total_tokens
+        bd["bucket_rows"] = rows_b * budget
+        pooled = packing.unpack_rows(plan, out["pooled"])
+        logits = packing.unpack_rows(plan, out["logits"]) if "logits" in out else None
+        return [logits[i] if task_list[i] == "logits" else pooled[i] for i in range(n)]
+
+    def packed_parity(
+        self,
+        images,
+        tasks="features",
+        *,
+        pool: str = "cls",
+        max_tokens: int | None = None,
+        feature_cos_min: float = 0.999,
+        logits_top1_min: float = 0.98,
+    ) -> dict:
+        """Each request's packed output against the unpacked forward of the
+        same task tree at its own resolution: the packed rollout's gate
+        (feature cosine >= 0.999, logits top-1 agreement >= 0.98, as the
+        int8 gate)."""
+        imgs = [np.asarray(im) for im in images]
+        n = len(imgs)
+        task_list = [tasks] * n if isinstance(tasks, str) else list(tasks)
+        with self._replay_lock:
+            packed = self.predict_packed(imgs, task_list, pool=pool, max_tokens=max_tokens)
+            tree_task = "logits" if "logits" in task_list else "features"
+            self._reset_breakdown()
+            ref = self._per_resolution(imgs, f"{tree_task}.full:{pool}")
+        cosines: list[float] = []
+        top1: list[int] = []
+        rows = []
+        for i in range(n):
+            if task_list[i] == "logits":
+                agree = int(np.argmax(packed[i]) == np.argmax(ref[i]["logits"]))
+                top1.append(agree)
+                rows.append({"task": "logits", "top1_agree": agree})
+            else:
+                a = packed[i].ravel().astype(np.float64)
+                b = ref[i]["pooled"].ravel().astype(np.float64)
+                denom = np.linalg.norm(a) * np.linalg.norm(b)
+                cos = float(a @ b / denom) if denom else 1.0
+                cosines.append(cos)
+                rows.append({"task": "features", "cosine": round(cos, 6)})
+        cos_min = min(cosines) if cosines else None
+        top1_agree = float(np.mean(top1)) if top1 else None
+        ok = (cos_min is None or cos_min >= feature_cos_min) and (top1_agree is None or top1_agree >= logits_top1_min)
+        return {
+            "n": n,
+            "pool": pool,
+            "feature_cosine_min": cos_min,
+            "logits_top1_agree": top1_agree,
+            "feature_cos_threshold": feature_cos_min,
+            "logits_top1_threshold": logits_top1_min,
+            "pass": ok,
+            "requests": rows,
+        }
+
+    def warmup_packed(
+        self, resolutions, tasks: tuple[str, ...] = ("features",), *, pool: str = "cls", max_tokens: int | None = None
+    ) -> int:
+        """Capture the packed path of a representative resolution mix: each
+        resolution's embed graph at its image-count bucket and the packed
+        graph the mix's plan lands on. Returns the captures made."""
+        resolutions = [int(r) for r in resolutions]
+        if not resolutions:
+            return 0
+        tree_task = "logits" if "logits" in tuple(tasks) else "features"
+        budget, plan, rows_b, smax_b = self._packed_plan([self.seq_len(r) for r in resolutions], max_tokens)
+        before = sum(self.compile_counts.values())
+        t0 = time.perf_counter()
+        counts: dict[int, int] = {}
+        for r in resolutions:
+            counts[r] = counts.get(r, 0) + 1
+        for res, cnt in sorted(counts.items()):
+            self._warm(f"{tree_task}.embed@{res}", None, bucket_for(min(cnt, self.max_batch), self.max_batch), res)
+        k = self._enc.num_cls_tokens
+        arrays = packing.build_arrays(plan, k, rows=rows_b, max_segments=smax_b)
+        buf = np.zeros((rows_b, budget, self._enc.dim), np.float32)
+        self._dispatch(f"{tree_task}.packed:{pool}@r{rows_b}s{smax_b}", None, budget,
+                       (buf, arrays["segment_ids"], arrays["cls_pos"], arrays["cls_index"]), rows_b)
+        self.warmup_s = time.perf_counter() - t0
+        return sum(self.compile_counts.values()) - before

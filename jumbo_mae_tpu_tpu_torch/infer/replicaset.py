@@ -1,0 +1,1005 @@
+"""Replicated serving tier: a supervised pool of inference engine workers.
+
+Counterpart of ``jumbo_mae_tpu_tpu/infer/replicaset.py``. One engine behind
+one queue means one wedged predict or one bad checkpoint load takes the
+serving path down. :class:`ReplicaSet` runs N replicas, each an engine and
+its own micro-batching worker thread (``max_batch``/``max_delay_ms``/
+``max_queue``/deadline semantics of ``infer/batching.py``), behind a
+router that gives each request to the least-loaded healthy replica.
+
+- **Crash isolation.** A replica whose predict raises is marked down; its
+  in-flight and queued requests are requeued onto the survivors with the
+  failed replica in the request's excluded set, so a retry never lands
+  on the replica that failed it. A predict that hangs past
+  ``hang_timeout_s`` is declared hung by the supervisor, its slot
+  replaced and its requests requeued the same way; the hung thread's
+  late result loses the per-request settle race, so **every future
+  resolves exactly once** (ok, ok after retries, or a typed error). A
+  future carries its attribution: ``replica``, ``retries`` and
+  ``requeued_from`` (the replicas that failed it, comma-joined).
+- **Self-healing.** The supervisor restarts down replicas with capped
+  exponential backoff (the engine comes back through the provider), and
+  opens a breaker (:meth:`ReplicaSet.degraded`) while healthy replicas
+  are below ``quorum``; the pool keeps serving on what survives.
+- **Groups.** :meth:`ReplicaSet.submit_group` lands a group the
+  continuous scheduler shaped on one replica, which flushes it as one
+  batch, never merged with a neighbouring group.
+- **Lifecycle.** ``pause``/``resume``/``wait_idle`` (the swap
+  controller's flip window), ``scale_to`` (drain, then retire the last
+  slot), ``preempt`` (drain a replica and let the supervisor bring up a
+  new incarnation, without a failure count).
+
+:class:`WeightSwapController` promotes a new checkpoint through three
+gates and rolls back at the first failure: **parity** (the canary
+replica, paused and drained, is flipped with ``swap_weights``; its
+feature cosine against the live weights on a fixed probe must reach
+``parity_min_cosine``), **canary** (the flipped replica serves live
+traffic while an ``obs/slo.py`` burn-rate tracker watches its outcomes
+for ``canary_requests`` requests, bounded by ``canary_timeout_s``), and
+**promote** (the other replicas flipped one at a time, pause → drain →
+swap → resume, so the pool never stops serving).
+
+On one H100 the replicas share one card: each holds its own weights and
+graphs and its worker replays them, and the card runs one forward at a
+time. They give crash isolation, a place to canary a swap and rolling
+restarts, not throughput.
+
+Left out beside the JAX module (ROADMAP A7): the fault-injection sites,
+the lock watchdog, the metrics registry, the request tracer and the
+health endpoint, and the swap controller's memory-headroom gate. The
+module uses plain locks; :meth:`ReplicaSet.stats` carries the counts
+those hooks would export.
+"""
+
+from __future__ import annotations
+
+import itertools
+import queue
+import threading
+import time
+from concurrent.futures import Future
+from typing import Any, Callable
+
+import numpy as np
+
+from jumbo_mae_tpu_tpu_torch.infer.batching import (
+    DeadlineExceededError,
+    OccupancyWindow,
+    QueueFullError,
+    ShutdownError,
+)
+from jumbo_mae_tpu_tpu_torch.infer.quant import feature_cosine
+from jumbo_mae_tpu_tpu_torch.obs.slo import SLOTracker, parse_slo
+
+_STOP = object()
+
+
+class PoolUnhealthyError(RuntimeError):
+    """No healthy replica can take (or retry) a request."""
+
+
+class RetriesExhaustedError(RuntimeError):
+    """A request was requeued off failing replicas more than
+    ``max_retries`` times; the last replica error is in the message."""
+
+
+class _Request:
+    """One routed request: payload, future, and the settle latch that makes
+    its resolution exactly-once under requeue and hung-replica races."""
+
+    __slots__ = ("image", "meta", "deadline", "fut", "excluded", "retries", "t0", "gid", "_settled", "_lock")
+
+    def __init__(self, image, meta, deadline, fut, gid=None):
+        self.image = image
+        self.meta = meta
+        self.deadline = deadline
+        self.fut = fut
+        self.excluded: set[str] = set()
+        self.retries = 0
+        self.t0 = time.perf_counter()
+        # submit_group's id: a worker coalesces only requests sharing it
+        self.gid = gid
+        self._settled = False
+        self._lock = threading.Lock()
+
+    def settle(self) -> bool:
+        """Claim the right to resolve this request; exactly one caller
+        wins."""
+        with self._lock:
+            if self._settled:
+                return False
+            self._settled = True
+            return True
+
+    @property
+    def settled(self) -> bool:
+        return self._settled
+
+
+class _Replica:
+    """One slot incarnation: an engine, its queue, its worker thread and
+    the state the supervisor reads."""
+
+    __slots__ = ("idx", "name", "gen", "engine", "q", "thread", "state", "busy_since", "pending", "served")
+
+    def __init__(self, idx: int, gen: int, engine):
+        self.idx = idx
+        self.name = f"r{idx}"
+        self.gen = gen
+        self.engine = engine
+        self.q: queue.SimpleQueue = queue.SimpleQueue()
+        self.thread: threading.Thread | None = None
+        self.state = "up"  # up | paused | down
+        self.busy_since: float | None = None
+        self.pending: tuple = ()  # the in-flight batch
+        self.served = 0
+
+
+class ReplicaSet:
+    """Supervised pool of N engine workers with micro-batching semantics.
+
+    ``engine_provider(idx)`` builds replica ``idx``'s engine, at
+    construction and at every restart; ``run(engine, batch, metas)`` is
+    the batched predict (``batch`` is a stacked array, or the list of
+    images when a group mixes shapes). Use as a context manager or call
+    :meth:`close`: every pending future resolves within a bounded sweep,
+    even with a wedged worker."""
+
+    def __init__(
+        self,
+        engine_provider: Callable[[int], Any],
+        run: Callable[[Any, Any, list], Any],
+        *,
+        replicas: int = 2,
+        max_batch: int = 32,
+        max_delay_ms: float = 5.0,
+        max_queue: int | None = None,
+        max_retries: int = 2,
+        hang_timeout_s: float = 30.0,
+        restart_backoff_s: float = 0.25,
+        restart_backoff_max_s: float = 8.0,
+        quorum: int | None = None,
+        supervise_interval_s: float = 0.05,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {replicas}")
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        if quorum is not None and not 1 <= quorum <= replicas:
+            raise ValueError(f"quorum must be in [1, {replicas}], got {quorum}")
+        self._provider = engine_provider
+        self._run = run
+        self.n = int(replicas)
+        self.max_batch = int(max_batch)
+        self.max_delay = float(max_delay_ms) / 1000.0
+        self.max_queue = max_queue
+        self.max_retries = int(max_retries)
+        self.hang_timeout_s = float(hang_timeout_s)
+        self.restart_backoff_s = float(restart_backoff_s)
+        self.restart_backoff_max_s = float(restart_backoff_max_s)
+        # default quorum: a majority, recomputed when scale_to resizes the
+        # pool; an explicit quorum is pinned
+        self._explicit_quorum = quorum is not None
+        self.quorum = quorum if quorum is not None else self.n // 2 + 1
+        self._interval = float(supervise_interval_s)
+        self._clock = clock
+        self._observers: list[Callable] = []
+        self._occ = OccupancyWindow(self.max_batch)
+        self._counts: dict = {k: 0 for k in ("batches", "requests", "expired", "late", "aborted", "breaker_trips")}
+        self._per_replica: dict[str, dict[str, int]] = {}
+
+        self._depth = 0
+        self._submitted = 0
+        self._shed_n = 0
+        self._gid = itertools.count(1)
+        self._depth_lock = threading.Lock()
+        self._count_lock = threading.Lock()
+        self._live: set[_Request] = set()
+        self._live_lock = threading.Lock()
+        self._closed = False
+        self._drain = True
+        self._breaker_open = False
+        self._canary_pref: str | None = None
+        self._state_lock = threading.Lock()
+        self._scale_lock = threading.Lock()
+        # slots removed by scale_to: the supervisor keeps rescuing their
+        # queues, so a submit that raced the removal is requeued, not lost
+        self._retired: list[_Replica] = []
+
+        self._slots: list[_Replica] = []
+        self._fails = [0] * self.n
+        self._restart_at = [0.0] * self.n
+        self._restarting = [False] * self.n
+        for idx in range(self.n):
+            rep = _Replica(idx, gen=0, engine=self._provider(idx))
+            self._slots.append(rep)
+            self._start_worker(rep)
+        self._update_health()
+        self._supervisor = threading.Thread(target=self._supervise, daemon=True, name="replicaset-supervisor")
+        self._supervisor.start()
+
+    # ------------------------------------------------------------- client
+
+    def _admit_depth(self, k: int) -> _Replica:
+        """Count ``k`` submits against ``max_queue`` and pick their replica;
+        raises typed (shed, shutdown, unroutable)."""
+        if self._closed:
+            raise ShutdownError("ReplicaSet is closed")
+        with self._depth_lock:
+            self._submitted += k
+            if self.max_queue is not None and self._depth + k > self.max_queue:
+                self._shed_n += k
+                raise QueueFullError(f"request queue full ({self._depth}+{k}/{self.max_queue})")
+            self._depth += k
+        target = self._pick(frozenset())
+        if target is None:
+            with self._depth_lock:
+                self._depth -= k
+            raise PoolUnhealthyError(f"no healthy replica (healthy={self._healthy_count()}, quorum={self.quorum})")
+        return target
+
+    def submit(self, image: np.ndarray, *, deadline_ms: float | None = None, meta=None) -> Future:
+        """Route one request to a healthy replica; returns a future for its
+        row of the batched result. Raises :class:`QueueFullError` at
+        ``max_queue``, :class:`ShutdownError` after :meth:`close` and
+        :class:`PoolUnhealthyError` when no replica is routable."""
+        target = self._admit_depth(1)
+        deadline = None if deadline_ms is None else time.monotonic() + float(deadline_ms) / 1000.0
+        rec = _Request(np.asarray(image), meta, deadline, Future())
+        with self._live_lock:
+            self._live.add(rec)
+        target.q.put(rec)
+        return rec.fut
+
+    def submit_group(self, items) -> list[Future]:
+        """Route a pre-coalesced group to ONE replica as a unit: the
+        continuous scheduler's dispatch. ``items`` are ``(image, deadline,
+        meta)`` with ``deadline`` an absolute ``time.monotonic()`` instant
+        or ``None``. The group lands consecutively on the least-loaded
+        replica and (for ``len(items) <= max_batch``) flushes as one
+        batch. On shed, shutdown or no routable replica the group fails as
+        a unit: the typed error is raised and no future is made."""
+        k = len(items)
+        if k == 0:
+            return []
+        target = self._admit_depth(k)
+        gid = next(self._gid)
+        recs = [_Request(np.asarray(image), meta, deadline, Future(), gid=gid) for image, deadline, meta in items]
+        with self._live_lock:
+            self._live.update(recs)
+        for rec in recs:
+            target.q.put(rec)
+        return [rec.fut for rec in recs]
+
+    def __call__(self, image, *, deadline_ms: float | None = None):
+        return self.submit(image, deadline_ms=deadline_ms).result()
+
+    def add_observer(self, fn: Callable) -> None:
+        """``fn(replica_name, outcome, latency_s, retries)`` on every
+        resolved request: the canary window's feed."""
+        self._observers.append(fn)
+
+    def remove_observer(self, fn: Callable) -> None:
+        try:
+            self._observers.remove(fn)
+        except ValueError:
+            pass
+
+    # ----------------------------------------------------------- lifecycle
+
+    def replica(self, idx: int) -> _Replica:
+        return self._slots[idx]
+
+    def generation(self, idx: int) -> int:
+        return self._slots[idx].gen
+
+    def first_routable(self) -> _Replica | None:
+        return self._pick(frozenset())
+
+    def _healthy_count(self) -> int:
+        return sum(1 for rep in self._slots if rep.state in ("up", "paused"))
+
+    def degraded(self) -> bool:
+        """The breaker: true while healthy replicas are below quorum."""
+        return self._breaker_open
+
+    def pause(self, idx: int) -> None:
+        """Take a replica out of routing (it drains what it already has)."""
+        with self._state_lock:
+            rep = self._slots[idx]
+            if rep.state == "up":
+                rep.state = "paused"
+
+    def resume(self, idx: int) -> None:
+        with self._state_lock:
+            rep = self._slots[idx]
+            if rep.state == "paused":
+                rep.state = "up"
+
+    def wait_idle(self, idx: int, timeout_s: float = 10.0) -> bool:
+        """Block until replica ``idx`` holds nothing queued or in flight
+        (True) or ``timeout_s`` passes (False)."""
+        deadline = self._clock() + timeout_s
+        while self._clock() < deadline:
+            rep = self._slots[idx]
+            if rep.q.empty() and rep.busy_since is None and not rep.pending:
+                return True
+            time.sleep(0.005)
+        return False
+
+    def set_engine_provider(self, fn: Callable[[int], Any]) -> None:
+        """Repoint restarts at a new engine source (a promoted swap must
+        survive a later restart)."""
+        self._provider = fn
+
+    # ------------------------------------------------------------- scaling
+
+    def scale_to(self, n: int, *, drain_timeout_s: float = 10.0) -> dict:
+        """Resize the pool to ``n`` replicas one slot at a time. Growth
+        builds engines through the provider; shrink removes the *last*
+        slot only after pausing and draining it, so no in-flight request
+        is killed. A slot that is down, restarting or does not drain stops
+        the shrink. Returns ``{"from", "to", "added", "removed",
+        "stopped"}``."""
+        if n < 1:
+            raise ValueError(f"scale target must be >= 1, got {n}")
+        with self._scale_lock:
+            start = len(self._slots)
+            added: list[str] = []
+            removed: list[str] = []
+            stopped: str | None = None
+            while len(self._slots) < n and not self._closed:
+                name = self._add_slot()
+                if name is None:
+                    stopped = "engine provider failed"
+                    break
+                added.append(name)
+            while len(self._slots) > n and not self._closed:
+                name = self._remove_last_slot(drain_timeout_s)
+                if name is None:
+                    stopped = "last slot not removable (down/restarting/undrained)"
+                    break
+                removed.append(name)
+            return {"from": start, "to": len(self._slots), "added": added, "removed": removed, "stopped": stopped}
+
+    def _resized(self) -> None:
+        """Caller holds the state lock."""
+        self.n = len(self._slots)
+        if not self._explicit_quorum:
+            self.quorum = self.n // 2 + 1
+        self._update_health()
+
+    def _add_slot(self) -> str | None:
+        idx = len(self._slots)
+        try:
+            engine = self._provider(idx)  # outside the state lock: a build takes seconds
+        except BaseException as e:  # noqa: BLE001 - a provider error is a failed scale step
+            return None
+        rep = _Replica(idx, gen=0, engine=engine)
+        with self._state_lock:
+            self._slots.append(rep)
+            self._fails.append(0)
+            self._restart_at.append(0.0)
+            self._restarting.append(False)
+            self._resized()
+        self._start_worker(rep)
+        return rep.name
+
+    def _remove_last_slot(self, drain_timeout_s: float) -> str | None:
+        with self._state_lock:
+            if len(self._slots) <= 1:
+                return None
+            rep = self._slots[-1]
+            if self._restarting[rep.idx] or rep.state == "down":
+                return None
+            we_paused = rep.state == "up"
+            if we_paused:
+                rep.state = "paused"
+        if not self.wait_idle(rep.idx, drain_timeout_s):
+            with self._state_lock:
+                if we_paused and not self._stale(rep) and rep.state == "paused":
+                    rep.state = "up"
+            return None
+        with self._state_lock:
+            # a crash or hang during the drain hands the slot to the supervisor
+            if self._stale(rep) or rep.idx != len(self._slots) - 1 or rep.state != "paused":
+                return None
+            self._slots.pop()
+            self._fails.pop()
+            self._restart_at.pop()
+            self._restarting.pop()
+            self._resized()
+            self._retired.append(rep)
+        rep.q.put(_STOP)
+        self._drain_slot(rep, "replica removed")
+        rep.engine = None  # the engine's memory goes with the slot
+        return rep.name
+
+    def preempt(self, idx: int, *, drain_timeout_s: float = 10.0) -> bool:
+        """A preemption notice: take replica ``idx`` out of routing, let it
+        finish what it holds, then retire the incarnation (no request
+        dropped). The slot goes down without a failure count, so the
+        supervisor brings a new one up after one plain backoff. False when
+        the slot is not preemptible now or the drain timed out."""
+        with self._state_lock:
+            if self._closed or idx >= len(self._slots):
+                return False
+            rep = self._slots[idx]
+            if rep.state not in ("up", "paused") or self._restarting[idx]:
+                return False
+            we_paused = rep.state == "up"
+            rep.state = "paused"
+        if not self.wait_idle(idx, drain_timeout_s):
+            with self._state_lock:
+                if we_paused and not self._stale(rep) and rep.state == "paused":
+                    rep.state = "up"
+            return False
+        with self._state_lock:
+            if self._stale(rep) or rep.state != "paused":
+                return False
+            rep.state = "down"
+            self._restart_at[idx] = self._clock() + self.restart_backoff_s
+            self._update_health()
+        self._bump(rep.name, "preempted")
+        rep.q.put(_STOP)
+        self._drain_slot(rep, "replica preempted")
+        return True
+
+    def stats(self) -> dict:
+        """A snapshot: each replica's state, incarnation, queue, served
+        requests, restarts, crashes by kind, requeues off it and
+        preemptions; the pool's health, breaker, queue, shed, batch
+        occupancy and request outcome counts."""
+        with self._depth_lock:
+            depth, submitted, shed = self._depth, self._submitted, self._shed_n
+        occ = self._occ.snapshot()
+        with self._state_lock:
+            slots = list(self._slots)
+            fails = list(self._fails)
+        with self._count_lock:
+            counts = dict(self._counts)
+            per = {k: dict(v) for k, v in self._per_replica.items()}
+        return {
+            "replicas": {
+                rep.name: {
+                    "state": rep.state,
+                    "gen": rep.gen,
+                    "queued": rep.q.qsize(),
+                    "served": rep.served,
+                    "restarts": fails[i] if i < len(fails) else 0,
+                    **per.get(rep.name, {}),
+                }
+                for i, rep in enumerate(slots)
+            },
+            "healthy": self._healthy_count(),
+            "quorum": self.quorum,
+            "breaker_open": self._breaker_open,
+            "queue_depth": depth,
+            "requests_submitted": submitted,
+            "requests_shed": shed,
+            "batch_occupancy": occ["ewma"],
+            "window_batch_occupancy": occ["window_mean"],
+            "batches_flushed": occ["batches"],
+            **{f"requests_{k}": counts[k] for k in ("expired", "late", "aborted")},
+            "breaker_trips": counts["breaker_trips"],
+        }
+
+    def close(self, drain: bool = True, timeout_s: float = 10.0):
+        """Stop everything and resolve every pending request. Joins are
+        bounded; what is left is failed with :class:`ShutdownError` (the
+        settle latch keeps a late result from resolving it twice)."""
+        if self._closed:
+            return
+        self._drain = drain
+        # latched under the state lock: a restart re-checks it under the
+        # same lock, so no slot respawns after the sweep below
+        with self._state_lock:
+            self._closed = True
+        self._supervisor.join(timeout=max(1.0, self._interval * 4))
+        for rep in self._slots:
+            rep.q.put(_STOP)
+        deadline = time.monotonic() + timeout_s
+        for rep in self._slots:
+            if rep.thread is not None:
+                rep.thread.join(timeout=max(0.0, deadline - time.monotonic()))
+        with self._live_lock:
+            leftovers = list(self._live)
+        for rec in leftovers:
+            if rec.settle():
+                self._count("aborted")
+                self._finish(rec, "shutdown", exc=ShutdownError("ReplicaSet closed"))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------- router
+
+    def _pick(self, excluded) -> _Replica | None:
+        best, best_sz = None, None
+        pref, pref_sz = None, None
+        for rep in self._slots:
+            if rep.state != "up" or rep.name in excluded:
+                continue
+            sz = rep.q.qsize()
+            if best is None or sz < best_sz:
+                best, best_sz = rep, sz
+            if rep.name == self._canary_pref:
+                pref, pref_sz = rep, sz
+        # a canary under evaluation takes ties, or an idle pool would send
+        # everything to the first slot and starve the canary window
+        if pref is not None and pref_sz <= best_sz:
+            return pref
+        return best
+
+    def set_canary_preference(self, name: str | None) -> None:
+        """Route queue-size ties to this replica; ``None`` restores plain
+        least-loaded routing."""
+        self._canary_pref = name
+
+    def _count(self, key: str, n: int = 1) -> None:
+        with self._count_lock:
+            self._counts[key] += n
+
+    def _bump(self, replica: str, key: str, n: int = 1) -> None:
+        with self._count_lock:
+            per = self._per_replica.setdefault(replica, {})
+            per[key] = per.get(key, 0) + n
+
+    def _finish(self, rec: _Request, outcome: str, *, result=None, exc=None, replica: str | None = None) -> None:
+        """Resolve a settled record: attribution on the future first, then
+        its result or error, then the observers."""
+        with self._live_lock:
+            self._live.discard(rec)
+        fut = rec.fut
+        fut.replica = replica
+        fut.retries = rec.retries
+        fut.requeued_from = ",".join(sorted(rec.excluded)) if rec.excluded else None
+        fut.outcome = outcome
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
+        lat = time.perf_counter() - rec.t0
+        for fn in list(self._observers):
+            try:
+                fn(replica, outcome, lat, rec.retries)
+            except Exception:  # noqa: BLE001 - an observer must not kill serving
+                pass
+
+    def _requeue(self, rec: _Request, from_rep: _Replica, err: str) -> None:
+        """Move one request off a failed replica: excluded set, retry
+        budget, a survivor; terminal failures resolve typed."""
+        if rec.settled:
+            return
+        rec.excluded.add(from_rep.name)
+        rec.retries += 1
+        self._bump(from_rep.name, "requeued")
+        if self._closed and self._drain:
+            if rec.settle():
+                self._count("aborted")
+                self._finish(rec, "shutdown", exc=ShutdownError("ReplicaSet closed"))
+            return
+        if rec.retries > self.max_retries:
+            if rec.settle():
+                self._finish(rec, "aborted", exc=RetriesExhaustedError(
+                    f"retries exhausted after {rec.retries} attempts; last error on {from_rep.name}: {err}"))
+            return
+        target = self._pick(rec.excluded)
+        if target is None:
+            if rec.settle():
+                self._finish(rec, "aborted", exc=PoolUnhealthyError(
+                    f"no surviving replica outside {sorted(rec.excluded)} to retry on (last error: {err})"))
+            return
+        with self._depth_lock:
+            self._depth += 1
+        target.q.put(rec)
+
+    def _drain_slot(self, rep: _Replica, err: str) -> None:
+        """Requeue everything queued on a down slot."""
+        while True:
+            try:
+                item = rep.q.get_nowait()
+            except queue.Empty:
+                return
+            if item is _STOP:
+                continue
+            with self._depth_lock:
+                self._depth -= 1
+            self._requeue(item, rep, err)
+
+    # ------------------------------------------------------------- worker
+
+    def _start_worker(self, rep: _Replica) -> None:
+        rep.thread = threading.Thread(target=self._worker, args=(rep,), daemon=True,
+                                      name=f"replica-{rep.name}-g{rep.gen}")
+        rep.thread.start()
+
+    def _stale(self, rep: _Replica) -> bool:
+        # a removed slot's worker reads as stale, not as an IndexError
+        return rep.idx >= len(self._slots) or self._slots[rep.idx] is not rep
+
+    def _worker(self, rep: _Replica) -> None:
+        carry: _Request | None = None  # lookahead from another group
+        try:
+            while not self._stale(rep):
+                if carry is not None:
+                    item, carry = carry, None
+                else:
+                    try:
+                        item = rep.q.get(timeout=0.05)
+                    except queue.Empty:
+                        if self._closed:
+                            return
+                        continue
+                    if item is _STOP:
+                        return
+                batch: list[_Request] = []
+                self._admit(item, batch)
+                coalesce_deadline = time.monotonic() + self.max_delay
+                stop = False
+                while len(batch) < self.max_batch:
+                    remaining = coalesce_deadline - time.monotonic()
+                    if remaining <= 0:
+                        break
+                    try:
+                        nxt = rep.q.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    if nxt is _STOP:
+                        stop = True
+                        break
+                    # a group flushes as shaped: never across a group boundary
+                    if batch and nxt.gid != batch[0].gid:
+                        carry = nxt
+                        break
+                    self._admit(nxt, batch)
+                if batch and not self._flush(rep, batch):
+                    return  # crashed: the restart is the supervisor's
+                if stop:
+                    return
+        finally:
+            if carry is not None:
+                # a lookahead never admitted: back through the requeue path
+                with self._depth_lock:
+                    self._depth -= 1
+                self._requeue(carry, rep, "worker exited holding lookahead")
+
+    def _admit(self, rec: _Request, batch: list) -> None:
+        with self._depth_lock:
+            self._depth -= 1
+        if rec.settled:
+            return  # resolved elsewhere (a requeue or hung-replica race)
+        if self._closed and self._drain:
+            if rec.settle():
+                self._count("aborted")
+                self._finish(rec, "shutdown", exc=ShutdownError("ReplicaSet closed"))
+            return
+        if rec.deadline is not None and time.monotonic() > rec.deadline:
+            if rec.settle():
+                self._count("expired")
+                self._finish(rec, "deadline", exc=DeadlineExceededError("request deadline passed while queued"))
+            return
+        batch.append(rec)
+
+    def _flush(self, rep: _Replica, batch: list[_Request]) -> bool:
+        """Run one batch on this replica; False when it crashed."""
+        self._count("batches")
+        self._count("requests", len(batch))
+        self._occ.observe(len(batch))
+        # pending and busy_since go up first: a hang's in-flight records
+        # must be findable by the supervisor
+        rep.pending = tuple(batch)
+        rep.busy_since = self._clock()
+        try:
+            # a packed group mixes resolutions: no common stack shape, so
+            # the run gets the image list
+            if len({rec.image.shape for rec in batch}) == 1:
+                images = np.stack([rec.image for rec in batch])
+            else:
+                images = [rec.image for rec in batch]
+            out = self._run(rep.engine, images, [rec.meta for rec in batch])
+        except BaseException as e:  # noqa: BLE001 - crash-isolate the replica
+            rep.busy_since = None
+            rep.pending = ()
+            self._on_failure(rep, batch, e, kind="crash")
+            return False
+        rep.busy_since = None
+        rep.pending = ()
+        rows = [{k: v[i] for k, v in out.items()} for i in range(len(batch))] if isinstance(out, dict) else out
+        now_mono = time.monotonic()
+        for rec, row in zip(batch, rows):
+            if rec.deadline is not None and now_mono > rec.deadline:
+                if rec.settle():
+                    self._count("late")
+                    self._finish(rec, "late", replica=rep.name, exc=DeadlineExceededError(
+                        "request deadline passed during batch coalescing/compute"))
+            elif rec.settle():
+                rep.served += 1
+                self._finish(rec, "ok", result=row, replica=rep.name)
+        # a whole good batch resets the slot's backoff, unless a restart
+        # already replaced this incarnation
+        if not self._stale(rep):
+            self._fails[rep.idx] = 0
+        return True
+
+    # --------------------------------------------------------- supervisor
+
+    def _on_failure(self, rep: _Replica, batch, exc, *, kind: str) -> None:
+        err = f"{type(exc).__name__}: {exc}"
+        self._bump(rep.name, f"crashes_{kind}")
+        self._mark_down(rep)
+        for rec in batch:
+            self._requeue(rec, rep, err)
+        self._drain_slot(rep, err)
+
+    def _backoff(self, idx: int) -> None:
+        """Caller holds the state lock: one more failure, the next restart
+        after a capped exponential backoff."""
+        self._fails[idx] += 1
+        backoff = min(self.restart_backoff_s * 2 ** (self._fails[idx] - 1), self.restart_backoff_max_s)
+        self._restart_at[idx] = self._clock() + backoff
+
+    def _mark_down(self, rep: _Replica) -> None:
+        with self._state_lock:
+            if self._stale(rep) or rep.state == "down":
+                return
+            rep.state = "down"
+            self._backoff(rep.idx)
+            self._update_health()
+
+    def _update_health(self) -> None:
+        open_now = self._healthy_count() < self.quorum
+        if open_now and not self._breaker_open:
+            self._breaker_open = True
+            self._count("breaker_trips")
+        elif not open_now and self._breaker_open:
+            self._breaker_open = False
+
+    def _supervise(self) -> None:
+        while not self._closed:
+            now = self._clock()
+            for rep in list(self._retired):
+                self._drain_slot(rep, "replica removed")
+            for rep in list(self._slots):
+                if rep.state in ("up", "paused"):
+                    busy = rep.busy_since
+                    if busy is not None and now - busy > self.hang_timeout_s:
+                        # a hung predict: abandon the thread, rescue the work
+                        self._bump(rep.name, "crashes_hang")
+                        self._mark_down(rep)
+                        for rec in list(rep.pending):
+                            self._requeue(rec, rep, "hung predict")
+                        self._drain_slot(rep, "hung predict")
+                elif rep.state == "down":
+                    idx = rep.idx
+                    # racing submits may still land on a dead queue
+                    self._drain_slot(rep, "replica down")
+                    if now >= self._restart_at[idx] and not self._restarting[idx]:
+                        self._restarting[idx] = True
+                        threading.Thread(target=self._restart_slot, args=(idx,), daemon=True,
+                                         name=f"replica-restart-{rep.name}").start()
+            time.sleep(self._interval)
+
+    def _restart_slot(self, idx: int) -> None:
+        old = self._slots[idx]
+        try:
+            try:
+                engine = self._provider(idx)
+            except BaseException as e:  # noqa: BLE001 - a provider error is a failed restart
+                self._bump(old.name, "crashes_restart_error")
+                with self._state_lock:
+                    self._backoff(idx)
+                return
+            if self._closed:
+                return
+            rep = _Replica(idx, gen=old.gen + 1, engine=engine)
+            with self._state_lock:
+                if self._closed:  # the shutdown latch (see close)
+                    return
+                self._slots[idx] = rep
+            self._start_worker(rep)
+            self._bump(rep.name, "restarted")
+            with self._state_lock:
+                self._update_health()
+            self._drain_slot(old, "superseded incarnation")
+        finally:
+            self._restarting[idx] = False
+
+
+class WeightSwapController:
+    """Parity- and canary-gated weight hot swap over a :class:`ReplicaSet`
+    (the gates are in the module docstring).
+
+    ``restore_fn(path) -> (params, batch_stats)`` defaults to
+    ``train.checkpoint.restore_inference_state`` (a host-side tree: the
+    double buffer lives in host memory). ``features_fn(engine, images)``
+    defaults to ``engine.features``: the probe both parity legs run.
+    ``on_promote(ckpt)`` lets the owner repoint the replica provider.
+    ``counts`` holds the
+    attempts, promotions, rollbacks and rejections; ``last_report`` the
+    last swap's report."""
+
+    def __init__(
+        self,
+        replicaset: ReplicaSet,
+        *,
+        restore_fn=None,
+        features_fn=None,
+        parity_images=None,
+        parity_min_cosine: float = 0.98,
+        canary_slo: str = "success_rate>=0.99",
+        canary_requests: int = 16,
+        canary_timeout_s: float = 30.0,
+        drain_timeout_s: float = 10.0,
+        on_promote=None,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.rs = replicaset
+        self._restore_fn = restore_fn
+        self._features_fn = features_fn or (lambda engine, images: engine.features(images))
+        self.parity_images = parity_images
+        self.parity_min_cosine = float(parity_min_cosine)
+        self.canary_slo = canary_slo
+        self.canary_requests = int(canary_requests)
+        self.canary_timeout_s = float(canary_timeout_s)
+        self.drain_timeout_s = float(drain_timeout_s)
+        self._on_promote = on_promote
+        self._clock = clock
+        self._swap_lock = threading.Lock()
+        self.last_report: dict | None = None
+        self.counts = {"attempts": 0, "promoted": 0, "rolled_back": 0, "rejected": 0}
+
+    def _restore(self, ckpt: str):
+        if self._restore_fn is not None:
+            return self._restore_fn(ckpt)
+        from jumbo_mae_tpu_tpu_torch.train.checkpoint import restore_inference_state
+
+        return restore_inference_state(ckpt)
+
+    def _parity(self, engine, reference_feats) -> dict:
+        cand = np.asarray(self._features_fn(engine, self.parity_images))
+        cos = feature_cosine(np.asarray(reference_feats), cand)
+        cos_min = float(np.min(cos))
+        return {
+            "cosine_min": cos_min,
+            "cosine_mean": float(np.mean(cos)),
+            "tolerance": self.parity_min_cosine,
+            "within_tolerance": cos_min >= self.parity_min_cosine,
+        }
+
+    def _reject(self, report: dict, stage: str, err: str) -> dict:
+        report.update(verdict="rejected", stage=stage, error=err)
+        self.counts["rejected"] += 1
+        return report
+
+    def _rollback(self, report: dict, stage: str, detail: str) -> dict:
+        report.update(verdict="rolled_back", stage=stage, detail=detail)
+        self.counts["rolled_back"] += 1
+        return report
+
+    def swap(self, ckpt: str) -> dict:
+        """Run one checkpoint through restore → parity → canary → promote;
+        returns the report (``verdict``: promoted, rolled_back or
+        rejected; ``stage``). One swap at a time."""
+        with self._swap_lock:
+            report = self._swap(str(ckpt))
+            self.last_report = report
+            return report
+
+    def _swap(self, ckpt: str) -> dict:
+        report: dict = {"ckpt": ckpt, "verdict": None, "stage": None}
+        self.counts["attempts"] += 1
+        try:
+            params, stats = self._restore(ckpt)
+        except BaseException as e:  # noqa: BLE001 - an unreadable push is a verdict
+            return self._reject(report, "restore", f"{type(e).__name__}: {e}")
+        canary = self.rs.first_routable()
+        if canary is None:
+            return self._reject(report, "canary_pick", "no routable replica")
+        report["canary"] = canary.name
+        canary_gen = canary.gen
+        self.rs.pause(canary.idx)
+        try:
+            self.rs.wait_idle(canary.idx, self.drain_timeout_s)
+            if self.parity_images is None:
+                self.parity_images = self._default_probe(canary.engine)
+            ref = np.asarray(self._features_fn(canary.engine, self.parity_images))
+            try:
+                snap = canary.engine.swap_weights(params, stats, ckpt=ckpt)
+            except BaseException as e:  # noqa: BLE001 - a graft failure leaves the old weights live
+                return self._reject(report, "graft", f"{type(e).__name__}: {e}")
+            try:
+                parity = self._parity(canary.engine, ref)
+            except BaseException as e:  # noqa: BLE001 - a probe crash is a failed gate
+                canary.engine.restore_snapshot(snap)
+                return self._rollback(report, "parity", f"probe error: {type(e).__name__}: {e}")
+            report["parity"] = parity
+            if not parity["within_tolerance"]:
+                canary.engine.restore_snapshot(snap)
+                return self._rollback(
+                    report, "parity", f"cosine_min {parity['cosine_min']:.4f} < {self.parity_min_cosine}")
+        finally:
+            self.rs.resume(canary.idx)
+        breach, canary_report = self._canary_window(canary, canary_gen)
+        report["canary_eval"] = canary_report
+        if breach:
+            if self.rs.generation(canary.idx) == canary_gen:
+                self.rs.pause(canary.idx)
+                self.rs.wait_idle(canary.idx, self.drain_timeout_s)
+                canary.engine.restore_snapshot(snap)
+                self.rs.resume(canary.idx)
+            # else the canary crashed and the provider rebuilt it on the old weights
+            return self._rollback(report, "canary", canary_report["why"])
+        # promote: the other replicas one at a time, never all at once
+        flipped = [(canary.idx, canary_gen, snap)]
+        for rep in list(self.rs._slots):
+            if rep.idx == canary.idx or rep.state != "up":
+                continue
+            self.rs.pause(rep.idx)
+            self.rs.wait_idle(rep.idx, self.drain_timeout_s)
+            try:
+                flipped.append((rep.idx, rep.gen, rep.engine.swap_weights(params, stats, ckpt=ckpt)))
+            except BaseException as e:  # noqa: BLE001 - undo the partial promote
+                self.rs.resume(rep.idx)
+                for idx, gen, s2 in flipped:
+                    if self.rs.generation(idx) == gen:
+                        self.rs.pause(idx)
+                        self.rs.wait_idle(idx, self.drain_timeout_s)
+                        self.rs.replica(idx).engine.restore_snapshot(s2)
+                        self.rs.resume(idx)
+                return self._rollback(report, "promote", f"{rep.name}: {type(e).__name__}: {e}")
+            self.rs.resume(rep.idx)
+        if self._on_promote is not None:
+            try:
+                self._on_promote(ckpt)
+            except Exception:  # noqa: BLE001 - bookkeeping must not fail a shipped swap
+                pass
+        self.counts["promoted"] += 1
+        report.update(verdict="promoted", stage="promote")
+        return report
+
+    @staticmethod
+    def _default_probe(engine) -> np.ndarray:
+        size = getattr(engine, "image_size", 32)
+        return np.random.RandomState(0).randint(0, 256, (4, size, size, 3)).astype(np.uint8)
+
+    def _canary_window(self, canary, canary_gen: int) -> tuple[bool, dict]:
+        """Only the canary's live outcomes, through a burn-rate tracker of
+        its own; returns (breached, report)."""
+        tracker = SLOTracker(parse_slo(self.canary_slo), window_s=max(self.canary_timeout_s, 1.0))
+        seen = {"n": 0}
+        crashed = {"requests": 0, "why": "canary replica crashed during the window"}
+
+        def feed(replica, outcome, latency_s, retries):
+            if replica == canary.name:
+                seen["n"] += 1
+                tracker.observe(latency_s, outcome)
+
+        self.rs.add_observer(feed)
+        self.rs.set_canary_preference(canary.name)
+        try:
+            deadline = self._clock() + self.canary_timeout_s
+            while self._clock() < deadline:
+                if seen["n"] >= self.canary_requests:
+                    break
+                if self.rs.generation(canary.idx) != canary_gen:
+                    return True, {**crashed, "requests": seen["n"]}
+                time.sleep(0.01)
+        finally:
+            self.rs.set_canary_preference(None)
+            self.rs.remove_observer(feed)
+        if self.rs.generation(canary.idx) != canary_gen:
+            return True, {**crashed, "requests": seen["n"]}
+        ev = tracker.evaluate()
+        worst = max((o["burn_slow"] for o in ev["objectives"]), default=0.0)
+        breached = bool(ev["degraded"]) or any(o["breached"] for o in ev["objectives"])
+        why = (
+            "canary SLO breached: " + "; ".join(
+                f"{o['name']}={o['value']} (burn {o['burn_slow']})" for o in ev["objectives"] if o["breached"])
+            if breached else "ok"
+        )
+        return breached, {"requests": seen["n"], "burn_worst": worst, "objectives": ev["objectives"], "why": why}

@@ -1,7 +1,8 @@
 """Transformer building blocks for the Jumbo ViT family, in PyTorch.
 
-Counterpart of ``jumbo_mae_tpu_tpu/models/layers.py`` (the unpacked
-branches). The flax numerics are kept, not PyTorch's defaults:
+Counterpart of ``jumbo_mae_tpu_tpu/models/layers.py``, the token-packed
+branch of :class:`JumboBlock` and :func:`segment_attention_mask`
+included. The flax numerics are kept, not PyTorch's defaults:
 
 - params are float32 and every dense layer computes in the config's
   compute dtype (inputs and params cast on use, as flax's ``dtype=`` does);
@@ -91,6 +92,22 @@ def resolve_attn_impl(
         and (dropout == 0.0 or deterministic)
     )
     return "flash" if use_flash else "einsum"
+
+
+def segment_attention_mask(segment_ids: torch.Tensor) -> torch.Tensor:
+    """Block-diagonal attention mask of a token-packed buffer.
+
+    ``segment_ids`` is (batch, seq) int — ``slot + 1`` on a segment's
+    tokens, 0 on padding. A position attends only within its own segment
+    (``same id AND id > 0``); the diagonal is OR'd in so an all-pad row
+    softmaxes over itself instead of over −inf everywhere, whose NaN
+    would reach valid rows through probs·V. Returns (batch, 1, seq, seq)
+    bool, broadcast over heads. Masked attention takes the einsum path
+    (:func:`resolve_attn_impl` never gives a mask to the kernels)."""
+    s = segment_ids
+    same = (s[:, :, None] == s[:, None, :]) & (s[:, :, None] > 0)
+    eye = torch.eye(s.shape[-1], dtype=torch.bool, device=s.device)[None]
+    return (same | eye)[:, None, :, :]
 
 
 class Dense(nn.Linear):
@@ -325,7 +342,7 @@ def _scale(ls: torch.Tensor | None, h: torch.Tensor) -> torch.Tensor:
 
 
 class JumboBlock(nn.Module):
-    """The Jumbo block, unpacked layout.
+    """The Jumbo block.
 
     Attention over the full sequence; then the patch tokens take the usual
     MLP while the ``num_cls_tokens`` CLS tokens are concatenated to one
@@ -334,6 +351,16 @@ class JumboBlock(nn.Module):
 
     The quirk is kept on purpose: the CLS residual base is the *post-norm*
     vector — ``cc = ln3(concat); cc = cc + ls3 · jumbo_mlp(cc)``.
+
+    ``packed`` (the dict :meth:`JumboViT.encode_packed` builds: ``mask``,
+    ``segment_ids``, ``cls_pos``, ``cls_index``) switches to the
+    token-packed layout: attention takes the block-diagonal segment mask,
+    and each segment's CLS tokens sit at its ``cls_index`` positions. The
+    per-segment math is the same — gather the k CLS tokens, the same
+    ln3/jumbo-MLP/post-norm residual, the patch MLP over every position
+    (per token, so CLS and pad positions are inert: CLS positions are
+    overwritten and pads are never read), scatter back — so a segment
+    computes what its own unpacked row would.
     """
 
     def __init__(self, cfg: JumboViTConfig):
@@ -356,11 +383,16 @@ class JumboBlock(nn.Module):
         self.dp2 = DropPath(cfg.droppath)
         self.dp3 = DropPath(cfg.droppath)
 
-    def forward(self, x: torch.Tensor, jumbo_mlp: Mlp, seed: int | None = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, jumbo_mlp: Mlp, seed: int | None = None, packed: dict | None = None
+    ) -> torch.Tensor:
         cfg = self.cfg
         k = cfg.num_cls_tokens
         g1, g2, g3 = site_generators(self, cfg.droppath, seed, x.device, 3)
-        x = x + self.dp1(_scale(self.ls1, self.attn(self.ln1(x), seed=sub_seed(seed, ATTN_SITE))), g1)
+        mask = None if packed is None else packed["mask"]
+        x = x + self.dp1(_scale(self.ls1, self.attn(self.ln1(x), mask, seed=sub_seed(seed, ATTN_SITE))), g1)
+        if packed is not None:
+            return self._packed_tail(x, jumbo_mlp, seed, packed, g2, g3)
 
         cls, patches = x[:, :k, :], x[:, k:, :]
         bs = cls.shape[0]
@@ -371,10 +403,39 @@ class JumboBlock(nn.Module):
         patches = patches + self.dp2(_scale(self.ls2, h), g2)
         return torch.cat([cc.reshape(bs, k, cfg.dim), patches], dim=1)
 
+    def _packed_tail(self, x, jumbo_mlp, seed, packed, g2, g3) -> torch.Tensor:
+        """The block after attention, in the packed layout (rows, budget, dim)."""
+        cfg = self.cfg
+        k = cfg.num_cls_tokens
+        rows, seq, dim = x.shape
+        cls_index = packed["cls_index"].long()  # (rows, max_segments, k)
+        smax = cls_index.shape[1]
+        # each slot's k CLS tokens → the (k·dim) concat of the unpacked branch
+        idx = cls_index.reshape(rows, smax * k, 1).expand(rows, smax * k, dim)
+        cc = self.ln3(torch.gather(x, 1, idx).reshape(rows, smax, k * dim))
+        cc = cc + self.dp3(_scale(self.ls3, jumbo_mlp(cc, sub_seed(seed, JUMBO_MLP_SITE))), g3)
+
+        h = self.mlp(self.ln2(x), sub_seed(seed, MLP_SITE))
+        patches = x + self.dp2(_scale(self.ls2, h), g2)
+
+        # the updated CLS tokens back to their positions in the row
+        cls_pos = packed["cls_pos"]
+        slot0 = (packed["segment_ids"] - 1).clamp_min(0).long()
+        pos0 = cls_pos.clamp_min(0).long()
+        rows_ix = torch.arange(rows, device=x.device)[:, None]
+        cls_vals = cc.reshape(rows, smax, k, dim)[rows_ix, slot0, pos0]
+        return torch.where(cls_pos[..., None] >= 0, cls_vals, patches)
+
 
 class PatchEmbed(nn.Module):
     """Conv patchify + positional embedding added in 2-D grid shape. Takes
-    NHWC images, the JAX layout; returns (B, num_patches, dim)."""
+    NHWC images, the JAX layout; returns (B, num_patches, dim).
+
+    With ``posemb="sincos2d"`` any patch-aligned resolution embeds (the
+    packed path and its parity forward serve mixed resolutions): the
+    table of another grid is built once per (grid, device) and kept, so a
+    later forward, a captured CUDA graph included, copies nothing from the
+    host. A learnable table serves only its own grid."""
 
     def __init__(self, cfg: JumboViTConfig):
         super().__init__()
@@ -386,6 +447,22 @@ class PatchEmbed(nn.Module):
         else:
             table = sincos2d_positional_embedding(*cfg.grid, cfg.dim)
             self.register_buffer("pos_embed", torch.from_numpy(table), persistent=False)
+        self._tables: dict[tuple, torch.Tensor] = {}  # other grids' sincos2d tables
+
+    def _posemb(self, gh: int, gw: int, device: torch.device) -> torch.Tensor:
+        if (gh, gw) == tuple(self.cfg.grid):
+            return self.pos_embed
+        if self.cfg.posemb != "sincos2d":
+            raise ValueError(
+                f"a {gh}x{gw} patch grid needs posemb='sincos2d'; the learnable table is {tuple(self.cfg.grid)}"
+            )
+        key = (gh, gw, str(device))
+        table = self._tables.get(key)
+        if table is None:
+            with torch.inference_mode(False):
+                table = torch.from_numpy(sincos2d_positional_embedding(gh, gw, self.cfg.dim)).to(device)
+            self._tables[key] = table
+        return table
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -396,7 +473,7 @@ class PatchEmbed(nn.Module):
             self.proj.bias.to(dt),
             stride=cfg.patch_size,
         ).permute(0, 2, 3, 1)  # (B, gh, gw, dim)
-        x = x + self.pos_embed.to(x.dtype)
+        x = x + self._posemb(x.shape[1], x.shape[2], x.device).to(x.dtype)
         return x.reshape(x.shape[0], -1, cfg.dim)
 
 

@@ -12,7 +12,13 @@ Counterpart of ``jumbo_mae_tpu_tpu/models/vit.py``:
   ``cfg.linear_probing`` runs the trunk without autograd (the JAX model's
   ``stop_gradient``): the trunk's parameters get no gradient;
 - **feature mode** (``cfg.labels`` None and no ``mask_ratio``): returns the
-  normalized token sequence.
+  normalized token sequence;
+- **token-packed serving** (:meth:`JumboViT.embed_patches`, then
+  :meth:`JumboViT.serve_packed` over a buffer ``infer/packing.py``
+  plans): requests of several resolutions share one forward, attention
+  block-diagonal per segment; :meth:`JumboViT.serve_full` is its
+  unpacked mirror and parity reference, at any patch-aligned resolution
+  with ``posemb="sincos2d"``.
 
 The shared ``jumbo_mlp`` is built once and handed to every block; with
 ``grad_ckpt`` each block runs under gradient checkpointing
@@ -37,6 +43,7 @@ from jumbo_mae_tpu_tpu_torch.models.layers import (
     PatchEmbed,
     make_jumbo_mlp,
     maybe_remat,
+    segment_attention_mask,
     site_generators,
     trunc_normal_,
 )
@@ -163,9 +170,90 @@ class JumboViT(nn.Module):
         )
         return self._encode_tokens(x, generators), mask, ids_restore
 
+    # ------------------------------------------------- token-packed serving
+
+    def embed_patches(self, images: torch.Tensor) -> torch.Tensor:
+        """The patch embedding alone (conv + posemb), (B, N, dim), at the
+        images' own resolution: stage one of the packed path. The CLS
+        tokens are not prepended — posemb applies to patches only, so
+        :meth:`encode_packed` writes them into the packed buffer."""
+        return self.embed(images)
+
+    def encode_packed(
+        self, tokens: torch.Tensor, segment_ids: torch.Tensor, cls_pos: torch.Tensor, cls_index: torch.Tensor
+    ) -> torch.Tensor:
+        """Every block and the final norm over a packed (rows, budget, dim)
+        buffer of patch tokens (zeros at CLS slots and padding), with the
+        ``infer/packing.py`` plan arrays: the CLS parameter is written at
+        each segment's ``cls_pos`` slots, attention is block-diagonal per
+        segment and every other op is per token, so each segment computes
+        what its own unpacked row would."""
+        x = tokens.to(self.cfg.compute_dtype)
+        cls = self.cls_tokens.to(x.dtype)[0]  # (k, dim)
+        x = torch.where(cls_pos[..., None] >= 0, cls[cls_pos.clamp_min(0).long()], x)
+        (g,) = site_generators(self, self.cfg.dropout, None, x.device, 1)
+        x = self.drop(x, g)
+        packed = {
+            "mask": segment_attention_mask(segment_ids),
+            "segment_ids": segment_ids,
+            "cls_pos": cls_pos,
+            "cls_index": cls_index,
+        }
+        for block in self.blocks:
+            x = block(x, self.jumbo_mlp, None, packed=packed)
+        return self.ln(x)
+
+    def pool_packed(
+        self,
+        tokens: torch.Tensor,
+        segment_ids: torch.Tensor,
+        cls_pos: torch.Tensor,
+        cls_index: torch.Tensor,
+        pooling: str = "cls",
+    ) -> torch.Tensor:
+        """:func:`pool_tokens` per segment: (rows, max_segments, k·dim) for
+        ``"cls"``, (rows, max_segments, dim) for ``"gap"``. An unoccupied
+        slot pools slot 0's tokens (or a count clamped to 1); callers read
+        results through the pack plan, so those never escape."""
+        k = self.cfg.num_cls_tokens
+        rows, _, dim = tokens.shape
+        smax = cls_index.shape[1]
+        if pooling == "gap":
+            slot = torch.arange(1, smax + 1, dtype=segment_ids.dtype, device=tokens.device)
+            own = (segment_ids[:, None, :] == slot[None, :, None]) & (cls_pos[:, None, :] < 0)
+            w = own.to(tokens.dtype)
+            sums = torch.einsum("rsl,rld->rsd", w, tokens)
+            return sums / w.sum(-1).clamp_min(1.0)[..., None]
+        idx = cls_index.reshape(rows, smax * k, 1).long().expand(rows, smax * k, dim)
+        return torch.gather(tokens, 1, idx).reshape(rows, smax, k * dim)
+
+    def serve_packed(
+        self,
+        tokens: torch.Tensor,
+        segment_ids: torch.Tensor,
+        cls_pos: torch.Tensor,
+        cls_index: torch.Tensor,
+        *,
+        pooling: str = "cls",
+    ) -> dict[str, torch.Tensor]:
+        """The packed serving forward: encode, pool per segment and, with a
+        head, classify — ``{"pooled": ..., "logits": ...}``, float32, so
+        features and logits requests share one dispatch."""
+        x = self.encode_packed(tokens, segment_ids, cls_pos, cls_index)
+        pooled = self.pool_packed(x, segment_ids, cls_pos, cls_index, pooling)
+        out = {"pooled": pooled.float()}
+        if self.head is not None:
+            head_in = (
+                pooled if pooling == self.cfg.pooling
+                else self.pool_packed(x, segment_ids, cls_pos, cls_index, self.cfg.pooling)
+            )
+            out["logits"] = self.head(head_in.float()).float()
+        return out
+
     def serve_full(self, images: torch.Tensor, *, pooling: str = "cls") -> dict[str, torch.Tensor]:
         """``{"pooled": ..., "logits": ...}`` (logits when there is a head)
-        from one encoder pass, both float32."""
+        from one encoder pass, both float32: the unpacked mirror of
+        :meth:`serve_packed`, at the images' own resolution."""
         cfg = self.cfg
         x = self.encode(images)
         out = {"pooled": pool_tokens(x, cfg.num_cls_tokens, pooling).float()}

@@ -29,6 +29,22 @@ def normalize_images(
     if images.shape[1] <= 4 < images.shape[-1]:  # NCHW heuristic: C in {1,3,4}
         images = images.permute(0, 2, 3, 1)
     x = images.to(torch.float32) / 255.0
-    m = torch.tensor(mean, dtype=torch.float32, device=x.device)
-    s = torch.tensor(std, dtype=torch.float32, device=x.device)
+    m, s = _constants(tuple(mean), tuple(std), x.device)
     return ((x - m) / s).to(dtype)
+
+
+_CONSTANTS: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _constants(mean: tuple, std: tuple, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mean and std as float32 tensors on ``device``, made once per
+    device: a host-to-device copy cannot run inside a CUDA graph capture,
+    and the serving engine captures this function."""
+    key = (mean, std, str(device))
+    got = _CONSTANTS.get(key)
+    if got is None:
+        with torch.inference_mode(False):
+            got = (torch.tensor(mean, dtype=torch.float32, device=device),
+                   torch.tensor(std, dtype=torch.float32, device=device))
+        _CONSTANTS[key] = got
+    return got

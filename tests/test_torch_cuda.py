@@ -133,8 +133,40 @@ def test_engine_routes_every_block_through_the_kernel(cuda, heads):
     fa.LAUNCHES, eng.dispatches = 0, 0
     out = eng.logits(x)
     assert out.shape == (11, 10) and np.isfinite(out).all()
-    assert eng.dispatches == 2 and fa.LAUNCHES == (cfg.layers * 2 if _kernel_stack(cfg) else 0)
+    # two buckets (8 and 4): each captured after one eager first run, then replayed
+    assert eng.dispatches == 2 and sum(eng.compile_counts.values()) == 2
+    assert fa.LAUNCHES == (cfg.layers * 4 if _kernel_stack(cfg) else 0)
     np.testing.assert_allclose(gpu32.logits(x), cpu.logits(x), rtol=1e-4, atol=1e-4)
+
+
+def test_graphs_replay_count_launches_and_swap_without_capturing(cuda):
+    """Every dispatch on the card replays a captured graph: replays equal
+    the eager forward, K1 counts its launches per replay, a swap and its
+    rollback capture nothing and the rollback is bit-equal, and the
+    packed path matches the unpacked graphs."""
+    recipe = load_config(RECIPE, ["model.overrides.heads=2", "model.overrides.dtype=bfloat16"])
+    cfg = preset("vit_t16", image_size=32, patch_size=4, heads=2)
+    eng = InferenceEngine(recipe, max_batch=8, labels=10, device="cuda")
+    x = np.random.default_rng(2).integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)
+    assert eng.warmup(("logits",)) == 4  # buckets 1, 2, 4, 8
+    counts = dict(eng.compile_counts)
+    fa.LAUNCHES = 0
+    out = eng.logits(x)
+    assert fa.LAUNCHES == cfg.layers
+    with torch.inference_mode():
+        from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
+
+        ref = eng.model("logits")(normalize_images(torch.from_numpy(x).cuda(), dtype=torch.bfloat16)).float()
+    np.testing.assert_allclose(out, ref.cpu().numpy(), rtol=2e-2, atol=2e-2)
+    other = InferenceEngine(load_config(RECIPE, ["model.overrides.heads=2", "model.overrides.dtype=bfloat16",
+                                                 "run.init_seed=5"]), max_batch=8, labels=10, device="cuda")
+    snap = eng.swap_weights({n: t.cpu() for n, t in other.model("logits").state_dict().items()})
+    np.testing.assert_array_equal(eng.logits(x), other.logits(x))
+    eng.restore_snapshot(snap)
+    np.testing.assert_array_equal(eng.logits(x), out)
+    assert eng.compile_counts == counts
+    par = eng.packed_parity([x[0], x[1][:16, :16], x[2][:24, :24]], ["logits", "features", "logits"])
+    assert par["pass"], par
 
 
 def test_served_save_and_int8_on_the_card_match_the_cpu(cuda, tmp_path):

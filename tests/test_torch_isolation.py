@@ -142,6 +142,34 @@ def test_a_save_is_served_without_jax_yaml_pil_or_cv2(tmp_path):
     assert "shapes (3, 192) (3, 64, 48) (64, 192)" in res.stdout, res.stdout[-2000:]
 
 
+def test_replicated_packed_serving_without_jax_yaml_pil_or_cv2(tmp_path):
+    """The replica pool, the continuous scheduler and the packed path
+    (``cli.predict --serve --replicas 2 --pack``), and one hot swap
+    through the controller, in an interpreter where JAX, PyYAML, PIL and
+    cv2 cannot import."""
+    res = _blocked_interpreter(
+        "import numpy as np\n"
+        "from jumbo_mae_tpu_tpu_torch.cli import predict\n"
+        "from jumbo_mae_tpu_tpu_torch.config import load_config\n"
+        "from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine, ReplicaSet, WeightSwapController\n"
+        f"out = {str(tmp_path)!r}\n"
+        f"f = np.load(predict.main(['--config', {SMOKE!r}, '--synthetic', '6', '--device', 'cpu', '--task', "
+        "'features', '--serve', '--replicas', '2', '--pack', '--pack-resolutions', '32:1,16:1', '--warmup', "
+        "'--out', out + '/p.npz']))\n"
+        f"cfg = load_config({SMOKE!r})\n"
+        "rs = ReplicaSet(lambda i: InferenceEngine(cfg, max_batch=2, device='cpu'),\n"
+        "                lambda e, b, m: e.features(b), replicas=2, max_batch=2)\n"
+        "tree = {n: t.clone() for n, t in rs.replica(0).engine.model('features').state_dict().items()}\n"
+        "ctl = WeightSwapController(rs, restore_fn=lambda p: (tree, None), canary_requests=0)\n"
+        "rep = ctl.swap('same')\n"
+        "rs.close()\n"
+        "print('served', f['features'].shape, rep['verdict'])\n",
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "served (6, 192) promoted" in res.stdout, res.stdout[-2000:]
+
+
 def test_images_without_cv2_or_pil_raise_naming_both(tmp_path):
     """With neither cv2 nor PIL, decoding a JPEG, resizing and starting a
     train loader raise ImportError naming both packages; nothing returns
@@ -243,6 +271,12 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.tools",
         "jumbo_mae_tpu_tpu_torch.tools.extract_features",
         "jumbo_mae_tpu_tpu_torch.tools.knn_probe",
+        "jumbo_mae_tpu_tpu_torch.infer.packing",
+        "jumbo_mae_tpu_tpu_torch.infer.replicaset",
+        "jumbo_mae_tpu_tpu_torch.obs.slo",
+        "jumbo_mae_tpu_tpu_torch.serve",
+        "jumbo_mae_tpu_tpu_torch.serve.admission",
+        "jumbo_mae_tpu_tpu_torch.serve.scheduler",
     ):
         assert m in mods
     for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):
@@ -266,6 +300,8 @@ def test_model_and_cli_default_to_cuda(no_cuda):
         JumboViT(TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
         predict.main(["--config", SMOKE, "--synthetic", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):  # the replicas' engines too
+        predict.main(["--config", SMOKE, "--synthetic", "1", "--serve", "--replicas", "2", "--pack"])
     with pytest.raises(RuntimeError, match="CUDA"):
         extract_features.main([SMOKE, "--out", "unused.npz"])
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -11,6 +11,7 @@ path, an undecodable file, and the flags of layers still to port.
 """
 
 import json
+import time
 from pathlib import Path
 
 import jax
@@ -54,7 +55,7 @@ def setup(tmp_path_factory):
         msgpack = root / f"{kind}.msgpack"
         export_params_msgpack({"model": params} if kind == "classify" else params, str(msgpack))
         port_save(root / kind, load_config(RECIPE, sets), params)
-        out[kind] = {"msgpack": str(msgpack), "save": str(root / kind), "sets": sets}
+        out[kind] = {"msgpack": str(msgpack), "save": str(root / kind), "sets": sets, "params": params}
     return out
 
 
@@ -137,3 +138,99 @@ def test_unported_flag_refused_with_its_roadmap_item(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP queue " + item.split(" ")[0]) as exc:
         predict.main(["--config", str(RECIPE), "--synthetic", "1", "--device", "cpu", flag, *value])
     assert flag in str(exc.value) and item in str(exc.value)
+
+
+# ------------------------------------------------ the replicated tier
+
+
+def test_replicas_serve_like_jax_and_the_direct_path(setup, tmp_path, capsys):
+    """``--serve --replicas 2`` serves the files as the JAX CLI's pool does,
+    and as the port's direct path."""
+    extra = ("--serve", "--replicas", "2", "--max-delay-ms", "5")
+    ref = np.load(jax_main(_args(setup, "classify", "logits", tmp_path / "j.npz", jax_side=True, extra=extra)))
+    got = np.load(predict.main(_args(setup, "classify", "logits", tmp_path / "p.npz", extra=extra)))
+    text = capsys.readouterr().out
+    assert "replica pool: 2 replicas, quorum 2" in text and "pool served 3/3 ok (0 failed)" in text
+    np.testing.assert_allclose(got["logits"], ref["logits"], **TOL)
+    direct = np.load(predict.main(_args(setup, "classify", "logits", tmp_path / "d.npz")))
+    np.testing.assert_allclose(got["logits"], direct["logits"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("task,pool", [("features", "cls"), ("logits", "cls"), ("features", "gap")])
+def test_pack_equals_jax_on_a_mixed_resolution_mix(setup, tmp_path, capsys, task, pool):
+    """``--pack --pack-resolutions`` draws the same sizes and pixels as the
+    JAX CLI, passes the parity gate, and serves the same rows."""
+    kind = "classify"
+    flags = ["--config", str(RECIPE), "--ckpt", None, "--task", task, "--pool", pool, "--synthetic", "12",
+             "--max-batch", "8", "--serve", "--replicas", "2", "--pack", "--pack-resolutions", "32:0.5,24:0.3,16:0.2",
+             "--pack-budget", "512", "--pack-parity-n", "6", "--dtype", "float32", "--set", *setup[kind]["sets"]]
+    jflags = list(flags)
+    jflags[3] = setup[kind]["msgpack"]
+    ref = np.load(jax_main([*jflags, "--no-warmcache", "--out", str(tmp_path / "j.npz")]))
+    flags[3] = setup[kind]["save"]
+    got = np.load(predict.main([*flags, "--device", "cpu", "--warmup", "--out", str(tmp_path / "p.npz")]))
+    text = capsys.readouterr().out
+    port_text = text[text.index("[predict] replica pool"):]
+    assert "pack parity: pass=True n=6" in port_text and "pool served 12/12 ok" in port_text
+    assert "token packing: budget=512" in port_text
+    np.testing.assert_allclose(got[task], ref[task], **TOL)
+
+
+def test_pack_parity_failure_aborts(setup, tmp_path, monkeypatch):
+    def failing(self, *a, **kw):
+        return {"pass": False, "n": 1, "feature_cosine_min": 0.5, "logits_top1_agree": None}
+
+    monkeypatch.setattr(engine_mod.InferenceEngine, "packed_parity", failing)
+    with pytest.raises(SystemExit, match="parity gate FAILED"):
+        predict.main(["--config", str(RECIPE), "--set", *BASE, "--task", "features", "--synthetic", "2",
+                      "--device", "cpu", "--serve", "--replicas", "1", "--pack"])
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--pack"], "--replicas"),
+    (["--serve", "--replicas", "1", "--pack", "--task", "reconstruct"], "features|logits"),
+    (["--serve", "--replicas", "1", "--pack", "--pool", "tokens"], "cls or gap"),
+    (["--pack-resolutions", "32:1"], "requires --pack"),
+    (["--swap-watch", "x"], "--replicas"),
+])
+def test_replicated_flag_preconditions(flags, msg):
+    with pytest.raises(SystemExit, match=msg):
+        predict.main(["--config", str(RECIPE), "--synthetic", "1", "--device", "cpu", "--task", "features", *flags])
+
+
+def test_swap_watch_promotes_a_push_and_rolls_back_a_corrupt_one(setup, tmp_path, capsys):
+    """Two checkpoints moved into the watched directory mid-stream: the
+    same weights promote with cosine 1.0000, a scrambled copy is rolled
+    back at parity, and every request is served."""
+    import os
+    import shutil
+    import threading
+
+    kind = "classify"
+    watch = tmp_path / "push"
+    watch.mkdir()
+    staged = tmp_path / "staged"
+    shutil.copytree(setup[kind]["save"], staged / "good")
+    scrambled = jax.tree_util.tree_map(lambda a: -3.0 * a[::-1] if a.ndim > 1 else a, setup[kind]["params"])
+    port_save(staged / "bad", load_config(RECIPE, setup[kind]["sets"]), scrambled)
+    pushed = threading.Event()
+
+    def push():
+        time.sleep(0.5)
+        os.rename(staged / "good", watch / "a_good")
+        time.sleep(2.5)
+        os.rename(staged / "bad", watch / "b_bad")
+        pushed.set()
+
+    t = threading.Thread(target=push, daemon=True)
+    t.start()
+    predict.main(["--config", str(RECIPE), "--set", *setup[kind]["sets"], "--ckpt", setup[kind]["save"],
+                  "--task", "logits", "--synthetic", "120", "--max-batch", "4", "--device", "cpu", "--serve",
+                  "--replicas", "2", "--interarrival-ms", "40", "--swap-watch", str(watch), "--swap-poll-s", "0.1",
+                  "--swap-canary-requests", "2", "--swap-canary-timeout-s", "5", "--out", str(tmp_path / "s.npz")])
+    t.join(timeout=30)
+    assert pushed.is_set()
+    text = capsys.readouterr().out
+    assert "swap a_good: verdict=promoted stage=promote cosine_min=1.0000" in text
+    assert "swap b_bad: verdict=rolled_back stage=parity" in text
+    assert "pool served 120/120 ok (0 failed)" in text

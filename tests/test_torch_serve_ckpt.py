@@ -275,7 +275,10 @@ def test_failed_swap_keeps_live_weights(saves):
 
 def test_swap_is_atomic_per_request(saves):
     """Requests racing a swap each serve entirely old or entirely new
-    weights; the live parameters are never written in place."""
+    weights. The swap writes the new values into the live model's own
+    storage (a captured CUDA graph reads those addresses), under the
+    engine's replay lock: the model object stays, and holds the new
+    weights after the last swap."""
     x = images(8, seed=8)
     eng = engine(saves, "finetune")
     old = eng.features(x)
@@ -299,7 +302,9 @@ def test_swap_is_atomic_per_request(saves):
     for t in threads:
         t.join()
     assert seen and all(np.array_equal(s, old) or np.array_equal(s, new) for s in seen)
-    assert all(torch.equal(p, live[n]) for n, p in live_model.named_parameters())
+    assert eng.model("features") is live_model
+    assert not all(torch.equal(p, live[n]) for n, p in live_model.named_parameters())
+    assert np.array_equal(eng.features(x), new)
 
 
 def test_swap_clears_the_encoder_cache(saves):
