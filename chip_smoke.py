@@ -165,6 +165,30 @@ Phases, each of which exits non-zero when it fails:
    resolution); ``cli.predict --serve --replicas 2``, then ``--pack``
    with ``--swap-watch``: a push promoted, a corrupt copy rolled back at
    parity, every request served.
+21. warm restarts (after phase 20, on phase 16's ``best`` and phase 13's
+   MAE save): the restart probe ``python -m
+   jumbo_mae_tpu_tpu_torch.infer.warmcache`` in a process of its own, cold
+   against an empty directory, then warm against the same, for ViT-B/16
+   features and logits in bf16 and in int8 and for the ViT-L/16
+   reconstruction, and for ViT-B/16 a third run after one entry is
+   corrupted: each build split into its parts (construction, the save's
+   restore, the graft, the copy to the card, quantization, the entry's
+   load and write; first runs and captures), ``warm_hits``, misses and
+   captures; the warm outputs bit-equal to the cold, the corrupted entry
+   quarantined and counted as a miss with outputs still bit-equal, K1 =
+   12 (32 at ViT-L/16) x (dispatches + captures).
+22. batch jobs: one image's features at every bucket 1-64 (bit-equal or
+   not), then ``python -m jumbo_mae_tpu_tpu_torch.cli.batch`` over phase
+   13's 4 train shards (1,024 images) with ViT-B/16 features from phase
+   16's ``best``, 2 replicas and 2 job workers, buckets up to 64, each run
+   a process of its own: straight (images/s, the scheduler's occupancy,
+   K1 = 12 x (dispatches + captures)), SIGKILLed once a part is durable
+   and run again, and with worker w0 killed by the ``batch.worker`` fault
+   site (a lease steal); their manifests byte-identical to the straight
+   run's if every bucket agreed, else every record within relative error
+   1e-2 and cosine 0.999 of it, and byte-identical on a one-bucket ladder
+   (straight and SIGKILLed); ``python -m
+   jumbo_mae_tpu_tpu_torch.tools.batch_doctor`` exits 0 after each run.
 
 Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
 NaN past the sequence inert, and time them there against SDPA.
@@ -183,12 +207,14 @@ from __future__ import annotations
 import contextlib
 import inspect
 import json
+import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -2686,6 +2712,332 @@ def phase_replicated(fa, smi: str, tmp: Path, urls: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------ warm restarts
+
+
+def spawn(argv: list[str], env: dict | None = None) -> tuple[subprocess.Popen, float]:
+    """``python -m argv`` started in a process of its own from this
+    checkout, and its start time."""
+    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env={**os.environ, **(env or {})})
+    return proc, time.perf_counter()
+
+
+def reap(started: tuple[subprocess.Popen, float], timeout_s: float = 300.0) -> tuple[dict, float]:
+    """A :func:`spawn`ed child's last stdout line as JSON and its wall
+    seconds. A non-zero exit fails the phase, with the end of its stderr."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0 or not out.strip():
+        log(f"child {proc.args[2]} exited {proc.returncode}; its stderr ends:\n{err[-3000:]}")
+        check(False, f"child {' '.join(proc.args[2:4])} exited {proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1]), wall
+
+
+def child_json(argv: list[str], *, env: dict | None = None, timeout_s: float = 300.0) -> tuple[dict, float]:
+    """``python -m argv`` in a process of its own, to its end: its last
+    stdout line as JSON and its wall seconds."""
+    return reap(spawn(argv, env), timeout_s)
+
+
+# the warm-restart probes: (recipe, the save under the phase's tmp, tasks,
+# quant, K1 a forward)
+WARM_PROBES = {
+    "b16": (FT_RECIPE, "ft/finetune_vit_b16/ckpt", ("features", "logits"), None, 12),
+    "b16_int8": (FT_RECIPE, "ft/finetune_vit_b16/ckpt", ("features", "logits"), "int8", 12),
+    "l16_recon": (RECIPE, "a/pretrain_vit_l16_in1k_800ep/ckpt", ("reconstruct",), None, 32),
+}
+
+
+def _split_text(rep: dict) -> str:
+    parts = [f"{task}: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(split.items()))
+             for task, split in rep["build"].items()]
+    return (f"restore {rep['restore_s']:.4f}; " + "; ".join(parts) + f"; first runs {rep['first_run_s']:.4f}, "
+            f"captures {rep['capture_s']:.4f} ({rep['captures']}); build+warmup {rep['init_s'] + rep['warmup_s']:.4f} s")
+
+
+def phase_warm_restart(smi: str, tmp: Path) -> dict:
+    """Phase 21: warm restarts, each run in a process of its own through
+    ``python -m jumbo_mae_tpu_tpu_torch.infer.warmcache`` (the probe:
+    build, warm the bucket ladder 1-64, serve 8 images, report), on the
+    ViT-B/16 ``best`` of phase 16 (features and logits) and phase 13's
+    ViT-L/16 save (the reconstruction). A bf16 build only copies the
+    save's tensors and keeps no entry, so its one run is the cold start
+    split into its parts, with the cache on and untouched. The int8
+    build quantizes and keeps its entries: a cold run against an empty
+    directory, a warm run against the same directory, and a third run
+    after one entry is corrupted. Gates: the bf16 runs read and write
+    nothing in the cache; the warm int8 run loads every task
+    (``warm_hits``), misses nothing, captures as many graphs as the cold
+    run and serves bit-equal outputs; the corrupted entry lands in
+    ``quarantine/``, counts as a miss, and the run still serves bit-equal
+    outputs; K1 = 12 x (dispatches + captures) at ViT-B/16 and 32 x at
+    ViT-L/16."""
+    import numpy as np
+
+    t_start = time.perf_counter()
+    res: dict = {"k1": 0, "runs": {}}
+
+    def probe(name: str, run: str) -> dict:
+        recipe, ckpt, tasks, quant, k1_fwd = WARM_PROBES[name]
+        d = tmp / "warm" / name
+        out = d.parent / f"{name}_{run}.npz"
+        argv = ["jumbo_mae_tpu_tpu_torch.infer.warmcache", "--dir", str(d), "--recipe", str(HERE / recipe),
+                "--ckpt", str(tmp / ckpt), "--task", *tasks, "--max-batch", "64", "--probe-images", "8",
+                "--save-outputs", str(out)] + (["--quant", quant] if quant else [])
+        rep, wall = child_json(argv)
+        rep["wall_s"] = wall
+        rep["outputs"] = dict(np.load(out))
+        k1 = rep["launches"]["K1"]
+        res["k1"] += k1
+        check(k1 == k1_fwd * (rep["dispatches"] + rep["captures"]),
+              f"warm {name} {run}: {k1} K1 in {rep['dispatches']} dispatches and {rep['captures']} captures")
+        check(rep["hot_path_captures"] == 0, f"warm {name} {run}: the request path captured")
+        log(f"warm {name} {run}: {_split_text(rep)}; process {wall:.2f} s; {rep['warmcache']}")
+        res["runs"][f"{name}/{run}"] = {k: rep[k] for k in ("init_s", "warmup_s", "restore_s", "build", "first_run_s",
+                                                             "capture_s", "captures", "dispatches", "warm_hits",
+                                                             "wall_s")}
+        res["runs"][f"{name}/{run}"]["warmcache"] = {k: v for k, v in rep["warmcache"].items() if k != "root"}
+        return rep
+
+    def same(a: dict, b: dict) -> bool:
+        return a.keys() == b.keys() and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+    def puts_s(rep: dict) -> float:
+        return sum(split.get("put_s", 0.0) for split in rep["build"].values())
+
+    for name in ("b16", "l16_recon"):
+        cold = probe(name, "cold")
+        wc = cold["warmcache"]
+        check(cold["warm_hits"] == 0 and (wc["hits"], wc["misses"], wc["puts"], wc["entries"]) == (0, 0, 0, 0),
+              f"warm {name}: a save-only build used the cache {wc}")
+        res[name] = {"cold_s": cold["init_s"] + cold["warmup_s"], "cold_wall_s": cold["wall_s"]}
+    name = "b16_int8"
+    tasks = WARM_PROBES[name][2]
+    cold = probe(name, "cold")
+    wc = cold["warmcache"]
+    check(cold["warm_hits"] == 0 and wc["misses"] == len(tasks) and wc["puts"] == len(tasks),
+          f"warm {name}: the cold run's cache {wc}")
+    warm = probe(name, "warm")
+    wc = warm["warmcache"]
+    check(warm["warm_hits"] == len(tasks) and wc["misses"] == 0 and wc["quarantined"] == 0,
+          f"warm {name}: the warm run's cache {wc}")
+    check(warm["captures"] == cold["captures"], f"warm {name}: {warm['captures']} captures, cold {cold['captures']}")
+    check(same(cold["outputs"], warm["outputs"]), f"warm {name}: the warm outputs differ from the cold")
+    cold_s, warm_s = cold["init_s"] + cold["warmup_s"], warm["init_s"] + warm["warmup_s"]
+    log(f"warm {name}: build + warmup {warm_s:.3f} s warm against {cold_s:.3f} s cold ({cold_s - puts_s(cold):.3f} s "
+        f"less its puts); process {warm['wall_s']:.2f} s against {cold['wall_s']:.2f} s, on {smi}")
+    res[name] = {"cold_s": cold_s, "cold_less_puts_s": cold_s - puts_s(cold), "warm_s": warm_s,
+                 "cold_wall_s": cold["wall_s"], "warm_wall_s": warm["wall_s"]}
+    d = tmp / "warm" / name
+    entry = next(p for p in sorted(d.glob("*.exe")) if "-features-" in p.name)
+    blob = bytearray(entry.read_bytes())
+    blob[len(blob) // 2] ^= 0xFF
+    entry.write_bytes(bytes(blob))
+    bad = probe(name, "corrupt")
+    wc = bad["warmcache"]
+    quarantined = sorted(p.name for p in (d / "quarantine").iterdir())
+    check(wc["quarantined"] == 1 and wc["misses"] == 1 and bad["warm_hits"] == len(tasks) - 1
+          and len(quarantined) == 1 and quarantined[0].startswith(entry.name),
+          f"warm {name}: the corrupted entry's run {wc}, quarantine {quarantined}")
+    check(same(cold["outputs"], bad["outputs"]), f"warm {name}: outputs after the corrupted entry differ")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"warm: phase 21 in {res['seconds']:.1f} s, {res['k1']} K1 launches in its runs")
+    return res
+
+
+# -------------------------------------------------------------- batch jobs
+
+
+def batch_compare(a: Path, b: Path) -> dict:
+    """Two job directories of the same shards: their manifests and parts
+    byte-equal, or else the same shards, parts, keys and counts with each
+    record's relative error and cosine against ``a``'s."""
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.batch import iter_records, read_manifest
+
+    ma, mb = read_manifest(a / "manifest.json"), read_manifest(b / "manifest.json")
+    check(ma is not None and mb is not None, f"batch: no manifest in {a} or {b}")
+    out = {"manifest_equal": (a / "manifest.json").read_bytes() == (b / "manifest.json").read_bytes(),
+           "rel_err_max": 0.0, "cosine_min": 1.0}
+    check([(s["shard"], s["part"], s["samples"]) for s in ma["shards"]]
+          == [(s["shard"], s["part"], s["samples"]) for s in mb["shards"]]
+          and ma["total_samples"] == mb["total_samples"], f"batch: {b}'s shards, parts or counts differ from {a}'s")
+    for s in ma["shards"]:
+        ra, rb = list(iter_records(a / "parts" / s["part"])), list(iter_records(b / "parts" / s["part"]))
+        check([r["key"] for r in ra] == [r["key"] for r in rb], f"batch: the keys of {s['part']} differ")
+        for x, y in zip(ra, rb):
+            x, y = np.asarray(x["out"], np.float64), np.asarray(y["out"], np.float64)
+            out["rel_err_max"] = max(out["rel_err_max"], float(np.linalg.norm(x - y) / np.linalg.norm(x)))
+            out["cosine_min"] = min(out["cosine_min"], float(x @ y / (np.linalg.norm(x) * np.linalg.norm(y))))
+    return out
+
+
+def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
+    """Phase 22: ``python -m jumbo_mae_tpu_tpu_torch.cli.batch`` over the 4
+    train shards of phase 13 (1,024 images at 224 px), ViT-B/16 features
+    from phase 16's ``best`` through 2 replicas on this card, 2 job
+    workers, buckets up to 64, each run a process of its own: straight
+    through; SIGKILLed once its first part is durable, then run again to
+    completion; and with the ``batch.worker`` fault site killing worker w0
+    on its first sample (completed by a lease steal). First it serves one
+    image at every bucket of the ladder and reports whether its features
+    are bit-equal at all of them. Bit-equal: the killed and faulted runs'
+    manifests must be byte-identical to the straight run's. Else those
+    runs are held to the same shards, keys and counts with every record
+    within relative error 1e-2 and cosine >= 0.999 of the straight run's,
+    and the byte-identical gate runs on a one-bucket ladder (buckets of
+    1; the first 2 shards, 512 images, with 1 worker), straight and
+    SIGKILLed. Only the straight run has the card alone. K1 = 12 x (dispatches + captures) in
+    every run; ``python -m jumbo_mae_tpu_tpu_torch.tools.batch_doctor``
+    exits 0 after each."""
+    import signal
+
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.cli.batch import image_decoder
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+    from jumbo_mae_tpu_tpu_torch.data.shards import expand_shards
+    from jumbo_mae_tpu_tpu_torch.data.tario import iter_tar_samples
+    from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine
+    from jumbo_mae_tpu_tpu_torch.infer.bucketing import pow2_rungs
+
+    t_start = time.perf_counter()
+    shards = expand_shards(urls["train"])
+    check(len(shards) == 4, f"batch: phase 13 wrote {len(shards)} train shards, want 4")
+    ft = tmp / "ft" / "finetune_vit_b16" / "ckpt"
+    root = tmp / "batch"
+    res: dict = {"k1": 0, "runs": {}}
+
+    # ---- 0. one image at every bucket of the ladder
+    cfg = load_config(HERE / FT_RECIPE)
+    decode = image_decoder(224, cfg.data.test_crop_ratio)
+    images = np.stack([decode(s) for s, _ in zip(iter_tar_samples(shards[0]), range(64))])
+    eng = InferenceEngine(cfg, ckpt=str(ft), max_batch=64, warm_cache=False)
+    rows = {b: eng.dispatch("features", images[:b], pool="cls")[0] for b in pow2_rungs(64)}
+    invariant = all(np.array_equal(rows[1], r) for r in rows.values())
+    spread = {b: float(np.abs(r - rows[1]).max()) for b, r in rows.items()}
+    res["bucket_invariant"] = invariant
+    res["bucket_max_abs_diff"] = spread
+    log(f"batch: one image's features at buckets {list(rows)} bit-equal at every bucket: {invariant}; max |diff| "
+        f"against bucket 1 {json.dumps(spread)}, on {smi}")
+    del eng
+
+    def cmd(out: Path, max_batch: int, *extra: str) -> list[str]:
+        """The job at ``max_batch``: every shard with 2 workers, or on the
+        one-bucket ladder (``max_batch`` 1) the first 2 shards with 1
+        worker, so that a part is durable while the second shard runs."""
+        job, workers = (shards, "2") if max_batch > 1 else (shards[:2], "1")
+        return ["jumbo_mae_tpu_tpu_torch.cli.batch", *job, "--out", str(out), "--config", str(HERE / FT_RECIPE),
+                "--ckpt", str(ft), "--task", "features", "--replicas", "2", "--workers", workers, "--max-batch",
+                str(max_batch), "--submit-window", "32", *extra]
+
+    def doctor(out: Path) -> None:
+        r = subprocess.run([sys.executable, "-m", "jumbo_mae_tpu_tpu_torch.tools.batch_doctor", str(out), "--out",
+                            str(out / "doctor.md")], cwd=HERE, capture_output=True, text=True, timeout=120)
+        check(r.returncode == 0, f"batch: batch_doctor exited {r.returncode} on {out}: {r.stderr[-2000:]}")
+
+    counted = threading.Lock()  # two kill flows finish on threads of their own
+
+    def finished(name: str, summary: dict, wall: float, out: Path, want: int = 1024) -> dict:
+        e = summary["engines"]
+        with counted:
+            res["k1"] += e["k1_launches"]
+        check(summary["complete"] and summary["total_samples"] == want and not summary["errors"],
+              f"batch {name}: complete {summary['complete']}, {summary['total_samples']} samples, {summary['errors']}")
+        check(e["k1_launches"] == 12 * (e["dispatches"] + e["captures"]),
+              f"batch {name}: {e['k1_launches']} K1 in {e['dispatches']} dispatches and {e['captures']} captures")
+        doctor(out)
+        rate = summary["samples_processed"] / summary["seconds"]
+        occ = summary["scheduler"]["batch_occupancy"]
+        log(f"batch {name}: {summary['samples_processed']} images computed ({summary['samples_resumed']} resumed) in "
+            f"{summary['seconds']:.3f} s, {rate:.1f} images/s; scheduler occupancy {occ:.3f} over "
+            f"{summary['scheduler']['batches']} groups, pool occupancy {summary['pool']['batch_occupancy']:.3f}; "
+            f"{e['k1_launches']} K1 in {e['dispatches']} dispatches + {e['captures']} captures; lease steals "
+            f"{summary['lease_steals']}; process {wall:.2f} s, on {smi}")
+        res["runs"][name] = {"images_per_s": rate, "seconds": summary["seconds"], "wall_s": wall,
+                             "processed": summary["samples_processed"], "resumed": summary["samples_resumed"],
+                             "occupancy": occ, "k1": e["k1_launches"], "dispatches": e["dispatches"],
+                             "captures": e["captures"], "lease_steals": summary["lease_steals"]}
+        return summary
+
+    def killed(name: str, out: Path, max_batch: int) -> None:
+        """The job SIGKILLed once its first part is durable, then run again
+        to completion."""
+        proc = subprocess.Popen([sys.executable, "-m", *cmd(out, max_batch)], cwd=HERE, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        try:
+            deadline = time.monotonic() + 240
+            while not list((out / "parts").glob("*.part")):
+                check(proc.poll() is None and time.monotonic() < deadline, f"batch {name}: no part before the kill")
+                time.sleep(0.01)
+        finally:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+        parts = sorted(p.name for p in (out / "parts").iterdir())
+        check(not (out / "manifest.json").exists(), f"batch {name}: the job completed before the kill")
+        log(f"batch {name}: SIGKILLed with {parts} on disk")
+        summary, wall = child_json(cmd(out, max_batch))
+        finished(name, summary, wall, out, 1024 if max_batch > 1 else 512)
+        check(summary["samples_resumed"] > 0, f"batch {name}: the restart resumed nothing")
+
+    # ---- 1. straight through (alone: its rate is the one reported);
+    # then, with two jobs on the card at once (neither's time is reported
+    # as a rate): 2. SIGKILL and restart, beside the one-bucket ladder's
+    # SIGKILL where the buckets disagree; 3. a worker killed, beside the
+    # one-bucket ladder's straight run
+    straight = root / "straight"
+    summary, wall = child_json(cmd(straight, 64))
+    finished("straight", summary, wall, straight)
+    with ThreadPoolExecutor(max_workers=2) as px:
+        kills = [px.submit(killed, "sigkill", root / "sigkill", 64)]
+        if not invariant:
+            kills.append(px.submit(killed, "one_bucket_sigkill", root / "one_bucket_sigkill", 1))
+        for f in kills:
+            f.result()
+    fault, one = root / "fault", root / "one_bucket"
+    faulted = spawn(cmd(fault, 64, "--lease-s", "3"), env={"GRAFT_FAULTS": "batch.worker:raise@key~w0,n<1"})
+    one_run = None if invariant else spawn(cmd(one, 1))
+    try:
+        summary, wall = reap(faulted)
+        finished("fault", summary, wall, fault)
+        check(summary["lease_steals"] >= 1, f"batch fault: {summary['lease_steals']} lease steals")
+    except BaseException:
+        if one_run is not None:  # no child outlives a failed gate
+            one_run[0].kill()
+            one_run[0].wait()
+        raise
+    for name in ("sigkill", "fault"):
+        cmp = batch_compare(straight, root / name)
+        res["runs"][name]["against_straight"] = cmp
+        log(f"batch {name} against straight: {json.dumps(cmp)}")
+        if invariant:
+            check(cmp["manifest_equal"], f"batch {name}: the manifest differs from the straight run's")
+        else:
+            check(cmp["rel_err_max"] <= 1e-2 and cmp["cosine_min"] >= 0.999,
+                  f"batch {name}: records against the straight run's {cmp}")
+    if one_run is not None:
+        # the byte-identical gate on a one-bucket ladder
+        summary, wall = reap(one_run)
+        finished("one_bucket", summary, wall, one, 512)
+        cmp = batch_compare(one, root / "one_bucket_sigkill")
+        res["runs"]["one_bucket_sigkill"]["against_one_bucket"] = cmp
+        log(f"batch one_bucket_sigkill against one_bucket: {json.dumps(cmp)}")
+        check(cmp["manifest_equal"] and cmp["rel_err_max"] == 0.0,
+              "batch: on the one-bucket ladder the SIGKILLed job's manifest differs")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"batch: phase 22 in {res['seconds']:.1f} s, {res['k1']} K1 launches in its completed runs")
+    shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -2697,6 +3049,9 @@ def main() -> None:
     except ImportError as exc:
         raise SystemExit(f"[chip_smoke] FAIL: the port is not importable here: {exc}") from exc
 
+    # the serving warm cache stays off in this process and the batch jobs'
+    # children: phase 21 points its probes at directories of its own
+    os.environ["JUMBO_WARMCACHE"] = "0"
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -2740,8 +3095,13 @@ def main() -> None:
         t5 = time.perf_counter()
         replicated = phase_replicated(fa, smi, tmp, driver["urls"])
         t6 = time.perf_counter()
+        warm = phase_warm_restart(smi, tmp)
+        t7 = time.perf_counter()
+        batch = phase_batch_job(smi, tmp, driver["urls"])
+        t8 = time.perf_counter()
         log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
-            f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}, phase 20 {t6 - t5:.1f}; phases 1-14 took {t0 - t_start:.1f}")
+            f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}, phase 20 {t6 - t5:.1f}, phase 21 {t7 - t6:.1f}, phase 22 "
+            f"{t8 - t7:.1f}; phases 1-14 took {t0 - t_start:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
@@ -2761,6 +3121,8 @@ def main() -> None:
     log(f"classify paths: {json.dumps(classify)} on {smi}")
     log(f"serving from the saves: {json.dumps({k: v for k, v in served.items() if k != 'buckets'})} on {smi}")
     log(f"the replicated serving tier: {json.dumps(replicated)} on {smi}")
+    log(f"warm restarts: {json.dumps(warm)} on {smi}")
+    log(f"batch jobs: {json.dumps(batch)} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -2789,8 +3151,8 @@ def main() -> None:
             "cli_launches": driver["counts"][key],
             "finetune_launches": finetune["counts"][key],
             "linear_launches": linear["counts"][key],
-            **({"serve_launches": served["serve_launches"], "replicated_launches": replicated["k1"]}
-               if key == "K1" else {}),
+            **({"serve_launches": served["serve_launches"], "replicated_launches": replicated["k1"],
+                "warm_launches": warm["k1"], "batch_launches": batch["k1"]} if key == "K1" else {}),
             "max_abs_err": err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

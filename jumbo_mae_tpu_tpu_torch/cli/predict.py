@@ -47,10 +47,16 @@ directly. Results land in ``--out`` (``.npz``) and, for ``logits``, as
 one JSON line per image on stdout. Everything runs on ``"cuda"`` unless
 ``--device cpu``.
 
+The engines keep their built task weights in the warm cache
+(``infer/warmcache.py``): the default directory unless
+``JUMBO_WARMCACHE=0``, ``--warmcache DIR`` for another (whatever the
+environment says), ``--no-warmcache`` for none; a restarted process, or a
+restarted replica, loads them instead of building them again.
+
 The flags of the layers still to port parse and raise, naming their
-ROADMAP item: the persistent warm cache (A5.3), traffic shaping and
-autoscaling (A5.4, ``serve/{costmeter,autoscaler}.py``), and the access
-log, SLOs and the metrics exporter (A7).
+ROADMAP item: traffic shaping and autoscaling (A5.4,
+``serve/{costmeter,autoscaler}.py``), and the access log, SLOs and the
+metrics exporter (A7).
 """
 
 from __future__ import annotations
@@ -75,8 +81,6 @@ UNPORTED = {
     "--tenants": ("tenants", "A5.4 (serve/costmeter.py, serve/autoscaler.py)"),
     "--autoscale": ("autoscale", "A5.4 (serve/costmeter.py, serve/autoscaler.py)"),
     "--autoscale-interval-s": ("autoscale_interval_s", "A5.4 (serve/costmeter.py, serve/autoscaler.py)"),
-    "--warmcache": ("warmcache", "A5.3 (warmcache.py)"),
-    "--no-warmcache": ("no_warmcache", "A5.3 (warmcache.py)"),
     "--access-log": ("access_log", "A7"),
     "--slo": ("slo", "A7"),
     "--slo-window-s": ("slo_window_s", "A7"),
@@ -84,7 +88,6 @@ UNPORTED = {
     "--metrics-port": ("metrics_port", "A7"),
     "--metrics-hold-s": ("metrics_hold_s", "A7"),
 }
-_FLAGS_TAKING_NO_VALUE = ("--no-warmcache",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -143,16 +146,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="byte bound on the encoder-output LRU beside --encoder-cache (0 = entries only)")
     p.add_argument("--set", dest="overrides", metavar="KEY.PATH=VALUE", nargs="*", action="extend", default=[],
                    help="dotted recipe overrides, the grammar of cli.train")
+    p.add_argument("--warmcache", default=None, metavar="DIR",
+                   help="warm-cache directory for the built task weights (default: a device-keyed directory under "
+                        "~/.cache/jumbo_mae_tpu/warmcache unless JUMBO_WARMCACHE=0); restarted replicas load them")
+    p.add_argument("--no-warmcache", action="store_true", help="build every task's weights, cache nothing")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     for flag, (dest, item) in UNPORTED.items():
-        kind = {"action": "store_true"} if flag in _FLAGS_TAKING_NO_VALUE else {"default": None}
-        p.add_argument(flag, dest=dest, help=f"not ported yet (ROADMAP {item})", **kind)
+        p.add_argument(flag, dest=dest, default=None, help=f"not ported yet (ROADMAP {item})")
     return p
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
     for flag, (dest, item) in UNPORTED.items():
-        if getattr(args, dest) not in (None, False):
+        if getattr(args, dest) is not None:
             raise NotImplementedError(NOT_PORTED.format(flag=flag, item=item))
 
 
@@ -243,6 +249,8 @@ def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict
                     max_delay_ms=args.max_delay_ms, max_queue=args.max_queue)
     engine = rs.replica(0).engine
     print(f"[predict] replica pool: {args.replicas} replicas, quorum {rs.quorum}")
+    if engine.warmcache is not None:
+        print(f"[predict] warmcache: {engine.warmcache.root}")
     images, names = load(engine.image_size)
     sched = None
     if args.pack:
@@ -358,6 +366,7 @@ def main(argv: list[str] | None = None) -> Path | None:
             # the packer's rung ceiling stays above the scheduler's fill target
             **({"max_tokens": max(args.pack_budget, 4096)} if args.pack_budget else {}),
             encoder_cache=args.encoder_cache, encoder_cache_bytes=int(args.encoder_cache_mb * 1024 * 1024),
+            warm_cache=False if args.no_warmcache else args.warmcache if args.warmcache is not None else True,
             device=args.device,
         )
 
@@ -372,11 +381,15 @@ def main(argv: list[str] | None = None) -> Path | None:
         out = stack_rows([r for _, r in kept])
     else:
         engine = make_engine()
+        if engine.warmcache is not None:
+            print(f"[predict] warmcache: {engine.warmcache.root}")
         if args.ckpt:
             print(f"[predict] restored {args.ckpt}: {engine.restore_bytes} bytes in {engine.restore_s:.2f} s")
         if args.warmup:
             n = engine.warmup((args.task,), pool=args.pool)
-            print(f"[predict] warmup: {n} {_first_runs(engine)} in {engine.warmup_s:.2f} s")
+            hits = sum(engine.warm_hits.values())
+            print(f"[predict] warmup: {n} {_first_runs(engine)} in {engine.warmup_s:.2f} s, {hits} task(s) loaded "
+                  "from warmcache")
         images, names = load_images(args, cfg, engine.image_size, None)
         if args.serve:
             with MicroBatcher(

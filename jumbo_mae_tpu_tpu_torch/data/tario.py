@@ -1,6 +1,7 @@
 """Streaming tar reading: URL → byte stream → grouped samples.
 
-Counterpart of ``jumbo_mae_tpu_tpu/data/tario.py`` (standard library only).
+Counterpart of ``jumbo_mae_tpu_tpu/data/tario.py`` (standard library and
+the port's ``faults/inject.py``).
 A sample is all consecutive tar members sharing a basename stem:
 ``n01440764_10026.jpg`` + ``n01440764_10026.cls`` →
 ``{"__key__": "n01440764_10026", "jpg": b..., "cls": b...}``, so a shard
@@ -14,8 +15,9 @@ Shard-level read failures get retries with capped, jittered exponential
 backoff (a retry resumes exactly past the samples already yielded) before
 the shard is quarantined for the rest of the pass and recorded in
 :data:`QUARANTINE`; corrupt members and truncated archives are skipped with
-a warning. The JAX package's fault-injection sites and metric counters
-belong to the platform layers (ROADMAP A7) and are not here.
+a warning. Each attempt to open a shard crosses the ``data.shard_open``
+fault site (``key`` = the URL), as in the JAX package; its metric
+counters belong to the platform layers (ROADMAP A7) and are not here.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ from collections.abc import Iterator
 from contextlib import contextmanager
 from dataclasses import dataclass
 from urllib.parse import urlparse
+
+from jumbo_mae_tpu_tpu_torch.faults.inject import fault_point
 
 logger = logging.getLogger(__name__)
 
@@ -196,6 +200,7 @@ def iter_tar_samples(url: str, retry: RetryPolicy | None = None) -> Iterator[Sam
     last_err: BaseException | None = None
     for attempt in range(max(1, policy.attempts)):
         try:
+            fault_point("data.shard_open", key=url)
             with open_url(url) as stream:
                 for i, sample in enumerate(group_samples(iter_tar(stream, strict=True))):
                     if i < yielded:  # replay of an already-consumed prefix

@@ -2,7 +2,8 @@
 (task, bucket)), int8 weights (``infer/quant.py``), the micro-batcher
 (``infer/batching.py``), token packing (``infer/packing.py``) and the
 supervised replica pool with its weight-swap controller
-(``infer/replicaset.py``)."""
+(``infer/replicaset.py``), and the warm cache of built task weights
+(``infer/warmcache.py``)."""
 
 from jumbo_mae_tpu_tpu_torch.infer.batching import (
     DeadlineExceededError,
@@ -30,6 +31,7 @@ from jumbo_mae_tpu_tpu_torch.infer.replicaset import (
     RetriesExhaustedError,
     WeightSwapController,
 )
+from jumbo_mae_tpu_tpu_torch.infer.warmcache import WarmCache
 
 __all__ = [
     "DeadlineExceededError",
@@ -43,6 +45,7 @@ __all__ = [
     "ResolutionMismatchError",
     "RetriesExhaustedError",
     "ShutdownError",
+    "WarmCache",
     "WeightSwapController",
     "bucket_for",
     "parity_report",

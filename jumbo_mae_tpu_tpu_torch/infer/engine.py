@@ -1,14 +1,16 @@
 """The batched inference engine: restore a recipe's save once, serve
 bucket-padded forwards, one CUDA graph per (task, bucket).
 
-Counterpart of ``jumbo_mae_tpu_tpu/infer/engine.py`` without the warm
-cache, the metrics and the publisher (ROADMAP A5, A7). The contracts kept
-from the JAX engine:
+Counterpart of ``jumbo_mae_tpu_tpu/infer/engine.py`` without most of its
+metrics and the publisher (ROADMAP A5, A7). The contracts kept from the
+JAX engine:
 
-- **Restore once.** ``ckpt`` is read a single time per process through
+- **Restore once.** ``ckpt`` is resolved to its step directory and read
+  a single time, when the engine is built, through
   :func:`~jumbo_mae_tpu_tpu_torch.train.checkpoint.restore_inference_state`
-  (memory-mapped: the optimizer's bytes are never read), then grafted
-  onto each task's model with the warm start's overlap rules
+  (memory-mapped: the optimizer's bytes are never read); a save committed
+  later is not served. It is grafted onto each task's model, constructed
+  on the device, with the warm start's overlap rules
   (``merge_pretrained_params``): a matching shape loads, a positional
   grid of another size is resized, another shape (a head for another
   label count) keeps the fresh init from ``run.init_seed``, and a merge
@@ -49,7 +51,9 @@ from the JAX engine:
   Python. Each graph records the counters' growth while it was captured,
   takes it back out (a capture launches nothing on the card), and adds
   it on every replay, so the counters keep counting kernel launches on
-  the card.
+  the card. The counters' lock is held over a capture, so a replay of
+  another engine on another thread adds its launches after it, not into
+  the graph's count.
 - **Concurrency.** Static buffers and the graphs' memory are shared
   state: each engine has one memory pool for all its graphs and one
   replay lock. A request holds the lock from its first copy-in to its
@@ -60,6 +64,28 @@ from the JAX engine:
   in the process run one at a time (a module lock) in
   ``thread_local`` capture mode, and no dispatch synchronizes the whole
   device, so replicas replay while another engine captures.
+- **Warm restarts.** ``warm_cache`` keeps the built state dict of each
+  task whose build costs more than a read of the save: one that drew the
+  random init (no save, or a parameter the save lacks) or quantized to
+  int8. A task that only copies the save's tensors has no entry: reading
+  the memory-mapped save is faster than reading an entry of the same
+  bytes. The store is ``infer/warmcache.py``: ``True`` (the default)
+  resolves the directory through
+  :func:`~jumbo_mae_tpu_tpu_torch.infer.warmcache.default_warmcache_dir`
+  (``JUMBO_WARMCACHE=0`` turns it off), a path uses that directory
+  whatever the environment says, ``False``/``None`` turns it off. A hit
+  loads the entry into the model constructed without its init,
+  bit-equal to the cold build. ``warm_hits`` counts hits per task, apart
+  from the captures in ``compile_counts`` (a graph is never cached: a
+  restart still captures its ladder), and
+  ``infer_warmcache_saved_seconds_total`` credits the build seconds the
+  entry's sidecar says the first process paid. ``build_split[task]``
+  gives a build's seconds in parts: ``construct_s`` (on the device, no
+  init), ``graft_s`` (the merge), ``draw_s`` (a model built again on the
+  host with its random init, where one is drawn), ``to_device_s`` (the
+  copy into the model), ``quant_s``; on a hit ``load_s`` (read, verify,
+  map) before ``to_device_s``; and ``put_s`` where a miss wrote its
+  entry. ``restore_s`` is the engine's one restore.
 - **Hot swap, zero captures.** A graph bakes in its parameters'
   addresses, so :meth:`InferenceEngine.swap_weights` builds each built
   task's model aside (fresh init, graft, quantization: a tree that does
@@ -69,7 +95,8 @@ from the JAX engine:
   :meth:`InferenceEngine.restore_snapshot` copies the snapshot back under
   the lock, so a rollback serves bit-equal outputs to before the swap.
   ``compile_counts`` stays flat across both; a request sees entirely old
-  or entirely new weights.
+  or entirely new weights, a cached reconstruction included: both clear
+  the encoder-output LRU under the same lock.
 - **int8.** ``quant="int8"`` quantizes each task's matmul weights after
   the graft (``infer/quant.py``): the card holds int8 and dequantizes on
   use.
@@ -110,6 +137,7 @@ unless ``device="cpu"`` is passed.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import threading
 import time
@@ -122,18 +150,22 @@ import torch
 
 from jumbo_mae_tpu_tpu_torch.config import TrainConfig
 from jumbo_mae_tpu_tpu_torch.infer import packing
+from jumbo_mae_tpu_tpu_torch.infer import warmcache as wc
 from jumbo_mae_tpu_tpu_torch.infer.bucketing import OversizedBatchError, bucket_for, ceil_pow2, pow2_rungs
-from jumbo_mae_tpu_tpu_torch.infer.quant import quantize_module
+from jumbo_mae_tpu_tpu_torch.infer.quant import int8_layout, quantize_module
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, preset
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
 from jumbo_mae_tpu_tpu_torch.models.vit import JumboViT, pool_tokens
 from jumbo_mae_tpu_tpu_torch.ops.flash import attention as flash
 from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
+from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import (
     ENCODER_KEYS,
     merge_pretrained_params,
     require_loaded,
+    resolve_save,
     restore_inference_state,
+    save_digest,
 )
 from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
 
@@ -265,7 +297,10 @@ class InferenceEngine:
     ``encoder_cache_bytes`` bound the reconstruction encoder's LRU
     (shared mask mode only). ``max_tokens`` tops the packed path's
     token-budget rungs. ``on_compile(task_key, bucket)`` is called at
-    every capture (every first run on the CPU)."""
+    every capture (every first run on the CPU). ``warm_cache``: ``True``
+    for the default directory, a path, or ``False``/``None`` (off).
+    ``registry`` takes the warm cache's metrics (default: the process
+    registry)."""
 
     def __init__(
         self,
@@ -281,6 +316,8 @@ class InferenceEngine:
         encoder_cache: int = 0,
         encoder_cache_bytes: int = 0,
         on_compile: Callable[[str, int], None] | None = None,
+        warm_cache: str | bool | None = True,
+        registry=None,
         device: str | torch.device = "cuda",
     ):
         if max_batch < 1:
@@ -316,16 +353,39 @@ class InferenceEngine:
         })
         self.image_size = self._enc.image_size
 
-        self._ckpt = str(ckpt)
+        reg = registry if registry is not None else get_registry()
+        self._m_warm_saved = reg.counter(
+            "infer_warmcache_saved_seconds_total",
+            "task build seconds avoided by warmcache hits (from entry metadata)",
+            labels=("task",),
+        )
+        if warm_cache is True:
+            wc_root = wc.default_warmcache_dir(self.device)
+        elif warm_cache:
+            wc_root = str(warm_cache)
+        else:
+            wc_root = None
+        self.warmcache = wc.WarmCache(wc_root, registry=reg) if wc_root else None
+        # task -> entries loaded instead of built; captures stay counted in
+        # compile_counts (a graph is never cached)
+        self.warm_hits: dict[str, int] = {}
+
+        # the step directory is resolved once: the digest and the one
+        # restore read the same save, whatever is committed later
+        self._ckpt = str(resolve_save(ckpt)) if ckpt else ""
         self._ckpt_tree: dict | None = None
         self._ckpt_stats: dict | None = None
         self.restore_s = 0.0  # seconds and bytes of the one restore
         self.restore_bytes = 0
+        # what names the weights a task is built from: the save's digest,
+        # or the init seed without a save; None (cache bypassed) once a
+        # swap serves a tree that no save names
+        self._weights_id: str | None = None
+        if self.warmcache is not None:
+            self._weights_id = save_digest(self._ckpt) if self._ckpt else f"init:{cfg.run.init_seed}"
+            self._fingerprint = self._model_fingerprint()
         if self._ckpt:
-            t0 = time.perf_counter()
-            self._ckpt_tree, self._ckpt_stats = restore_inference_state(self._ckpt)
-            self.restore_s = time.perf_counter() - t0
-            self.restore_bytes = sum(_nbytes(t) for d in (self._ckpt_tree, self._ckpt_stats or {}) for t in d.values())
+            self._restore()
 
         self.quant = quant
         if encoder_cache and self._enc.mask_mode != "shared":
@@ -345,9 +405,11 @@ class InferenceEngine:
 
         self.load_stats: dict[str, dict] = {}
         self.quant_reports: dict[str, dict] = {}  # task -> quantize_module's report
-        # task -> seconds of its last build: the model, the graft (where
-        # the memory-mapped save is read) and the quantization
+        # task -> seconds of its last build (the model, the graft, where the
+        # memory-mapped save is read, and the quantization; or the warm
+        # cache's load), and those seconds in parts
         self.build_s: dict[str, float] = {}
+        self.build_split: dict[str, dict[str, float]] = {}
         self._tasks: dict[str, dict] = {}  # task -> {"model"}
         self.compile_counts: dict[tuple[str, int], int] = {}
         self._graphs: dict[tuple[str, int], _Graph] = {}
@@ -362,33 +424,12 @@ class InferenceEngine:
 
     # ---------------------------------------------------------------- tasks
 
-    def _grafted(self, task: str, make, *, whole: bool) -> torch.nn.Module:
-        """``make(init_weights)``'s model with the restored tree merged onto
-        it, in place (the model is new and not yet served). ``whole``
-        merges the full tree (reconstruct needs the decoder); otherwise the
-        save's encoder lands on the model. The random init is drawn only
-        when something keeps it (a fresh or mismatched parameter): a save
-        that covers every parameter skips the draws, with the same
-        result."""
-        tree = self._ckpt_tree
-        if tree is None:
-            return make(True)
-        src = tree if whole else _subtree(tree, _encoder_key(tree))
-        model = make(False)
-        init = dict(model.named_parameters())
-        stats: dict = {}
-        merged = merge_pretrained_params(src, init, stats=stats)
-        require_loaded(stats, self._ckpt, f"the {task} serving model")
-        if stats["new"] or stats["skipped"]:  # these keep the init: draw it
-            model = make(True)
-            init = dict(model.named_parameters())
-            merged = merge_pretrained_params(src, init, verbose=False)
-        self.load_stats[task] = stats
-        with torch.no_grad():
-            for name, p in init.items():
-                if merged[name] is not p:
-                    p.copy_(merged[name])
-        return model
+    def _restore(self) -> None:
+        """Read the save (memory-mapped) into the engine's tree, once."""
+        t0 = time.perf_counter()
+        self._ckpt_tree, self._ckpt_stats = restore_inference_state(self._ckpt)
+        self.restore_s = time.perf_counter() - t0
+        self.restore_bytes = sum(_nbytes(t) for d in (self._ckpt_tree, self._ckpt_stats or {}) for t in d.values())
 
     def _load_batch_stats(self, model: JumboViT) -> None:
         """The save's BatchNorm statistics into the ``logits`` head (a
@@ -406,31 +447,167 @@ class InferenceEngine:
                                    f"{tuple(getattr(bn, name).shape)} (it has {sorted(saved)})")
                 getattr(bn, name).copy_(saved[key])
 
-    def _build_task(self, task: str) -> dict:
-        t0 = time.perf_counter()
+    def _maker(self, task: str):
+        """``(make(init_weights), whole)``: how ``task``'s model is built
+        and whether the whole tree grafts onto it."""
         kw = dict(device=self.device, seed=self.cfg.run.init_seed)
         if task == "features":
-            model = self._grafted(task, lambda init: JumboViT(self._enc, init_weights=init, **kw), whole=False)
-        elif task == "logits":
+            return (lambda init: JumboViT(self._enc, init_weights=init, **kw)), False
+        if task == "logits":
             if not self._labels:
                 raise ValueError(
                     "the logits task needs a label count — set model.overrides.labels in the recipe or pass labels="
                 )
             enc = self._enc.replace(labels=int(self._labels), batch_norm=self._batch_norm)
-            model = self._grafted(task, lambda init: JumboViT(enc, init_weights=init, **kw), whole=False)
-            self._load_batch_stats(model)
-        elif task == "reconstruct":
+            return (lambda init: JumboViT(enc, init_weights=init, **kw)), False
+        if task == "reconstruct":
             enc = self._enc.replace(mask_ratio=self.cfg.model.overrides.get("mask_ratio", 0.75))
-            model = self._grafted(task, lambda init: MAEPretrainModel(
-                enc, self._dec, self.cfg.model.norm_pix_loss, init_weights=init, **kw), whole=True)
-        else:
-            raise ValueError(f"unknown task {task!r}")
+            return (lambda init: MAEPretrainModel(
+                enc, self._dec, self.cfg.model.norm_pix_loss, init_weights=init, **kw)), True
+        raise ValueError(f"unknown task {task!r}")
+
+    def _construct(self, make) -> torch.nn.Module:
+        """``make(False)``'s model, constructed on the device without the
+        random init: every parameter is then filled from the save or an
+        entry. PyTorch's construction-time init costs little there beside
+        the host's, but it advances the device's generator, which a graph capture on
+        another thread refuses: the construction holds the capture lock."""
+        with _CAPTURE_LOCK, torch.device(self.device):
+            model = make(False)
+        self._sync()
+        return model
+
+    def _build_task(self, task: str) -> dict:
+        """``task``'s serving model: constructed on the device, the save's
+        tree merged onto it (``merge_pretrained_params``: a matching shape
+        loads, a positional grid of another size is resized, another shape
+        keeps the init), BatchNorm statistics into a ``logits`` head, then
+        quantized where asked. The random init is drawn (on the host, from
+        ``run.init_seed``) only when something keeps it: no save, or a
+        fresh or mismatched parameter. With a warm cache, a build that drew
+        the init or quantizes first tries its entry, and writes it on a
+        miss; a build that only copies the save's tensors has no entry,
+        because reading the memory-mapped save and copying it is faster
+        than reading an entry of the same bytes. ``build_split[task]`` gets
+        the seconds of each part."""
+        t0 = time.perf_counter()
+        make, whole = self._maker(task)
+        split: dict[str, float] = {}
+        model = self._construct(make)
+        split["construct_s"] = time.perf_counter() - t0
+        tree, merged = self._ckpt_tree, None
+        if tree is not None:
+            t1 = time.perf_counter()
+            src = tree if whole else _subtree(tree, _encoder_key(tree))
+            stats: dict = {}
+            merged = merge_pretrained_params(src, dict(model.named_parameters()), stats=stats)
+            require_loaded(stats, self._ckpt, f"the {task} serving model")
+            self.load_stats[task] = stats
+            split["graft_s"] = time.perf_counter() - t1
+        drawn = merged is None or bool(stats["new"] or stats["skipped"])
+        name = None
+        if self.warmcache is not None and self._weights_id is not None and (drawn or self.quant == "int8"):
+            name = self._entry_name(task)
+            if self._load_entry(task, model, name, split):
+                self.build_s[task] = time.perf_counter() - t0
+                self.build_split[task] = split
+                return {"model": model}
+        if drawn:
+            t1 = time.perf_counter()
+            model = make(True)
+            self._sync()
+            split["draw_s"] = time.perf_counter() - t1
+            if merged is not None:
+                merged = merge_pretrained_params(src, dict(model.named_parameters()), verbose=False)
+        if merged is not None:
+            t1 = time.perf_counter()
+            with torch.no_grad():
+                for n, p in model.named_parameters():
+                    if merged[n] is not p:
+                        p.copy_(merged[n])
+            self._sync()
+            split["to_device_s"] = time.perf_counter() - t1
+        if task == "logits":
+            self._load_batch_stats(model)
         model.eval().requires_grad_(False)
         if self.quant == "int8":
             # after the graft, so the int8 weights are the save's
+            t1 = time.perf_counter()
             self.quant_reports[task] = quantize_module(model)
+            self._sync()
+            split["quant_s"] = time.perf_counter() - t1
+        build_s = time.perf_counter() - t0
+        if name is not None:
+            t1 = time.perf_counter()
+            self.warmcache.put(name, _weights(model),
+                               meta={"build_seconds": build_s, "quant_report": self.quant_reports.get(task)})
+            split["put_s"] = time.perf_counter() - t1
         self.build_s[task] = time.perf_counter() - t0
+        self.build_split[task] = split
         return {"model": model}
+
+    def _load_entry(self, task: str, model: torch.nn.Module, name: str, split: dict) -> bool:
+        """Fill ``model`` (constructed, not yet served) from ``task``'s warm
+        cache entry; False on a miss. An entry whose names, shapes or dtypes
+        differ from the model it should fill is quarantined as corrupt."""
+        model.eval().requires_grad_(False)
+        t0 = time.perf_counter()
+
+        def fits(state: dict) -> None:
+            if self.quant == "int8":
+                int8_layout(model, state)
+            live = _weights(model)
+            if set(live) != set(state):
+                raise ValueError(f"entry names differ from the model's ({len(state)} against {len(live)})")
+            for n, t in live.items():
+                if t.shape != state[n].shape or t.dtype != state[n].dtype:
+                    raise ValueError(f"entry {n} is {state[n].dtype}{tuple(state[n].shape)}, the model's "
+                                     f"{t.dtype}{tuple(t.shape)}")
+
+        state = self.warmcache.get(name, validate=fits)
+        if state is None:
+            return False
+        t1 = time.perf_counter()
+        _copy_weights(model, state)
+        self._sync()
+        split.update(load_s=t1 - t0, to_device_s=time.perf_counter() - t1)
+        self.warm_hits[task] = self.warm_hits.get(task, 0) + 1
+        meta = self.warmcache.entry_meta(name) or {}
+        if meta.get("quant_report"):
+            self.quant_reports[task] = meta["quant_report"]
+        saved = float(meta.get("build_seconds") or 0.0)
+        if saved > 0:
+            self._m_warm_saved.labels(task).inc(saved)
+        return True
+
+    def _model_fingerprint(self) -> str:
+        """Everything a task's built weights depend on besides the task,
+        dtype and quant mode (the entry name's): the model's config, the
+        init seed (fresh parameters are part of an entry), the weights'
+        source (the save's digest) and the device with its torch and CUDA
+        versions. The JAX fingerprint has no save and no seed in it: there
+        parameters are arguments of the cached executable."""
+
+        def cfg_dict(c):
+            return dataclasses.asdict(c) if dataclasses.is_dataclass(c) else str(c)
+
+        return wc.fingerprint(
+            {
+                "enc": cfg_dict(self._enc),
+                "dec": cfg_dict(self._dec),
+                "labels": self._labels,
+                "batch_norm": self._batch_norm,
+                "norm_pix_loss": self.cfg.model.norm_pix_loss,
+                "mask_ratio": self.cfg.model.overrides.get("mask_ratio", 0.75),
+                "image_size": self.image_size,
+                "init_seed": self.cfg.run.init_seed,
+                "weights": self._weights_id,
+                "device": wc.device_fingerprint(self.device),
+            }
+        )
+
+    def _entry_name(self, task: str) -> str:
+        return wc.entry_name(self._fingerprint, task, 0, str(self._enc.dtype), self.quant)
 
     def _task(self, task: str) -> dict:
         t = self._tasks.get(task)
@@ -454,24 +631,31 @@ class InferenceEngine:
         under the replay lock, the live models' weights are copied to the
         host as the snapshot and the new values into the live models' own
         storage, so the captured graphs serve them without a capture and
-        each request serves entirely old or entirely new weights. Returns
-        the snapshot for :meth:`restore_snapshot`; raises, leaving the old
-        weights live, when the tree does not graft."""
+        each request serves entirely old or entirely new weights. The
+        encoder-output LRU is cleared under the same lock, so a cached
+        reconstruction cannot decode encoder rows of the old weights with
+        the new decoder; the JAX engine clears it after releasing its lock
+        and keeps that race. Builds after a swap bypass the warm cache: no
+        save names the new tree. Returns the snapshot for
+        :meth:`restore_snapshot`; raises, leaving the old weights live,
+        when the tree does not graft."""
         tree = {n: torch.as_tensor(v) for n, v in params.items()}
         stats = None if batch_stats is None else {n: torch.as_tensor(v) for n, v in batch_stats.items()}
         with self._lock:
             # a task mid-build holds this lock: it is in ``built`` or builds
             # from the new tree
             prev = {"ckpt": self._ckpt, "tree": self._ckpt_tree, "stats": self._ckpt_stats,
-                    "load_stats": dict(self.load_stats)}
+                    "load_stats": dict(self.load_stats), "weights_id": self._weights_id}
             built = sorted(self._tasks)
             self._ckpt, self._ckpt_tree, self._ckpt_stats = str(ckpt), tree, stats
+            self._weights_id = None  # no save names this tree: builds bypass the warm cache
         try:
             fresh = {task: _weights(self._build_task(task)["model"]) for task in built}
         except BaseException:
             with self._lock:
                 self._ckpt, self._ckpt_tree, self._ckpt_stats = prev["ckpt"], prev["tree"], prev["stats"]
                 self.load_stats = prev["load_stats"]
+                self._weights_id = prev["weights_id"]
             raise
         with self._replay_lock:
             snap = {**prev, "weights": {}}
@@ -480,7 +664,10 @@ class InferenceEngine:
                 snap["weights"][task] = {n: t.detach().to("cpu", copy=True) for n, t in _weights(live).items()}
                 _copy_weights(live, fresh[task])
             self._sync()
-        self._clear_encoder_cache()  # cached encoder outputs are weight-dependent
+            # cached encoder outputs are weight-dependent: cleared under the
+            # same lock, so no cached reconstruction decodes old encoder rows
+            # with the new decoder (the JAX engine clears after releasing it)
+            self._clear_encoder_cache()
         return snap
 
     def restore_snapshot(self, snap: dict) -> None:
@@ -488,10 +675,13 @@ class InferenceEngine:
         snapshot's weights are copied back into the live models under the
         replay lock, so the graphs serve bit-equal outputs to before the
         swap. Tasks first built after the swap are dropped, with their
-        graphs, to rebuild from the restored tree."""
+        graphs, to rebuild from the restored tree. The encoder-output LRU
+        is cleared under the replay lock, as in :meth:`swap_weights` (the
+        JAX engine clears it after the lock)."""
         with self._replay_lock, self._lock:
             self._ckpt, self._ckpt_tree, self._ckpt_stats = snap["ckpt"], snap["tree"], snap["stats"]
             self.load_stats = dict(snap["load_stats"])
+            self._weights_id = snap["weights_id"]
             for task in list(self._tasks):
                 if task in snap["weights"]:
                     _copy_weights(self._tasks[task]["model"], snap["weights"][task])
@@ -500,7 +690,7 @@ class InferenceEngine:
                     for key in [k for k in self._graphs if self._base_task(k[0]) == task]:
                         del self._graphs[key]
             self._sync()
-        self._clear_encoder_cache()
+            self._clear_encoder_cache()  # under the lock, as in swap_weights
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -586,22 +776,27 @@ class InferenceEngine:
                 self._forward(task, pool, model, static)  # the eager first run
                 stream.synchronize()
                 first_run_s = time.perf_counter() - t0
-                before, reserved = _launch_counts(), torch.cuda.memory_reserved(dev)
+                reserved = torch.cuda.memory_reserved(dev)
                 graph = torch.cuda.CUDAGraph()
-                t0 = time.perf_counter()
-                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
-                try:
-                    outputs = self._forward(task, pool, model, static)
-                except BaseException:
-                    with contextlib.suppress(Exception):
-                        graph.capture_end()
-                    raise
-                graph.capture_end()
-                capture_s = time.perf_counter() - t0
+                # the counters' growth over the capture is this graph's own:
+                # another engine's replay adds its launches after it
+                with _COUNTS_LOCK:
+                    before = _launch_counts()
+                    t0 = time.perf_counter()
+                    graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                    try:
+                        outputs = self._forward(task, pool, model, static)
+                    except BaseException:
+                        with contextlib.suppress(Exception):
+                            graph.capture_end()
+                        raise
+                    graph.capture_end()
+                    capture_s = time.perf_counter() - t0
+                    after = _launch_counts()
+                    launches = {n: after[n] - before[n] for n in LAUNCH_COUNTERS}
+                    for n, d in launches.items():  # a capture launches nothing on the card
+                        setattr(flash, n, getattr(flash, n) - d)
             torch.cuda.current_stream(dev).wait_stream(stream)
-            after = _launch_counts()
-            launches = {n: after[n] - before[n] for n in LAUNCH_COUNTERS}
-            _add_launches(launches, -1)  # a capture launches nothing on the card
             pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         g = _Graph(graph, pinned, static, outputs, launches, model, first_run_s, capture_s, pool_bytes)
         self._graphs[key] = g

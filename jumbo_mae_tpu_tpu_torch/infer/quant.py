@@ -166,6 +166,28 @@ def quantize_module(model: nn.Module) -> dict:
     return report
 
 
+def int8_layout(model: nn.Module, state: dict[str, torch.Tensor]) -> None:
+    """Give ``model`` the layout :func:`quantize_module` leaves, for a
+    ``state`` dict saved from a quantized model (the warm cache's entries):
+    each module with a ``<module>.weight_q`` entry loses its ``weight``
+    parameter for empty ``weight_q``/``weight_scale`` buffers of the
+    entry's shapes and dtypes on the model's device, to be filled from
+    ``state``. Nothing is quantized here."""
+    for name, q in state.items():
+        if not name.endswith(".weight_q"):
+            continue
+        mod_name = name[: -len(".weight_q")]
+        mod = model.get_submodule(mod_name)
+        if not isinstance(mod, (nn.Linear, nn.Conv2d)) or "weight" not in mod._parameters:
+            raise TypeError(f"{name}: no nn.Linear or nn.Conv2d weight to lay out as int8")
+        scale = state[f"{mod_name}.weight_scale"]
+        dev = mod._parameters["weight"].device
+        del mod._parameters["weight"]
+        mod.register_buffer("weight_q", torch.empty(q.shape, dtype=q.dtype, device=dev))
+        mod.register_buffer("weight_scale", torch.empty(scale.shape, dtype=scale.dtype, device=dev))
+        mod.__class__ = _int8_class(type(mod))
+
+
 # ------------------------------------------------------------------ parity
 
 

@@ -90,7 +90,7 @@ class MAEPretrainModel(nn.Module):
         self.encoder_cfg = encoder_cfg
         self.decoder_cfg = decoder_cfg
         self.norm_pix_loss = norm_pix_loss
-        self.encoder = JumboViT(enc, device="cpu", seed=seed, init_weights=init_weights)
+        self.encoder = JumboViT(enc, device=dev, seed=seed, init_weights=init_weights)
         self.mask_token = nn.Parameter(torch.zeros(1, 1, decoder_cfg.dim))
         self.decoder_proj = Dense(enc.dim, decoder_cfg.dim, decoder_cfg.compute_dtype)
         self.decoder = MAEDecoder(decoder_cfg, enc.grid, enc.num_cls_tokens)

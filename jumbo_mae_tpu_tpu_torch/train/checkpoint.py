@@ -41,6 +41,7 @@ decoder is dropped and the head stays fresh.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import pickle
@@ -400,31 +401,53 @@ def _looks_like_orbax(p: Path) -> bool:
     return False
 
 
+def resolve_save(path: str | Path) -> Path:
+    """The step directory :func:`restore_inference_state` reads for
+    ``path``: ``path`` itself when it holds ``state.pt``, else its newest
+    committed ``best`` save, then ``last``, then step directories directly
+    under it. An Orbax directory or a ``.msgpack`` file raises naming
+    ROADMAP A3.3."""
+    s = str(path)
+    if s.endswith(".msgpack"):
+        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=s, what="a flax .msgpack params file"))
+    p = Path(s)
+    if (p / STATE_FILE).is_file():
+        return p
+    for sub in ("best", "last", "."):
+        root = p / sub
+        steps = _committed(root) if root.is_dir() else []
+        if steps:
+            return root / str(steps[0])
+    if p.is_dir() and _looks_like_orbax(p):
+        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=s, what="an Orbax checkpoint"))
+    raise FileNotFoundError(f"no committed checkpoint under {s} (best/, last/ or step directories)")
+
+
+def save_digest(path: str | Path) -> str:
+    """A digest that names the save :func:`restore_inference_state` would
+    read for ``path``, without reading its tensors: the resolved step
+    directory, its commit marker's bytes, and ``state.pt``'s size and
+    modification time. A save written again, even at the same step, gets
+    another digest. The serving warm cache keys its entries on it."""
+    d = resolve_save(path).resolve()
+    st = (d / STATE_FILE).stat()
+    h = hashlib.sha256()
+    for part in (str(d).encode(), (d / COMMIT_FILE).read_bytes(), f"{st.st_size}:{st.st_mtime_ns}".encode()):
+        h.update(len(part).to_bytes(8, "little"))
+        h.update(part)
+    return h.hexdigest()[:16]
+
+
 def restore_inference_state(path: str | Path) -> tuple[dict[str, torch.Tensor], dict[str, torch.Tensor] | None]:
     """``(params, batch_stats)`` for serving, from a port save: the saved
     model's tensors by ``state_dict`` name, the BatchNorm statistics apart
     (``None`` for a save without BatchNorm; a linear probe's head has
     them). The JAX package's ``restore_inference_state``.
 
-    ``path`` is a checkpoint directory (its newest committed ``best``
-    save, then ``last``, then step directories directly under ``path``)
-    or one step directory. The file is memory-mapped and only the model's
-    tensors are touched, so the optimizer's bytes are never read. An
-    Orbax directory or a ``.msgpack`` file raises naming ROADMAP A3.3."""
-    s = str(path)
-    if s.endswith(".msgpack"):
-        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=s, what="a flax .msgpack params file"))
-    p = Path(s)
-    if (p / STATE_FILE).is_file():
-        return split_batch_stats(_load_save(p, mmap=True)[0]["model"])
-    for sub in ("best", "last", "."):
-        root = p / sub
-        steps = _committed(root) if root.is_dir() else []
-        if steps:
-            return split_batch_stats(_load_save(root / str(steps[0]), mmap=True)[0]["model"])
-    if p.is_dir() and _looks_like_orbax(p):
-        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=s, what="an Orbax checkpoint"))
-    raise FileNotFoundError(f"no committed checkpoint under {s} (best/, last/ or step directories)")
+    ``path`` is a checkpoint directory or one step directory, resolved by
+    :func:`resolve_save`. The file is memory-mapped and only the model's
+    tensors are touched, so the optimizer's bytes are never read."""
+    return split_batch_stats(_load_save(resolve_save(path), mmap=True)[0]["model"])
 
 
 # ---------------------------------------------------------------- warm starts

@@ -13,6 +13,7 @@ checks.
 """
 
 import importlib.util
+import os
 from pathlib import Path
 
 import numpy as np
@@ -30,6 +31,10 @@ from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
 
 pytestmark = pytest.mark.cuda
 RECIPE = Path(__file__).resolve().parent.parent / "recipes" / "smoke_cpu.yaml"
+# engines here run without the default warm cache (as under the suite's
+# conftest, which this file runs without); the warm-restart test names a
+# directory of its own
+os.environ.setdefault("JUMBO_WARMCACHE", "0")
 
 
 @pytest.fixture
@@ -167,6 +172,31 @@ def test_graphs_replay_count_launches_and_swap_without_capturing(cuda):
     assert eng.compile_counts == counts
     par = eng.packed_parity([x[0], x[1][:16, :16], x[2][:24, :24]], ["logits", "features", "logits"])
     assert par["pass"], par
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_warm_restart_on_the_card_loads_every_task_bit_equal(cuda, tmp_path, quant):
+    """A second engine against the first's warm-cache directory loads each
+    task's weights instead of building them, captures its ladder again
+    and serves bit-equal features and logits; K1 counts one launch a
+    layer a forward over dispatches and captures."""
+    recipe = load_config(RECIPE, ["model.overrides.heads=2", "model.overrides.dtype=bfloat16",
+                                  "model.overrides.labels=10"])
+    x = np.random.default_rng(3).integers(0, 256, (5, 32, 32, 3), dtype=np.uint8)
+    outs, engines = [], []
+    for _ in range(2):
+        fa.LAUNCHES = 0
+        eng = InferenceEngine(recipe, max_batch=8, quant=quant, warm_cache=tmp_path, device="cuda")
+        eng.warmup(("features", "logits"))
+        outs.append((eng.features(x), eng.logits(x)))
+        layers = eng.model("features").cfg.layers
+        assert fa.LAUNCHES == layers * (eng.dispatches + sum(eng.compile_counts.values()))
+        engines.append(eng)
+    cold, warm = engines
+    assert cold.warm_hits == {} and warm.warm_hits == {"features": 1, "logits": 1}
+    assert warm.warmcache.stats()["misses"] == 0 and warm.compile_counts == cold.compile_counts
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_served_save_and_int8_on_the_card_match_the_cpu(cuda, tmp_path):

@@ -8,10 +8,11 @@
   the CPU in such an interpreter;
 - an augmentation policy without PIL raises ``ImportError`` naming it, at
   the policy and at the loader, while the rest of the port runs;
-- the entry points (the engine, ``cli.predict``, ``cli.train`` and the
-  tools) default to the GPU and raise when there is none, instead of
-  carrying on on the CPU; a save is served and its features exported in
-  the blocked interpreter;
+- the entry points (the engine, ``cli.predict``, ``cli.train``,
+  ``cli.batch``, the warm-cache probe and the tools) default to the GPU
+  and raise when there is none, instead of carrying on on the CPU; a save
+  is served and its features exported, a batch job runs and is audited,
+  and a warm restart loads its cache, in the blocked interpreter;
 - no kernel is built at import time.
 """
 
@@ -170,6 +171,31 @@ def test_replicated_packed_serving_without_jax_yaml_pil_or_cv2(tmp_path):
     assert "served (6, 192) promoted" in res.stdout, res.stdout[-2000:]
 
 
+def test_batch_job_and_warm_restart_without_jax_yaml_pil_or_cv2(tmp_path):
+    """A stub ``cli.batch`` job over two shards and its ``batch_doctor``
+    audit, and the warm-cache probe run twice (the second loads every
+    task), in an interpreter where JAX, PyYAML, PIL and cv2 cannot
+    import."""
+    res = _blocked_interpreter(
+        "from jumbo_mae_tpu_tpu_torch.cli import batch\n"
+        "from jumbo_mae_tpu_tpu_torch.data.tario import write_tar_samples\n"
+        "from jumbo_mae_tpu_tpu_torch.infer import warmcache\n"
+        "from jumbo_mae_tpu_tpu_torch.tools import batch_doctor\n"
+        f"out = {str(tmp_path)!r}\n"
+        "shards = [out + f'/s{i}.tar' for i in range(2)]\n"
+        "for i, u in enumerate(shards):\n"
+        "    write_tar_samples(u, [{'__key__': f'k{i}{j}', 'bin': bytes([i, j]) * 8} for j in range(5)])\n"
+        "rc = batch.main([*shards, '--out', out + '/job', '--service-overhead-ms', '0'])\n"
+        "doc = batch_doctor.main([out + '/job', '--out', out + '/doctor.md'])\n"
+        "argv = ['--dir', out + '/wc', '--device', 'cpu', '--max-batch', '2']\n"
+        "cold, warm = warmcache._probe_main(argv), warmcache._probe_main(argv)\n"
+        "print('batch', rc, doc, 'warm', cold['warm_hits'], warm['warm_hits'])\n",
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "batch 0 0 warm 0 1" in res.stdout, res.stdout[-2000:]
+
+
 def test_images_without_cv2_or_pil_raise_naming_both(tmp_path):
     """With neither cv2 nor PIL, decoding a JPEG, resizing and starting a
     train loader raise ImportError naming both packages; nothing returns
@@ -277,6 +303,19 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.serve",
         "jumbo_mae_tpu_tpu_torch.serve.admission",
         "jumbo_mae_tpu_tpu_torch.serve.scheduler",
+        "jumbo_mae_tpu_tpu_torch.obs",
+        "jumbo_mae_tpu_tpu_torch.obs.metrics",
+        "jumbo_mae_tpu_tpu_torch.obs.journal",
+        "jumbo_mae_tpu_tpu_torch.obs.doctor_common",
+        "jumbo_mae_tpu_tpu_torch.infer.warmcache",
+        "jumbo_mae_tpu_tpu_torch.faults",
+        "jumbo_mae_tpu_tpu_torch.faults.inject",
+        "jumbo_mae_tpu_tpu_torch.batch",
+        "jumbo_mae_tpu_tpu_torch.batch.leases",
+        "jumbo_mae_tpu_tpu_torch.batch.partfile",
+        "jumbo_mae_tpu_tpu_torch.batch.job",
+        "jumbo_mae_tpu_tpu_torch.cli.batch",
+        "jumbo_mae_tpu_tpu_torch.tools.batch_doctor",
     ):
         assert m in mods
     for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):
@@ -306,6 +345,13 @@ def test_model_and_cli_default_to_cuda(no_cuda):
         extract_features.main([SMOKE, "--out", "unused.npz"])
     with pytest.raises(RuntimeError, match="CUDA"):
         knn_probe.main([SMOKE, SMOKE, "--set", "run.mode=finetune"])
+    from jumbo_mae_tpu_tpu_torch.cli import batch
+    from jumbo_mae_tpu_tpu_torch.infer import warmcache
+
+    with pytest.raises(RuntimeError, match="CUDA"):  # the job's replicas
+        batch.main(["shard.tar", "--out", "unused", "--config", SMOKE])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        warmcache._probe_main(["--dir", "unused"])
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     with pytest.raises(ValueError):

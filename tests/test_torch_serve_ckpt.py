@@ -315,6 +315,51 @@ def test_swap_clears_the_encoder_cache(saves):
     assert eng.encoder_cache_stats()["size"] == 0 and eng.encoder_cache_bytes() == 0
 
 
+def _same(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+@pytest.mark.parametrize("rollback", [False, True], ids=["swap_weights", "restore_snapshot"])
+def test_cached_reconstruct_racing_a_swap_serves_one_tree(saves, monkeypatch, rollback):
+    """A cached ``reconstruct`` that runs while a swap (or its rollback)
+    clears the encoder-output LRU serves entirely old or entirely new
+    weights: the clear happens under the replay lock, so the request
+    cannot decode encoder rows of one tree with the decoder of the other.
+    The reconstruct is started from inside the clear, on another thread."""
+    x = images(2, seed=11)
+    old_tree, _ = restore_inference_state(saves["pretrain"]["dir"])
+    new_tree = {n: -0.5 * t + 0.1 if t.is_floating_point() else t for n, t in old_tree.items()}
+    want_old = engine(saves, "pretrain").reconstruct(x)
+    fresh = engine(saves, "pretrain")
+    fresh.swap_weights(new_tree)
+    want_new = fresh.reconstruct(x)
+    assert not np.array_equal(want_old["reconstruction"], want_new["reconstruction"])
+    eng = engine(saves, "pretrain", encoder_cache=8)
+    if rollback:
+        snap = eng.swap_weights(new_tree)
+    eng.reconstruct(x)  # the cache now holds the live tree's encoder rows
+    assert eng.encoder_cache_stats()["size"] == 2
+    real = InferenceEngine._clear_encoder_cache
+    raced: dict = {}
+
+    def racing_clear(self):
+        t = threading.Thread(target=lambda: raced.update(out=self.reconstruct(x)))
+        t.start()
+        t.join(timeout=0.5)  # a reconstruct free to run finishes well within this
+        raced["thread"] = t
+        real(self)
+
+    monkeypatch.setattr(InferenceEngine, "_clear_encoder_cache", racing_clear)
+    if rollback:
+        eng.restore_snapshot(snap)
+    else:
+        eng.swap_weights(new_tree)
+    raced["thread"].join(timeout=60)
+    got = raced["out"]
+    assert _same(got, want_new if not rollback else want_old) or _same(got, want_old if not rollback else want_new)
+    assert _same(eng.reconstruct(x), want_old if rollback else want_new)
+
+
 # ----------------------------------------------- first runs and warmup
 
 
