@@ -189,6 +189,32 @@ Phases, each of which exits non-zero when it fails:
    1e-2 and cosine 0.999 of it, and byte-identical on a one-bucket ladder
    (straight and SIGKILLed); ``python -m
    jumbo_mae_tpu_tpu_torch.tools.batch_doctor`` exits 0 after each run.
+23. billing, the autoscaler and the publisher (after phase 22, on phase
+   16's ``best``, phase 19's 70 PNGs and phase 13's shards): (a)
+   ``cli.predict --serve --replicas 1 --tenants web=interactive,
+   scrape=batch:budget=...:window=2 --autoscale 1:2 --access-log`` in a
+   process of its own, a burst of 420 requests then 210 at 40 ms:
+   one scale-up to 2 and one drain back to 1 journaled, no request failed
+   or shed, the meter's conservation law to 1e-9, each tenant's FLOPs the
+   analytic count of its rows (bucket / batch of the ViT-B/16 logits
+   forward), the scrape tenant's budget gauge at 0, K1 = 12 x (dispatches
+   + captures) over both replicas; the roofline capacity a replica on the
+   H100 beside the measured rate; (b) 4 steps of
+   ``recipes/finetune_vit_b16.yaml`` at batch 256 through
+   ``cli.train.main`` with ``run.publish_dir`` and a checkpoint every 2
+   steps (K1 = K2 = K3 = 12 a step): an int8 full artifact, then a delta
+   (learning rate 2e-6, a schedule's tail, and layer decay 0.05, so the
+   low blocks' kernels ride the base and the features stay within the
+   swap's parity gate), both
+   verified, the delta's fingerprint that of a full export of the same
+   tree, a third export corrupted by the ``publish.export`` fault site;
+   pushed into ``cli.predict --serve --replicas 2 --swap-watch``, the two
+   good ones promoted and the corrupt one quarantined before restore,
+   ``publish_doctor`` exiting 0; (c) ``cli.batch`` over phase 13's first
+   2 shards (512 images, one replica) with a budgeted tenant: ``tenant_usage`` in the summary, each row
+   billed its analytic share, ``cost_doctor`` reconciling the rows with
+   the ledger; (d) ``predict_train_step`` of the ViT-L/16 MAE step at
+   batch 128 on the H100 row beside phase 7's measured step.
 
 Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
 NaN past the sequence inert, and time them there against SDPA.
@@ -2723,6 +2749,14 @@ def spawn(argv: list[str], env: dict | None = None) -> tuple[subprocess.Popen, f
     return proc, time.perf_counter()
 
 
+def spawn_code(code: str, argv: list[str]) -> tuple[subprocess.Popen, float]:
+    """``python -c code argv...`` started in a process of its own from this
+    checkout, and its start time."""
+    proc = subprocess.Popen([sys.executable, "-c", code, *argv], cwd=HERE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=dict(os.environ))
+    return proc, time.perf_counter()
+
+
 def reap(started: tuple[subprocess.Popen, float], timeout_s: float = 300.0) -> tuple[dict, float]:
     """A :func:`spawn`ed child's last stdout line as JSON and its wall
     seconds. A non-zero exit fails the phase, with the end of its stderr."""
@@ -3038,6 +3072,282 @@ def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
     return res
 
 
+# ------------------------------------------------------------ billing
+
+
+# the child of phase 23(a): cli.predict in a process of its own, the
+# engines and the meter it builds recorded, K1 counted over the run
+BILLING_CHILD = r"""
+import contextlib, io, json, sys
+from jumbo_mae_tpu_tpu_torch import serve
+from jumbo_mae_tpu_tpu_torch.cli import predict
+from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
+from jumbo_mae_tpu_tpu_torch.ops.flash import attention as fa
+made = {"engines": [], "meters": []}
+class Engine(predict.InferenceEngine):
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        made["engines"].append(self)
+class Meter(serve.CostMeter):
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        made["meters"].append(self)
+predict.InferenceEngine, serve.CostMeter = Engine, Meter
+buf = io.StringIO()
+fa.LAUNCHES = 0
+with contextlib.redirect_stdout(buf):
+    predict.main(sys.argv[1:])
+k1 = fa.LAUNCHES
+(meter,) = made["meters"]
+left = get_registry().gauge("serve_tenant_budget_remaining", labels=("tenant", "class")).children()
+print(json.dumps({"k1": k1, "stdout": buf.getvalue(), "snapshot": meter.snapshot(),
+                  "ran": [e.dispatches + sum(e.compile_counts.values()) for e in made["engines"]],
+                  "costs": {f"{k[0]}/b{k[1]}": c.flops for e in made["engines"][:1] for k, c in e.cost_reports.items()},
+                  "budget_remaining": {",".join(k): c.value for k, c in left.items()}}))
+"""
+
+
+def meter_overhead_us(rows: int, reps: int = 400) -> float:
+    """Host µs of one ``CostMeter.observe_batch`` of ``rows`` traces (two
+    tenants, a cost table), the median of ``reps`` calls."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.obs.metrics import MetricsRegistry
+    from jumbo_mae_tpu_tpu_torch.serve import CostMeter, parse_tenants
+
+    meter = CostMeter(parse_tenants("web=interactive,scrape=batch:budget=5"),
+                      cost_fn=lambda e, t, b: {"flops": 1e9 * b}, registry=MetricsRegistry())
+    traces = [SimpleNamespace(tenant=("web", "scrape")[i % 2], tclass=("interactive", "batch")[i % 2], task="logits",
+                              bucket=64, pad_fraction=0.0, tokens=None, device_s=None, cost_flops=None)
+              for i in range(rows)]
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        meter.observe_batch(run_s=0.012, traces=traces, batch=rows)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e6
+
+
+def phase_billing(fa, smi: str, tmp: Path, urls: dict, train_step_ms: float) -> dict:
+    """Phase 23: tenant cost metering with device-second budgets, the
+    autoscaler on the H100 roofline, and the gated train→serve weights
+    publisher (the module docstring's list). Each path sets the launch
+    counts to 0 just before it and reads them just after."""
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+    from jumbo_mae_tpu_tpu_torch.data.shards import expand_shards
+    from jumbo_mae_tpu_tpu_torch.faults import clear_plan, install_plan
+    from jumbo_mae_tpu_tpu_torch.interop.from_jax import flax_tree_from_state_dict
+    from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, preset
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+    from jumbo_mae_tpu_tpu_torch.obs.mfu import classify_flops_per_image, encoder_flops_per_image
+    from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip, predict_train_step, publish_drift
+    from jumbo_mae_tpu_tpu_torch.serve import publisher as pub
+    from jumbo_mae_tpu_tpu_torch.serve import roofline_capacity
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import read_state
+
+    t_start = time.perf_counter()
+    chip = detect_chip("cuda")
+    res: dict = {"chip": {"name": chip.name, "hbm_bytes": chip.hbm_bytes}}
+    ft = tmp / "ft" / "finetune_vit_b16" / "ckpt"
+    files = sorted(str(p) for p in (tmp / "serve" / "images").glob("*.png"))
+    check(len(files) == SERVE_IMAGES, f"billing: phase 19's {len(files)} files")
+    cfg = load_config(HERE / FT_RECIPE)
+    enc = preset(cfg.model.preset, **{**cfg.model.overrides, "mask_ratio": None, "labels": 1000})
+    per_image = classify_flops_per_image(enc, training=False)  # the logits forward: encoder and head
+
+    # ---- (a) tenants and the autoscaler, in a process of its own
+    acc = tmp / "billing" / "access"
+    burst, tail = 6 * SERVE_IMAGES, 3 * SERVE_IMAGES
+    argv = ["--config", str(HERE / FT_RECIPE), "--ckpt", str(ft), "--images", *(files * 9), "--task", "logits",
+            "--max-batch", "64", "--serve", "--replicas", "1", "--warmup", "--tenants",
+            "web=interactive:rate=100000,scrape=batch:budget=0.005:window=2", "--autoscale", "1:2",
+            "--autoscale-interval-s", "0.02", "--access-log", str(acc), "--burst", str(burst),
+            "--interarrival-ms", "40", "--out", str(tmp / "billing" / "served.npz")]
+    child, wall = reap(spawn_code(BILLING_CHILD, argv), timeout_s=300)
+    out = child["stdout"]
+    n = burst + tail
+    check(f"pool served {n}/{n} ok (0 failed)" in out and "request shed" not in out,
+          f"billing: requests failed or shed: {out[-1500:]}")
+    events = read_journal(acc)
+    scaled = [e for e in events if e["type"] == "autoscale"]
+    moves = [(e["direction"], e["scaled_from"], e["scaled_to"]) for e in scaled]
+    check(moves == [("up", 1, 2), ("down", 2, 1)], f"billing: autoscale events {moves}")
+    rows = [e for e in events if e["type"] == "request"]
+    ok = [r for r in rows if r["outcome"] == "ok"]
+    check(len(rows) == len(ok) == n, f"billing: {len(ok)} ok rows of {len(rows)}: no request shed, none failed")
+    snap = child["snapshot"]
+    tenants = snap["tenants"]
+    dev = sum(t["device_s"] for t in tenants.values())
+    flops = sum(t["flops"] for t in tenants.values())
+    check(abs(dev - snap["total_device_s"]) <= 1e-9 * snap["total_device_s"]
+          and abs(flops - snap["total_flops"]) <= 1e-9 * snap["total_flops"],
+          f"billing: conservation: tenants {dev} s / {flops} FLOPs against {snap['total_device_s']} / "
+          f"{snap['total_flops']}")
+    costs = child["costs"]
+    check(all(c == per_image * int(k.rsplit("/b", 1)[1]) for k, c in costs.items() if k.startswith("logits/")),
+          f"billing: graph costs {costs} against {per_image} FLOPs an image")
+    for tenant in ("web", "scrape"):
+        want = sum(per_image * r["bucket"] / r["batch"] for r in ok if r["tenant"] == tenant)
+        got = tenants[tenant]["flops"]
+        check(abs(got - want) <= 1e-9 * want and tenants[tenant]["requests"] == n // 2,
+              f"billing: {tenant} billed {got} FLOPs for {tenants[tenant]['requests']} rows, analytic {want}")
+    left = child["budget_remaining"].get("scrape,batch")
+    check(left == 0.0, f"billing: scrape's budget left {left}")
+    check(child["k1"] == 12 * sum(child["ran"]) and len(child["ran"]) == 2,
+          f"billing: {child['k1']} K1 over engines that ran {child['ran']} forwards")
+    capacity = roofline_capacity(encoder_flops_per_image(enc, masked=False),
+                                 2.0 * encoder_flops_per_image(enc, masked=False) / enc.dim, chip)
+    # the burst's requests (the first `burst` trace ids): served on the
+    # host clock from the first submit to the last result, and per metered
+    # second of their own batches' runs
+    burst_rows = [r for r in ok if r["rid"] < burst]
+    start = min(r["ts"] - r["lat_ms"] / 1e3 for r in burst_rows)
+    host_rate = len(burst_rows) / max(max(r["ts"] for r in burst_rows) - start, 1e-9)
+    device_rate = len(burst_rows) / (sum(r["device_ms"] for r in burst_rows) / 1e3)
+    res["serve"] = {"k1": child["k1"], "ran": child["ran"], "wall_s": wall, "moves": moves,
+                    "decisions": [{k: e[k] for k in ("demand_rps", "capacity_rps", "queue_depth", "current", "target")}
+                                  for e in scaled],
+                    "tenants": {t: {k: v[k] for k in ("requests", "device_s", "flops", "waste_device_s")}
+                                for t, v in tenants.items()},
+                    "total_device_s": snap["total_device_s"], "batches": snap["total_batches"],
+                    "roofline_utilization": snap.get("roofline_utilization"),
+                    "roofline_capacity_rps": capacity, "burst_rps": host_rate, "device_rps": device_rate,
+                    "ratio": capacity / device_rate}
+    log(f"billing (a): {n} requests ({burst} in a burst, {tail} at 40 ms) served, none shed or failed; autoscale "
+        f"{moves}; K1 {child['k1']} = 12 x {child['ran']} forwards; meter {snap['total_batches']} batches, "
+        f"{snap['total_device_s']:.4f} device-s, tenants "
+        + ", ".join(f"{t} {v['device_s']:.4f} s / {v['flops'] / 1e12:.3f} TFLOP" for t, v in tenants.items())
+        + f", conservation exact to 1e-9; scrape's budget gauge 0; roofline capacity {capacity:.1f} images/s a "
+        f"replica (H100 row, utilization 0.5) against the burst's {device_rate:.1f} images per metered second of "
+        f"its batches' runs (ratio {capacity / device_rate:.3f}) and {host_rate:.1f} images/s from its first submit "
+        f"to its last result, on {smi}")
+
+    # ---- (b) the publisher: a finetune with run.publish_dir, then the swap watch
+    staged = tmp / "billing" / "staged"
+    mae16 = tmp / "b16" / "pretrain_vit_b16_in1k_1600ep" / "ckpt"
+    sets = [*CLASSIFY_SETS, "run.epochs=1.0", "run.ckpt_every=2", "optim.learning_rate=2e-6", "optim.layer_decay=0.05",
+            "run.sanity_eval=false", f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}",
+            f"run.output_dir={tmp / 'billing' / 'ft'}", f"run.pretrained_ckpt={mae16}", f"run.publish_dir={staged}"]
+    rec = run_driver(fa, ["--config", str(HERE / FT_RECIPE), "--set", *sets])
+    c, steps = rec["counts"], len(rec["metrics"])
+    train_k1 = c["K1"] - rec["eval_k1"]
+    check(steps == 4 and train_k1 == 12 * steps and c["K2"] == c["K3"] == 12 * steps,
+          f"billing: the publisher's finetune: {steps} steps, K1 {train_k1} (+{rec['eval_k1']} eval), K2 {c['K2']}, "
+          f"K3 {c['K3']}")
+    full, delta = (pub.load_manifest(staged / f"publish-00000{i}") for i in range(2))
+    for m in (full, delta):
+        pub.verify_artifact(staged / m["name"])
+    check(full["base"] is None and full["step"] == 2 and delta["step"] == 4 and delta["quant"] == "int8"
+          and delta["base"] == {"name": full["name"], "fingerprint": full["fingerprint"]},
+          f"billing: the chain {full['base']} -> {delta['base']}")
+    # the step-4 tree exported whole: the delta resolves to its fingerprint
+    run_dir = tmp / "billing" / "ft" / "finetune_vit_b16"
+    sd = read_state(run_dir / "ckpt", step=4)["model"]
+    params, stats = flax_tree_from_state_dict(sd, heads=enc.heads)
+    whole = pub.CheckpointPublisher(tmp / "billing" / "whole", full_every=1).publish(4, params, batch_stats=stats)
+    _, _, head = pub.resolve_chain(staged / delta["name"])
+    check(pub.load_manifest(whole)["fingerprint"] == head["fingerprint"] == delta["fingerprint"],
+          "billing: the delta does not resolve to the full export's fingerprint")
+    install_plan("publish.export:corrupt(6)")
+    try:
+        corrupt = pub.CheckpointPublisher(staged, full_every=1).publish(5, params, batch_stats=stats)
+    finally:
+        clear_plan()
+    journal = read_journal(run_dir / "journal")
+    published = [e for e in journal if e["type"] == "publish"]
+    billed = [e for e in journal if e["type"] == "tenant_usage" and e["tenant"] == "publish"]
+    check(len(published) == 2 and billed and billed[-1]["requests"] == 2, f"billing: publish journal {published}")
+    res["publish"] = {
+        "k1": c["K1"], "k2": c["K2"], "k3": c["K3"], "steps": steps, "wall_s": rec["wall_s"],
+        "artifacts": [{k: e[k] for k in ("name", "step", "bytes", "seconds", "delta_fraction", "leaves",
+                                         "delta_leaves")} for e in published],
+        "publish_device_s": billed[-1]["device_s"]}
+    log(f"billing (b): finetune 4 steps with run.publish_dir: K1 {train_k1} (+{rec['eval_k1']} eval) K2 {c['K2']} "
+        f"K3 {c['K3']}; artifacts " + "; ".join(
+            f"{a['name']} step {a['step']}: {a['delta_leaves']}/{a['leaves']} leaves, {a['bytes']} bytes in "
+            f"{a['seconds']} s" for a in res["publish"]["artifacts"])
+        + f"; the delta resolves to the full export's fingerprint; the corrupt export {corrupt.name} written, on {smi}")
+    watch = tmp / "billing" / "push"
+    watch.mkdir()
+
+    def push(read):
+        # all three in one sweep, in name order: the delta's base lands
+        # beside it, and the swaps run while the traffic lasts
+        wait_for(read, "swap-watch: polling")
+        for name in (full["name"], delta["name"], corrupt.name):
+            (staged / name).rename(watch / name)
+
+    base = ["--config", str(HERE / FT_RECIPE), "--ckpt", str(run_dir / "ckpt" / "last" / "2"), "--images",
+            *(files * 4), "--max-batch", "64", "--task", "logits", "--serve", "--replicas", "2",
+            "--interarrival-ms", "40", "--swap-watch", str(watch), "--swap-poll-s", "0.1", "--swap-canary-requests",
+            "4", "--swap-canary-timeout-s", "10", "--out", str(tmp / "billing" / "swapped.npz")]
+    r = cli_predict_pool(fa, base, beside=push)
+    out = r["stdout"]
+    lines = [x for x in out.splitlines() if "swap publish-" in x or "pool served" in x]
+    check(f"swap {full['name']}: verdict=promoted stage=promote" in out
+          and f"swap {delta['name']}: verdict=promoted stage=promote" in out, f"billing: promotions {lines}")
+    check(f"swap {corrupt.name}: verdict=quarantined stage=verify" in out
+          and (watch / ".quarantine" / corrupt.name).is_dir(), f"billing: the corrupt artifact {lines}")
+    check(f"pool served {4 * SERVE_IMAGES}/{4 * SERVE_IMAGES} ok (0 failed)" in out, f"billing: swap traffic {lines}")
+    check(r["k1"] == 12 * sum(ran(e) for e in r["engines"]), f"billing: swap pool K1 {r['k1']}")
+    doc = subprocess.run([sys.executable, "-m", "jumbo_mae_tpu_tpu_torch.tools.publish_doctor", str(watch)],
+                         cwd=HERE, capture_output=True, text=True, timeout=120)
+    check(doc.returncode == 0 and "OK: 2 artifact(s) verified" in doc.stdout, f"billing: publish_doctor {doc.stdout}")
+    res["publish"]["swap_lines"] = lines
+    log("billing (b): " + "; ".join(lines) + f"; publish_doctor: {doc.stdout.strip().splitlines()[-1]}")
+
+    # ---- (c) a batch job with a budgeted tenant, over the first 2 shards
+    job = tmp / "billing" / "job"
+    shards = expand_shards(urls["train"])[:2]
+    summary, wall = child_json(["jumbo_mae_tpu_tpu_torch.cli.batch", *shards, "--out", str(job),
+                                "--config", str(HERE / FT_RECIPE), "--ckpt", str(ft), "--task", "features",
+                                "--replicas", "1", "--workers", "2", "--max-batch", "64", "--submit-window", "32",
+                                "--tenants", "batch=batch:budget=0.5:window=10"])
+    usage = summary.get("tenant_usage", {}).get("batch")
+    check(summary["complete"] and usage is not None and usage["requests"] == 512,
+          f"billing: the batch job's tenant_usage {summary.get('tenant_usage')}")
+    feats = encoder_flops_per_image(enc, masked=False)
+    jrows = [e for e in read_journal(job / "access") if e["type"] == "request" and e["outcome"] == "ok"]
+    want = sum(feats * r["bucket"] / r["batch"] for r in jrows)
+    check(len(jrows) == 512 and abs(usage["flops"] - want) <= 1e-9 * want,
+          f"billing: batch billed {usage['flops']} FLOPs, analytic {want}")
+    e = summary["engines"]
+    check(e["k1_launches"] == 12 * (e["dispatches"] + e["captures"]), f"billing: batch K1 {e}")
+    doc = subprocess.run([sys.executable, "-m", "jumbo_mae_tpu_tpu_torch.tools.cost_doctor", str(job / "access")],
+                         cwd=HERE, capture_output=True, text=True, timeout=120)
+    check(doc.returncode == 0 and "device-seconds: rows" in doc.stdout and "— agree" in doc.stdout,
+          f"billing: cost_doctor {doc.returncode} {doc.stdout[-1500:]}")
+    res["batch"] = {"usage": usage, "k1": e["k1_launches"], "wall_s": wall, "seconds": summary["seconds"],
+                    "reconcile": [x for x in doc.stdout.splitlines() if x.startswith("- device-seconds")]}
+    log(f"billing (c): cli.batch over 512 images billed {usage['device_s']} device-s and "
+        f"{usage['flops'] / 1e12:.3f} TFLOP to `batch` (over budget: {usage.get('over_budget')}); cost_doctor "
+        f"{res['batch']['reconcile']}; K1 {e['k1_launches']}, on {smi}")
+
+    # ---- the meter's own cost: host µs of one flush's observe_batch
+    res["meter_us"] = {rows: meter_overhead_us(rows) for rows in (1, 8, 64)}
+    log(f"billing: CostMeter.observe_batch host µs a flush by rows {res['meter_us']} (this machine's CPU)")
+
+    # ---- (d) the drift line: the ViT-L/16 MAE step on the H100 row against phase 7
+    l16 = load_config(HERE / RECIPE)
+    m = l16.model
+    pred = predict_train_step(preset(m.preset, **{"labels": None, "mask_ratio": 0.75, **m.overrides}),
+                              DecoderConfig(layers=m.dec_layers, dim=m.dec_dim, heads=m.dec_heads),
+                              per_device_batch=128, chip=chip)
+    ratio = publish_drift(pred.step_time_s, train_step_ms / 1e3, program="mae_vit_l16_b128")
+    check(pred.bound == "compute" and 0.0170 < pred.t_compute_s < 0.0182, f"billing: the predicted step {pred}")
+    res["drift"] = {"predicted_ms": pred.step_time_s * 1e3, "compute_ms": pred.t_compute_s * 1e3,
+                    "memory_ms": pred.t_memory_s * 1e3, "measured_ms": train_step_ms, "ratio": ratio}
+    log(f"billing (d): predicted ViT-L/16 MAE step at batch 128 on the H100 row {pred.step_time_s * 1e3:.3f} ms "
+        f"({pred.bound}-bound; memory term {pred.t_memory_s * 1e3:.3f} ms) against phase 7's {train_step_ms:.2f} ms: "
+        f"measured / predicted {ratio:.3f}, on {smi}")
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"billing: phase 23 in {res['seconds']:.1f} s")
+    res["k1"] = child["k1"] + r["k1"] + e["k1_launches"]
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -3099,9 +3409,11 @@ def main() -> None:
         t7 = time.perf_counter()
         batch = phase_batch_job(smi, tmp, driver["urls"])
         t8 = time.perf_counter()
+        billing = phase_billing(fa, smi, tmp, driver["urls"], train["step_ms"])
+        t9 = time.perf_counter()
         log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
             f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}, phase 20 {t6 - t5:.1f}, phase 21 {t7 - t6:.1f}, phase 22 "
-            f"{t8 - t7:.1f}; phases 1-14 took {t0 - t_start:.1f}")
+            f"{t8 - t7:.1f}, phase 23 {t9 - t8:.1f}; phases 1-14 took {t0 - t_start:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
@@ -3123,6 +3435,7 @@ def main() -> None:
     log(f"the replicated serving tier: {json.dumps(replicated)} on {smi}")
     log(f"warm restarts: {json.dumps(warm)} on {smi}")
     log(f"batch jobs: {json.dumps(batch)} on {smi}")
+    log(f"billing, autoscaling and publishing: {json.dumps(billing)} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -3152,7 +3465,9 @@ def main() -> None:
             "finetune_launches": finetune["counts"][key],
             "linear_launches": linear["counts"][key],
             **({"serve_launches": served["serve_launches"], "replicated_launches": replicated["k1"],
-                "warm_launches": warm["k1"], "batch_launches": batch["k1"]} if key == "K1" else {}),
+                "warm_launches": warm["k1"], "batch_launches": batch["k1"], "billing_launches": billing["k1"]}
+               if key == "K1" else {}),
+            "publish_launches": billing["publish"][key.lower()],
             "max_abs_err": err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -3176,6 +3491,7 @@ def main() -> None:
         "launches": train["counts"]["K2"],
         "finetune_launches": finetune["counts"]["K2"],
         "linear_launches": linear["counts"]["K2"],
+        "publish_launches": billing["publish"]["k2"],
         "max_abs_err": max(bwd_errs[("bfloat16", DEC_SHAPE, DEC_SHAPE[1], g)] for g in ("dq", "dk", "dv")),
         **bwd_timings[("FlashAttention", DEC_SHAPE)],
         **{f"finetune_{k}": v for k, v in bwd_timings[("FlashAttention", FT_SHAPE)].items() if k != "eager_ms"},

@@ -26,19 +26,21 @@ engine (CI and smoke tests); each sample is its first member's bytes as a
 fixed-width vector. With it, :class:`InferenceEngine` replicas serve the
 job, built from the recipe and ``--ckpt`` as ``cli/predict.py`` builds
 them (``--device cpu`` to run on the CPU), and each sample's image member
-is decoded and put through the eval transform at the engine's size. The
-last stdout line is one JSON summary object (manifest path, samples,
-lease steals, replica preemptions, the scheduler's and the replicas'
-counts) for scripted callers.
+is decoded and put through the eval transform at the engine's size.
 
-Two parts of the JAX CLI wait for layers still to port:
-
-- the cost meter (ROADMAP A5.4): the summary has no ``tenant_usage``, and
-  a ``--tenants`` spec that sets a device-second ``budget=``, or a
-  ``--model-gflops-per-item``, is refused, not ignored;
-- the access log and request tracer (ROADMAP A5.7): nothing is written
-  under ``<out>/access``; ``replica_preemptions`` comes from the pool's
-  ``stats()``.
+Every request is traced into ``<out>/access`` (``obs/reqtrace.py``) and
+every flushed batch billed per tenant by a
+:class:`~jumbo_mae_tpu_tpu_torch.serve.costmeter.CostMeter`: the
+engines' captured-graph costs, or for the stub ``--model-gflops-per-item``
+× the bucket. A tenant's ``budget=``/``window=`` is enforced at
+admission (over budget, it sheds at scavenger pressure, and the runner
+retries its samples). The last stdout line is one JSON summary object
+(manifest path, samples, lease steals, ``tenant_usage`` from the access
+log's last ``tenant_usage`` rows, ``replica_preemptions`` counted from
+its ``replica_preempted`` events, the scheduler's and the replicas'
+counts) for scripted callers; ``python -m
+jumbo_mae_tpu_tpu_torch.tools.cost_doctor <out>/access`` reconciles the
+bill.
 """
 
 from __future__ import annotations
@@ -53,8 +55,6 @@ import numpy as np
 
 from jumbo_mae_tpu_tpu_torch.batch import BatchJobRunner, JobSpec
 
-NOT_PORTED = "{what} is not ported yet: ROADMAP queue {item}"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -66,8 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
         "--tenants",
         default="batch=batch",
         help="tenant spec list (serve.parse_tenants syntax); the job "
-        "submits as --tenant and shares the gate with any others listed "
-        "(budget= needs the cost meter, ROADMAP A5.4, and is refused)",
+        "submits as --tenant and shares the gate with any others listed; "
+        "budget=/window= are enforced through the cost meter",
     )
     p.add_argument("--workers", type=int, default=2, help="shard-parallel job workers")
     p.add_argument("--replicas", type=int, default=2)
@@ -82,8 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", help="--config: cuda (default) or cpu")
     p.add_argument("--service-overhead-ms", type=float, default=1.0)
     p.add_argument("--service-per-item-ms", type=float, default=0.2)
-    p.add_argument("--model-gflops-per-item", type=float, default=None,
-                   help="the stub's cost model for the cost meter (ROADMAP A5.4): refused until it lands")
+    p.add_argument("--model-gflops-per-item", type=float, default=1.0,
+                   help="the stub's cost model for the cost meter: GFLOPs an item, billed per bucket row")
     return p
 
 
@@ -121,26 +121,28 @@ def image_decoder(size: int, crop_ratio: float):
     return decode
 
 
-def refuse_budgets(tenants) -> None:
-    for t in tenants:
-        if t.budget is not None or t.budget_window_s is not None:
-            raise NotImplementedError(NOT_PORTED.format(
-                what=f"tenant {t.name!r}: a device-second budget (budget=/window=)",
-                item="A5.4 (serve/costmeter.py)"))
-
-
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
 
     from jumbo_mae_tpu_tpu_torch.infer.replicaset import ReplicaSet
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
     from jumbo_mae_tpu_tpu_torch.obs.metrics import MetricsRegistry
-    from jumbo_mae_tpu_tpu_torch.serve import AdmissionController, ContinuousScheduler, parse_tenants
+    from jumbo_mae_tpu_tpu_torch.obs.reqtrace import AccessLog, RequestTracer
+    from jumbo_mae_tpu_tpu_torch.serve import (
+        AdmissionController,
+        ContinuousScheduler,
+        CostMeter,
+        default_cost_fn,
+        parse_tenants,
+    )
 
-    if args.model_gflops_per_item is not None:
-        raise NotImplementedError(NOT_PORTED.format(what="--model-gflops-per-item (the cost meter's model)",
-                                                    item="A5.4 (serve/costmeter.py)"))
     tenants = parse_tenants(args.tenants)
-    refuse_budgets(tenants)
+    if args.config:  # no card: raise before the job touches its directory
+        from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
+
+        resolve_device(args.device)
+    access_dir = f"{args.out}/access"
+    tracer = RequestTracer(access_log=AccessLog(access_dir))
 
     decode = None
     engines: list = []
@@ -157,6 +159,8 @@ def main(argv: list[str] | None = None) -> int:
 
         def run(engine, batch, metas):
             return engine.predict(batch, task=args.task)
+
+        cost_fn = default_cost_fn
     else:
         overhead = args.service_overhead_ms / 1000.0
         per_item = args.service_per_item_ms / 1000.0
@@ -167,8 +171,14 @@ def main(argv: list[str] | None = None) -> int:
         def run(engine, batch, metas):
             return engine.run(batch)
 
+        flops_per_row = args.model_gflops_per_item * 1e9
+
+        def cost_fn(engine, task, bucket):
+            return {"flops": bucket * flops_per_row}
+
     # continuous mode headroom: the scheduler's accumulator is the
     # admission-visible queue; the pool takes dispatched groups above it
+    meter = CostMeter(tenants, cost_fn=cost_fn, tracer=tracer)
     rs = ReplicaSet(
         provider,
         run,
@@ -176,17 +186,22 @@ def main(argv: list[str] | None = None) -> int:
         max_batch=args.max_batch,
         max_delay_ms=args.max_delay_ms,
         max_queue=args.max_queue + 2 * args.max_batch,
+        tracer=tracer,
+        task=args.task,
+        breakdown=(lambda eng: eng.last_breakdown()) if args.config else None,
+        costmeter=meter,
     )
     if engines:
         eng = engines[0]
         decode = image_decoder(eng.image_size, cfg.data.test_crop_ratio)
-    admission = AdmissionController(tenants)
+    admission = AdmissionController(tenants, meter=meter)
     sched = ContinuousScheduler(
         rs.submit_group,
         max_batch=args.max_batch,
         max_delay_ms=args.max_delay_ms,
         max_queue=args.max_queue,
         admission=admission,
+        tracer=tracer,
         task=args.task,
     )
     admission.set_pressure_fn(lambda: max(sched.pressure(), rs.pressure()))
@@ -221,11 +236,23 @@ def main(argv: list[str] | None = None) -> int:
         sched.close()
         pool = rs.stats()
         rs.close()
+        meter.flush()  # the last tenant_usage rows before the log closes
+        tracer.close()
     summary["seconds"] = time.perf_counter() - t0
     snap = registry.snapshot()
     summary["samples_processed"] = int(snap["batch_samples_processed_total"][""])
     summary["samples_resumed"] = int(snap["batch_samples_resumed_total"][""])
-    summary["replica_preemptions"] = sum(int(r.get("preempted", 0)) for r in pool["replicas"].values())
+    # what the meter billed and what the pool survived, from the access log
+    usage: dict[str, dict] = {}
+    preemptions = 0
+    for e in read_journal(access_dir):
+        if e.get("type") == "tenant_usage" and e.get("tenant"):
+            usage[str(e["tenant"])] = {k: e.get(k) for k in ("device_s", "requests", "flops", "waste_device_s",
+                                                             "budget_device_s", "over_budget") if k in e}
+        elif e.get("type") == "replica_preempted":
+            preemptions += 1
+    summary["tenant_usage"] = usage
+    summary["replica_preemptions"] = preemptions
     summary["scheduler"] = sched.stats()
     summary["pool"] = {k: pool[k] for k in ("batch_occupancy", "window_batch_occupancy", "batches_flushed",
                                             "requests_submitted", "requests_shed")}

@@ -42,8 +42,21 @@ at its drawn size), and ``--pack-parity-n`` holds the first requests'
 packed outputs against the unpacked forward before any traffic (a
 failed gate aborts). ``--swap-watch DIR`` promotes each checkpoint that
 appears in DIR through the parity and canary gates
-(``WeightSwapController``). Otherwise the whole list is batched
-directly. Results land in ``--out`` (``.npz``) and, for ``logits``, as
+(``WeightSwapController``); a publish artifact (``serve/publisher.py``,
+what ``cli.train`` writes with ``run.publish_dir``) is verified before
+any restore, and one that fails is moved to ``DIR/.quarantine/`` and
+counted in ``serve_publish_quarantined_total``. ``--tenants`` (with
+``--replicas``) puts weighted admission and the continuous scheduler in
+front of the pool and meters every batch per tenant
+(``serve/costmeter.py``; requests round-robin over the tenants, a
+``budget=`` is enforced); ``--autoscale MIN:MAX`` sizes the pool from
+demand against the roofline capacity of the card
+(``serve/autoscaler.py``, ticks of ``--autoscale-interval-s``);
+``--access-log DIR`` writes one row per request and the pool's, the
+meter's and the autoscaler's events (``obs/reqtrace.py``);
+``--burst N`` sends the first N requests back to back and paces the
+rest by ``--interarrival-ms`` (a flash crowd, then a trickle). Otherwise
+the whole list is batched directly. Results land in ``--out`` (``.npz``) and, for ``logits``, as
 one JSON line per image on stdout. Everything runs on ``"cuda"`` unless
 ``--device cpu``.
 
@@ -54,9 +67,7 @@ environment says), ``--no-warmcache`` for none; a restarted process, or a
 restarted replica, loads them instead of building them again.
 
 The flags of the layers still to port parse and raise, naming their
-ROADMAP item: traffic shaping and autoscaling (A5.4,
-``serve/{costmeter,autoscaler}.py``), and the access log, SLOs and the
-metrics exporter (A7).
+ROADMAP item: the SLO tracker's flags and the metrics exporter (A5.7).
 """
 
 from __future__ import annotations
@@ -78,15 +89,11 @@ from jumbo_mae_tpu_tpu_torch.infer.engine import POOLS, InferenceEngine
 NOT_PORTED = "{flag} is not ported yet: ROADMAP queue {item}"
 # flag → (argparse dest, ROADMAP item); each parses and raises
 UNPORTED = {
-    "--tenants": ("tenants", "A5.4 (serve/costmeter.py, serve/autoscaler.py)"),
-    "--autoscale": ("autoscale", "A5.4 (serve/costmeter.py, serve/autoscaler.py)"),
-    "--autoscale-interval-s": ("autoscale_interval_s", "A5.4 (serve/costmeter.py, serve/autoscaler.py)"),
-    "--access-log": ("access_log", "A7"),
-    "--slo": ("slo", "A7"),
-    "--slo-window-s": ("slo_window_s", "A7"),
-    "--slo-fast-window-s": ("slo_fast_window_s", "A7"),
-    "--metrics-port": ("metrics_port", "A7"),
-    "--metrics-hold-s": ("metrics_hold_s", "A7"),
+    "--slo": ("slo", "A5.7"),
+    "--slo-window-s": ("slo_window_s", "A5.7"),
+    "--slo-fast-window-s": ("slo_fast_window_s", "A5.7"),
+    "--metrics-port": ("metrics_port", "A5.7"),
+    "--metrics-hold-s": ("metrics_hold_s", "A5.7"),
 }
 
 
@@ -127,6 +134,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pack-parity-n", type=int, default=8, metavar="N",
                    help="--pack: hold the first N requests' packed outputs against the unpacked forward before "
                         "serving (0 = skip); a failed gate aborts the run")
+    p.add_argument("--burst", type=int, default=0, metavar="N",
+                   help="--replicas: the first N requests go out back to back, the rest --interarrival-ms apart")
+    p.add_argument("--tenants", default="", metavar="SPEC",
+                   help="--replicas: weighted multi-tenant admission, continuous batching and per-tenant cost "
+                        "metering; name=class[:rate=N][:burst=N][:budget=D][:window=W],... (budget: device-seconds "
+                        "per window; classes interactive|batch|scavenger); requests round-robin over the tenants")
+    p.add_argument("--autoscale", default="", metavar="MIN:MAX",
+                   help="--replicas: reconcile the replica count between MIN and MAX from demand against the card's "
+                        "roofline capacity; scale-down drains the replica first")
+    p.add_argument("--autoscale-interval-s", type=float, default=1.0, help="--autoscale reconcile tick seconds")
+    p.add_argument("--access-log", default="", metavar="DIR",
+                   help="--replicas: a crash-safe JSONL access log (one row per finished request, the pool's events, "
+                        "tenant_usage rows) in DIR; read it with tools.cost_doctor")
     p.add_argument("--swap-watch", default="", metavar="DIR",
                    help="--replicas: poll DIR for new checkpoints and run each through the parity- and "
                         "canary-gated hot swap (promote on pass, roll back on failure)")
@@ -208,8 +228,11 @@ def load_images(args, cfg, size: int, pack_mix) -> tuple[list | np.ndarray, list
 def check_replicated(args) -> list[tuple[int, float]] | None:
     """The replicated flags' preconditions; returns the pack mix."""
     replicated = bool(args.serve and args.replicas > 0)
-    if (args.pack or args.swap_watch) and not replicated:
-        raise SystemExit("--pack and --swap-watch require --serve --replicas N")
+    if (args.pack or args.swap_watch or args.tenants or args.autoscale or args.burst) and not replicated:
+        raise SystemExit("--pack, --swap-watch, --tenants, --autoscale and --burst require --serve --replicas N")
+    if args.access_log and not replicated:
+        # the single-engine micro-batcher's tracer hook is ROADMAP A5.7
+        raise NotImplementedError(NOT_PORTED.format(flag="--access-log without --replicas", item="A5.7"))
     if args.pack_resolutions and not args.pack:
         raise SystemExit("--pack-resolutions requires --pack")
     if args.pack:
@@ -220,14 +243,107 @@ def check_replicated(args) -> list[tuple[int, float]] | None:
     return parse_mix(args.pack_resolutions) if args.pack_resolutions else None
 
 
-def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict) -> tuple[list[str], list]:
-    """``--serve --replicas N``: the pool (and with ``--pack`` the continuous
-    scheduler in front of it), the swap watcher, the requests
-    (``load(native_size)`` gives them and their names); returns the names
-    and one row per request (``None`` where it failed)."""
-    from jumbo_mae_tpu_tpu_torch.infer.replicaset import ReplicaSet, WeightSwapController
-    from jumbo_mae_tpu_tpu_torch.serve.scheduler import ContinuousScheduler
+def _autoscale_bounds(spec: str) -> tuple[int, int]:
+    try:
+        lo, hi = (int(x) for x in spec.split(":"))
+    except ValueError:
+        raise SystemExit("--autoscale expects MIN:MAX, e.g. 2:6") from None
+    return lo, hi
+
+
+def _swap_restore(path):
+    """The swap watcher's restore: a publish artifact resolves its delta
+    chain (every link verified), anything else is a port save."""
+    from jumbo_mae_tpu_tpu_torch.serve.publisher import is_publish_artifact, restore_artifact
     from jumbo_mae_tpu_tpu_torch.train.checkpoint import restore_inference_state
+
+    return restore_artifact(path) if is_publish_artifact(path) else restore_inference_state(path)
+
+
+def _start_swap_watch(args, rs, ckpt_ref: dict, stop: threading.Event) -> threading.Thread:
+    """The ``--swap-watch`` thread: each new entry of the directory through
+    the gated swap; a publish artifact that fails verification is
+    quarantined before any restore."""
+    import os
+
+    from jumbo_mae_tpu_tpu_torch.infer.replicaset import WeightSwapController
+    from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
+    from jumbo_mae_tpu_tpu_torch.serve.publisher import PublishIntegrityError, is_publish_artifact, verify_artifact
+
+    ctl = WeightSwapController(
+        rs, restore_fn=_swap_restore, parity_min_cosine=args.swap_parity_min,
+        canary_requests=args.swap_canary_requests, canary_timeout_s=args.swap_canary_timeout_s,
+        on_promote=lambda c: ckpt_ref.__setitem__("ckpt", c),
+    )
+    watch_root = Path(args.swap_watch)
+    watch_root.mkdir(parents=True, exist_ok=True)
+    quarantined = get_registry().counter("serve_publish_quarantined_total",
+                                         "publish artifacts the swap watcher quarantined before restore")
+    # what is there at start is the baseline, not a push; push by an
+    # atomic rename so a partial write is never picked up
+    seen = {p.name for p in watch_root.iterdir()}
+
+    def quarantine(p: Path) -> None:
+        # a torn or poisoned artifact is evidence: moved aside (atomic, one
+        # filesystem) for the doctor, never retried
+        try:
+            (watch_root / ".quarantine").mkdir(exist_ok=True)
+            os.replace(p, watch_root / ".quarantine" / p.name)
+        except OSError:
+            pass  # left in place; ``seen`` skips it
+        quarantined.inc()
+
+    def watch():
+        while True:
+            stopping = stop.is_set()
+            for p in sorted(watch_root.iterdir()):
+                if p.name in seen or p.name.startswith("."):
+                    continue
+                seen.add(p.name)
+                print(f"[predict] swap-watch: new checkpoint {p}")
+                if is_publish_artifact(p):
+                    try:
+                        verify_artifact(p)
+                    except PublishIntegrityError as e:
+                        print(f"[predict] swap {p.name}: verdict=quarantined stage=verify ({e})")
+                        quarantine(p)
+                        continue
+                rep = ctl.swap(str(p))
+                msg = f"[predict] swap {p.name}: verdict={rep['verdict']} stage={rep['stage']}"
+                if rep.get("parity"):
+                    msg += f" cosine_min={rep['parity']['cosine_min']:.4f}"
+                print(msg)
+            if stopping:
+                return  # one last sweep after the stop
+            stop.wait(args.swap_poll_s)
+
+    thread = threading.Thread(target=watch, daemon=True, name="swap-watch")
+    thread.start()
+    print(f"[predict] swap-watch: polling {watch_root} every {args.swap_poll_s:g}s")
+    return thread
+
+
+def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict) -> tuple[list[str], list]:
+    """``--serve --replicas N``: the pool; with ``--pack`` or ``--tenants``
+    the continuous scheduler in front of it (with ``--tenants`` admission
+    and the cost meter), the autoscaler, the swap watcher, the access
+    log, the requests (``load(native_size)`` gives them and their names);
+    returns the names and one row per request (``None`` where it failed)."""
+    from jumbo_mae_tpu_tpu_torch.infer.replicaset import ReplicaSet
+    from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip
+    from jumbo_mae_tpu_tpu_torch.obs.reqtrace import AccessLog, RequestTracer
+    from jumbo_mae_tpu_tpu_torch.serve import (
+        AdmissionController,
+        Autoscaler,
+        ContinuousScheduler,
+        CostMeter,
+        parse_tenants,
+        roofline_capacity,
+    )
+
+    tenant_specs = parse_tenants(args.tenants) if args.tenants else []
+    bounds = _autoscale_bounds(args.autoscale) if args.autoscale else None
+    chip = detect_chip(args.device) if (tenant_specs or bounds) else None
 
     def engine_provider(idx):
         eng = make_engine()
@@ -245,58 +361,59 @@ def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict
             return eng.predict_packed(list(batch), args.task, pool=args.pool)
         return eng.predict(batch, task=args.task, **kw)
 
+    # the meter bills traced requests: tenants get a tracer even without a log
+    access = AccessLog(args.access_log) if args.access_log else None
+    tracer = RequestTracer(access_log=access) if (access is not None or tenant_specs) else None
+    if access is not None:
+        print(f"[predict] access log -> {access.path}")
     rs = ReplicaSet(engine_provider, run_replica, replicas=args.replicas, max_batch=args.max_batch,
-                    max_delay_ms=args.max_delay_ms, max_queue=args.max_queue)
+                    max_delay_ms=args.max_delay_ms, max_queue=args.max_queue, tracer=tracer, task=args.task,
+                    breakdown=lambda eng: eng.last_breakdown())
     engine = rs.replica(0).engine
     print(f"[predict] replica pool: {args.replicas} replicas, quorum {rs.quorum}")
     if engine.warmcache is not None:
         print(f"[predict] warmcache: {engine.warmcache.root}")
     images, names = load(engine.image_size)
+    admission = meter = None
+    if tenant_specs:
+        # every flushed batch metered: serve_tenant_* metrics, tenant_usage
+        # rows, the access log's device_ms/cost_flops and the budgets
+        meter = CostMeter(tenant_specs, tracer=tracer, chip=chip)
+        rs.set_costmeter(meter)
+        admission = AdmissionController(tenant_specs, meter=meter)
+        print("[predict] traffic shaping: " + ", ".join(f"{t.name}={t.tclass}" for t in tenant_specs))
     sched = None
-    if args.pack:
+    if args.pack or tenant_specs:
         # the scheduler's accumulator is the queue admission sees; the pool
         # gets headroom above it so a dispatched group is never shed
         if rs.max_queue is not None:
             rs.max_queue += 2 * args.max_batch
         budget = args.pack_budget or engine.max_tokens
         sched = ContinuousScheduler(rs.submit_group, max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
-                                    max_queue=args.max_queue, task=args.task, packed=True, token_budget=budget,
-                                    seq_len_fn=lambda arr: engine.seq_len(arr.shape[0]))
-        print(f"[predict] token packing: budget={budget} tokens/dispatch, pool={args.pool}")
+                                    max_queue=args.max_queue, admission=admission, tracer=tracer, task=args.task,
+                                    packed=args.pack, token_budget=budget if args.pack else None,
+                                    seq_len_fn=(lambda arr: engine.seq_len(arr.shape[0])) if args.pack else None)
+        if args.pack:
+            print(f"[predict] token packing: budget={budget} tokens/dispatch, pool={args.pool}")
+        if admission is not None:
+            # the accumulator or the pool's backlog: either filling sheds
+            # the low classes before an interactive request meets a full queue
+            admission.set_pressure_fn(lambda: max(sched.pressure(), rs.pressure()))
+    autoscaler = None
+    if bounds is not None:
+        from jumbo_mae_tpu_tpu_torch.obs.mfu import encoder_flops_per_image
+
+        # the roofline of one serving forward: the encoder's FLOPs an image
+        # and the activation-traffic model, on the card's row
+        flops = encoder_flops_per_image(engine._enc, masked=False)
+        act_bytes = 2.0 * flops / max(engine._enc.dim, 1)
+        capacity = roofline_capacity(flops, act_bytes, chip)
+        autoscaler = Autoscaler(rs, min_replicas=bounds[0], max_replicas=bounds[1],
+                                interval_s=args.autoscale_interval_s, capacity_fn=lambda: capacity, tracer=tracer)
+        print(f"[predict] autoscaler: [{bounds[0]}, {bounds[1]}] replicas, tick {args.autoscale_interval_s:g}s, "
+              f"roofline capacity {capacity:.1f} req/s a replica on {chip.name}")
     swap_stop = threading.Event()
-    swap_thread = None
-    if args.swap_watch:
-        ctl = WeightSwapController(
-            rs, restore_fn=restore_inference_state, parity_min_cosine=args.swap_parity_min,
-            canary_requests=args.swap_canary_requests, canary_timeout_s=args.swap_canary_timeout_s,
-            on_promote=lambda c: ckpt_ref.__setitem__("ckpt", c),
-        )
-        watch_root = Path(args.swap_watch)
-        watch_root.mkdir(parents=True, exist_ok=True)
-        # what is there at start is the baseline, not a push; push by an
-        # atomic rename so a partial write is never picked up
-        seen = {p.name for p in watch_root.iterdir()}
-
-        def watch():
-            while True:
-                stopping = swap_stop.is_set()
-                for p in sorted(watch_root.iterdir()):
-                    if p.name in seen or p.name.startswith("."):
-                        continue
-                    seen.add(p.name)
-                    print(f"[predict] swap-watch: new checkpoint {p}")
-                    rep = ctl.swap(str(p))
-                    msg = f"[predict] swap {p.name}: verdict={rep['verdict']} stage={rep['stage']}"
-                    if rep.get("parity"):
-                        msg += f" cosine_min={rep['parity']['cosine_min']:.4f}"
-                    print(msg)
-                if stopping:
-                    return  # one last sweep after the stop
-                swap_stop.wait(args.swap_poll_s)
-
-        swap_thread = threading.Thread(target=watch, daemon=True, name="swap-watch")
-        swap_thread.start()
-        print(f"[predict] swap-watch: polling {watch_root} every {args.swap_poll_s:g}s")
+    swap_thread = _start_swap_watch(args, rs, ckpt_ref, swap_stop) if args.swap_watch else None
     try:
         if args.pack and args.pack_parity_n > 0:
             par = engine.packed_parity(list(images[: args.pack_parity_n]), args.task, pool=args.pool)
@@ -307,14 +424,18 @@ def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict
             if not par["pass"]:
                 raise SystemExit("[predict] pack parity gate FAILED")
         futs = []
-        submit = sched.submit if sched is not None else rs.submit
-        for img in images:
+        t0 = time.perf_counter()
+        for i, img in enumerate(images):
             try:
-                futs.append(submit(img, deadline_ms=args.deadline_ms))
+                if sched is not None:
+                    tenant = tenant_specs[i % len(tenant_specs)].name if tenant_specs else None
+                    futs.append(sched.submit(img, deadline_ms=args.deadline_ms, tenant=tenant))
+                else:
+                    futs.append(rs.submit(img, deadline_ms=args.deadline_ms))
             except Exception as e:  # noqa: BLE001 - sheds are tallied, not fatal
                 futs.append(None)
                 print(f"[predict] request shed: {type(e).__name__}: {e}")
-            if args.interarrival_ms > 0:
+            if args.interarrival_ms > 0 and i + 1 >= args.burst:
                 time.sleep(args.interarrival_ms / 1000.0)
         rows = []
         for f in futs:
@@ -324,18 +445,36 @@ def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict
                 rows.append(None)
                 print(f"[predict] request failed: {type(e).__name__}: {e}")
         failed = sum(r is None for r in rows)
-        print(f"[predict] pool served {len(rows) - failed}/{len(rows)} ok ({failed} failed)")
+        wall = time.perf_counter() - t0
+        print(f"[predict] pool served {len(rows) - failed}/{len(rows)} ok ({failed} failed) in {wall:.3f} s, "
+              f"{(len(rows) - failed) / max(wall, 1e-9):.1f} req/s")
     finally:
         if swap_thread is not None:
             swap_stop.set()
             swap_thread.join(timeout=args.swap_canary_timeout_s + 60.0)
+        if autoscaler is not None:
+            autoscaler.close()
+            print(f"[predict] autoscale events: {len(autoscaler.events)} "
+                  + json.dumps([{k: e[k] for k in ("current", "target", "demand_rps", "capacity_rps", "reason")}
+                                for e in autoscaler.events]))
         if sched is not None:
             sched.close()
             st = sched.stats()
-            print(f"[predict] pack stats: dispatched={st['dispatched']} batches={st['batches']} "
+            label = "pack stats" if args.pack else "scheduler"
+            print(f"[predict] {label}: dispatched={st['dispatched']} batches={st['batches']} "
                   f"expired={st['expired']}")
+            if admission is not None:
+                print(f"[predict] admission: {json.dumps(admission.stats())}")
+        if meter is not None:
+            meter.flush()  # the last tenant_usage rows before the log closes
+            bill = meter.snapshot()
+            costs = ", ".join(f"{t}={b['device_s']:.3f}s" for t, b in bill["tenants"].items())
+            print(f"[predict] tenant cost: {costs} (total {bill['total_device_s']:.3f} device-s, "
+                  f"{bill['total_batches']} batches)")
         print(f"[predict] replicas: {json.dumps(rs.stats()['replicas'])}")
         rs.close()
+        if tracer is not None:
+            tracer.close()
     return names, rows
 
 

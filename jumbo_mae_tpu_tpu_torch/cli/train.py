@@ -31,12 +31,18 @@ JSONL with images/s and ``perf/mfu`` against one H100's bf16 peak
 device guard). ``run.eval_only`` evaluates and exits: from the ``last`` or
 ``best`` save (``run.resume=true``, ``run.eval_which``) or a warm start,
 with an identity optimizer so no moment reaches the card.
+``run.publish_dir`` turns on the gated weights publisher
+(``serve/publisher.py``): each interval checkpoint that passes its gates
+is exported, int8 and as a delta by default, into that directory, the
+one ``cli.predict --swap-watch`` polls; its events (``publish``,
+``publish_skipped``, ``publish_failed`` and the ``publish`` tenant's
+``tenant_usage``) go to ``<output_dir>/<name>/journal``.
 
 Everything runs on ``"cuda"`` unless ``--device cpu`` (``device="cpu"``)
 asks for the CPU. What the port does not have yet raises, naming its
 ROADMAP item: FSDP, tensor and pipeline parallelism, ``--distributed`` and
-``--elastic`` (A6); fault plans, telemetry, publishing, traces,
-diagnostics, the hang watchdog and SLOs (A7); the ``"dots"`` remat
+``--elastic`` (A6); fault plans, telemetry, traces, diagnostics, the hang
+watchdog and SLOs (A7); the ``"dots"`` remat
 policies (A3's remainder). The platform layers a recipe has on by default
 — the rollback sentinel, journal, retrace sentinel, fleet beacons and
 memory watch — are named once at start as not ported (A7) and the run
@@ -94,7 +100,6 @@ def _refuse_unported(cfg: TrainConfig) -> None:
     a7 = {
         "run.faults": bool(run.faults),
         "run.telemetry": run.telemetry,
-        "run.publish_dir": bool(run.publish_dir),
         "run.chrome_trace": bool(run.chrome_trace),
         "run.profile_dir": bool(run.profile_dir),
         "run.diag_every > 0": run.diag_every > 0,
@@ -407,6 +412,21 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             logger.log({"ckpt/save_s": ckpt.last_save_s}, step=step)
             print(f"[train] checkpoint at step {step} ({cev.reason}): {ckpt.last_save_s:.3f} s blocking")
 
+        # continuous deployment: registered after the saver, so a publish
+        # follows its checkpoint
+        journal = None
+        if run.publish_dir:
+            from jumbo_mae_tpu_tpu_torch.obs.journal import RunJournal
+            from jumbo_mae_tpu_tpu_torch.serve.publisher import CheckpointPublisher
+
+            journal = RunJournal(run_dir / "journal")
+            CheckpointPublisher(
+                run.publish_dir, quant=run.publish_quant, min_interval_steps=run.publish_min_interval_steps,
+                full_every=run.publish_full_every, metric_key=run.publish_metric_key,
+                metric_floor=run.publish_metric_floor, metric_sense=run.publish_metric_sense, emit=journal.event,
+            ).register(engine)
+            print(f"[publish] gated weights publisher -> {run.publish_dir}")
+
         @engine.on_shutdown
         def _drain(eng, reason, step):
             # a save left in flight at exit is a torn step the next resume
@@ -431,6 +451,8 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         finally:
             for sig, h in handlers.items():
                 signal.signal(sig, h)
+            if journal is not None:
+                journal.close()
         if source is not None:
             print(f"[train] host seconds waiting on the loader: {source.wait_s:.3f} over {engine.step - start_step} steps")
         return {**last_metrics, "_exit_reason": engine.exit_reason}

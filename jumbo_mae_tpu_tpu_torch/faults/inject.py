@@ -63,12 +63,14 @@ package's list. The port wires the ones its ported layers cross:
 - ``batch.worker`` in the offline batch runner's worker loop (``key`` =
   the worker name): a ``raise`` kills that worker dead without releasing
   its shard lease — the lease-expiry/steal path another worker must
-  recover.
+  recover;
+- ``publish.export`` in ``serve/publisher.py``'s export (``key`` = the
+  step): ``corrupt`` poisons the payload after its digests are sealed
+  (the swap watcher quarantines it), ``raise`` is a torn export.
 
 The serving sites (``serve.submit``, ``serve.replica``, ``serve.preempt``,
 ``ckpt.load``) are wired with ROADMAP A5.7, the training sites
-(``train.*``, ``ckpt.save``, ``host.leak``, ``fleet.wedge``) and
-``publish.export`` with A7. ``corrupt`` flips bytes of a bytes payload and
+(``train.*``, ``ckpt.save``, ``host.leak``, ``fleet.wedge``) with A7. ``corrupt`` flips bytes of a bytes payload and
 sign-flips tensors of a flat ``{name: tensor | ndarray}`` tree; its draws
 are seeded with an integer derived from (plan seed, firing, size), where
 the JAX package seeds ``random.Random`` with a tuple, which Python 3.12

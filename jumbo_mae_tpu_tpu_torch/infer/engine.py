@@ -2,8 +2,7 @@
 bucket-padded forwards, one CUDA graph per (task, bucket).
 
 Counterpart of ``jumbo_mae_tpu_tpu/infer/engine.py`` without most of its
-metrics and the publisher (ROADMAP A5, A7). The contracts kept from the
-JAX engine:
+metrics (ROADMAP A5.7). The contracts kept from the JAX engine:
 
 - **Restore once.** ``ckpt`` is resolved to its step directory and read
   a single time, when the engine is built, through
@@ -97,6 +96,12 @@ JAX engine:
   ``compile_counts`` stays flat across both; a request sees entirely old
   or entirely new weights, a cached reconstruction included: both clear
   the encoder-output LRU under the same lock.
+- **Costs.** Each capture (each first run on the CPU) fills
+  ``cost_reports[(task key, bucket)]`` with the graph's
+  :class:`~jumbo_mae_tpu_tpu_torch.obs.costmodel.ProgramCost` (analytic
+  FLOPs, the weights' bytes plus the activation model, the pool growth as
+  its peak) and publishes it (``publish_cost``); the tenant cost meter
+  bills each flush by it.
 - **int8.** ``quant="int8"`` quantizes each task's matmul weights after
   the graft (``infer/quant.py``): the card holds int8 and dequantizes on
   use.
@@ -156,9 +161,10 @@ from jumbo_mae_tpu_tpu_torch.infer.quant import int8_layout, quantize_module
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, preset
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
 from jumbo_mae_tpu_tpu_torch.models.vit import JumboViT, pool_tokens
+from jumbo_mae_tpu_tpu_torch.obs.costmodel import ProgramCost, program_cost, publish_cost, task_flops, weight_bytes
+from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
 from jumbo_mae_tpu_tpu_torch.ops.flash import attention as flash
 from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
-from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import (
     ENCODER_KEYS,
     merge_pretrained_params,
@@ -354,6 +360,7 @@ class InferenceEngine:
         self.image_size = self._enc.image_size
 
         reg = registry if registry is not None else get_registry()
+        self._registry = reg
         self._m_warm_saved = reg.counter(
             "infer_warmcache_saved_seconds_total",
             "task build seconds avoided by warmcache hits (from entry metadata)",
@@ -412,6 +419,8 @@ class InferenceEngine:
         self.build_split: dict[str, dict[str, float]] = {}
         self._tasks: dict[str, dict] = {}  # task -> {"model"}
         self.compile_counts: dict[tuple[str, int], int] = {}
+        # (task key, bucket) -> the graph's ProgramCost, set at its capture
+        self.cost_reports: dict[tuple[str, int], ProgramCost] = {}
         self._graphs: dict[tuple[str, int], _Graph] = {}
         self._pool = None  # the graphs' shared memory pool, made at the first capture
         self._capture_stream: torch.cuda.Stream | None = None
@@ -813,7 +822,7 @@ class InferenceEngine:
             g = self._graphs.get(key)
             if g is None:
                 g = self._capture(key, task, pool, model, host)
-                self._compiled(key)
+                self._compiled(key, model)
             t0 = time.perf_counter()
             out = g.run(host)
         else:
@@ -822,15 +831,31 @@ class InferenceEngine:
                 t0 = time.perf_counter()
                 out = self._forward(task, pool, model, host)
             if first:
-                self._compiled(key)
+                self._compiled(key, model)
         t1 = time.perf_counter()
         out = _fetch(out, n, numpy=task != "reconstruct.enc")
         return out, t1 - t0, time.perf_counter() - t1
 
-    def _compiled(self, key: tuple[str, int]) -> None:
+    def _compiled(self, key: tuple[str, int], model) -> None:
         self.compile_counts[key] = self.compile_counts.get(key, 0) + 1
+        self._publish_cost(key, model)
         if self.on_compile is not None:
             self.on_compile(*key)
+
+    def _publish_cost(self, key: tuple[str, int], model) -> None:
+        """The :class:`ProgramCost` of ``key``'s graph (run by ``model``)
+        into ``cost_reports`` and the ``xla_*`` gauges, once per capture."""
+        task_key, bucket = key
+        enc = getattr(model, "encoder_cfg", self._enc)  # a reconstruction counts its masked encoder
+        flops = task_flops(task_key, bucket, enc, self._dec, self._labels)
+        if flops is None:
+            return
+        g = self._graphs.get(key)
+        cost = program_cost(task_key, flops=flops, weight_nbytes=weight_bytes(model, self._enc.compute_dtype),
+                            dim=self._enc.dim, peak_bytes=None if g is None else g.pool_bytes)
+        self.cost_reports[key] = cost
+        dtype = str(self._enc.compute_dtype).removeprefix("torch.") + (f"+{self.quant}" if self.quant else "")
+        publish_cost(cost, bucket=str(bucket), dtype=dtype, registry=self._registry)
 
     def _dispatch(self, task: str, pool: str | None, bucket: int, args, n: int):
         """One padded bucket under the replay lock (the task is built

@@ -44,11 +44,21 @@ graphs and its worker replays them, and the card runs one forward at a
 time. They give crash isolation, a place to canary a swap and rolling
 restarts, not throughput.
 
-Left out beside the JAX module (ROADMAP A7): the fault-injection sites,
-the lock watchdog, the metrics registry, the request tracer and the
-health endpoint, and the swap controller's memory-headroom gate. The
-module uses plain locks; :meth:`ReplicaSet.stats` carries the counts
-those hooks would export.
+**Tracing and metering.** With a ``tracer`` (``obs/reqtrace.py``) each
+request carries a trace: admitted when a worker takes it into a batch,
+the flush's breakdown stamped on it (the replica's engine's
+``last_breakdown``), and finished with its replica, retries and requeue
+trail; the pool's lifecycle (crashes, hangs, restarts, scaling,
+preemptions, the breaker) lands in the same log as events. A
+``costmeter`` (``serve/costmeter.py``) is handed each good flush's wall
+time and traces before they finish, so every access-log row carries its
+``device_ms`` and ``cost_flops``.
+
+Left out beside the JAX module (ROADMAP A5.7 and A7): the fault-injection
+sites, the lock watchdog, the ``serve_replica_*`` metrics and the health
+endpoint, and the swap controller's memory-headroom gate. The module uses
+plain locks; :meth:`ReplicaSet.stats` carries the counts those metrics
+would export.
 """
 
 from __future__ import annotations
@@ -87,13 +97,14 @@ class _Request:
     """One routed request: payload, future, and the settle latch that makes
     its resolution exactly-once under requeue and hung-replica races."""
 
-    __slots__ = ("image", "meta", "deadline", "fut", "excluded", "retries", "t0", "gid", "_settled", "_lock")
+    __slots__ = ("image", "meta", "deadline", "fut", "tr", "excluded", "retries", "t0", "gid", "_settled", "_lock")
 
-    def __init__(self, image, meta, deadline, fut, gid=None):
+    def __init__(self, image, meta, deadline, fut, tr=None, gid=None):
         self.image = image
         self.meta = meta
         self.deadline = deadline
         self.fut = fut
+        self.tr = tr
         self.excluded: set[str] = set()
         self.retries = 0
         self.t0 = time.perf_counter()
@@ -141,9 +152,13 @@ class ReplicaSet:
     ``engine_provider(idx)`` builds replica ``idx``'s engine, at
     construction and at every restart; ``run(engine, batch, metas)`` is
     the batched predict (``batch`` is a stacked array, or the list of
-    images when a group mixes shapes). Use as a context manager or call
-    :meth:`close`: every pending future resolves within a bounded sweep,
-    even with a wedged worker."""
+    images when a group mixes shapes). ``tracer`` traces every request and
+    logs the pool's events under ``task``; ``breakdown(engine)`` gives a
+    flush's compute/fetch/bucket/pad split (``lambda e:
+    e.last_breakdown()`` for an engine; without it a trace's compute is
+    the run's wall time); ``costmeter`` bills each flush.
+    Use as a context manager or call :meth:`close`: every pending future
+    resolves within a bounded sweep, even with a wedged worker."""
 
     def __init__(
         self,
@@ -160,6 +175,10 @@ class ReplicaSet:
         restart_backoff_max_s: float = 8.0,
         quorum: int | None = None,
         supervise_interval_s: float = 0.05,
+        tracer=None,
+        task: str = "",
+        breakdown: Callable[[Any], dict | None] | None = None,
+        costmeter=None,
         clock: Callable[[], float] = time.monotonic,
     ):
         if replicas < 1:
@@ -183,6 +202,10 @@ class ReplicaSet:
         self._explicit_quorum = quorum is not None
         self.quorum = quorum if quorum is not None else self.n // 2 + 1
         self._interval = float(supervise_interval_s)
+        self._tracer = tracer
+        self.task = task
+        self._breakdown = breakdown
+        self._costmeter = costmeter
         self._clock = clock
         self._observers: list[Callable] = []
         self._occ = OccupancyWindow(self.max_batch)
@@ -221,32 +244,53 @@ class ReplicaSet:
 
     # ------------------------------------------------------------- client
 
-    def _admit_depth(self, k: int) -> _Replica:
+    def _admit_depth(self, k: int, traces) -> _Replica:
         """Count ``k`` submits against ``max_queue`` and pick their replica;
-        raises typed (shed, shutdown, unroutable)."""
-        if self._closed:
-            raise ShutdownError("ReplicaSet is closed")
-        with self._depth_lock:
-            self._submitted += k
-            if self.max_queue is not None and self._depth + k > self.max_queue:
-                self._shed_n += k
-                raise QueueFullError(f"request queue full ({self._depth}+{k}/{self.max_queue})")
-            self._depth += k
-        target = self._pick(frozenset())
-        if target is None:
+        raises typed (shed, shutdown, unroutable), each trace finished
+        first."""
+        try:
+            if self._closed:
+                raise ShutdownError("ReplicaSet is closed")
             with self._depth_lock:
-                self._depth -= k
-            raise PoolUnhealthyError(f"no healthy replica (healthy={self._healthy_count()}, quorum={self.quorum})")
+                self._submitted += k
+                if self.max_queue is not None and self._depth + k > self.max_queue:
+                    self._shed_n += k
+                    raise QueueFullError(f"request queue full ({self._depth}+{k}/{self.max_queue})")
+                self._depth += k
+            target = self._pick(frozenset())
+            if target is None:
+                with self._depth_lock:
+                    self._depth -= k
+                raise PoolUnhealthyError(
+                    f"no healthy replica (healthy={self._healthy_count()}, quorum={self.quorum})")
+        except BaseException as e:  # noqa: BLE001 - classify, trace, re-raise
+            if self._tracer is not None:
+                if isinstance(e, QueueFullError):
+                    outcome, err = "shed", None
+                elif isinstance(e, ShutdownError) or self._closed:
+                    outcome, err = "shutdown", None
+                else:
+                    outcome, err = "aborted", f"{type(e).__name__}: {e}"
+                for tr in traces:
+                    self._tracer.finish(tr, outcome, error=err)
+            raise
         return target
 
-    def submit(self, image: np.ndarray, *, deadline_ms: float | None = None, meta=None) -> Future:
+    def submit(self, image: np.ndarray, *, deadline_ms: float | None = None, meta=None,
+               tenant: str | None = None, tclass: str | None = None) -> Future:
         """Route one request to a healthy replica; returns a future for its
         row of the batched result. Raises :class:`QueueFullError` at
         ``max_queue``, :class:`ShutdownError` after :meth:`close` and
-        :class:`PoolUnhealthyError` when no replica is routable."""
-        target = self._admit_depth(1)
+        :class:`PoolUnhealthyError` when no replica is routable.
+        ``tenant``/``tclass`` ride into the trace row; they do not change
+        routing."""
+        tr = (self._tracer.begin(task=self.task, deadline_ms=deadline_ms, tenant=tenant, tclass=tclass)
+              if self._tracer is not None else None)
+        target = self._admit_depth(1, [tr] if tr is not None else [])
         deadline = None if deadline_ms is None else time.monotonic() + float(deadline_ms) / 1000.0
-        rec = _Request(np.asarray(image), meta, deadline, Future())
+        rec = _Request(np.asarray(image), meta, deadline, Future(), tr)
+        if tr is not None:
+            rec.fut.rid = tr.rid
         with self._live_lock:
             self._live.add(rec)
         target.q.put(rec)
@@ -255,17 +299,25 @@ class ReplicaSet:
     def submit_group(self, items) -> list[Future]:
         """Route a pre-coalesced group to ONE replica as a unit: the
         continuous scheduler's dispatch. ``items`` are ``(image, deadline,
-        meta)`` with ``deadline`` an absolute ``time.monotonic()`` instant
-        or ``None``. The group lands consecutively on the least-loaded
-        replica and (for ``len(items) <= max_batch``) flushes as one
-        batch. On shed, shutdown or no routable replica the group fails as
-        a unit: the typed error is raised and no future is made."""
+        meta)`` or ``(image, deadline, meta, trace)`` with ``deadline`` an
+        absolute ``time.monotonic()`` instant or ``None`` and ``trace`` one
+        the caller began (or ``None``). The group lands consecutively on the
+        least-loaded replica and (for ``len(items) <= max_batch``) flushes
+        as one batch. On shed, shutdown or no routable replica the group
+        fails as a unit: every trace is finished, the typed error is raised
+        and no future is made."""
         k = len(items)
         if k == 0:
             return []
-        target = self._admit_depth(k)
+        items = [(*it, None) if len(it) == 3 else tuple(it) for it in items]
+        target = self._admit_depth(k, [it[3] for it in items if it[3] is not None])
         gid = next(self._gid)
-        recs = [_Request(np.asarray(image), meta, deadline, Future(), gid=gid) for image, deadline, meta in items]
+        recs = []
+        for image, deadline, meta, tr in items:
+            rec = _Request(np.asarray(image), meta, deadline, Future(), tr, gid=gid)
+            if tr is not None:
+                rec.fut.rid = tr.rid
+            recs.append(rec)
         with self._live_lock:
             self._live.update(recs)
         for rec in recs:
@@ -333,6 +385,11 @@ class ReplicaSet:
         survive a later restart)."""
         self._provider = fn
 
+    def set_costmeter(self, meter) -> None:
+        """Late-bind the tenant cost meter (usually built after the pool,
+        beside the admission controller it feeds)."""
+        self._costmeter = meter
+
     # ------------------------------------------------------------- scaling
 
     def scale_to(self, n: int, *, drain_timeout_s: float = 10.0) -> dict:
@@ -375,6 +432,7 @@ class ReplicaSet:
         try:
             engine = self._provider(idx)  # outside the state lock: a build takes seconds
         except BaseException as e:  # noqa: BLE001 - a provider error is a failed scale step
+            self._event("replica_restart_failed", replica=f"r{idx}", err=f"{type(e).__name__}: {e}")
             return None
         rep = _Replica(idx, gen=0, engine=engine)
         with self._state_lock:
@@ -384,6 +442,7 @@ class ReplicaSet:
             self._restarting.append(False)
             self._resized()
         self._start_worker(rep)
+        self._event("replica_added", replica=rep.name, pool=self.n)
         return rep.name
 
     def _remove_last_slot(self, drain_timeout_s: float) -> str | None:
@@ -412,6 +471,7 @@ class ReplicaSet:
             self._resized()
             self._retired.append(rep)
         rep.q.put(_STOP)
+        self._event("replica_removed", replica=rep.name, gen=rep.gen, pool=self.n)
         self._drain_slot(rep, "replica removed")
         rep.engine = None  # the engine's memory goes with the slot
         return rep.name
@@ -442,9 +502,18 @@ class ReplicaSet:
             self._restart_at[idx] = self._clock() + self.restart_backoff_s
             self._update_health()
         self._bump(rep.name, "preempted")
+        self._event("replica_preempted", replica=rep.name, gen=rep.gen)
         rep.q.put(_STOP)
         self._drain_slot(rep, "replica preempted")
         return True
+
+    def pressure(self) -> float:
+        """Pending depth / ``max_queue`` (0 when unbounded): the admission
+        controller's pool-side pressure signal."""
+        if not self.max_queue:
+            return 0.0
+        with self._depth_lock:
+            return self._depth / self.max_queue
 
     def stats(self) -> dict:
         """A snapshot: each replica's state, incarnation, queue, served
@@ -540,6 +609,10 @@ class ReplicaSet:
         least-loaded routing."""
         self._canary_pref = name
 
+    def _event(self, etype: str, **fields) -> None:
+        if self._tracer is not None:
+            self._tracer.event(etype, **fields)
+
     def _count(self, key: str, n: int = 1) -> None:
         with self._count_lock:
             self._counts[key] += n
@@ -549,11 +622,19 @@ class ReplicaSet:
             per = self._per_replica.setdefault(replica, {})
             per[key] = per.get(key, 0) + n
 
-    def _finish(self, rec: _Request, outcome: str, *, result=None, exc=None, replica: str | None = None) -> None:
-        """Resolve a settled record: attribution on the future first, then
-        its result or error, then the observers."""
+    def _finish(self, rec: _Request, outcome: str, *, result=None, exc=None, replica: str | None = None,
+                error: str | None = None) -> None:
+        """Resolve a settled record: the trace row first (a caller that sees
+        the future done can rely on the row), attribution on the future,
+        then its result or error, then the observers."""
         with self._live_lock:
             self._live.discard(rec)
+        if rec.tr is not None:
+            rec.tr.replica_id = replica
+            rec.tr.retries = rec.retries
+            if rec.excluded:
+                rec.tr.requeued_from = ",".join(sorted(rec.excluded))
+            self._tracer.finish(rec.tr, outcome, error=error)
         fut = rec.fut
         fut.replica = replica
         fut.retries = rec.retries
@@ -586,13 +667,15 @@ class ReplicaSet:
         if rec.retries > self.max_retries:
             if rec.settle():
                 self._finish(rec, "aborted", exc=RetriesExhaustedError(
-                    f"retries exhausted after {rec.retries} attempts; last error on {from_rep.name}: {err}"))
+                    f"retries exhausted after {rec.retries} attempts; last error on {from_rep.name}: {err}"),
+                    error=f"RetriesExhaustedError: last error on {from_rep.name}: {err}")
             return
         target = self._pick(rec.excluded)
         if target is None:
             if rec.settle():
                 self._finish(rec, "aborted", exc=PoolUnhealthyError(
-                    f"no surviving replica outside {sorted(rec.excluded)} to retry on (last error: {err})"))
+                    f"no surviving replica outside {sorted(rec.excluded)} to retry on (last error: {err})"),
+                    error="PoolUnhealthyError: no surviving replica")
             return
         with self._depth_lock:
             self._depth += 1
@@ -683,6 +766,8 @@ class ReplicaSet:
                 self._count("expired")
                 self._finish(rec, "deadline", exc=DeadlineExceededError("request deadline passed while queued"))
             return
+        if rec.tr is not None:
+            self._tracer.admitted(rec.tr)
         batch.append(rec)
 
     def _flush(self, rep: _Replica, batch: list[_Request]) -> bool:
@@ -690,10 +775,18 @@ class ReplicaSet:
         self._count("batches")
         self._count("requests", len(batch))
         self._occ.observe(len(batch))
+        traces = [rec.tr for rec in batch if rec.tr is not None]
+        if traces:
+            self._tracer.flush_begin(traces)
         # pending and busy_since go up first: a hang's in-flight records
         # must be findable by the supervisor
         rep.pending = tuple(batch)
         rep.busy_since = self._clock()
+        # the engine this flush runs on, read once: a scale-down can retire
+        # the slot (and drop ``rep.engine``) while a batch it took is still
+        # coalescing or running, and the batch must finish on what it began
+        engine = rep.engine
+        t_run = time.perf_counter()
         try:
             # a packed group mixes resolutions: no common stack shape, so
             # the run gets the image list
@@ -701,14 +794,23 @@ class ReplicaSet:
                 images = np.stack([rec.image for rec in batch])
             else:
                 images = [rec.image for rec in batch]
-            out = self._run(rep.engine, images, [rec.meta for rec in batch])
+            out = self._run(engine, images, [rec.meta for rec in batch])
         except BaseException as e:  # noqa: BLE001 - crash-isolate the replica
             rep.busy_since = None
             rep.pending = ()
             self._on_failure(rep, batch, e, kind="crash")
             return False
+        done = time.perf_counter()
         rep.busy_since = None
         rep.pending = ()
+        if traces:
+            bd = self._breakdown
+            self._tracer.flush_end(traces, run_s=done - t_run, batch=len(batch),
+                                   breakdown=(lambda: bd(engine)) if bd is not None else None)
+            if self._costmeter is not None:
+                # before the finish loop: the stamped device_s/cost_flops
+                # land on every access-log row of this batch
+                self._costmeter.observe_batch(run_s=done - t_run, traces=traces, batch=len(batch), engine=engine)
         rows = [{k: v[i] for k, v in out.items()} for i in range(len(batch))] if isinstance(out, dict) else out
         now_mono = time.monotonic()
         for rec, row in zip(batch, rows):
@@ -731,6 +833,7 @@ class ReplicaSet:
     def _on_failure(self, rep: _Replica, batch, exc, *, kind: str) -> None:
         err = f"{type(exc).__name__}: {exc}"
         self._bump(rep.name, f"crashes_{kind}")
+        self._event("replica_crash", replica=rep.name, kind=kind, gen=rep.gen, err=err)
         self._mark_down(rep)
         for rec in batch:
             self._requeue(rec, rep, err)
@@ -752,12 +855,15 @@ class ReplicaSet:
             self._update_health()
 
     def _update_health(self) -> None:
-        open_now = self._healthy_count() < self.quorum
+        healthy = self._healthy_count()
+        open_now = healthy < self.quorum
         if open_now and not self._breaker_open:
             self._breaker_open = True
             self._count("breaker_trips")
+            self._event("breaker_open", healthy=healthy, quorum=self.quorum)
         elif not open_now and self._breaker_open:
             self._breaker_open = False
+            self._event("breaker_close", healthy=healthy, quorum=self.quorum)
 
     def _supervise(self) -> None:
         while not self._closed:
@@ -770,6 +876,7 @@ class ReplicaSet:
                     if busy is not None and now - busy > self.hang_timeout_s:
                         # a hung predict: abandon the thread, rescue the work
                         self._bump(rep.name, "crashes_hang")
+                        self._event("replica_hang", replica=rep.name, gen=rep.gen, busy_s=round(now - busy, 3))
                         self._mark_down(rep)
                         for rec in list(rep.pending):
                             self._requeue(rec, rep, "hung predict")
@@ -791,6 +898,7 @@ class ReplicaSet:
                 engine = self._provider(idx)
             except BaseException as e:  # noqa: BLE001 - a provider error is a failed restart
                 self._bump(old.name, "crashes_restart_error")
+                self._event("replica_restart_failed", replica=old.name, err=f"{type(e).__name__}: {e}")
                 with self._state_lock:
                     self._backoff(idx)
                 return
@@ -803,6 +911,7 @@ class ReplicaSet:
                 self._slots[idx] = rep
             self._start_worker(rep)
             self._bump(rep.name, "restarted")
+            self._event("replica_restart", replica=rep.name, gen=rep.gen)
             with self._state_lock:
                 self._update_health()
             self._drain_slot(old, "superseded incarnation")

@@ -19,7 +19,11 @@ The layout changes:
 The same mapping carries a gradient tree of the same structure. A key
 this bridge does not know raises ``KeyError``: a tree from another
 architecture must not load half-way. :func:`flax_path` is the map the
-other way, from a state_dict name to its flax path.
+other way, from a state_dict name to its flax path, and
+:func:`flax_tree_from_state_dict` the whole bridge the other way (the
+weights publisher writes its artifacts in the flax layout, so the two
+packages fingerprint the same weights alike); :func:`state_dict_from_flax`
+takes either tree back by its root.
 """
 
 from __future__ import annotations
@@ -173,3 +177,124 @@ def classifier_state_dict_from_jax(params: dict, batch_stats: dict | None = None
     _unknown("", set(params) - {"model"})
     stats = (batch_stats or {}).get("model")
     return {f"model.{k}": v for k, v in state_dict_from_jax(params["model"], stats).items()}
+
+
+def state_dict_from_flax(params: dict, batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
+    """The port's ``state_dict`` of any tree this bridge knows, by its root:
+    a ``ClassificationModel`` (``model``), an ``MAEPretrainModel``
+    (``encoder``) or a ``JumboViT``."""
+    if "model" in params:
+        return classifier_state_dict_from_jax(params, batch_stats)
+    return state_dict_from_jax(params, batch_stats)
+
+
+# ------------------------------------------------------------ the way back
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy() if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def _take(sd: dict, name: str) -> np.ndarray:
+    return _np(sd.pop(name))
+
+
+def _dense_back(sd: dict, prefix: str) -> dict:
+    return {"kernel": _take(sd, prefix + ".weight").T, "bias": _take(sd, prefix + ".bias")}
+
+
+def _norm_back(sd: dict, prefix: str) -> dict:
+    return {"scale": _take(sd, prefix + ".weight"), "bias": _take(sd, prefix + ".bias")}
+
+
+def _attention_back(sd: dict, p: str, heads: int) -> dict:
+    out = {}
+    for name in ("q", "k", "v"):
+        w = _take(sd, f"{p}.{name}.weight")  # (H·hd, D)
+        out[name] = {"kernel": w.T.reshape(w.shape[1], heads, -1),
+                     "bias": _take(sd, f"{p}.{name}.bias").reshape(heads, -1)}
+    w = _take(sd, f"{p}.out.weight")  # (D, H·hd)
+    out["out"] = {"kernel": w.T.reshape(heads, -1, w.shape[0]), "bias": _take(sd, f"{p}.out.bias")}
+    return out
+
+
+def _block_back(sd: dict, p: str, heads: int, norms: tuple[str, ...], scales: tuple[str, ...]) -> dict:
+    blk = {"attn": _attention_back(sd, f"{p}.attn", heads)}
+    for ln in norms:
+        blk[ln] = _norm_back(sd, f"{p}.{ln}")
+    for ls in scales:
+        if f"{p}.{ls}" in sd:
+            blk[ls] = _take(sd, f"{p}.{ls}")
+    blk["mlp"] = {fc: _dense_back(sd, f"{p}.mlp.{fc}") for fc in ("fc1", "fc2")}
+    return blk
+
+
+def _blocks(sd: dict, prefix: str) -> list[int]:
+    return sorted({int(n[len(prefix):].split(".", 1)[0]) for n in sd if n.startswith(prefix)})
+
+
+def _vit_back(sd: dict, heads: int) -> tuple[dict, dict | None]:
+    params: dict = {"cls_tokens": _take(sd, "cls_tokens")}
+    embed = {"proj": {"kernel": _take(sd, "embed.proj.weight").transpose(2, 3, 1, 0),  # OIHW -> HWIO
+                      "bias": _take(sd, "embed.proj.bias")}}
+    if "embed.pos_embed" in sd:
+        embed["pos_embed"] = _take(sd, "embed.pos_embed")
+    params["embed"] = embed
+    params["jumbo_mlp"] = {fc: _dense_back(sd, f"jumbo_mlp.{fc}") for fc in ("fc1", "fc2")}
+    for i in _blocks(sd, "blocks."):
+        params[f"block_{i}"] = _block_back(sd, f"blocks.{i}", heads, ("ln1", "ln2", "ln3"), ("ls1", "ls2", "ls3"))
+    params["ln"] = _norm_back(sd, "ln")
+    stats = None
+    if "head.fc.weight" in sd:
+        head = {"fc": _dense_back(sd, "head.fc")}
+        if "head.bn.weight" in sd:
+            head["bn"] = _norm_back(sd, "head.bn")
+            stats = {"head": {"bn": {"mean": _take(sd, "head.bn.running_mean"),
+                                     "var": _take(sd, "head.bn.running_var")}}}
+        params["head"] = head
+    return params, stats
+
+
+def flax_tree_from_state_dict(state_dict: dict, *, heads: int, dec_heads: int | None = None
+                              ) -> tuple[dict, dict | None]:
+    """The inverse of this bridge: the port's ``state_dict`` of a
+    ``JumboViT``, a ``ClassificationModel`` (``model.`` names) or an
+    ``MAEPretrainModel`` (``encoder.`` names; ``dec_heads`` required) as
+    the flax ``(params, batch_stats)`` trees, float32 numpy leaves.
+    ``heads`` splits the q/k/v/out kernels into their flax (D, H, hd)
+    layout. A name the bridge does not know raises ``KeyError``."""
+    sd = dict(state_dict)
+    if any(n.startswith("model.") for n in sd):
+        inner = {n[len("model."):]: t for n, t in sd.items() if n.startswith("model.")}
+        vit, stats = _vit_back(inner, heads)
+        _unknown("model", inner)
+        _unknown("", [n for n in sd if not n.startswith("model.")])
+        return {"model": vit}, (None if stats is None else {"model": stats})
+    if any(n.startswith("encoder.") for n in sd):
+        if dec_heads is None:
+            raise ValueError("an MAE state_dict needs dec_heads to lay out the decoder's attention")
+        enc = {n[len("encoder."):]: t for n, t in sd.items() if n.startswith("encoder.")}
+        encoder, _ = _vit_back(enc, heads)
+        _unknown("encoder", enc)
+        rest = {n: t for n, t in sd.items() if not n.startswith("encoder.")}
+        params = {"encoder": encoder, "mask_token": _take(rest, "mask_token"),
+                  "decoder_proj": _dense_back(rest, "decoder_proj"), "pixel_proj": _dense_back(rest, "pixel_proj")}
+        dec = {f"block_{i}": _block_back(rest, f"decoder.blocks.{i}", dec_heads, ("ln1", "ln2"), ("ls1", "ls2"))
+               for i in _blocks(rest, "decoder.blocks.")}
+        dec["ln"] = _norm_back(rest, "decoder.ln")
+        params["decoder"] = dec
+        _unknown("", rest)
+        return params, None
+    params, stats = _vit_back(sd, heads)
+    _unknown("", sd)
+    return params, stats
+
+
+def model_flax_tree(model) -> tuple[dict, dict | None]:
+    """:func:`flax_tree_from_state_dict` of a port model, its head counts
+    read from its configs."""
+    if hasattr(model, "decoder_cfg"):  # MAEPretrainModel
+        return flax_tree_from_state_dict(model.state_dict(), heads=model.encoder_cfg.heads,
+                                         dec_heads=model.decoder_cfg.heads)
+    vit = getattr(model, "model", model)  # a ClassificationModel wraps its JumboViT
+    return flax_tree_from_state_dict(model.state_dict(), heads=vit.cfg.heads)

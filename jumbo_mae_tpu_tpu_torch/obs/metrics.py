@@ -2,9 +2,10 @@
 
 Counterpart of ``jumbo_mae_tpu_tpu/obs/metrics.py``, the same names, the
 same Prometheus text from :meth:`MetricsRegistry.render` and the same
-:meth:`MetricsRegistry.snapshot`. The port's warm cache and batch jobs
-report through it; the serving and training layers' own metrics, the
-exporter and the tracer are still to port (ROADMAP A7). The train loop's
+:meth:`MetricsRegistry.snapshot`. The port's warm cache, batch jobs,
+request tracer, cost meter, admission gate, autoscaler and publisher
+report through it; the pool's and the training layers' own metrics and
+the exporter are still to port (ROADMAP A5.7, A7). The train loop's
 ``AverageMeter`` lives in ``utils/meters.py``.
 
 Design constraints, in order:

@@ -1,22 +1,28 @@
-"""Weighted multi-tenant admission: token-bucket quotas and priority classes.
+"""Weighted multi-tenant admission: token-bucket quotas, priority classes
+and device-second budgets.
 
-Counterpart of ``jumbo_mae_tpu_tpu/serve/admission.py``, without its
-metrics (ROADMAP A7). Every request names a tenant, every tenant has a
-priority class, and under pressure the low classes shed first:
+Counterpart of ``jumbo_mae_tpu_tpu/serve/admission.py``. Every request
+names a tenant, every tenant has a priority class, and under pressure the
+low classes shed first:
 
 - ``interactive`` sheds only at full pressure (and jumps the continuous
   scheduler's dispatch order);
 - ``batch`` sheds when the pool is clearly loaded;
 - ``scavenger`` sheds at the first sign of load.
 
-Two shed reasons, both subclasses of ``infer/batching.py``'s
+Three shed reasons, all subclasses of ``infer/batching.py``'s
 :class:`QueueFullError`: **quota** (:class:`TenantQuotaError`, the
-tenant's token bucket is empty) and **pressure**
+tenant's token bucket is empty), **pressure**
 (:class:`TenantPressureError`, pool pressure crossed the class's
-threshold). Buckets refill at ``rate`` tokens/s up to ``burst``; the
-clock is injectable. The JAX package's third, the device-second budget
-(``budget=``), needs its cost meter (ROADMAP A5.4): a spec parses it,
-nothing enforces it yet.
+threshold) and **budget** (:class:`TenantBudgetError`: the tenant spent
+its ``budget=`` device-seconds over its window, by the attached
+:class:`~jumbo_mae_tpu_tpu_torch.serve.costmeter.CostMeter`, so it sheds
+at scavenger-class pressure; at zero pressure it is still admitted — a
+budget bounds a tenant's claim on contended capacity, it is not a kill
+switch). Buckets refill at ``rate`` tokens/s up to ``burst``; the clock
+is injectable. The ``serve_admit_*`` metrics and
+``serve_tenant_budget_remaining`` are the JAX package's; its watched lock
+(``obs.lockwatch``, ROADMAP A7) is a plain lock here.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import time
 from dataclasses import dataclass
 
 from jumbo_mae_tpu_tpu_torch.infer.batching import QueueFullError
+from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
 
 # priority order: index 0 sheds last and jumps the queue first
 CLASSES = ("interactive", "batch", "scavenger")
@@ -45,11 +52,16 @@ class TenantPressureError(QueueFullError):
     """Pool pressure crossed this tenant's class shed threshold."""
 
 
+class TenantBudgetError(QueueFullError):
+    """The tenant spent its device-second budget and the pool is
+    contended: shed at scavenger-class pressure until the window rolls."""
+
+
 @dataclass(frozen=True)
 class TenantSpec:
     """One tenant's contract: a class, an optional rate limit and an
-    optional device-second budget (parsed; enforced with the cost meter,
-    A5.4)."""
+    optional device-second budget over a window (the meter's default
+    window when ``None``)."""
 
     name: str
     tclass: str = "batch"
@@ -125,23 +137,46 @@ class _Bucket:
 class AdmissionController:
     """Admit-or-shed gate in front of the scheduler. ``pressure_fn()``
     returns pool pressure in [0, 1] (the scheduler's pending depth /
-    ``max_queue``); without one only quotas apply. An unknown tenant is
-    admitted as ``batch`` with no quota: admission shapes traffic, it does
-    not authenticate."""
+    ``max_queue``, or the pool's); without one only quotas apply.
+    ``meter`` prices ``budget=`` tenants. An unknown tenant is admitted
+    as ``batch`` with no quota: admission shapes traffic, it does not
+    authenticate."""
 
-    def __init__(self, tenants, *, pressure_fn=None, clock=time.monotonic):
+    def __init__(self, tenants, *, pressure_fn=None, meter=None, registry=None, clock=time.monotonic):
         self._clock = clock
         self._pressure_fn = pressure_fn
+        self._meter = meter
         self._specs = {t.name: t for t in tenants}
         self._lock = threading.Lock()
         now = clock()
         self._buckets = {t.name: _Bucket(t.rate, t.burst, now) for t in tenants if t.rate is not None}
         self._default = TenantSpec("_default", "batch")
+        reg = registry if registry is not None else get_registry()
+        self._m_admitted = reg.counter("serve_admit_total", "requests admitted past the tenant gate",
+                                       labels=("tenant", "class"))
+        self._m_shed = reg.counter("serve_admit_shed_total",
+                                   "requests shed at admission by reason (quota|pressure|budget)",
+                                   labels=("tenant", "class", "reason"))
+        self._m_pressure = reg.gauge("serve_admit_pressure", "pool pressure sampled at the last admission decision")
+        self._m_budget_left = reg.gauge("serve_tenant_budget_remaining",
+                                        "device-seconds left in the tenant's budget window (budgeted tenants)",
+                                        labels=("tenant", "class"))
+        # every configured tenant is scrapeable (at zero) from construction
+        for sp in self._specs.values():
+            self._m_admitted.labels(sp.name, sp.tclass)
+            for reason in ("quota", "pressure", "budget"):
+                self._m_shed.labels(sp.name, sp.tclass, reason)
+            if sp.budget is not None:
+                self._m_budget_left.labels(sp.name, sp.tclass).set(sp.budget)
         self._admitted_n: dict[str, int] = {}
         self._shed_n: dict[tuple[str, str], int] = {}
 
     def set_pressure_fn(self, fn) -> None:
         self._pressure_fn = fn
+
+    def set_meter(self, meter) -> None:
+        """Late-bind the cost meter that prices ``budget=`` tenants."""
+        self._meter = meter
 
     def spec(self, tenant: str | None) -> TenantSpec:
         if tenant is None:
@@ -158,16 +193,27 @@ class AdmissionController:
 
     def admit(self, tenant: str | None) -> TenantSpec:
         """Gate one request: the tenant's spec, or a typed shed. Pressure is
-        checked before quota: under load a low class sheds even with
-        tokens in the bank."""
+        checked before budget and quota: under load a low class sheds even
+        with tokens in the bank. A budgeted tenant past its window's budget
+        sheds at scavenger pressure, never at zero pressure."""
         sp = self.spec(tenant)
         pressure = self.pressure()
+        self._m_pressure.set(pressure)
         if pressure >= CLASS_SHED_PRESSURE[sp.tclass]:
             self._shed(sp, "pressure")
             raise TenantPressureError(
                 f"tenant {sp.name!r} ({sp.tclass}) shed at pressure {pressure:.2f} >= "
                 f"{CLASS_SHED_PRESSURE[sp.tclass]}"
             )
+        if sp.budget is not None and self._meter is not None:
+            used = self._meter.window_usage(sp.name, sp.budget_window_s)
+            self._m_budget_left.labels(sp.name, sp.tclass).set(max(0.0, sp.budget - used))
+            if used >= sp.budget and pressure >= CLASS_SHED_PRESSURE["scavenger"]:
+                self._shed(sp, "budget")
+                raise TenantBudgetError(
+                    f"tenant {sp.name!r} over budget ({used:.3f}s >= {sp.budget:g}s device-time per window) "
+                    f"at pressure {pressure:.2f}"
+                )
         bucket = self._buckets.get(sp.name)
         if bucket is not None:
             with self._lock:
@@ -177,11 +223,13 @@ class AdmissionController:
                 raise TenantQuotaError(
                     f"tenant {sp.name!r} over quota ({bucket.rate:g} req/s, burst {bucket.capacity:g})"
                 )
+        self._m_admitted.labels(sp.name, sp.tclass).inc()
         with self._lock:
             self._admitted_n[sp.name] = self._admitted_n.get(sp.name, 0) + 1
         return sp
 
     def _shed(self, sp: TenantSpec, reason: str) -> None:
+        self._m_shed.labels(sp.name, sp.tclass, reason).inc()
         with self._lock:
             key = (sp.name, reason)
             self._shed_n[key] = self._shed_n.get(key, 0) + 1

@@ -1,8 +1,8 @@
 """Continuous batching: late arrivals join pending batches until cutoff.
 
-Counterpart of ``jumbo_mae_tpu_tpu/serve/scheduler.py``, without its
-fault site, request tracer and metrics (ROADMAP A7; :meth:`stats` carries
-the counts). The per-replica micro-batching loop is FIFO per flush, and
+Counterpart of ``jumbo_mae_tpu_tpu/serve/scheduler.py``, with its
+request tracer (``obs/reqtrace.py``) and without its fault site and
+metrics (ROADMAP A5.7; :meth:`stats` carries the counts). The per-replica micro-batching loop is FIFO per flush, and
 the pool router splits concurrent arrivals across replicas, so each
 replica flushes a half-empty batch. :class:`ContinuousScheduler`
 centralizes coalescing: one dispatcher thread owns per-``(task,
@@ -22,7 +22,14 @@ it on ONE replica as one flush.
 ``packed=True`` keeps ONE token accumulator instead: mixed resolutions
 and the encoder-sharing tasks coalesce, a batch fills when its tokens
 (``seq_len_fn(image)``) reach ``token_budget``, and the backend serves
-the group through the engine's token-packed path.
+the group through the engine's token-packed path. A ``seq_len_fn`` also
+stamps each trace's ``tokens``, which the cost meter bills by.
+
+With a ``tracer`` every request gets a trace at submit: a shed finishes
+it ``shed`` (the typed admission error's class name in ``err``), a
+closed scheduler ``shutdown``, an expiry in the accumulator
+``deadline``; a dispatched entry hands its trace to the backend, which
+finishes it.
 
 Exactly once: after :meth:`submit` enqueues an entry only the dispatcher
 thread touches it, and it leaves one way — expired, failed (dispatch
@@ -50,11 +57,12 @@ _DEADLINE_MARGIN = 0.25
 
 
 class _Entry:
-    __slots__ = ("image", "fut", "tenant", "tclass", "deadline", "meta", "task", "t_submit", "tokens")
+    __slots__ = ("image", "fut", "tr", "tenant", "tclass", "deadline", "meta", "task", "t_submit", "tokens")
 
-    def __init__(self, image, fut, tenant, tclass, deadline, meta, task, now, tokens=None):
+    def __init__(self, image, fut, tenant, tclass, deadline, meta, task, now, tokens=None, tr=None):
         self.image = image
         self.fut = fut
+        self.tr = tr
         self.tenant = tenant
         self.tclass = tclass
         self.deadline = deadline  # absolute clock instant, or None
@@ -67,8 +75,9 @@ class _Entry:
 class ContinuousScheduler:
     """Cross-request batch assembler in front of a dispatch backend.
 
-    ``dispatch(items)`` takes ``[(image, deadline, meta), ...]`` and
-    returns one future per item (:meth:`ReplicaSet.submit_group`).
+    ``dispatch(items)`` takes ``[(image, deadline, meta), ...]`` (with a
+    ``tracer``, ``(image, deadline, meta, trace)``) and returns one
+    future per item (:meth:`ReplicaSet.submit_group`).
     ``admission`` is an optional
     :class:`~jumbo_mae_tpu_tpu_torch.serve.admission.AdmissionController`.
     ``clock`` must be ``time.monotonic``-like: deadlines are absolute on
@@ -82,6 +91,7 @@ class ContinuousScheduler:
         max_delay_ms: float = 5.0,
         max_queue: int | None = None,
         admission=None,
+        tracer=None,
         task: str = "",
         clock=time.monotonic,
         packed: bool = False,
@@ -106,6 +116,7 @@ class ContinuousScheduler:
         self.max_delay = float(max_delay_ms) / 1000.0
         self.max_queue = max_queue
         self.admission = admission
+        self._tracer = tracer
         self.task = task
         self._clock = clock
         self._occ = OccupancyWindow(self.max_batch)
@@ -130,28 +141,45 @@ class ContinuousScheduler:
         :class:`QueueFullError` at ``max_queue``; a packed request over
         ``token_budget`` raises ``ValueError``."""
         arr = np.asarray(image)
+        task = task if task is not None else self.task
         tclass = self.admission.spec(tenant).tclass if self.admission is not None else None
-        if self._closed:
-            raise ShutdownError("ContinuousScheduler is closed")
+        tr = (self._tracer.begin(task=task, deadline_ms=deadline_ms, tenant=tenant, tclass=tclass)
+              if self._tracer is not None else None)
         tokens = None
-        if self._seq_len_fn is not None:
-            # priced up front: a misaligned or oversized request sheds here
-            tokens = int(self._seq_len_fn(arr))
-            if self.packed and tokens > self.token_budget:
-                raise ValueError(
-                    f"request needs {tokens} tokens > token_budget={self.token_budget} — raise the budget or resize"
-                )
-        if self.admission is not None:
-            self.admission.admit(tenant)
-        with self._depth_lock:
-            if self.max_queue is not None and self._depth >= self.max_queue:
-                raise QueueFullError(f"scheduler queue full ({self._depth}/{self.max_queue})")
-            self._depth += 1
+        try:
+            if self._closed:
+                raise ShutdownError("ContinuousScheduler is closed")
+            if self._seq_len_fn is not None:
+                # priced up front: a misaligned or oversized request sheds here
+                tokens = int(self._seq_len_fn(arr))
+                if self.packed and tokens > self.token_budget:
+                    raise ValueError(
+                        f"request needs {tokens} tokens > token_budget={self.token_budget} — raise the budget or "
+                        "resize"
+                    )
+            if self.admission is not None:
+                self.admission.admit(tenant)
+            with self._depth_lock:
+                if self.max_queue is not None and self._depth >= self.max_queue:
+                    raise QueueFullError(f"scheduler queue full ({self._depth}/{self.max_queue})")
+                self._depth += 1
+        except BaseException as e:  # noqa: BLE001 - classify, trace, re-raise
+            if tr is not None:
+                if isinstance(e, QueueFullError):
+                    # the typed shed (quota, pressure, budget) rides in err
+                    self._tracer.finish(tr, "shed", error=type(e).__name__ if type(e) is not QueueFullError else None)
+                elif isinstance(e, ShutdownError) or self._closed:
+                    self._tracer.finish(tr, "shutdown")
+                else:
+                    self._tracer.finish(tr, "aborted", error=f"{type(e).__name__}: {e}")
+            raise
         fut: Future = Future()
+        if tr is not None:
+            fut.rid = tr.rid
+            tr.tokens = tokens
         now = self._clock()
         deadline = None if deadline_ms is None else now + float(deadline_ms) / 1000.0
-        self._wake.put(_Entry(arr, fut, tenant, tclass, deadline, meta, task if task is not None else self.task,
-                              now, tokens))
+        self._wake.put(_Entry(arr, fut, tenant, tclass, deadline, meta, task, now, tokens, tr))
         return fut
 
     def pressure(self) -> float:
@@ -244,6 +272,8 @@ class ContinuousScheduler:
                 if e.deadline is not None and now > e.deadline:
                     self._expired += 1
                     self._dec(1)
+                    if e.tr is not None:
+                        self._tracer.finish(e.tr, "deadline")
                     e.fut.set_exception(DeadlineExceededError("request deadline passed in scheduler accumulator"))
                 else:
                     keep.append(e)
@@ -344,9 +374,13 @@ class ContinuousScheduler:
         self._by_reason[reason] = self._by_reason.get(reason, 0) + 1
         self._occ.observe(len(batch))
         self._dispatched += len(batch)
+        if self._tracer is not None:
+            items = [(e.image, e.deadline, e.meta, e.tr) for e in batch]
+        else:
+            items = [(e.image, e.deadline, e.meta) for e in batch]
         try:
-            backend_futs = self._dispatch([(e.image, e.deadline, e.meta) for e in batch])
-        except BaseException as exc:  # noqa: BLE001 - the batch's futures carry it
+            backend_futs = self._dispatch(items)
+        except BaseException as exc:  # noqa: BLE001 - the backend finished the traces; the futures carry it
             for entry in batch:
                 entry.fut.set_exception(exc)
             return
@@ -387,5 +421,7 @@ class ContinuousScheduler:
         for entries in buckets.values():
             for e in entries:
                 self._dec(1)
+                if e.tr is not None:
+                    self._tracer.finish(e.tr, "shutdown")
                 e.fut.set_exception(ShutdownError("ContinuousScheduler closed"))
             entries.clear()

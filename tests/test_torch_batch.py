@@ -15,9 +15,12 @@ the JAX package's:
   package's ``BatchJobRunner`` and the port's, the same record bytes for
   numpy and torch values, and each package's doctor passes the other's
   job directory;
-- ``cli.batch`` refuses a device-second budget and the cost meter's
-  ``--model-gflops-per-item`` (ROADMAP A5.4) and, with a
-  recipe, serves engine replicas on the CPU when asked.
+- ``cli.batch`` bills every batch through the cost meter: a tenant's
+  ``budget=``/``window=`` is enforced (over budget under pressure it sheds
+  and the runner retries), ``tenant_usage`` in the summary bills Σ bucket
+  × ``--model-gflops-per-item`` × 1e9 FLOPs, ``<out>/access`` holds one
+  row per request and ``cost_doctor`` reconciles it; with a recipe it
+  serves engine replicas on the CPU when asked.
 """
 
 import json
@@ -428,15 +431,17 @@ def test_sigterm_drains_and_exits_resumable(tmp_path):
 
 
 def test_cli_refuses_budgets_and_names_a5_4(tmp_path):
+    """Budgets are enforced now (A5.4 is done): a malformed budget or
+    window is what the CLI refuses, naming the tenant."""
     shards = make_shards(tmp_path, n_shards=1)
-    with pytest.raises(NotImplementedError, match="A5.4"):
-        cli_batch.main([*shards, "--out", str(tmp_path / "o"), "--tenants", "batch=batch:budget=2"])
-    with pytest.raises(NotImplementedError, match="A5.4"):
-        cli_batch.main([*shards, "--out", str(tmp_path / "o"), "--tenants", "batch=batch:window=60"])
-    with pytest.raises(NotImplementedError, match="A5.4"):
-        cli_batch.main([*shards, "--out", str(tmp_path / "o"), "--model-gflops-per-item", "2.5"])
+    with pytest.raises(ValueError, match="'batch' budget must be > 0"):
+        cli_batch.main([*shards, "--out", str(tmp_path / "o"), "--tenants", "batch=batch:budget=0"])
+    with pytest.raises(ValueError, match="'batch' window must be > 0"):
+        cli_batch.main([*shards, "--out", str(tmp_path / "o"), "--tenants", "batch=batch:window=-1"])
+    with pytest.raises(ValueError, match="unknown tenant option"):
+        cli_batch.main([*shards, "--out", str(tmp_path / "o"), "--tenants", "batch=batch:budgt=2"])
     doc = cli_batch.__doc__
-    assert "A5.4" in doc and "A5.7" in doc
+    assert "A5.4" not in doc and "tenant_usage" in doc and "cost_doctor" in doc
     flags = {a.dest for a in cli_batch.build_parser()._actions}
     assert {"tenants", "workers", "replicas", "max_batch", "lease_s", "submit_window", "config"} <= flags
 
@@ -447,7 +452,9 @@ def test_cli_stub_job_summary(tmp_path, capsys):
                            "--service-per-item-ms", "0"]) == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert summary["complete"] and summary["total_samples"] == 10 and summary["samples_processed"] == 10
-    assert summary["replica_preemptions"] == 0 and "tenant_usage" not in summary
+    assert summary["replica_preemptions"] == 0
+    assert summary["tenant_usage"]["batch"]["requests"] == 10  # the stub at 1 GFLOP an item
+    assert summary["tenant_usage"]["batch"]["flops"] == 10 * 1e9
     part = tmp_path / "o" / "parts" / f"{part_stem(shards[1])}.part"
     want = [{"sum": 16 * (1 + j), "dim": 256} for j in range(5)]  # bytes([1, j] * 16), zero-padded to 256
     assert [r["out"] for r in iter_records(part)] == want
@@ -481,3 +488,35 @@ def test_cli_serves_engine_replicas_on_the_cpu(tmp_path, capsys):
     got = list(iter_records(part))
     assert [r["key"] for r in got] == [s["__key__"] for s in samples]
     np.testing.assert_allclose(np.array([r["out"] for r in got], np.float32), want, rtol=1e-5, atol=1e-5)
+
+
+def test_cli_budgeted_tenants_bill_and_log(tmp_path, capsys):
+    """Two budgeted tenants' specs on the gate, the job submitting as one:
+    ``tenant_usage`` bills Σ bucket × GFLOPs × 1e9 (the stub's bucket is
+    its batch), every request has an ``ok`` row in ``<out>/access`` with
+    its device_ms and cost_flops, the budget's rows journal it, and
+    ``cost_doctor`` reconciles the rows with the ledger."""
+    from jumbo_mae_tpu_tpu_torch.tools import cost_doctor
+
+    shards = make_shards(tmp_path, n_shards=2, n_samples=9)
+    out = tmp_path / "o"
+    assert cli_batch.main([*shards, "--out", str(out), "--service-overhead-ms", "0.5", "--service-per-item-ms", "0.1",
+                           "--tenants", "batch=batch:budget=0.002:window=2,web=interactive:budget=5",
+                           "--model-gflops-per-item", "2.5", "--max-batch", "4"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["complete"] and summary["total_samples"] == 18
+    events = read_journal(out / "access")
+    rows = [e for e in events if e["type"] == "request"]
+    ok = [r for r in rows if r["outcome"] == "ok"]
+    assert len(ok) == 18 and all(r["tenant"] == "batch" and r["device_ms"] is not None for r in ok)
+    assert all(r["outcome"] in ("ok", "shed") for r in rows)
+    usage = summary["tenant_usage"]["batch"]
+    # each flush bills bucket x 2.5 GFLOPs and the stub's bucket is its
+    # batch: the flushes' buckets sum to the 18 samples
+    assert usage["flops"] == pytest.approx(18 * 2.5e9, rel=1e-12)
+    assert usage["requests"] == 18 and usage["budget_device_s"] == 0.002 and "over_budget" in usage
+    assert summary["tenant_usage"]["web"]["requests"] == 0
+    assert sum(r["cost_flops"] for r in ok) == pytest.approx(usage["flops"], rel=1e-12)
+    assert cost_doctor.main([str(out / "access"), "--out", str(tmp_path / "cost.md")]) == 0
+    report = (tmp_path / "cost.md").read_text()
+    assert "agree" in report and "**disagree**" not in report and "| batch | batch | " in report

@@ -26,6 +26,9 @@
 - a guarded skipped classify step leaves the parameters and the
   BatchNorm statistics as they were; gradient accumulation carries the
   labels;
+- ``run.publish_dir``: a linear probe of the smoke recipe publishes a
+  full artifact, then a delta one (the frozen trunk rides the base), each
+  verified, and ``cli.predict --swap-watch`` promotes both;
 - each refusal raises and names its ROADMAP item.
 """
 
@@ -225,7 +228,6 @@ def test_slice_matches_the_jax_package(tmp_path, shard_root):
     ("mesh.tensor=2", "A6"),
     ("run.faults=train.loss:nan@n=1", "A7"),
     ("run.telemetry=true", "A7"),
-    ("run.publish_dir=x", "A7"),
     ("run.chrome_trace=x", "A7"),
     ("run.profile_dir=x", "A7"),
     ("run.diag_every=1", "A7"),
@@ -431,3 +433,60 @@ def test_classify_grad_accum_carries_the_labels():
         np.testing.assert_allclose(float(m1[k]), float(m2[k]), rtol=1e-6)
     for a, b in zip(p1, p2):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+def test_publish_dir_feeds_the_swap_watch(tmp_path, capsys):
+    """Checkpoints at steps 2 and 4 of a linear probe publish
+    ``publish-000000`` (the whole tree, int8) and ``publish-000001`` (only
+    the head and its BatchNorm ride in it: the trunk is frozen), the
+    publish tenant is billed into the run journal, and a pool serving the
+    step-2 save promotes both artifacts as they are pushed."""
+    import os
+    import threading
+    import time
+
+    from jumbo_mae_tpu_tpu_torch.cli import predict
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+    from jumbo_mae_tpu_tpu_torch.serve import publisher
+
+    sets = ["run.mode=linear", "optim.name=lars", "model.overrides={image_size: 32, patch_size: 4, posemb: sincos2d, "
+            "dtype: float32, labels: 10}", "run.training_steps=4", "run.ckpt_every=2", "run.eval_interval=100",
+            "run.sanity_eval=false", f"run.output_dir={tmp_path}"]
+    staged = tmp_path / "staged"
+    ttrain.main(["--config", str(SMOKE), "--device", "cpu", "--set", *sets, f"run.publish_dir={staged}"])
+    full, delta = (publisher.load_manifest(staged / f"publish-00000{i}") for i in range(2))
+    assert full["base"] is None and full["quant"] == "int8" and full["step"] == 2
+    assert delta["base"] == {"name": "publish-000000", "fingerprint": full["fingerprint"]} and delta["step"] == 4
+    ridden = sorted(lp for lp, row in delta["leaves"].items() if row["where"] == "payload")
+    assert ridden and all("/head/" in lp for lp in ridden) and 0 < delta["delta_fraction"] < 0.2
+    for m in (full, delta):
+        publisher.resolve_chain(staged / m["name"])
+    journal = read_journal(tmp_path / "smoke_cpu" / "journal")
+    assert [e["name"] for e in journal if e["type"] == "publish"] == ["publish-000000", "publish-000001"]
+    billed = [e["requests"] for e in journal if e["type"] == "tenant_usage" and e["tenant"] == "publish"]
+    assert billed[0] == 1 and billed[-1] == 2 and billed == sorted(billed)  # a row a publish, more on the interval
+
+    watch = tmp_path / "push"
+    watch.mkdir()
+    pushed = threading.Event()
+
+    def push():
+        time.sleep(0.5)
+        os.rename(staged / "publish-000000", watch / "publish-000000")
+        time.sleep(2.0)
+        os.rename(staged / "publish-000001", watch / "publish-000001")
+        pushed.set()
+
+    t = threading.Thread(target=push, daemon=True)
+    t.start()
+    capsys.readouterr()
+    predict.main(["--config", str(SMOKE), "--set", *sets, "--ckpt", str(tmp_path / "smoke_cpu" / "ckpt" / "last" / "2"),
+                  "--task", "logits", "--synthetic", "90", "--max-batch", "4", "--device", "cpu", "--serve",
+                  "--replicas", "2", "--interarrival-ms", "40", "--swap-watch", str(watch), "--swap-poll-s", "0.1",
+                  "--swap-canary-requests", "2", "--swap-canary-timeout-s", "5", "--out", str(tmp_path / "s.npz")])
+    t.join(timeout=30)
+    assert pushed.is_set()
+    text = capsys.readouterr().out
+    assert "swap publish-000000: verdict=promoted stage=promote" in text
+    assert "swap publish-000001: verdict=promoted stage=promote" in text
+    assert "pool served 90/90 ok (0 failed)" in text

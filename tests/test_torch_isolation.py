@@ -9,10 +9,12 @@
 - an augmentation policy without PIL raises ``ImportError`` naming it, at
   the policy and at the loader, while the rest of the port runs;
 - the entry points (the engine, ``cli.predict``, ``cli.train``,
-  ``cli.batch``, the warm-cache probe and the tools) default to the GPU
-  and raise when there is none, instead of carrying on on the CPU; a save
-  is served and its features exported, a batch job runs and is audited,
-  and a warm restart loads its cache, in the blocked interpreter;
+  ``cli.batch``, the warm-cache probe, the tools and the performance
+  model) default to the GPU and raise when there is none, instead of
+  carrying on on the CPU; a save is served and its features exported, a
+  batch job runs and is audited, a warm restart loads its cache, and a
+  budgeted job, a publishing run and tenant-metered serving are billed
+  and audited, in the blocked interpreter;
 - no kernel is built at import time.
 """
 
@@ -196,6 +198,34 @@ def test_batch_job_and_warm_restart_without_jax_yaml_pil_or_cv2(tmp_path):
     assert "batch 0 0 warm 0 1" in res.stdout, res.stdout[-2000:]
 
 
+def test_billing_and_publishing_without_jax_yaml_pil_or_cv2(tmp_path):
+    """A budgeted stub ``cli.batch`` job audited by ``cost_doctor``, a
+    training run publishing into a directory audited by
+    ``publish_doctor``, and ``cli.predict`` with tenants, the autoscaler
+    and the access log, in an interpreter where JAX, PyYAML, PIL and cv2
+    cannot import."""
+    res = _blocked_interpreter(
+        "import json\n"
+        "from jumbo_mae_tpu_tpu_torch.cli import batch, predict, train\n"
+        "from jumbo_mae_tpu_tpu_torch.data.tario import write_tar_samples\n"
+        "from jumbo_mae_tpu_tpu_torch.tools import cost_doctor, publish_doctor\n"
+        f"out = {str(tmp_path)!r}\n"
+        "write_tar_samples(out + '/s.tar', [{'__key__': f'k{j}', 'bin': bytes([j]) * 8} for j in range(6)])\n"
+        "rc = batch.main([out + '/s.tar', '--out', out + '/job', '--tenants', 'batch=batch:budget=1:window=5'])\n"
+        "cost = cost_doctor.main([out + '/job/access', '--out', out + '/cost.md'])\n"
+        f"train.main(['--config', {SMOKE!r}, '--device', 'cpu', '--set', 'run.output_dir=' + out,\n"
+        "            'run.training_steps=2', 'run.ckpt_every=2', 'run.publish_dir=' + out + '/pub'])\n"
+        "pub = publish_doctor.main([out + '/pub'])\n"
+        f"predict.main(['--config', {SMOKE!r}, '--synthetic', '6', '--device', 'cpu', '--task', 'features',\n"
+        "              '--serve', '--replicas', '1', '--tenants', 'a=batch', '--autoscale', '1:2',\n"
+        "              '--access-log', out + '/acc', '--out', out + '/f.npz'])\n"
+        "print('billing', rc, cost, pub)\n",
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "billing 0 0 0" in res.stdout and "pool served 6/6 ok" in res.stdout, res.stdout[-2000:]
+
+
 def test_images_without_cv2_or_pil_raise_naming_both(tmp_path):
     """With neither cv2 nor PIL, decoding a JPEG, resizing and starting a
     train loader raise ImportError naming both packages; nothing returns
@@ -316,6 +346,14 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.batch.job",
         "jumbo_mae_tpu_tpu_torch.cli.batch",
         "jumbo_mae_tpu_tpu_torch.tools.batch_doctor",
+        "jumbo_mae_tpu_tpu_torch.obs.perfmodel",
+        "jumbo_mae_tpu_tpu_torch.obs.costmodel",
+        "jumbo_mae_tpu_tpu_torch.obs.reqtrace",
+        "jumbo_mae_tpu_tpu_torch.serve.costmeter",
+        "jumbo_mae_tpu_tpu_torch.serve.autoscaler",
+        "jumbo_mae_tpu_tpu_torch.serve.publisher",
+        "jumbo_mae_tpu_tpu_torch.tools.publish_doctor",
+        "jumbo_mae_tpu_tpu_torch.tools.cost_doctor",
     ):
         assert m in mods
     for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):
@@ -352,6 +390,16 @@ def test_model_and_cli_default_to_cuda(no_cuda):
         batch.main(["shard.tar", "--out", "unused", "--config", SMOKE])
     with pytest.raises(RuntimeError, match="CUDA"):
         warmcache._probe_main(["--dir", "unused"])
+    with pytest.raises(RuntimeError, match="CUDA"):  # tenants, autoscaler: the engines first
+        predict.main(["--config", SMOKE, "--synthetic", "1", "--serve", "--replicas", "1", "--tenants", "a=batch",
+                      "--autoscale", "1:2"])
+    from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip
+    from jumbo_mae_tpu_tpu_torch.serve import roofline_capacity
+
+    with pytest.raises(RuntimeError, match="CUDA"):  # the model never prices the card as a CPU
+        detect_chip()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        roofline_capacity(1e9, 1e6)
     with pytest.raises(RuntimeError):
         resolve_device("cuda:0")
     with pytest.raises(ValueError):

@@ -101,7 +101,12 @@ def _strip(events):
     return [{k: v for k, v in e.items() if k != "ts"} for e in events]
 
 
-def test_journals_read_back_equal_with_rotation_and_torn_tail(tmp_path):
+def test_journals_read_back_equal_with_rotation_and_torn_tail(tmp_path, monkeypatch):
+    # one wall clock for both writers: a line's length (and so where a
+    # segment rotates) depends on how many digits its ``ts`` rounds to
+    import time
+
+    monkeypatch.setattr(time, "time", lambda: 1792282165.125)
     dirs = {}
     for name, m in (("jax", jax_journal), ("port", port_journal)):
         d = tmp_path / name / "journal"

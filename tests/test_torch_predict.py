@@ -7,7 +7,8 @@ exactly (a JPEG can differ by an LSB between cv2 and PIL), through the
 smoke recipe at ``--dtype float32``: every task's ``.npz`` within atol /
 rtol 1e-4. The reconstruction's mask is pinned to the JAX CLI's (see
 tests/test_torch_reconstruct.py). Then ``--serve`` against the direct
-path, an undecodable file, and the flags of layers still to port.
+path, an undecodable file, and the flags of layers still to port. Then
+the replicated tier with tenants, the autoscaler and the access log.
 """
 
 import json
@@ -191,6 +192,9 @@ def test_pack_parity_failure_aborts(setup, tmp_path, monkeypatch):
     (["--serve", "--replicas", "1", "--pack", "--pool", "tokens"], "cls or gap"),
     (["--pack-resolutions", "32:1"], "requires --pack"),
     (["--swap-watch", "x"], "--replicas"),
+    (["--tenants", "web=interactive"], "--replicas"),
+    (["--autoscale", "1:2"], "--replicas"),
+    (["--serve", "--replicas", "1", "--autoscale", "2"], "MIN:MAX"),
 ])
 def test_replicated_flag_preconditions(flags, msg):
     with pytest.raises(SystemExit, match=msg):
@@ -233,3 +237,40 @@ def test_swap_watch_promotes_a_push_and_rolls_back_a_corrupt_one(setup, tmp_path
     assert "swap a_good: verdict=promoted stage=promote cosine_min=1.0000" in text
     assert "swap b_bad: verdict=rolled_back stage=parity" in text
     assert "pool served 120/120 ok (0 failed)" in text
+
+
+def test_access_log_without_replicas_names_a5_7():
+    with pytest.raises(NotImplementedError, match="A5.7"):
+        predict.main(["--config", str(RECIPE), "--synthetic", "1", "--device", "cpu", "--access-log", "x"])
+
+
+def test_tenants_autoscale_and_access_log(tmp_path, capsys):
+    """``--serve --replicas 2 --tenants ... --autoscale 1:2 --access-log``:
+    every request served and traced with its tenant and bill, the
+    meter's ``tenant_usage`` rows reconciling with the rows, the budgeted
+    tenant's budget spent, and the idle second replica drained away."""
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+    from jumbo_mae_tpu_tpu_torch.tools import cost_doctor
+
+    acc = tmp_path / "acc"
+    predict.main(["--config", str(RECIPE), "--set", *BASE, "--task", "features", "--synthetic", "40", "--device",
+                  "cpu", "--serve", "--replicas", "2", "--max-batch", "4", "--tenants",
+                  "web=interactive:rate=1000,scrape=batch:budget=0.0001:window=30", "--autoscale", "1:2",
+                  "--autoscale-interval-s", "0.05", "--access-log", str(acc), "--burst", "8", "--interarrival-ms",
+                  "20", "--out", str(tmp_path / "f.npz")])
+    text = capsys.readouterr().out
+    assert "pool served 40/40 ok (0 failed)" in text and "traffic shaping: web=interactive, scrape=batch" in text
+    assert "autoscaler: [1, 2] replicas" in text and "roofline capacity" in text and "on cpu" in text
+    events = read_journal(acc)
+    rows = [e for e in events if e["type"] == "request"]
+    assert len(rows) == 40 and all(r["outcome"] == "ok" and r["device_ms"] is not None for r in rows)
+    assert {r["tenant"] for r in rows} == {"web", "scrape"} and {r["class"] for r in rows} == {"interactive", "batch"}
+    assert all(r["cost_flops"] > 0 and r["bucket"] in (1, 2, 4) for r in rows)
+    usage = {e["tenant"]: e for e in events if e["type"] == "tenant_usage"}
+    assert usage["web"]["requests"] == usage["scrape"]["requests"] == 20 and usage["scrape"]["over_budget"]
+    scaled = [e for e in events if e["type"] == "autoscale"]
+    assert scaled and scaled[0]["direction"] == "down" and scaled[0]["scaled_to"] == 1
+    assert any(e["type"] == "replica_removed" for e in events)
+    assert cost_doctor.main([str(acc), "--out", str(tmp_path / "cost.md")]) == 0
+    report = (tmp_path / "cost.md").read_text()
+    assert "agree" in report and "**disagree**" not in report and "`scrape` exhausted its budget" in report

@@ -344,6 +344,39 @@ def test_preempt_drains_and_restarts_without_a_failure(tmp_path):
     assert port_out[:3] == (True, 1, 0)
 
 
+def test_pool_pressure_equals_jax(tmp_path):
+    """C5: the pool's pressure signal (pending depth / ``max_queue``, 0 when
+    unbounded) that ``cli.batch`` and ``cli.predict`` feed to admission.
+    The port's pool had none, so the CLIs' probe raised and admission read
+    pool pressure 0 whatever the backlog."""
+    def scenario(side):
+        gate = threading.Event()
+
+        def run(eng, batch, metas):
+            gate.wait(10)
+            return {"y": np.array([float(np.asarray(b)[0, 0, 0]) for b in batch])}
+
+        side.rs._run = run
+        seen = [side.rs.pressure()]
+        side.submit(0.0)
+        until(lambda: busy(side.rs))
+        for i in range(1, 7):
+            side.submit(float(i))
+            seen.append(side.rs.pressure())
+        gate.set()
+        for f in side.futs:
+            f.result(timeout=10)
+        seen.append(side.rs.pressure())
+        side.rs.close()
+        return seen
+
+    jax_out, port_out = both(tmp_path, scenario, replicas=1, max_batch=1, max_queue=8)
+    assert jax_out == port_out == [0.0, *(i / 8 for i in range(1, 7)), 0.0]
+    (tmp_path / "u").mkdir()
+    unbounded = both(tmp_path / "u", lambda side: (side.rs.pressure(), side.rs.close())[0], replicas=1)
+    assert unbounded == (0.0, 0.0)
+
+
 # ------------------------------------------------------------- hot swap
 
 
