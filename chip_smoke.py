@@ -215,6 +215,29 @@ Phases, each of which exits non-zero when it fails:
    billed its analytic share, ``cost_doctor`` reconciling the rows with
    the ledger; (d) ``predict_train_step`` of the ViT-L/16 MAE step at
    batch 128 on the H100 row beside phase 7's measured step.
+24. serving telemetry and health (after phase 23, on phase 16's ``best``
+   and phase 19's 70 PNGs): ms a dispatch by graph replay at buckets 1
+   and 64 with the metrics registry on and with ``NULL_REGISTRY`` in
+   turns, and the host µs of one dispatch's engine hooks; then, in a
+   process of its own, ``cli.predict --serve --replicas 2 --warmup
+   --metrics-port 0 --slo ... --access-log --swap-watch --burst 64
+   --metrics-hold-s`` over 980 requests (64 in a burst, then 30 ms apart) under the fault plan
+   ``serve.replica`` (r1's first flush), ``serve.preempt`` (r0, later)
+   and ``ckpt.load:corrupt`` (the push named ``corrupt``), scraped over
+   loopback while it serves: ``/healthz`` 200 and ready once the pool is
+   up; one crash and one restart of r1 and one preemption of r0, every
+   request served; a good push promoted, the corrupt push rolled back at
+   parity (``serve_swap_rollbacks_total`` 1), and, with a ballast tensor
+   held by this process until the card's free memory is short of the
+   push, the next push rejected at stage ``headroom`` naming the card,
+   nothing flipped, the pool serving on; ``serve_replica_up`` 1 for both,
+   ``infer_requests_total`` = requests + requeues,
+   ``mem_device_bytes{device="cuda:0"}`` in (0, the card's memory],
+   ``mem_hbm_predict_vs_measured`` finite for every captured key with a
+   predicted peak, the capture sentinel at 0 violations, K1 = 12 x
+   (dispatches + captures) over every engine the pool built, and each
+   engine's logits of the 70 files bit-equal to phase 19's; the wall ms
+   of a scrape and of ``/healthz``.
 
 Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
 NaN past the sequence inert, and time them there against SDPA.
@@ -3348,6 +3371,290 @@ def phase_billing(fa, smi: str, tmp: Path, urls: dict, train_step_ms: float) -> 
     return res
 
 
+# ------------------------------------------------------ telemetry and health
+
+
+# the child of phase 24: cli.predict in a process of its own with its
+# stdout unbuffered (the parent reads it as it comes), the engines it
+# builds recorded, K1 counted over the run; after it, each engine's output
+# for the files (argv[1], a JSON list) into argv[2] (.npz)
+TELEMETRY_CHILD = r"""
+import json, sys
+import numpy as np
+from jumbo_mae_tpu_tpu_torch.cli import predict
+from jumbo_mae_tpu_tpu_torch.config import load_config
+from jumbo_mae_tpu_tpu_torch.ops.flash import attention as fa
+made = []
+class Engine(predict.InferenceEngine):
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        made.append(self)
+predict.InferenceEngine = Engine
+files, npz, argv = json.loads(open(sys.argv[1]).read()), sys.argv[2], sys.argv[3:]
+fa.LAUNCHES = 0
+predict.main(argv)
+k1 = fa.LAUNCHES
+ran = [e.dispatches + sum(e.compile_counts.values()) for e in made]
+peaks = sorted({k for e in made for k in e.predicted_peak_hbm()})
+cfg = load_config(argv[argv.index("--config") + 1])
+images = np.stack([predict.load_image(f, made[0].image_size, cfg.data.test_crop_ratio) for f in files])
+task = argv[argv.index("--task") + 1]
+np.savez(npz, **{f"e{i}": e.predict(images, task=task) for i, e in enumerate(made)})
+print(json.dumps({"k1": k1, "ran": ran, "peaks": peaks, "gens": len(made)}))
+"""
+
+
+def hooks_host_us(reps: int = 20000) -> float:
+    """Host µs of the metric calls one engine dispatch makes (a bucket
+    cache hit, the pad fraction, the predict seconds, the images count),
+    on a live registry: the median of 5 runs of ``reps``."""
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.obs.metrics import RATIO_BUCKETS, MetricsRegistry
+
+    reg = MetricsRegistry()
+    hits = reg.counter("infer_bucket_cache_hits_total", labels=("task",))
+    pad = reg.histogram("infer_pad_fraction", buckets=RATIO_BUCKETS)
+    pred = reg.histogram("infer_predict_seconds", labels=("task",))
+    imgs = reg.counter("infer_images_total", labels=("task",))
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            hits.labels("logits").inc()
+            pad.observe(0.0)
+            pred.labels("logits").observe(0.004)
+            imgs.labels("logits").inc(64)
+        runs.append((time.perf_counter() - t0) / reps * 1e6)
+    return float(np.median(runs))
+
+
+def scrape(url: str) -> tuple[int, str, float]:
+    """One GET over loopback: its status, body and wall ms."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            status, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read().decode()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def metric(text: str, name: str, labels: str = "") -> float | None:
+    """A sample's value in Prometheus text (``labels`` as rendered)."""
+    key = f"{name}{{{labels}}} " if labels else f"{name} "
+    for line in text.splitlines():
+        if line.startswith(key):
+            return float(line[len(key):])
+    return None
+
+
+def phase_telemetry(fa, smi: str, tmp: Path) -> dict:
+    """Phase 24: serving telemetry and health (the module docstring's
+    list). The parent's engines set K1's count to 0 just before and read
+    it just after; the child counts its own over its run."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.cli.predict import load_image
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+    from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine
+    from jumbo_mae_tpu_tpu_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import resolve_save
+
+    t_start = time.perf_counter()
+    res: dict = {}
+    ft = tmp / "ft" / "finetune_vit_b16" / "ckpt"
+    files = sorted(str(p) for p in (tmp / "serve" / "images").glob("*.png"))
+    check(len(files) == SERVE_IMAGES, f"telemetry: phase 19's {len(files)} files")
+    cfg = load_config(HERE / FT_RECIPE)
+    images = np.stack([load_image(f, 224, cfg.data.test_crop_ratio) for f in files])
+    direct = np.load(tmp / "serve" / "b16_logits.npz")["logits"]
+
+    # ---- 5. the hooks' cost: the registry on and NULL_REGISTRY, in turns
+    fa.LAUNCHES = 0
+    on = InferenceEngine(cfg, ckpt=str(ft), max_batch=64, registry=MetricsRegistry())
+    null = InferenceEngine(cfg, ckpt=str(ft), max_batch=64, registry=NULL_REGISTRY)
+    for e in (on, null):
+        e.warmup(("logits",), buckets=(1, 64))
+    res["dispatch_ms"] = {}
+    for b in (1, 64):
+        ms = timed_alternating({"registry": lambda: on.logits(images[:b]), "null": lambda: null.logits(images[:b])},
+                               40)
+        res["dispatch_ms"][b] = ms
+    parent_k1 = fa.LAUNCHES
+    check(parent_k1 == 12 * (ran(on) + ran(null)), f"telemetry: the timing engines made {parent_k1} K1")
+    res["hooks_us"] = hooks_host_us()
+    log("telemetry: ms a dispatch by graph replay (upload, replay, fetch; medians of 40 in turns), registry on / "
+        "NULL_REGISTRY: " + ", ".join(f"bucket {b} {v['registry']:.4f} / {v['null']:.4f}"
+                                      for b, v in res["dispatch_ms"].items())
+        + f"; the engine hooks of one dispatch {res['hooks_us']:.2f} host µs (this machine's CPU), on {smi}")
+    del on, null
+    torch.cuda.empty_cache()
+
+    # ---- 1-4. the pool in a process of its own, scraped while it serves
+    work = tmp / "telemetry"
+    watch, staged = work / "push", work / "staged"
+    watch.mkdir(parents=True)
+    best = resolve_save(ft)
+    for name in ("good-1", "corrupt-2", "good-3"):
+        shutil.copytree(best, staged / name)
+    (work / "files.json").write_text(json.dumps(files))
+    n_req, burst = 14 * SERVE_IMAGES, 64
+    argv = ["--config", str(HERE / FT_RECIPE), "--ckpt", str(ft), "--images", *(files * 14), "--max-batch", "64",
+            "--task", "logits", "--serve", "--replicas", "2", "--warmup", "--metrics-port", "0", "--slo",
+            "p99_latency_ms<=250;success_rate>=0.99", "--access-log", str(work / "access"), "--swap-watch",
+            str(watch), "--swap-poll-s", "0.1", "--burst", str(burst), "--interarrival-ms", "30",
+            "--metrics-hold-s", "5", "--out", str(work / "served.npz")]
+    # r1's first flush crashes (the burst reaches it); r0 is preempted at
+    # its 320th supervisor tick, 16-18 s after the pool is up: after r1's
+    # restart and the three pushes, and early enough for r0's restart to
+    # finish while the traffic (~29 s) lasts. The corrupt push has every
+    # tensor of its restored tree corrupted: 16 of the trained save's 227
+    # left its features at cosine 0.9897, above the 0.98 parity gate
+    env = {**os.environ, "PYTHONUNBUFFERED": "1",
+           "GRAFT_FAULTS": "serve.replica:raise(RuntimeError)@key~r1,n<1;serve.preempt:raise@key~r0,n=320;"
+                           "ckpt.load:corrupt(1000)@key~corrupt"}
+    lines: list[str] = []
+    with open(work / "stderr.txt", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", TELEMETRY_CHILD, str(work / "files.json"),
+                                 str(work / "fixed.npz"), *argv], cwd=HERE, stdout=subprocess.PIPE, stderr=err,
+                                text=True, env=env)
+        reader = threading.Thread(target=lambda: lines.extend(iter(proc.stdout.readline, "")), daemon=True)
+        reader.start()
+        read = lambda: "".join(lines)  # noqa: E731
+        try:
+            wait_for(read, "exporter on :", 120)
+            port = int(read().split("exporter on :", 1)[1].split(" ", 1)[0])
+            url = f"http://127.0.0.1:{port}"
+            deadline = time.monotonic() + 120
+            while True:  # 503 until the pool is up
+                status, body, _ = scrape(url + "/healthz")
+                if status == 200:
+                    break
+                check(time.monotonic() < deadline and proc.poll() is None, f"telemetry: /healthz {status} {body}")
+                time.sleep(0.05)
+            health = json.loads(body)
+            check(health["ready"] and health["detail"] == "pool up (2 replicas)", f"telemetry: /healthz {health}")
+            res["ready_healthz"] = health
+            wait_for(read, "swap-watch: polling", 60)
+
+            def until_metric(name, labels, want, timeout_s=60.0):
+                end = time.monotonic() + timeout_s
+                while True:
+                    text = scrape(url + "/metrics")[1]
+                    if metric(text, name, labels) == want:
+                        return text
+                    check(time.monotonic() < end and proc.poll() is None,
+                          f"telemetry: {name}{{{labels}}} = {metric(text, name, labels)}, want {want}")
+                    time.sleep(0.05)
+
+            # r1's first flush crashed; wait for its restart before any push
+            until_metric("serve_replica_restarts_total", 'replica="r1"', 1.0)
+            until_metric("serve_replica_up", 'replica="r1"', 1.0)
+
+            def push(name: str) -> str:
+                (staged / name).rename(watch / name)
+                wait_for(read, f"swap {name}: verdict=", 120)
+                return next(x for x in read().splitlines() if f"swap {name}: verdict=" in x)
+
+            verdicts = {"good-1": push("good-1"), "corrupt-2": push("corrupt-2")}
+            # the headroom gate on the card: this process holds a ballast
+            # until the card's free memory is short of the push
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info()
+            ballast = torch.empty(free - 96 * 2**20, dtype=torch.uint8, device="cuda")
+            held = torch.cuda.mem_get_info()[0]
+            try:
+                verdicts["good-3"] = push("good-3")
+            finally:
+                del ballast
+                torch.cuda.empty_cache()
+            res["ballast"] = {"free_before": free, "free_held": held, "total": total}
+            until_metric("serve_swap_rejected_total", "", 1.0)
+            # r0's preemption, then its restart, while the traffic lasts
+            until_metric("serve_replica_restarts_total", 'replica="r0"', 1.0, 60.0)
+            until_metric("serve_replica_up", 'replica="r0"', 1.0)
+            wait_for(read, "holding exporter", 120)
+            scrapes, healthz = [], []
+            for _ in range(10):
+                _, text, ms = scrape(url + "/metrics")
+                scrapes.append(ms)
+                status, body, ms = scrape(url + "/healthz")
+                healthz.append(ms)
+            final = json.loads(body)
+        finally:
+            if proc.poll() is None:
+                try:
+                    proc.wait(timeout=180)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+            reader.join(timeout=30)
+    out = read()
+    if proc.returncode != 0:
+        log(f"telemetry: the child exited {proc.returncode}; its stderr ends:\n{(work / 'stderr.txt').read_text()[-3000:]}")
+    check(proc.returncode == 0, f"telemetry: the child exited {proc.returncode}")
+    child = json.loads(out.strip().splitlines()[-1])
+    rsum = next(x for x in out.splitlines() if "retrace sentinel:" in x)
+    check(verdicts["good-1"].startswith("[predict] swap good-1: verdict=promoted stage=promote"),
+          f"telemetry: the good push: {verdicts}")
+    check("verdict=rolled_back stage=parity" in verdicts["corrupt-2"], f"telemetry: the corrupt push: {verdicts}")
+    check("verdict=rejected stage=headroom" in verdicts["good-3"] and "card memory on cuda:0" in verdicts["good-3"],
+          f"telemetry: the push under ballast: {verdicts['good-3']} (free {held} of {total} bytes held)")
+    check(f"pool served {n_req}/{n_req} ok (0 failed)" in out, f"telemetry: requests failed: {out[-2000:]}")
+    check("0 unexpected recompile(s)" in rsum, f"telemetry: {rsum}")
+    requeued = sum(metric(text, "serve_replica_requeued_total", f'replica="r{i}"') or 0.0 for i in (0, 1))
+    got = {
+        "up": [metric(text, "serve_replica_up", f'replica="r{i}"') for i in (0, 1)],
+        "requests": metric(text, "infer_requests_total"),
+        "crashes_r1": metric(text, "serve_replica_crashes_total", 'replica="r1",kind="crash"'),
+        "restarts": [metric(text, "serve_replica_restarts_total", f'replica="r{i}"') for i in (0, 1)],
+        "preempted": [metric(text, "serve_replica_preempted_total", f'replica="r{i}"') for i in (0, 1)],
+        "swaps": {v: metric(text, f"serve_swap_{v}_total") for v in ("attempts", "promoted", "rollbacks",
+                                                                      "rejected")},
+        "mem_device": metric(text, "mem_device_bytes", 'device="cuda:0"'),
+        "mem_device_peak": metric(text, "mem_device_peak_bytes", 'device="cuda:0"'),
+        "retrace_violations": metric(text, "retrace_events_total", 'loop="predict"') or 0.0,
+    }
+    drift = {ln.split('"')[1]: float(ln.rsplit(" ", 1)[1]) for ln in text.splitlines()
+             if ln.startswith("mem_hbm_predict_vs_measured{")}
+    res["metrics"] = {**got, "requeued": requeued, "drift": drift}
+    check(got["up"] == [1.0, 1.0], f"telemetry: serve_replica_up {got['up']}")
+    check(got["requests"] == n_req + requeued, f"telemetry: infer_requests_total {got['requests']}, sent {n_req} "
+          f"(+{requeued} requeued: a requeued request is collected again)")
+    check(got["crashes_r1"] == 1.0 and got["restarts"] == [1.0, 1.0] and got["preempted"] == [1.0, 0.0],
+          f"telemetry: crashes/restarts/preemptions {got}")
+    check(got["swaps"] == {"attempts": 3.0, "promoted": 1.0, "rollbacks": 1.0, "rejected": 1.0},
+          f"telemetry: swaps {got['swaps']}")
+    check(got["mem_device"] is not None and 0 < got["mem_device"] <= total, f"telemetry: mem_device_bytes {got}")
+    check(drift and set(drift) == set(child["peaks"]) and all(np.isfinite(v) and v > 0 for v in drift.values()),
+          f"telemetry: drift {drift} against the captured keys with a predicted peak {child['peaks']}")
+    check(got["retrace_violations"] == 0.0, f"telemetry: retrace_events_total {got['retrace_violations']}")
+    check(final["ok"] and final["ready"] and set(final["info"]) >= {"replicas", "slo", "memory"},
+          f"telemetry: the final /healthz {final}")
+    check(child["k1"] == 12 * sum(child["ran"]), f"telemetry: K1 {child['k1']} over engines that ran {child['ran']}")
+    check(child["gens"] == 4, f"telemetry: {child['gens']} engines (2, r1's restart, r0's restart)")
+    fixed = np.load(work / "fixed.npz")
+    equal = [bool(np.array_equal(fixed[k], direct)) for k in sorted(fixed.files)]
+    check(all(equal), f"telemetry: the pool's engines' logits bit-equal to phase 19's: {equal}")
+    res.update(k1=child["k1"] + parent_k1, child_k1=child["k1"], ran=child["ran"], verdicts=verdicts,
+               scrape_ms=float(np.median(scrapes)), healthz_ms=float(np.median(healthz)), sentinel=rsum,
+               seconds=time.perf_counter() - t_start)
+    log(f"telemetry: {n_req} requests ({burst} in a burst, then 30 ms apart) served by 2 replicas under "
+        f"serve.replica/serve.preempt/ckpt.load faults: r1 crashed once and restarted, r0 preempted and restarted, "
+        f"{requeued:g} requeued, none failed; " + "; ".join(v.replace("[predict] ", "") for v in verdicts.values())
+        + f"; ballast left {held} of {total} bytes free; mem_device_bytes {got['mem_device']:.0f}, peak "
+        f"{got['mem_device_peak']:.0f}; drift {drift}; {rsum.replace('[predict] ', '')}; K1 {child['k1']} = 12 x "
+        f"{child['ran']}; 4 engines' logits bit-equal to phase 19's; scrape {res['scrape_ms']:.2f} ms, /healthz "
+        f"{res['healthz_ms']:.2f} ms (medians of 10), on {smi}")
+    log(f"telemetry: phase 24 in {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -3411,9 +3718,11 @@ def main() -> None:
         t8 = time.perf_counter()
         billing = phase_billing(fa, smi, tmp, driver["urls"], train["step_ms"])
         t9 = time.perf_counter()
+        telemetry = phase_telemetry(fa, smi, tmp)
+        t10 = time.perf_counter()
         log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
             f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}, phase 20 {t6 - t5:.1f}, phase 21 {t7 - t6:.1f}, phase 22 "
-            f"{t8 - t7:.1f}, phase 23 {t9 - t8:.1f}; phases 1-14 took {t0 - t_start:.1f}")
+            f"{t8 - t7:.1f}, phase 23 {t9 - t8:.1f}, phase 24 {t10 - t9:.1f}; phases 1-14 took {t0 - t_start:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
@@ -3436,6 +3745,7 @@ def main() -> None:
     log(f"warm restarts: {json.dumps(warm)} on {smi}")
     log(f"batch jobs: {json.dumps(batch)} on {smi}")
     log(f"billing, autoscaling and publishing: {json.dumps(billing)} on {smi}")
+    log(f"serving telemetry and health: {json.dumps(telemetry)} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -3465,7 +3775,8 @@ def main() -> None:
             "finetune_launches": finetune["counts"][key],
             "linear_launches": linear["counts"][key],
             **({"serve_launches": served["serve_launches"], "replicated_launches": replicated["k1"],
-                "warm_launches": warm["k1"], "batch_launches": batch["k1"], "billing_launches": billing["k1"]}
+                "warm_launches": warm["k1"], "batch_launches": batch["k1"], "billing_launches": billing["k1"],
+                "telemetry_launches": telemetry["k1"]}
                if key == "K1" else {}),
             "publish_launches": billing["publish"][key.lower()],
             "max_abs_err": err,

@@ -52,22 +52,36 @@ front of the pool and meters every batch per tenant
 ``budget=`` is enforced); ``--autoscale MIN:MAX`` sizes the pool from
 demand against the roofline capacity of the card
 (``serve/autoscaler.py``, ticks of ``--autoscale-interval-s``);
-``--access-log DIR`` writes one row per request and the pool's, the
-meter's and the autoscaler's events (``obs/reqtrace.py``);
+``--access-log DIR`` (with ``--serve``) writes one row per request and the
+pool's, the meter's and the autoscaler's events (``obs/reqtrace.py``);
 ``--burst N`` sends the first N requests back to back and paces the
 rest by ``--interarrival-ms`` (a flash crowd, then a trickle). Otherwise
 the whole list is batched directly. Results land in ``--out`` (``.npz``) and, for ``logits``, as
 one JSON line per image on stdout. Everything runs on ``"cuda"`` unless
 ``--device cpu``.
 
+Telemetry and health, as the JAX CLI wires them: ``--metrics-port PORT``
+(0: any free port, printed) serves Prometheus ``/metrics`` and
+``/healthz`` (``obs/exporter.py``), ready once the engine or the pool is
+up; with ``run.memwatch`` every scrape samples the card's and the host's
+memory, the engines' caches and the predicted-vs-measured peak of every
+captured graph (``obs/memwatch.py``), and the swap watcher refuses a push
+whose double buffer does not fit, on the host or on the card.
+``--slo SPEC`` (or ``run.slo``), ``--slo-window-s`` and
+``--slo-fast-window-s`` track the served requests' objectives
+(``obs/slo.py``): the ``slo_*`` gauges, the verdict line at the end and,
+with the pool's breaker, ``degraded`` in ``/healthz``. With ``--serve
+--warmup`` and ``run.retrace`` the capture sentinel (``obs/retrace.py``)
+arms after the first served batch and counts every capture after it
+(a swap, a restart or a scale-up build is expected).
+``--metrics-hold-s N`` keeps the exporter up N seconds after the
+requests, for a scraper to read the final counts.
+
 The engines keep their built task weights in the warm cache
 (``infer/warmcache.py``): the default directory unless
 ``JUMBO_WARMCACHE=0``, ``--warmcache DIR`` for another (whatever the
 environment says), ``--no-warmcache`` for none; a restarted process, or a
 restarted replica, loads them instead of building them again.
-
-The flags of the layers still to port parse and raise, naming their
-ROADMAP item: the SLO tracker's flags and the metrics exporter (A5.7).
 """
 
 from __future__ import annotations
@@ -86,15 +100,6 @@ from jumbo_mae_tpu_tpu_torch.data.transforms import eval_transform
 from jumbo_mae_tpu_tpu_torch.infer.batching import MicroBatcher
 from jumbo_mae_tpu_tpu_torch.infer.engine import POOLS, InferenceEngine
 
-NOT_PORTED = "{flag} is not ported yet: ROADMAP queue {item}"
-# flag → (argparse dest, ROADMAP item); each parses and raises
-UNPORTED = {
-    "--slo": ("slo", "A5.7"),
-    "--slo-window-s": ("slo_window_s", "A5.7"),
-    "--slo-fast-window-s": ("slo_fast_window_s", "A5.7"),
-    "--metrics-port": ("metrics_port", "A5.7"),
-    "--metrics-hold-s": ("metrics_hold_s", "A5.7"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -145,8 +150,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "roofline capacity; scale-down drains the replica first")
     p.add_argument("--autoscale-interval-s", type=float, default=1.0, help="--autoscale reconcile tick seconds")
     p.add_argument("--access-log", default="", metavar="DIR",
-                   help="--replicas: a crash-safe JSONL access log (one row per finished request, the pool's events, "
-                        "tenant_usage rows) in DIR; read it with tools.cost_doctor")
+                   help="--serve: a crash-safe JSONL access log (one row per finished request, the pool's events, "
+                        "tenant_usage rows) in DIR; read it with tools.serve_doctor and tools.cost_doctor")
+    p.add_argument("--slo", default=None, metavar="SPEC",
+                   help="--serve SLO objectives, e.g. 'p99_latency_ms<=250;success_rate>=0.99' (default: run.slo "
+                        "from the recipe); breaches latch the degraded flag in /healthz and the slo_* gauges")
+    p.add_argument("--slo-window-s", type=float, default=None,
+                   help="SLO rolling window seconds (default: run.slo_window_s)")
+    p.add_argument("--slo-fast-window-s", type=float, default=None,
+                   help="SLO fast confirmation window seconds (default: run.slo_fast_window_s; 0 = window/12)")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="serve Prometheus /metrics + /healthz on this port (0 = any free port, printed at startup; "
+                        "omit to disable)")
+    p.add_argument("--metrics-hold-s", type=float, default=0.0,
+                   help="keep the exporter up N seconds after the requests finish (lets an external scraper read "
+                        "the final counters)")
     p.add_argument("--swap-watch", default="", metavar="DIR",
                    help="--replicas: poll DIR for new checkpoints and run each through the parity- and "
                         "canary-gated hot swap (promote on pass, roll back on failure)")
@@ -171,15 +189,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "~/.cache/jumbo_mae_tpu/warmcache unless JUMBO_WARMCACHE=0); restarted replicas load them")
     p.add_argument("--no-warmcache", action="store_true", help="build every task's weights, cache nothing")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag, (dest, item) in UNPORTED.items():
-        p.add_argument(flag, dest=dest, default=None, help=f"not ported yet (ROADMAP {item})")
     return p
-
-
-def refuse_unported(args: argparse.Namespace) -> None:
-    for flag, (dest, item) in UNPORTED.items():
-        if getattr(args, dest) is not None:
-            raise NotImplementedError(NOT_PORTED.format(flag=flag, item=item))
 
 
 def load_image(path: str | Path, size: int, crop_ratio: float) -> np.ndarray:
@@ -230,9 +240,8 @@ def check_replicated(args) -> list[tuple[int, float]] | None:
     replicated = bool(args.serve and args.replicas > 0)
     if (args.pack or args.swap_watch or args.tenants or args.autoscale or args.burst) and not replicated:
         raise SystemExit("--pack, --swap-watch, --tenants, --autoscale and --burst require --serve --replicas N")
-    if args.access_log and not replicated:
-        # the single-engine micro-batcher's tracer hook is ROADMAP A5.7
-        raise NotImplementedError(NOT_PORTED.format(flag="--access-log without --replicas", item="A5.7"))
+    if args.access_log and not args.serve:
+        raise SystemExit("--access-log traces the served requests: it requires --serve")
     if args.pack_resolutions and not args.pack:
         raise SystemExit("--pack-resolutions requires --pack")
     if args.pack:
@@ -260,10 +269,150 @@ def _swap_restore(path):
     return restore_artifact(path) if is_publish_artifact(path) else restore_inference_state(path)
 
 
-def _start_swap_watch(args, rs, ckpt_ref: dict, stop: threading.Event) -> threading.Thread:
+class Telemetry:
+    """What ``--metrics-port``, ``run.memwatch``, ``--slo``/``run.slo``,
+    ``--access-log`` and ``run.retrace`` switch on, each ``None`` when
+    off: the exporter and its ``HealthState`` (not ready until the engine
+    or the pool is up), the memory watcher and its accountant, the SLO
+    tracker, the access log and the request tracer, the capture
+    sentinel."""
+
+    def __init__(self, args, cfg):
+        self.server = self.health = self.memwatch = self.accountant = None
+        self.slo = self.access = self.tracer = self.sentinel = None
+        if args.metrics_port is not None:
+            from jumbo_mae_tpu_tpu_torch.obs.exporter import HealthState, TelemetryServer
+
+            self.health = HealthState()
+            if cfg.run.memwatch:
+                from jumbo_mae_tpu_tpu_torch.obs.memwatch import MemAccountant, MemoryWatcher
+                from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip
+
+                self.accountant = MemAccountant()
+                self.memwatch = MemoryWatcher(accountant=self.accountant, chip=detect_chip(args.device),
+                                              device=args.device)
+                self.health.probe("memory", self.memwatch.last_sample)
+            self.server = TelemetryServer(health=self.health, port=args.metrics_port).start()
+            print(f"[predict] exporter on :{self.server.port} (/metrics, /healthz)")
+        if args.serve and args.warmup and cfg.run.retrace:
+            from jumbo_mae_tpu_tpu_torch.obs.retrace import RetraceSentinel
+
+            self.sentinel = RetraceSentinel("predict")
+
+    def start_tracing(self, args, cfg, breakdown=None) -> None:
+        """``--serve``'s request observability: the SLO tracker, the access
+        log and a tracer feeding both (a tracer also whenever the exporter
+        runs, for the ``request_*`` families)."""
+        from jumbo_mae_tpu_tpu_torch.obs.reqtrace import AccessLog, RequestTracer
+        from jumbo_mae_tpu_tpu_torch.obs.slo import SLOTracker, parse_slo
+
+        spec = args.slo if args.slo is not None else cfg.run.slo
+        if spec:
+            self.slo = SLOTracker(
+                parse_slo(spec),
+                window_s=args.slo_window_s if args.slo_window_s is not None else cfg.run.slo_window_s,
+                fast_window_s=(args.slo_fast_window_s if args.slo_fast_window_s is not None
+                               else cfg.run.slo_fast_window_s),
+                burn_threshold=cfg.run.slo_burn_threshold,
+            )
+            print(f"[predict] SLO: {spec} over {self.slo.window_s:g}s/{self.slo.fast_window_s:g}s windows")
+        self.access = AccessLog(args.access_log) if args.access_log else None
+        if self.access is not None:
+            print(f"[predict] access log -> {self.access.path}")
+        if self.access is not None or self.slo is not None or self.server is not None:
+            self.tracer = RequestTracer(access_log=self.access, breakdown=breakdown,
+                                        on_finish=self.slo.observe_trace if self.slo is not None else None)
+        if self.slo is not None:
+            if self.health is not None:
+                self.health.probe("slo", self.slo.healthz_info)
+            if self.server is not None:
+                self.server.add_pre_scrape(self.slo.evaluate)
+
+    def watch_memory(self, engines, components: dict) -> None:
+        """Account ``components`` (name → byte probe) and, before every
+        scrape, record each engine's predicted graph peaks (captures happen
+        lazily too) and take a memory sample. ``engines()`` gives the live
+        engines at scrape time, so a restarted replica stays accounted."""
+        if self.memwatch is None:
+            return
+        for name, probe in components.items():
+            self.accountant.register(name, probe)
+
+        def sync_peaks():
+            for eng in engines():
+                try:
+                    peaks = eng.predicted_peak_hbm()
+                except Exception:  # noqa: BLE001 - a replica mid-restart
+                    continue
+                for prog, peak in peaks.items():
+                    self.memwatch.record_predicted_peak(prog, peak)
+
+        self.server.add_pre_scrape(sync_peaks)
+        self.server.add_pre_scrape(self.memwatch.sample)
+
+    def ready(self, detail: str, degraded=None) -> None:
+        if self.health is None:
+            return
+        self.health.set_ready(True, detail=detail)
+        if degraded is not None:
+            self.health.degraded_when(degraded)
+        elif self.slo is not None:
+            self.health.degraded_when(self.slo.degraded)
+
+    def note_batch(self, tag: str, batch) -> None:
+        """Before a served batch: its signature. After the first one the
+        serving loop is steady (call :meth:`served` after it)."""
+        if self.sentinel is not None:
+            self.sentinel.note(tag, batch)
+
+    def served(self) -> None:
+        if self.sentinel is not None:
+            self.sentinel.arm()
+
+    def expected(self, reason: str):
+        """The sentinel's ``expected()`` block, or a no-op one."""
+        import contextlib
+
+        return self.sentinel.expected(reason) if self.sentinel is not None else contextlib.nullcontext()
+
+    def slo_verdict(self) -> None:
+        if self.slo is None:
+            return
+        rep = self.slo.evaluate()
+        objs = "; ".join(f"{o['name']}: value={o['value']:g} burn={o['burn_slow']:g} breached={o['breached']}"
+                         for o in rep["objectives"])
+        print(f"[predict] SLO verdict: degraded={rep['degraded']} shed_rate={rep['shed_rate']:g} — {objs}")
+        if self.tracer is not None:
+            self.tracer.event("slo_summary", report=rep)
+
+    def close_tracing(self) -> None:
+        """Close the tracer and its access log (once)."""
+        tracer, self.tracer = self.tracer, None
+        if tracer is not None:
+            tracer.close()
+
+    def close(self, hold_s: float = 0.0) -> None:
+        """The tracer if still open, the sentinel's summary line, then the
+        exporter: held ``hold_s`` seconds first, for a scraper's last
+        read."""
+        self.close_tracing()
+        if self.sentinel is not None:
+            rsum = self.sentinel.summary()
+            print(f"[predict] retrace sentinel: {rsum['violations']} unexpected recompile(s) after warmup "
+                  f"({rsum['compiles']} compiles seen, {rsum['expected']} expected)")
+            self.sentinel.close()
+        if self.server is not None:
+            if hold_s > 0:
+                print(f"[predict] holding exporter for {hold_s:g}s (scrape :{self.server.port}/metrics)", flush=True)
+                time.sleep(hold_s)
+            self.server.close()
+
+
+def _start_swap_watch(args, rs, ckpt_ref: dict, stop: threading.Event, tel: Telemetry) -> threading.Thread:
     """The ``--swap-watch`` thread: each new entry of the directory through
-    the gated swap; a publish artifact that fails verification is
-    quarantined before any restore."""
+    the gated swap (the memory gate too, with the memory watcher); a
+    publish artifact that fails verification is quarantined before any
+    restore."""
     import os
 
     from jumbo_mae_tpu_tpu_torch.infer.replicaset import WeightSwapController
@@ -274,6 +423,9 @@ def _start_swap_watch(args, rs, ckpt_ref: dict, stop: threading.Event) -> thread
         rs, restore_fn=_swap_restore, parity_min_cosine=args.swap_parity_min,
         canary_requests=args.swap_canary_requests, canary_timeout_s=args.swap_canary_timeout_s,
         on_promote=lambda c: ckpt_ref.__setitem__("ckpt", c),
+        # refuse a push whose double buffer does not fit: rejected at the
+        # "headroom" stage before any replica flips
+        headroom_fn=tel.memwatch.headroom_check if tel.memwatch is not None else None,
     )
     watch_root = Path(args.swap_watch)
     watch_root.mkdir(parents=True, exist_ok=True)
@@ -308,30 +460,34 @@ def _start_swap_watch(args, rs, ckpt_ref: dict, stop: threading.Event) -> thread
                         print(f"[predict] swap {p.name}: verdict=quarantined stage=verify ({e})")
                         quarantine(p)
                         continue
-                rep = ctl.swap(str(p))
+                with tel.expected("swap"):
+                    rep = ctl.swap(str(p))
                 msg = f"[predict] swap {p.name}: verdict={rep['verdict']} stage={rep['stage']}"
                 if rep.get("parity"):
                     msg += f" cosine_min={rep['parity']['cosine_min']:.4f}"
-                print(msg)
+                if rep["verdict"] == "rejected":
+                    msg += f" ({rep['error']})"
+                print(msg, flush=True)
             if stopping:
                 return  # one last sweep after the stop
             stop.wait(args.swap_poll_s)
 
     thread = threading.Thread(target=watch, daemon=True, name="swap-watch")
     thread.start()
-    print(f"[predict] swap-watch: polling {watch_root} every {args.swap_poll_s:g}s")
+    print(f"[predict] swap-watch: polling {watch_root} every {args.swap_poll_s:g}s", flush=True)
     return thread
 
 
-def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict) -> tuple[list[str], list]:
+def serve_replicated(args, cfg, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict,
+                     tel: Telemetry) -> tuple[list[str], list]:
     """``--serve --replicas N``: the pool; with ``--pack`` or ``--tenants``
     the continuous scheduler in front of it (with ``--tenants`` admission
-    and the cost meter), the autoscaler, the swap watcher, the access
-    log, the requests (``load(native_size)`` gives them and their names);
+    and the cost meter), the autoscaler, the swap watcher, the telemetry,
+    the requests (``load(native_size)`` gives them and their names);
     returns the names and one row per request (``None`` where it failed)."""
     from jumbo_mae_tpu_tpu_torch.infer.replicaset import ReplicaSet
     from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip
-    from jumbo_mae_tpu_tpu_torch.obs.reqtrace import AccessLog, RequestTracer
+    from jumbo_mae_tpu_tpu_torch.obs.reqtrace import RequestTracer
     from jumbo_mae_tpu_tpu_torch.serve import (
         AdmissionController,
         Autoscaler,
@@ -346,33 +502,54 @@ def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict
     chip = detect_chip(args.device) if (tenant_specs or bounds) else None
 
     def engine_provider(idx):
-        eng = make_engine()
-        if args.warmup:
-            if args.pack:
-                n = eng.warmup_packed([s for s, _ in pack_mix] if pack_mix else [eng.image_size], (args.task,),
-                                      pool=args.pool)
-            else:
-                n = eng.warmup((args.task,), pool=args.pool)
-            print(f"[predict] replica {idx}: warmup {n} {_first_runs(eng)} in {eng.warmup_s:.2f} s")
+        # a (re)built replica captures its own graphs: legitimate, also
+        # while the sentinel is armed
+        with tel.expected("replica build"):
+            eng = make_engine()
+            if args.warmup:
+                if args.pack:
+                    n = eng.warmup_packed([s for s, _ in pack_mix] if pack_mix else [eng.image_size], (args.task,),
+                                          pool=args.pool)
+                else:
+                    n = eng.warmup((args.task,), pool=args.pool)
+                print(f"[predict] replica {idx}: warmup {n} {_first_runs(eng)} in {eng.warmup_s:.2f} s")
         return eng
 
     def run_replica(eng, batch, metas):
+        tel.note_batch("replica_batch", batch)
         if args.pack:  # the group's images, mixed resolutions: one packed dispatch
-            return eng.predict_packed(list(batch), args.task, pool=args.pool)
-        return eng.predict(batch, task=args.task, **kw)
+            out = eng.predict_packed(list(batch), args.task, pool=args.pool)
+        else:
+            out = eng.predict(batch, task=args.task, **kw)
+        tel.served()  # the first batch served: steady state
+        return out
 
+    tel.start_tracing(args, cfg)
     # the meter bills traced requests: tenants get a tracer even without a log
-    access = AccessLog(args.access_log) if args.access_log else None
-    tracer = RequestTracer(access_log=access) if (access is not None or tenant_specs) else None
-    if access is not None:
-        print(f"[predict] access log -> {access.path}")
+    tracer = tel.tracer if tel.tracer is not None or not tenant_specs else RequestTracer()
     rs = ReplicaSet(engine_provider, run_replica, replicas=args.replicas, max_batch=args.max_batch,
                     max_delay_ms=args.max_delay_ms, max_queue=args.max_queue, tracer=tracer, task=args.task,
-                    breakdown=lambda eng: eng.last_breakdown())
+                    health=tel.health, breakdown=lambda eng: eng.last_breakdown())
     engine = rs.replica(0).engine
     print(f"[predict] replica pool: {args.replicas} replicas, quorum {rs.quorum}")
     if engine.warmcache is not None:
         print(f"[predict] warmcache: {engine.warmcache.root}")
+    # per-replica accounting: the probes read the slot's engine at sample
+    # time, so a restarted replica stays accounted
+    comps = {}
+    for i in range(args.replicas):
+        comps[f"replica{i}_enc_cache"] = lambda i=i: rs.replica(i).engine.encoder_cache_bytes()
+        comps[f"replica{i}_exec_cache"] = lambda i=i: rs.replica(i).engine.executable_cache_bytes()
+    if engine.warmcache is not None:
+        comps["warmcache_disk"] = lambda: rs.replica(0).engine.warmcache.disk_bytes()
+    tel.watch_memory(lambda: [rs.replica(i).engine for i in range(rs.n)], comps)
+    slo = tel.slo
+    tel.ready(f"pool up ({args.replicas} replicas)",
+              degraded=(lambda: slo.degraded() or rs.degraded()) if slo is not None else rs.degraded)
+    if slo is not None:
+        slo.add_probe("queue_depth", lambda: rs.stats()["queue_depth"])
+        slo.add_probe("healthy_replicas", lambda: rs.stats()["healthy"])
+        slo.add_probe("batch_occupancy", lambda: rs.stats()["batch_occupancy"])
     images, names = load(engine.image_size)
     admission = meter = None
     if tenant_specs:
@@ -409,11 +586,12 @@ def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict
         act_bytes = 2.0 * flops / max(engine._enc.dim, 1)
         capacity = roofline_capacity(flops, act_bytes, chip)
         autoscaler = Autoscaler(rs, min_replicas=bounds[0], max_replicas=bounds[1],
-                                interval_s=args.autoscale_interval_s, capacity_fn=lambda: capacity, tracer=tracer)
+                                interval_s=args.autoscale_interval_s, slo=slo, capacity_fn=lambda: capacity,
+                                tracer=tracer)
         print(f"[predict] autoscaler: [{bounds[0]}, {bounds[1]}] replicas, tick {args.autoscale_interval_s:g}s, "
               f"roofline capacity {capacity:.1f} req/s a replica on {chip.name}")
     swap_stop = threading.Event()
-    swap_thread = _start_swap_watch(args, rs, ckpt_ref, swap_stop) if args.swap_watch else None
+    swap_thread = _start_swap_watch(args, rs, ckpt_ref, swap_stop, tel) if args.swap_watch else None
     try:
         if args.pack and args.pack_parity_n > 0:
             par = engine.packed_parity(list(images[: args.pack_parity_n]), args.task, pool=args.pool)
@@ -447,7 +625,7 @@ def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict
         failed = sum(r is None for r in rows)
         wall = time.perf_counter() - t0
         print(f"[predict] pool served {len(rows) - failed}/{len(rows)} ok ({failed} failed) in {wall:.3f} s, "
-              f"{(len(rows) - failed) / max(wall, 1e-9):.1f} req/s")
+              f"{(len(rows) - failed) / max(wall, 1e-9):.1f} req/s", flush=True)
     finally:
         if swap_thread is not None:
             swap_stop.set()
@@ -473,9 +651,42 @@ def serve_replicated(args, make_engine, load, kw: dict, pack_mix, ckpt_ref: dict
                   f"{bill['total_batches']} batches)")
         print(f"[predict] replicas: {json.dumps(rs.stats()['replicas'])}")
         rs.close()
-        if tracer is not None:
+        tel.slo_verdict()
+        if tracer is not tel.tracer:
             tracer.close()
+        tel.close_tracing()
     return names, rows
+
+
+def serve_one_engine(args, engine, images, kw: dict, tel: Telemetry):
+    """``--serve`` without replicas: one request at a time through the
+    micro-batcher, traced, with its probes; returns the stacked rows."""
+
+    def run_fn(batch):
+        if tel.health is not None:
+            tel.health.beat("infer_batch")
+        tel.note_batch("serve_batch", batch)
+        out = engine.predict(batch, task=args.task, **kw)
+        tel.served()  # the first batch served: steady state
+        return out
+
+    try:
+        with MicroBatcher(run_fn, max_batch=args.max_batch, max_delay_ms=args.max_delay_ms,
+                          max_queue=args.max_queue, tracer=tel.tracer, task=args.task) as mb:
+            if tel.health is not None:
+                # the batcher's live snapshot in the /healthz info payload
+                tel.health.probe("serving", mb.stats)
+            if tel.accountant is not None:
+                tel.accountant.register("batcher_queue", lambda: mb.stats()["queue_bytes"])
+            if tel.slo is not None:
+                tel.slo.add_probe("queue_depth", lambda: mb.stats()["queue_depth"])
+                tel.slo.add_probe("batch_occupancy", lambda: mb.stats()["batch_occupancy"])
+            rows = [f.result() for f in [mb.submit(img, deadline_ms=args.deadline_ms) for img in images]]
+        print(f"[predict] micro-batch sizes: {mb.batch_sizes}")
+        tel.slo_verdict()
+    finally:
+        tel.close_tracing()
+    return stack_rows(rows)
 
 
 def stack_rows(rows: list):
@@ -489,7 +700,6 @@ def _first_runs(engine) -> str:
 
 def main(argv: list[str] | None = None) -> Path | None:
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     if bool(args.images) == bool(args.synthetic):
         raise SystemExit("pass exactly one of --images or --synthetic N")
     pack_mix = check_replicated(args)
@@ -498,48 +708,11 @@ def main(argv: list[str] | None = None) -> Path | None:
         print("[predict] WARNING: no --ckpt — serving a random init")
     # restarts and promoted swaps read the checkpoint through this cell
     ckpt_ref = {"ckpt": args.ckpt}
-
-    def make_engine():
-        return InferenceEngine(
-            cfg, ckpt=ckpt_ref["ckpt"], dtype=args.dtype, max_batch=args.max_batch, quant=args.quant,
-            # the packer's rung ceiling stays above the scheduler's fill target
-            **({"max_tokens": max(args.pack_budget, 4096)} if args.pack_budget else {}),
-            encoder_cache=args.encoder_cache, encoder_cache_bytes=int(args.encoder_cache_mb * 1024 * 1024),
-            warm_cache=False if args.no_warmcache else args.warmcache if args.warmcache is not None else True,
-            device=args.device,
-        )
-
-    kw = {"pool": args.pool} if args.task == "features" else {"seed": args.seed} if args.task == "reconstruct" else {}
-    if args.serve and args.replicas > 0:
-        names, rows = serve_replicated(args, make_engine, lambda size: load_images(args, cfg, size, pack_mix), kw,
-                                       pack_mix, ckpt_ref)
-        kept = [(n, r) for n, r in zip(names, rows) if r is not None]
-        if not kept:
-            raise SystemExit("[predict] every request failed")
-        names = [n for n, _ in kept]
-        out = stack_rows([r for _, r in kept])
-    else:
-        engine = make_engine()
-        if engine.warmcache is not None:
-            print(f"[predict] warmcache: {engine.warmcache.root}")
-        if args.ckpt:
-            print(f"[predict] restored {args.ckpt}: {engine.restore_bytes} bytes in {engine.restore_s:.2f} s")
-        if args.warmup:
-            n = engine.warmup((args.task,), pool=args.pool)
-            hits = sum(engine.warm_hits.values())
-            print(f"[predict] warmup: {n} {_first_runs(engine)} in {engine.warmup_s:.2f} s, {hits} task(s) loaded "
-                  "from warmcache")
-        images, names = load_images(args, cfg, engine.image_size, None)
-        if args.serve:
-            with MicroBatcher(
-                lambda batch: engine.predict(batch, task=args.task, **kw),
-                max_batch=args.max_batch, max_delay_ms=args.max_delay_ms, max_queue=args.max_queue,
-            ) as mb:
-                out = stack_rows([f.result() for f in [mb.submit(img, deadline_ms=args.deadline_ms) for img in images]])
-            print(f"[predict] micro-batch sizes: {mb.batch_sizes}")
-        else:
-            out = engine.predict(images, task=args.task, **kw)
-
+    tel = Telemetry(args, cfg)
+    try:
+        out, names = _serve(args, cfg, ckpt_ref, pack_mix, tel)
+    finally:
+        tel.close(args.metrics_hold_s)
     if args.task == "logits":
         probs = np.exp(out - out.max(-1, keepdims=True))
         probs /= probs.sum(-1, keepdims=True)
@@ -555,6 +728,52 @@ def main(argv: list[str] | None = None) -> Path | None:
         np.savez(result, **payload)
         print(f"[predict] wrote {args.task} for {len(names)} image(s) -> {result}")
     return result
+
+
+def _serve(args, cfg, ckpt_ref: dict, pack_mix, tel: Telemetry):
+    """Build the engine or the pool, serve the images; returns the outputs
+    and the names of the requests they answer."""
+
+    def make_engine():
+        return InferenceEngine(
+            cfg, ckpt=ckpt_ref["ckpt"], dtype=args.dtype, max_batch=args.max_batch, quant=args.quant,
+            # the packer's rung ceiling stays above the scheduler's fill target
+            **({"max_tokens": max(args.pack_budget, 4096)} if args.pack_budget else {}),
+            encoder_cache=args.encoder_cache, encoder_cache_bytes=int(args.encoder_cache_mb * 1024 * 1024),
+            warm_cache=False if args.no_warmcache else args.warmcache if args.warmcache is not None else True,
+            on_compile=tel.sentinel.on_compile if tel.sentinel is not None else None,
+            device=args.device,
+        )
+
+    kw = {"pool": args.pool} if args.task == "features" else {"seed": args.seed} if args.task == "reconstruct" else {}
+    if args.serve and args.replicas > 0:
+        names, rows = serve_replicated(args, cfg, make_engine, lambda size: load_images(args, cfg, size, pack_mix),
+                                       kw, pack_mix, ckpt_ref, tel)
+        kept = [(n, r) for n, r in zip(names, rows) if r is not None]
+        if not kept:
+            raise SystemExit("[predict] every request failed")
+        return stack_rows([r for _, r in kept]), [n for n, _ in kept]
+    engine = make_engine()
+    if engine.warmcache is not None:
+        print(f"[predict] warmcache: {engine.warmcache.root}")
+    if args.ckpt:
+        print(f"[predict] restored {args.ckpt}: {engine.restore_bytes} bytes in {engine.restore_s:.2f} s")
+    if args.warmup:
+        n = engine.warmup((args.task,), pool=args.pool)
+        hits = sum(engine.warm_hits.values())
+        print(f"[predict] warmup: {n} {_first_runs(engine)} in {engine.warmup_s:.2f} s, {hits} task(s) loaded "
+              "from warmcache")
+    comps = {"engine_enc_cache": engine.encoder_cache_bytes, "engine_exec_cache": engine.executable_cache_bytes}
+    if engine.warmcache is not None:
+        comps["warmcache_disk"] = engine.warmcache.disk_bytes
+    tel.watch_memory(lambda: [engine], comps)
+    if args.serve:
+        tel.start_tracing(args, cfg, breakdown=engine.last_breakdown)
+    tel.ready(f"engine up (ckpt={'yes' if args.ckpt else 'random'})")
+    images, names = load_images(args, cfg, engine.image_size, None)
+    if args.serve:
+        return serve_one_engine(args, engine, images, kw, tel), names
+    return engine.predict(images, task=args.task, **kw), names
 
 
 if __name__ == "__main__":

@@ -66,11 +66,18 @@ package's list. The port wires the ones its ported layers cross:
   recover;
 - ``publish.export`` in ``serve/publisher.py``'s export (``key`` = the
   step): ``corrupt`` poisons the payload after its digests are sealed
-  (the swap watcher quarantines it), ``raise`` is a torn export.
+  (the swap watcher quarantines it), ``raise`` is a torn export;
+- the serving sites: ``serve.submit`` at every submit of the
+  micro-batcher, the pool and the continuous scheduler (no key);
+  ``serve.replica`` around a replica's flush (``key`` = the replica's
+  name: ``raise`` crashes it, ``delay`` wedges it); ``serve.preempt``
+  once a supervisor pass per routable replica (``key`` = its name: a
+  firing is a preemption notice, drained without a drop); ``ckpt.load``
+  on a hot swap's restored tree (``key`` = the pushed path: ``corrupt``
+  diverges it, ``raise`` is an unreadable push).
 
-The serving sites (``serve.submit``, ``serve.replica``, ``serve.preempt``,
-``ckpt.load``) are wired with ROADMAP A5.7, the training sites
-(``train.*``, ``ckpt.save``, ``host.leak``, ``fleet.wedge``) with A7. ``corrupt`` flips bytes of a bytes payload and
+The training sites (``train.*``, ``ckpt.save``, ``host.leak``,
+``fleet.wedge``) are wired with ROADMAP A7. ``corrupt`` flips bytes of a bytes payload and
 sign-flips tensors of a flat ``{name: tensor | ndarray}`` tree; its draws
 are seeded with an integer derived from (plan seed, firing, size), where
 the JAX package seeds ``random.Random`` with a tuple, which Python 3.12

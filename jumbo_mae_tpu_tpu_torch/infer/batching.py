@@ -23,9 +23,19 @@ The contracts kept:
 
 ``run_fn`` runs on the collector thread: with the engine behind it, every
 forward of a ``--serve`` run happens there, while callers only submit.
-The JAX package's fault points, metrics registry and request tracer hooks
-are ROADMAP A7; :meth:`MicroBatcher.stats` carries the counts those hooks
-would export.
+
+**Telemetry, as in the JAX module.** The ``infer_*`` request metrics
+(``registry``, default the process registry): requests collected into
+batches, batches, failed, shed, expired (``infer_deadline_exceeded_total``),
+late and aborted requests, the queue depth at each collect, the batch
+occupancy and the submit → result latency. With a
+:class:`~jumbo_mae_tpu_tpu_torch.obs.reqtrace.RequestTracer` every
+request carries a trace from the first line of ``submit()`` to its
+outcome (``ok|shed|deadline|late|aborted|shutdown``), finished before its
+future resolves, exactly once. The trace begins *before* the
+``serve.submit`` fault point, so an injected submit stall is queue wait
+where the caller felt it. The locks are ``obs.lockwatch``'s
+``batcher.depth`` and ``batcher.occupancy``.
 """
 
 from __future__ import annotations
@@ -38,6 +48,10 @@ from concurrent.futures import Future
 from typing import Any, Callable
 
 import numpy as np
+
+from jumbo_mae_tpu_tpu_torch.faults.inject import fault_point
+from jumbo_mae_tpu_tpu_torch.obs import lockwatch
+from jumbo_mae_tpu_tpu_torch.obs.metrics import RATIO_BUCKETS, get_registry
 
 _STOP = object()
 
@@ -69,7 +83,7 @@ class OccupancyWindow:
         self._ewma: float | None = None
         self._last = 0
         self._n = 0
-        self._lock = threading.Lock()
+        self._lock = lockwatch.lock("batcher.occupancy")
 
     def observe(self, size: int) -> None:
         occ = min(size / self.max_batch, 1.0)
@@ -97,8 +111,9 @@ class MicroBatcher:
     batch handed to ``run_fn``, ``max_queue`` (``None``: unbounded) the
     submitted-but-unflushed requests. ``pass_meta=True`` calls
     ``run_fn(batch, metas)`` with each request's ``submit(meta=...)``.
-    ``batch_sizes`` records every flushed batch's size. Use as a context
-    manager or call :meth:`close`."""
+    ``batch_sizes`` records every flushed batch's size. ``registry`` takes
+    the ``infer_*`` metrics, ``tracer`` traces every request under
+    ``task``. Use as a context manager or call :meth:`close`."""
 
     def __init__(
         self,
@@ -108,6 +123,9 @@ class MicroBatcher:
         max_delay_ms: float = 5.0,
         max_queue: int | None = None,
         pass_meta: bool = False,
+        registry=None,
+        tracer=None,
+        task: str = "",
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -120,6 +138,25 @@ class MicroBatcher:
         self.pass_meta = bool(pass_meta)
         self.batch_sizes: list[int] = []
         self._occ = OccupancyWindow(self.max_batch)
+        self._tracer = tracer
+        self.task = task
+        reg = registry if registry is not None else get_registry()
+        self._m_latency = reg.histogram("infer_request_latency_seconds", "request latency: submit() to resolved future")
+        self._m_occupancy = reg.histogram("infer_batch_occupancy", "flushed batch size / max_batch",
+                                          buckets=RATIO_BUCKETS)
+        self._m_depth = reg.gauge("infer_queue_depth", "queued requests sampled at batch collect")
+        self._m_requests = reg.counter("infer_requests_total", "requests collected into batches")
+        self._m_batches = reg.counter("infer_batches_total", "batches flushed through run_fn")
+        self._m_failed = reg.counter("infer_requests_failed_total", "requests failed by a run_fn error")
+        self._m_shed = reg.counter("infer_requests_shed_total",
+                                   "submits rejected with QueueFullError (queue at max_queue)")
+        self._m_expired = reg.counter("infer_deadline_exceeded_total",
+                                      "requests expired past their deadline before batch admission")
+        self._m_late = reg.counter(
+            "infer_requests_late_total",
+            "requests whose deadline passed after admission (during coalescing or compute) — failed at resolution, "
+            "not resolved ok")
+        self._m_aborted = reg.counter("infer_requests_aborted_total", "pending requests failed by close()")
         self._q: queue.SimpleQueue = queue.SimpleQueue()
         self._counts = dict.fromkeys(
             ("submitted", "shed", "requests", "batches", "failed", "expired", "late", "aborted"), 0
@@ -127,7 +164,7 @@ class MicroBatcher:
         self._latency_s: deque = deque(maxlen=4096)  # submit → resolved, recent requests
         self._depth = 0  # submitted, not yet popped by the collector
         self._depth_bytes = 0
-        self._lock = threading.Lock()
+        self._lock = lockwatch.lock("batcher.depth")
         self._closed = False
         self._drain = True
         self._thread = threading.Thread(target=self._loop, daemon=True, name="microbatcher")
@@ -138,20 +175,38 @@ class MicroBatcher:
     def submit(self, image: np.ndarray, *, deadline_ms: float | None = None, meta=None) -> Future:
         """Enqueue one request (one image, no batch dim); the future
         resolves to its row of the batched result. Raises
-        :class:`QueueFullError` when ``max_queue`` requests are pending."""
+        :class:`QueueFullError` when ``max_queue`` requests are pending.
+        With a tracer the future carries the request id as ``fut.rid``."""
+        # the trace begins before the fault point: an injected submit stall
+        # is queue wait the caller felt
+        tr = self._tracer.begin(task=self.task, deadline_ms=deadline_ms) if self._tracer is not None else None
         arr = np.asarray(image)
-        if self._closed:
-            raise RuntimeError("MicroBatcher is closed")
-        with self._lock:
-            self._counts["submitted"] += 1
-            if self.max_queue is not None and self._depth >= self.max_queue:
-                self._counts["shed"] += 1
-                raise QueueFullError(f"request queue full ({self._depth}/{self.max_queue})")
-            self._depth += 1
-            self._depth_bytes += arr.nbytes
+        try:
+            fault_point("serve.submit")
+            if self._closed:
+                raise RuntimeError("MicroBatcher is closed")
+            with self._lock:
+                self._counts["submitted"] += 1
+                if self.max_queue is not None and self._depth >= self.max_queue:
+                    self._counts["shed"] += 1
+                    self._m_shed.inc()
+                    raise QueueFullError(f"request queue full ({self._depth}/{self.max_queue})")
+                self._depth += 1
+                self._depth_bytes += arr.nbytes
+        except BaseException as e:  # noqa: BLE001 - classify, trace, re-raise
+            if tr is not None:
+                if isinstance(e, QueueFullError):
+                    self._tracer.finish(tr, "shed")
+                elif self._closed:
+                    self._tracer.finish(tr, "shutdown")
+                else:
+                    self._tracer.finish(tr, "aborted", error=f"{type(e).__name__}: {e}")
+            raise
         fut: Future = Future()
+        if tr is not None:
+            fut.rid = tr.rid
         deadline = None if deadline_ms is None else time.monotonic() + float(deadline_ms) / 1000.0
-        self._q.put((arr, fut, time.perf_counter(), deadline, meta))
+        self._q.put((arr, fut, time.perf_counter(), deadline, meta, tr))
         return fut
 
     def __call__(self, image: np.ndarray, *, deadline_ms: float | None = None):
@@ -236,6 +291,11 @@ class MicroBatcher:
 
     def _abort(self, item) -> None:
         self._count("aborted")
+        self._m_aborted.inc()
+        if item[5] is not None:
+            # the trace finishes before the future resolves: a caller that
+            # saw its future done can rely on its access-log row
+            self._tracer.finish(item[5], "shutdown")
         item[1].set_exception(ShutdownError("MicroBatcher closed"))
 
     def _admit(self, item, batch: list) -> None:
@@ -246,8 +306,13 @@ class MicroBatcher:
             return
         if item[3] is not None and time.monotonic() > item[3]:
             self._count("expired")
+            self._m_expired.inc()
+            if item[5] is not None:
+                self._tracer.finish(item[5], "deadline")
             item[1].set_exception(DeadlineExceededError("request deadline passed while queued"))
             return
+        if item[5] is not None:
+            self._tracer.admitted(item[5])
         batch.append(item)
 
     def _loop(self) -> None:
@@ -259,6 +324,7 @@ class MicroBatcher:
             self._admit(item, batch)
             if not batch:
                 continue
+            self._m_depth.set(self._q.qsize() + 1)
             deadline = time.monotonic() + self.max_delay
             stop = False
             while len(batch) < self.max_batch:
@@ -282,22 +348,44 @@ class MicroBatcher:
         self._occ.observe(len(batch))
         self._count("batches")
         self._count("requests", len(batch))
+        self._m_batches.inc()
+        self._m_requests.inc(len(batch))
+        self._m_occupancy.observe(len(batch) / self.max_batch)
+        traces = [it[5] for it in batch if it[5] is not None]
+        if traces:
+            self._tracer.flush_begin(traces)
+        t_run = time.perf_counter()
         try:
             stacked = np.stack([it[0] for it in batch])
             out = self.run_fn(stacked, [it[4] for it in batch]) if self.pass_meta else self.run_fn(stacked)
         except BaseException as e:  # noqa: BLE001 - routed to the batch's waiters
             self._count("failed", len(batch))
+            self._m_failed.inc(len(batch))
+            err = f"{type(e).__name__}: {e}"
             for it in batch:
+                if it[5] is not None:
+                    self._tracer.finish(it[5], "aborted", error=err)
                 it[1].set_exception(e)
             return
         done = time.perf_counter()
+        if traces:
+            # on the collector thread, right after run_fn: the engine's
+            # thread-local breakdown still belongs to this batch's predict
+            self._tracer.flush_end(traces, run_s=done - t_run, batch=len(batch))
         with self._lock:
             self._latency_s.extend(done - it[2] for it in batch)
+        # one lock hand-off for the batch's latencies, before the waiters wake
+        self._m_latency.observe_many([done - it[2] for it in batch])
         rows = [{k: v[i] for k, v in out.items()} for i in range(len(batch))] if isinstance(out, dict) else out
         now = time.monotonic()
         for it, row in zip(batch, rows):
             if it[3] is not None and now > it[3]:
                 self._count("late")
+                self._m_late.inc()
+                if it[5] is not None:
+                    self._tracer.finish(it[5], "late")
                 it[1].set_exception(DeadlineExceededError("request deadline passed during batch coalescing/compute"))
             else:
+                if it[5] is not None:
+                    self._tracer.finish(it[5], "ok")
                 it[1].set_result(row)

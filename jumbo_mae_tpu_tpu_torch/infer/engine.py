@@ -1,8 +1,8 @@
 """The batched inference engine: restore a recipe's save once, serve
 bucket-padded forwards, one CUDA graph per (task, bucket).
 
-Counterpart of ``jumbo_mae_tpu_tpu/infer/engine.py`` without most of its
-metrics (ROADMAP A5.7). The contracts kept from the JAX engine:
+Counterpart of ``jumbo_mae_tpu_tpu/infer/engine.py``, with its metrics
+(the list at the end). The contracts kept from the JAX engine:
 
 - **Restore once.** ``ckpt`` is resolved to its step directory and read
   a single time, when the engine is built, through
@@ -134,6 +134,23 @@ preset's (1000), the count the trainer built its head with. (The JAX
 engine reads the overrides only, and so has no logits for
 ``recipes/finetune_vit_b16.yaml`` without ``labels=``.)
 
+**Metrics** (``registry``, default the process registry), the JAX
+engine's names and labels: ``infer_predict_seconds{task}`` and
+``infer_images_total{task}`` per predict (``packed`` for a token-packed
+dispatch), ``infer_bucket_cache_{hits,misses}_total{task}`` per dispatch
+(a miss is a capture), ``infer_compile_seconds{task}`` and
+``infer_bucket_compile_seconds{task,bucket}`` (a key's eager first run
+plus its capture), ``infer_executable_bytes{task,bucket}`` (the pool's
+growth at a capture, where it grew), ``infer_pad_fraction`` per chunk,
+``infer_warm_start_seconds`` per warmup ladder,
+``infer_encoder_cache_{bytes,events_total}``,
+``infer_quant_compression{task}``,
+``infer_warmcache_saved_seconds_total{task}`` and the packed path's six
+``serve_pack_*``. :meth:`InferenceEngine.executable_cache_bytes` and
+:meth:`InferenceEngine.predicted_peak_hbm` feed the memory watcher. The
+locks are ``obs.lockwatch``'s: ``engine.master``, ``engine.enc_cache``,
+and the port's own ``engine.replay`` (reentrant) and ``engine.capture``.
+
 All public methods are thread-safe; ``torch.inference_mode`` is entered
 per dispatch, on the dispatching thread. Entry points run on ``"cuda"``
 unless ``device="cpu"`` is passed.
@@ -162,7 +179,8 @@ from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, preset
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
 from jumbo_mae_tpu_tpu_torch.models.vit import JumboViT, pool_tokens
 from jumbo_mae_tpu_tpu_torch.obs.costmodel import ProgramCost, program_cost, publish_cost, task_flops, weight_bytes
-from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
+from jumbo_mae_tpu_tpu_torch.obs import lockwatch
+from jumbo_mae_tpu_tpu_torch.obs.metrics import RATIO_BUCKETS, get_registry
 from jumbo_mae_tpu_tpu_torch.ops.flash import attention as flash
 from jumbo_mae_tpu_tpu_torch.ops.preprocess import normalize_images
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import (
@@ -182,7 +200,7 @@ LAUNCH_COUNTERS = ("LAUNCHES", "LAUNCHES_WITH_LSE", "LAUNCHES_BWD_DQ", "LAUNCHES
 _COUNTS_LOCK = threading.Lock()
 # one capture at a time in the process: a capture's eager first run and
 # its capture never overlap another engine's
-_CAPTURE_LOCK = threading.Lock()
+_CAPTURE_LOCK = lockwatch.lock("engine.capture")
 
 
 class ResolutionMismatchError(ValueError):
@@ -305,8 +323,8 @@ class InferenceEngine:
     token-budget rungs. ``on_compile(task_key, bucket)`` is called at
     every capture (every first run on the CPU). ``warm_cache``: ``True``
     for the default directory, a path, or ``False``/``None`` (off).
-    ``registry`` takes the warm cache's metrics (default: the process
-    registry)."""
+    ``registry`` takes the engine's and the warm cache's metrics (default:
+    the process registry)."""
 
     def __init__(
         self,
@@ -361,11 +379,50 @@ class InferenceEngine:
 
         reg = registry if registry is not None else get_registry()
         self._registry = reg
+        self._m_predict = reg.histogram("infer_predict_seconds", "engine predict() wall time per batched call",
+                                        labels=("task",))
+        self._m_images = reg.counter("infer_images_total", "images served", labels=("task",))
+        self._m_hits = reg.counter("infer_bucket_cache_hits_total", "bucket-executable cache hits", labels=("task",))
+        self._m_misses = reg.counter("infer_bucket_cache_misses_total",
+                                     "bucket-executable cache misses (each one is a compile)", labels=("task",))
+        self._m_compile = reg.histogram("infer_compile_seconds", "AOT lower+compile time per (task, bucket) executable",
+                                        labels=("task",))
+        self._m_pad = reg.histogram("infer_pad_fraction", "padding rows / bucket size per dispatched chunk",
+                                    buckets=RATIO_BUCKETS)
+        self._m_warm_start = reg.gauge("infer_warm_start_seconds",
+                                       "wall time of the last warmup() ladder (compiles + cache loads)")
+        self._m_enc_cache = reg.counter("infer_encoder_cache_events_total", "reconstruction encoder-output LRU events",
+                                        labels=("event",))
+        self._m_enc_cache_bytes = reg.gauge("infer_encoder_cache_bytes",
+                                            "resident bytes of cached encoder-output rows (tokens+mask+ids)")
+        self._m_quant = reg.gauge("infer_quant_compression", "params bytes_before / bytes_after per quantized task",
+                                  labels=("task",))
+        self._m_bucket_compile = reg.gauge("infer_bucket_compile_seconds",
+                                           "lower+compile wall time of each (task, bucket) executable",
+                                           labels=("task", "bucket"))
+        self._m_exec_bytes = reg.gauge("infer_executable_bytes", "serialized executable size per (task, bucket)",
+                                       labels=("task", "bucket"))
         self._m_warm_saved = reg.counter(
             "infer_warmcache_saved_seconds_total",
             "task build seconds avoided by warmcache hits (from entry metadata)",
             labels=("task",),
         )
+        # the token-packed path (predict_packed, packed_parity)
+        self._m_pack_pad = reg.histogram(
+            "serve_pack_token_pad_fraction",
+            "padding tokens / device tokens per packed dispatch (row bucketing included)", buckets=RATIO_BUCKETS)
+        self._m_pack_segments = reg.histogram("serve_pack_segments_per_dispatch",
+                                              "request segments packed into one dispatch",
+                                              buckets=(1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0))
+        self._m_pack_occ = reg.histogram("serve_pack_budget_occupancy",
+                                         "occupied tokens / (rows x token budget) per packed dispatch",
+                                         buckets=RATIO_BUCKETS)
+        self._m_pack_dispatches = reg.counter("serve_pack_dispatches_total", "token-packed dispatches served",
+                                              labels=("task",))
+        self._m_pack_parity = reg.gauge("serve_pack_parity_min",
+                                        "min packed-vs-unpacked feature cosine of the last parity gate")
+        self._m_pack_parity_fail = reg.counter("serve_pack_parity_failures_total",
+                                               "packed-parity gate failures (cosine or top-1 below threshold)")
         if warm_cache is True:
             wc_root = wc.default_warmcache_dir(self.device)
         elif warm_cache:
@@ -406,7 +463,7 @@ class InferenceEngine:
         self._enc_cache_bytes_cap = int(encoder_cache_bytes)
         self._enc_cache_nbytes = 0
         self._enc_cache: OrderedDict[str, tuple] = OrderedDict()
-        self._enc_cache_lock = threading.Lock()
+        self._enc_cache_lock = lockwatch.lock("engine.enc_cache")
         self.encoder_cache_hits = 0
         self.encoder_cache_misses = 0
 
@@ -426,8 +483,8 @@ class InferenceEngine:
         self._capture_stream: torch.cuda.Stream | None = None
         self.dispatches = 0  # device calls made, one per padded bucket
         self.warmup_s = 0.0
-        self._lock = threading.Lock()  # the task dict and the restored tree
-        self._replay_lock = threading.RLock()  # a request's device work, a weight copy
+        self._lock = lockwatch.lock("engine.master")  # the task dict and the restored tree
+        self._replay_lock = lockwatch.rlock("engine.replay")  # a request's device work, a weight copy
         self._count_lock = threading.Lock()
         self._tls = threading.local()
 
@@ -543,6 +600,7 @@ class InferenceEngine:
             # after the graft, so the int8 weights are the save's
             t1 = time.perf_counter()
             self.quant_reports[task] = quantize_module(model)
+            self._m_quant.labels(task).set(self.quant_reports[task]["compression"])
             self._sync()
             split["quant_s"] = time.perf_counter() - t1
         build_s = time.perf_counter() - t0
@@ -584,6 +642,7 @@ class InferenceEngine:
         meta = self.warmcache.entry_meta(name) or {}
         if meta.get("quant_report"):
             self.quant_reports[task] = meta["quant_report"]
+            self._m_quant.labels(task).set(meta["quant_report"]["compression"])
         saved = float(meta.get("build_seconds") or 0.0)
         if saved > 0:
             self._m_warm_saved.labels(task).inc(saved)
@@ -709,6 +768,7 @@ class InferenceEngine:
         with self._enc_cache_lock:
             self._enc_cache.clear()
             self._enc_cache_nbytes = 0
+            self._m_enc_cache_bytes.set(0)
 
     # ------------------------------------------------------------ dispatch
 
@@ -821,23 +881,34 @@ class InferenceEngine:
         if self.device.type == "cuda":
             g = self._graphs.get(key)
             if g is None:
+                self._m_misses.labels(key[0]).inc()
                 g = self._capture(key, task, pool, model, host)
-                self._compiled(key, model)
+                self._compiled(key, model, g.first_run_s + g.capture_s)
+            else:
+                self._m_hits.labels(key[0]).inc()
             t0 = time.perf_counter()
             out = g.run(host)
         else:
             first = key not in self.compile_counts
+            (self._m_misses if first else self._m_hits).labels(key[0]).inc()
             with torch.inference_mode():
                 t0 = time.perf_counter()
                 out = self._forward(task, pool, model, host)
             if first:
-                self._compiled(key, model)
+                self._compiled(key, model, time.perf_counter() - t0)
         t1 = time.perf_counter()
         out = _fetch(out, n, numpy=task != "reconstruct.enc")
         return out, t1 - t0, time.perf_counter() - t1
 
-    def _compiled(self, key: tuple[str, int], model) -> None:
+    def _compiled(self, key: tuple[str, int], model, compile_s: float) -> None:
+        """A key's capture (its first run on the CPU) of ``compile_s``
+        seconds, eager first run included: counted, timed, priced."""
         self.compile_counts[key] = self.compile_counts.get(key, 0) + 1
+        self._m_compile.labels(key[0]).observe(compile_s)
+        self._m_bucket_compile.labels(*map(str, key)).set(compile_s)
+        g = self._graphs.get(key)
+        if g is not None and g.pool_bytes > 0:
+            self._m_exec_bytes.labels(*map(str, key)).set(g.pool_bytes)
         self._publish_cost(key, model)
         if self.on_compile is not None:
             self.on_compile(*key)
@@ -871,6 +942,31 @@ class InferenceEngine:
         images = np.asarray(images)
         return self._dispatch(task, pool, images.shape[0], (images,), images.shape[0])[0]
 
+    def executable_cache_bytes(self) -> int:
+        """Bytes of the captured graphs' memory pool: the sum of each
+        capture's pool growth (``graph_stats``), the memory accountant's
+        ``exec_cache`` probe; 0 on the CPU, which captures nothing."""
+        return sum(max(g.pool_bytes, 0) for g in list(self._graphs.values()))
+
+    def predicted_peak_hbm(self) -> dict[str, float]:
+        """The predicted peak card bytes of each captured key
+        (``task/b<bucket>``): its :class:`ProgramCost`'s ``peak_bytes``,
+        where one is known; the memory watcher's drift gauge divides the
+        measured peak by it."""
+        return {f"{k[0]}/b{k[1]}": float(c.peak_bytes) for k, c in list(self.cost_reports.items())
+                if c.peak_bytes}
+
+    def swap_device_bytes(self) -> int:
+        """Card bytes a :meth:`swap_weights` builds aside before it copies:
+        the weights of every built task's model (0 on the CPU). The swap
+        controller's headroom gate holds them against the card's free
+        memory."""
+        if self.device.type != "cuda":
+            return 0
+        with self._lock:
+            models = [t["model"] for t in self._tasks.values()]
+        return sum(_nbytes(t) for m in models for t in _weights(m).values())
+
     def graph_stats(self) -> dict[str, dict]:
         """Per captured key (``"<task key>/b<bucket>"``): the seconds of its
         eager first run and of its capture, the pool's growth in bytes at
@@ -903,6 +999,7 @@ class InferenceEngine:
         """Bucket-pad one chunk (len <= max_batch), run, slice."""
         n = rows[0].shape[0]
         bucket = bucket_for(n, self.max_batch)
+        self._m_pad.observe((bucket - n) / bucket)
         args = tuple(self._pad_rows(a, bucket) for a in rows) + extra
         out, compute_s, fetch_s = self._dispatch(task, pool, bucket, args, n)
         self._record(bucket, n, compute_s, fetch_s)
@@ -985,6 +1082,7 @@ class InferenceEngine:
             for j in jobs:
                 self._warm(*j)
         self.warmup_s = time.perf_counter() - t0
+        self._m_warm_start.set(self.warmup_s)
         return sum(self.compile_counts.values()) - before
 
     def _warm(self, task: str, pool: str | None, bucket: int, size: int | None = None) -> None:
@@ -1004,10 +1102,14 @@ class InferenceEngine:
     # -------------------------------------------------------------- predict
 
     def _predict(self, task: str, images, *, pool: str | None = None, extra: tuple = ()):
+        t0 = time.perf_counter()
         self._reset_breakdown()
         images = self._check_images(images)
         with self._replay_lock:
-            return self._chunks(task, pool, (images,), extra)
+            out = self._chunks(task, pool, (images,), extra)
+        self._m_predict.labels(task).observe(time.perf_counter() - t0)
+        self._m_images.labels(task).inc(images.shape[0])
+        return out
 
     def features(self, images, *, pool: str = "cls") -> np.ndarray:
         """Pooled (or full-token) float32 encoder features, one row per image."""
@@ -1066,10 +1168,14 @@ class InferenceEngine:
         the seed; the shared-mode mask depends on nothing else, so a cached
         row equals a recomputed one: the cache skips work and never changes
         a result. Duplicates within a request encode once."""
+        t0 = time.perf_counter()
         self._reset_breakdown()
         images = self._check_images(images)
         with self._replay_lock:
-            return self._reconstruct_cached_locked(images, seed)
+            out = self._reconstruct_cached_locked(images, seed)
+        self._m_predict.labels("reconstruct").observe(time.perf_counter() - t0)
+        self._m_images.labels("reconstruct").inc(images.shape[0])
+        return out
 
     def _reconstruct_cached_locked(self, images: np.ndarray, seed: int) -> dict[str, np.ndarray]:
         n = images.shape[0]
@@ -1084,9 +1190,13 @@ class InferenceEngine:
                     rows[i] = hit
                 else:
                     miss_idx.setdefault(k, []).append(i)
-            self.encoder_cache_hits += n - sum(len(v) for v in miss_idx.values())
+            hits = n - sum(len(v) for v in miss_idx.values())
+            self.encoder_cache_hits += hits
             self.encoder_cache_misses += len(miss_idx)
+        if hits:
+            self._m_enc_cache.labels("hit").inc(hits)
         if miss_idx:
+            self._m_enc_cache.labels("miss").inc(len(miss_idx))
             miss_images = np.stack([images[idxs[0]] for idxs in miss_idx.values()])
             enc = self._chunks("reconstruct.enc", None, (miss_images,), (seed,))
             with self._enc_cache_lock:
@@ -1106,6 +1216,8 @@ class InferenceEngine:
                 ):
                     _, old = self._enc_cache.popitem(last=False)
                     self._enc_cache_nbytes -= self._row_nbytes(old)
+                    self._m_enc_cache.labels("evict").inc()
+                self._m_enc_cache_bytes.set(self._enc_cache_nbytes)
         tokens, mask, ids = (torch.stack([r[j] for r in rows]) for j in range(3))
         return self._chunks("reconstruct.dec", None, (tokens, mask, ids))
 
@@ -1200,6 +1312,7 @@ class InferenceEngine:
             raise ValueError(f"{n} images but {len(task_list)} tasks — pass one task name or one per request")
         lengths = self._check_packed_request(imgs, task_list)
         tree_task = "logits" if "logits" in task_list else "features"
+        t0 = time.perf_counter()
         self._reset_breakdown()
         k = self._enc.num_cls_tokens
         budget, plan, rows_b, smax_b = self._packed_plan(lengths, max_tokens)
@@ -1217,6 +1330,13 @@ class InferenceEngine:
         bd["bucket"] = budget
         bd["pad_rows"] = rows_b * budget - plan.total_tokens
         bd["bucket_rows"] = rows_b * budget
+        device_tokens = rows_b * budget
+        self._m_pack_pad.observe((device_tokens - plan.total_tokens) / device_tokens)
+        self._m_pack_segments.observe(len(plan.segments))
+        self._m_pack_occ.observe(plan.total_tokens / device_tokens)
+        self._m_pack_dispatches.labels(tree_task).inc()
+        self._m_predict.labels("packed").observe(time.perf_counter() - t0)
+        self._m_images.labels("packed").inc(n)
         pooled = packing.unpack_rows(plan, out["pooled"])
         logits = packing.unpack_rows(plan, out["logits"]) if "logits" in out else None
         return [logits[i] if task_list[i] == "logits" else pooled[i] for i in range(n)]
@@ -1261,6 +1381,9 @@ class InferenceEngine:
         cos_min = min(cosines) if cosines else None
         top1_agree = float(np.mean(top1)) if top1 else None
         ok = (cos_min is None or cos_min >= feature_cos_min) and (top1_agree is None or top1_agree >= logits_top1_min)
+        self._m_pack_parity.set(cos_min if cos_min is not None else 1.0)
+        if not ok:
+            self._m_pack_parity_fail.inc()
         return {
             "n": n,
             "pool": pool,
@@ -1296,4 +1419,5 @@ class InferenceEngine:
         self._dispatch(f"{tree_task}.packed:{pool}@r{rows_b}s{smax_b}", None, budget,
                        (buf, arrays["segment_ids"], arrays["cls_pos"], arrays["cls_index"]), rows_b)
         self.warmup_s = time.perf_counter() - t0
+        self._m_warm_start.set(self.warmup_s)
         return sum(self.compile_counts.values()) - before

@@ -206,13 +206,15 @@ def top1_agreement(logits_a, logits_b) -> float:
     return float((a.argmax(-1) == b.argmax(-1)).mean())
 
 
-def parity_report(reference, quantized, images, *, task: str = "features", pool: str = "cls") -> dict:
+def parity_report(reference, quantized, images, *, task: str = "features", pool: str = "cls",
+                  registry=None) -> dict:
     """The same images through a reference and a quantized engine.
     ``features``: per-image cosine (min and mean) against
     :data:`FEATURE_COSINE_MIN`; ``logits``: top-1 agreement against
     :data:`TOP1_AGREEMENT_MIN` and the largest logit difference. The
-    verdict is ``within_tolerance``. (The JAX package also sets a
-    registry gauge; the port's metrics are ROADMAP A7.)"""
+    verdict is ``within_tolerance``, also published in the
+    ``infer_quant_parity{metric}`` gauges of ``registry`` (default: the
+    process registry)."""
     if task not in ("features", "logits"):
         raise ValueError(f"parity is defined for features/logits, got {task!r}")
     rep: dict = {"task": task, "images": int(np.asarray(images).shape[0])}
@@ -233,4 +235,13 @@ def parity_report(reference, quantized, images, *, task: str = "features", pool:
             tolerance={"top1_agreement": TOP1_AGREEMENT_MIN},
         )
         rep["within_tolerance"] = rep["top1_agreement"] >= TOP1_AGREEMENT_MIN
+    if registry is None:
+        from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
+
+        registry = get_registry()
+    gauge = registry.gauge("infer_quant_parity", "quantized-vs-reference parity measurements", labels=("metric",))
+    for name in ("cosine_min", "cosine_mean", "top1_agreement"):
+        if name in rep:
+            gauge.labels(name).set(rep[name])
+    gauge.labels("within_tolerance").set(1.0 if rep["within_tolerance"] else 0.0)
     return rep

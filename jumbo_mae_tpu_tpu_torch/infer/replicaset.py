@@ -54,11 +54,31 @@ preemptions, the breaker) lands in the same log as events. A
 time and traces before they finish, so every access-log row carries its
 ``device_ms`` and ``cost_flops``.
 
-Left out beside the JAX module (ROADMAP A5.7 and A7): the fault-injection
-sites, the lock watchdog, the ``serve_replica_*`` metrics and the health
-endpoint, and the swap controller's memory-headroom gate. The module uses
-plain locks; :meth:`ReplicaSet.stats` carries the counts those metrics
-would export.
+**Telemetry and health, as in the JAX module.** The pool publishes the
+``serve_replica_*`` families and the ``infer_*`` request families of
+``infer/batching.py`` (``registry``, default the process registry), the
+controller the ``serve_swap_*`` families; :meth:`ReplicaSet.stats` reads
+the same counts. With a ``health`` (``obs/exporter.HealthState``) each
+good flush beats ``replica.<name>``, the pool's stats are the
+``replicas`` probe of ``/healthz``, and :meth:`ReplicaSet.degraded` is the
+breaker an owner hands to ``degraded_when``. The fault sites are the JAX
+module's: ``serve.submit`` at every submit, ``serve.replica`` (key: the
+replica's name) around each flush's run, ``serve.preempt`` (key: the
+replica's name) once a supervisor pass per routable replica, where a
+firing is a preemption notice, and ``ckpt.load`` (key: the pushed path,
+data: the restored tree) in the swap's restore. The locks are
+``obs.lockwatch``'s ``replicaset.{request,depth,live,state,scale,swap}``
+(and the port's ``replicaset.counts`` for :meth:`ReplicaSet.stats`).
+
+**The swap's memory gate.** With a ``headroom_fn(host_bytes,
+card_bytes)`` (``obs/memwatch.MemoryWatcher.headroom_check``), the
+controller asks, after the restore and before it picks a canary, whether
+the swap's double buffer fits: the restored tree and the host snapshot of
+the live weights, twice the tree's bytes, in host memory (the JAX check),
+and the models the port's swap builds aside on the card before it copies
+(:meth:`InferenceEngine.swap_device_bytes`) in the card's free memory. A
+refusal is verdict ``rejected`` at stage ``"headroom"`` before any
+replica flips; a probe that raises never vetoes.
 """
 
 from __future__ import annotations
@@ -72,6 +92,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from jumbo_mae_tpu_tpu_torch.faults.inject import fault_point
 from jumbo_mae_tpu_tpu_torch.infer.batching import (
     DeadlineExceededError,
     OccupancyWindow,
@@ -79,6 +100,9 @@ from jumbo_mae_tpu_tpu_torch.infer.batching import (
     ShutdownError,
 )
 from jumbo_mae_tpu_tpu_torch.infer.quant import feature_cosine
+from jumbo_mae_tpu_tpu_torch.obs import lockwatch
+from jumbo_mae_tpu_tpu_torch.obs.memwatch import tree_nbytes
+from jumbo_mae_tpu_tpu_torch.obs.metrics import NULL_REGISTRY, RATIO_BUCKETS, get_registry
 from jumbo_mae_tpu_tpu_torch.obs.slo import SLOTracker, parse_slo
 
 _STOP = object()
@@ -111,7 +135,7 @@ class _Request:
         # submit_group's id: a worker coalesces only requests sharing it
         self.gid = gid
         self._settled = False
-        self._lock = threading.Lock()
+        self._lock = lockwatch.lock("replicaset.request")
 
     def settle(self) -> bool:
         """Claim the right to resolve this request; exactly one caller
@@ -156,7 +180,9 @@ class ReplicaSet:
     logs the pool's events under ``task``; ``breakdown(engine)`` gives a
     flush's compute/fetch/bucket/pad split (``lambda e:
     e.last_breakdown()`` for an engine; without it a trace's compute is
-    the run's wall time); ``costmeter`` bills each flush.
+    the run's wall time); ``costmeter`` bills each flush. ``registry``
+    takes the metrics, ``health`` the heartbeats and the ``replicas``
+    probe.
     Use as a context manager or call :meth:`close`: every pending future
     resolves within a bounded sweep, even with a wedged worker."""
 
@@ -177,6 +203,8 @@ class ReplicaSet:
         supervise_interval_s: float = 0.05,
         tracer=None,
         task: str = "",
+        registry=None,
+        health=None,
         breakdown: Callable[[Any], dict | None] | None = None,
         costmeter=None,
         clock: Callable[[], float] = time.monotonic,
@@ -204,10 +232,53 @@ class ReplicaSet:
         self._interval = float(supervise_interval_s)
         self._tracer = tracer
         self.task = task
+        self._health = health
         self._breakdown = breakdown
         self._costmeter = costmeter
         self._clock = clock
         self._observers: list[Callable] = []
+
+        reg = registry if registry is not None else get_registry()
+        # the pool's own families (serve_replica_*) ...
+        self._m_up = reg.gauge("serve_replica_up", "replica is up and routable (1) or not (0)", labels=("replica",))
+        self._m_restarts = reg.counter("serve_replica_restarts_total", "replica restarts completed by the supervisor",
+                                       labels=("replica",))
+        self._m_crashes = reg.counter("serve_replica_crashes_total",
+                                      "replica predict failures by kind (crash|hang|restart_error)",
+                                      labels=("replica", "kind"))
+        self._m_served = reg.counter("serve_replica_requests_total", "requests resolved ok, by serving replica",
+                                     labels=("replica",))
+        self._m_requeued = reg.counter(
+            "serve_replica_requeued_total",
+            "in-flight/queued requests requeued off a failed replica, attributed to the replica that failed them",
+            labels=("replica",))
+        self._m_preempted = reg.counter(
+            "serve_replica_preempted_total",
+            "replicas drained and retired by preemption notice (pause -> idle -> down -> supervisor restart); never "
+            "drops in-flight work",
+            labels=("replica",))
+        self._m_healthy = reg.gauge("serve_replica_healthy_count", "replicas currently up or paused")
+        self._m_quorum = reg.gauge("serve_replica_quorum", "healthy-replica floor for the breaker")
+        self._m_breaker = reg.gauge("serve_replica_breaker_open",
+                                    "1 while healthy replicas < quorum (degraded in /healthz)")
+        self._m_breaker_trips = reg.counter("serve_replica_breaker_trips_total", "times the pool dropped below quorum")
+        # ... and the micro-batcher's request families, so a dashboard or a
+        # doctor reads the replicated tier unchanged
+        self._m_latency = reg.histogram("infer_request_latency_seconds", "request latency: submit() to resolved future")
+        self._m_requests = reg.counter("infer_requests_total", "requests collected into batches")
+        self._m_batches = reg.counter("infer_batches_total", "batches flushed through run_fn")
+        self._m_shed = reg.counter("infer_requests_shed_total",
+                                   "submits rejected with QueueFullError (queue at max_queue)")
+        self._m_expired = reg.counter("infer_deadline_exceeded_total",
+                                      "requests expired past their deadline before batch admission")
+        self._m_late = reg.counter(
+            "infer_requests_late_total",
+            "requests whose deadline passed after admission (during coalescing or compute) — failed at resolution, "
+            "not resolved ok")
+        self._m_aborted = reg.counter("infer_requests_aborted_total", "pending requests failed by close()")
+        self._m_occupancy = reg.histogram("infer_batch_occupancy", "flushed batch size / max_batch",
+                                          buckets=RATIO_BUCKETS)
+        self._m_quorum.set(self.quorum)
         self._occ = OccupancyWindow(self.max_batch)
         self._counts: dict = {k: 0 for k in ("batches", "requests", "expired", "late", "aborted", "breaker_trips")}
         self._per_replica: dict[str, dict[str, int]] = {}
@@ -216,16 +287,16 @@ class ReplicaSet:
         self._submitted = 0
         self._shed_n = 0
         self._gid = itertools.count(1)
-        self._depth_lock = threading.Lock()
-        self._count_lock = threading.Lock()
+        self._depth_lock = lockwatch.lock("replicaset.depth")
+        self._count_lock = lockwatch.lock("replicaset.counts")
         self._live: set[_Request] = set()
-        self._live_lock = threading.Lock()
+        self._live_lock = lockwatch.lock("replicaset.live")
         self._closed = False
         self._drain = True
         self._breaker_open = False
         self._canary_pref: str | None = None
-        self._state_lock = threading.Lock()
-        self._scale_lock = threading.Lock()
+        self._state_lock = lockwatch.lock("replicaset.state")
+        self._scale_lock = lockwatch.lock("replicaset.scale")
         # slots removed by scale_to: the supervisor keeps rescuing their
         # queues, so a submit that raced the removal is requeued, not lost
         self._retired: list[_Replica] = []
@@ -238,7 +309,13 @@ class ReplicaSet:
             rep = _Replica(idx, gen=0, engine=self._provider(idx))
             self._slots.append(rep)
             self._start_worker(rep)
+            self._m_up.labels(rep.name).set(1)
+            # the preemption counter scrapes as 0 from boot
+            self._m_preempted.labels(rep.name)
+            self._beat(rep)
         self._update_health()
+        if self._health is not None:
+            self._health.probe("replicas", self.stats)
         self._supervisor = threading.Thread(target=self._supervise, daemon=True, name="replicaset-supervisor")
         self._supervisor.start()
 
@@ -249,11 +326,13 @@ class ReplicaSet:
         raises typed (shed, shutdown, unroutable), each trace finished
         first."""
         try:
+            fault_point("serve.submit")
             if self._closed:
                 raise ShutdownError("ReplicaSet is closed")
             with self._depth_lock:
                 self._submitted += k
                 if self.max_queue is not None and self._depth + k > self.max_queue:
+                    self._m_shed.inc(k)
                     self._shed_n += k
                     raise QueueFullError(f"request queue full ({self._depth}+{k}/{self.max_queue})")
                 self._depth += k
@@ -425,6 +504,7 @@ class ReplicaSet:
         self.n = len(self._slots)
         if not self._explicit_quorum:
             self.quorum = self.n // 2 + 1
+            self._m_quorum.set(self.quorum)
         self._update_health()
 
     def _add_slot(self) -> str | None:
@@ -442,6 +522,8 @@ class ReplicaSet:
             self._restarting.append(False)
             self._resized()
         self._start_worker(rep)
+        self._m_up.labels(rep.name).set(1)
+        self._beat(rep)
         self._event("replica_added", replica=rep.name, pool=self.n)
         return rep.name
 
@@ -471,6 +553,7 @@ class ReplicaSet:
             self._resized()
             self._retired.append(rep)
         rep.q.put(_STOP)
+        self._m_up.labels(rep.name).set(0)
         self._event("replica_removed", replica=rep.name, gen=rep.gen, pool=self.n)
         self._drain_slot(rep, "replica removed")
         rep.engine = None  # the engine's memory goes with the slot
@@ -499,9 +582,12 @@ class ReplicaSet:
             if self._stale(rep) or rep.state != "paused":
                 return False
             rep.state = "down"
+            self._m_up.labels(rep.name).set(0)
+            # a plain backoff, no failure count: preemption is not a crash
             self._restart_at[idx] = self._clock() + self.restart_backoff_s
             self._update_health()
         self._bump(rep.name, "preempted")
+        self._m_preempted.labels(rep.name).inc()
         self._event("replica_preempted", replica=rep.name, gen=rep.gen)
         rep.q.put(_STOP)
         self._drain_slot(rep, "replica preempted")
@@ -577,6 +663,7 @@ class ReplicaSet:
         for rec in leftovers:
             if rec.settle():
                 self._count("aborted")
+                self._m_aborted.inc()
                 self._finish(rec, "shutdown", exc=ShutdownError("ReplicaSet closed"))
 
     def __enter__(self):
@@ -612,6 +699,10 @@ class ReplicaSet:
     def _event(self, etype: str, **fields) -> None:
         if self._tracer is not None:
             self._tracer.event(etype, **fields)
+
+    def _beat(self, rep: _Replica) -> None:
+        if self._health is not None:
+            self._health.beat(f"replica.{rep.name}")
 
     def _count(self, key: str, n: int = 1) -> None:
         with self._count_lock:
@@ -659,9 +750,11 @@ class ReplicaSet:
         rec.excluded.add(from_rep.name)
         rec.retries += 1
         self._bump(from_rep.name, "requeued")
+        self._m_requeued.labels(from_rep.name).inc()
         if self._closed and self._drain:
             if rec.settle():
                 self._count("aborted")
+                self._m_aborted.inc()
                 self._finish(rec, "shutdown", exc=ShutdownError("ReplicaSet closed"))
             return
         if rec.retries > self.max_retries:
@@ -759,11 +852,13 @@ class ReplicaSet:
         if self._closed and self._drain:
             if rec.settle():
                 self._count("aborted")
+                self._m_aborted.inc()
                 self._finish(rec, "shutdown", exc=ShutdownError("ReplicaSet closed"))
             return
         if rec.deadline is not None and time.monotonic() > rec.deadline:
             if rec.settle():
                 self._count("expired")
+                self._m_expired.inc()
                 self._finish(rec, "deadline", exc=DeadlineExceededError("request deadline passed while queued"))
             return
         if rec.tr is not None:
@@ -774,12 +869,16 @@ class ReplicaSet:
         """Run one batch on this replica; False when it crashed."""
         self._count("batches")
         self._count("requests", len(batch))
+        self._m_batches.inc()
+        self._m_requests.inc(len(batch))
+        self._m_occupancy.observe(len(batch) / self.max_batch)
         self._occ.observe(len(batch))
         traces = [rec.tr for rec in batch if rec.tr is not None]
         if traces:
             self._tracer.flush_begin(traces)
-        # pending and busy_since go up first: a hang's in-flight records
-        # must be findable by the supervisor
+        # pending and busy_since go up before the fault point: an injected
+        # delay (the hang model) must be visible to the supervisor, and a
+        # hang's in-flight records findable
         rep.pending = tuple(batch)
         rep.busy_since = self._clock()
         # the engine this flush runs on, read once: a scale-down can retire
@@ -788,6 +887,7 @@ class ReplicaSet:
         engine = rep.engine
         t_run = time.perf_counter()
         try:
+            fault_point("serve.replica", key=rep.name)
             # a packed group mixes resolutions: no common stack shape, so
             # the run gets the image list
             if len({rec.image.shape for rec in batch}) == 1:
@@ -811,21 +911,25 @@ class ReplicaSet:
                 # before the finish loop: the stamped device_s/cost_flops
                 # land on every access-log row of this batch
                 self._costmeter.observe_batch(run_s=done - t_run, traces=traces, batch=len(batch), engine=engine)
+        self._m_latency.observe_many([done - rec.t0 for rec in batch])
         rows = [{k: v[i] for k, v in out.items()} for i in range(len(batch))] if isinstance(out, dict) else out
         now_mono = time.monotonic()
         for rec, row in zip(batch, rows):
             if rec.deadline is not None and now_mono > rec.deadline:
                 if rec.settle():
                     self._count("late")
+                    self._m_late.inc()
                     self._finish(rec, "late", replica=rep.name, exc=DeadlineExceededError(
                         "request deadline passed during batch coalescing/compute"))
             elif rec.settle():
                 rep.served += 1
+                self._m_served.labels(rep.name).inc()
                 self._finish(rec, "ok", result=row, replica=rep.name)
         # a whole good batch resets the slot's backoff, unless a restart
         # already replaced this incarnation
         if not self._stale(rep):
             self._fails[rep.idx] = 0
+            self._beat(rep)
         return True
 
     # --------------------------------------------------------- supervisor
@@ -833,6 +937,7 @@ class ReplicaSet:
     def _on_failure(self, rep: _Replica, batch, exc, *, kind: str) -> None:
         err = f"{type(exc).__name__}: {exc}"
         self._bump(rep.name, f"crashes_{kind}")
+        self._m_crashes.labels(rep.name, kind).inc()
         self._event("replica_crash", replica=rep.name, kind=kind, gen=rep.gen, err=err)
         self._mark_down(rep)
         for rec in batch:
@@ -851,18 +956,23 @@ class ReplicaSet:
             if self._stale(rep) or rep.state == "down":
                 return
             rep.state = "down"
+            self._m_up.labels(rep.name).set(0)
             self._backoff(rep.idx)
             self._update_health()
 
     def _update_health(self) -> None:
         healthy = self._healthy_count()
+        self._m_healthy.set(healthy)
         open_now = healthy < self.quorum
         if open_now and not self._breaker_open:
             self._breaker_open = True
+            self._m_breaker.set(1)
+            self._m_breaker_trips.inc()
             self._count("breaker_trips")
             self._event("breaker_open", healthy=healthy, quorum=self.quorum)
         elif not open_now and self._breaker_open:
             self._breaker_open = False
+            self._m_breaker.set(0)
             self._event("breaker_close", healthy=healthy, quorum=self.quorum)
 
     def _supervise(self) -> None:
@@ -872,10 +982,21 @@ class ReplicaSet:
                 self._drain_slot(rep, "replica removed")
             for rep in list(self._slots):
                 if rep.state in ("up", "paused"):
+                    try:
+                        # a preemption notice: ticked once per routable
+                        # replica per supervisor pass (key: its name)
+                        fault_point("serve.preempt", key=rep.name)
+                    except Exception:
+                        # drained on a thread: a drain must not stall hang
+                        # detection for the other replicas
+                        threading.Thread(target=self.preempt, args=(rep.idx,), daemon=True,
+                                         name=f"replica-preempt-{rep.name}").start()
+                        continue
                     busy = rep.busy_since
                     if busy is not None and now - busy > self.hang_timeout_s:
                         # a hung predict: abandon the thread, rescue the work
                         self._bump(rep.name, "crashes_hang")
+                        self._m_crashes.labels(rep.name, "hang").inc()
                         self._event("replica_hang", replica=rep.name, gen=rep.gen, busy_s=round(now - busy, 3))
                         self._mark_down(rep)
                         for rec in list(rep.pending):
@@ -898,6 +1019,7 @@ class ReplicaSet:
                 engine = self._provider(idx)
             except BaseException as e:  # noqa: BLE001 - a provider error is a failed restart
                 self._bump(old.name, "crashes_restart_error")
+                self._m_crashes.labels(old.name, "restart_error").inc()
                 self._event("replica_restart_failed", replica=old.name, err=f"{type(e).__name__}: {e}")
                 with self._state_lock:
                     self._backoff(idx)
@@ -910,8 +1032,11 @@ class ReplicaSet:
                     return
                 self._slots[idx] = rep
             self._start_worker(rep)
+            self._m_up.labels(rep.name).set(1)
+            self._m_restarts.labels(rep.name).inc()
             self._bump(rep.name, "restarted")
             self._event("replica_restart", replica=rep.name, gen=rep.gen)
+            self._beat(rep)
             with self._state_lock:
                 self._update_health()
             self._drain_slot(old, "superseded incarnation")
@@ -928,9 +1053,10 @@ class WeightSwapController:
     double buffer lives in host memory). ``features_fn(engine, images)``
     defaults to ``engine.features``: the probe both parity legs run.
     ``on_promote(ckpt)`` lets the owner repoint the replica provider.
-    ``counts`` holds the
-    attempts, promotions, rollbacks and rejections; ``last_report`` the
-    last swap's report."""
+    ``headroom_fn(host_bytes, card_bytes)`` is the memory gate (the module
+    docstring). ``counts`` holds the attempts, promotions, rollbacks and
+    rejections, as the ``serve_swap_*`` counters of ``registry`` do;
+    ``last_report`` the last swap's report."""
 
     def __init__(
         self,
@@ -945,6 +1071,8 @@ class WeightSwapController:
         canary_timeout_s: float = 30.0,
         drain_timeout_s: float = 10.0,
         on_promote=None,
+        headroom_fn=None,
+        registry=None,
         clock: Callable[[], float] = time.monotonic,
     ):
         self.rs = replicaset
@@ -957,22 +1085,57 @@ class WeightSwapController:
         self.canary_timeout_s = float(canary_timeout_s)
         self.drain_timeout_s = float(drain_timeout_s)
         self._on_promote = on_promote
+        self._headroom_fn = headroom_fn
         self._clock = clock
-        self._swap_lock = threading.Lock()
+        self._swap_lock = lockwatch.lock("replicaset.swap")
         self.last_report: dict | None = None
         self.counts = {"attempts": 0, "promoted": 0, "rolled_back": 0, "rejected": 0}
+        reg = registry if registry is not None else get_registry()
+        self._m_attempts = reg.counter("serve_swap_attempts_total", "weight hot-swap attempts")
+        self._m_promoted = reg.counter("serve_swap_promoted_total", "hot-swaps promoted to the full pool")
+        self._m_rollbacks = reg.counter(
+            "serve_swap_rollbacks_total",
+            "hot-swaps rolled back (parity gate, canary breach, canary crash, or promote failure)")
+        self._m_rejected = reg.counter(
+            "serve_swap_rejected_total",
+            "hot-swaps rejected before any replica was flipped (restore/graft failure, memory headroom, no routable "
+            "canary)")
+        self._m_active = reg.gauge("serve_swap_active", "1 while a swap is in flight")
+        self._m_parity = reg.gauge("serve_swap_parity_cosine", "min feature cosine of the last swap's parity gate")
+        self._m_canary_burn = reg.gauge("serve_swap_canary_burn",
+                                        "worst slow-window burn rate of the last canary evaluation")
 
     def _restore(self, ckpt: str):
         if self._restore_fn is not None:
-            return self._restore_fn(ckpt)
-        from jumbo_mae_tpu_tpu_torch.train.checkpoint import restore_inference_state
+            params, stats = self._restore_fn(ckpt)
+        else:
+            from jumbo_mae_tpu_tpu_torch.train.checkpoint import restore_inference_state
 
-        return restore_inference_state(ckpt)
+            params, stats = restore_inference_state(ckpt)
+        # the bad-push site: `corrupt` diverges the tree (parity must catch
+        # it), `raise` models an unreadable checkpoint
+        params = fault_point("ckpt.load", key=str(ckpt), data=params)
+        return params, stats
+
+    def _event(self, etype: str, **fields) -> None:
+        self.rs._event(etype, **fields)
+
+    def _card_need(self) -> int:
+        """Card bytes the swap builds aside: the largest of the replicas'
+        engines' (one engine swaps at a time; 0 for engines without a
+        card)."""
+        need = 0
+        for rep in list(self.rs._slots):
+            fn = getattr(rep.engine, "swap_device_bytes", None)
+            if fn is not None:
+                need = max(need, int(fn()))
+        return need
 
     def _parity(self, engine, reference_feats) -> dict:
         cand = np.asarray(self._features_fn(engine, self.parity_images))
         cos = feature_cosine(np.asarray(reference_feats), cand)
         cos_min = float(np.min(cos))
+        self._m_parity.set(cos_min)
         return {
             "cosine_min": cos_min,
             "cosine_mean": float(np.mean(cos)),
@@ -983,11 +1146,15 @@ class WeightSwapController:
     def _reject(self, report: dict, stage: str, err: str) -> dict:
         report.update(verdict="rejected", stage=stage, error=err)
         self.counts["rejected"] += 1
+        self._m_rejected.inc()
+        self._event("swap_rejected", ckpt=report["ckpt"], stage=stage, err=err)
         return report
 
     def _rollback(self, report: dict, stage: str, detail: str) -> dict:
         report.update(verdict="rolled_back", stage=stage, detail=detail)
         self.counts["rolled_back"] += 1
+        self._m_rollbacks.inc()
+        self._event("swap_rollback", ckpt=report["ckpt"], stage=stage, detail=detail)
         return report
 
     def swap(self, ckpt: str) -> dict:
@@ -1000,12 +1167,31 @@ class WeightSwapController:
             return report
 
     def _swap(self, ckpt: str) -> dict:
-        report: dict = {"ckpt": ckpt, "verdict": None, "stage": None}
         self.counts["attempts"] += 1
+        self._m_attempts.inc()
+        self._m_active.set(1)
+        self._event("swap_start", ckpt=ckpt)
+        try:
+            return self._swap_gated(ckpt)
+        finally:
+            self._m_active.set(0)
+
+    def _swap_gated(self, ckpt: str) -> dict:
+        report: dict = {"ckpt": ckpt, "verdict": None, "stage": None}
         try:
             params, stats = self._restore(ckpt)
         except BaseException as e:  # noqa: BLE001 - an unreadable push is a verdict
             return self._reject(report, "restore", f"{type(e).__name__}: {e}")
+        if self._headroom_fn is not None:
+            # the double buffer: the restored tree and the snapshot of the
+            # live one on the host, and the models built aside on the card
+            need = 2 * tree_nbytes(params)
+            try:
+                shortfall = self._headroom_fn(need, self._card_need())
+            except Exception:  # noqa: BLE001 - a broken probe must not block swaps
+                shortfall = None
+            if shortfall:
+                return self._reject(report, "headroom", str(shortfall))
         canary = self.rs.first_routable()
         if canary is None:
             return self._reject(report, "canary_pick", "no routable replica")
@@ -1033,6 +1219,8 @@ class WeightSwapController:
                     report, "parity", f"cosine_min {parity['cosine_min']:.4f} < {self.parity_min_cosine}")
         finally:
             self.rs.resume(canary.idx)
+        self._event("swap_canary", ckpt=ckpt, replica=canary.name,
+                    cosine_min=report.get("parity", {}).get("cosine_min"))
         breach, canary_report = self._canary_window(canary, canary_gen)
         report["canary_eval"] = canary_report
         if breach:
@@ -1068,6 +1256,8 @@ class WeightSwapController:
             except Exception:  # noqa: BLE001 - bookkeeping must not fail a shipped swap
                 pass
         self.counts["promoted"] += 1
+        self._m_promoted.inc()
+        self._event("swap_promoted", ckpt=ckpt)
         report.update(verdict="promoted", stage="promote")
         return report
 
@@ -1079,7 +1269,8 @@ class WeightSwapController:
     def _canary_window(self, canary, canary_gen: int) -> tuple[bool, dict]:
         """Only the canary's live outcomes, through a burn-rate tracker of
         its own; returns (breached, report)."""
-        tracker = SLOTracker(parse_slo(self.canary_slo), window_s=max(self.canary_timeout_s, 1.0))
+        tracker = SLOTracker(parse_slo(self.canary_slo), window_s=max(self.canary_timeout_s, 1.0),
+                             registry=NULL_REGISTRY)
         seen = {"n": 0}
         crashed = {"requests": 0, "why": "canary replica crashed during the window"}
 
@@ -1105,6 +1296,7 @@ class WeightSwapController:
             return True, {**crashed, "requests": seen["n"]}
         ev = tracker.evaluate()
         worst = max((o["burn_slow"] for o in ev["objectives"]), default=0.0)
+        self._m_canary_burn.set(worst)
         breached = bool(ev["degraded"]) or any(o["breached"] for o in ev["objectives"])
         why = (
             "canary SLO breached: " + "; ".join(

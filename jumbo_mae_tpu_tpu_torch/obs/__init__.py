@@ -1,8 +1,16 @@
 """The port's observability; each module mirrors ``jumbo_mae_tpu_tpu/obs``.
 
-The metrics registry, the cost and performance models and the request
-tracer are re-exported here, as the JAX package's ``obs/__init__.py``
-does.
+- ``obs.metrics``: counters, gauges, histograms, the Prometheus text;
+- ``obs.exporter``: the stdlib HTTP server of ``/metrics`` and ``/healthz``;
+- ``obs.slo``: SLO objectives, burn rates, the degraded flag, ``slo_*``;
+- ``obs.memwatch``: card and host memory gauges, byte accounting, the
+  leak sentinel and the weight swap's headroom check;
+- ``obs.retrace``: the capture sentinel (no new CUDA graph after warmup);
+- ``obs.lockwatch``: opt-in instrumented locks (``GRAFT_LOCKWATCH=1``);
+- ``obs.reqtrace``, ``obs.journal``, ``obs.costmodel``, ``obs.perfmodel``,
+  ``obs.mfu``, ``obs.doctor_common``.
+
+Re-exported here as the JAX package's ``obs/__init__.py`` does.
 """
 
 from jumbo_mae_tpu_tpu_torch.obs.costmodel import (
@@ -13,6 +21,16 @@ from jumbo_mae_tpu_tpu_torch.obs.costmodel import (
     program_cost,
     publish_cost,
     utilization_report,
+)
+from jumbo_mae_tpu_tpu_torch.obs.exporter import HealthState, TelemetryServer
+from jumbo_mae_tpu_tpu_torch.obs.lockwatch import WatchedLock
+from jumbo_mae_tpu_tpu_torch.obs.memwatch import (
+    LeakSentinel,
+    MemAccountant,
+    MemoryWatcher,
+    host_available_bytes,
+    host_rss_bytes,
+    tree_nbytes,
 )
 from jumbo_mae_tpu_tpu_torch.obs.metrics import (
     LATENCY_BUCKETS,
@@ -39,37 +57,52 @@ from jumbo_mae_tpu_tpu_torch.obs.perfmodel import (
     roofline,
 )
 from jumbo_mae_tpu_tpu_torch.obs.reqtrace import OUTCOMES, AccessLog, RequestTrace, RequestTracer
+from jumbo_mae_tpu_tpu_torch.obs.retrace import RetraceSentinel
+from jumbo_mae_tpu_tpu_torch.obs.slo import SLOObjective, SLOTracker, parse_slo
 
 __all__ = [
-    "COST_SCHEMA_VERSION",
-    "LATENCY_BUCKETS",
-    "NULL_REGISTRY",
-    "OUTCOMES",
-    "RATIO_BUCKETS",
     "AccessLog",
+    "COST_SCHEMA_VERSION",
     "ChipSpec",
     "Counter",
     "Family",
     "Gauge",
+    "HealthState",
     "Histogram",
+    "LATENCY_BUCKETS",
+    "LeakSentinel",
+    "MemAccountant",
+    "MemoryWatcher",
     "MetricsRegistry",
+    "NULL_REGISTRY",
     "NullRegistry",
+    "OUTCOMES",
     "PerfPrediction",
     "ProgramCost",
+    "RATIO_BUCKETS",
     "RequestTrace",
     "RequestTracer",
+    "RetraceSentinel",
+    "SLOObjective",
+    "SLOTracker",
+    "TelemetryServer",
     "UtilizationReport",
+    "WatchedLock",
     "chip_spec",
     "cost_asdict",
     "detect_chip",
     "dp_comm_bytes",
     "fsdp_comm_bytes",
     "get_registry",
+    "host_available_bytes",
+    "host_rss_bytes",
+    "parse_slo",
     "predict_train_step",
     "program_cost",
     "publish_cost",
     "publish_drift",
     "roofline",
     "set_registry",
+    "tree_nbytes",
     "utilization_report",
 ]

@@ -1,8 +1,8 @@
 """Shared helpers for the offline doctors.
 
 Counterpart of ``jumbo_mae_tpu_tpu/obs/doctor_common.py``; the port's
-``tools/{batch,cost}_doctor.py`` use it, and the run and serve doctors
-will (ROADMAP A5.7, A7). A doctor turns a crash-safe JSONL artifact (the run
+``tools/{batch,cost,serve,mem}_doctor.py`` use it, and the run doctor
+will (ROADMAP A7). A doctor turns a crash-safe JSONL artifact (the run
 journal, the serving access log) into a markdown diagnosis, and each
 needs the same primitives:
 number formatting that tolerates the journal's ``"nan"``/``"inf"`` string

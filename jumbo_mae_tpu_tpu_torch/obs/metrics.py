@@ -3,9 +3,11 @@
 Counterpart of ``jumbo_mae_tpu_tpu/obs/metrics.py``, the same names, the
 same Prometheus text from :meth:`MetricsRegistry.render` and the same
 :meth:`MetricsRegistry.snapshot`. The port's warm cache, batch jobs,
-request tracer, cost meter, admission gate, autoscaler and publisher
-report through it; the pool's and the training layers' own metrics and
-the exporter are still to port (ROADMAP A5.7, A7). The train loop's
+request tracer, cost meter, admission gate, autoscaler, publisher,
+engine, micro-batcher, pool, scheduler, SLO tracker, memory watcher,
+capture sentinel and lock watchdog report through it, and
+``obs/exporter.py`` serves it; the training layers' own metrics are still
+to port (ROADMAP A7). The train loop's
 ``AverageMeter`` lives in ``utils/meters.py``.
 
 Design constraints, in order:

@@ -1,7 +1,6 @@
 """Declarative serving SLOs: rolling windows, burn rates, a degraded flag.
 
-Counterpart of ``jumbo_mae_tpu_tpu/obs/slo.py``, without its metrics
-export (the ``slo_*`` gauges and probes, ROADMAP A7). An objective is one
+Counterpart of ``jumbo_mae_tpu_tpu/obs/slo.py``. An objective is one
 line of intent — ``p99_latency_ms<=250`` (no more than 1 % of requests
 slower than 250 ms), ``success_rate>=0.99`` — parsed by
 :func:`parse_slo`. :class:`SLOTracker` evaluates every objective over two
@@ -13,11 +12,17 @@ rolling windows:
 - an objective **breaches** when the slow window burns above
   ``burn_threshold`` and the fast window agrees (or holds no samples: a
   stalled request stream must not mask a breach);
-- a breach latches **degraded** for one slow window.
+- a breach latches **degraded** for one slow window: the signal
+  ``/healthz`` surfaces (through :meth:`HealthState.degraded_when`) and
+  the autoscaler keys on.
 
-The weight-swap controller's canary gate (``infer/replicaset.py``) reads
-it. ``evaluate()``, ``worst_burn()`` and ``degraded()`` return what the
-JAX package's return on the same observations and clock.
+Every evaluation publishes the ``slo_*`` gauges: values, thresholds, burn
+rates, breach flags, the degraded flag, the shed rate and any attached
+probes (queue depth, batch occupancy). The weight-swap controller's
+canary gate (``infer/replicaset.py``) runs a tracker of its own on
+``NULL_REGISTRY``. ``evaluate()``, ``worst_burn()``, ``degraded()`` and
+the gauges give what the JAX package's give on the same observations and
+clock.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
+
+from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
 
 _SPEC_RE = re.compile(r"^\s*(?P<metric>[a-z0-9_]+)\s*(?P<op><=|>=)\s*(?P<threshold>[0-9.]+)\s*$")
 _LATENCY_RE = re.compile(r"^p(?P<pct>\d{1,2}(?:\.\d+)?)_latency_ms$")
@@ -91,8 +98,13 @@ def parse_slo(spec: str) -> list[SLOObjective]:
 class SLOTracker:
     """Rolling-window SLO evaluation over finished requests: feed
     :meth:`observe` with each request's latency and outcome (``"ok"``,
-    ``"late"``, ``"deadline"``, ``"shed"``, ...), then :meth:`evaluate`.
-    ``clock`` is injectable for deterministic tests."""
+    ``"late"``, ``"deadline"``, ``"shed"``, ...), or :meth:`observe_trace`
+    as a :class:`RequestTracer` ``on_finish`` hook, then :meth:`evaluate`
+    (the exporter's pre-scrape hook and the ``/healthz`` probe both call
+    it). ``probes`` maps gauge-name suffixes to zero-arg callables sampled
+    at each evaluation (``{"queue_depth": fn}`` publishes
+    ``slo_queue_depth``). ``clock`` is injectable for deterministic
+    tests."""
 
     def __init__(
         self,
@@ -101,6 +113,8 @@ class SLOTracker:
         window_s: float = 60.0,
         fast_window_s: float = 0.0,
         burn_threshold: float = 1.0,
+        registry=None,
+        probes: dict | None = None,
         max_samples: int = 200_000,
         clock=time.monotonic,
     ):
@@ -111,14 +125,42 @@ class SLOTracker:
         self.fast_window_s = float(fast_window_s) or max(self.window_s / 12.0, 1.0)
         self.burn_threshold = float(burn_threshold)
         self._clock = clock
+        self._probes = dict(probes or {})
         self._lock = threading.Lock()
         # (t, latency_s, outcome), bounded so a flood cannot grow memory
         self._samples: deque = deque(maxlen=int(max_samples))
         self._last_breach_t: float | None = None
+        self.last_report: dict | None = None
+        reg = registry if registry is not None else get_registry()
+        self._g_value = reg.gauge("slo_value", "current value of each SLO metric", labels=("objective",))
+        self._g_threshold = reg.gauge("slo_threshold", "configured threshold per objective", labels=("objective",))
+        self._g_burn = reg.gauge(
+            "slo_burn_rate", "error-budget burn rate per objective and window", labels=("objective", "window")
+        )
+        self._g_breached = reg.gauge("slo_breached", "1 while the objective is in breach", labels=("objective",))
+        self._g_degraded = reg.gauge("slo_degraded", "1 while any objective breached within the last window_s")
+        self._g_shed = reg.gauge("slo_shed_rate", "shed requests / finished requests over window_s")
+        self._registry = reg
+        self._g_probes = {name: reg.gauge(f"slo_{name}", f"SLO probe: {name}") for name in self._probes}
+        for obj in self.objectives:
+            self._g_threshold.labels(obj.name).set(obj.threshold)
+
+    def add_probe(self, name: str, fn) -> None:
+        """Attach a probe after construction (the tracker usually exists
+        before the batcher or pool it watches): ``fn`` is sampled at each
+        evaluation and published as ``slo_<name>``."""
+        with self._lock:
+            if name not in self._g_probes:
+                self._g_probes[name] = self._registry.gauge(f"slo_{name}", f"SLO probe: {name}")
+            self._probes[name] = fn
 
     def observe(self, latency_s: float | None, outcome: str) -> None:
         with self._lock:
             self._samples.append((self._clock(), latency_s, outcome))
+
+    def observe_trace(self, tr) -> None:
+        """The :class:`RequestTracer` ``on_finish`` feed."""
+        self.observe(tr.latency_s, tr.outcome)
 
     @staticmethod
     def _window(samples, now: float, span: float):
@@ -153,8 +195,9 @@ class SLOTracker:
         return sum(1 for _, _, out in window if out == "ok") / len(window)
 
     def evaluate(self, now: float | None = None) -> dict:
-        """Every objective over both windows: the verdict dict (values,
-        burn rates, breaches, ``degraded``, ``shed_rate``)."""
+        """Every objective over both windows: refreshes the ``slo_*``
+        gauges and returns the verdict dict (values, burn rates, breaches,
+        ``degraded``, ``shed_rate``; the ``/healthz`` probe body)."""
         now = self._clock() if now is None else now
         with self._lock:
             samples = list(self._samples)
@@ -170,9 +213,14 @@ class SLOTracker:
                 not fast or burn_fast > self.burn_threshold
             )
             breached_any = breached_any or breached
+            value = self._value(slow, obj)
+            self._g_value.labels(obj.name).set(value)
+            self._g_burn.labels(obj.name, "slow").set(burn_slow)
+            self._g_burn.labels(obj.name, "fast").set(burn_fast)
+            self._g_breached.labels(obj.name).set(1.0 if breached else 0.0)
             report["objectives"].append({
                 "name": obj.name,
-                "value": round(self._value(slow, obj), 4),
+                "value": round(value, 4),
                 "threshold": obj.threshold,
                 "burn_slow": round(burn_slow, 4),
                 "burn_fast": round(burn_fast, 4),
@@ -181,9 +229,20 @@ class SLOTracker:
         if breached_any:
             with self._lock:
                 self._last_breach_t = now
-        report["degraded"] = self._degraded_at(now)
+        degraded = self._degraded_at(now)
+        report["degraded"] = degraded
+        self._g_degraded.set(1.0 if degraded else 0.0)
         shed = sum(1 for _, _, out in slow if out == "shed")
+        self._g_shed.set(shed / len(slow) if slow else 0.0)
         report["shed_rate"] = round(shed / len(slow), 4) if slow else 0.0
+        with self._lock:
+            probes = list(self._probes.items())
+        for name, fn in probes:
+            try:
+                self._g_probes[name].set(float(fn()))
+            except Exception:  # noqa: BLE001 - a probe must not break an evaluation
+                pass
+        self.last_report = report
         return report
 
     def worst_burn(self, now: float | None = None) -> float:
@@ -201,3 +260,7 @@ class SLOTracker:
         last breach."""
         self.evaluate()
         return self._degraded_at(self._clock())
+
+    def healthz_info(self) -> dict:
+        """The ``/healthz`` probe body: a fresh evaluation."""
+        return self.evaluate()

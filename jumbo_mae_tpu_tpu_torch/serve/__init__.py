@@ -14,8 +14,9 @@ pool, and continuous deployment into it. Counterpart of
   the verification the swap watcher and ``tools/publish_doctor.py``
   share.
 
-The serving metrics exporter, the SLO registry side and the serving
-fault sites are ROADMAP A5.7.
+The tier's telemetry lives in ``obs/``: the ``/metrics`` and ``/healthz``
+exporter, the SLO tracker's gauges, the memory watcher and the capture
+sentinel; ``cli/predict.py`` wires them.
 """
 
 from jumbo_mae_tpu_tpu_torch.serve.admission import (

@@ -21,17 +21,17 @@ at scavenger-class pressure; at zero pressure it is still admitted — a
 budget bounds a tenant's claim on contended capacity, it is not a kill
 switch). Buckets refill at ``rate`` tokens/s up to ``burst``; the clock
 is injectable. The ``serve_admit_*`` metrics and
-``serve_tenant_budget_remaining`` are the JAX package's; its watched lock
-(``obs.lockwatch``, ROADMAP A7) is a plain lock here.
+``serve_tenant_budget_remaining`` are the JAX package's, and so is its
+watched lock (``obs.lockwatch``'s ``serve.admission``).
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from dataclasses import dataclass
 
 from jumbo_mae_tpu_tpu_torch.infer.batching import QueueFullError
+from jumbo_mae_tpu_tpu_torch.obs import lockwatch
 from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
 
 # priority order: index 0 sheds last and jumps the queue first
@@ -147,7 +147,7 @@ class AdmissionController:
         self._pressure_fn = pressure_fn
         self._meter = meter
         self._specs = {t.name: t for t in tenants}
-        self._lock = threading.Lock()
+        self._lock = lockwatch.lock("serve.admission")
         now = clock()
         self._buckets = {t.name: _Bucket(t.rate, t.burst, now) for t in tenants if t.rate is not None}
         self._default = TenantSpec("_default", "batch")

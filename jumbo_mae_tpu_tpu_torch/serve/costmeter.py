@@ -30,8 +30,8 @@ over-budget tenant degrades to scavenger-class shedding.
 :class:`~jumbo_mae_tpu_tpu_torch.obs.perfmodel.ChipSpec` in snapshots;
 the caller names it (``detect_chip(device)``). Without one the snapshot
 carries no roofline utilization: the meter never guesses the card. The
-JAX module guards its ledgers with ``obs.lockwatch``'s watched lock; the
-lock watchdog is ROADMAP A7, so this one is a plain ``threading.Lock``.
+ledgers are guarded by ``obs.lockwatch``'s ``serve.costmeter``, as in the
+JAX module.
 
 The meter never raises on the hot path: a missing cost table bills
 device time only, and a meter error must not kill a flush.
@@ -39,10 +39,11 @@ device time only, and a meter error must not kill a flush.
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Any, Callable, Iterable
+
+from jumbo_mae_tpu_tpu_torch.obs import lockwatch
 
 _TENANT_LABELS = ("tenant", "class")
 
@@ -126,7 +127,7 @@ class CostMeter:
         self._window_s = float(window_s)
         self._journal_interval_s = float(journal_interval_s)
         self._clock = clock
-        self._lock = threading.Lock()  # obs.lockwatch is ROADMAP A7
+        self._lock = lockwatch.lock("serve.costmeter")
         self._ledgers: dict[str, _Ledger] = {}
         self._budgets: dict[str, tuple[float, float]] = {}
         # batch-level totals the conservation tests reconcile against

@@ -1,8 +1,11 @@
 """Continuous batching: late arrivals join pending batches until cutoff.
 
 Counterpart of ``jumbo_mae_tpu_tpu/serve/scheduler.py``, with its
-request tracer (``obs/reqtrace.py``) and without its fault site and
-metrics (ROADMAP A5.7; :meth:`stats` carries the counts). The per-replica micro-batching loop is FIFO per flush, and
+request tracer (``obs/reqtrace.py``), its ``serve.submit`` fault site and
+its metrics (``serve_sched_batches_total{reason}``,
+``serve_sched_batch_occupancy``, ``serve_sched_queue_depth``,
+``serve_sched_priority_jumps_total``; :meth:`stats` reads the same
+counts). The per-replica micro-batching loop is FIFO per flush, and
 the pool router splits concurrent arrivals across replicas, so each
 replica flushes a half-empty batch. :class:`ContinuousScheduler`
 centralizes coalescing: one dispatcher thread owns per-``(task,
@@ -45,8 +48,11 @@ from concurrent.futures import Future
 
 import numpy as np
 
+from jumbo_mae_tpu_tpu_torch.faults.inject import fault_point
 from jumbo_mae_tpu_tpu_torch.infer.batching import DeadlineExceededError, OccupancyWindow, QueueFullError, ShutdownError
 from jumbo_mae_tpu_tpu_torch.infer.bucketing import floor_bucket
+from jumbo_mae_tpu_tpu_torch.obs import lockwatch
+from jumbo_mae_tpu_tpu_torch.obs.metrics import RATIO_BUCKETS, get_registry
 from jumbo_mae_tpu_tpu_torch.serve.admission import CLASS_WEIGHT, CLASSES
 
 _STOP = object()
@@ -81,7 +87,8 @@ class ContinuousScheduler:
     ``admission`` is an optional
     :class:`~jumbo_mae_tpu_tpu_torch.serve.admission.AdmissionController`.
     ``clock`` must be ``time.monotonic``-like: deadlines are absolute on
-    it. ``packed`` switches to the one token accumulator."""
+    it. ``packed`` switches to the one token accumulator. ``registry``
+    takes the ``serve_sched_*`` metrics."""
 
     def __init__(
         self,
@@ -93,6 +100,7 @@ class ContinuousScheduler:
         admission=None,
         tracer=None,
         task: str = "",
+        registry=None,
         clock=time.monotonic,
         packed: bool = False,
         token_budget: int | None = None,
@@ -119,9 +127,21 @@ class ContinuousScheduler:
         self._tracer = tracer
         self.task = task
         self._clock = clock
+        reg = registry if registry is not None else get_registry()
+        self._m_batches = reg.counter(
+            "serve_sched_batches_total",
+            "batches dispatched by the continuous scheduler, by trigger (full|cutoff|aligned|close)",
+            labels=("reason",))
+        self._m_occupancy = reg.histogram("serve_sched_batch_occupancy",
+                                          "dispatched batch size / max_batch (continuous scheduler)",
+                                          buckets=RATIO_BUCKETS)
+        self._m_depth = reg.gauge("serve_sched_queue_depth", "requests pending in scheduler accumulators")
+        self._m_jumps = reg.counter(
+            "serve_sched_priority_jumps_total",
+            "dispatch slots a higher class took ahead of an earlier-arrived lower-class request")
         self._occ = OccupancyWindow(self.max_batch)
         self._depth = 0
-        self._depth_lock = threading.Lock()
+        self._depth_lock = lockwatch.lock("serve.sched.depth")
         self._dispatched = 0
         self._expired = 0
         self._jumps = 0
@@ -147,6 +167,7 @@ class ContinuousScheduler:
               if self._tracer is not None else None)
         tokens = None
         try:
+            fault_point("serve.submit")
             if self._closed:
                 raise ShutdownError("ContinuousScheduler is closed")
             if self._seq_len_fn is not None:
@@ -255,6 +276,7 @@ class ContinuousScheduler:
                     item = None
             self._expire(buckets)
             self._dispatch_ready(buckets)
+            self._m_depth.set(sum(len(v) for v in buckets.values()))
 
     def _next_wait(self, buckets) -> float:
         """Sleep until the earliest pending cutoff (bounded), or idle."""
@@ -339,7 +361,7 @@ class ContinuousScheduler:
         # over-full: the highest class takes the slots; aligned: due
         # entries first, whatever their class
         chosen = set(self._order(entries, now, reason == "aligned")[:n])
-        self._jumps += len(chosen - set(range(n)))  # chosen past an earlier arrival
+        self._jump(len(chosen - set(range(n))))  # chosen past an earlier arrival
         batch = [entries[i] for i in sorted(chosen)]
         entries[:] = [e for i, e in enumerate(entries) if i not in chosen]
         return batch, reason
@@ -361,10 +383,15 @@ class ContinuousScheduler:
             chosen.append(i)
             tok += t
         chosen_set = set(chosen)
-        self._jumps += len(chosen_set - set(range(len(chosen))))
+        self._jump(len(chosen_set - set(range(len(chosen)))))
         batch = [entries[i] for i in sorted(chosen_set)]
         entries[:] = [e for i, e in enumerate(entries) if i not in chosen_set]
         return batch, reason
+
+    def _jump(self, n: int) -> None:
+        if n:
+            self._jumps += n
+            self._m_jumps.inc(n)
 
     def _dispatch_bucket(self, buckets, key, reason: str) -> None:
         batch, reason = self._take_batch(buckets[key], reason)
@@ -372,6 +399,11 @@ class ContinuousScheduler:
             return
         self._dec(len(batch))
         self._by_reason[reason] = self._by_reason.get(reason, 0) + 1
+        self._m_batches.labels(reason).inc()
+        if self.packed:
+            self._m_occupancy.observe(min(sum(e.tokens or 0 for e in batch) / self.token_budget, 1.0))
+        else:
+            self._m_occupancy.observe(len(batch) / self.max_batch)
         self._occ.observe(len(batch))
         self._dispatched += len(batch)
         if self._tracer is not None:

@@ -14,7 +14,9 @@
   carrying on on the CPU; a save is served and its features exported, a
   batch job runs and is audited, a warm restart loads its cache, and a
   budgeted job, a publishing run and tenant-metered serving are billed
-  and audited, in the blocked interpreter;
+  and audited, and a pool serves behind the ``/metrics`` exporter, the
+  SLO tracker, the memory watcher and the capture sentinel, scraped over
+  loopback and read by the serve doctor, in the blocked interpreter;
 - no kernel is built at import time.
 """
 
@@ -226,6 +228,47 @@ def test_billing_and_publishing_without_jax_yaml_pil_or_cv2(tmp_path):
     assert "billing 0 0 0" in res.stdout and "pool served 6/6 ok" in res.stdout, res.stdout[-2000:]
 
 
+def test_telemetry_without_jax_yaml_pil_or_cv2(tmp_path):
+    """``cli.predict --serve --replicas 2 --warmup --metrics-port 0 --slo
+    ... --access-log``, its ``/metrics`` and ``/healthz`` read over
+    loopback during ``--metrics-hold-s``, and ``serve_doctor`` over its
+    access log, in an interpreter where JAX, PyYAML, PIL and cv2 cannot
+    import."""
+    res = _blocked_interpreter(
+        "import json, threading, time, urllib.request\n"
+        "from jumbo_mae_tpu_tpu_torch.cli import predict\n"
+        "from jumbo_mae_tpu_tpu_torch.obs import exporter\n"
+        "from jumbo_mae_tpu_tpu_torch.tools import serve_doctor\n"
+        f"out = {str(tmp_path)!r}\n"
+        "servers = []\n"
+        "class Recorded(exporter.TelemetryServer):\n"
+        "    def start(self):\n"
+        "        servers.append(super().start())\n"
+        "        return self\n"
+        "exporter.TelemetryServer = Recorded\n"
+        f"argv = ['--config', {SMOKE!r}, '--synthetic', '6', '--device', 'cpu', '--task', 'features', '--serve',\n"
+        "        '--replicas', '2', '--warmup', '--metrics-port', '0', '--slo', 'success_rate>=0.5',\n"
+        "        '--access-log', out + '/acc', '--metrics-hold-s', '3', '--out', out + '/f.npz']\n"
+        "t = threading.Thread(target=predict.main, args=(argv,))\n"
+        "t.start()\n"
+        "deadline = time.monotonic() + 120\n"
+        "while not servers and time.monotonic() < deadline:\n"
+        "    time.sleep(0.01)\n"
+        "url = f'http://127.0.0.1:{servers[0].port}'\n"
+        "text = ''\n"
+        "while 'infer_requests_total 6' not in text and time.monotonic() < deadline:\n"
+        "    text = urllib.request.urlopen(url + '/metrics', timeout=10).read().decode()\n"
+        "    time.sleep(0.05)\n"
+        "health = json.loads(urllib.request.urlopen(url + '/healthz', timeout=10).read().decode())\n"
+        "t.join(timeout=120)\n"
+        "rc = serve_doctor.main([out + '/acc', '--out', out + '/serve.md'])\n"
+        "print('telemetry', 'infer_requests_total 6' in text, health['ready'], rc)\n",
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "telemetry True True 0" in res.stdout and "pool served 6/6 ok" in res.stdout, res.stdout[-2000:]
+
+
 def test_images_without_cv2_or_pil_raise_naming_both(tmp_path):
     """With neither cv2 nor PIL, decoding a JPEG, resizing and starting a
     train loader raise ImportError naming both packages; nothing returns
@@ -354,6 +397,12 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.serve.publisher",
         "jumbo_mae_tpu_tpu_torch.tools.publish_doctor",
         "jumbo_mae_tpu_tpu_torch.tools.cost_doctor",
+        "jumbo_mae_tpu_tpu_torch.obs.lockwatch",
+        "jumbo_mae_tpu_tpu_torch.obs.exporter",
+        "jumbo_mae_tpu_tpu_torch.obs.memwatch",
+        "jumbo_mae_tpu_tpu_torch.obs.retrace",
+        "jumbo_mae_tpu_tpu_torch.tools.serve_doctor",
+        "jumbo_mae_tpu_tpu_torch.tools.mem_doctor",
     ):
         assert m in mods
     for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):

@@ -7,8 +7,12 @@ exactly (a JPEG can differ by an LSB between cv2 and PIL), through the
 smoke recipe at ``--dtype float32``: every task's ``.npz`` within atol /
 rtol 1e-4. The reconstruction's mask is pinned to the JAX CLI's (see
 tests/test_torch_reconstruct.py). Then ``--serve`` against the direct
-path, an undecodable file, and the flags of layers still to port. Then
-the replicated tier with tenants, the autoscaler and the access log.
+path, an undecodable file, and the telemetry flags that were refused
+before they were ported. Then the replicated tier with tenants, the
+autoscaler and the access log; the exporter, the SLO tracker and the
+capture sentinel around a 2-replica pool, scraped over loopback during
+``--metrics-hold-s``, serving logits bit-equal to a run without them;
+and the single engine's access log.
 """
 
 import json
@@ -132,12 +136,24 @@ def test_images_xor_synthetic(setup):
         predict.main(["--config", str(RECIPE), "--device", "cpu", "--synthetic", "2", "--images", setup["files"][0]])
 
 
-@pytest.mark.parametrize("flag", sorted(predict.UNPORTED))
-def test_unported_flag_refused_with_its_roadmap_item(flag):
-    dest, item = predict.UNPORTED[flag]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue " + item.split(" ")[0]) as exc:
-        predict.main(["--config", str(RECIPE), "--synthetic", "1", "--device", "cpu", flag, "1"])
-    assert flag in str(exc.value) and item in str(exc.value)
+# the telemetry flags refused until they were ported (ROADMAP A5.7), each
+# with a value it takes
+A5_7_FLAGS = {"--slo": "success_rate>=0.5", "--slo-window-s": "30", "--slo-fast-window-s": "2",
+              "--metrics-port": "0", "--metrics-hold-s": "0.05"}
+
+
+@pytest.mark.parametrize("flag", sorted(A5_7_FLAGS))
+def test_unported_flag_refused_with_its_roadmap_item(flag, tmp_path, capsys):
+    """Each flag once refused with its ROADMAP item is accepted now and
+    serves: no refusal is left."""
+    predict.main(["--config", str(RECIPE), "--set", *BASE, "--task", "features", "--synthetic", "2", "--device",
+                  "cpu", "--serve", flag, A5_7_FLAGS[flag], "--out", str(tmp_path / "f.npz")])
+    text = capsys.readouterr().out
+    assert "micro-batch sizes" in text and "not ported" not in text
+    if flag == "--slo":
+        assert "[predict] SLO verdict: degraded=False" in text
+    if flag == "--metrics-port":
+        assert "[predict] exporter on :" in text
 
 
 # ------------------------------------------------ the replicated tier
@@ -239,9 +255,20 @@ def test_swap_watch_promotes_a_push_and_rolls_back_a_corrupt_one(setup, tmp_path
     assert "pool served 120/120 ok (0 failed)" in text
 
 
-def test_access_log_without_replicas_names_a5_7():
-    with pytest.raises(NotImplementedError, match="A5.7"):
+def test_access_log_without_replicas_names_a5_7(tmp_path):
+    """Once refused (ROADMAP A5.7): ``--serve --access-log`` on the single
+    engine's micro-batcher writes one row per request; the log traces the
+    served requests, so without ``--serve`` it is refused."""
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+
+    with pytest.raises(SystemExit, match="requires --serve"):
         predict.main(["--config", str(RECIPE), "--synthetic", "1", "--device", "cpu", "--access-log", "x"])
+    acc = tmp_path / "acc"
+    predict.main(["--config", str(RECIPE), "--set", *BASE, "--task", "features", "--synthetic", "5", "--device",
+                  "cpu", "--serve", "--access-log", str(acc), "--out", str(tmp_path / "f.npz")])
+    rows = [e for e in read_journal(acc) if e["type"] == "request"]
+    assert sorted(r["rid"] for r in rows) == list(range(5))
+    assert all(r["outcome"] == "ok" and r["task"] == "features" and r["compute_ms"] is not None for r in rows)
 
 
 def test_tenants_autoscale_and_access_log(tmp_path, capsys):
@@ -274,3 +301,80 @@ def test_tenants_autoscale_and_access_log(tmp_path, capsys):
     assert cost_doctor.main([str(acc), "--out", str(tmp_path / "cost.md")]) == 0
     report = (tmp_path / "cost.md").read_text()
     assert "agree" in report and "**disagree**" not in report and "`scrape` exhausted its budget" in report
+
+
+def test_telemetry_around_the_pool_scraped_during_the_hold(setup, tmp_path, monkeypatch, capsys):
+    """``--serve --replicas 2 --warmup --metrics-port 0 --slo ...
+    --access-log --metrics-hold-s``: ``/healthz`` is 200 and ready, every
+    replica up, the request count, the SLO and memory gauges and zero
+    unexpected captures are read over loopback while the exporter holds;
+    the logits are bit-equal to the same run without telemetry."""
+    import threading
+    import urllib.request
+
+    from jumbo_mae_tpu_tpu_torch.obs import exporter
+
+    servers = []
+
+    class Recorded(exporter.TelemetryServer):
+        def start(self):
+            servers.append(super().start())
+            return self
+
+    monkeypatch.setattr(exporter, "TelemetryServer", Recorded)
+    n = 12
+    # one request a dispatch (bucket 1): the same traffic computes the same
+    # rows whatever the coalescing timing
+    pool = ("--serve", "--replicas", "2", "--warmup", "--max-batch", "1")
+    base = _args(setup, "classify", "logits", tmp_path / "plain.npz", extra=pool)
+    base[base.index("--images") + 1:base.index("--max-batch")] = setup["files"] * 4
+    plain = np.load(predict.main(base))["logits"]
+    capsys.readouterr()
+    from jumbo_mae_tpu_tpu_torch.obs import metrics
+
+    # a registry of its own: the counts are this run's
+    monkeypatch.setattr(metrics, "_default", metrics.MetricsRegistry())
+    argv = _args(setup, "classify", "logits", tmp_path / "tel.npz",
+                 extra=(*pool, "--metrics-port", "0", "--slo", "p99_latency_ms<=60000;success_rate>=0.9",
+                        "--access-log", str(tmp_path / "acc"), "--metrics-hold-s", "4"))
+    argv[argv.index("--images") + 1:argv.index("--max-batch")] = setup["files"] * 4
+    done = {}
+    t = threading.Thread(target=lambda: done.setdefault("out", predict.main(argv)), daemon=True)
+    t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while not servers:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        url = f"http://127.0.0.1:{servers[0].port}"
+
+        def scrape(path):
+            try:
+                with urllib.request.urlopen(url + path, timeout=10) as r:
+                    return r.status, r.read().decode()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read().decode()
+
+        while True:  # until the final count is there: the requests are done, the exporter holds
+            assert time.monotonic() < deadline and t.is_alive(), "the hold ended before the scrape"
+            status, text = scrape("/metrics")
+            if f"infer_requests_total {n}" in text:
+                break
+            time.sleep(0.05)
+        status, body = scrape("/healthz")
+        health = json.loads(body)
+    finally:
+        t.join(timeout=120)
+    assert not t.is_alive()
+    assert status == 200 and health["ready"] and health["ok"] and health["degraded"] is False
+    assert health["detail"] == "pool up (2 replicas)" and set(health["info"]) >= {"replicas", "slo", "memory"}
+    assert 'serve_replica_up{replica="r0"} 1' in text and 'serve_replica_up{replica="r1"} 1' in text
+    # armed, and no violation: the events counter has no child until one
+    assert 'retrace_armed{loop="predict"} 1' in text and 'retrace_events_total{loop="predict"}' not in text
+    assert 'slo_breached{objective="success_rate>=0.9"} 0' in text and "slo_healthy_replicas 2" in text
+    assert "mem_host_rss_bytes" in text and 'mem_component_bytes{component="replica1_exec_cache"} 0' in text
+    assert "mem_device_bytes" not in text  # a CPU run degrades to host gauges
+    out = capsys.readouterr().out
+    assert f"pool served {n}/{n} ok (0 failed)" in out and "retrace sentinel: 0 unexpected" in out
+    assert "holding exporter for 4s" in out and "SLO verdict: degraded=False" in out
+    np.testing.assert_array_equal(np.load(done["out"])["logits"], plain)  # bit for bit

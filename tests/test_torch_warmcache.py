@@ -390,8 +390,7 @@ def test_cli_predict_warmcache_flags(saves, tmp_path, capsys):
     predict.main(base + ["--no-warmcache", "--out", str(tmp_path / "n.npz")])
     text = capsys.readouterr().out
     assert "warmcache:" not in text and "restored" in text
-    args = predict.build_parser().parse_args(base + ["--no-warmcache"])
-    predict.refuse_unported(args)  # accepted, not refused
+    assert predict.build_parser().parse_args(base + ["--no-warmcache"]).no_warmcache  # accepted
 
 
 def test_probe_reports_hits_on_the_second_run(tmp_path, capsys):
