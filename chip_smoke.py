@@ -238,6 +238,25 @@ Phases, each of which exits non-zero when it fails:
    (dispatches + captures) over every engine the pool built, and each
    engine's logits of the 70 files bit-equal to phase 19's; the wall ms
    of a scrape and of ``/healthz``.
+25. ViT-H/14 MAE pretraining from recipes/pretrain_vit_h14_in1k_fsdp.yaml
+   (after phase 24, on phase 13's shards; alone: scripts/torch_h14.py):
+   K1-K3 at the slice's encoder (256, 67, 16, 80: the head_dim-80
+   mma.sync kernels) and decoder (256, 259, 16, 32) shapes against their
+   plain versions at the gates of phases 3-4 and timed as phase 5 times
+   them; ``blockwise_attention`` against the full scores at
+   (2, 4099, 16, 64), with and without a bias, its peak memory below
+   theirs; two native-reader streams of the same shards alike; the step
+   at batch 256 under ``remat_policy`` "dots" and "none" (launches per
+   step: K1 72, K2 = K3 40; step ms, peak memory) and at batch 8 without
+   gradient checkpointing (K1 40); then the recipe through ``cli.train``
+   ``main`` with ``mesh.data=1``, batch 256, ``data.use_native`` and
+   ``data.valid_cache``: 3 steps (K1 72, K2 = K3 40 a step, finite
+   losses), one eval (K1 40, the cache written), a save; a second eval
+   of the saved state through the CLI's eval step and valid iterator that
+   opens no shard and gives the same loss bit for bit; and the
+   reconstruction figure drawn from the save by
+   ``tools/reconstruct.py`` (8 rows, 1806 x 902 px, the original panels
+   bit-equal to the validation images, K1 = 40 x forwards).
 
 Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
 NaN past the sequence inert, and time them there against SDPA.
@@ -551,7 +570,7 @@ def host_us(fn, calls: int = 1000) -> float:
     return dt / calls * 1e6
 
 
-def phase_timings(fa) -> dict:
+def phase_timings(fa, shapes=None, f32: bool = True) -> dict:
     """Phase 5a: K1 in bf16 at the main paths' shapes (ViT-B serving; the
     MAE decoder and encoder, the ring hop and the finetune batch, with lse,
     as training calls it; the served reconstruction's encoder and decoder
@@ -559,13 +578,15 @@ def phase_timings(fa) -> dict:
     (``ms``, the plain version, SDPA's forward) and from eager back-to-back
     launches (``eager_ms``, the method of the earlier kernels lines), the
     least time the card could take, and the wrapper's host µs per call;
-    K1 in f32 at the ViT-B shape."""
+    K1 in f32 at the ViT-B shape. ``shapes``: other (shape, with lse)
+    pairs instead (phase 25's), ``f32=False`` leaves the f32 time out."""
     import torch
     import torch.nn.functional as F
 
     out = {}
-    shapes = ((VIT_B_SHAPE, False), (DEC_SHAPE, True), (ENC_SHAPE, True), (HOP_SHAPE, True),
-              ((4, 787, 16, 64), False), (FT_SHAPE, True), (RECON_ENC_SHAPE, False), (RECON_DEC_SHAPE, False))
+    shapes = shapes or ((VIT_B_SHAPE, False), (DEC_SHAPE, True), (ENC_SHAPE, True), (HOP_SHAPE, True),
+                        ((4, 787, 16, 64), False), (FT_SHAPE, True), (RECON_ENC_SHAPE, False),
+                        (RECON_DEC_SHAPE, False))
     for shape, lse in shapes:
         q, k, v = qkv(shape, torch.bfloat16, seed=100)
 
@@ -585,10 +606,11 @@ def phase_timings(fa) -> dict:
             f"{eager:.4f} ms), plain {plain_ms:.4f} ms, sdpa forward {lib_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({by}), kernel at {100 * bound / ms:.1f}% of bound; host {host:.2f} us per call"
         )
-    q, k, v = qkv(VIT_B_SHAPE, torch.float32, seed=101)
-    ms = graph_ms(lambda: fa.flash_attention_fwd(q, k, v), per_graph=5, reps=5)
-    bound, by = attention_bound_ms(VIT_B_SHAPE, 4, PEAK_F32_FLOPS)
-    log(f"timing f32 {VIT_B_SHAPE}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    if f32:
+        q, k, v = qkv(VIT_B_SHAPE, torch.float32, seed=101)
+        ms = graph_ms(lambda: fa.flash_attention_fwd(q, k, v), per_graph=5, reps=5)
+        bound, by = attention_bound_ms(VIT_B_SHAPE, 4, PEAK_F32_FLOPS)
+        log(f"timing f32 {VIT_B_SHAPE}: kernel {ms:.4f} ms, bound {bound:.4f} ms ({by})")
     return out
 
 
@@ -787,7 +809,7 @@ def attention_fb_bound_ms(shape, g_lse: bool = False) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
-def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
+def phase_bwd_timings(fa, k1_timings: dict | None = None, shapes=None, fb_shapes=None) -> dict:
     """Phase 5b: K2 and K3 at the MAE encoder and decoder shapes, the ring
     hop and the finetune batch, bf16: each kernel (K2 computing D), the plain backward (all
     three gradients), SDPA's backward as (forward + backward) − forward,
@@ -798,7 +820,8 @@ def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
     against SDPA's and the einsum path's. Device ms per call from
     CUDA-graph replay, as phase 5a; each kernel's eager back-to-back time
     beside it. The einsum comparison needs ``k1_timings`` (phase 5a's
-    result) and is left out without it."""
+    result) and is left out without it. ``shapes`` and ``fb_shapes``:
+    other shapes for the kernels and for ``FlashAttention`` (phase 25's)."""
     import torch
     import torch.nn.functional as F
 
@@ -810,7 +833,9 @@ def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
         return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
     out = {}
-    for shape in (ENC_SHAPE, DEC_SHAPE, HOP_SHAPE, FT_SHAPE):
+    shapes = shapes or (ENC_SHAPE, DEC_SHAPE, HOP_SHAPE, FT_SHAPE)
+    fb_shapes = fb_shapes or (ENC_SHAPE, DEC_SHAPE, FT_SHAPE)
+    for shape in shapes:
         q, k, v, do, o, lse = bwd_inputs(shape, torch.bfloat16, 400, fa)
         if folds:
             def k2_call():
@@ -846,7 +871,7 @@ def phase_bwd_timings(fa, k1_timings: dict | None = None) -> dict:
         log(f"timing backward bf16 {shape}: {what} {bwd_ms:.4f} ms against sdpa backward {lib:.4f} ms "
             f"({bwd_ms / lib:.2f}x); the standalone D pass (attention_delta) {d_ms:.4f} ms, bound "
             f"{d_bound:.4f} ms (bytes)")
-        if shape in (ENC_SHAPE, DEC_SHAPE, FT_SHAPE):
+        if shape in fb_shapes:
             # FlashAttention (the counterpart of pallas_flash_attention):
             # forward + backward through autograd, against SDPA's
             from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention
@@ -1600,7 +1625,7 @@ def instrumented_driver(fa, before_step=None):
     from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer, host_state
 
     rec = {"images": [], "loader_wait_s": [], "dispatch_s": [], "metrics": [], "eval_k1": 0, "eval_batches": 0,
-           "saves": [], "restores": [], "ckpt": None}
+           "evals": [], "saves": [], "restores": [], "ckpt": None}
     saved = (TrainLoader.__next__, cli.make_train_step, engine_mod.fetch_metrics, cli.evaluate, Checkpointer.save,
              Checkpointer.restore)
     next_batch, make_step, fetch, evaluate, save, restore = saved
@@ -1642,6 +1667,7 @@ def instrumented_driver(fa, before_step=None):
         out = evaluate(eval_step, state, counted())
         rec["eval_k1"] += fa.LAUNCHES - k1
         rec["eval_batches"] += n[0]
+        rec["evals"].append(out)
         return out
 
     def recorded_save(self, step, state, metrics=None, extra=None):
@@ -3655,6 +3681,420 @@ def phase_telemetry(fa, smi: str, tmp: Path) -> dict:
     return res
 
 
+# ------------------------------------------------- ViT-H/14 from its recipe
+
+H14_RECIPE = "recipes/pretrain_vit_h14_in1k_fsdp.yaml"
+H14_BATCH = 256  # the largest of 64, 128 and 256 that fits one card under "dots"
+# the recipe at batch 256 on phase 13's 1,024 toy images: 0.75 epochs = 3
+# steps, warmup 0, no sanity eval (the run's one eval and the second eval
+# of its save then see the same weights), wandb off (no network there)
+H14_SETS = ["mesh.data=1", f"run.train_batch_size={H14_BATCH}", "data.dataset_size=1024", "run.epochs=0.75",
+            "optim.warmup_epochs=0", "run.sanity_eval=false", "run.use_wandb=false", "data.use_native=true"]
+H14_STEPS = 3
+# the slice's attention shapes at batch 256: the encoder (64 visible patches
+# + 3 CLS at head_dim 80) and the decoder (256 patches + 3 CLS, head_dim 32)
+H14_ENC_SHAPE = (H14_BATCH, 67, 16, 80)
+H14_DEC_SHAPE = (H14_BATCH, 259, 16, 32)
+H14_K1, H14_K2 = 2 * 32 + 8, 32 + 8  # per step: forwards and the "dots" recompute; backwards
+H14_EVAL_K1 = 32 + 8  # per eval batch (and per forward of the figure's engine)
+BLOCKWISE_SHAPE = (2, 4099, 16, 64)
+
+
+def vit_h14_mae():
+    """recipes/pretrain_vit_h14_in1k_fsdp.yaml's model and optimizer, built
+    in code for the policy timings: 32 x 1280, 16 heads, patch 14, K=3 CLS,
+    mask 0.75, sincos2d, grad_ckpt with "dots"; decoder 8 x 512 x 16 heads;
+    AdamW with bf16 mu, warmup 0."""
+    from jumbo_mae_tpu_tpu_torch.models import DecoderConfig, preset
+    from jumbo_mae_tpu_tpu_torch.train.optim import OptimConfig
+
+    enc = preset("vit_h14", labels=None, mask_ratio=0.75, posemb="sincos2d", grad_ckpt=True, remat_policy="dots")
+    dec = DecoderConfig(layers=8, dim=512, heads=16)
+    opt = OptimConfig(name="adamw", learning_rate=1.5e-4, lr_scaling="batch", b1=0.9, b2=0.95, weight_decay=0.05,
+                      mu_dtype="bfloat16", warmup_steps=0, training_steps=10_000)
+    return enc, dec, opt
+
+
+def h14_kernels(fa) -> dict:
+    """K1-K3 at the slice's encoder and decoder shapes against their plain
+    versions, as phases 3-4 hold them (f32 with TF32 off: K1 1e-5, K2/K3
+    1e-4; bf16: K1 atol 2e-2, K2/K3 within 3e-2 of the largest entry; K2's
+    D 1e-5; reruns bit-identical), without and with an lse cotangent."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    errs = {}
+    for dtype, tol in ((torch.float32, dict(atol=1e-5, rtol=1e-5)), (torch.bfloat16, dict(atol=2e-2, rtol=0.0))):
+        name = str(dtype).split(".")[-1]
+        for i, shape in enumerate((H14_ENC_SHAPE, H14_DEC_SHAPE)):
+            q, k, v = qkv(shape, dtype, seed=500 + i)
+            o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+            ref_o, ref_lse = fa.flash_attention_fwd_plain(q, k, v, with_lse=True)
+            torch.testing.assert_close(o, ref_o, **tol)
+            torch.testing.assert_close(lse, ref_lse, **tol)
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, with_lse=True)
+            check(torch.equal(o, o2) and torch.equal(lse, lse2), f"two runs of K1 differ at {shape} {name}")
+            errs[("K1", name, shape)] = max((o.float() - ref_o.float()).abs().max().item(),
+                                            (lse - ref_lse).abs().max().item())
+            q, k, v, do, o, lse = bwd_inputs(shape, dtype, 510 + i, fa)
+            b, sq, h, _ = shape
+            for g_lse in (None, torch.randn((b * h, sq), generator=torch.Generator(device="cuda").manual_seed(i),
+                                            device="cuda")):
+                case = f"{shape} {name}{' g_lse' if g_lse is not None else ''}"
+                got = fa.flash_attention_bwd(q, k, v, o, lse, do, g_lse=g_lse)
+                want_d = fa.attention_delta(o, do, g_lse)
+                grads = check_grads(case, got, fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=want_d), dtype)
+                again = fa.flash_attention_bwd(q, k, v, o, lse, do, g_lse=g_lse)
+                check(all(torch.equal(x, y) for x, y in zip(got, again)), f"two runs of K2/K3 differ at {case}")
+                d_err = check_delta(case, fa.flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)[1], want_d)
+                errs[("K2", name, shape)] = max(errs.get(("K2", name, shape), 0.0), grads["dq"][0])
+                errs[("K3", name, shape)] = max(errs.get(("K3", name, shape), 0.0), grads["dk"][0], grads["dv"][0])
+                log(f"h14 K2/K3 {case}: " + ", ".join(f"{g} {e:.3e}/{sc:.3e}" for g, (e, sc) in grads.items())
+                    + f", D {d_err:.3e}; rerun bit-identical")
+            log(f"h14 K1 {shape} {name}: max|o,lse - plain| {errs[('K1', name, shape)]:.3e}; rerun bit-identical")
+    return errs
+
+
+def h14_blockwise() -> dict:
+    """``blockwise_attention`` (plain PyTorch, key chunks of 1,024, the path
+    off CUDA from 2,048 tokens) on the card against the full score matrix
+    at (2, 4099, 16, 64), without and with a (1, 16, Sq, Sk) f32 bias:
+    f32 (TF32 off) at atol/rtol 1e-5, bf16 within 1e-2 of the largest
+    entry; the peak memory of each call above what its inputs hold."""
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.ops.blockwise_attention import blockwise_attention
+
+    def full(q, k, v, bias):
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+        p = torch.softmax(s if bias is None else s + bias, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    b, s, h, _ = BLOCKWISE_SHAPE
+    res = {}
+    g = torch.Generator(device="cuda").manual_seed(7)
+    bias = torch.randn((1, h, s, s), generator=g, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(BLOCKWISE_SHAPE, dtype, seed=600)
+        for name, bb in (("no bias", None), ("bias", bias)):
+            got, got_mem = peak(lambda: blockwise_attention(q, k, v, block_k=1024, bias=bb))
+            want, want_mem = peak(lambda: full(q, k, v, bb))
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            else:
+                check(err <= 1e-2 * scale, f"bf16 blockwise {name}: {err:.3e} > 1e-2 x {scale:.3e}")
+            check(got_mem < want_mem, f"blockwise {name} peak {got_mem} not below the full scores' {want_mem}")
+            key = f"{str(dtype).split('.')[-1]} {name}"
+            res[key] = dict(max_abs_err=err, peak_bytes=got_mem, full_peak_bytes=want_mem)
+            log(f"blockwise {BLOCKWISE_SHAPE} {key}: max|err| {err:.3e} of {scale:.3e}; peak {got_mem / 2**20:.1f} "
+                f"MiB against {want_mem / 2**20:.1f} MiB for the full scores")
+    return res
+
+
+def h14_policies(fa, smi: str) -> dict:
+    """The ViT-H/14 MAE step at batch 256 on one synthetic batch under
+    ``"dots"`` and ``"none"`` in turns (dots, none, none, dots; one model,
+    its encoder config switched): K1-K3 per step, peak card memory, step
+    ms by CUDA events over 3 steps after one, and the host ms of those 3
+    step calls before the closing sync (the enqueue); then one step at
+    batch 8 without gradient checkpointing for its launch counts; then, at
+    batch 8 from one state and batch, the loss and every parameter gradient
+    under "dots", "none" and no checkpointing, which must agree bit for bit
+    (the recompute runs the same ops, K1 among them, on the same inputs)."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
+    from jumbo_mae_tpu_tpu_torch.obs.mfu import mfu, pretrain_flops_per_image
+    from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
+
+    enc, dec, opt = vit_h14_mae()
+    t0 = time.perf_counter()
+    state = create_state((enc, dec, True), opt, device="cuda", init_seed=0, rng_seed=0,
+                         global_batch_size=H14_BATCH)
+    nparams = sum(p.numel() for p in state.model.parameters())
+    log(f"h14: train state built in {time.perf_counter() - t0:.1f} s, {nparams} params")
+    step = make_train_step(mode="pretrain")
+    flops = pretrain_flops_per_image(enc, dec)
+    out = {"params": nparams, "gflop_per_image": flops / 1e9}
+    none = enc.replace(remat_policy="none")
+    cases = (("dots", enc, H14_BATCH, 3), ("none", none, H14_BATCH, 3), ("none", none, H14_BATCH, 3),
+             ("dots", enc, H14_BATCH, 3), ("no checkpointing", enc.replace(grad_ckpt=False), 8, 1))
+    for name, cfg, batch_size, timed in cases:
+        state.model.encoder.cfg = cfg
+        batch = next(synthetic_batches(batch_size, enc.image_size, seed=0, distinct=1))
+        state, m = step(state, batch)  # allocations settle
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses = []
+        t_host = time.perf_counter()
+        for _ in range(timed):
+            state, m = step(state, batch)
+            losses.append(m["loss"])
+        host_ms = (time.perf_counter() - t_host) * 1e3 / timed
+        end.record()
+        torch.cuda.synchronize()
+        counts = {k: n / timed for k, n in (("K1", fa.LAUNCHES), ("K2", fa.LAUNCHES_BWD_DQ),
+                                             ("K3", fa.LAUNCHES_BWD_DKV))}
+        vals = [x.item() for x in losses]
+        check(all(np.isfinite(vals)), f"h14 {name}: non-finite loss {vals}")
+        step_ms = start.elapsed_time(end) / timed
+        peak = torch.cuda.max_memory_allocated()
+        run = dict(counts=counts, step_ms=step_ms, host_ms=host_ms, peak_bytes=peak, batch=batch_size, losses=vals)
+        out.setdefault(name, []).append(run)
+        want_k1 = (2 if cfg.grad_ckpt else 1) * enc.layers + dec.layers
+        log(f"h14 {name} at batch {batch_size}: K1 {counts['K1']:g}, K2 {counts['K2']:g}, K3 {counts['K3']:g} a "
+            f"step (want {want_k1}, {H14_K2}, {H14_K2}); {step_ms:.2f} ms a step (CUDA events over {timed}; host "
+            f"{host_ms:.2f} ms a step call), "
+            f"{batch_size * 1e3 / step_ms:.1f} images/s, MFU {100 * mfu(batch_size * 1e3 / step_ms, flops):.2f}% at "
+            f"{flops / 1e9:.1f} GFLOP/image, peak {peak / 2**30:.2f} GiB, on {smi}")
+        check(counts == {"K1": want_k1, "K2": H14_K2, "K3": H14_K2}, f"h14 {name}: launches per step {counts}")
+    out["gradients"] = h14_policy_gradients(state, (("dots", enc), ("none", none),
+                                                    ("no checkpointing", enc.replace(grad_ckpt=False))), smi)
+    state.model.encoder.cfg = enc
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def h14_policy_gradients(state, policies, smi: str, batch_size: int = 8) -> dict:
+    """One forward and backward of ``state``'s model on one synthetic batch
+    and one mask draw (the state's step generators, the step not advanced)
+    under each ``(name, encoder config)`` of ``policies``: the loss and
+    every parameter gradient of each against the first's, bit for bit. The
+    optimizer does not run, so every policy sees the same weights."""
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
+
+    model = state.model.train()
+    named = list(model.named_parameters())
+    batch = next(synthetic_batches(batch_size, model.encoder.cfg.image_size, seed=1, distinct=1))
+    images = torch.from_numpy(batch["images"]).to(state.device)
+    first, res = None, {}
+    for name, cfg in policies:
+        model.encoder.cfg = cfg
+        for _, p in named:
+            p.grad = None
+        loss = model(images, generators=state.step_generators())["loss"]
+        loss.backward()
+        got = (loss.detach(), [p.grad for _, p in named])
+        for _, p in named:
+            p.grad = None
+        if first is None:
+            first = (name, *got)
+            continue
+        pairs = list(zip([n for n, _ in named], got[1], first[2]))
+        differ = [n for n, a, b in pairs if (a is None) != (b is None) or (a is not None and not torch.equal(a, b))]
+        worst = max(((a - b).abs().max().item() for _, a, b in pairs if a is not None and b is not None), default=0.0)
+        res[name] = dict(loss=got[0].item(), loss_equal=torch.equal(got[0], first[1]), params_differ=len(differ),
+                         max_abs_diff=worst)
+        log(f"h14 gradients at batch {batch_size}, {name} against {first[0]}: loss {got[0].item():.9g} / "
+            f"{first[1].item():.9g}, {len(differ)} of {len(named)} parameter gradients differ (max |diff| "
+            f"{worst:.3e}), on {smi}")
+        check(res[name]["loss_equal"] and not differ,
+              f"h14: {name} against {first[0]}: loss {got[0].item()!r} / {first[1].item()!r}, gradients differ at "
+              f"{differ[:5]}")
+    return {"against": first[0], "batch": batch_size, "loss": first[1].item(), **res}
+
+
+def read_png_rgb(path: Path):
+    """(H, W, 3) uint8 of a PNG written by ``tools/reconstruct.write_png``
+    (8-bit RGB, filter 0 on every row, one IDAT chunk)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = path.read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is not a PNG")
+    w, h, depth, color = struct.unpack(">IIBB", data[16:26])
+    check((depth, color) == (8, 2), f"{path}: bit depth {depth}, color type {color}")
+    pos, idat = 8, b""
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: a row with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def h14_summary(h14: dict) -> dict:
+    """Phase 25's result as one JSON line: everything but the timings,
+    which the kernels line carries."""
+    return {k: v for k, v in h14.items() if k not in ("k1_timings", "bwd_timings")}
+
+
+def h14_kernel_fields(h14: dict, key: str) -> dict:
+    """K1-K3's numbers at phase 25's shapes for the kernels line: device ms
+    by graph replay (eager beside), plain, SDPA and bound, and the bf16
+    error against the plain version, at the encoder and the decoder."""
+    out = {}
+    for tag, shape in (("h14_enc", H14_ENC_SHAPE), ("h14_dec", H14_DEC_SHAPE)):
+        t = h14["k1_timings"][shape] if key == "K1" else h14["bwd_timings"][(key, shape)]
+        out[tag] = {k: t[k] for k in ("ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+        out[tag]["shape"] = list(shape)
+        out[tag]["max_abs_err"] = h14["kernel_errs"][f"{key} bfloat16 {shape}"]
+    return out
+
+
+def phase_h14(fa, smi: str, tmp: Path, urls: dict) -> dict:
+    """Phase 25: ViT-H/14 MAE pretraining from
+    recipes/pretrain_vit_h14_in1k_fsdp.yaml through ``cli/train.py``'s
+    ``main`` at full width and depth, batch 256, ``remat_policy: dots``,
+    the native tar reader and the validation cache, on phase 13's shards:
+    K1-K3 at the slice's shapes against their plain versions and timed,
+    ``blockwise_attention`` against the full scores, two native streams
+    alike, the step under "dots" and "none", then the run (3 steps, one
+    eval filling the cache, a save), a second eval of the saved state
+    through the CLI's eval step and valid iterator (no shard opened, the
+    same loss bit for bit) and the reconstruction figure from the save."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch import infer
+    from jumbo_mae_tpu_tpu_torch.cli import train as cli
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+    from jumbo_mae_tpu_tpu_torch.data import tario
+    from jumbo_mae_tpu_tpu_torch.data.loader import DataConfig, native_train_stream, valid_loader
+    from jumbo_mae_tpu_tpu_torch.data.shards import expand_shards
+    from jumbo_mae_tpu_tpu_torch.tools import reconstruct
+    from jumbo_mae_tpu_tpu_torch.train.steps import make_eval_step
+
+    t0 = time.perf_counter()
+    res = {"kernel_errs": {f"{k} {d} {s}": e for (k, d, s), e in h14_kernels(fa).items()}}
+    shapes = ((H14_ENC_SHAPE, True), (H14_DEC_SHAPE, True))
+    res["k1_timings"] = phase_timings(fa, shapes=shapes, f32=False)
+    res["bwd_timings"] = phase_bwd_timings(fa, shapes=(H14_ENC_SHAPE, H14_DEC_SHAPE),
+                                           fb_shapes=(H14_ENC_SHAPE, H14_DEC_SHAPE))
+    res["blockwise"] = h14_blockwise()
+    t_kernels = time.perf_counter() - t0
+
+    # ---- two native streams over the same shards: the same samples
+    cfg = DataConfig(train_shards=urls["train"], image_size=load_config(HERE / H14_RECIPE).data.image_size,
+                     use_native=True, seed=0)
+    digests = []
+    for _ in range(2):
+        stream = native_train_stream(cfg)
+        h = hashlib.sha1()
+        for _, (img, label) in zip(range(64), stream):
+            h.update(img.tobytes() + int(label).to_bytes(8, "little", signed=True))
+        stream.close()
+        digests.append(h.hexdigest()[:16])
+    check(digests[0] == digests[1], f"two native streams of the same shards differ: {digests}")
+    log(f"h14: two native streams (4 reader threads) of phase 13's shards, 64 samples each: digests {digests}")
+    res["native_digests"] = digests
+
+    res["policies"] = h14_policies(fa, smi)
+    t_policies = time.perf_counter() - t0
+
+    # ---- the main path: the recipe through cli/train.py, counts from 0
+    opens = []
+    real_open = tario.open_url
+    tario.open_url = lambda url, mode="rb": opens.append(url) or real_open(url, mode)
+    try:
+        out = tmp / "h14"
+        sets = H14_SETS + [f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}",
+                           f"data.valid_cache={tmp / 'valcache'}", f"run.output_dir={out}"]
+        rec = run_driver(fa, ["--config", str(HERE / H14_RECIPE), "--set", *sets])
+        run_opens = len(opens)
+        # the second eval: the CLI's own eval step and valid iterator on the
+        # state the run saved (the same weights), which now read the cache
+        recipe = load_config(HERE / H14_RECIPE, sets)
+        saved = rec["saves"][-1]["state"]
+        fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+        t1 = time.perf_counter()
+        second = cli.evaluate(make_eval_step(mode="pretrain"), saved,
+                              cli.make_valid_iterator(recipe, recipe.run.valid_batch_size, device=saved.device)())
+        eval_s = time.perf_counter() - t1
+        e = {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DQ, "K3": fa.LAUNCHES_BWD_DKV}
+        eval_opens = len(opens) - run_opens
+    finally:
+        tario.open_url = real_open
+    del saved
+    rec["saves"].clear()
+    steps = len(rec["metrics"])
+    losses = [m["loss"] for m in rec["metrics"]]
+    check(steps == H14_STEPS, f"h14: cli/train.py ran {steps} steps, want {H14_STEPS}")
+    check(all(np.isfinite(losses)) and all(m.get("skipped", 0.0) == 0.0 for m in rec["metrics"]),
+          f"h14: losses {losses}")
+    c = rec["counts"]
+    train_k1 = c["K1"] - rec["eval_k1"]
+    log(f"h14: cli/train.py ran {steps} steps (losses {', '.join(f'{x:.5f}' for x in losses)}); launches K1 {c['K1']} "
+        f"({train_k1} in the steps, {rec['eval_k1']} in {rec['eval_batches']} eval batch(es)), K2 {c['K2']}, K3 "
+        f"{c['K3']}; the second eval K1 {e['K1']}, K2 {e['K2']}, K3 {e['K3']} in {eval_s:.2f} s")
+    check(train_k1 == H14_K1 * steps and c["K2"] == c["K3"] == H14_K2 * steps, "h14: launches per train step")
+    check(rec["eval_k1"] == H14_EVAL_K1 * rec["eval_batches"] and rec["eval_batches"] == 1, "h14: eval launches")
+    check(e["K1"] == H14_EVAL_K1 * rec["eval_batches"] and e["K2"] == e["K3"] == 0, "h14: second eval launches")
+    vals = [rec["evals"][0]["val/loss"], second["val/loss"]]
+    log(f"h14: shard opens by the run's eval {run_opens}, by the second eval {eval_opens}; val/loss {vals}")
+    n_val = len(expand_shards(urls["val"]))
+    check(run_opens == n_val and eval_opens == 0,
+          f"h14: the first eval opened {run_opens} of {n_val} shard(s), the second {eval_opens}")
+    check(len(vals) == 2 and vals[0] == vals[1] and np.isfinite(vals[0]), f"h14: the two evals' losses {vals}")
+    saver = rec["ckpt"]
+    res["run"] = dict(counts=c, eval_k1=rec["eval_k1"], second_eval_counts=e, losses=losses, val_loss=vals,
+                      shard_opens=[run_opens, eval_opens], wall_s=rec["wall_s"], second_eval_s=eval_s,
+                      save_s=saver.last_save_s, write_s=saver.last_write_s, save_bytes=saver.last_save_bytes,
+                      dispatch_s=float(np.mean(rec["dispatch_s"][1:])), loader_wait_s=float(np.mean(rec["loader_wait_s"])))
+    log(f"h14: the run's main() {rec['wall_s']:.1f} s (state build, 3 steps, eval, save of {saver.last_save_bytes} "
+        f"bytes: {saver.last_save_s:.2f} s blocking, {saver.last_write_s:.2f} s writing), on {smi}")
+
+    # ---- the figure from the save
+    made = []
+    real_engine = infer.InferenceEngine
+
+    class Recorded(real_engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    infer.InferenceEngine = Recorded
+    try:
+        fa.LAUNCHES = 0
+        t1 = time.perf_counter()
+        png = reconstruct.main([str(HERE / H14_RECIPE), "--ckpt", str(out / recipe.run.name / "ckpt"),
+                                "--out", str(tmp / "h14_recon.png"), "--n", "8", "--set", *sets])
+        fig_s = time.perf_counter() - t1
+    finally:
+        infer.InferenceEngine = real_engine
+    fig_k1 = fa.LAUNCHES
+    grid = read_png_rgb(png)
+    size = recipe.data.image_size
+    check(grid.shape == (8 * (size + 2) - 2, 4 * (size + 2) - 2, 3), f"h14: the figure is {grid.shape}")
+    inputs = next(valid_loader(DataConfig(valid_shards=urls["val"], image_size=size), 8))["images"]
+    for i in range(8):
+        y = i * (size + 2)
+        check(np.array_equal(grid[y:y + size, :size], inputs[i]), f"h14: figure row {i}'s original")
+    check(len(made) == 1 and fig_k1 == H14_EVAL_K1 * ran(made[0]),
+          f"h14: the figure's engine launched K1 {fig_k1} times over {ran(made[0])} forwards")
+    res["figure"] = dict(shape=list(grid.shape), k1=fig_k1, forwards=ran(made[0]), seconds=fig_s,
+                         bytes=png.stat().st_size)
+    log(f"h14: figure {grid.shape[1]}x{grid.shape[0]} px from the save in {fig_s:.1f} s, K1 {fig_k1} = "
+        f"{H14_EVAL_K1} x {ran(made[0])} forwards, originals bit-equal to the validation images")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"h14: phase 25 in {res['seconds']:.1f} s (kernels {t_kernels:.1f}, policies {t_policies - t_kernels:.1f})")
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -3720,9 +4160,12 @@ def main() -> None:
         t9 = time.perf_counter()
         telemetry = phase_telemetry(fa, smi, tmp)
         t10 = time.perf_counter()
+        h14 = phase_h14(fa, smi, tmp, driver["urls"])
+        t11 = time.perf_counter()
         log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
             f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}, phase 20 {t6 - t5:.1f}, phase 21 {t7 - t6:.1f}, phase 22 "
-            f"{t8 - t7:.1f}, phase 23 {t9 - t8:.1f}, phase 24 {t10 - t9:.1f}; phases 1-14 took {t0 - t_start:.1f}")
+            f"{t8 - t7:.1f}, phase 23 {t9 - t8:.1f}, phase 24 {t10 - t9:.1f}, phase 25 {t11 - t10:.1f}; phases 1-14 "
+            f"took {t0 - t_start:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
@@ -3746,6 +4189,7 @@ def main() -> None:
     log(f"batch jobs: {json.dumps(batch)} on {smi}")
     log(f"billing, autoscaling and publishing: {json.dumps(billing)} on {smi}")
     log(f"serving telemetry and health: {json.dumps(telemetry)} on {smi}")
+    log(f"ViT-H/14 from its recipe: {json.dumps(h14_summary(h14))} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -3779,6 +4223,8 @@ def main() -> None:
                 "telemetry_launches": telemetry["k1"]}
                if key == "K1" else {}),
             "publish_launches": billing["publish"][key.lower()],
+            "h14_launches": h14["run"]["counts"][key],
+            **h14_kernel_fields(h14, key),
             "max_abs_err": err,
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],

@@ -16,9 +16,11 @@ model; ``finetune`` the classifier; ``linear`` the classifier with its
 trunk frozen and a BatchNorm head) and optimizer (``train/steps.py``,
 ``train/optim.py``), synthetic or tar-shard data through worker
 interpreters (``data/loader.py``) copied to the card on a side CUDA
-stream, a warm start from a port checkpoint (``run.pretrained_ckpt``: the
-encoder of an MAE save merged into the classifier's trunk, then the
-optimizer built on the merged weights), a sanity eval before step 1, eval
+stream (or, with ``data.use_native``, the native tar reader in this
+process), a warm start from a port checkpoint or a flax ``.msgpack``
+params file (``run.pretrained_ckpt``: the encoder of an MAE save merged
+into the classifier's trunk, then the optimizer built on the merged
+weights), a sanity eval before step 1, eval
 at ``eval_interval`` and at the end (padded valid rows masked out;
 ``val/loss``, and ``val/acc1``/``val/acc5`` when classifying),
 checkpoints at every eval and every ``ckpt_every`` steps with ``best`` by
@@ -42,8 +44,7 @@ Everything runs on ``"cuda"`` unless ``--device cpu`` (``device="cpu"``)
 asks for the CPU. What the port does not have yet raises, naming its
 ROADMAP item: FSDP, tensor and pipeline parallelism, ``--distributed`` and
 ``--elastic`` (A6); fault plans, telemetry, traces, diagnostics, the hang
-watchdog and SLOs (A7); the ``"dots"`` remat
-policies (A3's remainder). The platform layers a recipe has on by default
+watchdog and SLOs (A7). The platform layers a recipe has on by default
 — the rollback sentinel, journal, retrace sentinel, fleet beacons and
 memory watch — are named once at start as not ported (A7) and the run
 goes on without them.

@@ -19,10 +19,13 @@ round-robin order, which makes a sample-exact resume possible
 (:meth:`TrainLoader.snapshot`). :func:`prefetch_to_device` copies batches
 to the card from pinned memory on a side CUDA stream.
 
-This module imports torch only inside :func:`prefetch_to_device`, and PIL
-only when ``auto_augment`` names a policy. The native C++ reader
-(``use_native``) and the validation cache (``valid_cache``) are ROADMAP
-A3's remainder; each raises here.
+With ``use_native`` the train stream comes from the native C++ tar reader
+(``data/native.py``) in this process instead of the workers, in an order
+fixed by (shard list, ``native_io_threads``); with ``valid_cache`` every
+evaluation after the first streams from an on-disk sample cache
+(``data/valcache.py``). This module imports torch only inside
+:func:`prefetch_to_device`, and PIL only when ``auto_augment`` names a
+policy.
 """
 
 from __future__ import annotations
@@ -58,9 +61,7 @@ from jumbo_mae_tpu_tpu_torch.data.transforms import (
     resize,
     simple_resize_crop,
 )
-
-NATIVE_NOT_PORTED = "data.use_native (the native C++ tar reader) is not ported yet: ROADMAP queue A3's remainder"
-VALCACHE_NOT_PORTED = "data.valid_cache (the validation-sample cache) is not ported yet: ROADMAP queue A3's remainder"
+from jumbo_mae_tpu_tpu_torch.data.valcache import ValidSampleCache
 
 
 @dataclass(frozen=True)
@@ -249,6 +250,83 @@ def valid_sample_stream(
         yield eval_transform(img, cfg.image_size, crop_ratio=cfg.test_crop_ratio), label
 
 
+def native_train_stream(
+    cfg: DataConfig,
+    *,
+    process_index: int = 0,
+    process_count: int = 1,
+    start_epoch: int = 0,
+    skip_samples: int = 0,
+    cursor: StreamCursor | None = None,
+) -> Iterator[tuple[np.ndarray, int]]:
+    """The train stream over the native reader (``data/native.py``): C++
+    reader threads hand out raw image bytes, a thread pool of
+    ``decode_threads`` decodes them (cv2 and PIL release the GIL), and the
+    shuffle and augmentation run here, as :func:`train_sample_stream`'s do.
+
+    One reader per epoch over the process's stripe of that epoch's shard
+    order. The sample order is a pure function of (shard list,
+    ``native_io_threads``): each reader thread owns every T-th shard and
+    the reader merges the threads' queues in strict round-robin. So
+    ``skip_samples`` replays the consumed prefix exactly (decode and
+    shuffle draws replay; the augmentation is skipped), the same contract
+    as :func:`train_sample_stream`, for the same thread count."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from jumbo_mae_tpu_tpu_torch.data.native import NativeShardReader
+
+    shards = expand_shards(cfg.train_shards)
+    transform = TrainTransform(cfg)
+    epoch = start_epoch
+    to_skip = max(0, skip_samples)
+
+    def decode_one(pair):
+        payload, label = pair
+        img = decode_image(payload)
+        return None if img is None else (img, label)
+
+    with ThreadPoolExecutor(max_workers=max(1, cfg.decode_threads)) as pool:
+
+        def decoded(reader):
+            # a bounded window of futures (pool.map would drain the whole
+            # reader at once): the window keeps backpressure on the queues
+            window: deque = deque()
+            depth = max(2, cfg.decode_threads * 4)
+            for pair in reader:
+                window.append(pool.submit(decode_one, pair))
+                if len(window) >= depth:
+                    r = window.popleft().result()
+                    if r is not None:
+                        yield r
+            while window:
+                r = window.popleft().result()
+                if r is not None:
+                    yield r
+
+        while True:
+            rng = np.random.default_rng((cfg.seed, 2, process_index, epoch))
+            epoch_shards = split_shards(
+                shuffle_shards(shards, seed=cfg.seed, epoch=epoch),
+                process_index=process_index,
+                process_count=process_count,
+            )
+            with NativeShardReader(epoch_shards, threads=cfg.native_io_threads) as reader:
+                idx = 0
+                for img, label in _shuffle_stream(decoded(reader), cfg.shuffle_buffer, rng):
+                    for _ in range(cfg.repeats):
+                        if to_skip > 0:
+                            to_skip -= 1
+                            idx += 1
+                            continue
+                        aug = _aug_rng(cfg.seed, process_index, 0, epoch, idx)
+                        out = transform(aug, img), label
+                        idx += 1
+                        if cursor is not None:
+                            cursor.epoch, cursor.offset = epoch, idx
+                        yield out
+            epoch += 1
+
+
 def _deinterleave(indices: int, repeats: int) -> np.ndarray:
     """Batch reorder that spreads repeated-augmentation clones across the
     batch (the reference's ``batch[i::repeats]`` concatenation)."""
@@ -358,7 +436,8 @@ class TrainLoader:
     Each worker owns a disjoint shard stripe and yields whole per-process
     batches; the loader reads the workers in strict round-robin order —
     batch n always comes from worker ``n % workers`` — so the batch
-    sequence is a pure function of the config. ``workers=0`` runs inline.
+    sequence is a pure function of the config. ``workers=0`` runs inline,
+    and so does ``use_native`` (:func:`native_train_stream`).
 
     ``snapshot()`` returns a JSON-able cursor (per-worker stream positions
     and the round-robin phase); a loader built with ``cursor=`` continues
@@ -375,13 +454,20 @@ class TrainLoader:
         start_epoch: int = 0,
         cursor: dict | None = None,
     ):
-        if cfg.use_native:
-            raise NotImplementedError(NATIVE_NOT_PORTED)
         if batch_size % max(1, cfg.repeats):
             raise ValueError(f"repeats ({cfg.repeats}) must divide the per-process batch size ({batch_size})")
         TrainTransform(cfg)  # a policy without PIL raises here, not in a worker
         if decode.backend() == "none":
             raise ImportError(decode.NO_BACKEND)
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.wait_s = 0.0
+        self._workers: list[_Worker] = []
+        self._shard_states: list = []
+        self._native_threads: int | None = None
+        if cfg.use_native:
+            self._start_native(cursor, start_epoch, process_index, process_count)
+            return
         n_streams = 1 if cfg.workers <= 0 else cfg.workers
         stripe = len(expand_shards(cfg.train_shards)[process_index::process_count])
         if stripe < n_streams:
@@ -390,15 +476,11 @@ class TrainLoader:
                 f"{n_streams} data stream(s) but this process's stripe has {stripe} shard(s); "
                 "each worker needs at least one: lower data.workers"
             )
-        self.cfg = cfg
-        self.batch_size = batch_size
-        self.wait_s = 0.0
-        self._workers: list[_Worker] = []
         if cursor is not None:
             if cursor.get("native_threads") is not None:
                 raise ValueError(
                     "resume cursor was written by the native-IO loader (round-robin-over-threads "
-                    "sample order); fall back to epoch resume"
+                    "sample order); restart with data.use_native=true or fall back to epoch resume"
                 )
             starts = [tuple(c) for c in cursor["workers"]]
             if len(starts) != n_streams:
@@ -411,7 +493,7 @@ class TrainLoader:
             starts = [(start_epoch, 0)] * n_streams
             self.batches_yielded = 0
         self._cursors = list(starts)
-        self._shard_states: list = [None] * n_streams
+        self._shard_states = [None] * n_streams
         print(
             f"[data] train loader: {cfg.workers} worker(s), decode backend {decode.backend()}, "
             f"resize backend {transforms.backend()}",
@@ -446,15 +528,59 @@ class TrainLoader:
             }
             self._workers.append(_Worker(spec, per_worker_q))
 
+    def _start_native(self, cursor: dict | None, start_epoch: int, process_index: int, process_count: int) -> None:
+        """The native reader's stream, inline. Its sample order depends on
+        the thread count, so a cursor records ``native_threads`` and a
+        resume refuses a cursor of another thread count, or of the worker
+        loader (another order)."""
+        cfg = self.cfg
+        if cursor is not None:
+            saved = cursor.get("native_threads")
+            if saved is None:
+                raise ValueError(
+                    "resume cursor was written by the subprocess-worker loader (different sample order); "
+                    "restart with data.use_native=false or fall back to epoch resume"
+                )
+            if saved != cfg.native_io_threads:
+                raise ValueError(
+                    f"resume cursor was written with native_io_threads={saved} but the loader is configured "
+                    f"with {cfg.native_io_threads} — the merged sample order differs; restart with the "
+                    "checkpointed thread count"
+                )
+            start, skip = (int(x) for x in cursor["workers"][0])
+            self.batches_yielded = int(cursor["batches"])
+        else:
+            start, skip = start_epoch, 0
+            self.batches_yielded = 0
+        self._native_threads = cfg.native_io_threads
+        self._cursors = [(start, skip)]
+        print(
+            f"[data] train loader: native reader, {cfg.native_io_threads} reader thread(s), "
+            f"{cfg.decode_threads} decode thread(s), decode backend {decode.backend()}, "
+            f"resize backend {transforms.backend()}",
+            flush=True,
+        )
+        track = StreamCursor(start, skip)
+        self._stream = native_train_stream(
+            cfg, process_index=process_index, process_count=process_count, start_epoch=start,
+            skip_samples=skip, cursor=track,
+        )
+        self._inline = batch_train_samples(self._stream, self.batch_size, cfg.repeats, cursor=track)
+
     def snapshot(self) -> dict | None:
-        """The resume cursor as of the last batch ``__next__`` returned."""
+        """The resume cursor as of the last batch ``__next__`` returned; the
+        native reader's also records its thread count."""
         if not self._cursors:
             return None
-        return {"workers": [list(c) for c in self._cursors], "batches": self.batches_yielded}
+        snap = {"workers": [list(c) for c in self._cursors], "batches": self.batches_yielded}
+        if self._native_threads is not None:
+            snap["native_threads"] = self._native_threads
+        return snap
 
     def shard_snapshot(self) -> dict | None:
         """This process's consumed-shard state merged across its streams,
-        as of the last batch returned: ``{"epochs": {str(epoch): [gidx]}}``."""
+        as of the last batch returned: ``{"epochs": {str(epoch): [gidx]}}``;
+        ``None`` on the native reader (no shard-boundary accounting)."""
         if not self._shard_states:
             return None
         merged = merge_shard_states(self._shard_states)
@@ -509,10 +635,24 @@ class TrainLoader:
 def valid_loader(
     cfg: DataConfig, batch_size: int, *, process_index: int = 0, process_count: int = 1
 ) -> Iterator[dict[str, np.ndarray]]:
-    """A fresh sequential eval iterator (build one per evaluation)."""
-    if cfg.valid_cache:
-        raise NotImplementedError(VALCACHE_NOT_PORTED)
+    """A fresh sequential eval iterator (build one per evaluation). With
+    ``cfg.valid_cache`` set, the first pass fills the on-disk sample cache
+    (``data/valcache.py``) and every later pass streams from it without
+    opening a shard."""
     stream = valid_sample_stream(cfg, process_index=process_index, process_count=process_count)
+    if cfg.valid_cache:
+        cache = ValidSampleCache(
+            cfg.valid_cache,
+            key_fields={
+                "shards": expand_shards(cfg.valid_shards),
+                "image_size": cfg.image_size,
+                "test_crop_ratio": cfg.test_crop_ratio,
+                "process_index": process_index,
+                "process_count": process_count,
+            },
+            image_size=cfg.image_size,
+        )
+        stream = cache.read() if cache.complete() else cache.capture(stream)
     return batch_valid_samples(stream, batch_size, cfg.image_size)
 
 

@@ -18,7 +18,11 @@ The layout changes:
 
 The same mapping carries a gradient tree of the same structure. A key
 this bridge does not know raises ``KeyError``: a tree from another
-architecture must not load half-way. :func:`flax_path` is the map the
+architecture must not load half-way; only a caller that names a tree
+converted from a plain timm ViT (``plain_vit=True``, the timm path of
+``interop/torch_convert.py``) may leave out ``jumbo_mlp``, ``cls_tokens``
+and each block's ``ln3``, so that a warm-start merge keeps their fresh
+init. :func:`flax_path` is the map the
 other way, from a state_dict name to its flax path, and
 :func:`flax_tree_from_state_dict` the whole bridge the other way (the
 weights publisher writes its artifacts in the flax layout, so the two
@@ -90,9 +94,9 @@ def _attention(out: dict, p: str, attn: dict) -> None:
     _unknown(p, set(attn) - {"q", "k", "v", "out"})
 
 
-def _block(out: dict, p: str, blk: dict) -> None:
+def _block(out: dict, p: str, blk: dict, plain_vit: bool = False) -> None:
     _attention(out, f"{p}.attn", blk["attn"])
-    for ln in ("ln1", "ln2", "ln3"):
+    for ln in ("ln1", "ln2") if plain_vit and "ln3" not in blk else ("ln1", "ln2", "ln3"):
         _norm(out, f"{p}.{ln}", blk[ln])
     for ls in ("ls1", "ls2", "ls3"):
         if ls in blk:
@@ -131,15 +135,20 @@ def mae_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(
+    params: dict, batch_stats: dict | None = None, *, plain_vit: bool = False
+) -> dict[str, torch.Tensor]:
     """Map a flax ``JumboViT`` params tree (and its BatchNorm statistics)
     onto the port's ``JumboViT.state_dict()`` names, as float32 tensors.
     An ``MAEPretrainModel`` tree (it has an ``encoder``) goes to
-    :func:`mae_state_dict_from_jax`."""
+    :func:`mae_state_dict_from_jax`. ``plain_vit=True`` accepts a tree
+    without the jumbo parts (``cls_tokens``, ``jumbo_mlp``, ``ln3``) and
+    leaves their names out."""
     if "encoder" in params:
         return mae_state_dict_from_jax(params)
     out: dict[str, torch.Tensor] = {}
-    out["cls_tokens"] = _t(params["cls_tokens"])
+    if not (plain_vit and "cls_tokens" not in params):  # a GAP-pooled timm source has none
+        out["cls_tokens"] = _t(params["cls_tokens"])
     embed = params["embed"]
     kern = np.asarray(embed["proj"]["kernel"])  # (p, p, 3, D) HWIO
     out["embed.proj.weight"] = _t(kern.transpose(3, 2, 0, 1))  # OIHW
@@ -147,11 +156,12 @@ def state_dict_from_jax(params: dict, batch_stats: dict | None = None) -> dict[s
     if "pos_embed" in embed:
         out["embed.pos_embed"] = _t(embed["pos_embed"])  # (gh, gw, D)
     _unknown("embed", set(embed) - {"proj", "pos_embed"})
-    for fc in ("fc1", "fc2"):
-        _dense(out, f"jumbo_mlp.{fc}", params["jumbo_mlp"][fc])
+    if not (plain_vit and "jumbo_mlp" not in params):
+        for fc in ("fc1", "fc2"):
+            _dense(out, f"jumbo_mlp.{fc}", params["jumbo_mlp"][fc])
     blocks = [k for k in params if k.startswith("block_")]
     for key in blocks:
-        _block(out, f"blocks.{int(key.split('_')[1])}", params[key])
+        _block(out, f"blocks.{int(key.split('_')[1])}", params[key], plain_vit)
     _norm(out, "ln", params["ln"])
     known = {"cls_tokens", "embed", "jumbo_mlp", "ln", "head", *blocks}
     _unknown("", set(params) - known)

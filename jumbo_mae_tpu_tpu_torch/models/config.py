@@ -12,6 +12,7 @@ from dataclasses import dataclass
 from typing import Literal
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy
 
 from jumbo_mae_tpu_tpu_torch.parallel.ring_attention import INNERS as RING_INNERS
 
@@ -20,6 +21,10 @@ Pooling = Literal["cls", "gap"]
 AttnImpl = Literal["einsum", "flash", "ring", "auto"]
 MaskModeT = Literal["shared", "per_sample"]
 GatherImplT = Literal["take", "onehot"]
+# rematerialization policy under grad_ckpt=True:
+#   "none"          — save nothing, recompute the whole block
+#   "dots"          — save every matmul output, recompute the rest
+#   "dots_no_batch" — save the parameter matmuls, not the attention's
 RematPolicy = Literal["none", "dots", "dots_no_batch"]
 
 # the compute dtypes the port serves in (the flash kernel takes these two)
@@ -115,20 +120,34 @@ class JumboViTConfig:
         return dataclasses.replace(self, **kw)
 
 
-REMAT_NOT_PORTED = (
-    "remat_policy={policy!r} (save matmul outputs, recompute the rest) is "
-    "not ported yet: ROADMAP queue A3; remat_policy='none' recomputes the "
-    "whole block"
-)
+def checkpoint_policy(name: str):
+    """The selective-checkpoint policy of a ``RematPolicy`` name, for
+    ``torch.utils.checkpoint.create_selective_checkpoint_contexts``: the
+    counterpart of the JAX ``checkpoint_policy``. ``"none"`` is ``None``
+    (save nothing, recompute the whole block); ``"dots"``
+    (``dots_saveable``) saves every matmul output: PyTorch lowers a dense
+    layer to ``mm``/``addmm`` and an einsum to ``bmm``; ``"dots_no_batch"``
+    (``dots_with_no_batch_dims_saveable``) saves the matmuls without batch
+    dimensions: ``mm``/``addmm``, and a ``bmm`` of batch 1, which is how
+    ``torch.einsum`` lowers a contraction with no batch dimension (the
+    einsum path's output projection). Everything else is recomputed. A
+    kernel launched outside the dispatcher (the flash kernels) is no
+    matmul to the policy and runs again in the recompute, as a Pallas call
+    does under the JAX policies."""
+    if name == "none":
+        return None
+    if name not in ("dots", "dots_no_batch"):
+        raise ValueError(f"unknown remat policy {name!r}")
+    batched = name == "dots"
+    aten = torch.ops.aten
+    plain = (aten.mm.default, aten.addmm.default)
 
+    def policy(ctx, op, *args, **kwargs):
+        if op in plain or (op == aten.bmm.default and (batched or args[0].shape[0] == 1)):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
 
-def require_ported(cfg: "JumboViTConfig | DecoderConfig") -> None:
-    """Raise ``NotImplementedError`` for a config that needs a part of the
-    JAX package this port does not have yet, naming the ROADMAP item that
-    will bring it. Configs themselves stay constructible, so they
-    round-trip; models call this when they are built."""
-    if cfg.grad_ckpt and cfg.remat_policy != "none":
-        raise NotImplementedError(REMAT_NOT_PORTED.format(policy=cfg.remat_policy))
+    return policy
 
 
 @dataclass(frozen=True)

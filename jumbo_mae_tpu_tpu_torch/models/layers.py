@@ -28,14 +28,15 @@ ls1/ls2/ls3), so ``interop/from_jax.py`` maps one onto the other.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
-from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, JumboViTConfig
+from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, JumboViTConfig, checkpoint_policy
 from jumbo_mae_tpu_tpu_torch.ops.flash.attention import HEAD_DIMS, KERNEL_DTYPES
 from jumbo_mae_tpu_tpu_torch.ops.flash_attention import flash_attention
 from jumbo_mae_tpu_tpu_torch.ops.posemb import sincos2d_positional_embedding
@@ -288,13 +289,17 @@ def sub_seed(seed: int | None, site: int) -> int | None:
 def maybe_remat(block: nn.Module, cfg: ConfigT) -> Callable:
     """The block itself, or the block under gradient checkpointing when
     ``cfg.grad_ckpt`` is set and a gradient is being recorded: the
-    counterpart of ``config.py``'s ``maybe_remat`` with policy ``"none"``
-    (save the block's inputs, recompute all of it in the backward); the
-    models refuse the other policies when they are built. The recompute
-    runs under the ambient mesh of the forward: a CUDA backward runs on a
-    thread of PyTorch's own, where no mesh is set."""
+    counterpart of ``config.py``'s ``maybe_remat``. Policy ``"none"`` saves
+    the block's inputs and recomputes all of it in the backward; ``"dots"``
+    and ``"dots_no_batch"`` also keep the matmul outputs that
+    :func:`~jumbo_mae_tpu_tpu_torch.models.config.checkpoint_policy`
+    marks (a selective checkpoint), so the recompute runs the rest. The
+    recompute runs under the ambient mesh of the forward: a CUDA backward
+    runs on a thread of PyTorch's own, where no mesh is set."""
     if not cfg.grad_ckpt:
         return block
+    policy = checkpoint_policy(cfg.remat_policy)
+    context = {} if policy is None else {"context_fn": partial(create_selective_checkpoint_contexts, policy)}
 
     def run(*args):
         if torch.is_grad_enabled():
@@ -304,7 +309,7 @@ def maybe_remat(block: nn.Module, cfg: ConfigT) -> Callable:
                 with set_mesh(mesh):
                     return block(*a)
 
-            return checkpoint(under_mesh, *args, use_reentrant=False)
+            return checkpoint(under_mesh, *args, use_reentrant=False, **context)
         return block(*args)
 
     return run

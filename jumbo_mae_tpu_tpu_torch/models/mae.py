@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, JumboViTConfig, require_ported
+from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, JumboViTConfig, checkpoint_policy
 from jumbo_mae_tpu_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
@@ -42,7 +42,8 @@ class MAEDecoder(nn.Module):
 
     def __init__(self, cfg: DecoderConfig, grid: tuple[int, int], num_cls_tokens: int):
         super().__init__()
-        require_ported(cfg)
+        if cfg.grad_ckpt:
+            checkpoint_policy(cfg.remat_policy)  # an unknown policy fails here, not at the first step
         self.cfg = cfg
         self.num_cls_tokens = num_cls_tokens
         table = sincos2d_positional_embedding(*grid, cfg.dim).reshape(1, -1, cfg.dim)

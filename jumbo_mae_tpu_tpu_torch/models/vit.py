@@ -34,7 +34,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from jumbo_mae_tpu_tpu_torch.models.config import JumboViTConfig, require_ported
+from jumbo_mae_tpu_tpu_torch.models.config import JumboViTConfig, checkpoint_policy
 from jumbo_mae_tpu_tpu_torch.models.layers import (
     ClassifierHead,
     Dropout,
@@ -93,7 +93,8 @@ class JumboViT(nn.Module):
         self, cfg: JumboViTConfig, *, device: str | torch.device = "cuda", seed: int = 0, init_weights: bool = True
     ):
         super().__init__()
-        require_ported(cfg)
+        if cfg.grad_ckpt:
+            checkpoint_policy(cfg.remat_policy)  # an unknown policy fails here, not at the first step
         dev = resolve_device(device)
         self.cfg = cfg
         k = cfg.num_cls_tokens

@@ -20,12 +20,16 @@ from __future__ import annotations
 
 import torch
 
+from jumbo_mae_tpu_tpu_torch.ops.blockwise_attention import blockwise_attention
 from jumbo_mae_tpu_tpu_torch.ops.flash.attention import (
     flash_attention_bwd,
     flash_attention_fwd,
     flash_attention_with_lse_fwd,
     lse_cotangents,
 )
+
+# off CUDA, flash_attention takes the blockwise path from this many tokens
+BLOCKWISE_FROM = 2048
 
 
 def einsum_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -55,7 +59,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
     q, k, v: (batch, seq, heads, head_dim). Returns the shape of q. When a
     gradient is wanted it goes through :class:`FlashAttention`; otherwise
-    the forward kernel runs alone, without writing lse."""
+    the forward kernel runs alone, without writing lse. Off CUDA, from
+    2,048 tokens, it is :func:`blockwise_attention` over key chunks of
+    ``min(1024, seq_k)``, as the JAX ``flash_attention`` is off the TPU."""
+    if q.device.type != "cuda" and max(q.shape[1], k.shape[1]) >= BLOCKWISE_FROM:
+        return blockwise_attention(q, k, v, block_k=min(1024, k.shape[1]))
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v)
     return flash_attention_fwd(q, k, v)

@@ -34,9 +34,15 @@ never reads the optimizer's bytes (the file is memory-mapped);
 
 Warm starts (counterparts of the JAX package's ``resize_posemb``,
 ``merge_pretrained_params``, ``require_loaded`` and
-``load_pretrained_params``) read the port's own saves: the encoder of an
-MAE save (``encoder.*``) goes to a classifier's trunk (``model.*``), the
-decoder is dropped and the head stays fresh.
+``load_pretrained_params``) read the port's own saves and flax
+``.msgpack`` params files: the encoder of an MAE save (``encoder.*``) goes
+to a classifier's trunk (``model.*``), the decoder is dropped and the head
+stays fresh. :func:`export_params_msgpack` and
+:func:`import_params_msgpack` write and read the ``.msgpack`` params
+files of the JAX package (``interop/flax_msgpack.py``, no flax needed);
+serving and warm starts take one wherever they take a save. An Orbax
+checkpoint raises, naming the command that converts it to ``.msgpack``
+where JAX is installed.
 """
 
 from __future__ import annotations
@@ -53,6 +59,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from jumbo_mae_tpu_tpu_torch.interop import flax_msgpack
+from jumbo_mae_tpu_tpu_torch.interop.from_jax import state_dict_from_flax
 
 STATE_FILE = "state.pt"
 EXTRA_FILE = "extra.json"
@@ -374,9 +383,14 @@ def read_state(directory: str | Path, which: str = "last", step: int | None = No
 
 BATCH_STATS = ("running_mean", "running_var")
 ORBAX_NOT_PORTED = (
-    "{path} is {what}, which the port cannot read (the card has no JAX): convert it "
-    "first, ROADMAP queue A3.3; the port serves its own saves"
+    "{path} is an Orbax checkpoint, which the port cannot read (the card has no JAX; ROADMAP A3.3). "
+    "Convert it to a flax .msgpack params file where the JAX package is installed:\n"
+    "  python -c \"import sys; from jumbo_mae_tpu_tpu.train.checkpoint import restore_inference_state, "
+    "export_params_msgpack; export_params_msgpack(restore_inference_state(sys.argv[1])[0], sys.argv[2])\" "
+    "{path} params.msgpack\n"
+    "then pass params.msgpack (the parameters only, no BatchNorm statistics)"
 )
+MSGPACK_SUFFIX = ".msgpack"
 
 
 def split_batch_stats(sd: dict[str, torch.Tensor]) -> tuple[dict, dict | None]:
@@ -401,16 +415,22 @@ def _looks_like_orbax(p: Path) -> bool:
     return False
 
 
+def _is_msgpack(path: str | Path) -> bool:
+    return str(path).endswith(MSGPACK_SUFFIX)
+
+
 def resolve_save(path: str | Path) -> Path:
-    """The step directory :func:`restore_inference_state` reads for
-    ``path``: ``path`` itself when it holds ``state.pt``, else its newest
-    committed ``best`` save, then ``last``, then step directories directly
-    under it. An Orbax directory or a ``.msgpack`` file raises naming
-    ROADMAP A3.3."""
+    """What :func:`restore_inference_state` reads for ``path``: a flax
+    ``.msgpack`` params file as it is; ``path`` itself when it holds
+    ``state.pt``; else its newest committed ``best`` save, then ``last``,
+    then step directories directly under it. An Orbax directory raises
+    naming the conversion to ``.msgpack``."""
     s = str(path)
-    if s.endswith(".msgpack"):
-        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=s, what="a flax .msgpack params file"))
     p = Path(s)
+    if _is_msgpack(s):
+        if not p.is_file():
+            raise FileNotFoundError(f"no flax params file {s}")
+        return p
     if (p / STATE_FILE).is_file():
         return p
     for sub in ("best", "last", "."):
@@ -419,7 +439,7 @@ def resolve_save(path: str | Path) -> Path:
         if steps:
             return root / str(steps[0])
     if p.is_dir() and _looks_like_orbax(p):
-        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=s, what="an Orbax checkpoint"))
+        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=s))
     raise FileNotFoundError(f"no committed checkpoint under {s} (best/, last/ or step directories)")
 
 
@@ -427,12 +447,18 @@ def save_digest(path: str | Path) -> str:
     """A digest that names the save :func:`restore_inference_state` would
     read for ``path``, without reading its tensors: the resolved step
     directory, its commit marker's bytes, and ``state.pt``'s size and
-    modification time. A save written again, even at the same step, gets
+    modification time (for a ``.msgpack`` file: its path, size and
+    modification time). A save written again, even at the same step, gets
     another digest. The serving warm cache keys its entries on it."""
     d = resolve_save(path).resolve()
-    st = (d / STATE_FILE).stat()
+    if _is_msgpack(d):
+        st = d.stat()
+        parts = (str(d).encode(), f"{st.st_size}:{st.st_mtime_ns}".encode())
+    else:
+        st = (d / STATE_FILE).stat()
+        parts = (str(d).encode(), (d / COMMIT_FILE).read_bytes(), f"{st.st_size}:{st.st_mtime_ns}".encode())
     h = hashlib.sha256()
-    for part in (str(d).encode(), (d / COMMIT_FILE).read_bytes(), f"{st.st_size}:{st.st_mtime_ns}".encode()):
+    for part in parts:
         h.update(len(part).to_bytes(8, "little"))
         h.update(part)
     return h.hexdigest()[:16]
@@ -446,8 +472,38 @@ def restore_inference_state(path: str | Path) -> tuple[dict[str, torch.Tensor], 
 
     ``path`` is a checkpoint directory or one step directory, resolved by
     :func:`resolve_save`. The file is memory-mapped and only the model's
-    tensors are touched, so the optimizer's bytes are never read."""
-    return split_batch_stats(_load_save(resolve_save(path), mmap=True)[0]["model"])
+    tensors are touched, so the optimizer's bytes are never read. A flax
+    ``.msgpack`` params file (an MAE, classifier or bare ``JumboViT``
+    tree) goes through ``interop/from_jax.py`` and has no statistics."""
+    d = resolve_save(path)
+    if _is_msgpack(d):
+        return split_batch_stats(state_dict_from_flax(import_params_msgpack(d)))
+    return split_batch_stats(_load_save(d, mmap=True)[0]["model"])
+
+
+# ---------------------------------------------------------------- flax msgpack
+
+
+def export_params_msgpack(params: dict, path: str | Path) -> None:
+    """Write a flax params tree (nested dicts of numpy arrays or tensors:
+    ``interop.from_jax.model_flax_tree`` gives a port model's) as the
+    ``.msgpack`` file ``flax.serialization.msgpack_restore`` reads, the
+    JAX package's ``export_params_msgpack`` for local paths: a temporary
+    file fsynced, renamed into place, the directory fsynced, so a reader
+    never sees a partial file."""
+    target = Path(path)
+    target.parent.mkdir(parents=True, exist_ok=True)
+    payload = flax_msgpack.packb(params)
+    tmp = target.with_suffix(target.suffix + ".tmp")
+    _write_file(tmp, lambda f: f.write(payload))
+    os.replace(tmp, target)
+    _fsync_dir(target.parent)
+
+
+def import_params_msgpack(path: str | Path) -> dict:
+    """The params tree of a flax ``.msgpack`` file, numpy leaves (the JAX
+    package's ``import_params_msgpack`` for local paths)."""
+    return flax_msgpack.unpackb(Path(path).read_bytes())
 
 
 # ---------------------------------------------------------------- warm starts
@@ -561,11 +617,17 @@ def require_loaded(stats: dict, source, target_desc: str) -> None:
 
 
 def load_params_tree(path: str | Path) -> dict[str, torch.Tensor]:
-    """The saved model tensors of a port checkpoint: a checkpoint directory
-    (its newest committed ``last`` save) or one step directory."""
+    """The saved model tensors of a port checkpoint (a checkpoint directory,
+    its newest committed ``last`` save, or one step directory), or of a
+    flax ``.msgpack`` params file by ``state_dict`` name. An Orbax
+    directory raises naming the conversion."""
     p = Path(path)
+    if _is_msgpack(p):
+        return state_dict_from_flax(import_params_msgpack(p))
     if (p / STATE_FILE).is_file():
         return _load_save(p, mmap=True)[0]["model"]
+    if p.is_dir() and _looks_like_orbax(p):
+        raise NotImplementedError(ORBAX_NOT_PORTED.format(path=str(p)))
     return read_state(p)["model"]
 
 

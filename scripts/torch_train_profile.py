@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where the training time goes: the port's ViT-L/16 MAE step on one GPU.
+"""Where the training time goes: the port's ViT-L/16 (or ViT-H/14) MAE step on one GPU.
 
     python3 scripts/torch_train_profile.py [--batch 128] [--seq 4] [--out runs/torch_train_profile.json]
+    python3 scripts/torch_train_profile.py --model h14 --batch 256 --policies dots,none
 
 Builds the pretraining step as chip_smoke.py does
 (recipes/pretrain_vit_l16_in1k_800ep.yaml's model and optimizer, bf16
@@ -22,6 +23,12 @@ and ``make_train_step``, and measures on the card:
 ``--seq N`` (N > 1) profiles the sequence-parallel step of chip_smoke.py
 instead: the encoder on the flash ring and the decoder on the einsum ring
 of a one-process seq = N mesh, the whole step under ``set_mesh``.
+
+``--model h14`` profiles chip_smoke.py's phase-25 step instead
+(recipes/pretrain_vit_h14_in1k_fsdp.yaml's model and optimizer).
+``--policies dots,none,none,dots`` measures each remat policy in turn on
+one state (the encoder's ``remat_policy`` switched); the report then
+holds the numbers above for each, in that order, under ``policies``.
 
 Prints a summary and writes the numbers as JSON to ``--out``. Needs a
 CUDA device; exits non-zero without one.
@@ -94,17 +101,17 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=5, help="timed steps")
     ap.add_argument("--seq", type=int, default=1, help="ring attention over a one-process seq axis of this size")
+    ap.add_argument("--model", choices=("l16", "h14"), default="l16")
+    ap.add_argument("--policies", default="", help="comma-separated remat policies, each measured in turn")
     ap.add_argument("--out", default=str(REPO / "runs" / "torch_train_profile.json"))
     args = ap.parse_args()
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_train_profile: no CUDA device")
-    from chip_smoke import vit_l16_mae
+    from chip_smoke import vit_h14_mae, vit_l16_mae
     from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
-    from jumbo_mae_tpu_tpu_torch.obs.mfu import mfu, pretrain_flops_per_image
     from jumbo_mae_tpu_tpu_torch.parallel import MeshConfig, create_mesh, set_mesh
     from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
 
@@ -112,7 +119,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    enc, dec, opt = vit_l16_mae()
+    enc, dec, opt = vit_h14_mae() if args.model == "h14" else vit_l16_mae()
     mesh = None
     if args.seq > 1:
         enc = enc.replace(attn_impl="ring", ring_inner="flash")
@@ -122,48 +129,72 @@ def main() -> None:
         state = create_state((enc, dec, True), opt, device="cuda", global_batch_size=args.batch)
         step = make_train_step()
         batch = next(synthetic_batches(args.batch, enc.image_size, distinct=1))
-        for _ in range(3):
-            state, _ = step(state, batch)
-        torch.cuda.synchronize()
+        if not args.policies:
+            report = measure(args, state, step, batch, enc, dec, smi)
+        else:
+            report = {"device": smi, "torch": torch.__version__, "batch": args.batch, "model": args.model,
+                      "policies": []}
+            for policy in args.policies.split(","):
+                print(f"remat policy {policy}:")
+                cfg = enc.replace(remat_policy=policy)
+                state.model.encoder.cfg = cfg
+                report["policies"].append(measure(args, state, step, batch, cfg, dec, smi))
+    print(smi)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(report, indent=1))
 
-        def events():
-            return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-        start, end = events()
-        start.record()
-        for _ in range(args.steps):
-            state, _ = step(state, batch)
-        end.record()
-        torch.cuda.synchronize()
-        step_ms = start.elapsed_time(end) / args.steps
+def measure(args, state, step, batch, enc, dec, smi: str) -> dict:
+    """Time, split and trace ``step`` on ``state`` and ``batch`` (the
+    caller's mesh stays set); prints the summary and returns the report."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
-        # host enqueue time of one step, the card idle before it
-        t0 = time.perf_counter()
+    from jumbo_mae_tpu_tpu_torch.obs.mfu import mfu, pretrain_flops_per_image
+
+    for _ in range(3):
         state, _ = step(state, batch)
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
 
-        # forward / backward / optimizer split, the calls the step makes
-        model, params = state.model.train(), list(state.model.parameters())
-        images = torch.from_numpy(batch["images"]).cuda()
-        marks = [events() for _ in range(3)]
-        for p in params:
-            p.grad = None
-        marks[0][0].record()
-        out = model(images, generators=state.step_generators())
-        marks[0][1].record()
-        marks[1][0].record()
-        out["loss"].backward()
-        marks[1][1].record()
-        marks[2][0].record()
-        state.tx.update(state.opt_state, params, [p.grad for p in params])
-        marks[2][1].record()
-        torch.cuda.synchronize()
-        split = {k: a.elapsed_time(b) for k, (a, b) in zip(("forward", "backward", "optimizer"), marks)}
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            state, _ = step(state, batch)
-            torch.cuda.synchronize()
+    start, end = events()
+    start.record()
+    for _ in range(args.steps):
+        state, _ = step(state, batch)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / args.steps
+
+    # host enqueue time of one step, the card idle before it
+    t0 = time.perf_counter()
+    state, _ = step(state, batch)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+
+    # forward / backward / optimizer split, the calls the step makes
+    model, params = state.model.train(), list(state.model.parameters())
+    images = torch.from_numpy(batch["images"]).cuda()
+    marks = [events() for _ in range(3)]
+    for p in params:
+        p.grad = None
+    marks[0][0].record()
+    out = model(images, generators=state.step_generators())
+    marks[0][1].record()
+    marks[1][0].record()
+    out["loss"].backward()
+    marks[1][1].record()
+    marks[2][0].record()
+    state.tx.update(state.opt_state, params, [p.grad for p in params])
+    marks[2][1].record()
+    torch.cuda.synchronize()
+    split = {k: a.elapsed_time(b) for k, (a, b) in zip(("forward", "backward", "optimizer"), marks)}
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
     kernels = kernel_report(prof)
     kernel_ms = kernels["kernel_ms"]
     ips = args.batch * 1e3 / step_ms
@@ -171,6 +202,8 @@ def main() -> None:
         "device": smi,
         "torch": torch.__version__,
         "batch": args.batch,
+        "model": args.model,
+        "remat_policy": enc.remat_policy,
         "seq": args.seq,
         "step_ms": step_ms,
         "images_per_s": ips,
@@ -191,10 +224,7 @@ def main() -> None:
     print("flash kernels:")
     for row in report["flash"]:
         print(f"  {row['device_ms']:9.3f} ms  x{row['calls']:<5d} {row['name']}")
-    print(smi)
-    out = Path(args.out)
-    out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps(report, indent=1))
+    return report
 
 
 if __name__ == "__main__":

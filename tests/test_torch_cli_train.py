@@ -52,6 +52,7 @@ from jumbo_mae_tpu_tpu.parallel import create_mesh as jcreate_mesh
 from jumbo_mae_tpu_tpu.train.optim import make_optimizer as jmake_optimizer
 from jumbo_mae_tpu_tpu_torch.cli import train as ttrain
 from jumbo_mae_tpu_tpu_torch.config import load_config
+from jumbo_mae_tpu_tpu_torch.data import tario as ttario
 from jumbo_mae_tpu_tpu_torch.data.tario import write_tar_samples
 from jumbo_mae_tpu_tpu_torch.interop import classifier_state_dict_from_jax, mae_state_dict_from_jax
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import read_state
@@ -133,6 +134,50 @@ def test_resume_equals_uninterrupted(tmp_path, shard_root):
     assert "shard_cursor" in extra
     run(tmp_path / "b", 6, "run.resume=true")
     _assert_same_saves(tmp_path / "a" / "smoke_cpu" / "ckpt", tmp_path / "b" / "smoke_cpu" / "ckpt")
+
+
+H14_PATH = [  # the ViT-H/14 recipe's path at the smoke size: "dots" remat, the native reader, the valid cache
+    "model.overrides={mask_ratio: 0.75, posemb: sincos2d, image_size: 32, patch_size: 4, dtype: float32, "
+    "grad_ckpt: true, remat_policy: dots}",
+    "data.use_native=true",
+    "data.native_io_threads=2",
+]
+
+
+def test_dots_native_reader_and_valid_cache_through_the_cli(tmp_path, shard_root, monkeypatch):
+    """The smoke recipe with remat_policy=dots, data.use_native and
+    data.valid_cache: finite losses, the second eval reads no shard and
+    equals the first pass's loss on the same weights, a native cursor in
+    the save, and a resume at step 3 bit-equal to the straight 6 steps."""
+    opens = []
+    real = ttario.open_url
+    monkeypatch.setattr(ttario, "open_url", lambda url, mode="rb": opens.append(url) or real(url, mode))
+    evals = []  # the shard opens after each evaluation
+    real_eval = ttrain.evaluate
+
+    def counted(*a):
+        out = real_eval(*a)
+        evals.append(len(opens))
+        return out
+
+    monkeypatch.setattr(ttrain, "evaluate", counted)
+    sets = [*H14_PATH, f"data.valid_shards={shard_root}/train-0001.tar", f"data.valid_cache={tmp_path / 'vc'}"]
+    run = lambda out, steps, *extra: ttrain.train(  # noqa: E731
+        load_config(SMOKE, _overrides(out, shard_root, steps, *sets, *extra)), device="cpu")
+    metrics = run(tmp_path / "a", 6)
+    assert np.isfinite(metrics["train/loss"]) and np.isfinite(metrics["val/loss"])
+    assert evals == [1, 1]  # the first eval opened the shard, the second read the cache
+    assert len(list((tmp_path / "vc").glob("val-*.json"))) == 1
+    run(tmp_path / "b", 3)
+    extra = json.loads((tmp_path / "b" / "smoke_cpu" / "ckpt" / "last" / "3" / "extra.json").read_text())
+    assert extra["data_cursor"]["native_threads"] == 2 and extra["data_cursor"]["workers"] == [[0, 24]]
+    run(tmp_path / "b", 6, "run.resume=true")
+    _assert_same_saves(tmp_path / "a" / "smoke_cpu" / "ckpt", tmp_path / "b" / "smoke_cpu" / "ckpt")
+    # the same weights give the same eval from the cache as from the shard
+    cached, fresh = (ttrain.train(load_config(SMOKE, _overrides(
+        tmp_path / "c", 6, *sets[:-1], f"data.valid_cache={vc}", "run.eval_only=true", "run.resume=true",
+        f"run.output_dir={tmp_path / 'a'}")), device="cpu") for vc in (tmp_path / "vc", ""))
+    assert cached["val/loss"] == fresh["val/loss"]
 
 
 def test_sigterm_saves_and_the_resume_continues(tmp_path, shard_root, monkeypatch):
@@ -233,7 +278,6 @@ def test_slice_matches_the_jax_package(tmp_path, shard_root):
     ("run.diag_every=1", "A7"),
     ("run.hangwatch_deadline_s=5", "A7"),
     ("run.slo=p99_latency_ms<=250", "A7"),
-    ("model.overrides={grad_ckpt: true, remat_policy: dots, image_size: 32, patch_size: 4}", "A3"),
 ])
 def test_refusals_name_their_roadmap_item(tmp_path, override, item):
     cfg = load_config(SMOKE, [f"run.output_dir={tmp_path}", override])

@@ -17,7 +17,7 @@
   batches with ``auto_augment`` equal the JAX ``TrainLoader``'s, inline
   and with worker processes;
 - a worker runs where torch cannot be imported; the prefetch passes host
-  batches through on the CPU; unported options raise, naming ROADMAP.
+  batches through on the CPU; every data option constructs.
 """
 
 import io
@@ -319,13 +319,18 @@ def test_more_workers_than_shards_raises(shard_dir):
         tloader.TrainLoader(_cfgs(shard_dir, workers=3)[0], 4, process_index=1, process_count=2)
 
 
-def test_unported_data_options_raise(shard_dir):
-    # auto_augment (A4) runs since finetuning was ported
-    with pytest.raises(NotImplementedError, match="A3"):
-        tloader.TrainLoader(_cfgs(shard_dir, use_native=True)[0], 4)
+def test_unported_data_options_raise(shard_dir, tmp_path):
+    """No data option is left unported: auto_augment (A4) runs since
+    finetuning was ported, use_native and valid_cache (A3.1, A3.2) since
+    the native reader and the validation cache were (their parity tests:
+    tests/test_torch_native.py, tests/test_torch_valcache.py)."""
+    loader = tloader.TrainLoader(_cfgs(shard_dir, use_native=True)[0], 4)
+    assert next(loader)["images"].shape == (4, 16, 16, 3)
+    loader.close()
     tloader.TrainLoader(_cfgs(shard_dir, auto_augment="rand-m9-mstd0.5-inc1")[0], 4).close()
-    with pytest.raises(NotImplementedError, match="A3"):
-        tloader.valid_loader(_cfgs(shard_dir, valid_cache="x")[0], 4)
+    cfg = _cfgs(shard_dir, valid_cache=str(tmp_path / "vc"), valid_shards=f"{shard_dir}/train-0000.tar")[0]
+    assert [b["valid"].sum() for b in tloader.valid_loader(cfg, 4)] == [4, 2]
+    assert len(list((tmp_path / "vc").glob("val-*.json"))) == 1
 
 
 POLICIES = ["rand-m9-mstd0.5-inc1", "rand-m5-n3-p0.9", "rand-m7", "augmix-m3-w3-d2", "augmix-m5-a0.5",

@@ -41,8 +41,9 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "jumbo_mae_tpu_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "chex", "orbax", "jumbo_mae_tpu_tpu", "yaml")
 # blocked beside FORBIDDEN in the fresh interpreter: the port imports PIL
-# and cv2 only lazily or under try, and must run without any of these
-OPTIONAL = ("yaml", "PIL", "cv2")
+# and cv2 only lazily or under try, never msgpack (its flax msgpack codec
+# is its own), and must run without any of these
+OPTIONAL = ("yaml", "PIL", "cv2", "msgpack")
 TINY = preset("vit_t16", image_size=32, patch_size=4)
 SMOKE = str(REPO / "recipes" / "smoke_cpu.yaml")
 
@@ -269,6 +270,42 @@ def test_telemetry_without_jax_yaml_pil_or_cv2(tmp_path):
     assert "telemetry True True 0" in res.stdout and "pool served 6/6 ok" in res.stdout, res.stdout[-2000:]
 
 
+def test_figure_and_msgpack_without_jax_yaml_pil_cv2_or_msgpack(tmp_path):
+    """A smoke pretraining run with the "dots" remat policy, its save
+    exported as a flax ``.msgpack`` and read back, served from the
+    ``.msgpack`` by ``cli.predict``, and the reconstruction figure drawn
+    from it (a PNG of the expected size), in an interpreter where JAX,
+    PyYAML, PIL, cv2 and msgpack cannot import."""
+    res = _blocked_interpreter(
+        "import numpy as np, struct\n"
+        "from jumbo_mae_tpu_tpu_torch.cli import predict, train\n"
+        "from jumbo_mae_tpu_tpu_torch.cli.train import build_model\n"
+        "from jumbo_mae_tpu_tpu_torch.config import load_config\n"
+        "from jumbo_mae_tpu_tpu_torch.interop.from_jax import model_flax_tree\n"
+        "from jumbo_mae_tpu_tpu_torch.tools import reconstruct\n"
+        "from jumbo_mae_tpu_tpu_torch.train import checkpoint as ck\n"
+        f"out = {str(tmp_path)!r}\n"
+        "dots = 'model.overrides={mask_ratio: 0.75, posemb: sincos2d, image_size: 32, patch_size: 4, '\\\n"
+        "       'dtype: float32, grad_ckpt: true, remat_policy: dots}'\n"
+        f"train.main(['--config', {SMOKE!r}, '--device', 'cpu', '--set', 'run.output_dir=' + out,\n"
+        "            'run.training_steps=2', dots])\n"
+        f"model, _, _ = build_model(load_config({SMOKE!r}), device='cpu')\n"
+        "model.load_state_dict(ck.read_state(out + '/smoke_cpu/ckpt')['model'])\n"
+        "ck.export_params_msgpack(model_flax_tree(model)[0], out + '/p.msgpack')\n"
+        "params, _ = ck.restore_inference_state(out + '/p.msgpack')\n"
+        "same = all(np.array_equal(params[n].numpy(), t.numpy()) for n, t in model.state_dict().items())\n"
+        f"f = np.load(predict.main(['--config', {SMOKE!r}, '--ckpt', out + '/p.msgpack', '--synthetic', '3',\n"
+        "                           '--device', 'cpu', '--task', 'features', '--out', out + '/f.npz']))\n"
+        f"png = reconstruct.main([{SMOKE!r}, '--ckpt', out + '/p.msgpack', '--out', out + '/r.png', '--n', '2',\n"
+        "                         '--device', 'cpu', '--set', 'run.synthetic_data=true'])\n"
+        "w, h = struct.unpack('>II', open(png, 'rb').read()[16:24])\n"
+        "print('figure', same, f['features'].shape, w, h)\n",
+        timeout=300,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "figure True (3, 192) 134 66" in res.stdout, res.stdout[-2000:]
+
+
 def test_images_without_cv2_or_pil_raise_naming_both(tmp_path):
     """With neither cv2 nor PIL, decoding a JPEG, resizing and starting a
     train loader raise ImportError naming both packages; nothing returns
@@ -403,6 +440,13 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.obs.retrace",
         "jumbo_mae_tpu_tpu_torch.tools.serve_doctor",
         "jumbo_mae_tpu_tpu_torch.tools.mem_doctor",
+        "jumbo_mae_tpu_tpu_torch.ops.blockwise_attention",
+        "jumbo_mae_tpu_tpu_torch.data.valcache",
+        "jumbo_mae_tpu_tpu_torch.data.native",
+        "jumbo_mae_tpu_tpu_torch.interop.flax_msgpack",
+        "jumbo_mae_tpu_tpu_torch.interop.torch_convert",
+        "jumbo_mae_tpu_tpu_torch.interop.reference_convert",
+        "jumbo_mae_tpu_tpu_torch.tools.reconstruct",
     ):
         assert m in mods
     for src in ("flash_fwd.cu", "flash_bwd.cu", "flash_common.cuh"):

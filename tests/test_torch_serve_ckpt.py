@@ -26,7 +26,12 @@ from jumbo_mae_tpu_tpu.infer import InferenceEngine as JaxEngine
 from jumbo_mae_tpu_tpu_torch.config import load_config
 from jumbo_mae_tpu_tpu_torch.infer import InferenceEngine, OversizedBatchError
 from jumbo_mae_tpu_tpu_torch.interop.from_jax import flax_path
-from jumbo_mae_tpu_tpu_torch.train.checkpoint import COMMIT_FILE, STATE_FILE, restore_inference_state
+from jumbo_mae_tpu_tpu_torch.train.checkpoint import (
+    COMMIT_FILE,
+    STATE_FILE,
+    export_params_msgpack,
+    restore_inference_state,
+)
 from torch_port_util import port_save, port_tree, random_batch_stats, random_images, random_jumbo_params
 
 RECIPE = Path(__file__).resolve().parent.parent / "recipes" / "smoke_cpu.yaml"
@@ -146,19 +151,22 @@ def test_restore_reads_no_optimizer_tensor(saves, tmp_path):
 
 def test_restore_layouts_and_refusals(saves, tmp_path):
     """A checkpoint directory (best, then last), a slot directory and a
-    step directory all restore; a .msgpack file and an Orbax directory
-    raise naming A3.3; an empty directory raises FileNotFoundError."""
+    step directory all restore, and so does a flax .msgpack file of the
+    same tree (A3.3); an Orbax directory raises naming A3.3 and the
+    conversion; an empty directory raises FileNotFoundError."""
     d = saves["finetune"]["dir"]
     want = restore_inference_state(d)[0]
     for p in (d / "best", d / "last", d / "last" / "1"):
         got = restore_inference_state(p)[0]
         assert all(torch.equal(got[n], want[n]) for n in want)
-    with pytest.raises(NotImplementedError, match="A3.3"):
-        restore_inference_state(tmp_path / "params.msgpack")
+    export_params_msgpack({"model": saves["finetune"]["params"]}, tmp_path / "params.msgpack")
+    got, stats = restore_inference_state(tmp_path / "params.msgpack")
+    assert stats is None and set(got) == set(want)
+    assert all(torch.equal(got[n], want[n]) for n in want)
     orbax = tmp_path / "orbax" / "last" / "4"
     (orbax / "state").mkdir(parents=True)
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
-    with pytest.raises(NotImplementedError, match="A3.3"):
+    with pytest.raises(NotImplementedError, match="A3.3(.|\n)*export_params_msgpack"):
         restore_inference_state(tmp_path / "orbax")
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError):

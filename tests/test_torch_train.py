@@ -156,9 +156,16 @@ def test_optimizer_and_step_options_not_ported_raise():
         make_train_step(diag=True)
     with pytest.raises(NotImplementedError, match="A6"):
         make_train_step(pipe_microbatches=2)
-    with pytest.raises(NotImplementedError, match="A3"):
-        MAEPretrainModel(preset("vit_t16", **dict(ENC, grad_ckpt=True, remat_policy="dots")),
+    # the "dots" remat policies are ported; a policy of neither package
+    # raises when the model is built, in the encoder or the decoder
+    MAEPretrainModel(preset("vit_t16", **dict(ENC, grad_ckpt=True, remat_policy="dots")),
+                     DecoderConfig(**DEC), device="cpu")
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        MAEPretrainModel(preset("vit_t16", **dict(ENC, grad_ckpt=True, remat_policy="all")),
                          DecoderConfig(**DEC), device="cpu")
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        MAEPretrainModel(preset("vit_t16", **ENC), DecoderConfig(**dict(DEC, grad_ckpt=True, remat_policy="all")),
+                         device="cpu")
 
 
 def test_three_step_trajectory_matches_flax_and_optax():
