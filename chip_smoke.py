@@ -17,9 +17,10 @@ Phases, each of which exits non-zero when it fails:
    and 128), every tile edge of the wgmma kernel (S = 64, 65, 128, 129,
    257 around its 64-row tiles; S = 1, 8, 9, 16, 17, 32, 33 where its
    shape rule packs 16, 8, 4, 2 or 1 heads per tile; the ring hop
-   512x13x16x64; head_dims 32, 80, 128 at short and ragged lengths) and
-   Sq != Sk both ways, packed and not; two bf16 runs bit-identical; plus
-   strided q/k/v views of a fused projection;
+   512x13x16x64; head_dims 32, 80, 128 at short and ragged lengths;
+   head_dim 80's edges, ``H80_EDGES``) and Sq != Sk both ways, packed and
+   not; two bf16 runs bit-identical; plus strided q/k/v views of a fused
+   projection (head_dims 64 and 80) and NaN past the sequence unread;
 4. K2/K3 vs plain — the backward kernels (dq and D; dk and dv) against
    the plain backward at the MAE encoder and decoder shapes of the
    training slice, ViT-B, 448 px, ViT-H/14 and a ragged head_dim-128
@@ -240,9 +241,10 @@ Phases, each of which exits non-zero when it fails:
    of a scrape and of ``/healthz``.
 25. ViT-H/14 MAE pretraining from recipes/pretrain_vit_h14_in1k_fsdp.yaml
    (after phase 24, on phase 13's shards; alone: scripts/torch_h14.py):
-   K1-K3 at the slice's encoder (256, 67, 16, 80: the head_dim-80
-   mma.sync kernels) and decoder (256, 259, 16, 32) shapes against their
-   plain versions at the gates of phases 3-4 and timed as phase 5 times
+   K1-K3 at the slice's encoder (256, 67, 16, 80: K1 and K3 on wgmma
+   with 64 + 16-column panels, K2 mma.sync) and decoder (256, 259, 16,
+   32) shapes against their plain versions at the gates of phases 3-4
+   and timed as phase 5 times
    them; ``blockwise_attention`` against the full scores at
    (2, 4099, 16, 64), with and without a bias, its peak memory below
    theirs; two native-reader streams of the same shards alike; the step
@@ -298,6 +300,24 @@ DEC_SHAPE = (128, 199, 16, 32)
 # and decoder, without lse
 RECON_ENC_SHAPE = (64, 52, 16, 64)
 RECON_DEC_SHAPE = (64, 199, 16, 32)
+# the tile and panel edges of the head_dim-80 kernels (K1, K3; a 64-column
+# and a 16-column swizzled panel): S = 1, 9, 17, 33 at H = 16 on the edges
+# of the heads-per-tile rule (16, 4, 2, 1 heads), 64/65, the ViT-H/14
+# encoder's 67 (a 64-row tile and a ragged one of 3 rows), 128/129; H = 12
+# and 6 at a packed length (the last packed tile part empty)
+H80_EDGES = [
+    (8, 1, 16, 80),
+    (4, 9, 16, 80),
+    (4, 17, 16, 80),
+    (4, 33, 16, 80),
+    (4, 64, 8, 80),
+    (4, 65, 8, 80),
+    (4, 67, 16, 80),
+    (2, 128, 8, 80),
+    (2, 129, 8, 80),
+    (3, 13, 12, 80),
+    (2, 9, 6, 80),
+]
 KERNEL_SHAPES = [
     ENC_SHAPE,
     DEC_SHAPE,
@@ -334,11 +354,13 @@ KERNEL_SHAPES = [
     (2, 13, 4, 80),
     (2, 65, 4, 128),
     (2, 13, 6, 128),
+    *H80_EDGES,
 ]
 # K1 with Sq != Sk, (q shape, Sk): one tile per head both ways (and one
 # query row against 65 keys at head_dim 128); packed
 # tiles with Sq > Sk (4 and 8 heads, the second 8 of H = 12 part empty)
-# and Sq < Sk (2 heads)
+# and Sq < Sk (2 heads); head_dim 80 both ways (67 queries against a
+# ragged 13-key tile, 13 against a 64-key tile and a 3-key one)
 CROSS_SHAPES = [
     ((2, 40, 4, 64), 130),
     ((4, 13, 16, 64), 52),
@@ -347,6 +369,8 @@ CROSS_SHAPES = [
     ((4, 1, 16, 64), 20),
     ((2, 5, 12, 32), 3),
     ((2, 1, 8, 128), 65),
+    ((2, 67, 16, 80), 13),
+    ((2, 13, 16, 80), 67),
 ]
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16, NVIDIA data sheet
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -358,13 +382,14 @@ SEQ = 4
 HOP_SHAPE = (SEQ * 128, 52 // SEQ, 16, 64)
 K4_SHAPES = [HOP_SHAPE, (4, 1024, 16, 64), (2, 787, 16, 80), (2, 331, 8, 128)]
 RING_SHAPES = [ENC_SHAPE, (2, 4096, 16, 64)]
-# K2/K3 shapes: the training slice's, ViT-B, 448 px, ViT-H/14 (head_dim 80,
-# which keeps the mma.sync kernels), head_dim 128; then every tile edge of
+# K2/K3 shapes: the training slice's, ViT-B, 448 px, ViT-H/14 (head_dim 80:
+# K3 on wgmma, K2 still mma.sync), head_dim 128; then every tile edge of
 # the wgmma kernels, which tile and pack as K1 does: rows and keys around
 # the 64-row tiles (64/65, 128/129); S = 1, 8/9, 13, 16/17, 32/33 at H = 16
 # on the edges of the heads-per-tile rule (16, 8, 4, 2, 1 heads), with
 # H = 12 and 6 leaving the last packed tile part empty; the ring hop;
-# head_dims 32 and 128 packed and ragged. Sq != Sk: K1's CROSS_SHAPES.
+# head_dims 32 and 128 packed and ragged; head_dim 80's edges (H80_EDGES).
+# Sq != Sk: K1's CROSS_SHAPES.
 BWD_SHAPES = [
     ENC_SHAPE,
     DEC_SHAPE,
@@ -394,6 +419,7 @@ BWD_SHAPES = [
     (2, 17, 16, 128),
     (2, 65, 4, 128),
     (2, 13, 6, 128),
+    *H80_EDGES,
 ]
 
 
@@ -500,26 +526,28 @@ def phase_kernels(fa) -> dict:
                 line += "; rerun bit-identical"
             log(line)
             errs[(name, shape, k.shape[1])] = max(e_o, e_l)
-    # strided inputs: q, k, v as views of one fused (B, S, 3, H, D) projection
-    b, s, h, d = VIT_B_SHAPE
-    fused = torch.randn((b, s, 3, h, d), device="cuda").to(torch.bfloat16)
-    q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
-    o = fa.flash_attention_fwd(q, k, v)
-    ref = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
-    check(torch.equal(o, ref), "strided q/k/v views disagree with contiguous copies")
-    log("kernel on strided q/k/v views equals contiguous copies: True")
-    # pad rows are inert at the finetune shape: NaN stored past the 199
-    # tokens in the same buffers is never read
-    q, k, v = qkv(FT_SHAPE, torch.bfloat16, seed=77)
-    ref, ref_lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-    padded = []
-    for x in (q, k, v):
-        buf = torch.full((FT_SHAPE[0], FT_SHAPE[1] + 57, *FT_SHAPE[2:]), float("nan"), dtype=x.dtype, device="cuda")
-        buf[:, : FT_SHAPE[1]] = x
-        padded.append(buf[:, : FT_SHAPE[1]])
-    o, lse = fa.flash_attention_fwd(*padded, with_lse=True)
-    check(torch.equal(o, ref) and torch.equal(lse, ref_lse), f"pad rows change K1's output at {FT_SHAPE}")
-    log(f"kernel at {FT_SHAPE} with NaN past the sequence equals the contiguous run: True")
+    # strided inputs: q, k, v as views of one fused (B, S, 3, H, D)
+    # projection (head_dim 80: 160-byte rows, two tensor maps a view)
+    for b, s, h, d in (VIT_B_SHAPE, (64, 67, 16, 80)):
+        fused = torch.randn((b, s, 3, h, d), device="cuda").to(torch.bfloat16)
+        q, k, v = fused[:, :, 0], fused[:, :, 1], fused[:, :, 2]
+        o = fa.flash_attention_fwd(q, k, v)
+        ref = fa.flash_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())
+        check(torch.equal(o, ref), f"strided q/k/v views disagree with contiguous copies at head_dim {d}")
+    log("kernel on strided q/k/v views equals contiguous copies (head_dims 64, 80): True")
+    # pad rows are inert at the finetune shape and the ViT-H/14 encoder's:
+    # NaN stored past the sequence in the same buffers is never read
+    for shape in (FT_SHAPE, (64, 67, 16, 80), (8, 13, 16, 80)):
+        q, k, v = qkv(shape, torch.bfloat16, seed=77)
+        ref, ref_lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        padded = []
+        for x in (q, k, v):
+            buf = torch.full((shape[0], shape[1] + 57, *shape[2:]), float("nan"), dtype=x.dtype, device="cuda")
+            buf[:, : shape[1]] = x
+            padded.append(buf[:, : shape[1]])
+        o, lse = fa.flash_attention_fwd(*padded, with_lse=True)
+        check(torch.equal(o, ref) and torch.equal(lse, ref_lse), f"pad rows change K1's output at {shape}")
+        log(f"kernel at {shape} with NaN past the sequence equals the contiguous run: True")
     return errs
 
 
@@ -656,6 +684,14 @@ def kernel_bwd(fa, q, k, v, o, lse, do, g_lse=None):
     return fa.flash_attention_bwd(q, k, v, o, lse, do, delta=fa.attention_delta(o, do, g_lse))
 
 
+def k3_wgmma_at_80(fa) -> bool:
+    """Whether the package's K3 at head_dim 80 is the wgmma kernel (this
+    checkout) or the mma.sync one (an older checkout, as
+    scripts/torch_k1_bench.py --base loads one)."""
+    rule = fa.TMA_HEAD_DIMS
+    return isinstance(rule, dict) and 80 in rule["K3"]
+
+
 @contextlib.contextmanager
 def counting_delta_passes(fa):
     """Count the calls of the plain D pass (``attention_delta``) in the
@@ -735,20 +771,21 @@ def phase_bwd_kernels(fa) -> dict:
         log(f"K2's D against attention_delta at every case, both dtypes, with and without g_lse: worst "
             f"{d_worst:.3e} of max(1, max|D|) (gate 1e-5)")
 
-    b, s, h, d = VIT_B_SHAPE
-    fused = torch.randn((b, s, 5, h, d), device="cuda").to(torch.bfloat16)
-    q, k, v, do, o_view = (fused[:, :, i] for i in range(5))
-    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
-    o_view.copy_(o)
-    got = kernel_bwd(fa, q, k, v, o_view, lse, do)
-    ref = kernel_bwd(fa, *(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous())
-    check(all(torch.equal(a, b) for a, b in zip(got, ref)), "K2/K3 on strided views differ from contiguous copies")
-    log("K2/K3 on strided q/k/v/dO/O views equal contiguous copies: True")
+    for b, s, h, d in (VIT_B_SHAPE, (64, 67, 16, 80)):
+        fused = torch.randn((b, s, 5, h, d), device="cuda").to(torch.bfloat16)
+        q, k, v, do, o_view = (fused[:, :, i] for i in range(5))
+        o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True)
+        o_view.copy_(o)
+        got = kernel_bwd(fa, q, k, v, o_view, lse, do)
+        ref = kernel_bwd(fa, *(x.contiguous() for x in (q, k, v, o)), lse, do.contiguous())
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"K2/K3 on strided views differ from contiguous copies at head_dim {d}")
+    log("K2/K3 on strided q/k/v/dO/O views equal contiguous copies (head_dims 64, 80): True")
 
     # broadcast views (stride 0, which no TMA tensor map describes): dO of
     # o.sum() and k, v shared over the batch give the gradients of their
     # contiguous copies
-    for shape in (DEC_SHAPE, HOP_SHAPE, (2, 70, 4, 128)):
+    for shape in (DEC_SHAPE, HOP_SHAPE, (2, 70, 4, 128), (2, 67, 4, 80)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, o, lse = bwd_inputs(shape, dtype, 350, fa)
             views = {"dO": (q, k, v, do[:1].expand(shape)),
@@ -766,7 +803,7 @@ def phase_bwd_kernels(fa) -> dict:
     # gradients or D NaN)
     for dtype in (torch.float32, torch.bfloat16):
         for shape in ((2, 199, 4, 64), (8, 199, 12, 64), (3, 70, 2, 128), (2, 52, 4, 32), (4, 13, 16, 64),
-                      (2, 9, 12, 32)):
+                      (2, 9, 12, 32), (4, 67, 16, 80), (4, 13, 16, 80)):
             q, k, v, do, o, lse = bwd_inputs(shape, dtype, 300, fa)
             g_lse = torch.randn((shape[0] * shape[2], shape[1]), device="cuda")
             ref = kernel_bwd(fa, q, k, v, o, lse, do, g_lse)
@@ -789,6 +826,8 @@ def phase_bwd_kernels(fa) -> dict:
         # blocks an SM holds, against the register bound each kernel is
         # built for (BwdTile<D>::kMinBlocksDq / kMinBlocksDkv)
         want = {("K2", 32): 5, ("K2", 64): 3, ("K2", 128): 1, ("K3", 32): 4, ("K3", 64): 3, ("K3", 128): 1}
+        if k3_wgmma_at_80(fa):
+            want[("K3", 80)] = 3
         held = {key: fa.blocks_per_sm(*key) for key in want}
         log("blocks per SM (bf16 wgmma kernels): " + ", ".join(
             f"{kern} at head_dim {d} {n} (built for {want[(kern, d)]})" for (kern, d), n in held.items()))

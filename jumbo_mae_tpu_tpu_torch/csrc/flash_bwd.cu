@@ -45,15 +45,15 @@
 // Register bounds that force spills (4 blocks at head_dim 64, 5 for K3 at
 // 32) ran slower or only as fast, and the build refuses spills.
 //
-// The bf16 kernels for head_dim 32, 64 and 128 (flash_bwd_dq_wgmma,
-// flash_bwd_dkv_wgmma) follow K1's design (flash_fwd.cu):
+// The bf16 kernels (flash_bwd_dq_wgmma at head_dim 32, 64 and 128,
+// flash_bwd_dkv_wgmma at every head_dim) follow K1's design (flash_fwd.cu):
 //  - warp specialised: one producer warp starts TMA loads through 4-D
 //    tensor maps over the strided (B, S, H, D) views, one consumer
 //    warpgroup computes;
 //  - the block's own tiles (Q, dO and O in K2, K and V in K3) are loaded
 //    once; the other pair (K and V in K2, Q and dO in K3) streams
-//    through a ring of 3 slots under full/empty mbarriers, so the next
-//    tiles' loads overlap this tile's products;
+//    through a ring of 3 slots (2 at head_dim 80) under full/empty
+//    mbarriers, so the next tiles' loads overlap this tile's products;
 //  - K2: S = Q·Kᵀ and dP = dO·Vᵀ are wgmma SS products (both operands
 //    K-major in swizzled shared memory); dS = P ∘ (dP − D) is rounded to
 //    bf16 in registers, where the accumulator layout already is wgmma's A
@@ -89,14 +89,18 @@
 //    heads at the 13-token ring hop) under a block-diagonal mask;
 //  - rows past the sequence arrive from TMA as zeros and are never
 //    stored; a masked score gives P = dS = 0 exactly.
-// Swizzle: a 128-byte row for head_dim 64 and 128, 64 bytes for 32.
+// Swizzle: a 128-byte row for head_dim 64 and 128, 64 bytes for 32, and
+// at head_dim 80 a 64-column panel of 128-byte rows beside a 16-column
+// panel of 32-byte rows (hopper.cuh's SwizzledTile, as in K1): K3's SS
+// products take 4 k steps in panel 0 and 1 in panel 1, its RS products
+// split into 64 + 16 columns; a 2-slot ring there, so its shared memory
+// admits 3 blocks an SM.
 // Helpers live in hopper.cuh.
 //
-// Shape-selected variants kept from the first port:
-//  - head_dim 80 (ViT-H/14) in bf16 runs flash_bwd_dq_bf16 and
-//    flash_bwd_dkv_bf16: mma.sync m16n8k16, 4 warps of 16 rows, plain
-//    16-byte loads and transposed copies in shared memory. 160-byte rows
-//    fit no wgmma swizzle atom;
+// Shape-selected variants:
+//  - K2 at head_dim 80 (ViT-H/14) in bf16 runs flash_bwd_dq_bf16, kept
+//    from the first port: mma.sync m16n8k16, 4 warps of 16 rows, plain
+//    16-byte loads and a transposed copy of K in shared memory;
 //  - float32 runs plain FMA in full f32 (no TF32), 32-row tiles with 4
 //    threads per row. This is the exact path parity runs take.
 //
@@ -138,12 +142,17 @@ struct BwdParams {
 // ------------------------------------- bf16 path (K2, K3): wgmma + TMA
 
 constexpr int kWgRows = 64;           // rows of every tile: q rows (K2) or keys (K3) per block
-constexpr int kStages = 3;            // ring slots of the streamed pair of tiles
 constexpr int kWgThreads = 128 + 32;  // one consumer warpgroup and the producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct BwdTile : hp::SwizzledTile<D> {
+  // ring slots of the streamed pair of tiles: 3, and 2 at head_dim 80,
+  // where 3 would leave K3 2 blocks an SM (82 KB a block) and 2 admit 3
+  // (63 KB); at the ViT-H/14 encoder's 67 tokens K3 streams 2 q tiles, so
+  // 2 slots already load all of them at once (3 slots measured 1.2x
+  // slower there, on the H100)
+  static constexpr int kStages = D == 80 ? 2 : 3;
   // the block's own tiles (Q, dO and O in K2; K and V in K3) and kStages
   // slots of the streamed pair, + 1024 bytes for alignment. K2's O tile
   // keeps its 5 and 3 blocks an SM at head_dim 32 and 64 (37 and 73 KB a
@@ -156,10 +165,13 @@ struct BwdTile : hp::SwizzledTile<D> {
   // and hide each other's serial chains (at head_dim 32: K2 at 72
   // registers, 5 blocks; K3 at 88, 4 blocks). At head_dim 128 the
   // accumulators alone take 64 (K2) and 128 (K3) registers: one block.
+  // K3 at head_dim 80: 3 blocks, as many as its shared memory admits (the
+  // occupancy query, chip_smoke.py), dk and dv taking 80 registers of 136.
+  // K2 at head_dim 80 is still the mma.sync kernel.
   static constexpr int kDqCols = D == 32 ? 16 : D == 64 ? 32 : 64;
   static constexpr int kDkvCols = D == 128 ? 32 : 16;
   static constexpr int kMinBlocksDq = D == 32 ? 5 : D == 64 ? 3 : 1;
-  static constexpr int kMinBlocksDkv = D == 32 ? 4 : D == 64 ? 3 : 1;
+  static constexpr int kMinBlocksDkv = D == 32 ? 4 : D == 64 || D == 80 ? 3 : 1;
 };
 
 struct WgParams {
@@ -248,16 +260,14 @@ __device__ __forceinline__ void dq_cols(float (&dq)[D / 2], uint32_t q_tile, uin
   float s[kKeys / 2], dp[kKeys / 2];
 #pragma unroll
   for (int i = 0; i < kKeys / 2; ++i) s[i] = dp[i] = 0.f;
-  const uint64_t desc_q = T::kmajor(q_tile, 0), desc_k = T::kmajor(k_tile, c0);
-  const uint64_t desc_do = T::kmajor(do_tile, 0), desc_v = T::kmajor(v_tile, c0);
   hp::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    hp::wgmma_ss<kKeys>(s, desc_q + T::k_step(kk), desc_k + T::k_step(kk), kk > 0);
+    hp::wgmma_ss<kKeys>(s, T::kmajor(q_tile, 0, kk), T::kmajor(k_tile, c0, kk), kk > 0);
   }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    hp::wgmma_ss<kKeys>(dp, desc_do + T::k_step(kk), desc_v + T::k_step(kk), kk > 0);
+    hp::wgmma_ss<kKeys>(dp, T::kmajor(do_tile, 0, kk), T::kmajor(v_tile, c0, kk), kk > 0);
   }
   hp::wgmma_commit();
   hp::wgmma_wait_all();
@@ -279,10 +289,9 @@ __device__ __forceinline__ void dq_cols(float (&dq)[D / 2], uint32_t q_tile, uin
   // as B, MN-major through the transpose bit
   uint32_t a[kKeys / 16][4];
   acc_to_a<kKeys>(a, s);
-  const uint64_t desc_kt = T::mnmajor(k_tile, c0);
   hp::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) hp::wgmma_rs<D>(dq, a[kk], desc_kt + T::mn_step(kk));
+  for (int kk = 0; kk < kKeys / 16; ++kk) T::rs_product(dq, a[kk], k_tile, c0 + 16 * kk);
   hp::wgmma_commit();
   hp::wgmma_wait_all();
   hp::fence_operands(dq);
@@ -316,10 +325,11 @@ __device__ __forceinline__ float tile_row_dot(uint32_t do_tile, uint32_t o_tile,
 
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDq)
-    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                       const __grid_constant__ CUtensorMap tm_o, WgParams p) {
+    flash_bwd_dq_wgmma(const __grid_constant__ hp::TileMaps<D> tm_q, const __grid_constant__ hp::TileMaps<D> tm_k,
+                       const __grid_constant__ hp::TileMaps<D> tm_v, const __grid_constant__ hp::TileMaps<D> tm_do,
+                       const __grid_constant__ hp::TileMaps<D> tm_o, WgParams p) {
   using T = BwdTile<D>;
+  constexpr int kStages = T::kStages;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // own_full, full[], empty[]
 
@@ -354,22 +364,16 @@ __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDq)
   if (warp == 4) {  // ---- the producer warp: one lane starts every load
     if (lane == 0) {
       hp::mbar_arrive_expect_tx(own_full, 3 * T::kTileBytes);
-      for (int pn = 0; pn < T::kPanels; ++pn) {
-        const uint32_t off = pn * T::kPanelBytes;
-        hp::tma_load_4d(q_tile + off, &tm_q, own_full, pn * T::kPanelCols, h0, s0, b);
-        hp::tma_load_4d(do_tile + off, &tm_do, own_full, pn * T::kPanelCols, h0, s0, b);
-        hp::tma_load_4d(o_tile + off, &tm_o, own_full, pn * T::kPanelCols, h0, s0, b);
-      }
+      hp::tma_load_tile<D>(q_tile, tm_q, own_full, h0, s0, b);
+      hp::tma_load_tile<D>(do_tile, tm_do, own_full, h0, s0, b);
+      hp::tma_load_tile<D>(o_tile, tm_o, own_full, h0, s0, b);
       for (int n = 0; n < n_tiles; ++n) {
         const int st = n % kStages;
         hp::mbar_wait(empty0 + 8 * st, ((n / kStages) & 1) ^ 1);
         const uint32_t full = full0 + 8 * st;
         hp::mbar_arrive_expect_tx(full, 2 * T::kTileBytes);
-        for (int pn = 0; pn < T::kPanels; ++pn) {
-          const uint32_t off = st * T::kTileBytes + pn * T::kPanelBytes;
-          hp::tma_load_4d(k_smem + off, &tm_k, full, pn * T::kPanelCols, h0, n * rows_s, b);
-          hp::tma_load_4d(v_smem + off, &tm_v, full, pn * T::kPanelCols, h0, n * rows_s, b);
-        }
+        hp::tma_load_tile<D>(k_smem + st * T::kTileBytes, tm_k, full, h0, n * rows_s, b);
+        hp::tma_load_tile<D>(v_smem + st * T::kTileBytes, tm_v, full, h0, n * rows_s, b);
       }
     }
     return;
@@ -441,16 +445,14 @@ __device__ __forceinline__ void dkv_cols(float (&dk)[D / 2], float (&dv)[D / 2],
   float s[N / 2], dp[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) s[i] = dp[i] = 0.f;
-  const uint64_t desc_k = T::kmajor(k_tile, 0), desc_q = T::kmajor(q_tile, c0);
-  const uint64_t desc_v = T::kmajor(v_tile, 0), desc_do = T::kmajor(do_tile, c0);
   hp::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    hp::wgmma_ss<N>(s, desc_k + T::k_step(kk), desc_q + T::k_step(kk), kk > 0);
+    hp::wgmma_ss<N>(s, T::kmajor(k_tile, 0, kk), T::kmajor(q_tile, c0, kk), kk > 0);
   }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    hp::wgmma_ss<N>(dp, desc_v + T::k_step(kk), desc_do + T::k_step(kk), kk > 0);
+    hp::wgmma_ss<N>(dp, T::kmajor(v_tile, 0, kk), T::kmajor(do_tile, c0, kk), kk > 0);
   }
   hp::wgmma_commit();
   hp::wgmma_wait_all();
@@ -476,12 +478,11 @@ __device__ __forceinline__ void dkv_cols(float (&dk)[D / 2], float (&dv)[D / 2],
   uint32_t ap[N / 16][4], ads[N / 16][4];
   acc_to_a<N>(ap, s);
   acc_to_a<N>(ads, dp);
-  const uint64_t desc_dot = T::mnmajor(do_tile, c0), desc_qt = T::mnmajor(q_tile, c0);
   hp::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
-    hp::wgmma_rs<D>(dv, ap[kk], desc_dot + T::mn_step(kk));
-    hp::wgmma_rs<D>(dk, ads[kk], desc_qt + T::mn_step(kk));
+    T::rs_product(dv, ap[kk], do_tile, c0 + 16 * kk);
+    T::rs_product(dk, ads[kk], q_tile, c0 + 16 * kk);
   }
   hp::wgmma_commit();
   hp::wgmma_wait_all();
@@ -503,10 +504,11 @@ __device__ __forceinline__ void dkv_tile(int cols, float (&dk)[D / 2], float (&d
 
 template <int D>
 __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDkv)
-    flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                        const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    flash_bwd_dkv_wgmma(const __grid_constant__ hp::TileMaps<D> tm_q, const __grid_constant__ hp::TileMaps<D> tm_k,
+                        const __grid_constant__ hp::TileMaps<D> tm_v, const __grid_constant__ hp::TileMaps<D> tm_do,
                         WgParams p) {
   using T = BwdTile<D>;
+  constexpr int kStages = T::kStages;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // own_full, full[], empty[]
   __shared__ __align__(16) float lse_s[kStages][kWgRows];  // lse·log2 e of the slot's q rows
@@ -543,11 +545,8 @@ __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDkv)
                     // every lane loads lse and D of two of the tile's rows
     if (lane == 0) {
       hp::mbar_arrive_expect_tx(own_full, 2 * T::kTileBytes);
-      for (int pn = 0; pn < T::kPanels; ++pn) {
-        const uint32_t off = pn * T::kPanelBytes;
-        hp::tma_load_4d(k_tile + off, &tm_k, own_full, pn * T::kPanelCols, h0, s0, b);
-        hp::tma_load_4d(v_tile + off, &tm_v, own_full, pn * T::kPanelCols, h0, s0, b);
-      }
+      hp::tma_load_tile<D>(k_tile, tm_k, own_full, h0, s0, b);
+      hp::tma_load_tile<D>(v_tile, tm_v, own_full, h0, s0, b);
     }
     for (int n = 0; n < n_tiles; ++n) {
       const int st = n % kStages;
@@ -555,11 +554,8 @@ __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDkv)
       const uint32_t full = full0 + 8 * st;
       if (lane == 0) {
         hp::mbar_arrive_expect_tx(full, 2 * T::kTileBytes);
-        for (int pn = 0; pn < T::kPanels; ++pn) {
-          const uint32_t off = st * T::kTileBytes + pn * T::kPanelBytes;
-          hp::tma_load_4d(q_smem + off, &tm_q, full, pn * T::kPanelCols, h0, n * rows_s, b);
-          hp::tma_load_4d(do_smem + off, &tm_do, full, pn * T::kPanelCols, h0, n * rows_s, b);
-        }
+        hp::tma_load_tile<D>(q_smem + st * T::kTileBytes, tm_q, full, h0, n * rows_s, b);
+        hp::tma_load_tile<D>(do_smem + st * T::kTileBytes, tm_do, full, h0, n * rows_s, b);
       }
       for (int r = lane; r < kWgRows; r += 32) {
         const int sq = n * rows_s + (r >> p.log_pack);
@@ -604,14 +600,12 @@ __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDkv)
   store_rows<D>(p.out1, p.os1, dv, r0, ri.t, s0, h0, b, p.log_pack, p.Sk, p.H);
 }
 
-// ------------------------------------------ bf16 path, head_dim 80: mma.sync
+// ------------------------------------- bf16 path, head_dim 80: K2 on mma.sync
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kDqRows = 16 * kWarps;  // K2: q rows per block
 constexpr int kDqKeys = 64;           // K2: keys per K/V tile
-constexpr int kDkvKeys = 16 * kWarps; // K3: keys per block
-constexpr int kDkvQ = 64;             // K3: q rows per streamed tile
 
 template <int D>
 constexpr size_t smem_dq_bf16() {
@@ -741,140 +735,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(BwdParams p) {
     for (int j = 0; j < kOutTiles; ++j) {
       *reinterpret_cast<uint32_t*>(row + j * 8 + 2 * t) =
           pack_bf16x2(acc[j][2 * r], acc[j][2 * r + 1]);
-    }
-  }
-}
-
-template <int D>
-constexpr size_t smem_dkv_bf16() {
-  constexpr int kQ = kDkvQ;
-  // ks, vs [kDkvKeys][D+kPad]; qs, dos [kQ][D+kPad]; qt, dot [D][kQ+kPad];
-  // lse, D [kQ] f32
-  return sizeof(__nv_bfloat16) * (2 * kDkvKeys * (D + kPad) + 2 * kQ * (D + kPad) +
-                                  2 * D * (kQ + kPad)) +
-         sizeof(float) * 2 * kQ;
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(BwdParams p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  constexpr int kQ = kDkvQ;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int ld = D + kPad;
-  constexpr int ldt = kQ + kPad;
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + kDkvKeys * ld;
-  __nv_bfloat16* qs = vs + kDkvKeys * ld;
-  __nv_bfloat16* dos = qs + kQ * ld;
-  __nv_bfloat16* qt = dos + kQ * ld;
-  __nv_bfloat16* dot = qt + D * ldt;
-  float* lse_s = reinterpret_cast<float*>(dot + D * ldt);
-  float* dd_s = lse_s + kQ;
-
-  const int n0 = blockIdx.x * kDkvKeys;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long bh = static_cast<long long>(b) * p.H + h;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.vs.b + h * p.vs.h;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) + b * p.dos.b + h * p.dos.h;
-  __nv_bfloat16* dk = static_cast<__nv_bfloat16*>(p.dk) + b * p.dks.b + h * p.dks.h;
-  __nv_bfloat16* dv = static_cast<__nv_bfloat16*>(p.dv) + b * p.dvs.b + h * p.dvs.h;
-  const float* lse = p.lse + bh * p.Sq;
-  const float* delta = p.delta + bh * p.Sq;
-
-  load_rows_bf16<D, kDkvKeys, kThreads>(ks, k, p.ks.s, n0, p.Sk);
-  load_rows_bf16<D, kDkvKeys, kThreads>(vs, v, p.vs.s, n0, p.Sk);
-
-  constexpr int kSteps = D / 16;
-  constexpr int kQTiles = kQ / 8;
-  constexpr int kOutTiles = D / 8;
-  float acc_k[kOutTiles][4], acc_v[kOutTiles][4];
-#pragma unroll
-  for (int j = 0; j < kOutTiles; ++j) {
-    acc_k[j][0] = acc_k[j][1] = acc_k[j][2] = acc_k[j][3] = 0.f;
-    acc_v[j][0] = acc_v[j][1] = acc_v[j][2] = acc_v[j][3] = 0.f;
-  }
-  const __nv_bfloat16* kw = ks + warp * 16 * ld;
-  const __nv_bfloat16* vw = vs + warp * 16 * ld;
-
-  for (int m0 = 0; m0 < p.Sq; m0 += kQ) {
-    __syncthreads();  // the previous q tile is consumed by every warp
-    load_rows_bf16<D, kQ, kThreads>(qs, q, p.qs.s, m0, p.Sq);
-    load_rows_bf16<D, kQ, kThreads>(dos, dout, p.dos.s, m0, p.Sq);
-    load_rows_transposed_bf16<D, kQ, kThreads>(qt, q, p.qs.s, m0, p.Sq);
-    load_rows_transposed_bf16<D, kQ, kThreads>(dot, dout, p.dos.s, m0, p.Sq);
-    load_row_scalars<kThreads>(lse_s, lse, kQ, m0, p.Sq);
-    load_row_scalars<kThreads>(dd_s, delta, kQ, m0, p.Sq);
-    __syncthreads();
-
-    // transposed scores: sT = k·qᵀ and dpT = v·dOᵀ, 16 keys x kQ q rows
-    float sT[kQTiles][4], dpT[kQTiles][4];
-#pragma unroll
-    for (int j = 0; j < kQTiles; ++j) {
-      sT[j][0] = sT[j][1] = sT[j][2] = sT[j][3] = 0.f;
-      dpT[j][0] = dpT[j][1] = dpT[j][2] = dpT[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-      uint32_t ak[4], av[4];
-      load_a_frag(ak, kw, ld, st, g, t);
-      load_a_frag(av, vw, ld, st, g, t);
-#pragma unroll
-      for (int j = 0; j < kQTiles; ++j) {
-        const __nv_bfloat16* qr = qs + (j * 8 + g) * ld + st * 16;
-        const __nv_bfloat16* dr = dos + (j * 8 + g) * ld + st * 16;
-        mma_16816(sT[j], ak, ld_smem_u32(qr + 2 * t), ld_smem_u32(qr + 8 + 2 * t));
-        mma_16816(dpT[j], av, ld_smem_u32(dr + 2 * t), ld_smem_u32(dr + 8 + 2 * t));
-      }
-    }
-
-    // Pᵀ = exp(sT − lse), exactly 0 on pad query rows; dSᵀ = Pᵀ ∘ (dpT − D)
-#pragma unroll
-    for (int j = 0; j < kQTiles; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = j * 8 + 2 * t + (c & 1);
-        const float pr = m0 + col < p.Sq ? __expf(sT[j][c] - lse_s[col]) : 0.f;
-        sT[j][c] = pr;
-        dpT[j][c] = pr * (dpT[j][c] - dd_s[col]);
-      }
-    }
-
-    // dv += Pᵀ·dO and dk += dSᵀ·Q, both cast to bf16 as A operands
-#pragma unroll
-    for (int kk = 0; kk < kQ / 16; ++kk) {
-      uint32_t ap[4], ads[4];
-      acc_to_a_frag(ap, sT[2 * kk], sT[2 * kk + 1]);
-      acc_to_a_frag(ads, dpT[2 * kk], dpT[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < kOutTiles; ++j) {
-        const __nv_bfloat16* dr = dot + (j * 8 + g) * ldt + kk * 16;
-        const __nv_bfloat16* qr = qt + (j * 8 + g) * ldt + kk * 16;
-        mma_16816(acc_v[j], ap, ld_smem_u32(dr + 2 * t), ld_smem_u32(dr + 8 + 2 * t));
-        mma_16816(acc_k[j], ads, ld_smem_u32(qr + 2 * t), ld_smem_u32(qr + 8 + 2 * t));
-      }
-    }
-  }
-
-  const int keys[2] = {n0 + warp * 16 + g, n0 + warp * 16 + g + 8};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (keys[r] >= p.Sk) continue;
-    __nv_bfloat16* krow = dk + keys[r] * p.dks.s;
-    __nv_bfloat16* vrow = dv + keys[r] * p.dvs.s;
-#pragma unroll
-    for (int j = 0; j < kOutTiles; ++j) {
-      *reinterpret_cast<uint32_t*>(krow + j * 8 + 2 * t) =
-          pack_bf16x2(acc_k[j][2 * r], acc_k[j][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(vrow + j * 8 + 2 * t) =
-          pack_bf16x2(acc_v[j][2 * r], acc_v[j][2 * r + 1]);
     }
   }
 }
@@ -1075,8 +935,7 @@ int pack_log(const BwdParams& p) {
 // Tensor maps of q, k, v, dO and (K2) O, in that order, boxes of one
 // swizzled panel by 2^lp heads by 64 >> lp positions.
 template <int D>
-cudaError_t encode_maps(CUtensorMap* m, int n, const BwdParams& p, int lp) {
-  constexpr int pw = hp::SwizzledTile<D>::kPanelCols;
+cudaError_t encode_maps(hp::TileMaps<D>* m, int n, const BwdParams& p, int lp) {
   const int rows_s = kWgRows >> lp;
   const struct {
     const void* base;
@@ -1084,8 +943,8 @@ cudaError_t encode_maps(CUtensorMap* m, int n, const BwdParams& p, int lp) {
     Strides st;
   } views[5] = {{p.q, p.Sq, p.qs}, {p.k, p.Sk, p.ks}, {p.v, p.Sk, p.vs}, {p.dout, p.Sq, p.dos}, {p.o, p.Sq, p.os}};
   for (int i = 0; i < n; ++i) {
-    const cudaError_t err = hp::encode_bshd(&m[i], views[i].base, p.B, views[i].S, p.H, D, views[i].st.b,
-                                            views[i].st.s, views[i].st.h, pw, 1 << lp, rows_s);
+    const cudaError_t err = hp::encode_tile_maps<D>(&m[i], views[i].base, p.B, views[i].S, p.H, views[i].st.b,
+                                                    views[i].st.s, views[i].st.h, 1 << lp, rows_s);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -1097,7 +956,7 @@ template <int D, bool dkv>
 cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
   using T = BwdTile<D>;
   const int lp = pack_log(p);
-  CUtensorMap m[5];
+  hp::TileMaps<D> m[5];
   cudaError_t err = encode_maps<D>(m, dkv ? 4 : 5, p, lp);
   if (err != cudaSuccess) return err;
   WgParams w;
@@ -1134,16 +993,17 @@ cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
 template <int D, bool dkv>
 cudaError_t blocks_per_sm(int* blocks) {
   using T = BwdTile<D>;
-  if constexpr (D == 80) {
-    return dkv ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dkv_bf16<D>, kThreads,
-                                                               smem_dkv_bf16<D>())
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dq_bf16<D>, kThreads,
-                                                               smem_dq_bf16<D>());
+  if constexpr (D == 80 && !dkv) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dq_bf16<D>, kThreads, smem_dq_bf16<D>());
   } else {
     static std::atomic<unsigned long long> smem_set{0};
     const size_t smem = dkv ? T::kSmemDkv : T::kSmemDq;
-    const auto kernel = dkv ? reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<D>)
-                            : reinterpret_cast<const void*>(flash_bwd_dq_wgmma<D>);
+    const void* kernel;
+    if constexpr (dkv) {
+      kernel = reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<D>);
+    } else {
+      kernel = reinterpret_cast<const void*>(flash_bwd_dq_wgmma<D>);
+    }
     const cudaError_t err = allow_smem(kernel, smem, smem_set);
     if (err != cudaSuccess) return err;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWgThreads, smem);
@@ -1177,15 +1037,7 @@ cudaError_t launch_dq(const BwdParams& p, int dtype, cudaStream_t stream) {
 
 template <int D>
 cudaError_t launch_dkv(const BwdParams& p, int dtype, cudaStream_t stream) {
-  if (dtype == 1) {
-    if constexpr (D == 80) {
-      static std::atomic<unsigned long long> smem_set{0};
-      const dim3 grid((p.Sk + kDkvKeys - 1) / kDkvKeys, p.H, p.B);
-      return launch_kernel(flash_bwd_dkv_bf16<D>, grid, kThreads, smem_dkv_bf16<D>(), p, stream, smem_set);
-    } else {
-      return launch_wgmma<D, true>(p, stream);
-    }
-  }
+  if (dtype == 1) return launch_wgmma<D, true>(p, stream);
   static std::atomic<unsigned long long> smem_set{0};
   const dim3 grid((p.Sk + kF32Rows - 1) / kF32Rows, p.H, p.B);
   return launch_kernel(flash_bwd_dkv_f32<D>, grid, kF32Threads, smem_bwd_f32<D>(), p, stream, smem_set);

@@ -18,8 +18,8 @@
 // instructions (one ex2 per score) and padding past the sequence, not
 // the tensor cores.
 //
-// The bf16 kernel for head_dim 32, 64 and 128 (flash_fwd_wgmma), one
-// 64-row query tile per block:
+// The bf16 kernel for every head_dim (flash_fwd_wgmma), one 64-row query
+// tile per block:
 //  - warp specialised: one producer warp starts the TMA loads
 //    (cp.async.bulk.tensor, 4-D tensor maps over the strided (B, S, H, D)
 //    view, so views of a fused projection load without a copy) and one
@@ -47,19 +47,25 @@
 //    serial chain, and the re-read K/V comes from L2. Also measured
 //    slower: a 3-slot ring, persistent blocks, and starting the next
 //    tile's q·kᵀ before this tile's softmax (it needs 32 more registers,
-//    so fewer blocks);
+//    so fewer blocks). At head_dim 80 and the ViT-H/14 encoder's 67
+//    tokens, a 128-row block of two consumer warpgroups sharing the K/V
+//    stream ran 1.4x slower than two 64-row blocks: at 128 registers a
+//    thread only one such block fits an SM, 2 warpgroups against 3;
 //  - rows past the sequence arrive from TMA as zeros and are never stored;
 //    no atomics, so the output is bit-identical run to run.
-// Swizzle: a 128-byte row for head_dim 64 and 128 (two 64-column panels),
-// a 64-byte row for head_dim 32. Helpers live in hopper.cuh.
+// Swizzle (hopper.cuh's SwizzledTile): a 128-byte row for head_dim 64 and
+// 128 (one or two 64-column panels), a 64-byte row for head_dim 32, and
+// at head_dim 80 (ViT-H/14) a 64-column panel of 128-byte rows beside a
+// 16-column panel of 32-byte rows: a 160-byte row fits no swizzle atom,
+// so Q, K and V each load through two tensor maps (boxes of 64 and 16
+// columns), S = Q·Kᵀ takes 4 k steps in panel 0 and 1 in panel 1, and
+// O += P·V is an m64n64k16 product on panel 0 beside an m64n16k16 one on
+// panel 1. Its 40 output accumulators a thread bound it at 3 blocks an SM
+// (136 registers) where head_dim 64 holds 4.
 //
-// Shape-selected variants kept from the first port:
-//  - head_dim 80 (ViT-H/14) in bf16 runs flash_fwd_bf16_mma: mma.sync
-//    m16n8k16, 4 warps of 16 query rows, 64-key tiles loaded with plain
-//    16-byte loads. 160-byte rows fit no wgmma swizzle atom;
-//  - float32 runs flash_fwd_f32: plain FMA in full f32 (no TF32), 32-row
-//    tiles with 4 threads per row, 32-key tiles. This is the exact path
-//    parity runs take.
+// The float32 kernel (flash_fwd_f32): plain FMA in full f32 (no TF32),
+// 32-row tiles with 4 threads per row, 32-key tiles. This is the exact
+// path parity runs take.
 //
 // Plain C interface, loaded with ctypes: jumbo_flash_fwd returns a
 // cudaError_t after the launch (0 on success).
@@ -93,8 +99,10 @@ struct WgTile : hp::SwizzledTile<D> {
   static constexpr size_t kSmem = 1024 + (1 + 2 * kStages) * hp::SwizzledTile<D>::kTileBytes;  // + alignment
   // blocks per SM the registers must allow: 4 (96 registers a thread) for
   // head_dim <= 64, where more blocks in flight hide each block's serial
-  // product -> softmax -> product chain; head_dim 128 needs ~160 registers
-  static constexpr int kMinBlocks = D == 128 ? 1 : 4;
+  // product -> softmax -> product chain; 3 (136) at head_dim 80, whose
+  // output accumulator takes 40 registers (it builds at 128; 4 blocks
+  // spill); head_dim 128 needs ~160
+  static constexpr int kMinBlocks = D == 128 ? 1 : D == 80 ? 3 : 4;
 };
 
 struct WgParams {
@@ -126,11 +134,10 @@ __device__ __forceinline__ void attend_tile(float (&o)[D / 2], float (&m_run)[2]
   float s[kKeys / 2];
 #pragma unroll
   for (int i = 0; i < kKeys / 2; ++i) s[i] = 0.f;
-  const uint64_t desc_q = T::kmajor(q_tile, 0), desc_k = T::kmajor(k_tile, 0);
   hp::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    hp::wgmma_ss<kKeys>(s, desc_q + T::k_step(kk), desc_k + T::k_step(kk), kk > 0);
+    hp::wgmma_ss<kKeys>(s, T::kmajor(q_tile, 0, kk), T::kmajor(k_tile, 0, kk), kk > 0);
   }
   hp::wgmma_commit();
   hp::wgmma_wait_all();
@@ -191,10 +198,9 @@ __device__ __forceinline__ void attend_tile(float (&o)[D / 2], float (&m_run)[2]
   // V's 16 rows of the step as B, MN-major
   uint32_t a[kKeys / 16][4];
   acc_to_a<kKeys>(a, s);
-  const uint64_t desc_v = T::mnmajor(v_tile, 0);
   hp::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) hp::wgmma_rs<D>(o, a[kk], desc_v + T::mn_step(kk));
+  for (int kk = 0; kk < kKeys / 16; ++kk) T::rs_product(o, a[kk], v_tile, 16 * kk);
   hp::wgmma_commit();
   hp::wgmma_wait_all();
   hp::fence_operands(o);
@@ -203,8 +209,8 @@ __device__ __forceinline__ void attend_tile(float (&o)[D / 2], float (&m_run)[2]
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, WgTile<D>::kMinBlocks)
-    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                    const __grid_constant__ CUtensorMap tm_v, WgParams p) {
+    flash_fwd_wgmma(const __grid_constant__ hp::TileMaps<D> tm_q, const __grid_constant__ hp::TileMaps<D> tm_k,
+                    const __grid_constant__ hp::TileMaps<D> tm_v, WgParams p) {
   using T = WgTile<D>;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * kStages];  // q_full, full[], empty[]
@@ -239,19 +245,14 @@ __global__ void __launch_bounds__(kThreads, WgTile<D>::kMinBlocks)
   if (warp == 4) {  // ---- the producer warp: one lane starts every load
     if (lane == 0) {
       hp::mbar_arrive_expect_tx(q_full, T::kTileBytes);
-      for (int pn = 0; pn < T::kPanels; ++pn) {
-        hp::tma_load_4d(q_tile + pn * T::kPanelBytes, &tm_q, q_full, pn * T::kPanelCols, h0, s0, b);
-      }
+      hp::tma_load_tile<D>(q_tile, tm_q, q_full, h0, s0, b);
       for (int n = 0; n < n_tiles; ++n) {
         const int st = n % kStages;
         hp::mbar_wait(empty0 + 8 * st, ((n / kStages) & 1) ^ 1);
         const uint32_t full = full0 + 8 * st;
         hp::mbar_arrive_expect_tx(full, 2 * T::kTileBytes);
-        for (int pn = 0; pn < T::kPanels; ++pn) {
-          const uint32_t off = st * T::kTileBytes + pn * T::kPanelBytes;
-          hp::tma_load_4d(k_smem + off, &tm_k, full, pn * T::kPanelCols, h0, n * rows_s, b);
-          hp::tma_load_4d(v_smem + off, &tm_v, full, pn * T::kPanelCols, h0, n * rows_s, b);
-        }
+        hp::tma_load_tile<D>(k_smem + st * T::kTileBytes, tm_k, full, h0, n * rows_s, b);
+        hp::tma_load_tile<D>(v_smem + st * T::kTileBytes, tm_v, full, h0, n * rows_s, b);
       }
     }
     return;
@@ -304,157 +305,6 @@ __global__ void __launch_bounds__(kThreads, WgTile<D>::kMinBlocks)
     }
     if (p.lse != nullptr && ri.t == 0) {
       p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + sq] = m_run[r] + logf(l_run[r]);
-    }
-  }
-}
-
-// ---------------------------------- bf16 path, head_dim 80: mma.sync
-
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = kMmaWarps * 32;
-constexpr int kMmaRows = 16 * kMmaWarps;  // query rows per block
-constexpr int kMmaKeys = 64;              // keys per K/V tile
-
-template <int D>
-constexpr size_t smem_bytes_mma() {
-  return sizeof(__nv_bfloat16) *
-         ((kMmaRows + kMmaKeys) * (D + kPad) + D * (kMmaKeys + kPad));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads) flash_fwd_bf16_mma(Params p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kMmaRows * (D + kPad);
-  __nv_bfloat16* vt = ks + kMmaKeys * (D + kPad);
-
-  const int m0 = blockIdx.x * kMmaRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.vs.b + h * p.vs.h;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.os.b + h * p.os.h;
-
-  load_rows_bf16<D, kMmaRows, kMmaThreads>(qs, q, p.qs.s, m0, p.Sq);
-  __syncthreads();
-
-  // this warp's 16 query rows as A fragments, one per 16-wide k step
-  constexpr int kSteps = D / 16;
-  uint32_t qf[kSteps][4];
-  const __nv_bfloat16* qw = qs + warp * 16 * (D + kPad);
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) load_a_frag(qf[s], qw, D + kPad, s, g, t);
-
-  // online-softmax state for rows g and g+8 of this warp's 16
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};
-  constexpr int kOutTiles = D / 8;
-  float acc[kOutTiles][4];
-#pragma unroll
-  for (int j = 0; j < kOutTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  constexpr int kKeyTiles = kMmaKeys / 8;
-  for (int n0 = 0; n0 < p.Sk; n0 += kMmaKeys) {
-    __syncthreads();  // the previous tile is consumed by every warp
-    load_rows_bf16<D, kMmaKeys, kMmaThreads>(ks, k, p.ks.s, n0, p.Sk);
-    load_rows_transposed_bf16<D, kMmaKeys, kMmaThreads>(vt, v, p.vs.s, n0, p.Sk);
-    __syncthreads();
-
-    // scores s = q·kᵀ for 16 rows x 64 keys, f32
-    float s[kKeyTiles][4];
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const __nv_bfloat16* kr = ks + (j * 8 + g) * (D + kPad);
-#pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        mma_16816(s[j], qf[st], ld_smem_u32(kr + st * 16 + 2 * t),
-                  ld_smem_u32(kr + st * 16 + 8 + 2 * t));
-      }
-    }
-    if (n0 + kMmaKeys > p.Sk) {  // ragged last tile: mask the pad keys
-#pragma unroll
-      for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (n0 + j * 8 + 2 * t + c >= p.Sk) s[j][c] = s[j][2 + c] = kNegInf;
-        }
-      }
-    }
-
-    float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    float alpha[2], rsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) alpha[r] = __expf(m_run[r] - mx[r]);
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      s[j][0] = __expf(s[j][0] - mx[0]);
-      s[j][1] = __expf(s[j][1] - mx[0]);
-      s[j][2] = __expf(s[j][2] - mx[1]);
-      s[j][3] = __expf(s[j][3] - mx[1]);
-      rsum[0] += s[j][0] + s[j][1];
-      rsum[1] += s[j][2] + s[j][3];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
-      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
-      l_run[r] = l_run[r] * alpha[r] + rsum[r];
-      m_run[r] = mx[r];
-    }
-#pragma unroll
-    for (int j = 0; j < kOutTiles; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // acc += P·V: the score accumulators are already laid out as the A
-    // fragments of P (keys 16kk..16kk+15 are key tiles 2kk and 2kk+1)
-#pragma unroll
-    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a_frag(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < kOutTiles; ++j) {
-        const __nv_bfloat16* vr = vt + (j * 8 + g) * (kMmaKeys + kPad) + kk * 16;
-        mma_16816(acc[j], a, ld_smem_u32(vr + 2 * t), ld_smem_u32(vr + 8 + 2 * t));
-      }
-    }
-  }
-
-  const int rows[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= p.Sq) continue;
-    const float inv_l = 1.f / l_run[r];
-    __nv_bfloat16* orow = o + rows[r] * p.os.s;
-#pragma unroll
-    for (int j = 0; j < kOutTiles; ++j) {
-      *reinterpret_cast<uint32_t*>(orow + j * 8 + 2 * t) =
-          pack_bf16x2(acc[j][2 * r] * inv_l, acc[j][2 * r + 1] * inv_l);
-    }
-    if (p.lse != nullptr && t == 0) {
-      p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + rows[r]] =
-          m_run[r] + logf(l_run[r]);
     }
   }
 }
@@ -576,17 +426,13 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   const int longest = p.Sq > p.Sk ? p.Sq : p.Sk;
   while ((kTileRows >> (w.log_pack + 1)) >= longest && (1 << w.log_pack) < p.H) ++w.log_pack;
   const int rows_s = kTileRows >> w.log_pack;
-  constexpr int pw = T::kPanelCols;
-  CUtensorMap tq, tk, tv;
-  cudaError_t err = hp::encode_bshd(&tq, p.q, p.B, p.Sq, p.H, D, p.qs.b, p.qs.s, p.qs.h, pw,
-                                    1 << w.log_pack, rows_s);
+  hp::TileMaps<D> tq, tk, tv;
+  cudaError_t err = hp::encode_tile_maps<D>(&tq, p.q, p.B, p.Sq, p.H, p.qs.b, p.qs.s, p.qs.h, 1 << w.log_pack, rows_s);
   if (err == cudaSuccess) {
-    err = hp::encode_bshd(&tk, p.k, p.B, p.Sk, p.H, D, p.ks.b, p.ks.s, p.ks.h, pw,
-                          1 << w.log_pack, rows_s);
+    err = hp::encode_tile_maps<D>(&tk, p.k, p.B, p.Sk, p.H, p.ks.b, p.ks.s, p.ks.h, 1 << w.log_pack, rows_s);
   }
   if (err == cudaSuccess) {
-    err = hp::encode_bshd(&tv, p.v, p.B, p.Sk, p.H, D, p.vs.b, p.vs.s, p.vs.h, pw,
-                          1 << w.log_pack, rows_s);
+    err = hp::encode_tile_maps<D>(&tv, p.v, p.B, p.Sk, p.H, p.vs.b, p.vs.s, p.vs.h, 1 << w.log_pack, rows_s);
   }
   if (err != cudaSuccess) return err;
   static std::atomic<unsigned long long> smem_set{0};
@@ -594,17 +440,6 @@ cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + rows_s - 1) / rows_s, (p.H + (1 << w.log_pack) - 1) >> w.log_pack, p.B);
   flash_fwd_wgmma<D><<<grid, kThreads, T::kSmem, stream>>>(tq, tk, tv, w);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes_mma<D>();
-  static std::atomic<unsigned long long> smem_set{0};
-  const cudaError_t err = allow_smem(flash_fwd_bf16_mma<D>, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((p.Sq + kMmaRows - 1) / kMmaRows, p.H, p.B);
-  flash_fwd_bf16_mma<D><<<grid, kMmaThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -665,7 +500,7 @@ int jumbo_flash_fwd(const void* q, const void* k, const void* v, void* o,
   switch (D) {
     case 32: return static_cast<int>(launch_wgmma<32>(p, s));
     case 64: return static_cast<int>(launch_wgmma<64>(p, s));
-    case 80: return static_cast<int>(launch_mma<80>(p, s));
+    case 80: return static_cast<int>(launch_wgmma<80>(p, s));
     case 128: return static_cast<int>(launch_wgmma<128>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,12 +5,13 @@
 // side encodes a tensor map over a strided (B, S, H, D) view.
 //
 // Layout conventions (CUTLASS's canonical GMMA layouts, in 16-byte units):
-//  - K-major operand with a 128- or 64-byte swizzle: rows of 128 (64) bytes,
-//    8-row swizzle atoms of 1024 (512) bytes; SBO = the atom's bytes, LBO
-//    unused; a 16-deep k step inside the atom adds 32 bytes to the start.
-//  - MN-major operand (the transpose bit): each k row is one 128 (64) byte
-//    swizzled row of MN elements; SBO = the 8-row atom's bytes, LBO = the
-//    distance between 64-element MN panels.
+//  - K-major operand with a 128-, 64- or 32-byte swizzle: rows of 128 (64,
+//    32) bytes, 8-row swizzle atoms of 1024 (512, 256) bytes; SBO = the
+//    atom's bytes, LBO unused; a 16-deep k step inside the atom adds 32
+//    bytes to the start.
+//  - MN-major operand (the transpose bit): each k row is one 128 (64, 32)
+//    byte swizzled row of MN elements; SBO = the 8-row atom's bytes, LBO =
+//    the distance between MN panels of equal width.
 // Tiles start 1024-byte aligned, so the descriptors' base offset is 0.
 
 #pragma once
@@ -102,7 +103,12 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 // ---------------------------------------------------------------- wgmma
 
-enum SwizzleBytes { kSwizzle64 = 2, kSwizzle128 = 1 };  // the descriptor's layout code
+enum SwizzleBytes { kSwizzle32 = 3, kSwizzle64 = 2, kSwizzle128 = 1 };  // the descriptor's layout code
+
+// The swizzle of a row of `row_bytes` (32, 64 or 128): the row is the atom's width.
+__host__ __device__ constexpr SwizzleBytes swizzle_of(int row_bytes) {
+  return row_bytes == 128 ? kSwizzle128 : row_bytes == 64 ? kSwizzle64 : kSwizzle32;
+}
 
 // A shared-memory matrix descriptor: start address, leading and stride byte
 // offsets (multiples of 16), swizzle layout; base offset 0.
@@ -192,6 +198,20 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d += A·B, m64n16k16: A (64x16 bf16) from registers in the mma.sync
+// A-fragment layout of each warp's 16 rows; B (16x16) MN-major in shared
+// memory (the transpose bit set), through its descriptor.
+__device__ __forceinline__ void wgmma_rs_m64n16k16(float (&d)[8], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // d += A·B, m64n32k16: A (64x16 bf16) from registers in the mma.sync
 // A-fragment layout of each warp's 16 rows; B (16x32) MN-major in shared
 // memory (the transpose bit set), through its descriptor.
@@ -265,61 +285,110 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uin
 }
 
 // d += A·B over one 16-deep k step, A from registers, B MN-major in shared
-// memory: the m64nNk16 product of width N (32, 64 or 128).
+// memory: the m64nNk16 product of width N (16, 32, 64 or 128).
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (N == 32) {
+  if constexpr (N == 16) {
+    wgmma_rs_m64n16k16(d, a, desc_b);
+  } else if constexpr (N == 32) {
     wgmma_rs_m64n32k16(d, a, desc_b);
   } else if constexpr (N == 64) {
     wgmma_rs_m64n64k16(d, a, desc_b);
   } else {
-    static_assert(N == 128, "wgmma_rs: N is 32, 64 or 128");
+    static_assert(N == 128, "wgmma_rs: N is 16, 32, 64 or 128");
     wgmma_rs_m64n128k16(d, a, desc_b);
   }
 }
 
-// A 64-row bf16 tile of head_dim D as TMA writes it with the swizzle of
-// its row: panels of 64 columns (one of D columns for head_dim 32), each
-// 64 rows of kRowBytes, 1024-byte aligned.
+// A 64-row bf16 tile of head_dim D as TMA writes it, in column panels, each
+// 64 rows of one swizzled row width, 1024-byte aligned and dense:
+//  - D = 32: one panel of 32 columns, 64-byte rows;
+//  - D = 64, 128: one or two panels of 64 columns, 128-byte rows;
+//  - D = 80: a panel of 64 columns with 128-byte rows, then one of 16
+//    columns with 32-byte rows. A 160-byte row fits no swizzle atom, and
+//    padding it to two 128-byte panels would cost 60 % more shared memory
+//    a tile; with 64 + 16 a row takes exactly its 160 bytes.
+// Every panel but the last is 64 columns wide. A tensor map's box is one
+// panel's width: one map serves panels of equal width, D = 80 needs two.
 template <int D>
 struct SwizzledTile {
+  static_assert(D == 32 || D == 64 || D == 80 || D == 128, "SwizzledTile: head_dim 32, 64, 80 or 128");
   static constexpr int kRows = 64;
-  static constexpr int kPanelCols = D < 64 ? D : 64;     // columns per swizzled panel
-  static constexpr int kPanels = D / kPanelCols;
-  static constexpr int kRowBytes = kPanelCols * 2;       // 64 or 128: the swizzle
-  static constexpr int kPanelBytes = kRows * kRowBytes;
-  static constexpr int kTileBytes = kPanels * kPanelBytes;  // 64 rows x D
-  static constexpr int kAtomBytes = 8 * kRowBytes;       // one 8-row swizzle atom
-  static constexpr SwizzleBytes kSwizzle = kRowBytes == 128 ? kSwizzle128 : kSwizzle64;
+  static constexpr int kPanels = D <= 64 ? 1 : (D + 63) / 64;
+  static constexpr int kTileBytes = kRows * D * 2;  // 64 rows x D, dense
+  static constexpr int kMaps = D % 64 == 0 || D < 64 ? 1 : 2;  // distinct panel widths
 
-  // The tile as a K-major operand (rows are M or N, columns are k) starting
-  // at row `row0` (a multiple of 8); `k_step(kk)` is added for k step kk.
-  __device__ static uint64_t kmajor(uint32_t tile, int row0) {
-    return smem_desc(tile + row0 * kRowBytes, 16, kAtomBytes, kSwizzle);
+  // columns, row bytes and byte offset of panel pn; the map that loads it
+  __host__ __device__ static constexpr int cols(int pn) { return D <= 64 ? D : (D - 64 * pn < 64 ? D - 64 * pn : 64); }
+  __host__ __device__ static constexpr int row_bytes(int pn) { return 2 * cols(pn); }
+  __host__ __device__ static constexpr int panel_offset(int pn) { return pn * kRows * 128; }
+  __host__ __device__ static constexpr int map_of(int pn) { return pn < D / 64 ? 0 : kMaps - 1; }
+
+  // The tile as a K-major operand (rows are M or N, columns are k)
+  // starting at row `row0` (a multiple of 8), at k step kk (columns
+  // 16kk..16kk+15). Panels of panel 0's width are offsets from its
+  // descriptor; D = 80's 16-column panel has a descriptor of its own.
+  __device__ __forceinline__ static uint64_t kmajor(uint32_t tile, int row0, int kk) {
+    const int pn = D < 64 ? 0 : kk / 4;
+    const int c = 16 * kk - 64 * pn;  // first column inside the panel
+    if (row_bytes(pn) == row_bytes(0)) {
+      return smem_desc(tile + row0 * row_bytes(0), 16, 8 * row_bytes(0), swizzle_of(row_bytes(0))) +
+             static_cast<uint64_t>((panel_offset(pn) + 2 * c) >> 4);
+    }
+    return smem_desc(tile + panel_offset(pn) + row0 * row_bytes(pn), 16, 8 * row_bytes(pn),
+                     swizzle_of(row_bytes(pn)));
   }
-  __device__ static uint64_t k_step(int kk) {
-    return static_cast<uint64_t>(((kk * 16 / kPanelCols) * kPanelBytes + (kk * 16 % kPanelCols) * 2) >> 4);
+
+  // d += A·B over k rows row0..row0+15 of the tile (row0 a multiple of
+  // 16), B MN-major through the transpose bit, N = D: one product across
+  // equal panels (LBO steps from one to the next) or, at D = 80, a
+  // 64-column product on panel 0 and a 16-column one on panel 1, whose
+  // accumulators are chunks 0-7 and 8-9 of d.
+  __device__ __forceinline__ static void rs_product(float (&d)[D / 2], const uint32_t (&a)[4], uint32_t tile,
+                                                    int row0) {
+    if constexpr (kMaps == 1) {
+      constexpr int rb = row_bytes(0);
+      wgmma_rs<D>(d, a, smem_desc(tile + row0 * rb, kRows * rb, 8 * rb, swizzle_of(rb)));
+    } else {
+      static_assert(D == 80, "rs_product: one 16-column panel after one of 64");
+      float(&lo)[32] = *reinterpret_cast<float(*)[32]>(&d[0]);
+      float(&hi)[8] = *reinterpret_cast<float(*)[8]>(&d[32]);
+      wgmma_rs<64>(lo, a, smem_desc(tile + row0 * 128, kRows * 128, 1024, kSwizzle128));
+      wgmma_rs<16>(hi, a, smem_desc(tile + panel_offset(1) + row0 * 32, kRows * 32, 256, kSwizzle32));
+    }
   }
-  // The tile as an MN-major B operand through the transpose bit (rows are
-  // k, columns are N) starting at row `row0` (a multiple of 16); a k step
-  // of 16 rows adds `mn_step(kk)`.
-  __device__ static uint64_t mnmajor(uint32_t tile, int row0) {
-    return smem_desc(tile + row0 * kRowBytes, kPanelBytes, kAtomBytes, kSwizzle);
-  }
-  __device__ static uint64_t mn_step(int kk) {
-    return static_cast<uint64_t>((kk * 16 * kRowBytes) >> 4);
-  }
+
   // The byte offset in the tile of row `row`'s 16-byte chunk `c` (columns
   // 8c..8c+7), where TMA's swizzle put it: inside a panel, the chunk index
-  // (address bits 4..6 at 128 bytes, 4..5 at 64) is XORed with bits 7..9
-  // (7..8) of the unswizzled offset (CUTLASS's Swizzle<3,4,3>, <2,4,3>).
-  __device__ static uint32_t chunk_offset(int row, int c) {
-    constexpr int kChunks = kPanelCols / 8;  // chunks per panel row
-    const uint32_t off = row * kRowBytes + (c % kChunks) * 16;
-    return (c / kChunks) * kPanelBytes + (off ^ (((off >> 7) & (kChunks - 1)) << 4));
+  // (address bits 4..6 at 128 bytes, 4..5 at 64, 4 at 32) is XORed with
+  // bits 7..9 (7..8, 7) of the unswizzled offset (CUTLASS's Swizzle<3,4,3>,
+  // <2,4,3>, <1,4,3>).
+  __device__ __forceinline__ static uint32_t chunk_offset(int row, int c) {
+    const int pn = D < 64 ? 0 : c / 8;
+    const int chunks = cols(pn) / 8;  // chunks per panel row
+    const uint32_t off = row * row_bytes(pn) + (c - 8 * pn) * 16;
+    return panel_offset(pn) + (off ^ (((off >> 7) & (chunks - 1)) << 4));
   }
 };
+
+// The tensor maps of one (B, S, H, D) view, one per distinct panel width.
+template <int D>
+struct TileMaps {
+  CUtensorMap m[SwizzledTile<D>::kMaps];
+};
+
+// Every panel of one 64-row tile at (h0, s0, b) into `tile`, counted on
+// `bar`: SwizzledTile<D>::kTileBytes bytes.
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint32_t tile, const TileMaps<D>& maps, uint32_t bar, int h0,
+                                              int s0, int b) {
+  using T = SwizzledTile<D>;
+#pragma unroll
+  for (int pn = 0; pn < T::kPanels; ++pn) {
+    tma_load_4d(tile + T::panel_offset(pn), &maps.m[T::map_of(pn)], bar, 64 * pn, h0, s0, b);
+  }
+}
 
 // ------------------------------------------------------------- the host
 
@@ -352,8 +421,8 @@ inline EncodeTiledFn encode_tiled() {
 // A 4-D bf16 tensor map over the strided (B, S, H, D) view at `base`
 // (strides in elements, head_dim stride 1): dims (D, H, S, B) innermost
 // first, box (box_d, box_h, box_s, 1), swizzled by the box's row of
-// box_d * 2 bytes (64 or 128). A dim of extent 1 is never stepped, so its
-// stride is replaced by a legal one.
+// box_d * 2 bytes (32, 64 or 128). A dim of extent 1 is never stepped, so
+// its stride is replaced by a legal one.
 inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H, int D,
                                long long sb, long long ss, long long sh, int box_d, int box_h,
                                int box_s) {
@@ -372,9 +441,25 @@ inline cudaError_t encode_bshd(CUtensorMap* map, const void* base, int B, int S,
   const cuuint32_t unit[4] = {1u, 1u, 1u, 1u};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            box_d * el == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                            box_d * el == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : box_d * el == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor maps of a (B, S, H, D) view for SwizzledTile<D>: boxes of
+// one panel's width by box_h heads by box_s positions.
+template <int D>
+inline cudaError_t encode_tile_maps(TileMaps<D>* maps, const void* base, int B, int S, int H, long long sb,
+                                    long long ss, long long sh, int box_h, int box_s) {
+  using T = SwizzledTile<D>;
+  for (int i = 0; i < T::kMaps; ++i) {
+    const cudaError_t err = encode_bshd(&maps->m[i], base, B, S, H, D, sb, ss, sh,
+                                        T::cols(i == 0 ? 0 : T::kPanels - 1), box_h, box_s);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace jumbo_hopper

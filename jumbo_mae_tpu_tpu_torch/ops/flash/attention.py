@@ -13,8 +13,8 @@ outputs and launches them on PyTorch's current stream.
   tensors take :func:`flash_attention_bwd_plain`. K2 computes the
   per-row term D = rowsum(dO ∘ O) − g_lse of its own rows (the JAX
   package's prologue, ``attention.py:293-305``), uses it and writes it
-  for K3, so no separate D pass runs on the card. In bf16 at
-  :data:`TMA_HEAD_DIMS` both load through TMA tensor maps, so a view no
+  for K3, so no separate D pass runs on the card. In bf16, each at its
+  :data:`TMA_HEAD_DIMS`, they load through TMA tensor maps, so a view no
   map can describe (a broadcast gradient) is copied first.
   ``LAUNCHES_BWD_DQ`` and ``LAUNCHES_BWD_DKV`` count their launches.
 - :func:`flash_attention_fwd_plain`, :func:`attention_delta` and
@@ -43,9 +43,10 @@ import ctypes
 import torch
 
 HEAD_DIMS = (32, 64, 80, 128)
-# head_dims whose bf16 kernels (forward and backward) load through TMA
-# tensor maps (80 does not)
-TMA_HEAD_DIMS = (32, 64, 128)
+# head_dims at which each bf16 kernel loads through TMA tensor maps: K1
+# and K3 at all of them; K2 at head_dim 80 is the mma.sync kernel, whose
+# plain loads read any strides
+TMA_HEAD_DIMS = {"K1": HEAD_DIMS, "K2": (32, 64, 128), "K3": HEAD_DIMS}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_DTYPES = tuple(_DTYPE_CODES)  # the dtypes the kernels take
 
@@ -90,11 +91,12 @@ def check_kernel_args(
     head_dim in :data:`HEAD_DIMS`; a unit innermost stride; and 16-byte
     alignment of the base pointer and of every other stride, which its
     vector loads and TMA tensor maps need. The bf16 forward (``forward``)
-    at :data:`TMA_HEAD_DIMS` loads through TMA tensor maps, which also
+    at ``TMA_HEAD_DIMS["K1"]`` loads through TMA tensor maps, which also
     need every stride of a dimension longer than 1 positive and below
     2**40 bytes (no broadcast views: :func:`_tma_ok`). The bf16 backward
-    loads through them too, but copies such a view (a gradient may arrive
-    as one) instead of refusing it. Devices are checked by the caller.
+    kernels load through them at their own head_dims too, but copy such a
+    view (a gradient may arrive as one) instead of refusing it. Devices
+    are checked by the caller.
 
     Each tensor's shape and strides are read once: the wrapper runs this
     on every launch, and the step that launches it is host-bound."""
@@ -121,7 +123,7 @@ def check_kernel_args(
         raise ValueError(f"batch {b} and heads {h} must each be <= 65535")
     size = 4 if dtype == torch.float32 else 2
     per16 = 16 // size
-    tma = forward and size == 2 and d in TMA_HEAD_DIMS
+    tma = forward and size == 2 and d in TMA_HEAD_DIMS["K1"]
     for name, x, shape in (("q", q, qs), ("k", k, ks), ("v", v, vs)):
         st = x.stride()
         if st[3] != 1:
@@ -293,10 +295,12 @@ def _check_bwd_args(q, k, v, do, rows: dict, o=None) -> None:
             )
 
 
-def _tma_views(q, *xs):
-    """q and ``xs`` as the bf16 wgmma kernels read them: a view no TMA
-    tensor map describes (a broadcast gradient) becomes a contiguous copy."""
-    if q.dtype == torch.bfloat16 and q.shape[3] in TMA_HEAD_DIMS:
+def _tma_views(kernel: str, q, *xs):
+    """q and ``xs`` as the bf16 backward kernel ``kernel`` ("K2" or "K3")
+    reads them: where it loads through TMA (``TMA_HEAD_DIMS[kernel]``), a
+    view no tensor map describes (a broadcast gradient) becomes a
+    contiguous copy."""
+    if q.dtype == torch.bfloat16 and q.shape[3] in TMA_HEAD_DIMS[kernel]:
         return tuple(x if _tma_ok(x.shape, x.stride(), 2) else x.contiguous() for x in (q, *xs))
     return (q, *xs)
 
@@ -324,7 +328,7 @@ def flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse=None) -> tuple[torch.Tenso
         return flash_attention_bwd_plain(q, k, v, o, lse, do, delta=delta)[0], delta
     _check_bwd_args(q, k, v, do, {"lse": lse, "g_lse": g_lse}, o=o)
     b, sq, h, d = q.shape
-    q, k, v, do, o = _tma_views(q, k, v, do, o)
+    q, k, v, do, o = _tma_views("K2", q, k, v, do, o)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     args = (
@@ -347,7 +351,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta) -> tuple[torch.Tensor, torc
         return flash_attention_bwd_plain(q, k, v, None, lse, do, delta=delta)[1:]
     _check_bwd_args(q, k, v, do, {"lse": lse, "delta": delta})
     b, sq, h, d = q.shape
-    q, k, v, do = _tma_views(q, k, v, do)
+    q, k, v, do = _tma_views("K3", q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     args = (

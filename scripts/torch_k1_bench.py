@@ -13,10 +13,10 @@ kernels there and runs, for the phases asked for (default both):
   1. chip_smoke's phase 3: K1 against its plain version at every tile
      edge and Sq != Sk case, bf16 and f32, bf16 reruns bit-identical,
      strided views of a fused projection equal to contiguous copies;
-  2. chip_smoke's phase 5a: K1 at the main path's four shapes and 448 px,
-     device ms per call from CUDA-graph replay and from eager launches,
-     its plain version, SDPA's forward, the bound, and the host µs per
-     wrapper call;
+  2. chip_smoke's phase 5a: K1 at the main path's four shapes, 448 px
+     and the ViT-H/14 encoder (256, 67, 16, 80) with lse, device ms per
+     call from CUDA-graph replay and from eager launches, its plain
+     version, SDPA's forward, the bound, and the host µs per wrapper call;
   3. the host µs per call at the encoder shape split into the argument
      checks, the two output allocations and the C entry alone (tensor-map
      encodes and the launch);
@@ -26,10 +26,13 @@ kernels there and runs, for the phases asked for (default both):
      and without an lse cotangent, K2's D against the plain D pass, reruns
      bit-identical, strided and broadcast views, inert padding;
   2. chip_smoke's phase 5b: K2 (computing D), K3, the whole backward and
-     the standalone D pass at the MAE encoder and decoder shapes and the
-     ring hop by graph replay, beside the plain backward, SDPA's backward
-     and the bounds; FlashAttention forward + backward against SDPA's
-     (with ``fwd``, also K1 + K2 + K3 against the einsum path).
+     the standalone D pass at the MAE encoder and decoder shapes, the
+     ring hop, the finetune batch and the ViT-H/14 encoder by graph
+     replay, beside the plain backward, SDPA's backward and the bounds;
+     FlashAttention forward + backward against SDPA's (with ``fwd``, also
+     K1 + K2 + K3 against the einsum path);
+  3. the blocks an SM holds of K2 and K3 at every head_dim (the occupancy
+     query), where the checkout has it.
 
 An older checkout whose K2 takes D from the plain D pass
 (``attention_delta``) runs the same phases through that pass
@@ -107,6 +110,7 @@ def run_one(root: Path, phases: set[str]) -> dict:
     if "fwd" in phases:
         errs = cs.phase_kernels(fa)
         timings = cs.phase_timings(fa)
+        timings.update(cs.phase_timings(fa, shapes=((cs.H14_ENC_SHAPE, True),), f32=False))
         parts = host_parts(cs, fa, cs.ENC_SHAPE)
         cs.log("host µs per call at the encoder shape: " + ", ".join(f"{n} {t:.2f}" for n, t in parts.items()))
         res["max_abs_err_bf16_fwd"] = max(e for (name, *_), e in errs.items() if name == "bfloat16")
@@ -119,6 +123,7 @@ def run_one(root: Path, phases: set[str]) -> dict:
     if "bwd" in phases:
         errs = cs.phase_bwd_kernels(fa)
         bwd = cs.phase_bwd_timings(fa, timings)
+        bwd.update(cs.phase_bwd_timings(fa, timings, shapes=(cs.H14_ENC_SHAPE,), fb_shapes=(cs.H14_ENC_SHAPE,)))
         res["max_abs_err_bf16_bwd"] = max(e for (name, *_), e in errs.items() if name == "bfloat16")
         res["bwd_timings"] = [dict(kernel=key, shape=list(shape), **row) for (key, shape), row in bwd.items()]
         for (key, shape), row in bwd.items():
@@ -128,6 +133,10 @@ def run_one(root: Path, phases: set[str]) -> dict:
                 metrics[f"sdpa backward {shape} ms"] = row["library_ms"]
             if key == "FlashAttention":
                 metrics[f"sdpa forward + backward {shape} ms"] = row["library_ms"]
+        if hasattr(fa, "blocks_per_sm"):
+            for kern in ("K2", "K3"):
+                for d in fa.HEAD_DIMS:
+                    metrics[f"{kern} head_dim {d} blocks per SM"] = fa.blocks_per_sm(kern, d)
     return res
 
 

@@ -33,15 +33,31 @@ def as_torch(*xs, dtype=torch.float32):
     return [torch.from_numpy(x).to(dtype) for x in xs]
 
 
-@pytest.mark.parametrize("s", [52, 199])
-@pytest.mark.parametrize("d", [32, 64])
-def test_plain_matches_pallas_interpret(s, d):
-    q, k, v = qkv(s=s, d=d)
+@pytest.mark.parametrize(
+    "b,sq,sk,h,d",
+    [
+        pytest.param(2, 52, 52, 3, 32, id="32-52"),
+        pytest.param(2, 199, 199, 3, 32, id="32-199"),
+        pytest.param(2, 52, 52, 3, 64, id="64-52"),
+        pytest.param(2, 199, 199, 3, 64, id="64-199"),
+        # head_dim 80 (ViT-H/14) where the card's K1 tiles differently: the
+        # encoder's 67 tokens (a 64-row tile and a ragged one of 3 rows),
+        # 65, 13 (4 heads packed per 64-row tile at H = 16), Sq != Sk
+        pytest.param(1, 67, 67, 16, 80, id="80-67-h16"),
+        pytest.param(1, 65, 65, 16, 80, id="80-65-h16"),
+        pytest.param(2, 13, 13, 16, 80, id="80-13-h16"),
+        pytest.param(1, 13, 67, 16, 80, id="80-sq13-sk67"),
+    ],
+)
+def test_plain_matches_pallas_interpret(b, sq, sk, h, d):
+    q, k, v = qkv(b=b, s=sq, h=h, d=d)
+    if sk != sq:
+        _, k, v = qkv(b=b, s=sk, h=h, d=d, seed=7)
     ref_o, ref_lse = pallas_flash_attention_with_lse(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 128, 128, True
     )
     o, lse = fa.flash_attention_fwd_plain(*as_torch(q, k, v), with_lse=True)
-    assert o.shape == q.shape and lse.shape == (2 * 3, s)
+    assert o.shape == q.shape and lse.shape == (b * h, sq)
     assert lse.dtype == torch.float32
     np.testing.assert_allclose(o.numpy(), np.asarray(ref_o), atol=2e-5)
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=2e-5)
@@ -139,25 +155,33 @@ def test_check_kernel_args_rejects(case):
 
 
 def test_tma_stride_rule_binds_only_the_bf16_forward():
-    """Broadcast (stride-0) views are refused only where TMA loads them:
-    the bf16 forward at head_dim 32, 64 and 128. The f32 forward, head_dim
-    80 (mma.sync, plain loads) and the backward kernels take them; a
-    dimension of extent 1 may have any stride."""
+    """Broadcast (stride-0) views are refused only where TMA loads them
+    and no copy is made: the bf16 forward, at every head_dim (80 since its
+    wgmma kernel). The f32 forward and the backward kernels' argument
+    check take them; a dimension of extent 1 may have any stride."""
     bf16 = [x[:1].expand(2, -1, -1, -1) for x in _ok()]
     fa.check_kernel_args(*bf16, forward=False)
     fa.check_kernel_args(*[x[:1].expand(2, -1, -1, -1) for x in _ok(dtype=torch.float32)])
-    fa.check_kernel_args(*[x[:1].expand(2, -1, -1, -1) for x in _ok(d=80)])
+    fa.check_kernel_args(*[x[:1].expand(2, -1, -1, -1) for x in _ok(d=80)], forward=False)
     fa.check_kernel_args(*[x[:1].expand(1, -1, -1, -1) for x in _ok()])
+    fa.check_kernel_args(*[x[:1].expand(1, -1, -1, -1) for x in _ok(d=80)])
     with pytest.raises(ValueError, match="TMA"):
         fa.check_kernel_args(*bf16)
-    assert set(fa.TMA_HEAD_DIMS) < set(fa.HEAD_DIMS) and 80 not in fa.TMA_HEAD_DIMS
+    with pytest.raises(ValueError, match="TMA"):
+        fa.check_kernel_args(*[x[:1].expand(2, -1, -1, -1) for x in _ok(d=80)])
+    # per kernel: K1 and K3 load through TMA at every head_dim, K2 at all
+    # but 80 (its mma.sync kernel reads any strides)
+    assert set(fa.TMA_HEAD_DIMS) == {"K1", "K2", "K3"}
+    assert fa.TMA_HEAD_DIMS["K1"] == fa.TMA_HEAD_DIMS["K3"] == fa.HEAD_DIMS
+    assert set(fa.TMA_HEAD_DIMS["K2"]) < set(fa.HEAD_DIMS) and 80 not in fa.TMA_HEAD_DIMS["K2"]
 
 
 def test_tma_rule_names_the_views_the_backward_copies():
     """The bf16 backward copies a view no TMA tensor map describes instead
     of refusing it: ``_tma_ok`` is false for a broadcast dimension longer
     than 1 and true for contiguous tensors, fused-projection views and a
-    dimension of extent 1 with any stride."""
+    dimension of extent 1 with any stride. Per kernel: at head_dim 80 K3
+    (TMA) gets the copies, K2 (mma.sync) the views as they are."""
     x = torch.zeros((2, 9, 4, 64), dtype=torch.bfloat16)
     fused = torch.zeros((2, 9, 3, 4, 64), dtype=torch.bfloat16)[:, :, 1]
     for ok in (x, fused, x[:1].expand(1, -1, -1, -1), x[:, :1]):
@@ -165,6 +189,20 @@ def test_tma_rule_names_the_views_the_backward_copies():
     for bad in (x[:1].expand(2, -1, -1, -1), x[:, :1].expand(-1, 9, -1, -1), x[:, :, :1].expand(-1, -1, 4, -1)):
         assert not fa._tma_ok(bad.shape, bad.stride(), 2)
     assert not fa._tma_ok((2, 9, 4, 64), (1 << 40, 256, 64, 1), 2)
+    # head_dim 80: a fused projection's views (160-byte rows) need no copy
+    x80 = torch.zeros((2, 9, 4, 80), dtype=torch.bfloat16)
+    fused80 = torch.zeros((2, 9, 3, 4, 80), dtype=torch.bfloat16)[:, :, 1]
+    assert fa._tma_ok(fused80.shape, fused80.stride(), 2)
+    bcast = x80[:1].expand(2, -1, -1, -1)
+    for kernel, copied in (("K2", False), ("K3", True)):
+        got_fused, got_bcast = fa._tma_views(kernel, fused80, bcast)
+        assert got_fused is fused80
+        assert (got_bcast is not bcast) == copied
+        assert got_bcast.is_contiguous() == copied and torch.equal(got_bcast, bcast)
+    for kernel in ("K2", "K3"):  # head_dim 64: both load through TMA
+        assert fa._tma_views(kernel, x, x[:1].expand(2, -1, -1, -1))[1].is_contiguous()
+    f32 = bcast.float()  # f32 kernels read through strides
+    assert fa._tma_views("K3", f32, f32)[1] is f32
 
 
 _BF16_64 = dict(head_dim=64, dtype=torch.bfloat16)
@@ -310,6 +348,12 @@ def _grads_pallas(q, k, v, do):
         pytest.param(1, 33, 33, 2, 128, id="d128"),
         pytest.param(1, 13, 52, 16, 64, id="sq13-sk52"),
         pytest.param(1, 40, 7, 4, 32, id="sq40-sk7"),
+        # head_dim 80 (ViT-H/14): the encoder's 67 tokens, 65, 13 (packed
+        # heads in K3), Sq != Sk
+        pytest.param(1, 67, 67, 16, 80, id="80-67-h16"),
+        pytest.param(1, 65, 65, 16, 80, id="80-65-h16"),
+        pytest.param(1, 13, 13, 16, 80, id="80-13-h16"),
+        pytest.param(1, 67, 13, 16, 80, id="80-sq67-sk13"),
     ],
 )
 def test_plain_backward_matches_pallas_interpret(b, sq, sk, h, d):

@@ -301,7 +301,7 @@ def test_backward_kernels_cross_lengths(cuda, shape, sk, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("shape", [(2, 199, 4, 32), (4, 13, 16, 64), (2, 70, 2, 128)])
+@pytest.mark.parametrize("shape", [(2, 199, 4, 32), (4, 13, 16, 64), (2, 70, 2, 128), (2, 67, 4, 80)])
 def test_backward_takes_broadcast_views(cuda, shape):
     """A broadcast dO (the gradient of o.sum()) and broadcast k, v, which no
     TMA tensor map describes, give the gradients of their contiguous copies."""

@@ -188,12 +188,17 @@ def test_microbatcher_counters_equal_jax():
 
 def test_microbatcher_traces_every_outcome_once(tmp_path):
     """The tracer hooks: one access-log row per resolved future, each with
-    its outcome, the trace finished before the future resolves."""
+    its outcome, the trace finished before the future resolves.
+
+    The first request's batch is inside ``run_fn`` (an event set there)
+    before the others are submitted: with a 1-ms coalescing window, an
+    empty queue alone does not say that its batch has closed."""
     log = AccessLog(tmp_path / "acc")
     tracer = RequestTracer(registry=MetricsRegistry(), access_log=log)
-    gate = threading.Event()
+    gate, running = threading.Event(), threading.Event()
 
     def run_fn(batch):
+        running.set()
         gate.wait(10)
         if np.any(batch[:, 0, 0, 0] < 0):
             raise RuntimeError("bad batch")
@@ -203,7 +208,7 @@ def test_microbatcher_traces_every_outcome_once(tmp_path):
                              tracer=tracer, task="features")
     try:
         futs = [mb.submit(img(1.0))]
-        until(lambda: mb.stats()["queue_depth"] == 0)
+        assert running.wait(10), "the first batch never reached run_fn"
         futs.append(mb.submit(img(2.0), deadline_ms=1.0))
         futs += [mb.submit(img(-1.0)), mb.submit(img(-2.0))]
         with pytest.raises(pinfer.QueueFullError):
@@ -628,19 +633,26 @@ def fault_plan():
 def test_serve_replica_fault_crashes_then_restarts(fault_plan):
     """``serve.replica:raise@key~r1,n<1``: r1's first flush crashes, its
     request is requeued onto r0 and every future resolves once, ok; the
-    supervisor restarts r1, whose next flush serves."""
+    supervisor restarts r1, whose next flush serves.
+
+    The first request is inside r0's ``run`` (an event set there) before
+    the next two are submitted, so the router sees r0 holding it and an
+    empty queue on each replica: the second queues on r0, the third goes
+    to r1."""
     fault_plan("serve.replica:raise(RuntimeError)@key~r1,n<1")
-    gate = threading.Event()
+    gate, r0_running = threading.Event(), threading.Event()
 
     def run(eng, batch, metas):
         if eng.idx == 0:
+            r0_running.set()
             gate.wait(10)
         return run_echo(eng, batch, metas)
 
     rs, reg = pool("port", run, restart_backoff_s=0.05)
     try:
         futs = [rs.submit(img(1.0))]
-        until(lambda: busy(rs))
+        assert r0_running.wait(10), "r0 never ran the first batch"
+        assert busy(rs)
         futs += [rs.submit(img(2.0)), rs.submit(img(3.0))]
         until(lambda: reg.snapshot().get("serve_replica_crashes_total", {}).get("r1,crash") == 1.0)
         gate.set()
