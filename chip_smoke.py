@@ -241,11 +241,10 @@ Phases, each of which exits non-zero when it fails:
    of a scrape and of ``/healthz``.
 25. ViT-H/14 MAE pretraining from recipes/pretrain_vit_h14_in1k_fsdp.yaml
    (after phase 24, on phase 13's shards; alone: scripts/torch_h14.py):
-   K1-K3 at the slice's encoder (256, 67, 16, 80: K1 and K3 on wgmma
-   with 64 + 16-column panels, K2 mma.sync) and decoder (256, 259, 16,
-   32) shapes against their plain versions at the gates of phases 3-4
-   and timed as phase 5 times
-   them; ``blockwise_attention`` against the full scores at
+   K1-K3 at the slice's encoder (256, 67, 16, 80: all three on wgmma
+   with 64 + 16-column panels) and decoder (256, 259, 16, 32) shapes
+   against their plain versions at the gates of phases 3-4 and timed as
+   phase 5 times them; ``blockwise_attention`` against the full scores at
    (2, 4099, 16, 64), with and without a bias, its peak memory below
    theirs; two native-reader streams of the same shards alike; the step
    at batch 256 under ``remat_policy`` "dots" and "none" (launches per
@@ -300,11 +299,12 @@ DEC_SHAPE = (128, 199, 16, 32)
 # and decoder, without lse
 RECON_ENC_SHAPE = (64, 52, 16, 64)
 RECON_DEC_SHAPE = (64, 199, 16, 32)
-# the tile and panel edges of the head_dim-80 kernels (K1, K3; a 64-column
-# and a 16-column swizzled panel): S = 1, 9, 17, 33 at H = 16 on the edges
-# of the heads-per-tile rule (16, 4, 2, 1 heads), 64/65, the ViT-H/14
-# encoder's 67 (a 64-row tile and a ragged one of 3 rows), 128/129; H = 12
-# and 6 at a packed length (the last packed tile part empty)
+# the tile and panel edges of the head_dim-80 kernels (K1, K2, K3; a
+# 64-column and a 16-column swizzled panel): S = 1, 9, 17, 33 at H = 16 on
+# the edges of the heads-per-tile rule (16, 4, 2, 1 heads), 64/65, the
+# ViT-H/14 encoder's 67 (a 64-row tile and a ragged one of 3 rows),
+# 128/129; H = 12 and 6 at a packed length (the last packed tile part
+# empty)
 H80_EDGES = [
     (8, 1, 16, 80),
     (4, 9, 16, 80),
@@ -382,9 +382,9 @@ SEQ = 4
 HOP_SHAPE = (SEQ * 128, 52 // SEQ, 16, 64)
 K4_SHAPES = [HOP_SHAPE, (4, 1024, 16, 64), (2, 787, 16, 80), (2, 331, 8, 128)]
 RING_SHAPES = [ENC_SHAPE, (2, 4096, 16, 64)]
-# K2/K3 shapes: the training slice's, ViT-B, 448 px, ViT-H/14 (head_dim 80:
-# K3 on wgmma, K2 still mma.sync), head_dim 128; then every tile edge of
-# the wgmma kernels, which tile and pack as K1 does: rows and keys around
+# K2/K3 shapes: the training slice's, ViT-B, 448 px, ViT-H/14 (head_dim
+# 80), head_dim 128; then every tile edge of the wgmma kernels, which
+# tile and pack as K1 does: rows and keys around
 # the 64-row tiles (64/65, 128/129); S = 1, 8/9, 13, 16/17, 32/33 at H = 16
 # on the edges of the heads-per-tile rule (16, 8, 4, 2, 1 heads), with
 # H = 12 and 6 leaving the last packed tile part empty; the ring hop;
@@ -692,6 +692,14 @@ def k3_wgmma_at_80(fa) -> bool:
     return isinstance(rule, dict) and 80 in rule["K3"]
 
 
+def k2_wgmma_at_80(fa) -> bool:
+    """Whether the package's K2 at head_dim 80 is the wgmma kernel (this
+    checkout) or the mma.sync one (an older checkout, as
+    scripts/torch_k1_bench.py --base loads one)."""
+    rule = fa.TMA_HEAD_DIMS
+    return isinstance(rule, dict) and 80 in rule["K2"]
+
+
 @contextlib.contextmanager
 def counting_delta_passes(fa):
     """Count the calls of the plain D pass (``attention_delta``) in the
@@ -785,7 +793,7 @@ def phase_bwd_kernels(fa) -> dict:
     # broadcast views (stride 0, which no TMA tensor map describes): dO of
     # o.sum() and k, v shared over the batch give the gradients of their
     # contiguous copies
-    for shape in (DEC_SHAPE, HOP_SHAPE, (2, 70, 4, 128), (2, 67, 4, 80)):
+    for shape in (DEC_SHAPE, HOP_SHAPE, (2, 70, 4, 128), (2, 67, 4, 80), (4, 9, 16, 80)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, o, lse = bwd_inputs(shape, dtype, 350, fa)
             views = {"dO": (q, k, v, do[:1].expand(shape)),
@@ -828,6 +836,8 @@ def phase_bwd_kernels(fa) -> dict:
         want = {("K2", 32): 5, ("K2", 64): 3, ("K2", 128): 1, ("K3", 32): 4, ("K3", 64): 3, ("K3", 128): 1}
         if k3_wgmma_at_80(fa):
             want[("K3", 80)] = 3
+        if k2_wgmma_at_80(fa):
+            want[("K2", 80)] = 3
         held = {key: fa.blocks_per_sm(*key) for key in want}
         log("blocks per SM (bf16 wgmma kernels): " + ", ".join(
             f"{kern} at head_dim {d} {n} (built for {want[(kern, d)]})" for (kern, d), n in held.items()))
@@ -3754,6 +3764,22 @@ def vit_h14_mae():
     return enc, dec, opt
 
 
+def check_bwd_case(fa, case: str, q, k, v, do, o, lse, g_lse, dtype) -> tuple[dict, float]:
+    """K2/K3 on one case against the plain backward (``check_grads``; one
+    key without an lse cotangent held to the exact zero), a rerun
+    bit-identical, and K2's D against ``attention_delta``. Returns the
+    gradients' errors and D's."""
+    import torch
+
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, g_lse=g_lse)
+    want_d = fa.attention_delta(o, do, g_lse)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=want_d)
+    grads = check_grads(case, got, ref, dtype, sk=k.shape[1] if g_lse is None else None)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, g_lse=g_lse)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)), f"two runs of K2/K3 differ at {case}")
+    return grads, check_delta(case, fa.flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)[1], want_d)
+
+
 def h14_kernels(fa) -> dict:
     """K1-K3 at the slice's encoder and decoder shapes against their plain
     versions, as phases 3-4 hold them (f32 with TF32 off: K1 1e-5, K2/K3
@@ -3781,12 +3807,7 @@ def h14_kernels(fa) -> dict:
             for g_lse in (None, torch.randn((b * h, sq), generator=torch.Generator(device="cuda").manual_seed(i),
                                             device="cuda")):
                 case = f"{shape} {name}{' g_lse' if g_lse is not None else ''}"
-                got = fa.flash_attention_bwd(q, k, v, o, lse, do, g_lse=g_lse)
-                want_d = fa.attention_delta(o, do, g_lse)
-                grads = check_grads(case, got, fa.flash_attention_bwd_plain(q, k, v, o, lse, do, delta=want_d), dtype)
-                again = fa.flash_attention_bwd(q, k, v, o, lse, do, g_lse=g_lse)
-                check(all(torch.equal(x, y) for x, y in zip(got, again)), f"two runs of K2/K3 differ at {case}")
-                d_err = check_delta(case, fa.flash_attention_bwd_dq(q, k, v, do, o, lse, g_lse)[1], want_d)
+                grads, d_err = check_bwd_case(fa, case, q, k, v, do, o, lse, g_lse, dtype)
                 errs[("K2", name, shape)] = max(errs.get(("K2", name, shape), 0.0), grads["dq"][0])
                 errs[("K3", name, shape)] = max(errs.get(("K3", name, shape), 0.0), grads["dk"][0], grads["dv"][0])
                 log(f"h14 K2/K3 {case}: " + ", ".join(f"{g} {e:.3e}/{sc:.3e}" for g, (e, sc) in grads.items())

@@ -43,10 +43,13 @@
 // products under a tighter register bound (-> 0.214); a 3-slot ring
 // (-> 0.210); 16-column K2 products at head_dim 32 (K2 0.088 -> 0.086).
 // Register bounds that force spills (4 blocks at head_dim 64, 5 for K3 at
-// 32) ran slower or only as fast, and the build refuses spills.
+// 32) ran slower or only as fast, and the build refuses spills. K2 at the
+// ViT-H/14 encoder (256, 67, 16, 80): 32-column products under a 3-block
+// bound (118 registers) 0.120 ms; 16 columns 0.124; 64 columns spill
+// under 3 blocks and take 0.142 under 2.
 //
-// The bf16 kernels (flash_bwd_dq_wgmma at head_dim 32, 64 and 128,
-// flash_bwd_dkv_wgmma at every head_dim) follow K1's design (flash_fwd.cu):
+// The bf16 kernels (flash_bwd_dq_wgmma and flash_bwd_dkv_wgmma, at every
+// head_dim) follow K1's design (flash_fwd.cu):
 //  - warp specialised: one producer warp starts TMA loads through 4-D
 //    tensor maps over the strided (B, S, H, D) views, one consumer
 //    warpgroup computes;
@@ -66,10 +69,10 @@
 //  - a tile is taken in narrow products of 16 or 32 columns (keys in K2,
 //    query rows in K3), each its own chain of SS products, elementwise
 //    work and RS products: few score registers are live, so the register
-//    bound admits 3-5 blocks an SM at head_dim 32 and 64, which hide each
-//    other's chains; the elementwise work per score is specialised per
-//    tile (no mask, a ragged end, packed heads), so a full tile pays
-//    nothing for masking;
+//    bound admits 3-5 blocks an SM at head_dim 32, 64 and 80, which
+//    hide each other's chains; the elementwise work per score is
+//    specialised per tile (no mask, a ragged end, packed heads), so a
+//    full tile pays nothing for masking;
 //  - K2's D: each quad of consumer threads owns rows r0 and r0 + 8 and
 //    sums dO·O over them, each lane a quarter of the 16-byte chunks read
 //    from the swizzled tiles, then two shuffles; one lane per row stores
@@ -91,24 +94,21 @@
 //    stored; a masked score gives P = dS = 0 exactly.
 // Swizzle: a 128-byte row for head_dim 64 and 128, 64 bytes for 32, and
 // at head_dim 80 a 64-column panel of 128-byte rows beside a 16-column
-// panel of 32-byte rows (hopper.cuh's SwizzledTile, as in K1): K3's SS
-// products take 4 k steps in panel 0 and 1 in panel 1, its RS products
-// split into 64 + 16 columns; a 2-slot ring there, so its shared memory
-// admits 3 blocks an SM.
+// panel of 32-byte rows (hopper.cuh's SwizzledTile, as in K1): the SS
+// products take 4 k steps in panel 0 and 1 in panel 1, the RS products
+// split into 64 + 16 columns, and K2's D reads chunks 0-7 of a row from
+// panel 0 and 8-9 from panel 1; a 2-slot ring there, so shared memory
+// admits 3 blocks an SM of either kernel.
 // Helpers live in hopper.cuh.
 //
-// Shape-selected variants:
-//  - K2 at head_dim 80 (ViT-H/14) in bf16 runs flash_bwd_dq_bf16, kept
-//    from the first port: mma.sync m16n8k16, 4 warps of 16 rows, plain
-//    16-byte loads and a transposed copy of K in shared memory;
-//  - float32 runs plain FMA in full f32 (no TF32), 32-row tiles with 4
-//    threads per row. This is the exact path parity runs take.
+// float32 runs plain FMA in full f32 (no TF32), 32-row tiles with 4
+// threads per row. This is the exact path parity runs take.
 //
 // Layout: q, k, v, dO and O are (B, S, H, D) read through strides
 // (innermost stride 1); lse, g_lse and D are f32 (B*H, Sq) with row
 // b*H + h (K1's lse layout); dq, dk and dv are written through strides in
-// the input dtype. The mma.sync and f32 kernels read O and dO for D with
-// plain loads, each quad's lanes a quarter of a row.
+// the input dtype. The f32 kernels read O and dO for D with plain loads,
+// each quad's lanes a quarter of a row.
 //
 // Plain C interface, loaded with ctypes: each entry point returns
 // cudaGetLastError() after its launch (0 on success).
@@ -148,10 +148,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int D>
 struct BwdTile : hp::SwizzledTile<D> {
   // ring slots of the streamed pair of tiles: 3, and 2 at head_dim 80,
-  // where 3 would leave K3 2 blocks an SM (82 KB a block) and 2 admit 3
-  // (63 KB); at the ViT-H/14 encoder's 67 tokens K3 streams 2 q tiles, so
-  // 2 slots already load all of them at once (3 slots measured 1.2x
-  // slower there, on the H100)
+  // where 3 would leave 2 blocks an SM (K2 93 KB a block, K3 83 KB) and 2
+  // admit 3 (73 and 62 KB); at the ViT-H/14 encoder's 67 tokens each
+  // kernel streams 2 tiles, so 2 slots already load all of them at once
+  // (K3 with 3 slots measured 1.2x slower there, on the H100)
   static constexpr int kStages = D == 80 ? 2 : 3;
   // the block's own tiles (Q, dO and O in K2; K and V in K3) and kStages
   // slots of the streamed pair, + 1024 bytes for alignment. K2's O tile
@@ -165,12 +165,12 @@ struct BwdTile : hp::SwizzledTile<D> {
   // and hide each other's serial chains (at head_dim 32: K2 at 72
   // registers, 5 blocks; K3 at 88, 4 blocks). At head_dim 128 the
   // accumulators alone take 64 (K2) and 128 (K3) registers: one block.
-  // K3 at head_dim 80: 3 blocks, as many as its shared memory admits (the
-  // occupancy query, chip_smoke.py), dk and dv taking 80 registers of 136.
-  // K2 at head_dim 80 is still the mma.sync kernel.
-  static constexpr int kDqCols = D == 32 ? 16 : D == 64 ? 32 : 64;
+  // At head_dim 80 both kernels hold 3 blocks, as many as their shared
+  // memory admits (the occupancy query, chip_smoke.py): K3's dk and dv
+  // take 80 registers of 136, K2's dq 40 beside 32-column S and dP.
+  static constexpr int kDqCols = D == 32 ? 16 : D == 64 || D == 80 ? 32 : 64;
   static constexpr int kDkvCols = D == 128 ? 32 : 16;
-  static constexpr int kMinBlocksDq = D == 32 ? 5 : D == 64 ? 3 : 1;
+  static constexpr int kMinBlocksDq = D == 32 ? 5 : D == 64 || D == 80 ? 3 : 1;
   static constexpr int kMinBlocksDkv = D == 32 ? 4 : D == 64 || D == 80 ? 3 : 1;
 };
 
@@ -600,145 +600,6 @@ __global__ void __launch_bounds__(kWgThreads, BwdTile<D>::kMinBlocksDkv)
   store_rows<D>(p.out1, p.os1, dv, r0, ri.t, s0, h0, b, p.log_pack, p.Sk, p.H);
 }
 
-// ------------------------------------- bf16 path, head_dim 80: K2 on mma.sync
-
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kDqRows = 16 * kWarps;  // K2: q rows per block
-constexpr int kDqKeys = 64;           // K2: keys per K/V tile
-
-template <int D>
-constexpr size_t smem_dq_bf16() {
-  // qs, dos [kDqRows][D+kPad]; ks, vs [kDqKeys][D+kPad]; kt [D][kDqKeys+kPad]
-  return sizeof(__nv_bfloat16) * (2 * kDqRows * (D + kPad) + 2 * kDqKeys * (D + kPad) +
-                                  D * (kDqKeys + kPad));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(BwdParams p) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int ld = D + kPad;
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + kDqRows * ld;
-  __nv_bfloat16* ks = dos + kDqRows * ld;
-  __nv_bfloat16* vs = ks + kDqKeys * ld;
-  __nv_bfloat16* kt = vs + kDqKeys * ld;
-
-  const int m0 = blockIdx.x * kDqRows;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long bh = static_cast<long long>(b) * p.H + h;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.qs.b + h * p.qs.h;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + b * p.ks.b + h * p.ks.h;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + b * p.vs.b + h * p.vs.h;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) + b * p.dos.b + h * p.dos.h;
-  const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(p.o) + b * p.os.b + h * p.os.h;
-  __nv_bfloat16* dq = static_cast<__nv_bfloat16*>(p.dq) + b * p.dqs.b + h * p.dqs.h;
-
-  load_rows_bf16<D, kDqRows, kThreads>(qs, q, p.qs.s, m0, p.Sq);
-  load_rows_bf16<D, kDqRows, kThreads>(dos, dout, p.dos.s, m0, p.Sq);
-
-  // lse of rows g and g+8 of this warp's 16, and their D = rowsum(dO ∘ O)
-  // − g_lse, each quad's lanes summing the 16-byte chunks t, t + 4, ...;
-  // lane 0 of the quad stores D. Pad rows read nothing
-  const int rows[2] = {m0 + warp * 16 + g, m0 + warp * 16 + g + 8};
-  float lse_r[2], dd_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool ok = rows[r] < p.Sq;
-    float dsum = 0.f;
-    if (ok) {
-      for (int c = t; c < D / 8; c += 4) {
-        dsum = dot8_bf16(*reinterpret_cast<const uint4*>(dout + rows[r] * p.dos.s + 8 * c),
-                         *reinterpret_cast<const uint4*>(o + rows[r] * p.os.s + 8 * c), dsum);
-      }
-    }
-    dsum = quad_sum(dsum);
-    lse_r[r] = ok ? p.lse[bh * p.Sq + rows[r]] : 0.f;
-    dd_r[r] = ok ? dsum - (p.g_lse != nullptr ? p.g_lse[bh * p.Sq + rows[r]] : 0.f) : 0.f;
-    if (ok && t == 0) p.delta[bh * p.Sq + rows[r]] = dd_r[r];
-  }
-
-  constexpr int kSteps = D / 16;
-  constexpr int kKeyTiles = kDqKeys / 8;
-  constexpr int kOutTiles = D / 8;
-  float acc[kOutTiles][4];
-#pragma unroll
-  for (int j = 0; j < kOutTiles; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const __nv_bfloat16* qw = qs + warp * 16 * ld;
-  const __nv_bfloat16* dow = dos + warp * 16 * ld;
-
-  for (int n0 = 0; n0 < p.Sk; n0 += kDqKeys) {
-    __syncthreads();  // the previous tile is consumed by every warp
-    load_rows_bf16<D, kDqKeys, kThreads>(ks, k, p.ks.s, n0, p.Sk);
-    load_rows_bf16<D, kDqKeys, kThreads>(vs, v, p.vs.s, n0, p.Sk);
-    load_rows_transposed_bf16<D, kDqKeys, kThreads>(kt, k, p.ks.s, n0, p.Sk);
-    __syncthreads();
-
-    // s = q·kᵀ and dp = dO·vᵀ, 16 rows x kDqKeys keys each, f32
-    float s[kKeyTiles][4], dp[kKeyTiles][4];
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int st = 0; st < kSteps; ++st) {
-      uint32_t aq[4], ado[4];
-      load_a_frag(aq, qw, ld, st, g, t);
-      load_a_frag(ado, dow, ld, st, g, t);
-#pragma unroll
-      for (int j = 0; j < kKeyTiles; ++j) {
-        const __nv_bfloat16* kr = ks + (j * 8 + g) * ld + st * 16;
-        const __nv_bfloat16* vr = vs + (j * 8 + g) * ld + st * 16;
-        mma_16816(s[j], aq, ld_smem_u32(kr + 2 * t), ld_smem_u32(kr + 8 + 2 * t));
-        mma_16816(dp[j], ado, ld_smem_u32(vr + 2 * t), ld_smem_u32(vr + 8 + 2 * t));
-      }
-    }
-
-    // P = exp(s − lse), 0 on pad keys; dS = P ∘ (dp − D), kept in s
-#pragma unroll
-    for (int j = 0; j < kKeyTiles; ++j) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = c >> 1;
-        const int key = n0 + j * 8 + 2 * t + (c & 1);
-        const float pr = key < p.Sk ? __expf(s[j][c] - lse_r[r]) : 0.f;
-        s[j][c] = pr * (dp[j][c] - dd_r[r]);
-      }
-    }
-
-    // dq += dS·K, dS cast to bf16 as the A operand, K from the transposed tile
-#pragma unroll
-    for (int kk = 0; kk < kDqKeys / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a_frag(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < kOutTiles; ++j) {
-        const __nv_bfloat16* kr = kt + (j * 8 + g) * (kDqKeys + kPad) + kk * 16;
-        mma_16816(acc[j], a, ld_smem_u32(kr + 2 * t), ld_smem_u32(kr + 8 + 2 * t));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= p.Sq) continue;
-    __nv_bfloat16* row = dq + rows[r] * p.dqs.s;
-#pragma unroll
-    for (int j = 0; j < kOutTiles; ++j) {
-      *reinterpret_cast<uint32_t*>(row + j * 8 + 2 * t) =
-          pack_bf16x2(acc[j][2 * r], acc[j][2 * r + 1]);
-    }
-  }
-}
-
 // ----------------------------------------------------------------- f32 path
 
 constexpr int kF32Rows = 32;  // rows per block (q rows in K2, keys in K3)
@@ -993,21 +854,17 @@ cudaError_t launch_wgmma(const BwdParams& p, cudaStream_t stream) {
 template <int D, bool dkv>
 cudaError_t blocks_per_sm(int* blocks) {
   using T = BwdTile<D>;
-  if constexpr (D == 80 && !dkv) {
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_dq_bf16<D>, kThreads, smem_dq_bf16<D>());
+  static std::atomic<unsigned long long> smem_set{0};
+  const size_t smem = dkv ? T::kSmemDkv : T::kSmemDq;
+  const void* kernel;
+  if constexpr (dkv) {
+    kernel = reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<D>);
   } else {
-    static std::atomic<unsigned long long> smem_set{0};
-    const size_t smem = dkv ? T::kSmemDkv : T::kSmemDq;
-    const void* kernel;
-    if constexpr (dkv) {
-      kernel = reinterpret_cast<const void*>(flash_bwd_dkv_wgmma<D>);
-    } else {
-      kernel = reinterpret_cast<const void*>(flash_bwd_dq_wgmma<D>);
-    }
-    const cudaError_t err = allow_smem(kernel, smem, smem_set);
-    if (err != cudaSuccess) return err;
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWgThreads, smem);
+    kernel = reinterpret_cast<const void*>(flash_bwd_dq_wgmma<D>);
   }
+  const cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWgThreads, smem);
 }
 
 template <typename Kernel>
@@ -1021,15 +878,7 @@ cudaError_t launch_kernel(Kernel kernel, dim3 grid, int threads, size_t smem, co
 
 template <int D>
 cudaError_t launch_dq(const BwdParams& p, int dtype, cudaStream_t stream) {
-  if (dtype == 1) {
-    if constexpr (D == 80) {
-      static std::atomic<unsigned long long> smem_set{0};
-      const dim3 grid((p.Sq + kDqRows - 1) / kDqRows, p.H, p.B);
-      return launch_kernel(flash_bwd_dq_bf16<D>, grid, kThreads, smem_dq_bf16<D>(), p, stream, smem_set);
-    } else {
-      return launch_wgmma<D, false>(p, stream);
-    }
-  }
+  if (dtype == 1) return launch_wgmma<D, false>(p, stream);
   static std::atomic<unsigned long long> smem_set{0};
   const dim3 grid((p.Sq + kF32Rows - 1) / kF32Rows, p.H, p.B);
   return launch_kernel(flash_bwd_dq_f32<D>, grid, kF32Threads, smem_bwd_f32<D>(), p, stream, smem_set);

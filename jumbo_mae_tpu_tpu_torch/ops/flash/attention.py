@@ -13,9 +13,9 @@ outputs and launches them on PyTorch's current stream.
   tensors take :func:`flash_attention_bwd_plain`. K2 computes the
   per-row term D = rowsum(dO ∘ O) − g_lse of its own rows (the JAX
   package's prologue, ``attention.py:293-305``), uses it and writes it
-  for K3, so no separate D pass runs on the card. In bf16, each at its
-  :data:`TMA_HEAD_DIMS`, they load through TMA tensor maps, so a view no
-  map can describe (a broadcast gradient) is copied first.
+  for K3, so no separate D pass runs on the card. In bf16 they load
+  through TMA tensor maps (:data:`TMA_HEAD_DIMS`: every head_dim), so a
+  view no map can describe (a broadcast gradient) is copied first.
   ``LAUNCHES_BWD_DQ`` and ``LAUNCHES_BWD_DKV`` count their launches.
 - :func:`flash_attention_fwd_plain`, :func:`attention_delta` and
   :func:`flash_attention_bwd_plain` are the same functions in plain
@@ -43,10 +43,9 @@ import ctypes
 import torch
 
 HEAD_DIMS = (32, 64, 80, 128)
-# head_dims at which each bf16 kernel loads through TMA tensor maps: K1
-# and K3 at all of them; K2 at head_dim 80 is the mma.sync kernel, whose
-# plain loads read any strides
-TMA_HEAD_DIMS = {"K1": HEAD_DIMS, "K2": (32, 64, 128), "K3": HEAD_DIMS}
+# head_dims at which each bf16 kernel loads through TMA tensor maps: every
+# kernel at every head_dim (the f32 kernels' plain loads read any strides)
+TMA_HEAD_DIMS = {"K1": HEAD_DIMS, "K2": HEAD_DIMS, "K3": HEAD_DIMS}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_DTYPES = tuple(_DTYPE_CODES)  # the dtypes the kernels take
 
@@ -94,7 +93,7 @@ def check_kernel_args(
     at ``TMA_HEAD_DIMS["K1"]`` loads through TMA tensor maps, which also
     need every stride of a dimension longer than 1 positive and below
     2**40 bytes (no broadcast views: :func:`_tma_ok`). The bf16 backward
-    kernels load through them at their own head_dims too, but copy such a
+    kernels load through them at every head_dim too, but copy such a
     view (a gradient may arrive as one) instead of refusing it. Devices
     are checked by the caller.
 
@@ -299,9 +298,11 @@ def _tma_views(kernel: str, q, *xs):
     """q and ``xs`` as the bf16 backward kernel ``kernel`` ("K2" or "K3")
     reads them: where it loads through TMA (``TMA_HEAD_DIMS[kernel]``), a
     view no tensor map describes (a broadcast gradient) becomes a
-    contiguous copy."""
+    contiguous copy. A contiguous tensor needs no look at its strides
+    (the training step's usually are, and the step is host-bound)."""
     if q.dtype == torch.bfloat16 and q.shape[3] in TMA_HEAD_DIMS[kernel]:
-        return tuple(x if _tma_ok(x.shape, x.stride(), 2) else x.contiguous() for x in (q, *xs))
+        return tuple(x if x.is_contiguous() or _tma_ok(x.shape, x.stride(), 2) else x.contiguous()
+                     for x in (q, *xs))
     return (q, *xs)
 
 

@@ -169,19 +169,19 @@ def test_tma_stride_rule_binds_only_the_bf16_forward():
         fa.check_kernel_args(*bf16)
     with pytest.raises(ValueError, match="TMA"):
         fa.check_kernel_args(*[x[:1].expand(2, -1, -1, -1) for x in _ok(d=80)])
-    # per kernel: K1 and K3 load through TMA at every head_dim, K2 at all
-    # but 80 (its mma.sync kernel reads any strides)
+    # per kernel: K1, K2 and K3 each load through TMA at every head_dim
+    # (80 among them since K2's wgmma kernel at 80)
     assert set(fa.TMA_HEAD_DIMS) == {"K1", "K2", "K3"}
-    assert fa.TMA_HEAD_DIMS["K1"] == fa.TMA_HEAD_DIMS["K3"] == fa.HEAD_DIMS
-    assert set(fa.TMA_HEAD_DIMS["K2"]) < set(fa.HEAD_DIMS) and 80 not in fa.TMA_HEAD_DIMS["K2"]
+    for kernel in ("K1", "K2", "K3"):
+        assert tuple(fa.TMA_HEAD_DIMS[kernel]) == fa.HEAD_DIMS and 80 in fa.TMA_HEAD_DIMS[kernel]
 
 
 def test_tma_rule_names_the_views_the_backward_copies():
     """The bf16 backward copies a view no TMA tensor map describes instead
     of refusing it: ``_tma_ok`` is false for a broadcast dimension longer
     than 1 and true for contiguous tensors, fused-projection views and a
-    dimension of extent 1 with any stride. Per kernel: at head_dim 80 K3
-    (TMA) gets the copies, K2 (mma.sync) the views as they are."""
+    dimension of extent 1 with any stride. Per kernel: at head_dim 80 K2
+    and K3 both load through TMA, so both get the copies."""
     x = torch.zeros((2, 9, 4, 64), dtype=torch.bfloat16)
     fused = torch.zeros((2, 9, 3, 4, 64), dtype=torch.bfloat16)[:, :, 1]
     for ok in (x, fused, x[:1].expand(1, -1, -1, -1), x[:, :1]):
@@ -194,11 +194,11 @@ def test_tma_rule_names_the_views_the_backward_copies():
     fused80 = torch.zeros((2, 9, 3, 4, 80), dtype=torch.bfloat16)[:, :, 1]
     assert fa._tma_ok(fused80.shape, fused80.stride(), 2)
     bcast = x80[:1].expand(2, -1, -1, -1)
-    for kernel, copied in (("K2", False), ("K3", True)):
+    for kernel in ("K2", "K3"):
         got_fused, got_bcast = fa._tma_views(kernel, fused80, bcast)
         assert got_fused is fused80
-        assert (got_bcast is not bcast) == copied
-        assert got_bcast.is_contiguous() == copied and torch.equal(got_bcast, bcast)
+        assert got_bcast is not bcast
+        assert got_bcast.is_contiguous() and torch.equal(got_bcast, bcast)
     for kernel in ("K2", "K3"):  # head_dim 64: both load through TMA
         assert fa._tma_views(kernel, x, x[:1].expand(2, -1, -1, -1))[1].is_contiguous()
     f32 = bcast.float()  # f32 kernels read through strides
@@ -349,11 +349,16 @@ def _grads_pallas(q, k, v, do):
         pytest.param(1, 13, 52, 16, 64, id="sq13-sk52"),
         pytest.param(1, 40, 7, 4, 32, id="sq40-sk7"),
         # head_dim 80 (ViT-H/14): the encoder's 67 tokens, 65, 13 (packed
-        # heads in K3), Sq != Sk
+        # heads in K2 and K3), Sq != Sk both ways; where K2 packs 16, 4
+        # and 2 heads a 64-row tile: one token, 9, 13 queries against 67
+        # keys
         pytest.param(1, 67, 67, 16, 80, id="80-67-h16"),
         pytest.param(1, 65, 65, 16, 80, id="80-65-h16"),
         pytest.param(1, 13, 13, 16, 80, id="80-13-h16"),
         pytest.param(1, 67, 13, 16, 80, id="80-sq67-sk13"),
+        pytest.param(2, 1, 1, 16, 80, id="80-s1-h16"),
+        pytest.param(1, 9, 9, 16, 80, id="80-9-h16"),
+        pytest.param(1, 13, 67, 16, 80, id="80-sq13-sk67"),
     ],
 )
 def test_plain_backward_matches_pallas_interpret(b, sq, sk, h, d):
