@@ -258,6 +258,20 @@ Phases, each of which exits non-zero when it fails:
    reconstruction figure drawn from the save by
    ``tools/reconstruct.py`` (8 rows, 1806 x 902 px, the original panels
    bit-equal to the validation images, K1 = 40 x forwards).
+26. the training run's safety layers (after phase 25, on phase 13's
+   shards): phase 13's recipe through ``cli.train.main`` with
+   ``run.faults=train.loss:nan@n=2..3;host.leak:corrupt(16)``, a log window
+   a step, a save every 2 steps and ``run.sentinel_patience=2``: the guard
+   skips steps 3 and 4, the divergence sentinel rolls the run back at step
+   4 to the step-2 save (parameters, optimizer state, step, seed, data
+   cursor) and steps 3-6 run again; the journal's sentinel, rollback, step
+   and shutdown rows in order; steps 1-2 and the rerun's 3-6 equal to
+   phase 13's losses within one bf16 ulp (the largest difference printed);
+   K1 56 and K2 = K3 32 per dispatch (8 dispatches: a skipped step runs its
+   backward) and 32 K1 per eval batch; a ``mem_sample`` a window with the
+   card's bytes; the leak sentinel naming ``fault_ballast`` and
+   ``tools/mem_doctor.py`` naming it from the journal; 0 unexpected
+   retraces.
 
 Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
 NaN past the sequence inert, and time them there against SDPA.
@@ -1689,11 +1703,11 @@ def instrumented_driver(fa, before_step=None):
     def make_train_step(**kw):
         step = make_step(**kw)
 
-        def timed(state, batch):
+        def timed(state, batch, *inject):
             if before_step is not None:
                 before_step(len(rec["dispatch_s"]))
             t0 = time.perf_counter()
-            out = step(state, batch)
+            out = step(state, batch, *inject)
             rec["dispatch_s"].append(time.perf_counter() - t0)
             return out
 
@@ -4155,7 +4169,137 @@ def phase_h14(fa, smi: str, tmp: Path, urls: dict) -> dict:
     return res
 
 
+# Phase 26: phase 13's run with a scripted divergence. NaN losses at the
+# 3rd and 4th train-step calls (steps 3 and 4), patience 2 and a save every
+# 2 steps: the engine handles a rollback before that step's eval and save,
+# so the streak rolls back at step 4 to the clean step-2 save; the host.leak
+# site retains 16 MB a step for the leak sentinel to name
+ROLLBACK_SETS = ["run.faults=train.loss:nan@n=2..3;host.leak:corrupt(16)", "run.log_interval=1",
+                 "run.eval_interval=2", "run.sentinel_patience=2"]
+ROLLBACK_STEPS = [1, 2, 3, 4, 3, 4, 5, 6]  # the steps dispatched, in order
+ROLLBACK_LOSS_RTOL = 4e-3  # one bf16 ulp (2^-8) of the loss
+
+
+def _counter(name: str, key: str = "") -> float:
+    from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
+
+    return float(get_registry().snapshot().get(name, {}).get(key, 0.0))
+
+
+def phase_rollback(fa, smi: str, tmp: Path, driver: dict) -> dict:
+    """Phase 26: the training run's safety layers on phase 13's recipe,
+    shards and seed through ``cli.train.main``: the divergence sentinel
+    and its rollback to the step-2 save (bad steps exactly 3 and 4), the
+    rerun's losses of steps 3-6 against phase 13's, the launches per
+    dispatch (a skipped step runs its backward), the journal's rows, the
+    memory samples and the leak sentinel naming ``fault_ballast``
+    (``tools/mem_doctor.py`` reads the journal), no unexpected retrace."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+    from jumbo_mae_tpu_tpu_torch.faults import inject
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+    from jumbo_mae_tpu_tpu_torch.tools import mem_doctor
+
+    t0 = time.perf_counter()
+    urls = driver["urls"]
+    out = tmp / "rollback"
+    sets = DRIVER_SETS + [f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}",
+                          f"run.output_dir={out}", *ROLLBACK_SETS]
+    counters = ("train_steps_skipped_total", "train_rollbacks_total")
+    before = {k: _counter(k) for k in counters}
+    retrace0 = (_counter("retrace_events_total", "train"), _counter("retrace_compiles_total", "train"))
+    try:
+        rec = run_driver(fa, ["--config", str(HERE / RECIPE), "--set", *sets])
+    finally:
+        ballast = inject.leak_ballast_bytes()
+        inject.install_plan("host.leak:raise")  # a raise firing clears the ballast
+        inject.host_leak_tick()
+        inject.clear_plan()
+    delta = {k: _counter(k) - before[k] for k in counters}
+    retraces = (_counter("retrace_events_total", "train") - retrace0[0],
+                _counter("retrace_compiles_total", "train") - retrace0[1])
+    run_dir = out / load_config(HERE / RECIPE, sets).run.name
+    events = read_journal(run_dir)
+    rows = [(e["type"], e.get("step"), e.get("from_step"), e.get("to_step")) for e in events
+            if e["type"] in ("step", "sentinel_bad_step", "rollback", "shutdown", "checkpoint_save")]
+    log(f"rollback: journal rows {[r for r in rows if r[0] != 'checkpoint_save']}")
+
+    # the sentinel: bad steps exactly 3 and 4, one rollback from 4 to 2,
+    # then steps 3-6 and the shutdown at 6
+    bad = [e["step"] for e in events if e["type"] == "sentinel_bad_step"]
+    rb = [(e["from_step"], e["to_step"], e["rollbacks"]) for e in events if e["type"] == "rollback"]
+    check(bad == [3, 4] and rb == [(4, 2, 1)], f"rollback: bad steps {bad}, rollbacks {rb}")
+    i_rb = next(i for i, r in enumerate(rows) if r[0] == "rollback")
+    check([r[1] for r in rows[:i_rb] if r[0] == "step"] == [1, 2, 3, 4], "rollback: step rows before the rollback")
+    check([r[1] for r in rows[i_rb:] if r[0] == "step"] == [3, 4, 5, 6], "rollback: step rows after the rollback")
+    check([r[1] for r in rows if r[0] == "checkpoint_save"] == [2, 4, 6], "rollback: saves at steps 2, 4, 6")
+    check(rows[-1] == ("shutdown", 6, None, None) and events[-1]["reason"] == "completed",
+          f"rollback: the journal ends {events[-1]}")
+    check(delta == {"train_steps_skipped_total": 2.0, "train_rollbacks_total": 1.0}, f"rollback: counters {delta}")
+
+    # the losses: the rerun of steps 3-6 against phase 13's straight run
+    metrics = rec["metrics"]
+    check(len(metrics) == len(ROLLBACK_STEPS), f"rollback: {len(metrics)} dispatches, want {len(ROLLBACK_STEPS)}")
+    skipped = [m.get("skipped", 0.0) for m in metrics]
+    check(skipped == [0.0, 0.0, 1.0, 1.0, 0.0, 0.0, 0.0, 0.0], f"rollback: the guard's skips {skipped}")
+    losses = [m["loss"] for m in metrics]
+    check(np.isfinite(losses[-1]), f"rollback: the final loss {losses[-1]}")
+    straight = driver["losses"]
+    pairs = [(s, losses[i], straight[s - 1]) for i, s in enumerate(ROLLBACK_STEPS) if i < 2 or i >= 4]
+    rel = [abs(a - b) / abs(b) for _, a, b in pairs]
+    log("rollback: loss per dispatch " + ", ".join(f"{s}:{x:.5f}" for s, x in zip(ROLLBACK_STEPS, losses)))
+    log(f"rollback: steps 1-2 and the rerun's 3-6 against phase 13's: largest relative difference {max(rel):.3e} "
+        f"(steps {[s for s, _, _ in pairs]}, {rel})")
+    check(max(rel) <= ROLLBACK_LOSS_RTOL, f"rollback: the rerun's losses differ from phase 13's by {max(rel):.3e}")
+
+    # launches per dispatch: the skipped steps ran their backward too
+    c = rec["counts"]
+    train_k1 = c["K1"] - rec["eval_k1"]
+    n = len(ROLLBACK_STEPS)
+    log(f"rollback: launches K1 {c['K1']} ({train_k1} in {n} dispatches, {rec['eval_k1']} in {rec['eval_batches']} "
+        f"eval batches), K2 {c['K2']}, K3 {c['K3']}")
+    check(rec["eval_batches"] == 8 and rec["eval_k1"] == 32 * rec["eval_batches"],
+          f"rollback: {rec['eval_batches']} eval batches (the sanity eval and steps 2, 4, 6), K1 {rec['eval_k1']}")
+    check(train_k1 == 56 * n and c["K2"] == c["K3"] == 32 * n, "rollback: K1 56 and K2 = K3 32 per dispatch")
+
+    # memory: a sample every window with the card's bytes, the leak named
+    total = torch.cuda.get_device_properties(0).total_memory
+    samples = [e for e in events if e["type"] == "mem_sample"]
+    dev_bytes = [e.get("device_bytes", 0) for e in samples]
+    check(len(samples) == n and all(0 < b < total for b in dev_bytes),
+          f"rollback: {len(samples)} memory samples, device bytes {dev_bytes} (card {total})")
+    rss = [e["rss_bytes"] for e in samples]
+    log(f"rollback: host RSS MiB per sample {[r // 2**20 for r in rss]}, fault_ballast MiB "
+        f"{[e['components'].get('fault_ballast', 0) // 2**20 for e in samples]}, device MiB "
+        f"{[b // 2**20 for b in dev_bytes]}")
+    leaks = [e for e in events if e["type"] == "mem_leak_suspect"]
+    check(len(leaks) == 1 and leaks[0]["component"] == "fault_ballast",
+          f"rollback: leak suspects {[(e['step'], e['component'], e['robust_growth_bytes']) for e in leaks]}")
+    check(ballast == n * 16 * 2**20, f"rollback: the ballast held {ballast} bytes after {n} dispatches")
+    rc = mem_doctor.main([str(run_dir), "--out", str(tmp / "mem.md")])
+    report = (tmp / "mem.md").read_text()
+    # the doctor's contract: exit 2 when a leak suspect was journaled
+    check(rc == 2 and "leak suspected: **fault_ballast**" in report, f"rollback: mem_doctor exit {rc}")
+
+    # the retrace sentinel: no unexpected dispatch signature after step 1
+    check(retraces[0] == 0 and not [e for e in events if e["type"] == "retrace"],
+          f"rollback: {retraces[0]} unexpected retraces")
+    res = dict(counts=c, eval_k1=rec["eval_k1"], losses=losses, rel=rel, bad_steps=bad, rollback=rb[0],
+               leak=leaks[0], rss_mib=[r // 2**20 for r in rss], device_mib=[b // 2**20 for b in dev_bytes],
+               retrace_compiles=retraces[1], mem_doctor_rc=rc, wall_s=rec["wall_s"])
+    res["seconds"] = time.perf_counter() - t0
+    log(f"rollback: leak suspect {leaks[0]['component']} at step {leaks[0]['step']} "
+        f"(+{leaks[0]['robust_growth_bytes'] // 2**20} MiB robust growth over {leaks[0]['window']} samples); "
+        f"retrace 0 unexpected of {retraces[1]:.0f} dispatch signatures; main() {rec['wall_s']:.1f} s, phase 26 in "
+        f"{res['seconds']:.1f} s, on {smi}")
+    return res
+
+
 def main() -> None:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4222,10 +4366,27 @@ def main() -> None:
         t10 = time.perf_counter()
         h14 = phase_h14(fa, smi, tmp, driver["urls"])
         t11 = time.perf_counter()
+        # the earlier phases' cyclic garbage (engines, memory-mapped saves)
+        # goes now: collected inside phase 26's run, its freed gigabytes land
+        # in the leak sentinel's RSS window (a 7-GB drop at the third sample
+        # in a run without this). Phase 26 reads only phase 13's shards: the
+        # earlier phases' saves (tens of GB) go too, so that its own saves
+        # can take their blocks; the card's machine caps what one call
+        # writes to its disk
+        gc.collect()
+        used = shutil.disk_usage(tmp).used
+        for child in tmp.iterdir():
+            if child.name != "shards":
+                shutil.rmtree(child) if child.is_dir() else child.unlink()
+        log(f"disk: {used / 2**30:.1f} GiB used after phase 25, {shutil.disk_usage(tmp).used / 2**30:.1f} GiB with "
+            "only phase 13's shards kept")
+        rollback = phase_rollback(fa, smi, tmp, driver)
+        log(f"disk: {shutil.disk_usage(tmp).used / 2**30:.1f} GiB used after phase 26")
+        t12 = time.perf_counter()
         log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
             f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}, phase 20 {t6 - t5:.1f}, phase 21 {t7 - t6:.1f}, phase 22 "
-            f"{t8 - t7:.1f}, phase 23 {t9 - t8:.1f}, phase 24 {t10 - t9:.1f}, phase 25 {t11 - t10:.1f}; phases 1-14 "
-            f"took {t0 - t_start:.1f}")
+            f"{t8 - t7:.1f}, phase 23 {t9 - t8:.1f}, phase 24 {t10 - t9:.1f}, phase 25 {t11 - t10:.1f}, phase 26 "
+            f"{t12 - t11:.1f}; phases 1-14 took {t0 - t_start:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
@@ -4250,6 +4411,7 @@ def main() -> None:
     log(f"billing, autoscaling and publishing: {json.dumps(billing)} on {smi}")
     log(f"serving telemetry and health: {json.dumps(telemetry)} on {smi}")
     log(f"ViT-H/14 from its recipe: {json.dumps(h14_summary(h14))} on {smi}")
+    log(f"the run's safety layers: {json.dumps(rollback)} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -4284,6 +4446,7 @@ def main() -> None:
                if key == "K1" else {}),
             "publish_launches": billing["publish"][key.lower()],
             "h14_launches": h14["run"]["counts"][key],
+            "rollback_launches": rollback["counts"][key],
             **h14_kernel_fields(h14, key),
             "max_abs_err": err,
             "ms": t["ms"],

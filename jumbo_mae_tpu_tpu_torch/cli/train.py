@@ -29,8 +29,7 @@ checkpoints at every eval and every ``ckpt_every`` steps with ``best`` by
 without one, the stream restarted at the resumed step's epoch), a
 checkpoint on SIGTERM/SIGINT at the next step boundary, and a metrics
 JSONL with images/s and ``perf/mfu`` against one H100's bf16 peak
-(``obs/mfu.py``). The step drops non-finite updates (``run.sentinel``, its
-device guard). ``run.eval_only`` evaluates and exits: from the ``last`` or
+(``obs/mfu.py``). ``run.eval_only`` evaluates and exits: from the ``last`` or
 ``best`` save (``run.resume=true``, ``run.eval_which``) or a warm start,
 with an identity optimizer so no moment reaches the card.
 ``run.publish_dir`` turns on the gated weights publisher
@@ -38,21 +37,48 @@ with an identity optimizer so no moment reaches the card.
 is exported, int8 and as a delta by default, into that directory, the
 one ``cli.predict --swap-watch`` polls; its events (``publish``,
 ``publish_skipped``, ``publish_failed`` and the ``publish`` tenant's
-``tenant_usage``) go to ``<output_dir>/<name>/journal``.
+``tenant_usage``) go to the run's journal.
+
+The run's safety layers, each on by default, in the JAX driver's order:
+
+- ``run.faults``: a fault plan installed at the top of :func:`train`;
+  each train step ticks ``host.leak`` and passes ``train.loss`` /
+  ``train.grad`` (keyed by the step) to the step as its ``inject``
+  multipliers; ``ckpt.save`` and ``ckpt.load`` fire in the checkpointer.
+- ``run.journal``: the crash-safe run journal under
+  ``<output_dir>/<name>/journal`` (``obs/journal.py``): ``run_start``,
+  ``step`` every log window, ``checkpoint_save``, the sentinel's verdicts,
+  ``rollback``, ``retrace``, ``mem_sample``, ``mem_leak_suspect``,
+  ``shutdown``. A journal write that fails warns and the run goes on.
+- ``run.sentinel``: the step's non-finite guard skips a bad update on the
+  device, and the host :class:`DivergenceSentinel` watches the fetched
+  metrics: ``run.sentinel_patience`` bad steps in a row roll the run back
+  to the last checkpoint (parameters, optimizer state, step, the stream
+  seed, and the data cursor the save carries); no checkpoint, or more
+  than ``run.sentinel_max_rollbacks`` rollbacks, raise
+  :class:`DivergenceError` (exit code 43).
+- ``run.retrace``: the retrace sentinel (``obs/retrace.py``), armed after
+  the first step: a train-step dispatch of a batch signature the loop
+  has not dispatched before journals a ``retrace`` event; evals are
+  expected.
+- ``run.memwatch``: a memory sample every log window (the card's
+  allocator, host RSS, the accountant's components, ``fault_ballast``
+  and ``journal_file`` among them) and the leak sentinel, which names
+  the fastest-growing component (``tools/mem_doctor.py`` reads the
+  journal).
 
 Everything runs on ``"cuda"`` unless ``--device cpu`` (``device="cpu"``)
 asks for the CPU. What the port does not have yet raises, naming its
 ROADMAP item: FSDP, tensor and pipeline parallelism, ``--distributed`` and
-``--elastic`` (A6); fault plans, telemetry, traces, diagnostics, the hang
-watchdog and SLOs (A7). The platform layers a recipe has on by default
-— the rollback sentinel, journal, retrace sentinel, fleet beacons and
-memory watch — are named once at start as not ported (A7) and the run
-goes on without them.
+``--elastic`` (A6); telemetry, traces, diagnostics, the hang watchdog and
+SLOs (A7). The fleet beacons and the flight recorder, on by default, are
+named once at start as not ported (A7) and the run goes on without them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import signal
 import time
 from pathlib import Path
@@ -63,14 +89,22 @@ import torch
 from jumbo_mae_tpu_tpu_torch.config import TrainConfig, config_to_dict, load_config
 from jumbo_mae_tpu_tpu_torch.data.loader import TrainLoader, prefetch_to_device, split_for_accum, valid_loader
 from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
+from jumbo_mae_tpu_tpu_torch.faults.inject import (
+    fault_point, faults_active, host_leak_tick, install_plan, leak_ballast_bytes,
+)
+from jumbo_mae_tpu_tpu_torch.faults.sentinel import DivergenceError, DivergenceSentinel, SentinelConfig
 from jumbo_mae_tpu_tpu_torch.models.classifier import ClassificationModel
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, preset
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
+from jumbo_mae_tpu_tpu_torch.obs.journal import RunJournal, env_fingerprint
+from jumbo_mae_tpu_tpu_torch.obs.memwatch import MB, LeakSentinel, MemAccountant, MemoryWatcher
 from jumbo_mae_tpu_tpu_torch.obs.mfu import classify_flops_per_image, mfu, pretrain_flops_per_image
+from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip
+from jumbo_mae_tpu_tpu_torch.obs.retrace import RetraceSentinel
 from jumbo_mae_tpu_tpu_torch.parallel.mesh import create_mesh
 from jumbo_mae_tpu_tpu_torch.train import engine as engine_mod
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer, load_pretrained_params
-from jumbo_mae_tpu_tpu_torch.train.engine import EXIT_OK, RunEngine, exit_code_for
+from jumbo_mae_tpu_tpu_torch.train.engine import EXIT_FATAL, EXIT_OK, RunEngine, exit_code_for
 from jumbo_mae_tpu_tpu_torch.train.optim import Identity, make_optimizer
 from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_eval_step, make_train_step
 from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
@@ -80,12 +114,10 @@ from jumbo_mae_tpu_tpu_torch.utils.summary import param_summary
 
 NOT_PORTED = "{what} is not ported yet: ROADMAP queue {item}"
 # run fields on by default whose layers are not ported: named once at start
+# when the field is above 0 (True, or a positive size)
 DEFAULT_LAYERS_NOT_PORTED = {
-    "sentinel": "the divergence rollback, while the step's non-finite guard runs",
-    "journal": "the run journal and flight recorder",
-    "retrace": "the recompile sentinel",
-    "fleet": "the fleet beacons",
-    "memwatch": "the memory watch",
+    "fleet": "the fleet beacons (A7.4)",
+    "flightrec_steps": "the flight recorder (A7.2)",
 }
 
 
@@ -99,7 +131,6 @@ def _refuse_unported(cfg: TrainConfig) -> None:
     if mesh.pipe > 1:
         raise NotImplementedError(NOT_PORTED.format(what="mesh.pipe > 1 (the GPipe pipeline)", item="A6"))
     a7 = {
-        "run.faults": bool(run.faults),
         "run.telemetry": run.telemetry,
         "run.chrome_trace": bool(run.chrome_trace),
         "run.profile_dir": bool(run.profile_dir),
@@ -252,16 +283,30 @@ def _warm_start(model, path: str) -> dict:
     return stats
 
 
+def _chip(dev: torch.device):
+    """The performance model's row of ``dev`` for the memory watch's
+    capacity, or ``None`` on a card the table has no row for."""
+    try:
+        return detect_chip(dev)
+    except ValueError as e:
+        print(f"[obs] {e}; the memory samples carry no capacity")
+        return None
+
+
 def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
     """Run the configured training (or, with ``run.eval_only``, one
     evaluation); returns the last logged metrics and ``_exit_reason``."""
     _refuse_unported(cfg)
-    dev = resolve_device(device)
     run = cfg.run
+    if run.faults:
+        # the plan outlives this call, as a GRAFT_FAULTS plan does: tests clear it
+        plan = install_plan(run.faults)
+        print(f"[faults] injection plan active: sites={plan.sites()}")
+    dev = resolve_device(device)
     create_mesh(cfg.mesh, device=dev)  # refuses fsdp/tensor > 1 (A6) and axes beyond this device
     if run.train_batch_size % run.grad_accum:
         raise ValueError(f"grad_accum ({run.grad_accum}) must divide the global batch size ({run.train_batch_size})")
-    skipped = [f"run.{k}: {what}" for k, what in DEFAULT_LAYERS_NOT_PORTED.items() if getattr(run, k)]
+    skipped = [f"run.{k}: {what}" for k, what in DEFAULT_LAYERS_NOT_PORTED.items() if getattr(run, k) > 0]
     if skipped:
         print("[train] not ported yet (ROADMAP A7), running without: " + "; ".join(skipped))
     per_process = run.train_batch_size
@@ -289,16 +334,19 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
           else make_optimizer(cfg.optim, run.train_batch_size, num_layers=enc_cfg.layers))
     state = create_state(model, tx, device=dev, init_seed=run.init_seed, rng_seed=run.seed)
     start_step, data_cursor = 0, None
+    ckpt_fallbacks: list[dict] = []  # journaled once the journal exists
     if resuming and run.eval_only:
         # parameters, buffers, step and seed; the optimizer's bytes are never read
         state, _ = ckpt.restore_eval(state, which=run.eval_which)
         start_step = state.step
         print(f"[train] restored '{run.eval_which}' step {start_step} for evaluation")
     elif resuming:
-        state, extra = ckpt.restore(
-            state, fallback_steps=2,
-            on_fallback=lambda a, b, err: print(f"[train] checkpoint step {a} unreadable ({err}); trying step {b}"),
-        )
+        def _fallback(from_step, to_step, err):
+            print(f"[train] checkpoint step {from_step} unreadable ({err}); trying step {to_step}")
+            ckpt_fallbacks.append({"from_step": int(from_step), "to_step": int(to_step),
+                                   "error": f"{type(err).__name__}: {err}"})
+
+        state, extra = ckpt.restore(state, fallback_steps=2, on_fallback=_fallback)
         start_step = state.step
         data_cursor = extra.get("data_cursor")
         print(f"[train] resumed from step {start_step} in {ckpt.last_restore_s:.2f} s")
@@ -329,20 +377,87 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
     if run.sanity_eval and valid_factory is not None:
         print("[train] sanity eval:", evaluate(eval_step, state, valid_factory()))
 
-    train_iter, source, cursor_log, shard_log = make_train_iterator(
-        cfg, per_process, start_step, data_cursor, num_labels=num_labels, device=dev
-    )
+    # the run's history, crash-safe: every layer below reports through _emit
+    journal = RunJournal(run_dir / "journal", host=0) if run.journal else None  # one process until A6.1
+    source = None
     try:
+        def _emit(etype: str, **fields) -> None:
+            if journal is None:
+                return
+            try:
+                journal.event(etype, **fields)
+            except OSError as e:  # a full disk must not kill the run
+                print(f"[obs] WARNING: journal write failed: {e}")
+
+        # armed after the first step: a train-step dispatch of a batch
+        # signature not dispatched before then journals a `retrace` event
+        retrace = RetraceSentinel("train", journal=journal) if run.retrace else None
+
+        def _noted(fn, tag: str):
+            """``fn`` with each batch noted by the retrace sentinel first."""
+            if retrace is None:
+                return fn
+
+            def call(state_now, batch, *rest):
+                retrace.dispatch(tag, batch)
+                return fn(state_now, batch, *rest)
+
+            return call
+
+        step_fn, eval_fn = _noted(train_step, "train_step"), _noted(eval_step, "eval_step")
+        _emit("run_start", config=config_to_dict(cfg), env=env_fingerprint(), start_step=start_step,
+              resumed=bool(resuming), generation=0, diag_every=run.diag_every, diag_groups=[])
+        for fb in ckpt_fallbacks:
+            _emit("ckpt_fallback", **fb)
+
+        train_iter, source, cursor_log, shard_log = make_train_iterator(
+            cfg, per_process, start_step, data_cursor, num_labels=num_labels, device=dev
+        )
         meter = AverageMeter()
         timer = StepTimer(warmup_steps=min(2, max(1, run.training_steps - 1)))
         last_metrics: dict[str, float] = {}
         window = {"t0": time.perf_counter(), "wait": 0.0, "steps": 0}
+        # the host half of the divergence sentinel: the step's guard skips a
+        # non-finite update on the device, this watches the fetched metrics
+        # for bad streaks and drives the rollback to the last checkpoint
+        sentinel = None
+        if run.sentinel:
+            sentinel = DivergenceSentinel(SentinelConfig(
+                patience=run.sentinel_patience, spike_factor=run.sentinel_spike_factor,
+                ema_beta=run.sentinel_ema_beta, max_rollbacks=run.sentinel_max_rollbacks,
+            ))
+            # each verdict with its exact step; the rollback hook journals
+            # the richer rollback event itself
+            sentinel.on_event = lambda kind, payload: (
+                _emit(f"sentinel_{kind}", **payload) if kind != "rollback" else None
+            )
+        # a memory sample every log window, the bytes of each accounted
+        # component (the host.leak ballast among them) and the leak sentinel
+        memwatch = leak_sentinel = None
+        if run.memwatch:
+            accountant = MemAccountant()
+            accountant.register("fault_ballast", leak_ballast_bytes)
+            if journal is not None:
+                accountant.register("journal_file", lambda: journal.path.stat().st_size)
+            memwatch = MemoryWatcher(accountant=accountant, chip=_chip(dev), device=dev)
+            leak_sentinel = LeakSentinel(window=run.memwatch_leak_window, min_growth_mb=run.memwatch_leak_mb)
 
         def _next_batch(step_now: int):
             t0 = time.perf_counter()
             batch = next(train_iter)
             window["wait"] += time.perf_counter() - t0
             return batch
+
+        def _dispatch(state_now, batch, step_now: int):
+            # the train fault sites; without a plan this is one branch
+            if faults_active():
+                # corrupt(n) retains n MB a step in the ballast, raise clears it
+                host_leak_tick(key=str(step_now))
+                lm = fault_point("train.loss", key=str(step_now), data=1.0)
+                gm = fault_point("train.grad", key=str(step_now), data=1.0)
+                if (lm, gm) != (1.0, 1.0):
+                    return step_fn(state_now, batch, (lm, gm))
+            return step_fn(state_now, batch)
 
         engine = RunEngine(
             training_steps=run.training_steps,
@@ -351,8 +466,13 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             eval_interval=run.eval_interval,
             ckpt_interval=run.ckpt_every,
             next_batch=_next_batch,
-            dispatch=lambda state_now, batch, step_now: train_step(state_now, batch),
+            dispatch=_dispatch,
         )
+
+        @engine.on_step
+        def _warmup_over(eng, ev):
+            if retrace is not None and ev.step == start_step + 1:
+                retrace.arm()  # the first step dispatched: steady state from here
 
         @engine.on_step
         def _pacing(eng, ev):
@@ -370,6 +490,8 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 skipped = m.get("skipped", 0.0) >= 0.5
                 if skipped or not np.isfinite(m.get("loss", np.nan)):
                     win.bad_steps.append(s)
+                if sentinel is not None and sentinel.observe(s, m):
+                    eng.request_rollback()
                 if not skipped:  # a skipped step's loss is what the guard refused
                     meter.update(m)
             summary = meter.summary("train/")
@@ -381,18 +503,62 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             summary["perf/data_wait_fraction"] = window["wait"] / max(now - window["t0"], 1e-9)
             summary["perf/data_wait_s_per_step"] = window["wait"] / max(window["steps"], 1)
             window.update(t0=now, wait=0.0, steps=0)
+            msnap = None
+            if memwatch is not None:
+                msnap = memwatch.sample()
+                if "note" in msnap:
+                    print(f"[obs] {msnap['note']}")
             if win.bad_steps:
                 print(f"[train] non-finite steps skipped by the guard: {win.bad_steps}")
             logger.log(summary, step=win.step)
             last_metrics = summary
             win.summary = summary
+            row = {"step": win.step, "metrics": summary,
+                   "data_wait_fraction": round(summary["perf/data_wait_fraction"], 4)}
+            if win.bad_steps:
+                row["bad_steps"] = win.bad_steps
+            _emit("step", **row)
+            if msnap is not None:
+                _emit("mem_sample", step=win.step, **{k: v for k, v in msnap.items() if k != "ts"})
+                fired = leak_sentinel.observe(msnap)
+                if fired is not None:
+                    _emit("mem_leak_suspect", step=win.step, **fired)
+                    print(f"[obs] WARNING: leak sentinel fired — suspect {fired['component']} "
+                          f"(+{fired['robust_growth_bytes'] // MB} MiB robust growth over {fired['window']} samples)")
+
+        def _rollback(eng, step, win):
+            # persistent divergence: restore the last checkpoint (parameters,
+            # optimizer state, step, seed and data cursor) and go on from
+            # there; skipping alone cannot repair a state that is already bad
+            nonlocal train_iter, source, cursor_log, shard_log
+            ckpt.wait()  # a save still on the writer thread is not committed yet
+            if ckpt.latest_step("last") is None:
+                raise DivergenceError(
+                    f"training diverged at step {step} with no checkpoint to roll back to — lower the LR or set "
+                    "run.eval_interval below the failure point"
+                )
+            sentinel.record_rollback()  # raises once the budget is spent
+            eng.state, extra = ckpt.restore(eng.state)
+            new_step = int(eng.state.step)
+            print(f"[train] sentinel rollback #{sentinel.rollbacks} → resuming from step {new_step}")
+            _emit("rollback", from_step=step, to_step=new_step, rollbacks=sentinel.rollbacks, bad_steps=win.bad_steps)
+            if source is not None:
+                source.close()
+            train_iter, source, cursor_log, shard_log = make_train_iterator(
+                cfg, per_process, new_step, extra.get("data_cursor"), num_labels=num_labels, device=dev
+            )
+            return new_step
+
+        if sentinel is not None:
+            engine.on_rollback(_rollback)
 
         @engine.on_eval
         def _eval(eng, step, state_now):
             nonlocal last_metrics
             if valid_factory is None:
                 return None
-            val = evaluate(eval_step, state_now, valid_factory())
+            with retrace.expected("eval") if retrace is not None else contextlib.nullcontext():
+                val = evaluate(eval_fn, state_now, valid_factory())
             logger.log(val, step=step)
             print(f"[train] eval at step {step}: {val}")
             last_metrics |= val
@@ -406,27 +572,23 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 extra["data_cursor"] = {**cursor_log[step], "process_count": 1}
             if shard_log.get(step) is not None:
                 extra["shard_cursor"] = shard_log[step]
+            t0 = time.perf_counter()
             ckpt.save(step, eng.state, metrics=cev.metrics, extra=extra)
+            cev.save_seconds = round(time.perf_counter() - t0, 3)
             for log in (cursor_log, shard_log):
                 for k in [k for k in log if k <= step]:
                     del log[k]
             logger.log({"ckpt/save_s": ckpt.last_save_s}, step=step)
             print(f"[train] checkpoint at step {step} ({cev.reason}): {ckpt.last_save_s:.3f} s blocking")
+            if cev.reason == "preemption":
+                _emit("checkpoint_save", step=step, preemption=True)
+            else:
+                _emit("checkpoint_save", step=step, eval_metrics=cev.metrics, save_seconds=cev.save_seconds)
 
-        # continuous deployment: registered after the saver, so a publish
-        # follows its checkpoint
-        journal = None
-        if run.publish_dir:
-            from jumbo_mae_tpu_tpu_torch.obs.journal import RunJournal
-            from jumbo_mae_tpu_tpu_torch.serve.publisher import CheckpointPublisher
-
-            journal = RunJournal(run_dir / "journal")
-            CheckpointPublisher(
-                run.publish_dir, quant=run.publish_quant, min_interval_steps=run.publish_min_interval_steps,
-                full_every=run.publish_full_every, metric_key=run.publish_metric_key,
-                metric_floor=run.publish_metric_floor, metric_sense=run.publish_metric_sense, emit=journal.event,
-            ).register(engine)
-            print(f"[publish] gated weights publisher -> {run.publish_dir}")
+        @engine.on_crash
+        def _crash(eng, exc):
+            if isinstance(exc, DivergenceError):
+                eng.exit_reason = "diverged"
 
         @engine.on_shutdown
         def _drain(eng, reason, step):
@@ -436,6 +598,30 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             if ckpt.last_write_s is not None:
                 logger.log({"ckpt/write_s": ckpt.last_write_s, "ckpt/bytes": ckpt.last_save_bytes}, step=step)
                 print(f"[train] last checkpoint written in {ckpt.last_write_s:.3f} s, {ckpt.last_save_bytes} bytes")
+
+        @engine.on_shutdown
+        def _retrace_summary(eng, reason, step):
+            if retrace is not None:
+                rsum = retrace.summary()
+                print(f"[train] retrace sentinel: {rsum['violations']} unexpected recompile(s) after warmup "
+                      f"({rsum['compiles']} compiles seen, {rsum['expected']} expected)")
+                retrace.close()
+
+        @engine.on_shutdown
+        def _journal_shutdown(eng, reason, step):
+            _emit("shutdown", reason=reason, step=step)
+
+        # continuous deployment: registered last, so a publish follows its
+        # checkpoint and sees the restore of a rollback
+        if run.publish_dir:
+            from jumbo_mae_tpu_tpu_torch.serve.publisher import CheckpointPublisher
+
+            CheckpointPublisher(
+                run.publish_dir, quant=run.publish_quant, min_interval_steps=run.publish_min_interval_steps,
+                full_every=run.publish_full_every, metric_key=run.publish_metric_key,
+                metric_floor=run.publish_metric_floor, metric_sense=run.publish_metric_sense, emit=_emit,
+            ).register(engine)
+            print(f"[publish] gated weights publisher -> {run.publish_dir}")
 
         def _on_signal(signum, frame):
             print(f"[train] caught signal {signum}: checkpointing and exiting at the next step boundary")
@@ -452,14 +638,14 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         finally:
             for sig, h in handlers.items():
                 signal.signal(sig, h)
-            if journal is not None:
-                journal.close()
         if source is not None:
             print(f"[train] host seconds waiting on the loader: {source.wait_s:.3f} over {engine.step - start_step} steps")
         return {**last_metrics, "_exit_reason": engine.exit_reason}
-    finally:  # the loader's workers and the log file close however the run ends
+    finally:  # the loader's workers, the journal and the log file close however the run ends
         if source is not None:
             source.close()
+        if journal is not None:
+            journal.close()
         logger.close()
 
 
@@ -480,7 +666,12 @@ def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
     if args.distributed or args.elastic:
         raise NotImplementedError(NOT_PORTED.format(what="--distributed / --elastic", item="A6"))
-    metrics = train(load_config(args.config, args.overrides), device=args.device)
+    try:
+        metrics = train(load_config(args.config, args.overrides), device=args.device)
+    except DivergenceError as e:
+        # deterministic: a supervisor must not spend restarts proving it again
+        print(f"[train] FATAL: {e}")
+        raise SystemExit(EXIT_FATAL) from e
     reason = str(metrics.pop("_exit_reason", "completed"))
     print("[train] done:", metrics)
     code = exit_code_for(reason)

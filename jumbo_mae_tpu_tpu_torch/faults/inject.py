@@ -76,8 +76,17 @@ package's list. The port wires the ones its ported layers cross:
   on a hot swap's restored tree (``key`` = the pushed path: ``corrupt``
   diverges it, ``raise`` is an unreadable push).
 
-The training sites (``train.*``, ``ckpt.save``, ``host.leak``,
-``fleet.wedge``) are wired with ROADMAP A7. ``corrupt`` flips bytes of a bytes payload and
+The training sites, in ``cli/train.py`` and ``train/checkpoint.py``:
+``train.loss`` and ``train.grad`` once a train step (``key`` = the step;
+``nan`` turns the step's loss or gradient multiplier into NaN, which the
+step's guard skips and the divergence sentinel counts); ``host.leak``
+once a train step (:func:`host_leak_tick`: ``corrupt(n)`` retains n MB in
+a module ballast each time it fires, ``raise`` clears it);
+``ckpt.save`` at every save (``key`` = the step) and ``ckpt.load`` at
+every step a restore tries (``key`` = that step: ``raise`` makes the
+restore walk back). ``fleet.wedge`` waits for the hang watchdog (ROADMAP
+A7.2) and ``data.decode`` for the decode path's site (ROADMAP A7).
+``corrupt`` flips bytes of a bytes payload and
 sign-flips tensors of a flat ``{name: tensor | ndarray}`` tree; its draws
 are seeded with an integer derived from (plan seed, firing, size), where
 the JAX package seeds ``random.Random`` with a tuple, which Python 3.12
@@ -309,6 +318,12 @@ class FaultPlan:
             time.sleep(float(fired.arg))
             return data
         if fired.action == "corrupt":
+            if data is _LEAK_TOKEN:
+                # host.leak: corrupt(n) has nothing to corrupt; it retains
+                # n MB a firing in the module ballast, the controllable
+                # host leak the leak sentinel must attribute
+                _LEAK_BALLAST.append(bytearray(int(fired.arg) * 1024 * 1024))
+                return data
             return _corrupt_bytes(data, int(fired.arg), self.seed, fired.hits)
         if fired.action == "nan":
             return float("nan")
@@ -369,6 +384,35 @@ def _corrupt_bytes(data, nbytes: int, seed: int, salt: int):
 def _numel(v) -> int:
     n = v.numel() if hasattr(v, "numel") else getattr(v, "size", 0)
     return int(n)
+
+
+# ------------------------------------------------------------ host ballast
+
+# The host.leak site's retained memory: every corrupt(n) firing appends an
+# n-MB buffer here; a raise firing clears it. Module-level on purpose: a
+# leak that vanished with its injector would be unmeasurable.
+_LEAK_BALLAST: list[bytearray] = []
+_LEAK_TOKEN = object()  # the payload marking a host.leak tick
+
+
+def leak_ballast_bytes() -> int:
+    """Bytes retained by the ``host.leak`` site now: the probe the train
+    CLI registers as the ``fault_ballast`` component of its memory
+    accountant, so the leak sentinel's attribution is testable."""
+    return sum(len(b) for b in _LEAK_BALLAST)
+
+
+def host_leak_tick(key: str | None = None) -> int:
+    """Tick the ``host.leak`` site (once a train step).
+
+    ``corrupt(n)`` rules grow the module ballast by n MB a firing;
+    ``raise`` rules clear it (the exception never propagates: a *memory*
+    fault must not crash the step loop). Returns the ballast's bytes."""
+    try:
+        fault_point("host.leak", key=key, data=_LEAK_TOKEN)
+    except Exception:  # noqa: BLE001 - a raise action = "the leak got fixed"
+        _LEAK_BALLAST.clear()
+    return leak_ballast_bytes()
 
 
 # ------------------------------------------------------------ host identity

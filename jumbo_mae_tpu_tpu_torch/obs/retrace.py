@@ -9,11 +9,16 @@ JAX sentinel counts XLA compiles from ``jax.monitoring``. The port's
 engine builds no XLA program; what it builds is a CUDA graph per key (on
 the CPU, a key's first eager run), counted in ``compile_counts``, and
 each one calls the engine's ``on_compile(task_key, bucket)`` hook. This
-sentinel is that hook (:meth:`RetraceSentinel.on_compile`). Protocol:
+sentinel is that hook (:meth:`RetraceSentinel.on_compile`). The train
+loop's step is eager and builds nothing either; its counterpart of an XLA
+compile is the first dispatch of a (tag, signature) the loop has not
+dispatched before, which is exactly what ``jax.jit`` would compile again
+(:meth:`RetraceSentinel.dispatch`). Protocol:
 
 * ``note(tag, tree)``: record the signature (shapes and dtypes of the
   tensors and arrays) of what is about to be dispatched; cheap, no device
-  access.
+  access. ``dispatch(tag, tree)`` notes, and counts a signature new to
+  ``tag`` as one compile through ``on_compile(tag, leading dimension)``.
 * ``arm()``: warmup is over: from here every capture is a violation
   unless inside an ``expected()`` block (a swap, a replica restart, a
   scale-up build).
@@ -86,6 +91,7 @@ class RetraceSentinel:
         self._armed = False
         self._expected_depth = 0
         self._sigs: dict[str, tuple] = {}
+        self._dispatched: set[tuple[str, tuple]] = set()
         self._last_change: dict | None = None
         self.compiles = 0  # every capture seen while live
         self.expected_compiles = 0
@@ -107,14 +113,27 @@ class RetraceSentinel:
 
     # -- protocol --------------------------------------------------------
 
-    def note(self, tag: str, tree) -> None:
-        """Record the signature about to be dispatched under ``tag``."""
+    def note(self, tag: str, tree) -> bool:
+        """Record the signature about to be dispatched under ``tag``;
+        returns whether ``tag`` had not been noted with it before."""
         sig = _signature(tree)
         with self._lock:
             prev = self._sigs.get(tag)
             if prev is not None and prev != sig:
                 self._last_change = {"tag": tag, "prev": prev, "new": sig, "diff": _sig_diff(prev, sig)}
             self._sigs[tag] = sig
+            new = (tag, sig) not in self._dispatched
+            self._dispatched.add((tag, sig))
+        return new
+
+    def dispatch(self, tag: str, tree) -> None:
+        """An eager loop's dispatch of ``tree`` under ``tag``: noted, and a
+        signature the loop has not dispatched under ``tag`` before counts
+        as one compile (``on_compile(tag, leading dimension of the first
+        leaf)``), as a jitted step would compile it."""
+        if self.note(tag, tree):
+            shape = next((leaf.shape for leaf in _leaves(tree) if getattr(leaf, "shape", ())), ())
+            self.on_compile(tag, int(shape[0]) if shape else 0)
 
     def arm(self) -> None:
         with self._lock:

@@ -27,7 +27,10 @@ The save blocks the caller only for the device → host copy; the files are
 written by a writer thread (``async_save``), which :meth:`Checkpointer.wait`
 joins, raising what it raised. :meth:`Checkpointer.restore` walks back past
 a save that fails to load — torn, truncated or uncommitted — over at most
-``fallback_steps`` older saves. :meth:`Checkpointer.restore_eval` restores
+``fallback_steps`` older saves. The fault sites ``ckpt.save`` (at every
+save, keyed by the step) and ``ckpt.load`` (at every step a restore tries,
+keyed by that step) are the JAX checkpointer's.
+:meth:`Checkpointer.restore_eval` restores
 what evaluation needs — parameters, buffers, the step and the seed — and
 never reads the optimizer's bytes (the file is memory-mapped);
 :func:`restore_inference_state` reads what serving needs the same way.
@@ -60,6 +63,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from jumbo_mae_tpu_tpu_torch.faults.inject import fault_point
 from jumbo_mae_tpu_tpu_torch.interop import flax_msgpack
 from jumbo_mae_tpu_tpu_torch.interop.from_jax import state_dict_from_flax
 
@@ -206,6 +210,8 @@ class Checkpointer:
         the writing runs on the writer thread when ``async_save``."""
         self.wait()  # one save in flight: saves land in order
         t0 = time.perf_counter()
+        # a failing checkpoint store, injectable without a flaky filesystem
+        fault_point("ckpt.save", key=str(step))
         payload = host_state(state)
         value = None if metrics is None else metrics.get(self.cfg.metric_key)
         is_best = value is not None and self._improved(float(value))
@@ -308,6 +314,7 @@ class Checkpointer:
             if i > 0 and on_fallback is not None:
                 on_fallback(steps[i - 1], s, last_err)
             try:
+                fault_point("ckpt.load", key=str(s))
                 payload, extra = _load_save(self.root / which / str(s))
             except (OSError, RuntimeError, ValueError, KeyError, EOFError, pickle.UnpicklingError) as e:
                 if i + 1 == len(steps):

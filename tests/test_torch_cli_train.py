@@ -271,7 +271,6 @@ def test_slice_matches_the_jax_package(tmp_path, shard_root):
     ("mesh.pipe=2", "A6"),
     ("mesh.fsdp=2", "A6"),
     ("mesh.tensor=2", "A6"),
-    ("run.faults=train.loss:nan@n=1", "A7"),
     ("run.telemetry=true", "A7"),
     ("run.chrome_trace=x", "A7"),
     ("run.profile_dir=x", "A7"),
@@ -296,6 +295,40 @@ def test_main_trains_and_prints(tmp_path, capsys):
                  "run.training_steps=2", "optim.training_steps=10", "run.eval_interval=2"])
     out = capsys.readouterr().out
     assert "not ported yet (ROADMAP A7)" in out and "[train] done:" in out
+    # of the layers on by default only the fleet beacons and the flight recorder are skipped
+    assert ("running without: run.fleet: the fleet beacons (A7.4); run.flightrec_steps: the flight recorder "
+            "(A7.2)\n") in out
+    assert "retrace sentinel: 0 unexpected recompile(s)" in out
+
+
+def test_run_faults_installs_the_plan_and_its_sites_fire(tmp_path, capsys):
+    """``run.faults``: the plan is installed and named at start; ``train.loss``
+    NaNs step 2, which the guard skips and the journal records; on a resume
+    ``ckpt.load`` fails the newest save, and the restore walks back to the
+    one before it, journaled as ``ckpt_fallback``."""
+    from jumbo_mae_tpu_tpu_torch.faults import inject
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+
+    run = lambda steps, *extra: ttrain.train(load_config(SMOKE, [  # noqa: E731
+        f"run.output_dir={tmp_path}", f"run.training_steps={steps}", "optim.training_steps=10",
+        "run.eval_interval=2", "run.log_interval=1", "run.sanity_eval=false", *extra]), device="cpu")
+    try:
+        run(4, "run.faults=train.loss:nan@n=1")
+        out = capsys.readouterr().out
+        assert "[faults] injection plan active: sites=['train.loss']" in out
+        assert "non-finite steps skipped by the guard: [2]" in out
+        assert inject.active_plan().counts() == {"train.loss:nan": (4, 1)}
+        events = read_journal(tmp_path / "smoke_cpu")
+        assert [(e["step"], e["reason"]) for e in events if e["type"] == "sentinel_bad_step"] == [(2, "device_skip")]
+        run(6, "run.resume=true", "run.faults=ckpt.load:raise@n<1")
+        assert "checkpoint step 4 unreadable" in capsys.readouterr().out
+        events = read_journal(tmp_path / "smoke_cpu")
+        fb = [e for e in events if e["type"] == "ckpt_fallback"]
+        assert [(e["from_step"], e["to_step"]) for e in fb] == [(4, 2)] and fb[0]["error"].startswith("OSError")
+        start = [e for e in events if e["type"] == "run_start"][-1]
+        assert start["resumed"] and start["start_step"] == 2
+    finally:
+        inject.clear_plan()
 
 
 CLASSIFY = "model.overrides={image_size: 32, patch_size: 4, posemb: sincos2d, dtype: float32, labels: 10}"

@@ -336,7 +336,7 @@ def test_telemetry_around_the_pool_scraped_during_the_hold(setup, tmp_path, monk
     monkeypatch.setattr(metrics, "_default", metrics.MetricsRegistry())
     argv = _args(setup, "classify", "logits", tmp_path / "tel.npz",
                  extra=(*pool, "--metrics-port", "0", "--slo", "p99_latency_ms<=60000;success_rate>=0.9",
-                        "--access-log", str(tmp_path / "acc"), "--metrics-hold-s", "4"))
+                        "--access-log", str(tmp_path / "acc"), "--metrics-hold-s", "4", "--interarrival-ms", "25"))
     argv[argv.index("--images") + 1:argv.index("--max-batch")] = setup["files"] * 4
     done = {}
     t = threading.Thread(target=lambda: done.setdefault("out", predict.main(argv)), daemon=True)
@@ -355,12 +355,18 @@ def test_telemetry_around_the_pool_scraped_during_the_hold(setup, tmp_path, monk
             except urllib.error.HTTPError as e:
                 return e.code, e.read().decode()
 
+        # the CLI closes the sentinel (retrace_armed 0) before the exporter's
+        # hold, as the JAX CLI does: the armed gauge is read from a scrape
+        # made while the requests run, the final count from one in the hold
+        armed = None
         while True:  # until the final count is there: the requests are done, the exporter holds
             assert time.monotonic() < deadline and t.is_alive(), "the hold ended before the scrape"
             status, text = scrape("/metrics")
+            if armed is None and 'retrace_armed{loop="predict"} 1' in text:
+                armed = text
             if f"infer_requests_total {n}" in text:
                 break
-            time.sleep(0.05)
+            time.sleep(0.01)
         status, body = scrape("/healthz")
         health = json.loads(body)
     finally:
@@ -369,8 +375,8 @@ def test_telemetry_around_the_pool_scraped_during_the_hold(setup, tmp_path, monk
     assert status == 200 and health["ready"] and health["ok"] and health["degraded"] is False
     assert health["detail"] == "pool up (2 replicas)" and set(health["info"]) >= {"replicas", "slo", "memory"}
     assert 'serve_replica_up{replica="r0"} 1' in text and 'serve_replica_up{replica="r1"} 1' in text
-    # armed, and no violation: the events counter has no child until one
-    assert 'retrace_armed{loop="predict"} 1' in text and 'retrace_events_total{loop="predict"}' not in text
+    # armed while serving, and no violation: the events counter has no child until one
+    assert armed is not None and 'retrace_events_total{loop="predict"}' not in text
     assert 'slo_breached{objective="success_rate>=0.9"} 0' in text and "slo_healthy_replicas 2" in text
     assert "mem_host_rss_bytes" in text and 'mem_component_bytes{component="replica1_exec_cache"} 0' in text
     assert "mem_device_bytes" not in text  # a CPU run degrades to host gauges

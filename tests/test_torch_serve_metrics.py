@@ -658,7 +658,10 @@ def test_serve_replica_fault_crashes_then_restarts(fault_plan):
         gate.set()
         assert settle(futs) == ["ok"] * 3
         assert [f.replica for f in futs] == ["r0"] * 3 and futs[2].requeued_from == "r1"
-        until(lambda: rs.generation(1) == 1 and rs.stats()["replicas"]["r1"]["state"] == "up")
+        # the restart thread counts the restart after it puts the new r1 in
+        # its slot: wait for the count too, or a fast request can beat it
+        until(lambda: rs.generation(1) == 1 and rs.stats()["replicas"]["r1"]["state"] == "up"
+              and reg.snapshot().get("serve_replica_restarts_total", {}).get("r1") == 1.0)
         rs.pause(0)
         f = rs.submit(img(4.0))
         assert f.result(timeout=10)["y"] == 4.0 and f.replica == "r1"
