@@ -131,8 +131,9 @@ Phases, each of which exits non-zero when it fails:
    MAE pretraining (600 steps) and GAP linear probes (400 steps) from it
    and from a random init, through ``cli.train.main`` on 32 px toy
    shards written here, in a fresh process with PyTorch's default
-   settings: the pretrained probe above the random one by 0.1 and by
-   1.5x, and above 0.25.
+   settings (two child processes, run beside phases 27 and 28): the
+   pretrained probe above the random one by 0.1 and by 1.5x, and above
+   0.25.
 19. serving the saves (run after phase 17, while the saves of phases 13,
    16 and 17 exist) through ``cli.predict.main`` in this process, on 70
    PNG files written from phase 13's validation shard and decoded by the
@@ -180,12 +181,12 @@ Phases, each of which exits non-zero when it fails:
    12 (32 at ViT-L/16) x (dispatches + captures).
 22. batch jobs: one image's features at every bucket 1-64 (bit-equal or
    not), then ``python -m jumbo_mae_tpu_tpu_torch.cli.batch`` over phase
-   13's 4 train shards (1,024 images) with ViT-B/16 features from phase
-   16's ``best``, 2 replicas and 2 job workers, buckets up to 64, each run
-   a process of its own: straight (images/s, the scheduler's occupancy,
-   K1 = 12 x (dispatches + captures)), SIGKILLed once a part is durable
-   and run again, and with worker w0 killed by the ``batch.worker`` fault
-   site (a lease steal); their manifests byte-identical to the straight
+   13's first 2 train shards (512 images) with ViT-B/16 features from
+   phase 16's ``best``, 2 replicas, buckets up to 64, each run a process
+   of its own: straight with 2 job workers (images/s, the scheduler's
+   occupancy, K1 = 12 x (dispatches + captures)), SIGKILLed once a part
+   is durable and run again (1 worker), and with worker w0 of 2 killed by
+   the ``batch.worker`` fault site (a lease steal); their manifests byte-identical to the straight
    run's if every bucket agreed, else every record within relative error
    1e-2 and cosine 0.999 of it, and byte-identical on a one-bucket ladder
    (straight and SIGKILLed); ``python -m
@@ -271,7 +272,29 @@ Phases, each of which exits non-zero when it fails:
    backward) and 32 K1 per eval batch; a ``mem_sample`` a window with the
    card's bytes; the leak sentinel naming ``fault_ballast`` and
    ``tools/mem_doctor.py`` naming it from the journal; 0 unexpected
-   retraces.
+   retraces. What watches the run is on too: exactly three flight
+   records (the first bad window, one dump for steps 3-4; the leak; the
+   rollback), each holding the window it was dumped in; a goodput report
+   at the saves of steps 2, 4 and 6 and at shutdown (``completed``: steps
+   5, recompute steps 2, conservation error 0), ``tools/goodput_doctor.py``
+   exiting 0; ``run.telemetry`` on a free port scraped by a thread while
+   the run is live (the ``train_*``, ``goodput_*``, ``span_seconds`` and
+   ``run_generation`` families; ``/healthz`` 200, degraded once the leak
+   sentinel fires); the watch hooks' host µs a dispatch.
+27. traces (after phase 26's saves are deleted, in this process): phase
+   13's recipe, 3 steps, a log window a step, the final eval and its save,
+   with ``run.chrome_trace`` and ``run.profile_dir``: one ``data_wait``
+   and one ``train_step`` span a dispatch in the chrome trace, and K1, K2
+   and K3 named in the ``torch.profiler`` trace as many times as their
+   launch counters counted (the trace's bytes and export seconds).
+28. the hang, beside phase 27 in a child process of ``python -m
+   jumbo_mae_tpu_tpu_torch.cli.train``: phase 13's recipe and shards, 4
+   steps, ``run.hangwatch_deadline_s=10`` and
+   ``run.faults=fleet.wedge:delay(600)@key~3,n<1``: exit code 44 within
+   the deadline, the poll and 5 s of the last step beat, ``hang_detected``
+   journaled with ``stalled_s`` >= 10, a final goodput report with
+   ``reason: "hang"`` and ``hang_latency`` >= 10, a ``hang_detected``
+   flight record and ``[train] HANG`` on its stdout.
 
 Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
 NaN past the sequence inert, and time them there against SDPA.
@@ -2257,10 +2280,9 @@ def toy_probe_proof(tmp: Path, device: str = "cuda", *, pt_steps: int = TOY_PT_S
     return res
 
 
-def phase_toy_proof(smi: str, tmp: Path) -> dict:
-    """Phase 18: the toy pretrain-then-probe proof on the card, with the
-    JAX test's gates: the pretrained probe beats the random one by more
-    than 0.1, and by more than 1.5x, and reads above 0.25.
+def start_toy_proof(tmp: Path) -> dict:
+    """Phase 18, started: the toy pretrain-then-probe proof on the card,
+    with the JAX test's gates (:func:`finish_toy_proof`).
 
     It runs in two child processes at once, one pretraining and probing
     from the save, one probing from a random init, each with PyTorch's
@@ -2274,6 +2296,13 @@ def phase_toy_proof(smi: str, tmp: Path) -> dict:
             "(tmp / 'result.json').write_text(json.dumps(res))")
     dirs = {which: tmp / which for which in ("pretrained", "random")}
     procs = [subprocess.Popen([sys.executable, "-c", code, str(HERE), str(d), which]) for which, d in dirs.items()]
+    return {"procs": procs, "dirs": dirs, "t0": time.perf_counter()}
+
+
+def finish_toy_proof(smi: str, started: dict) -> dict:
+    """Phase 18, reaped: the pretrained probe beats the random one by more
+    than 0.1, and by more than 1.5x, and reads above 0.25."""
+    procs, dirs = started["procs"], started["dirs"]
     try:
         codes = [p.wait(timeout=600) for p in procs]
     finally:
@@ -2292,6 +2321,7 @@ def phase_toy_proof(smi: str, tmp: Path) -> dict:
     check(a > r + 0.1, f"toy proof: pretrained probe {a} not above random {r} + 0.1")
     check(a > 1.5 * r, f"toy proof: pretrained probe {a} not above 1.5 x random {r}")
     check(a > 0.25, f"toy proof: pretrained probe {a} not above 0.25")
+    res["seconds"] = time.perf_counter() - started["t0"]
     return res
 
 SERVE_IMAGES = 70
@@ -3027,23 +3057,24 @@ def batch_compare(a: Path, b: Path) -> dict:
 
 
 def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
-    """Phase 22: ``python -m jumbo_mae_tpu_tpu_torch.cli.batch`` over the 4
-    train shards of phase 13 (1,024 images at 224 px), ViT-B/16 features
-    from phase 16's ``best`` through 2 replicas on this card, 2 job
-    workers, buckets up to 64, each run a process of its own: straight
-    through; SIGKILLed once its first part is durable, then run again to
-    completion; and with the ``batch.worker`` fault site killing worker w0
-    on its first sample (completed by a lease steal). First it serves one
-    image at every bucket of the ladder and reports whether its features
-    are bit-equal at all of them. Bit-equal: the killed and faulted runs'
-    manifests must be byte-identical to the straight run's. Else those
-    runs are held to the same shards, keys and counts with every record
-    within relative error 1e-2 and cosine >= 0.999 of the straight run's,
-    and the byte-identical gate runs on a one-bucket ladder (buckets of
-    1; the first 2 shards, 512 images, with 1 worker), straight and
-    SIGKILLed. Only the straight run has the card alone. K1 = 12 x (dispatches + captures) in
-    every run; ``python -m jumbo_mae_tpu_tpu_torch.tools.batch_doctor``
-    exits 0 after each."""
+    """Phase 22: ``python -m jumbo_mae_tpu_tpu_torch.cli.batch`` over the
+    first 2 train shards of phase 13 (512 images at 224 px), ViT-B/16
+    features from phase 16's ``best`` through 2 replicas on this card,
+    buckets up to 64, each run a process of its own: straight through
+    with 2 job workers; SIGKILLed once its first part is durable, then run
+    again to completion (1 worker, so that a part is durable while the
+    second shard runs); and with the ``batch.worker`` fault site killing
+    worker w0 of 2 on its first sample (completed by a lease steal).
+    First it serves one image at every bucket of the ladder and reports
+    whether its features are bit-equal at all of them. Bit-equal: the
+    killed and faulted runs' manifests must be byte-identical to the
+    straight run's. Else those runs are held to the same shards, keys and
+    counts with every record within relative error 1e-2 and cosine >=
+    0.999 of the straight run's, and the byte-identical gate runs on a
+    one-bucket ladder (buckets of 1, 1 worker), straight and SIGKILLed.
+    Only the straight run has the card alone. K1 = 12 x (dispatches +
+    captures) in every run; ``python -m
+    jumbo_mae_tpu_tpu_torch.tools.batch_doctor`` exits 0 after each."""
     import signal
 
     import numpy as np
@@ -3076,14 +3107,13 @@ def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
         f"against bucket 1 {json.dumps(spread)}, on {smi}")
     del eng
 
-    def cmd(out: Path, max_batch: int, *extra: str) -> list[str]:
-        """The job at ``max_batch``: every shard with 2 workers, or on the
-        one-bucket ladder (``max_batch`` 1) the first 2 shards with 1
-        worker, so that a part is durable while the second shard runs."""
-        job, workers = (shards, "2") if max_batch > 1 else (shards[:2], "1")
-        return ["jumbo_mae_tpu_tpu_torch.cli.batch", *job, "--out", str(out), "--config", str(HERE / FT_RECIPE),
-                "--ckpt", str(ft), "--task", "features", "--replicas", "2", "--workers", workers, "--max-batch",
-                str(max_batch), "--submit-window", "32", *extra]
+    def cmd(out: Path, max_batch: int, *extra: str, workers: int = 1) -> list[str]:
+        """The job at ``max_batch`` over the first 2 shards: with 1 worker
+        (the kills and the one-bucket ladder) a part is durable while the
+        second shard runs."""
+        return ["jumbo_mae_tpu_tpu_torch.cli.batch", *shards[:2], "--out", str(out), "--config",
+                str(HERE / FT_RECIPE), "--ckpt", str(ft), "--task", "features", "--replicas", "2", "--workers",
+                str(workers), "--max-batch", str(max_batch), "--submit-window", "32", *extra]
 
     def doctor(out: Path) -> None:
         r = subprocess.run([sys.executable, "-m", "jumbo_mae_tpu_tpu_torch.tools.batch_doctor", str(out), "--out",
@@ -3092,7 +3122,7 @@ def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
 
     counted = threading.Lock()  # two kill flows finish on threads of their own
 
-    def finished(name: str, summary: dict, wall: float, out: Path, want: int = 1024) -> dict:
+    def finished(name: str, summary: dict, wall: float, out: Path, want: int = 512) -> dict:
         e = summary["engines"]
         with counted:
             res["k1"] += e["k1_launches"]
@@ -3131,7 +3161,7 @@ def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
         check(not (out / "manifest.json").exists(), f"batch {name}: the job completed before the kill")
         log(f"batch {name}: SIGKILLed with {parts} on disk")
         summary, wall = child_json(cmd(out, max_batch))
-        finished(name, summary, wall, out, 1024 if max_batch > 1 else 512)
+        finished(name, summary, wall, out)
         check(summary["samples_resumed"] > 0, f"batch {name}: the restart resumed nothing")
 
     # ---- 1. straight through (alone: its rate is the one reported);
@@ -3140,7 +3170,7 @@ def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
     # SIGKILL where the buckets disagree; 3. a worker killed, beside the
     # one-bucket ladder's straight run
     straight = root / "straight"
-    summary, wall = child_json(cmd(straight, 64))
+    summary, wall = child_json(cmd(straight, 64, workers=2))
     finished("straight", summary, wall, straight)
     with ThreadPoolExecutor(max_workers=2) as px:
         kills = [px.submit(killed, "sigkill", root / "sigkill", 64)]
@@ -3149,7 +3179,8 @@ def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
         for f in kills:
             f.result()
     fault, one = root / "fault", root / "one_bucket"
-    faulted = spawn(cmd(fault, 64, "--lease-s", "3"), env={"GRAFT_FAULTS": "batch.worker:raise@key~w0,n<1"})
+    faulted = spawn(cmd(fault, 64, "--lease-s", "3", workers=2),
+                    env={"GRAFT_FAULTS": "batch.worker:raise@key~w0,n<1"})
     one_run = None if invariant else spawn(cmd(one, 1))
     try:
         summary, wall = reap(faulted)
@@ -3172,7 +3203,7 @@ def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
     if one_run is not None:
         # the byte-identical gate on a one-bucket ladder
         summary, wall = reap(one_run)
-        finished("one_bucket", summary, wall, one, 512)
+        finished("one_bucket", summary, wall, one)
         cmp = batch_compare(one, root / "one_bucket_sigkill")
         res["runs"]["one_bucket_sigkill"]["against_one_bucket"] = cmp
         log(f"batch one_bucket_sigkill against one_bucket: {json.dumps(cmp)}")
@@ -4175,7 +4206,11 @@ def phase_h14(fa, smi: str, tmp: Path, urls: dict) -> dict:
 # so the streak rolls back at step 4 to the clean step-2 save; the host.leak
 # site retains 16 MB a step for the leak sentinel to name
 ROLLBACK_SETS = ["run.faults=train.loss:nan@n=2..3;host.leak:corrupt(16)", "run.log_interval=1",
-                 "run.eval_interval=2", "run.sentinel_patience=2"]
+                 "run.eval_interval=2", "run.sentinel_patience=2", "run.telemetry=true", "run.telemetry_port=0",
+                 "run.telemetry_host=127.0.0.1"]
+# what a scrape of phase 26's exporter must show while the run is live
+WATCH_FAMILIES = ("train_steps_total", "train_mfu", "goodput_fraction", 'span_seconds_count{name="train_step"}',
+                  "run_generation")
 ROLLBACK_STEPS = [1, 2, 3, 4, 3, 4, 5, 6]  # the steps dispatched, in order
 ROLLBACK_LOSS_RTOL = 4e-3  # one bf16 ulp (2^-8) of the loss
 
@@ -4186,6 +4221,95 @@ def _counter(name: str, key: str = "") -> float:
     return float(get_registry().snapshot().get(name, {}).get(key, 0.0))
 
 
+@contextlib.contextmanager
+def scraped_exporter(period_s: float = 0.5):
+    """Scrape the exporter ``cli.train`` starts (``run.telemetry``) from a
+    thread while the run is live: every ``/healthz`` answer (status and
+    ``degraded``), and the last ``/metrics`` text that shows every one of
+    ``WATCH_FAMILIES``. The server is recorded as the CLI starts it; the
+    thread stops when the block exits."""
+    from jumbo_mae_tpu_tpu_torch.cli import train as cli
+
+    servers, stop = [], threading.Event()
+    seen = {"healthz": [], "metrics": None, "scrapes": 0, "scrape_ms": []}
+
+    class Recorded(cli.TelemetryServer):
+        def start(self):
+            servers.append(super().start())
+            return servers[-1]
+
+    def poll():
+        while not stop.wait(period_s):
+            if not servers:
+                continue
+            base = f"http://127.0.0.1:{servers[-1].port}"
+            try:
+                status, body, ms = scrape(base + "/metrics")
+                hstatus, hbody, _ = scrape(base + "/healthz")
+            except OSError:  # closed with the run
+                continue
+            seen["scrapes"] += 1
+            seen["scrape_ms"].append(ms)
+            if status == 200 and all(f in body for f in WATCH_FAMILIES):
+                seen["metrics"] = body
+            seen["healthz"].append((hstatus, json.loads(hbody).get("degraded")))
+
+    saved = cli.TelemetryServer
+    cli.TelemetryServer = Recorded
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    try:
+        yield seen
+    finally:
+        stop.set()
+        thread.join()
+        cli.TelemetryServer = saved
+
+
+def watch_hooks_host_us(reps: int = 20000) -> float:
+    """Host µs of what the always-on watch layers add to one dispatch of
+    ``cli.train`` at phase 26's cadence (a log window a step): the two
+    spans, the ledger's charges, the health beats, the step gauges and
+    counter, the flight recorder's ``record_step`` and the ledger's
+    ``publish``, on a live registry: the median of 5 runs of ``reps``."""
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.obs.exporter import HealthState
+    from jumbo_mae_tpu_tpu_torch.obs.flightrec import FlightRecorder
+    from jumbo_mae_tpu_tpu_torch.obs.goodput import GoodputLedger
+    from jumbo_mae_tpu_tpu_torch.obs.metrics import MetricsRegistry
+    from jumbo_mae_tpu_tpu_torch.obs.trace import span_timer
+
+    reg = MetricsRegistry()
+    ledger, health = GoodputLedger(registry=reg), HealthState()
+    health.watch("train_step", 3600.0)
+    health.watch("data_batch", 3600.0)
+    fr = FlightRecorder(Path(tempfile.gettempdir()), capacity=256)
+    sp_wait, sp_step = span_timer("data_wait", registry=reg), span_timer("train_step", registry=reg)
+    gauges = [reg.gauge(n) for n in ("train_mfu", "train_images_per_sec", "train_data_wait_fraction", "train_step",
+                                     "train_grad_norm")]
+    steps = reg.counter("train_steps_total")
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for i in range(reps):
+            with sp_wait:
+                pass
+            ledger.add("data_wait", sp_wait.last_s)
+            health.beat("data_batch")
+            with sp_step:
+                pass
+            ledger.note_step(i, sp_step.last_s)
+            steps.inc()
+            health.beat("train_step")
+            for g in gauges:
+                g.set(0.5)
+            fr.record_step(i, {"loss": 0.5, "grad_norm": 1.0})
+            ledger.publish()
+        runs.append((time.perf_counter() - t0) / reps * 1e6)
+    return float(np.median(runs))
+
+
 def phase_rollback(fa, smi: str, tmp: Path, driver: dict) -> dict:
     """Phase 26: the training run's safety layers on phase 13's recipe,
     shards and seed through ``cli.train.main``: the divergence sentinel
@@ -4193,14 +4317,19 @@ def phase_rollback(fa, smi: str, tmp: Path, driver: dict) -> dict:
     rerun's losses of steps 3-6 against phase 13's, the launches per
     dispatch (a skipped step runs its backward), the journal's rows, the
     memory samples and the leak sentinel naming ``fault_ballast``
-    (``tools/mem_doctor.py`` reads the journal), no unexpected retrace."""
+    (``tools/mem_doctor.py`` reads the journal), no unexpected retrace;
+    with what watches the run on: three flight records (the first bad
+    window, the leak, the rollback), a goodput report at each save and at
+    shutdown (``tools/goodput_doctor.py`` exits 0), and the exporter
+    scraped while the run is live (``/healthz`` turning degraded once the
+    leak sentinel fires)."""
     import numpy as np
     import torch
 
     from jumbo_mae_tpu_tpu_torch.config import load_config
     from jumbo_mae_tpu_tpu_torch.faults import inject
     from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
-    from jumbo_mae_tpu_tpu_torch.tools import mem_doctor
+    from jumbo_mae_tpu_tpu_torch.tools import goodput_doctor, mem_doctor
 
     t0 = time.perf_counter()
     urls = driver["urls"]
@@ -4211,7 +4340,8 @@ def phase_rollback(fa, smi: str, tmp: Path, driver: dict) -> dict:
     before = {k: _counter(k) for k in counters}
     retrace0 = (_counter("retrace_events_total", "train"), _counter("retrace_compiles_total", "train"))
     try:
-        rec = run_driver(fa, ["--config", str(HERE / RECIPE), "--set", *sets])
+        with scraped_exporter() as seen:
+            rec = run_driver(fa, ["--config", str(HERE / RECIPE), "--set", *sets])
     finally:
         ballast = inject.leak_ballast_bytes()
         inject.install_plan("host.leak:raise")  # a raise firing clears the ballast
@@ -4286,14 +4416,195 @@ def phase_rollback(fa, smi: str, tmp: Path, driver: dict) -> dict:
     # the retrace sentinel: no unexpected dispatch signature after step 1
     check(retraces[0] == 0 and not [e for e in events if e["type"] == "retrace"],
           f"rollback: {retraces[0]} unexpected retraces")
+
+    # the flight recorder: one dump for the bad window of steps 3-4, one for
+    # the leak, one for the rollback, each holding the window it was dumped in
+    records = [e for e in events if e["type"] == "flight_record"]
+    reasons = sorted(e["reason"] for e in records)
+    check(reasons == ["mem_leak", "nonfinite_step", "sentinel_rollback"], f"rollback: flight records {reasons}")
+    want_last = {"nonfinite_step": 3, "sentinel_rollback": 4, "mem_leak": leaks[0]["step"]}
+    for e in records:
+        dump = json.loads(Path(e["path"]).read_text())
+        last = dump["steps"][-1]["step"] if dump["steps"] else None
+        check(dump["reason"] == e["reason"] and last == want_last[e["reason"]] and "written_at" in dump,
+              f"rollback: the {e['reason']} dump ends at step {last}, want {want_last[e['reason']]}")
+    nonfinite = json.loads(Path(next(e["path"] for e in records if e["reason"] == "nonfinite_step")).read_text())
+    check(nonfinite["extra"]["bad_steps"] == [3], f"rollback: the first bad window {nonfinite['extra']}")
+
+    # the goodput ledger: a report at each committed save and at shutdown
+    reports = [e for e in events if e["type"] == "goodput_report"]
+    final = reports[-1]
+    check([(r["step"], r.get("reason")) for r in reports] == [(2, None), (4, None), (6, None), (6, "completed")],
+          f"rollback: goodput reports {[(r['step'], r.get('reason')) for r in reports]}")
+    check((final["steps"], final["recompute_steps"], final["conservation_error"]) == (5, 2, 0.0)
+          and final["attributed_s"] <= final["wall_s"],
+          f"rollback: the final goodput report {json.dumps(final)}")
+    grc = goodput_doctor.main([str(run_dir), "--out", str(tmp / "goodput.md")])
+    check(grc == 0, f"rollback: goodput_doctor exit {grc}")
+    log(f"rollback: goodput at shutdown {final['goodput_fraction']:.4f} of {final['wall_s']:.3f} s, buckets "
+        f"{json.dumps(final['buckets'])} (steps {final['steps']}, recompute {final['recompute_steps']}), on {smi}")
+
+    # the exporter, scraped while the run was live
+    health = seen["healthz"]
+    check(seen["metrics"] is not None, f"rollback: no scrape of {seen['scrapes']} showed all of {WATCH_FAMILIES}")
+    check(any(st == 200 and not d for st, d in health) and any(st == 200 and d is True for st, d in health),
+          f"rollback: /healthz never answered 200 before and degraded after the leak: {sorted(set(health), key=str)}")
+    hooks_us = watch_hooks_host_us()
+    log(f"rollback: {seen['scrapes']} scrapes while live (median {np.median(seen['scrape_ms']):.2f} ms), /healthz "
+        f"200 then degraded; the watch hooks {hooks_us:.2f} host µs a dispatch (spans, ledger, beats, gauges, "
+        f"record_step, publish), on {smi}")
     res = dict(counts=c, eval_k1=rec["eval_k1"], losses=losses, rel=rel, bad_steps=bad, rollback=rb[0],
                leak=leaks[0], rss_mib=[r // 2**20 for r in rss], device_mib=[b // 2**20 for b in dev_bytes],
-               retrace_compiles=retraces[1], mem_doctor_rc=rc, wall_s=rec["wall_s"])
+               retrace_compiles=retraces[1], mem_doctor_rc=rc, wall_s=rec["wall_s"], flight_records=reasons,
+               goodput=final, goodput_doctor_rc=grc, scrapes=seen["scrapes"],
+               scrape_ms=float(np.median(seen["scrape_ms"])), watch_hooks_us=hooks_us)
     res["seconds"] = time.perf_counter() - t0
     log(f"rollback: leak suspect {leaks[0]['component']} at step {leaks[0]['step']} "
         f"(+{leaks[0]['robust_growth_bytes'] // 2**20} MiB robust growth over {leaks[0]['window']} samples); "
         f"retrace 0 unexpected of {retraces[1]:.0f} dispatch signatures; main() {rec['wall_s']:.1f} s, phase 26 in "
         f"{res['seconds']:.1f} s, on {smi}")
+    return res
+
+
+# Phases 27 and 28: phase 13's recipe and shards again, without the sanity
+# eval: 3 steps with the host spans and the device profile on (a log
+# window a step, the final eval and its save), and, beside it in a child
+# process, 4 steps with the hang watchdog and the third dispatch wedged
+TRACE_SETS = ["run.epochs=0.375", "run.log_interval=1", "run.sanity_eval=false"]
+TRACE_STEPS = 3
+HANG_DEADLINE_S = 10.0
+HANG_SETS = ["run.epochs=0.5", "run.sanity_eval=false", f"run.hangwatch_deadline_s={HANG_DEADLINE_S:g}",
+             "run.faults=fleet.wedge:delay(600)@key~3,n<1"]
+HANG_POLL_S = 1.0  # the watchdog's poll period (obs/hangwatch.py's default)
+HANG_EXIT_SLACK_S = 5.0  # the drain, the dumps and the exit after a fired poll
+# the kernels' names in a profile: substrings of each instantiation's name
+PROFILE_NAMES = {"K1": "flash_fwd", "K2": "flash_bwd_dq", "K3": "flash_bwd_dkv"}
+
+
+class _Tee:
+    """stdout copied into a buffer (a run's printed lines, read after it)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_traces(fa, smi: str, tmp: Path, driver: dict) -> dict:
+    """Phase 27: ``run.chrome_trace`` and ``run.profile_dir`` through
+    ``cli.train.main`` in this process on phase 13's recipe and shards, 3
+    steps and the final eval and save: the chrome trace holds one
+    ``data_wait`` and one ``train_step`` event a dispatch, and the
+    ``torch.profiler`` trace names K1, K2 and K3 as many times as their
+    launch counters counted over the run."""
+    t0 = time.perf_counter()
+    urls = driver["urls"]
+    out = tmp / "traces"
+    chrome, prof_dir = out / "chrome.json", out / "profile"
+    sets = DRIVER_SETS + [f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}",
+                          f"run.output_dir={out}", *TRACE_SETS, f"run.chrome_trace={chrome}",
+                          f"run.profile_dir={prof_dir}"]
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rec = run_driver(fa, ["--config", str(HERE / RECIPE), "--set", *sets])
+    c = rec["counts"]
+    n = len(rec["dispatch_s"])
+    check(n == TRACE_STEPS and rec["eval_batches"] == 2, f"traces: {n} dispatches, {rec['eval_batches']} eval batches")
+    check(c["K1"] == 56 * n + 32 * rec["eval_batches"] and c["K2"] == c["K3"] == 32 * n, f"traces: launches {c}")
+
+    host = json.loads(chrome.read_text())["traceEvents"]
+    names = {k: sum(1 for e in host if e["name"] == k) for k in ("data_wait", "train_step", "checkpoint_save")}
+    check(names == {"data_wait": n, "train_step": n, "checkpoint_save": 1}, f"traces: chrome trace spans {names}")
+    (path,) = prof_dir.glob("profile-*.json")
+    line = next(x for x in "".join(tee.lines).splitlines() if x.startswith("[obs] device profile -> "))
+    export_s = float(line.rsplit("exported in ", 1)[1].split(" s)")[0])
+    t_parse = time.perf_counter()
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(1 for name in kernels if sub in name) for k, sub in PROFILE_NAMES.items()}
+    t_parse = time.perf_counter() - t_parse
+    log(f"traces: the profile names {found} against the launch counters {c} ({len(kernels)} kernels of "
+        f"{len(events)} events; {path.stat().st_size} bytes exported in {export_s:.2f} s, read back in "
+        f"{t_parse:.2f} s); the chrome trace {chrome.stat().st_size} bytes, spans {names}, on {smi}")
+    check(found == c, f"traces: the profile names {found}, the launch counters say {c}")
+    res = dict(counts=c, profile_counts=found, kernels=len(kernels), profile_bytes=path.stat().st_size,
+               export_s=export_s, chrome_bytes=chrome.stat().st_size, spans=names, wall_s=rec["wall_s"])
+    res["seconds"] = time.perf_counter() - t0
+    log(f"traces: main() {rec['wall_s']:.1f} s, phase 27 in {res['seconds']:.1f} s, on {smi}")
+    return res
+
+
+def start_hang(tmp: Path, driver: dict) -> dict:
+    """Phase 28, started: ``python -m jumbo_mae_tpu_tpu_torch.cli.train``
+    in a session of its own on phase 13's recipe and shards, 4 steps, the
+    hang watchdog at 10 s and the ``fleet.wedge`` site holding the third
+    dispatch for 600 s; its output goes to a file."""
+    urls = driver["urls"]
+    out = tmp / "hang"
+    out.mkdir(parents=True)
+    sets = DRIVER_SETS + [f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}",
+                          f"run.output_dir={out}", *HANG_SETS]
+    logf = open(out / "child.log", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "jumbo_mae_tpu_tpu_torch.cli.train", "--config", str(HERE / RECIPE),
+                             "--set", *sets], cwd=HERE, stdout=logf, stderr=subprocess.STDOUT,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1"}, start_new_session=True)
+    return {"proc": proc, "log": logf, "out": out, "sets": sets, "t0": time.perf_counter()}
+
+
+def finish_hang(smi: str, started: dict, timeout_s: float = 300.0) -> dict:
+    """Phase 28, reaped: exit code 44 within the deadline, the poll and
+    the drain's slack of the last step beat; ``hang_detected`` journaled
+    with ``stalled_s`` >= 10, a final goodput report with ``reason:
+    "hang"`` and ``hang_latency`` >= 10, a ``hang_detected`` flight record
+    and ``[train] HANG`` on stdout. Its session goes with it (the loader's
+    worker interpreters)."""
+    import signal
+
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+
+    proc = started["proc"]
+    try:
+        rc = proc.wait(timeout=timeout_s)
+        t_exit = time.time()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        started["log"].close()
+    wall = time.perf_counter() - started["t0"]
+    text = (started["out"] / "child.log").read_text()
+    if rc != 44:
+        log(f"hang: the child exited {rc}; its output ends:\n{text[-3000:]}")
+    check(rc == 44, f"hang: the child exited {rc}, want 44 (EXIT_HANG)")
+    run_dir = started["out"] / load_config(HERE / RECIPE, started["sets"]).run.name
+    events = read_journal(run_dir)
+    hangs = [e for e in events if e["type"] == "hang_detected"]
+    check(len(hangs) == 1 and hangs[0]["step"] == 3 and hangs[0]["stalled_s"] >= HANG_DEADLINE_S,
+          f"hang: hang_detected rows {hangs}")
+    hang = hangs[0]
+    latency = t_exit - (hang["ts"] - hang["stalled_s"])  # from the last beat to the exit
+    check(latency <= HANG_DEADLINE_S + HANG_POLL_S + HANG_EXIT_SLACK_S,
+          f"hang: exit {latency:.2f} s after the last step beat")
+    final = [e for e in events if e["type"] == "goodput_report"][-1]
+    check(final.get("reason") == "hang" and final["buckets"]["hang_latency"] >= HANG_DEADLINE_S,
+          f"hang: the final goodput report {json.dumps(final)}")
+    dumps = list(run_dir.glob("flightrec-*-hang_detected.json"))
+    check(len(dumps) == 1 and json.loads(dumps[0].read_text())["extra"]["step"] == 3,
+          f"hang: hang_detected flight records {dumps}")
+    check("[train] HANG: no step progress for" in text, "hang: no '[train] HANG' line on the child's stdout")
+    res = dict(rc=rc, stalled_s=hang["stalled_s"], exit_after_beat_s=latency,
+               hang_latency_s=final["buckets"]["hang_latency"], goodput=final["goodput_fraction"], wall_s=wall)
+    log(f"hang: exit {rc} {latency:.2f} s after the last beat (stalled {hang['stalled_s']:.3f} s, deadline "
+        f"{HANG_DEADLINE_S:g} s), goodput report {json.dumps(final['buckets'])}; the child's wall {wall:.1f} s, "
+        f"on {smi}")
     return res
 
 
@@ -4383,10 +4694,28 @@ def main() -> None:
         rollback = phase_rollback(fa, smi, tmp, driver)
         log(f"disk: {shutil.disk_usage(tmp).used / 2**30:.1f} GiB used after phase 26")
         t12 = time.perf_counter()
+        shutil.rmtree(tmp / "rollback")
+        # phase 28's child and phase 18's two run beside phase 27: their
+        # gates are exit codes, journals and accuracies, not speeds
+        toy_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_toy_"))
+        toy_run = start_toy_proof(toy_tmp)
+        try:
+            hang_run = start_hang(tmp, driver)
+            try:
+                traces = phase_traces(fa, smi, tmp, driver)
+            finally:
+                hang = finish_hang(smi, hang_run)
+        finally:
+            try:
+                toy = finish_toy_proof(smi, toy_run)
+            finally:
+                shutil.rmtree(toy_tmp, ignore_errors=True)
+        t13 = time.perf_counter()
         log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
             f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}, phase 20 {t6 - t5:.1f}, phase 21 {t7 - t6:.1f}, phase 22 "
             f"{t8 - t7:.1f}, phase 23 {t9 - t8:.1f}, phase 24 {t10 - t9:.1f}, phase 25 {t11 - t10:.1f}, phase 26 "
-            f"{t12 - t11:.1f}; phases 1-14 took {t0 - t_start:.1f}")
+            f"{t12 - t11:.1f}, phases 27, 28 and 18 side by side {t13 - t12:.1f} (27 {traces['seconds']:.1f}, 28's "
+            f"child {hang['wall_s']:.1f}, 18's children {toy['seconds']:.1f}); phases 1-14 took {t0 - t_start:.1f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
@@ -4394,13 +4723,6 @@ def main() -> None:
     summary = {"backends": backends, **{k: driver[k] for k in keys}, "phase7_step_ms": train["step_ms"],
                "resume": resume}
     log(f"cli/train.py: {json.dumps(summary)} on {smi}")
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_toy_"))
-    t0 = time.perf_counter()
-    try:
-        toy = phase_toy_proof(smi, tmp)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    log(f"seconds: phase 18 {time.perf_counter() - t0:.1f}")
     classify = {"finetune": {k: v for k, v in finetune.items() if k != "counts"},
                 "linear": {k: v for k, v in linear.items() if k != "counts"}, "toy_proof": toy}
     log(f"classify paths: {json.dumps(classify)} on {smi}")
@@ -4412,6 +4734,8 @@ def main() -> None:
     log(f"serving telemetry and health: {json.dumps(telemetry)} on {smi}")
     log(f"ViT-H/14 from its recipe: {json.dumps(h14_summary(h14))} on {smi}")
     log(f"the run's safety layers: {json.dumps(rollback)} on {smi}")
+    log(f"the run's traces: {json.dumps(traces)} on {smi}")
+    log(f"the hang: {json.dumps(hang)} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.
@@ -4447,6 +4771,8 @@ def main() -> None:
             "publish_launches": billing["publish"][key.lower()],
             "h14_launches": h14["run"]["counts"][key],
             "rollback_launches": rollback["counts"][key],
+            "trace_launches": traces["counts"][key],
+            "trace_profile_kernels": traces["profile_counts"][key],
             **h14_kernel_fields(h14, key),
             "max_abs_err": err,
             "ms": t["ms"],

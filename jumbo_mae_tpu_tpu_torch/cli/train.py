@@ -62,17 +62,44 @@ The run's safety layers, each on by default, in the JAX driver's order:
   has not dispatched before journals a ``retrace`` event; evals are
   expected.
 - ``run.memwatch``: a memory sample every log window (the card's
-  allocator, host RSS, the accountant's components, ``fault_ballast``
-  and ``journal_file`` among them) and the leak sentinel, which names
-  the fastest-growing component (``tools/mem_doctor.py`` reads the
-  journal).
+  allocator, host RSS, the accountant's components, ``fault_ballast``,
+  ``flightrec_ring`` and ``journal_file`` among them) and the leak
+  sentinel, which names the fastest-growing component
+  (``tools/mem_doctor.py`` reads the journal).
+
+What watches the live run, in the same order:
+
+- the goodput ledger (``obs/goodput.py``), from the top of :func:`train`:
+  every wall second in one bucket (data wait, compile, productive step,
+  rollback recompute, eval, saves, restores, hang latency, idle), a
+  ``goodput_report`` row after each committed save and at shutdown, the
+  ``goodput_*`` gauges each log window (``tools/goodput_doctor.py`` reads
+  the journal);
+- ``run.flightrec_steps``: the flight recorder (``obs/flightrec.py``), a
+  ring of the last steps and events dumped to
+  ``<output_dir>/<name>/flightrec-*.json`` on the first non-finite window,
+  a rollback, a leak suspect, SIGTERM (before the graceful checkpoint),
+  an escaping exception and a hang;
+- ``run.hangwatch_deadline_s``: the hang watchdog (``obs/hangwatch.py``):
+  no step for that long outside an eval, a save or a restore journals
+  ``hang_detected``, a ``goodput_report`` with ``reason: "hang"`` and a
+  flight record, and exits 44 (``EXIT_HANG``); the ``fleet.wedge`` fault
+  site (keyed by the step) wedges a dispatch to prove it;
+- spans into ``span_seconds{name=...}`` (``data_wait``, ``train_step``,
+  ``checkpoint_save``) and the ``train_*`` gauges; ``run.chrome_trace``
+  writes them as a Chrome trace at the end, ``run.profile_dir`` a
+  ``torch.profiler`` trace of the run's kernels (``obs/trace.py``);
+- ``run.telemetry``: ``/metrics`` and ``/healthz`` on
+  ``run.telemetry_host:run.telemetry_port`` (``obs/exporter.py``), ready
+  once the state is built, degraded once the leak sentinel fires.
+  ``run.slo`` is accepted and not read, as in the JAX driver.
 
 Everything runs on ``"cuda"`` unless ``--device cpu`` (``device="cpu"``)
 asks for the CPU. What the port does not have yet raises, naming its
 ROADMAP item: FSDP, tensor and pipeline parallelism, ``--distributed`` and
-``--elastic`` (A6); telemetry, traces, diagnostics, the hang watchdog and
-SLOs (A7). The fleet beacons and the flight recorder, on by default, are
-named once at start as not ported (A7) and the run goes on without them.
+``--elastic`` (A6); the step's diagnostics, ``run.diag_every`` (A7.3).
+The fleet beacons, on by default, are named once at start as not ported
+(A7.4) and the run goes on without them.
 """
 
 from __future__ import annotations
@@ -96,15 +123,22 @@ from jumbo_mae_tpu_tpu_torch.faults.sentinel import DivergenceError, DivergenceS
 from jumbo_mae_tpu_tpu_torch.models.classifier import ClassificationModel
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, preset
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
+from jumbo_mae_tpu_tpu_torch.data.tario import QUARANTINE
+from jumbo_mae_tpu_tpu_torch.obs.exporter import HealthState, TelemetryServer
+from jumbo_mae_tpu_tpu_torch.obs.flightrec import FlightRecorder
+from jumbo_mae_tpu_tpu_torch.obs.goodput import GoodputLedger
+from jumbo_mae_tpu_tpu_torch.obs.hangwatch import HangWatchdog
 from jumbo_mae_tpu_tpu_torch.obs.journal import RunJournal, env_fingerprint
 from jumbo_mae_tpu_tpu_torch.obs.memwatch import MB, LeakSentinel, MemAccountant, MemoryWatcher
+from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
 from jumbo_mae_tpu_tpu_torch.obs.mfu import classify_flops_per_image, mfu, pretrain_flops_per_image
 from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip
 from jumbo_mae_tpu_tpu_torch.obs.retrace import RetraceSentinel
+from jumbo_mae_tpu_tpu_torch.obs.trace import export_chrome_trace, span_timer, start_chrome_trace, stop_chrome_trace, trace
 from jumbo_mae_tpu_tpu_torch.parallel.mesh import create_mesh
 from jumbo_mae_tpu_tpu_torch.train import engine as engine_mod
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer, load_pretrained_params
-from jumbo_mae_tpu_tpu_torch.train.engine import EXIT_FATAL, EXIT_OK, RunEngine, exit_code_for
+from jumbo_mae_tpu_tpu_torch.train.engine import EXIT_FATAL, EXIT_HANG, EXIT_OK, RunEngine, exit_code_for
 from jumbo_mae_tpu_tpu_torch.train.optim import Identity, make_optimizer
 from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_eval_step, make_train_step
 from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
@@ -117,7 +151,6 @@ NOT_PORTED = "{what} is not ported yet: ROADMAP queue {item}"
 # when the field is above 0 (True, or a positive size)
 DEFAULT_LAYERS_NOT_PORTED = {
     "fleet": "the fleet beacons (A7.4)",
-    "flightrec_steps": "the flight recorder (A7.2)",
 }
 
 
@@ -130,17 +163,8 @@ def _refuse_unported(cfg: TrainConfig) -> None:
         raise ValueError(f"run.mode must be pretrain, finetune or linear, got {run.mode!r}")
     if mesh.pipe > 1:
         raise NotImplementedError(NOT_PORTED.format(what="mesh.pipe > 1 (the GPipe pipeline)", item="A6"))
-    a7 = {
-        "run.telemetry": run.telemetry,
-        "run.chrome_trace": bool(run.chrome_trace),
-        "run.profile_dir": bool(run.profile_dir),
-        "run.diag_every > 0": run.diag_every > 0,
-        "run.hangwatch_deadline_s > 0": run.hangwatch_deadline_s > 0,
-        "run.slo": bool(run.slo),
-    }
-    asked = [k for k, on in a7.items() if on]
-    if asked:
-        raise NotImplementedError(NOT_PORTED.format(what=", ".join(asked) + " (the platform layers)", item="A7"))
+    if run.diag_every > 0:
+        raise NotImplementedError(NOT_PORTED.format(what="run.diag_every > 0 (the step's diagnostics)", item="A7.3"))
     if run.eval_only and not (cfg.data.valid_shards or run.synthetic_data):
         raise ValueError("run.eval_only requires validation data (data.valid_shards or run.synthetic_data)")
     if run.eval_which not in ("last", "best"):
@@ -302,6 +326,10 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         # the plan outlives this call, as a GRAFT_FAULTS plan does: tests clear it
         plan = install_plan(run.faults)
         print(f"[faults] injection plan active: sites={plan.sites()}")
+    # the goodput ledger's clock starts here, so the state build, the
+    # restore and the first dispatch are on the books: every second of this
+    # process's wall clock lands in exactly one bucket
+    ledger = GoodputLedger(generation=0)  # one process generation until A7.4
     dev = resolve_device(device)
     create_mesh(cfg.mesh, device=dev)  # refuses fsdp/tensor > 1 (A6) and axes beyond this device
     if run.train_batch_size % run.grad_accum:
@@ -349,20 +377,52 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         state, extra = ckpt.restore(state, fallback_steps=2, on_fallback=_fallback)
         start_step = state.step
         data_cursor = extra.get("data_cursor")
+        ledger.add("ckpt_restore", ckpt.last_restore_s or 0.0)
         print(f"[train] resumed from step {start_step} in {ckpt.last_restore_s:.2f} s")
 
     eval_step = make_eval_step(mode=mode)
     print(param_summary(state.model))
-    run_dir = Path(run.output_dir) / run.name
-    logger = MetricLogger(
-        run_dir, name=run.name, config=config_to_dict(cfg), use_wandb=run.use_wandb,
-        wandb_project=run.wandb_project, wandb_entity=run.wandb_entity,
-        wandb_tags=tuple(run.wandb_tags), wandb_id=run.wandb_id,
-    )
-    num_labels = enc_cfg.labels or 1000
-    valid_factory = make_valid_iterator(cfg, per_process_valid, num_labels=num_labels, device=dev)
-    if run.eval_only:
+
+    # graceful preemption: SIGTERM/SIGINT ask the engine to checkpoint and
+    # exit at the next step boundary. Installed BEFORE the flight recorder,
+    # whose SIGTERM handler then dumps first and chains into this one; the
+    # two come out in reverse order. An eval_only run has no step loop to
+    # honour the flag: the default (exit now) is the honest one there
+    preempted: list[int] = []
+
+    def _on_signal(signum, frame):
+        print(f"[train] caught signal {signum}: checkpointing and exiting at the next step boundary")
+        preempted.append(signum)
+
+    handlers = {}
+    if not run.eval_only:
         try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                handlers[sig] = signal.signal(sig, _on_signal)
+        except ValueError:  # not the main thread: no graceful preemption
+            print("[train] WARNING: not on the main thread; SIGTERM will kill the run without a checkpoint")
+    # telemetry: the metrics always record into the process registry; the
+    # exporter (/metrics, /healthz) is opt-in. The state is built and (if
+    # asked) restored by now, so readiness is honest
+    health = HealthState()
+    health.set_ready(True, detail=f"mode={run.mode} start_step={start_step}")
+    # shard URLs the retry layer gave up on in this process (the native
+    # reader reports here; worker interpreters keep their own)
+    health.probe("quarantined_shards", lambda: sorted(QUARANTINE.snapshot()))
+    telemetry = logger = journal = flightrec = hangwatch = source = None
+    run_dir = Path(run.output_dir) / run.name
+    try:
+        if run.telemetry:
+            telemetry = TelemetryServer(health=health, host=run.telemetry_host, port=run.telemetry_port).start()
+            print(f"[obs] exporter on {run.telemetry_host}:{telemetry.port} (/metrics, /healthz)")
+        logger = MetricLogger(
+            run_dir, name=run.name, config=config_to_dict(cfg), use_wandb=run.use_wandb,
+            wandb_project=run.wandb_project, wandb_entity=run.wandb_entity,
+            wandb_tags=tuple(run.wandb_tags), wandb_id=run.wandb_id,
+        )
+        num_labels = enc_cfg.labels or 1000
+        valid_factory = make_valid_iterator(cfg, per_process_valid, num_labels=num_labels, device=dev)
+        if run.eval_only:
             if not (resuming or run.pretrained_ckpt):
                 print("[eval] WARNING: eval_only on a fresh random init; set run.pretrained_ckpt or "
                       "run.resume=true to restore weights")
@@ -370,24 +430,36 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             logger.log(val, step=start_step)
             print(f"[eval] step {start_step}: {val}")
             return {**val, "_exit_reason": "completed"}
-        finally:
-            logger.close()
 
-    train_step = make_train_step(mode=mode, grad_accum=run.grad_accum, guard_nonfinite=run.sentinel)
-    if run.sanity_eval and valid_factory is not None:
-        print("[train] sanity eval:", evaluate(eval_step, state, valid_factory()))
+        train_step = make_train_step(mode=mode, grad_accum=run.grad_accum, guard_nonfinite=run.sentinel)
+        if run.sanity_eval and valid_factory is not None:
+            print("[train] sanity eval:", evaluate(eval_step, state, valid_factory()))
 
-    # the run's history, crash-safe: every layer below reports through _emit
-    journal = RunJournal(run_dir / "journal", host=0) if run.journal else None  # one process until A6.1
-    source = None
-    try:
+        # the run's history, crash-safe, and the black box: every layer below
+        # reports through _emit, into the journal and the flight ring
+        journal = RunJournal(run_dir / "journal", host=0) if run.journal else None  # one process until A6.1
+        if run.flightrec_steps > 0:
+            flightrec = FlightRecorder(run_dir, capacity=run.flightrec_steps, host=0)
+            flightrec.install()
+
         def _emit(etype: str, **fields) -> None:
-            if journal is None:
+            """One diagnostic event into the journal (durable) and the
+            flight ring (memory)."""
+            rec = {"ts": round(time.time(), 3), "type": etype, **fields}
+            if journal is not None:
+                try:
+                    rec = journal.event(etype, **fields)
+                except OSError as e:  # a full disk must not kill the run
+                    print(f"[obs] WARNING: journal write failed: {e}")
+            if flightrec is not None:
+                flightrec.record_event(rec)
+
+        def _black_box(reason: str, **extra) -> None:
+            if flightrec is None:
                 return
-            try:
-                journal.event(etype, **fields)
-            except OSError as e:  # a full disk must not kill the run
-                print(f"[obs] WARNING: journal write failed: {e}")
+            path = flightrec.dump(reason, extra=extra or None)
+            _emit("flight_record", reason=reason, path=str(path))
+            print(f"[obs] flight record ({reason}) -> {path}")
 
         # armed after the first step: a train-step dispatch of a batch
         # signature not dispatched before then journals a `retrace` event
@@ -405,10 +477,44 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             return call
 
         step_fn, eval_fn = _noted(train_step, "train_step"), _noted(eval_step, "eval_step")
+        if journal is not None:
+            health.probe("journal", lambda: str(journal.path))
         _emit("run_start", config=config_to_dict(cfg), env=env_fingerprint(), start_step=start_step,
               resumed=bool(resuming), generation=0, diag_every=run.diag_every, diag_groups=[])
         for fb in ckpt_fallbacks:
             _emit("ckpt_fallback", **fb)
+
+        # the hang watchdog: beats ride the pre-step hook; a wedged step
+        # stops them, and at the deadline the watchdog journals the stall,
+        # drains the checkpoint writer (bounded) and exits EXIT_HANG
+        if run.hangwatch_deadline_s > 0:
+            hangwatch = HangWatchdog(run.hangwatch_deadline_s, exit_code=EXIT_HANG, drain=ckpt.wait)
+
+            @hangwatch.on_fire
+            def _hang_fired(info):
+                _emit("hang_detected", host=0, **info)
+                # the stall the watchdog sat through is detection latency; a
+                # final cumulative report reaches the journal before os._exit
+                ledger.add("hang_latency", float(info.get("stalled_s") or 0.0))
+                _emit("goodput_report", **ledger.report(step=int(info.get("step") or 0), reason="hang"))
+                if flightrec is not None:
+                    try:
+                        flightrec.dump("hang_detected", extra=info)
+                    except Exception:  # noqa: BLE001 - already dying loudly
+                        pass
+                # os._exit flushes nothing: the line goes out now
+                print(f"[train] HANG: no step progress for {info['stalled_s']:.0f}s (deadline "
+                      f"{info['deadline_s']:.0f}s) — exiting {EXIT_HANG}", flush=True)
+
+            hangwatch.start()
+            print(f"[train] hang watchdog armed after step 1: deadline {run.hangwatch_deadline_s:.0f}s -> "
+                  f"exit {EXIT_HANG}")
+
+        def _hw_expected(reason: str):
+            """Legitimately slow phases (eval, the rollback's restore, saves)
+            suspend the step deadline; the fleet.wedge fault and real stalls
+            sit outside every such window."""
+            return hangwatch.expected(reason) if hangwatch is not None else contextlib.nullcontext()
 
         train_iter, source, cursor_log, shard_log = make_train_iterator(
             cfg, per_process, start_step, data_cursor, num_labels=num_labels, device=dev
@@ -417,6 +523,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         timer = StepTimer(warmup_steps=min(2, max(1, run.training_steps - 1)))
         last_metrics: dict[str, float] = {}
         window = {"t0": time.perf_counter(), "wait": 0.0, "steps": 0}
+        prev_window_bad = False  # edge trigger of the non-finite black box
         # the host half of the divergence sentinel: the step's guard skips a
         # non-finite update on the device, this watches the fetched metrics
         # for bad streaks and drives the rollback to the last checkpoint
@@ -431,33 +538,71 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             sentinel.on_event = lambda kind, payload: (
                 _emit(f"sentinel_{kind}", **payload) if kind != "rollback" else None
             )
+
+        # the step loop's telemetry: spans into span_seconds{name=...}, the
+        # log window's numbers as gauges. train_step spans the DISPATCH (the
+        # loop syncs only at log boundaries); the step's wall time is the
+        # steps/s the MFU uses
+        reg = get_registry()
+        g_mfu = reg.gauge("train_mfu", "model FLOP utilization (log-window)")
+        g_ips = reg.gauge("train_images_per_sec", "global throughput (log-window)")
+        g_wait_frac = reg.gauge("train_data_wait_fraction", "share of wall time waiting on data")
+        g_step = reg.gauge("train_step", "current absolute step")
+        g_grad_norm = reg.gauge("train_grad_norm", "global gradient norm of the last fetched step")
+        c_steps = reg.counter("train_steps_total", "optimizer steps this process")
+        # set once the step's cost is known (A7.3), as the JAX driver leaves
+        # it without a compiled cost
+        reg.gauge("train_hardware_flops_utilization",
+                  "counted flops (recompute included) / peak (log-window)")
+        reg.gauge("run_generation", "elastic supervisor generation of this process (0 = first launch)").set(0)
         # a memory sample every log window, the bytes of each accounted
         # component (the host.leak ballast among them) and the leak sentinel
         memwatch = leak_sentinel = None
         if run.memwatch:
             accountant = MemAccountant()
             accountant.register("fault_ballast", leak_ballast_bytes)
+            if flightrec is not None:
+                accountant.register("flightrec_ring", flightrec.ring_bytes)
             if journal is not None:
                 accountant.register("journal_file", lambda: journal.path.stat().st_size)
             memwatch = MemoryWatcher(accountant=accountant, chip=_chip(dev), device=dev)
             leak_sentinel = LeakSentinel(window=run.memwatch_leak_window, min_growth_mb=run.memwatch_leak_mb)
+            health.probe("memory", memwatch.last_sample)
+            health.degraded_when(leak_sentinel.degraded)
+        sp_wait, sp_step, sp_ckpt = span_timer("data_wait"), span_timer("train_step"), span_timer("checkpoint_save")
+        # liveness: a wedged step or a dead loader turns /healthz to 503
+        health.watch("train_step", max_age_s=3600.0)
+        health.watch("data_batch", max_age_s=3600.0)
+        if run.chrome_trace:
+            start_chrome_trace()
 
         def _next_batch(step_now: int):
-            t0 = time.perf_counter()
-            batch = next(train_iter)
-            window["wait"] += time.perf_counter() - t0
+            with sp_wait:
+                batch = next(train_iter)
+            window["wait"] += sp_wait.last_s
+            ledger.add("data_wait", sp_wait.last_s)
+            health.beat("data_batch")
             return batch
 
         def _dispatch(state_now, batch, step_now: int):
+            inject = None
             # the train fault sites; without a plan this is one branch
             if faults_active():
                 # corrupt(n) retains n MB a step in the ballast, raise clears it
                 host_leak_tick(key=str(step_now))
+                # delay(s) past the hang deadline holds this step outside
+                # every expected() window: the watchdog must catch it
+                fault_point("fleet.wedge", key=str(step_now), data=None)
                 lm = fault_point("train.loss", key=str(step_now), data=1.0)
                 gm = fault_point("train.grad", key=str(step_now), data=1.0)
                 if (lm, gm) != (1.0, 1.0):
-                    return step_fn(state_now, batch, (lm, gm))
-            return step_fn(state_now, batch)
+                    inject = (lm, gm)
+            with sp_step:
+                out = step_fn(state_now, batch) if inject is None else step_fn(state_now, batch, inject)
+            # the dispatch span: compile (the first dispatch), rollback
+            # recompute or productive, by step number and process history
+            ledger.note_step(step_now, sp_step.last_s)
+            return out
 
         engine = RunEngine(
             training_steps=run.training_steps,
@@ -467,12 +612,25 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             ckpt_interval=run.ckpt_every,
             next_batch=_next_batch,
             dispatch=_dispatch,
+            should_stop=lambda: bool(preempted),
         )
 
+        @engine.pre_step
+        def _beat(eng, step_now):
+            if hangwatch is not None:
+                hangwatch.beat(step_now)
+
         @engine.on_step
-        def _warmup_over(eng, ev):
-            if retrace is not None and ev.step == start_step + 1:
-                retrace.arm()  # the first step dispatched: steady state from here
+        def _telemetry(eng, ev):
+            c_steps.inc()
+            g_step.set(ev.step)
+            health.beat("train_step")
+            if ev.step == start_step + 1:
+                # the first step dispatched: steady state from here
+                if retrace is not None:
+                    retrace.arm()
+                if hangwatch is not None:
+                    hangwatch.arm()
 
         @engine.on_step
         def _pacing(eng, ev):
@@ -485,11 +643,22 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
 
         @engine.on_log_window
         def _log_window(eng, win):
-            nonlocal last_metrics
+            nonlocal last_metrics, prev_window_bad
             for s, m in win.fetched:
                 skipped = m.get("skipped", 0.0) >= 0.5
-                if skipped or not np.isfinite(m.get("loss", np.nan)):
+                loss = m.get("loss", np.nan)
+                if skipped or not np.isfinite(loss):
                     win.bad_steps.append(s)
+                gn = m.get("grad_norm")
+                if gn is not None:
+                    g_grad_norm.set(gn)
+                if flightrec is not None:
+                    entry = {"loss": loss}
+                    if gn is not None:
+                        entry["grad_norm"] = gn
+                    if skipped:
+                        entry["skipped"] = True
+                    flightrec.record_step(s, entry)
                 if sentinel is not None and sentinel.observe(s, m):
                     eng.request_rollback()
                 if not skipped:  # a skipped step's loss is what the guard refused
@@ -499,9 +668,13 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             if sps:
                 imgs = sps * run.train_batch_size
                 summary |= {"perf/images_per_sec": imgs, "perf/mfu": mfu(imgs, flops_per_image)}
+                g_mfu.set(summary["perf/mfu"])
+                g_ips.set(imgs)
             now = time.perf_counter()
             summary["perf/data_wait_fraction"] = window["wait"] / max(now - window["t0"], 1e-9)
             summary["perf/data_wait_s_per_step"] = window["wait"] / max(window["steps"], 1)
+            g_wait_frac.set(summary["perf/data_wait_fraction"])
+            ledger.publish()  # the goodput_* gauges follow the log window
             window.update(t0=now, wait=0.0, steps=0)
             msnap = None
             if memwatch is not None:
@@ -524,29 +697,50 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 if fired is not None:
                     _emit("mem_leak_suspect", step=win.step, **fired)
                     print(f"[obs] WARNING: leak sentinel fired — suspect {fired['component']} "
-                          f"(+{fired['robust_growth_bytes'] // MB} MiB robust growth over {fired['window']} samples)")
+                          f"(+{fired['robust_growth_bytes'] // MB} MiB robust growth over {fired['window']} "
+                          "samples); /healthz degraded")
+                    _black_box("mem_leak", **fired)
+            # the black box on the first bad window only: a streak of NaN
+            # steps is one incident, not a dump per log window
+            if win.bad_steps:
+                if flightrec is not None:
+                    flightrec.mark_abnormal()
+                if not prev_window_bad:
+                    # first_nonfinite_group names a layer group once the
+                    # step's diagnostics are ported (A7.3)
+                    _black_box("nonfinite_step", bad_steps=win.bad_steps, first_nonfinite_group=None)
+            prev_window_bad = bool(win.bad_steps)
 
         def _rollback(eng, step, win):
             # persistent divergence: restore the last checkpoint (parameters,
             # optimizer state, step, seed and data cursor) and go on from
             # there; skipping alone cannot repair a state that is already bad
-            nonlocal train_iter, source, cursor_log, shard_log
-            ckpt.wait()  # a save still on the writer thread is not committed yet
-            if ckpt.latest_step("last") is None:
-                raise DivergenceError(
-                    f"training diverged at step {step} with no checkpoint to roll back to — lower the LR or set "
-                    "run.eval_interval below the failure point"
-                )
-            sentinel.record_rollback()  # raises once the budget is spent
-            eng.state, extra = ckpt.restore(eng.state)
+            nonlocal train_iter, source, cursor_log, shard_log, prev_window_bad
+            t0 = time.perf_counter()
+            with _hw_expected("rollback"):
+                ckpt.wait()  # a save still on the writer thread is not committed yet
+                if ckpt.latest_step("last") is None:
+                    raise DivergenceError(
+                        f"training diverged at step {step} with no checkpoint to roll back to — lower the LR or "
+                        "set run.eval_interval below the failure point"
+                    )
+                sentinel.record_rollback()  # raises once the budget is spent
+                eng.state, extra = ckpt.restore(eng.state)
+            ledger.add("ckpt_restore", time.perf_counter() - t0)
             new_step = int(eng.state.step)
+            # every step dispatched again up to `step` is recompute, not progress
+            ledger.note_rollback(step, new_step)
             print(f"[train] sentinel rollback #{sentinel.rollbacks} → resuming from step {new_step}")
             _emit("rollback", from_step=step, to_step=new_step, rollbacks=sentinel.rollbacks, bad_steps=win.bad_steps)
+            # every rollback leaves a black box: the ring around the divergence
+            _black_box("sentinel_rollback", from_step=step, to_step=new_step, rollbacks=sentinel.rollbacks)
+            prev_window_bad = False  # the restored stream starts clean
             if source is not None:
                 source.close()
-            train_iter, source, cursor_log, shard_log = make_train_iterator(
-                cfg, per_process, new_step, extra.get("data_cursor"), num_labels=num_labels, device=dev
-            )
+            with _hw_expected("rollback-restart"):
+                train_iter, source, cursor_log, shard_log = make_train_iterator(
+                    cfg, per_process, new_step, extra.get("data_cursor"), num_labels=num_labels, device=dev
+                )
             return new_step
 
         if sentinel is not None:
@@ -557,8 +751,10 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             nonlocal last_metrics
             if valid_factory is None:
                 return None
-            with retrace.expected("eval") if retrace is not None else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            with _hw_expected("eval"), retrace.expected("eval") if retrace is not None else contextlib.nullcontext():
                 val = evaluate(eval_fn, state_now, valid_factory())
+            ledger.add("eval", time.perf_counter() - t0)
             logger.log(val, step=step)
             print(f"[train] eval at step {step}: {val}")
             last_metrics |= val
@@ -572,9 +768,10 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 extra["data_cursor"] = {**cursor_log[step], "process_count": 1}
             if shard_log.get(step) is not None:
                 extra["shard_cursor"] = shard_log[step]
-            t0 = time.perf_counter()
-            ckpt.save(step, eng.state, metrics=cev.metrics, extra=extra)
-            cev.save_seconds = round(time.perf_counter() - t0, 3)
+            with _hw_expected("checkpoint"), sp_ckpt:
+                ckpt.save(step, eng.state, metrics=cev.metrics, extra=extra)
+            ledger.add("ckpt_save", sp_ckpt.last_s)
+            cev.save_seconds = round(sp_ckpt.last_s, 3)
             for log in (cursor_log, shard_log):
                 for k in [k for k in log if k <= step]:
                     del log[k]
@@ -582,18 +779,32 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             print(f"[train] checkpoint at step {step} ({cev.reason}): {ckpt.last_save_s:.3f} s blocking")
             if cev.reason == "preemption":
                 _emit("checkpoint_save", step=step, preemption=True)
-            else:
-                _emit("checkpoint_save", step=step, eval_metrics=cev.metrics, save_seconds=cev.save_seconds)
+                return
+            _emit("checkpoint_save", step=step, eval_metrics=cev.metrics, save_seconds=cev.save_seconds)
+            # a cumulative attribution a committed save: the offline
+            # stitcher keys lost work off these
+            ledger.publish()
+            _emit("goodput_report", **ledger.report(step=step))
 
         @engine.on_crash
         def _crash(eng, exc):
             if isinstance(exc, DivergenceError):
                 eng.exit_reason = "diverged"
+            # the black box is worth most here: the ring is about to vanish
+            if flightrec is not None:
+                try:
+                    flightrec.dump("exception", extra={"error": f"{type(exc).__name__}: {exc}"})
+                except Exception:  # noqa: BLE001 - never mask the real failure
+                    pass
 
         @engine.on_shutdown
         def _drain(eng, reason, step):
-            # a save left in flight at exit is a torn step the next resume
-            # would have to walk back from
+            # the watchdog stands down first: a long final wait is a clean
+            # drain, not a hang. A save left in flight at exit is a torn step
+            # the next resume would have to walk back from
+            if hangwatch is not None:
+                hangwatch.disarm()
+                hangwatch.stop()
             ckpt.wait()
             if ckpt.last_write_s is not None:
                 logger.log({"ckpt/write_s": ckpt.last_write_s, "ckpt/bytes": ckpt.last_save_bytes}, step=step)
@@ -609,7 +820,13 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
 
         @engine.on_shutdown
         def _journal_shutdown(eng, reason, step):
+            # the ledger's last word covers the tail past the last save and
+            # carries the exit reason
+            ledger.publish()
+            _emit("goodput_report", **ledger.report(step=step, reason=reason))
             _emit("shutdown", reason=reason, step=step)
+            if flightrec is not None:
+                flightrec.uninstall()
 
         # continuous deployment: registered last, so a publish follows its
         # checkpoint and sees the restore of a rollback
@@ -623,30 +840,34 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             ).register(engine)
             print(f"[publish] gated weights publisher -> {run.publish_dir}")
 
-        def _on_signal(signum, frame):
-            print(f"[train] caught signal {signum}: checkpointing and exiting at the next step boundary")
-            engine.request_stop("preempted")
-
-        handlers = {}
-        try:
-            for sig in (signal.SIGTERM, signal.SIGINT):
-                handlers[sig] = signal.signal(sig, _on_signal)
-        except ValueError:  # not the main thread: no graceful preemption
-            print("[train] WARNING: not on the main thread; SIGTERM will kill the run without a checkpoint")
-        try:
+        with trace(run.profile_dir or None):
             engine.run(state)
-        finally:
-            for sig, h in handlers.items():
-                signal.signal(sig, h)
+        if run.chrome_trace:
+            print(f"[obs] chrome trace -> {export_chrome_trace(run.chrome_trace)}")
         if source is not None:
             print(f"[train] host seconds waiting on the loader: {source.wait_s:.3f} over {engine.step - start_step} steps")
         return {**last_metrics, "_exit_reason": engine.exit_reason}
-    finally:  # the loader's workers, the journal and the log file close however the run ends
+    finally:
+        # however the run ends: the watchdog, the recorder's hooks, then the
+        # preemption handlers (reverse order of install), the span buffer,
+        # the loader's workers, the journal, the log file and the exporter
+        if hangwatch is not None:
+            hangwatch.disarm()
+            hangwatch.stop()
+        if flightrec is not None:
+            flightrec.uninstall()
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+        if run.chrome_trace:
+            stop_chrome_trace()
         if source is not None:
             source.close()
         if journal is not None:
             journal.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
+        if telemetry is not None:
+            telemetry.close()
 
 
 def build_parser() -> argparse.ArgumentParser:

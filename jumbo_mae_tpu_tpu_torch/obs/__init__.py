@@ -6,6 +6,12 @@
 - ``obs.memwatch``: card and host memory gauges, byte accounting, the
   leak sentinel and the weight swap's headroom check;
 - ``obs.retrace``: the capture sentinel (no new CUDA graph after warmup);
+- ``obs.trace``: host spans into ``span_seconds``, the chrome trace, and
+  ``torch.profiler`` captures (``trace``, ``annotate``);
+- ``obs.flightrec``: the crash flight recorder (ring + black-box dumps);
+- ``obs.hangwatch``: the step-deadline hang watchdog (``EXIT_HANG``);
+- ``obs.goodput``: the wall-clock attribution ledger, cross-generation
+  stitching and the checkpoint-interval advisor;
 - ``obs.lockwatch``: opt-in instrumented locks (``GRAFT_LOCKWATCH=1``);
 - ``obs.reqtrace``, ``obs.journal``, ``obs.costmodel``, ``obs.perfmodel``,
   ``obs.mfu``, ``obs.doctor_common``.
@@ -23,6 +29,15 @@ from jumbo_mae_tpu_tpu_torch.obs.costmodel import (
     utilization_report,
 )
 from jumbo_mae_tpu_tpu_torch.obs.exporter import HealthState, TelemetryServer
+from jumbo_mae_tpu_tpu_torch.obs.flightrec import FlightRecorder
+from jumbo_mae_tpu_tpu_torch.obs.goodput import (
+    GOODPUT_BUCKETS,
+    GoodputLedger,
+    advise_ckpt_interval,
+    bucket_display,
+    stitch_generations,
+)
+from jumbo_mae_tpu_tpu_torch.obs.hangwatch import HangWatchdog
 from jumbo_mae_tpu_tpu_torch.obs.lockwatch import WatchedLock
 from jumbo_mae_tpu_tpu_torch.obs.memwatch import (
     LeakSentinel,
@@ -59,6 +74,15 @@ from jumbo_mae_tpu_tpu_torch.obs.perfmodel import (
 from jumbo_mae_tpu_tpu_torch.obs.reqtrace import OUTCOMES, AccessLog, RequestTrace, RequestTracer
 from jumbo_mae_tpu_tpu_torch.obs.retrace import RetraceSentinel
 from jumbo_mae_tpu_tpu_torch.obs.slo import SLOObjective, SLOTracker, parse_slo
+from jumbo_mae_tpu_tpu_torch.obs.trace import (
+    annotate,
+    export_chrome_trace,
+    span,
+    span_timer,
+    start_chrome_trace,
+    stop_chrome_trace,
+    trace,
+)
 
 __all__ = [
     "AccessLog",
@@ -66,7 +90,11 @@ __all__ = [
     "ChipSpec",
     "Counter",
     "Family",
+    "FlightRecorder",
+    "GOODPUT_BUCKETS",
     "Gauge",
+    "GoodputLedger",
+    "HangWatchdog",
     "HealthState",
     "Histogram",
     "LATENCY_BUCKETS",
@@ -88,10 +116,14 @@ __all__ = [
     "TelemetryServer",
     "UtilizationReport",
     "WatchedLock",
+    "advise_ckpt_interval",
+    "annotate",
+    "bucket_display",
     "chip_spec",
     "cost_asdict",
     "detect_chip",
     "dp_comm_bytes",
+    "export_chrome_trace",
     "fsdp_comm_bytes",
     "get_registry",
     "host_available_bytes",
@@ -103,6 +135,12 @@ __all__ = [
     "publish_drift",
     "roofline",
     "set_registry",
+    "span",
+    "span_timer",
+    "start_chrome_trace",
+    "stitch_generations",
+    "stop_chrome_trace",
+    "trace",
     "tree_nbytes",
     "utilization_report",
 ]

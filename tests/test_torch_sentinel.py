@@ -6,14 +6,19 @@
     streaks, counters and ``on_event`` payloads.
 (b) Both CLIs on ``recipes/smoke_cpu.yaml`` under the scripted divergence
     ``train.loss:nan@n=4..6`` (steps 5-7), patience 3, a log window a
-    step and a save every 4 steps: the ordered ``(type, step)`` rows of
+    step, a save every 4 steps and ``run.slo`` set (accepted and not read
+    by either train CLI): the ordered ``(type, step)`` rows of
     ``run_start``, ``step``, ``checkpoint_save``, ``sentinel_*``,
-    ``rollback`` (from, to), ``mem_sample`` and ``shutdown`` are equal, and
-    so are the counters' deltas. Left out: ``compiled_program``,
-    ``goodput_report`` and ``flight_record`` (layers the port has not yet:
-    ROADMAP A7.2/A7.3) and ``mem_leak_suspect``: the JAX run's leak
-    sentinel fires "unaccounted" on its own XLA compile growth on the CPU,
-    which the eager port does not have.
+    ``rollback`` (from, to), ``mem_sample``, ``goodput_report`` and
+    ``shutdown`` and the ``flight_record`` rows' reasons are equal, and so
+    are the counters' deltas, the goodput reports' ``step``, ``reason``,
+    ``steps``, ``recompute_steps``, ``conservation_error`` and bucket keys,
+    and the ``train_*``, ``goodput_*`` and ``span_seconds`` family names
+    of the two registries. Left out: ``compiled_program`` (the step's
+    compiled cost, ROADMAP A7.3), and ``mem_leak_suspect`` with its
+    ``mem_leak`` flight record: the JAX run's leak sentinel fires
+    "unaccounted" on its own XLA compile growth on the CPU, which the
+    eager port does not have.
 (c) The port's rollback over steps 5-7, on tar shards through the data
     cursor, ends bit-identical to an uninterrupted 12-step run.
 (d) ``run.sentinel=false`` (no guard, no rollback) ends with a NaN loss.
@@ -56,8 +61,10 @@ from jumbo_mae_tpu_tpu_torch.train.checkpoint import read_state
 SMOKE = Path(__file__).resolve().parent.parent / "recipes" / "smoke_cpu.yaml"
 DIVERGE = ["run.faults=train.loss:nan@n=4..6", "run.log_interval=1", "run.eval_interval=4",
            "run.sentinel_patience=3"]
+SLO = "run.slo=p99_latency_ms<=250"
 COMPARED = {"run_start", "step", "checkpoint_save", "sentinel_bad_step", "sentinel_loss_spike", "rollback",
-            "mem_sample", "shutdown"}
+            "mem_sample", "goodput_report", "flight_record", "shutdown"}
+FAMILIES = ("train_", "goodput_", "span_seconds")
 COUNTERS = [("train_steps_skipped_total", ""), ("train_loss_spikes_total", ""), ("train_rollbacks_total", ""),
             ("faults_injected_total", "train.loss,nan")]
 
@@ -82,9 +89,15 @@ def _port(out, steps, *extra):
 
 
 def _rows(events):
-    """The compared rows: (type, step), a rollback as (type, from, to)."""
-    return [(e["type"], e["from_step"], e["to_step"]) if e["type"] == "rollback" else (e["type"], e.get("step"))
-            for e in events if e["type"] in COMPARED]
+    """The compared rows: (type, step), a rollback as (type, from, to), a
+    flight record as (type, reason); not the leak sentinel's record."""
+    def row(e):
+        if e["type"] == "rollback":
+            return e["type"], e["from_step"], e["to_step"]
+        return e["type"], e["reason"] if e["type"] == "flight_record" else e.get("step")
+
+    return [row(e) for e in events
+            if e["type"] in COMPARED and not (e["type"] == "flight_record" and e["reason"] == "mem_leak")]
 
 
 def _counters(reg) -> dict:
@@ -186,10 +199,10 @@ def test_scripted_divergence_journals_as_the_jax_cli(tmp_path):
     from jumbo_mae_tpu_tpu.config import load_config as jload_config
 
     j0 = _counters(jmetrics.get_registry())
-    jout = jtrain(jload_config(SMOKE, _overrides(tmp_path / "jax", 12, *DIVERGE)))
+    jout = jtrain(jload_config(SMOKE, _overrides(tmp_path / "jax", 12, *DIVERGE, SLO)))
     jd = {k: v - j0[k] for k, v in _counters(jmetrics.get_registry()).items()}
     t0 = _counters(tmetrics.get_registry())
-    tout = _port(tmp_path / "port", 12, *DIVERGE)
+    tout = _port(tmp_path / "port", 12, *DIVERGE, SLO)
     td = {k: v - t0[k] for k, v in _counters(tmetrics.get_registry()).items()}
 
     jev = jread_journal(tmp_path / "jax" / "smoke_cpu")
@@ -212,6 +225,22 @@ def test_scripted_divergence_journals_as_the_jax_cli(tmp_path):
     start = next(e for e in tev if e["type"] == "run_start")
     jstart = next(e for e in jev if e["type"] == "run_start")
     assert start.keys() == jstart.keys() and start["config"]["run"]["faults"] == "train.loss:nan@n=4..6"
+    assert start["config"]["run"]["slo"] == jstart["config"]["run"]["slo"] == "p99_latency_ms<=250"
+    # the goodput reports: at each committed save and at shutdown
+    keys = ("step", "reason", "steps", "recompute_steps", "conservation_error")
+    reports = [{k: e.get(k) for k in keys} | {"buckets": sorted(e["buckets"])} for e in tev
+               if e["type"] == "goodput_report"]
+    assert reports == [{k: e.get(k) for k in keys} | {"buckets": sorted(e["buckets"])} for e in jev
+                       if e["type"] == "goodput_report"]
+    assert [(r["step"], r["reason"]) for r in reports] == [(4, None), (8, None), (12, None), (12, "completed")]
+    assert (reports[-1]["steps"], reports[-1]["recompute_steps"], reports[-1]["conservation_error"]) == (11, 3, 0.0)
+    # the black box: the first bad window (one dump for steps 5-7), then the rollback
+    assert [r[1] for r in rows if r[0] == "flight_record"] == ["nonfinite_step", "sentinel_rollback"]
+    dumps = sorted((tmp_path / "port" / "smoke_cpu").glob("flightrec-*.json"))
+    assert [d.name.rsplit("-", 1)[-1] for d in dumps] == ["nonfinite_step.json", "sentinel_rollback.json"]
+    assert json.loads(dumps[0].read_text())["extra"] == {"bad_steps": [5], "first_nonfinite_group": None}
+    families = [sorted(n for n in m.get_registry().snapshot() if n.startswith(FAMILIES)) for m in (tmetrics, jmetrics)]
+    assert families[0] == families[1] and "train_grad_norm" in families[0] and "goodput_fraction" in families[0]
     steps = [e for e in tev if e["type"] == "step"]
     assert [e.get("bad_steps") for e in steps[4:7]] == [[5], [6], [7]]
     # a window of skipped steps only has no loss: the guard refused it

@@ -9,7 +9,20 @@ jumbo MLP.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
+
+# One intra-op thread a test process, and for the processes the tests
+# start. Tier-1 runs six pytest workers on one host: with torch's default
+# of a thread per core, every op of these small shapes waits on OpenMP
+# team members that the other workers have descheduled, and the port's
+# tests ran 4x slower under that load than with one thread each (the
+# smoke recipe's 10 steps: 2 s alone, 100 s among six workers). Every
+# worker collects this module before it runs a test, so the setting holds
+# for all of them; an OMP_NUM_THREADS set by the caller wins.
+torch.set_num_threads(int(os.environ.setdefault("OMP_NUM_THREADS", "1")))
 
 
 def random_jumbo_params(tree: dict, rng: np.random.Generator, path: tuple = ()) -> dict:
