@@ -62,7 +62,13 @@ Phases, each of which exits non-zero when it fails:
    seed) at batch 128 through ``create_state`` + ``make_train_step`` on
    ``synthetic_batches``: 3 warm-up and 10 timed steps on one repeated
    batch; the kernels' launch counts, no call of the plain D pass, a
-   finite loss that falls, step ms, images/s, MFU and peak memory; then
+   finite loss that falls, step ms, images/s, MFU and peak memory; the
+   same 13 steps with ``diag=True`` from a state of the same seeds (every
+   step a diag step): losses and parameters bit-equal, the same launches,
+   step ms beside; one more diag step's (29, 3) group statistics against
+   a float64 recomputation from the same tensors (norms at 1e-5, the
+   update ratio at 1e-4), and the device ms of the parameter copy and of
+   ``group_stats``; then
    preset vit_t16 (head_dim 16, which no kernel takes) served and trained
    as it is, ``attn_impl="auto"`` taking the einsum path;
 8. float32 step, card against CPU — ViT-L widths at 2 encoder layers and
@@ -253,7 +259,9 @@ Phases, each of which exits non-zero when it fails:
    gradient checkpointing (K1 40); then the recipe through ``cli.train``
    ``main`` with ``mesh.data=1``, batch 256, ``data.use_native`` and
    ``data.valid_cache``: 3 steps (K1 72, K2 = K3 40 a step, finite
-   losses), one eval (K1 40, the cache written), a save; a second eval
+   losses, one analytic ``compiled_program`` row with the card's peak,
+   HFU ≥ MFU; the step's cost row and HFU/MFU printed for the "dots"
+   and "none" steps above too), one eval (K1 40, the cache written), a save; a second eval
    of the saved state through the CLI's eval step and valid iterator that
    opens no shard and gives the same loss bit for bit; and the
    reconstruction figure drawn from the save by
@@ -278,9 +286,15 @@ Phases, each of which exits non-zero when it fails:
    at the saves of steps 2, 4 and 6 and at shutdown (``completed``: steps
    5, recompute steps 2, conservation error 0), ``tools/goodput_doctor.py``
    exiting 0; ``run.telemetry`` on a free port scraped by a thread while
-   the run is live (the ``train_*``, ``goodput_*``, ``span_seconds`` and
-   ``run_generation`` families; ``/healthz`` 200, degraded once the leak
-   sentinel fires); the watch hooks' host µs a dispatch.
+   the run is live (the ``train_*``, ``goodput_*``, ``span_seconds``,
+   ``run_generation`` and ``model_grad_norm{group="blocks.0"}``
+   families; ``/healthz`` 200, degraded once the leak sentinel fires);
+   the watch hooks' host µs a dispatch. With ``run.diag_every=1``: the
+   ``nonfinite_step`` record names ``patch_embed``, every step row
+   carries the 29 groups, one analytic ``compiled_program`` row with the
+   card's peak, HFU ≥ MFU in every window, and
+   ``tools/run_doctor.py`` (naming the group) and ``tools/perf_doctor.py``
+   exit 0 on the journal.
 27. traces (after phase 26's saves are deleted, in this process): phase
    13's recipe, 3 steps, a log window a step, the final eval and its save,
    with ``run.chrome_trace`` and ``run.profile_dir``: one ``data_wait``
@@ -1181,7 +1195,141 @@ def phase_train(fa, smi: str) -> dict:
         f"{host_s / TIMED_STEPS * 1e3:.2f} ms), {ips:.1f} images/s, {flops / 1e9:.1f} GFLOP/image, "
         f"MFU {100 * util:.2f}% of {H100_PEAK_BF16_TFLOPS:.0f} TFLOP/s, peak memory {peak_gib:.2f} GiB "
         f"on {smi}")
-    return dict(counts=counts, step_ms=step_ms, images_per_s=ips, mfu=util, peak_gib=peak_gib)
+    diag = train_diag(fa, smi, batch, vals, state, step_ms)
+    return dict(counts=counts, step_ms=step_ms, images_per_s=ips, mfu=util, peak_gib=peak_gib, diag=diag)
+
+
+DIAG_NORM_RTOL = 1e-5  # the group norms against a float64 recomputation from the same tensors
+DIAG_RATIO_RTOL = 1e-4  # the update ratio: a quotient of two such norms
+DIAG_TURN_PAIRS = 10  # (plain, diag, diag, plain), ten times
+
+
+def train_diag(fa, smi: str, batch, plain_losses: list[float], plain_state, plain_ms: float) -> dict:
+    """Phase 7b: the same 3 + 10 ViT-L/16 steps with ``diag=True`` (every
+    step a diag step), from a state built from phase 7's seeds (a copy kept
+    on the card would count in phase 7's peak memory): losses and
+    parameters bit-equal to phase 7's, K1 56 and K2 = K3 32 a step, the
+    step's ms beside phase 7's, then 40 plain and diag steps of one state in
+    turns (plain, diag, diag, plain, ...); then one more diag step whose ``(29, 3)``
+    array is held against a float64 recomputation from the same old
+    parameters, gradients (captured as the optimizer receives them) and new
+    parameters, and the device ms of the parameter copy and of
+    ``group_stats`` alone."""
+    import numpy as np
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.obs.modelstats import group_layout, group_of, group_stats
+    from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
+
+    enc, dec, opt = vit_l16_mae()
+    state = create_state((enc, dec, True), opt, device="cuda", init_seed=0, rng_seed=0, global_batch_size=TRAIN_BATCH)
+    step = make_train_step(mode="pretrain", diag=True)
+    layout = group_layout(state.model)
+    fa.LAUNCHES = fa.LAUNCHES_BWD_DQ = fa.LAUNCHES_BWD_DKV = 0
+    losses, arrays = [], []
+    for _ in range(WARMUP_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        arrays.append(m["diag"])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(TIMED_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        arrays.append(m["diag"])
+    end.record()
+    torch.cuda.synchronize()
+    counts = {"K1": fa.LAUNCHES, "K2": fa.LAUNCHES_BWD_DQ, "K3": fa.LAUNCHES_BWD_DKV}
+    steps = WARMUP_STEPS + TIMED_STEPS
+    step_ms = start.elapsed_time(end) / TIMED_STEPS
+    vals = [x.item() for x in losses]
+    check(len(layout) == 29 and all(a.shape == (29, 3) for a in arrays), f"diag: groups {layout}")
+    check(counts == {"K1": 56 * steps, "K2": 32 * steps, "K3": 32 * steps}, f"diag: launches {counts}")
+    check(vals == plain_losses, f"diag: losses {vals} against phase 7's {plain_losses}")
+    same = all(torch.equal(a, b) for a, b in zip(state.model.parameters(), plain_state.model.parameters(),
+                                                   strict=True))
+    check(same, "diag: the parameters after 13 diag steps differ from phase 7's")
+    finite = torch.stack(arrays).isfinite().all().item()
+    check(finite, "diag: a non-finite group statistic on a clean run")
+    log(f"diag: {steps} ViT-L/16 steps with diag=True: losses and parameters bit-equal to phase 7's, launches "
+        f"K1 {counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}; {step_ms:.2f} ms a step against phase 7's "
+        f"{plain_ms:.2f} ms (CUDA events over {TIMED_STEPS} steps), on {smi}")
+    del plain_state
+    # the diag's cost on the step: one state stepped with and without it in
+    # turns (plain, diag, diag, plain, ...), each step between two CUDA
+    # events on the stream, read after one synchronisation
+    plain = make_train_step(mode="pretrain")
+    order = [name for _ in range(DIAG_TURN_PAIRS) for name in ("plain", "diag", "diag", "plain")]
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(order) + 1)]
+    marks[0].record()
+    for name, mark in zip(order, marks[1:]):
+        state, m = (plain if name == "plain" else step)(state, batch)
+        mark.record()
+    torch.cuda.synchronize()
+    turns = {"plain": [], "diag": []}
+    for name, a, b in zip(order, marks, marks[1:]):
+        turns[name].append(a.elapsed_time(b))
+    q = {k: np.percentile(v, [25, 50, 75]).tolist() for k, v in turns.items()}
+    log(f"diag: ms a step in turns ({len(order)} steps: plain, diag, diag, plain, ...): plain quartiles {q['plain']}, "
+        f"diag {q['diag']}: median +{q['diag'][1] - q['plain'][1]:.2f} ms a diag step, on {smi}")
+
+    # one more step, the optimizer's gradients captured as it receives them
+    captured = {}
+    update = state.tx.update
+
+    def capture(opt_state, params, grads):
+        captured["grads"] = [g.detach().clone() for g in grads]
+        return update(opt_state, params, grads)
+
+    params = list(state.model.parameters())
+    old = [p.detach().clone() for p in params]
+    state.tx.update = capture
+    try:
+        state, m = step(state, batch)
+    finally:
+        del state.tx.update
+    got = m["diag"].double().cpu().numpy()
+    new, grads = [p.detach() for p in params], captured["grads"]
+    names = [n for n, _ in state.model.named_parameters()]
+    sums = torch.zeros((len(layout), 3), dtype=torch.float64, device="cuda")
+    for n, o, g, p in zip(names, old, grads, new, strict=True):
+        row = layout.index(group_of(n))
+        sums[row, 0] += g.double().square().sum()
+        sums[row, 1] += o.double().square().sum()
+        sums[row, 2] += (p.float() - o.float()).double().square().sum()
+    norms = sums.sqrt().cpu().numpy()
+    want = np.stack([norms[:, 0], norms[:, 1], norms[:, 2] / (norms[:, 1] + 1e-12)], axis=1)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    err = {k: float(rel[:, i].max()) for i, k in enumerate(("grad_norm", "param_norm", "update_ratio"))}
+    log(f"diag: the (29, 3) array against a float64 recomputation from the same tensors: largest relative "
+        f"error {err}; blocks.0 {dict(zip(('grad', 'param', 'ratio'), got[layout.index('blocks.0')].tolist()))}")
+    check(err["grad_norm"] <= DIAG_NORM_RTOL and err["param_norm"] <= DIAG_NORM_RTOL
+          and err["update_ratio"] <= DIAG_RATIO_RTOL, f"diag: the array against its recomputation {err}")
+    copy_ms = cuda_ms(lambda: torch._foreach_mul(new, 1.0), iters=10, warmup=2)
+    stats_ms = cuda_ms(lambda: group_stats(old, grads, new, names=names), iters=10, warmup=2)
+    # its parts: one foreach norm over the parameters, the difference; and
+    # the host ms to enqueue one call (the device idle from a synchronise)
+    norm_ms = cuda_ms(lambda: torch._foreach_norm(new), iters=10, warmup=2)
+    sub_ms = cuda_ms(lambda: torch._foreach_sub(new, old), iters=10, warmup=2)
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        group_stats(old, grads, new, names=names)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    enqueue_ms = float(np.median(enqueue))
+    gb = sum(p.numel() * p.element_size() for p in new) / 1e9
+    log(f"diag: device ms a diag step: the parameter copy {copy_ms:.3f} ({2e3 * gb / copy_ms:.0f} GB/s), "
+        f"group_stats {stats_ms:.3f} ({sum(p.numel() for p in new)} parameters, {gb:.2f} GB, in {len(layout)} "
+        f"groups): a foreach norm {norm_ms:.3f} ({1e3 * gb / norm_ms:.0f} GB/s), the difference {sub_ms:.3f}; "
+        f"the host enqueues one group_stats call in {enqueue_ms:.3f} ms, on {smi}")
+    res = dict(step_ms=step_ms, plain_step_ms=plain_ms, turn_quartiles=q, counts=counts, max_rel_err=err,
+               copy_ms=copy_ms, stats_ms=stats_ms, norm_ms=norm_ms, sub_ms=sub_ms, enqueue_ms=enqueue_ms,
+               groups=len(layout))
+    del state, old, grads, captured
+    return res
 
 
 def phase_train_f32_vs_cpu() -> None:
@@ -1726,11 +1874,11 @@ def instrumented_driver(fa, before_step=None):
     def make_train_step(**kw):
         step = make_step(**kw)
 
-        def timed(state, batch, *inject):
+        def timed(state, batch, *inject, **kw):
             if before_step is not None:
                 before_step(len(rec["dispatch_s"]))
             t0 = time.perf_counter()
-            out = step(state, batch, *inject)
+            out = step(state, batch, *inject, **kw)
             rec["dispatch_s"].append(time.perf_counter() - t0)
             return out
 
@@ -1861,7 +2009,7 @@ def phase_driver(fa, smi: str, tmp: Path, train_step_ms: float) -> dict:
     steady_wait = rec["loader_wait_s"][2:DRIVER_STEPS]
     res = dict(
         counts=c, step_ms=step_ms, images_per_s=ips, mfu=summary["perf/mfu"], losses=losses, val_loss=vals[0],
-        data_wait_s_per_step=summary["perf/data_wait_s_per_step"],
+        data_wait_s_per_step=summary["data/wait_s_per_step"],
         loader_wait_s=float(np.mean(steady_wait)), save_s=saver.last_save_s, write_s=saver.last_write_s,
         save_bytes=saver.last_save_bytes, wall_s=rec["wall_s"], digests=rec["digests"][:DRIVER_STEPS],
         dispatch_s=float(np.mean(rec["dispatch_s"][2:DRIVER_STEPS])), urls=urls,
@@ -2071,7 +2219,7 @@ def phase_finetune(fa, smi: str, tmp: Path, urls: dict, mae_ckpt: Path) -> dict:
     summary = [r for r in records if "perf/images_per_sec" in r][-1]
     ips = summary["perf/images_per_sec"]
     res = dict(counts=c, losses=losses, val=vals[0], images_per_s=ips, step_ms=CLASSIFY_BATCH * 1e3 / ips,
-               mfu=summary["perf/mfu"], data_wait_s_per_step=summary["perf/data_wait_s_per_step"],
+               mfu=summary["perf/mfu"], data_wait_s_per_step=summary["data/wait_s_per_step"],
                loader_wait_s=float(np.mean(rec["loader_wait_s"][2:steps])),
                dispatch_s=float(np.mean(rec["dispatch_s"][2:steps])), wall_s=rec["wall_s"])
     log(f"finetune: losses {losses}; val {json.dumps({k: vals[0][k] for k in ('val/loss', 'val/acc1', 'val/acc5')})}")
@@ -3968,12 +4116,37 @@ def h14_policies(fa, smi: str) -> dict:
             f"{batch_size * 1e3 / step_ms:.1f} images/s, MFU {100 * mfu(batch_size * 1e3 / step_ms, flops):.2f}% at "
             f"{flops / 1e9:.1f} GFLOP/image, peak {peak / 2**30:.2f} GiB, on {smi}")
         check(counts == {"K1": want_k1, "K2": H14_K2, "K3": H14_K2}, f"h14 {name}: launches per step {counts}")
+        if cfg.grad_ckpt:
+            run["cost"] = step_cost_row(state, cfg, dec, batch_size, peak, step_ms, flops, f"h14 {name}", smi)
     out["gradients"] = h14_policy_gradients(state, (("dots", enc), ("none", none),
                                                     ("no checkpointing", enc.replace(grad_ckpt=False))), smi)
     state.model.encoder.cfg = enc
     del state
     torch.cuda.empty_cache()
     return out
+
+
+def step_cost_row(state, enc, dec, batch_size: int, peak: int, step_ms: float, flops_per_image: float, what: str,
+                  smi: str) -> dict:
+    """The train step's cost row as ``cli.train`` journals it
+    (``obs/costmodel.py`` ``train_step_cost``, the card's measured peak)
+    and its MFU and HFU at ``step_ms``: HFU counts the remat recompute,
+    so it must not fall below MFU."""
+    from jumbo_mae_tpu_tpu_torch.obs.costmodel import cost_asdict, train_step_cost, utilization_report
+    from jumbo_mae_tpu_tpu_torch.obs.memwatch import tree_nbytes
+    from jumbo_mae_tpu_tpu_torch.obs.mfu import H100_PEAK_BF16_TFLOPS
+
+    opt = state.opt_state
+    cost = train_step_cost(enc, dec, batch=batch_size, param_bytes=tree_nbytes(list(state.model.parameters())),
+                           opt_bytes=tree_nbytes([getattr(opt, k) for k in opt.SLOTS] + [opt.master]),
+                           device_type="cuda", peak_bytes=peak)
+    util = utilization_report(flops_per_image * batch_size, cost.flops, 1e3 / step_ms,
+                              peak_tflops=H100_PEAK_BF16_TFLOPS)
+    row = dict(cost_asdict(cost), mfu=util.model_flops_utilization, hfu=util.hardware_flops_utilization)
+    log(f"{what}: compiled_program {json.dumps(cost_asdict(cost))}; at {step_ms:.2f} ms a step MFU "
+        f"{row['mfu']:.4f}, HFU {row['hfu']:.4f} ({row['hfu'] / row['mfu']:.4f}x), on {smi}")
+    check(row["hfu"] >= row["mfu"], f"{what}: HFU {row['hfu']} below MFU {row['mfu']}")
+    return row
 
 
 def h14_policy_gradients(state, policies, smi: str, batch_size: int = 8) -> dict:
@@ -4155,6 +4328,22 @@ def phase_h14(fa, smi: str, tmp: Path, urls: dict) -> dict:
     check(run_opens == n_val and eval_opens == 0,
           f"h14: the first eval opened {run_opens} of {n_val} shard(s), the second {eval_opens}")
     check(len(vals) == 2 and vals[0] == vals[1] and np.isfinite(vals[0]), f"h14: the two evals' losses {vals}")
+    # the run's one compiled_program row, and HFU against MFU in its windows
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+
+    events = read_journal(out / recipe.run.name)
+    programs = [ev for ev in events if ev["type"] == "compiled_program"]
+    perf = [ev["metrics"] for ev in events if ev["type"] == "step" and "perf/hardware_flops_utilization" in ev["metrics"]]
+    check(len(programs) == 1 and programs[0]["source"] == "analytic" and (programs[0]["peak_bytes"] or 0) > 0,
+          f"h14: the run's compiled_program rows {programs}")
+    check(bool(perf) and all(m["perf/hardware_flops_utilization"] >= m["perf/model_flops_utilization"] for m in perf),
+          f"h14: the run's HFU against MFU {perf}")
+    log(f"h14: the run's compiled_program {json.dumps(programs[0])}; its last window MFU "
+        f"{perf[-1]['perf/model_flops_utilization']:.4f}, HFU {perf[-1]['perf/hardware_flops_utilization']:.4f}, "
+        f"predicted {perf[-1]['perf/predicted_step_ms']:.2f} ms (drift {perf[-1]['perf/predict_vs_measured']:.3f}), "
+        f"on {smi}")
+    res["cost"] = dict(program=programs[0], mfu=perf[-1]["perf/model_flops_utilization"],
+                       hfu=perf[-1]["perf/hardware_flops_utilization"])
     saver = rec["ckpt"]
     res["run"] = dict(counts=c, eval_k1=rec["eval_k1"], second_eval_counts=e, losses=losses, val_loss=vals,
                       shard_opens=[run_opens, eval_opens], wall_s=rec["wall_s"], second_eval_s=eval_s,
@@ -4204,13 +4393,14 @@ def phase_h14(fa, smi: str, tmp: Path, urls: dict) -> dict:
 # 3rd and 4th train-step calls (steps 3 and 4), patience 2 and a save every
 # 2 steps: the engine handles a rollback before that step's eval and save,
 # so the streak rolls back at step 4 to the clean step-2 save; the host.leak
-# site retains 16 MB a step for the leak sentinel to name
+# site retains 16 MB a step for the leak sentinel to name; the step's
+# per-layer-group diagnostics on every step
 ROLLBACK_SETS = ["run.faults=train.loss:nan@n=2..3;host.leak:corrupt(16)", "run.log_interval=1",
                  "run.eval_interval=2", "run.sentinel_patience=2", "run.telemetry=true", "run.telemetry_port=0",
-                 "run.telemetry_host=127.0.0.1"]
+                 "run.telemetry_host=127.0.0.1", "run.diag_every=1"]
 # what a scrape of phase 26's exporter must show while the run is live
 WATCH_FAMILIES = ("train_steps_total", "train_mfu", "goodput_fraction", 'span_seconds_count{name="train_step"}',
-                  "run_generation")
+                  "run_generation", 'model_grad_norm{group="blocks.0"}', "train_hardware_flops_utilization")
 ROLLBACK_STEPS = [1, 2, 3, 4, 3, 4, 5, 6]  # the steps dispatched, in order
 ROLLBACK_LOSS_RTOL = 4e-3  # one bf16 ulp (2^-8) of the loss
 
@@ -4264,6 +4454,50 @@ def scraped_exporter(period_s: float = 0.5):
         stop.set()
         thread.join()
         cli.TelemetryServer = saved
+
+
+def rollback_diagnostics(events: list[dict], nonfinite: dict, run_dir: Path, tmp: Path, run_doctor, perf_doctor,
+                         smi: str) -> dict:
+    """Phase 26's diagnostics (``run.diag_every=1``): the flight record
+    names ``patch_embed``, every step row carries the 29 groups, one
+    ``compiled_program`` row (analytic, the card's peak), HFU ≥ MFU in
+    every window that has both, and the run and perf doctors read the
+    journal (exit 0, the group named)."""
+    grp = nonfinite["extra"].get("first_nonfinite_group")
+    check(grp == "patch_embed", f"rollback: the nonfinite_step record names {grp!r}, want 'patch_embed'")
+    start = next(e for e in events if e["type"] == "run_start")
+    groups = start["diag_groups"]
+    steps = [e for e in events if e["type"] == "step"]
+    check(len(groups) == 29 and all(list(e.get("diag", {})) == groups for e in steps),
+          f"rollback: diag over {len(groups)} groups, in {sum('diag' in e for e in steps)} of {len(steps)} step rows")
+    bad = [e["step"] for e in steps if e["diag"]["patch_embed"]["grad_norm"] == "nan"]
+    check(bad == [3, 4], f"rollback: non-finite patch_embed grad norms at steps {bad}")
+    programs = [e for e in events if e["type"] == "compiled_program"]
+    check(len(programs) == 1 and programs[0]["source"] == "analytic" and (programs[0]["peak_bytes"] or 0) > 0,
+          f"rollback: compiled_program rows {programs}")
+    perf = [e["metrics"] for e in steps if "perf/hardware_flops_utilization" in e["metrics"]]
+    check(bool(perf) and all(m["perf/hardware_flops_utilization"] >= m["perf/model_flops_utilization"] for m in perf),
+          f"rollback: HFU against MFU {[(m['perf/hardware_flops_utilization'], m['perf/model_flops_utilization']) for m in perf]}")
+    rc = run_doctor.main([str(run_dir), "--out", str(tmp / "run.md")])
+    report = (tmp / "run.md").read_text()
+    check(rc == 0 and "first layer group to go non-finite (grad norm): **patch_embed**" in report,
+          f"rollback: run_doctor exit {rc}")
+    prc = perf_doctor.main([str(run_dir), "--out", str(tmp / "perf.md")])
+    preport = (tmp / "perf.md").read_text()
+    check(prc == 0 and "analytic cost accounting" in preport and "predicted-vs-measured drift" in preport,
+          f"rollback: perf_doctor exit {prc}")
+    p, last = programs[0], perf[-1]
+    log(f"rollback: diag over {len(groups)} groups in every step row, patch_embed non-finite at steps {bad}, the "
+        f"black box names {grp}; compiled_program {p['flops'] / 1e12:.3f} TFLOP, {p['bytes_accessed'] / 1e9:.2f} GB, "
+        f"peak {p['peak_bytes'] / 2**30:.2f} GiB; the last window MFU {last['perf/model_flops_utilization']:.4f}, HFU "
+        f"{last['perf/hardware_flops_utilization']:.4f} ({last['perf/hardware_flops_utilization'] / last['perf/model_flops_utilization']:.4f}x), "
+        f"predicted {last['perf/predicted_step_ms']:.2f} ms, drift {last['perf/predict_vs_measured']:.3f}; "
+        f"run_doctor and perf_doctor exit 0, on {smi}")
+    return dict(groups=len(groups), first_nonfinite_group=grp, compiled_program=p,
+                mfu=[m["perf/model_flops_utilization"] for m in perf],
+                hfu=[m["perf/hardware_flops_utilization"] for m in perf],
+                predicted_step_ms=last["perf/predicted_step_ms"], drift=last["perf/predict_vs_measured"],
+                run_doctor_rc=rc, perf_doctor_rc=prc)
 
 
 def watch_hooks_host_us(reps: int = 20000) -> float:
@@ -4329,7 +4563,7 @@ def phase_rollback(fa, smi: str, tmp: Path, driver: dict) -> dict:
     from jumbo_mae_tpu_tpu_torch.config import load_config
     from jumbo_mae_tpu_tpu_torch.faults import inject
     from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
-    from jumbo_mae_tpu_tpu_torch.tools import goodput_doctor, mem_doctor
+    from jumbo_mae_tpu_tpu_torch.tools import goodput_doctor, mem_doctor, perf_doctor, run_doctor
 
     t0 = time.perf_counter()
     urls = driver["urls"]
@@ -4430,6 +4664,7 @@ def phase_rollback(fa, smi: str, tmp: Path, driver: dict) -> dict:
               f"rollback: the {e['reason']} dump ends at step {last}, want {want_last[e['reason']]}")
     nonfinite = json.loads(Path(next(e["path"] for e in records if e["reason"] == "nonfinite_step")).read_text())
     check(nonfinite["extra"]["bad_steps"] == [3], f"rollback: the first bad window {nonfinite['extra']}")
+    res_diag = rollback_diagnostics(events, nonfinite, run_dir, tmp, run_doctor, perf_doctor, smi)
 
     # the goodput ledger: a report at each committed save and at shutdown
     reports = [e for e in events if e["type"] == "goodput_report"]
@@ -4457,7 +4692,7 @@ def phase_rollback(fa, smi: str, tmp: Path, driver: dict) -> dict:
                leak=leaks[0], rss_mib=[r // 2**20 for r in rss], device_mib=[b // 2**20 for b in dev_bytes],
                retrace_compiles=retraces[1], mem_doctor_rc=rc, wall_s=rec["wall_s"], flight_records=reasons,
                goodput=final, goodput_doctor_rc=grc, scrapes=seen["scrapes"],
-               scrape_ms=float(np.median(seen["scrape_ms"])), watch_hooks_us=hooks_us)
+               scrape_ms=float(np.median(seen["scrape_ms"])), watch_hooks_us=hooks_us, diag=res_diag)
     res["seconds"] = time.perf_counter() - t0
     log(f"rollback: leak suspect {leaks[0]['component']} at step {leaks[0]['step']} "
         f"(+{leaks[0]['robust_growth_bytes'] // 2**20} MiB robust growth over {leaks[0]['window']} samples); "
@@ -4732,6 +4967,7 @@ def main() -> None:
     log(f"batch jobs: {json.dumps(batch)} on {smi}")
     log(f"billing, autoscaling and publishing: {json.dumps(billing)} on {smi}")
     log(f"serving telemetry and health: {json.dumps(telemetry)} on {smi}")
+    log(f"the step's diagnostics (phase 7b): {json.dumps(train['diag'])} on {smi}")
     log(f"ViT-H/14 from its recipe: {json.dumps(h14_summary(h14))} on {smi}")
     log(f"the run's safety layers: {json.dumps(rollback)} on {smi}")
     log(f"the run's traces: {json.dumps(traces)} on {smi}")

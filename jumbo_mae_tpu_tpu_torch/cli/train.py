@@ -28,8 +28,9 @@ checkpoints at every eval and every ``ckpt_every`` steps with ``best`` by
 ``run.resume`` from the newest save with the sample-exact data cursor (or,
 without one, the stream restarted at the resumed step's epoch), a
 checkpoint on SIGTERM/SIGINT at the next step boundary, and a metrics
-JSONL with images/s and ``perf/mfu`` against one H100's bf16 peak
-(``obs/mfu.py``). ``run.eval_only`` evaluates and exits: from the ``last`` or
+JSONL with images/s, ``perf/mfu`` against one H100's bf16 peak
+(``obs/mfu.py``) and the host's wait for data (``data/wait_fraction``,
+``data/wait_s_per_step``). ``run.eval_only`` evaluates and exits: from the ``last`` or
 ``best`` save (``run.resume=true``, ``run.eval_which``) or a warm start,
 with an identity optimizer so no moment reaches the card.
 ``run.publish_dir`` turns on the gated weights publisher
@@ -94,11 +95,33 @@ What watches the live run, in the same order:
   once the state is built, degraded once the leak sentinel fires.
   ``run.slo`` is accepted and not read, as in the JAX driver.
 
+What diagnoses the run, in the same order:
+
+- ``run.diag_every``: the step's per-layer-group diagnostics
+  (``obs/modelstats.py``): every step reports ``finite_frac``, and every
+  ``diag_every``-th step (and the last) the ``(groups, 3)`` array of grad
+  norm, param norm and update ratio, computed on the device and fetched
+  with the log window's scalars; it lands in the ``model_*{group=...}``
+  gauges, the flight recorder, and the ``step`` row's
+  ``diag_step``/``diag``; the ``nonfinite_step`` flight record names the
+  first group whose grad norm went non-finite. ``run_start`` carries
+  ``diag_every`` and ``diag_groups``.
+- the step's cost (``obs/costmodel.py`` ``train_step_cost``): at the first
+  log boundary one ``compiled_program`` row (the analytic FLOPs with the
+  ``grad_ckpt`` recompute, the bytes model and, on the card, the peak
+  allocated bytes since the step loop began) and the ``xla_*`` gauges;
+  every later window adds ``perf/model_flops_utilization``,
+  ``perf/hardware_flops_utilization`` (the recompute counted),
+  ``perf/predicted_step_ms`` and ``perf/predict_vs_measured`` (the
+  roofline of ``obs/perfmodel.py``) and sets
+  ``train_hardware_flops_utilization``. ``tools/run_doctor.py`` explains
+  a run from its journal and ``tools/perf_doctor.py`` reads the cost rows
+  (or a ``BENCH_HISTORY.jsonl``, ``obs/perfledger.py``).
+
 Everything runs on ``"cuda"`` unless ``--device cpu`` (``device="cpu"``)
 asks for the CPU. What the port does not have yet raises, naming its
 ROADMAP item: FSDP, tensor and pipeline parallelism, ``--distributed`` and
-``--elastic`` (A6); the step's diagnostics, ``run.diag_every`` (A7.3).
-The fleet beacons, on by default, are named once at start as not ported
+``--elastic`` (A6). The fleet beacons, on by default, are named once at start as not ported
 (A7.4) and the run goes on without them.
 """
 
@@ -124,15 +147,22 @@ from jumbo_mae_tpu_tpu_torch.models.classifier import ClassificationModel
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, preset
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
 from jumbo_mae_tpu_tpu_torch.data.tario import QUARANTINE
+from jumbo_mae_tpu_tpu_torch.obs.costmodel import cost_asdict, publish_cost, train_step_cost, utilization_report
 from jumbo_mae_tpu_tpu_torch.obs.exporter import HealthState, TelemetryServer
 from jumbo_mae_tpu_tpu_torch.obs.flightrec import FlightRecorder
 from jumbo_mae_tpu_tpu_torch.obs.goodput import GoodputLedger
 from jumbo_mae_tpu_tpu_torch.obs.hangwatch import HangWatchdog
 from jumbo_mae_tpu_tpu_torch.obs.journal import RunJournal, env_fingerprint
-from jumbo_mae_tpu_tpu_torch.obs.memwatch import MB, LeakSentinel, MemAccountant, MemoryWatcher
+from jumbo_mae_tpu_tpu_torch.obs.memwatch import MB, LeakSentinel, MemAccountant, MemoryWatcher, tree_nbytes
 from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
-from jumbo_mae_tpu_tpu_torch.obs.mfu import classify_flops_per_image, mfu, pretrain_flops_per_image
-from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip
+from jumbo_mae_tpu_tpu_torch.obs.mfu import (
+    H100_PEAK_BF16_TFLOPS,
+    classify_flops_per_image,
+    mfu,
+    pretrain_flops_per_image,
+)
+from jumbo_mae_tpu_tpu_torch.obs.modelstats import first_nonfinite_group, group_layout, publish_group_stats, stats_dict
+from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip, publish_drift, roofline
 from jumbo_mae_tpu_tpu_torch.obs.retrace import RetraceSentinel
 from jumbo_mae_tpu_tpu_torch.obs.trace import export_chrome_trace, span_timer, start_chrome_trace, stop_chrome_trace, trace
 from jumbo_mae_tpu_tpu_torch.parallel.mesh import create_mesh
@@ -163,8 +193,6 @@ def _refuse_unported(cfg: TrainConfig) -> None:
         raise ValueError(f"run.mode must be pretrain, finetune or linear, got {run.mode!r}")
     if mesh.pipe > 1:
         raise NotImplementedError(NOT_PORTED.format(what="mesh.pipe > 1 (the GPipe pipeline)", item="A6"))
-    if run.diag_every > 0:
-        raise NotImplementedError(NOT_PORTED.format(what="run.diag_every > 0 (the step's diagnostics)", item="A7.3"))
     if run.eval_only and not (cfg.data.valid_shards or run.synthetic_data):
         raise ValueError("run.eval_only requires validation data (data.valid_shards or run.synthetic_data)")
     if run.eval_which not in ("last", "best"):
@@ -431,7 +459,12 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             print(f"[eval] step {start_step}: {val}")
             return {**val, "_exit_reason": "completed"}
 
-        train_step = make_train_step(mode=mode, grad_accum=run.grad_accum, guard_nonfinite=run.sentinel)
+        # per-layer-group diagnostics (obs/modelstats.py): with diag_every=0
+        # the step is the one without them, not a launch more
+        diag_on = run.diag_every > 0
+        diag_names = group_layout(state.model) if diag_on else ()
+        train_step = make_train_step(mode=mode, grad_accum=run.grad_accum, guard_nonfinite=run.sentinel,
+                                     diag=diag_on)
         if run.sanity_eval and valid_factory is not None:
             print("[train] sanity eval:", evaluate(eval_step, state, valid_factory()))
 
@@ -470,9 +503,9 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             if retrace is None:
                 return fn
 
-            def call(state_now, batch, *rest):
+            def call(state_now, batch, *rest, **kw):
                 retrace.dispatch(tag, batch)
-                return fn(state_now, batch, *rest)
+                return fn(state_now, batch, *rest, **kw)
 
             return call
 
@@ -480,7 +513,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         if journal is not None:
             health.probe("journal", lambda: str(journal.path))
         _emit("run_start", config=config_to_dict(cfg), env=env_fingerprint(), start_step=start_step,
-              resumed=bool(resuming), generation=0, diag_every=run.diag_every, diag_groups=[])
+              resumed=bool(resuming), generation=0, diag_every=run.diag_every, diag_groups=list(diag_names))
         for fb in ckpt_fallbacks:
             _emit("ckpt_fallback", **fb)
 
@@ -552,8 +585,12 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         c_steps = reg.counter("train_steps_total", "optimizer steps this process")
         # set once the step's cost is known (A7.3), as the JAX driver leaves
         # it without a compiled cost
-        reg.gauge("train_hardware_flops_utilization",
-                  "counted flops (recompute included) / peak (log-window)")
+        g_hfu = reg.gauge("train_hardware_flops_utilization",
+                          "counted flops (recompute included) / peak (log-window)")
+        # the step's cost: None = not built yet (the first log boundary)
+        step_cost = None
+        chip = _chip(dev)
+        diag_pending: list = []  # [(step, device (G, 3) stats)], fetched at the log boundary
         reg.gauge("run_generation", "elastic supervisor generation of this process (0 = first launch)").set(0)
         # a memory sample every log window, the bytes of each accounted
         # component (the host.leak ballast among them) and the leak sentinel
@@ -565,7 +602,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 accountant.register("flightrec_ring", flightrec.ring_bytes)
             if journal is not None:
                 accountant.register("journal_file", lambda: journal.path.stat().st_size)
-            memwatch = MemoryWatcher(accountant=accountant, chip=_chip(dev), device=dev)
+            memwatch = MemoryWatcher(accountant=accountant, chip=chip, device=dev)
             leak_sentinel = LeakSentinel(window=run.memwatch_leak_window, min_growth_mb=run.memwatch_leak_mb)
             health.probe("memory", memwatch.last_sample)
             health.degraded_when(leak_sentinel.degraded)
@@ -597,8 +634,11 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 gm = fault_point("train.grad", key=str(step_now), data=1.0)
                 if (lm, gm) != (1.0, 1.0):
                     inject = (lm, gm)
+            # the group statistics only where the host will fetch them: the
+            # diag cadence and the last step (finite_frac every step)
+            kw = {"diag": step_now % run.diag_every == 0 or step_now == run.training_steps} if diag_on else {}
             with sp_step:
-                out = step_fn(state_now, batch) if inject is None else step_fn(state_now, batch, inject)
+                out = step_fn(state_now, batch, **kw) if inject is None else step_fn(state_now, batch, inject, **kw)
             # the dispatch span: compile (the first dispatch), rollback
             # recompute or productive, by step number and process history
             ledger.note_step(step_now, sp_step.last_s)
@@ -633,6 +673,18 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                     hangwatch.arm()
 
         @engine.on_step
+        def _diag_component(eng, ev):
+            # the (G, 3) array stays out of the window's scalars (the meter
+            # and the sentinel read scalars); it is there on cadence only
+            if not diag_on:
+                return
+            metrics = dict(ev.metrics)
+            arr = metrics.pop("diag", None)
+            if arr is not None:
+                diag_pending.append((ev.step, arr))
+            ev.metrics = metrics
+
+        @engine.on_step
         def _pacing(eng, ev):
             timer.tick()
             window["steps"] += 1
@@ -643,7 +695,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
 
         @engine.on_log_window
         def _log_window(eng, win):
-            nonlocal last_metrics, prev_window_bad
+            nonlocal last_metrics, prev_window_bad, step_cost
             for s, m in win.fetched:
                 skipped = m.get("skipped", 0.0) >= 0.5
                 loss = m.get("loss", np.nan)
@@ -656,6 +708,8 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                     entry = {"loss": loss}
                     if gn is not None:
                         entry["grad_norm"] = gn
+                    if "finite_frac" in m:
+                        entry["finite_frac"] = m["finite_frac"]
                     if skipped:
                         entry["skipped"] = True
                     flightrec.record_step(s, entry)
@@ -663,21 +717,63 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                     eng.request_rollback()
                 if not skipped:  # a skipped step's loss is what the guard refused
                     meter.update(m)
+            # per-layer-group diagnostics: the window's kept arrays in one
+            # transfer, published as model_*{group=...} gauges
+            latest_diag = None
+            if diag_pending:
+                fetched = torch.stack([a for _, a in diag_pending]).cpu().numpy()
+                for (ds, _), arr in zip(diag_pending, fetched):
+                    publish_group_stats(diag_names, arr)
+                    latest_diag = (ds, stats_dict(diag_names, arr), arr)
+                    if flightrec is not None:
+                        flightrec.record_step(ds, {"diag": latest_diag[1]})
+                diag_pending.clear()
             summary = meter.summary("train/")
+            if step_cost is None:
+                # the step's cost, once: the card's peak since the loop began
+                # covers the first window's steps
+                opt = eng.state.opt_state
+                step_cost = train_step_cost(
+                    enc_cfg, getattr(eng.state.model, "decoder_cfg", None), batch=run.train_batch_size,
+                    param_bytes=tree_nbytes(list(eng.state.model.parameters())),
+                    opt_bytes=tree_nbytes([getattr(opt, k) for k in opt.SLOTS] + [opt.master]),
+                    linear=run.mode == "linear", device_type=dev.type,
+                    peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
+                )
+                publish_cost(step_cost, bucket="", dtype=cfg.model.overrides.get("dtype", ""))
+                _emit("compiled_program", batch=run.train_batch_size, **cost_asdict(step_cost))
             sps = timer.steps_per_sec
             if sps:
                 imgs = sps * run.train_batch_size
-                summary |= {"perf/images_per_sec": imgs, "perf/mfu": mfu(imgs, flops_per_image)}
+                util = utilization_report(flops_per_image * run.train_batch_size, step_cost.flops, sps,
+                                          peak_tflops=H100_PEAK_BF16_TFLOPS)
+                summary |= {
+                    "perf/images_per_sec": imgs,
+                    "perf/images_per_sec_per_chip": imgs,  # one card a process until A6.1
+                    "perf/mfu": mfu(imgs, flops_per_image),
+                    "perf/tflops_per_chip": util.achieved_model_tflops,
+                    # MFU (the model's FLOPs) against HFU (the recompute counted)
+                    "perf/model_flops_utilization": util.model_flops_utilization,
+                    "perf/hardware_flops_utilization": util.hardware_flops_utilization,
+                }
+                if chip is not None:  # a card the table has no row for gets no roofline
+                    pred = roofline(step_cost.flops, step_cost.bytes_accessed, chip,
+                                    peak_hbm_bytes=step_cost.peak_bytes or 0.0)
+                    summary["perf/predicted_step_ms"] = pred.step_time_s * 1e3
+                    summary["perf/predict_vs_measured"] = publish_drift(pred.step_time_s, 1.0 / sps,
+                                                                        program="train_step")
                 g_mfu.set(summary["perf/mfu"])
                 g_ips.set(imgs)
+                g_hfu.set(util.hardware_flops_utilization)
             now = time.perf_counter()
-            summary["perf/data_wait_fraction"] = window["wait"] / max(now - window["t0"], 1e-9)
-            summary["perf/data_wait_s_per_step"] = window["wait"] / max(window["steps"], 1)
-            g_wait_frac.set(summary["perf/data_wait_fraction"])
+            summary["data/wait_fraction"] = window["wait"] / max(now - window["t0"], 1e-9)
+            summary["data/wait_s_per_step"] = window["wait"] / max(window["steps"], 1)
+            g_wait_frac.set(summary["data/wait_fraction"])
             ledger.publish()  # the goodput_* gauges follow the log window
             window.update(t0=now, wait=0.0, steps=0)
             msnap = None
             if memwatch is not None:
+                memwatch.record_predicted_peak("train_step", step_cost.peak_bytes)
                 msnap = memwatch.sample()
                 if "note" in msnap:
                     print(f"[obs] {msnap['note']}")
@@ -687,9 +783,12 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             last_metrics = summary
             win.summary = summary
             row = {"step": win.step, "metrics": summary,
-                   "data_wait_fraction": round(summary["perf/data_wait_fraction"], 4)}
+                   "data_wait_fraction": round(summary["data/wait_fraction"], 4)}
             if win.bad_steps:
                 row["bad_steps"] = win.bad_steps
+            if latest_diag is not None:
+                row["diag_step"] = latest_diag[0]
+                row["diag"] = latest_diag[1]
             _emit("step", **row)
             if msnap is not None:
                 _emit("mem_sample", step=win.step, **{k: v for k, v in msnap.items() if k != "ts"})
@@ -706,9 +805,8 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 if flightrec is not None:
                     flightrec.mark_abnormal()
                 if not prev_window_bad:
-                    # first_nonfinite_group names a layer group once the
-                    # step's diagnostics are ported (A7.3)
-                    _black_box("nonfinite_step", bad_steps=win.bad_steps, first_nonfinite_group=None)
+                    grp = first_nonfinite_group(diag_names, latest_diag[2]) if latest_diag is not None else None
+                    _black_box("nonfinite_step", bad_steps=win.bad_steps, first_nonfinite_group=grp)
             prev_window_bad = bool(win.bad_steps)
 
         def _rollback(eng, step, win):
@@ -840,6 +938,9 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             ).register(engine)
             print(f"[publish] gated weights publisher -> {run.publish_dir}")
 
+        if dev.type == "cuda":
+            # the step's peak_bytes: the allocator's high-water mark from here
+            torch.cuda.reset_peak_memory_stats(dev)
         with trace(run.profile_dir or None):
             engine.run(state)
         if run.chrome_trace:

@@ -13,6 +13,11 @@
 - ``obs.goodput``: the wall-clock attribution ledger, cross-generation
   stitching and the checkpoint-interval advisor;
 - ``obs.lockwatch``: opt-in instrumented locks (``GRAFT_LOCKWATCH=1``);
+- ``obs.modelstats``: per-layer-group grad/param/update statistics
+  computed in the train step (``diag=True``), their gauges and journal
+  shape;
+- ``obs.perfledger``: the schema-versioned ``BENCH_HISTORY.jsonl``
+  writer and reader;
 - ``obs.reqtrace``, ``obs.journal``, ``obs.costmodel``, ``obs.perfmodel``,
   ``obs.mfu``, ``obs.doctor_common``.
 
@@ -26,6 +31,8 @@ from jumbo_mae_tpu_tpu_torch.obs.costmodel import (
     cost_asdict,
     program_cost,
     publish_cost,
+    train_step_cost,
+    train_step_flops,
     utilization_report,
 )
 from jumbo_mae_tpu_tpu_torch.obs.exporter import HealthState, TelemetryServer
@@ -59,6 +66,23 @@ from jumbo_mae_tpu_tpu_torch.obs.metrics import (
     NullRegistry,
     get_registry,
     set_registry,
+)
+from jumbo_mae_tpu_tpu_torch.obs.modelstats import (
+    STAT_NAMES,
+    first_nonfinite_group,
+    group_layout,
+    group_of,
+    group_stats,
+    publish_group_stats,
+    stats_dict,
+)
+from jumbo_mae_tpu_tpu_torch.obs.perfledger import (
+    LEDGER_SCHEMA,
+    append_row,
+    comparable_env,
+    make_row,
+    read_ledger,
+    resolve_history_path,
 )
 from jumbo_mae_tpu_tpu_torch.obs.perfmodel import (
     ChipSpec,
@@ -98,6 +122,7 @@ __all__ = [
     "HealthState",
     "Histogram",
     "LATENCY_BUCKETS",
+    "LEDGER_SCHEMA",
     "LeakSentinel",
     "MemAccountant",
     "MemoryWatcher",
@@ -113,34 +138,48 @@ __all__ = [
     "RetraceSentinel",
     "SLOObjective",
     "SLOTracker",
+    "STAT_NAMES",
     "TelemetryServer",
     "UtilizationReport",
     "WatchedLock",
     "advise_ckpt_interval",
     "annotate",
+    "append_row",
     "bucket_display",
     "chip_spec",
+    "comparable_env",
     "cost_asdict",
     "detect_chip",
     "dp_comm_bytes",
     "export_chrome_trace",
+    "first_nonfinite_group",
     "fsdp_comm_bytes",
     "get_registry",
+    "group_layout",
+    "group_of",
+    "group_stats",
     "host_available_bytes",
     "host_rss_bytes",
+    "make_row",
     "parse_slo",
     "predict_train_step",
     "program_cost",
     "publish_cost",
     "publish_drift",
+    "publish_group_stats",
+    "read_ledger",
+    "resolve_history_path",
     "roofline",
     "set_registry",
     "span",
     "span_timer",
     "start_chrome_trace",
+    "stats_dict",
     "stitch_generations",
     "stop_chrome_trace",
     "trace",
+    "train_step_cost",
+    "train_step_flops",
     "tree_nbytes",
     "utilization_report",
 ]

@@ -1,11 +1,14 @@
-"""What each serving program costs: FLOPs, bytes and memory per execution.
+"""What each program costs: FLOPs, bytes and memory per execution.
 
 Counterpart of ``jumbo_mae_tpu_tpu/obs/costmodel.py``. The JAX module
 reads XLA's own accounting off a compiled executable
 (``cost_analysis()``/``memory_analysis()``). The port has no compiler to
-ask: a CUDA graph is a recording of kernel launches. So its
-:func:`program_cost` builds the :class:`ProgramCost` of one captured
-``(task key, bucket)`` graph from the model instead:
+ask: a CUDA graph is a recording of kernel launches, and the train step
+runs eagerly. So the port builds each :class:`ProgramCost` from the model
+instead.
+
+:func:`program_cost` prices one captured serving ``(task key, bucket)``
+graph:
 
 - ``flops`` — the analytic counts of ``obs/mfu.py``: the full-sequence
   encoder times the bucket; plus the head for ``logits``; the masked
@@ -15,23 +18,52 @@ ask: a CUDA graph is a recording of kernel launches. So its
   weights as stored) plus ``2·flops/dim``, the activation model the JAX
   CLI prices its autoscaler with;
 - ``peak_bytes`` — the graph's memory-pool growth at its capture
-  (``InferenceEngine.graph_stats()["pool_bytes"]``);
-- the argument, output, temp and generated-code sizes cannot be known
-  and are ``None``; ``source`` is ``"analytic"``.
+  (``InferenceEngine.graph_stats()["pool_bytes"]``).
 
-:func:`lookup_cost`, :func:`publish_cost` and :func:`utilization_report`
-are the JAX functions. The gauges keep the JAX family names
-(``xla_flops``…), so a dashboard reads either package; an unknown field
-sets no gauge. In the port the hardware FLOP utilization equals the model
-FLOP utilization: no compiler counts the FLOPs a program really runs, so
-the second count is the first.
+:func:`train_step_cost` prices one train step (the JAX CLI's
+``compiled_program`` row of ``train_step``):
+
+- ``flops`` — :func:`train_step_flops`: the analytic training FLOPs of
+  ``obs/mfu.py`` times the batch, plus the recompute that ``grad_ckpt``
+  adds under the stack's ``remat_policy`` (``models/config.py``
+  ``checkpoint_policy``): ``"none"`` runs every checkpointed block's
+  forward again; ``"dots"`` runs again what is not a saved matmul, among
+  it the attention scores wherever they go through the flash kernels (K1
+  is no matmul to the policy, as a Pallas call is none to XLA's);
+  ``"dots_no_batch"`` also the attention einsums, whose matmuls have a
+  batch dimension. A linear probe's frozen trunk runs its forward only;
+- ``bytes_accessed`` — each forward (the recompute's included) and the
+  backward read the weights once, the gradients are written and read
+  once, the optimizer reads and writes its state and the parameters, and
+  the activations move ``2·flops/dim`` (the serving model's);
+- ``peak_bytes`` — ``torch.cuda.max_memory_allocated()`` over the first
+  log window on the card (the CLI resets the statistics as its step loop
+  starts); ``None`` on the CPU.
+
+The argument, output, temp and generated-code sizes cannot be known and
+are ``None``; ``source`` is ``"analytic"``. :func:`lookup_cost`,
+:func:`publish_cost` and :func:`utilization_report` are the JAX
+functions. The gauges keep the JAX family names (``xla_flops``…), so a
+dashboard reads either package; an unknown field sets no gauge.
+
+MFU counts the model's FLOPs and HFU the FLOPs the program runs. For a
+serving graph the two counts are one. For the train step HFU counts the
+recompute too, so HFU ≥ MFU under ``grad_ckpt``, and the gap is the
+recompute's bill (ViT-L/16 MAE under ``"none"``: 1.25×).
 """
 
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass
 
-from jumbo_mae_tpu_tpu_torch.obs.mfu import decoder_flops_per_image, encoder_flops_per_image
+from jumbo_mae_tpu_tpu_torch.obs.mfu import (
+    _attention_flops,
+    _mlp_flops,
+    classify_flops_per_image,
+    decoder_flops_per_image,
+    encoder_flops_per_image,
+    pretrain_flops_per_image,
+)
 
 # Bump when the ProgramCost field set changes: journal events carry it.
 COST_SCHEMA_VERSION = 1
@@ -113,6 +145,74 @@ def program_cost(program: str, *, flops: float, weight_nbytes: float, dim: int,
     weights' bytes plus the activation model ``2·flops/dim``."""
     return ProgramCost(program=program, flops=float(flops),
                        bytes_accessed=float(weight_nbytes) + 2.0 * float(flops) / max(dim, 1),
+                       peak_bytes=None if peak_bytes is None else float(peak_bytes))
+
+
+def _runs_flash(cfg, head_dim: int, device_type: str) -> bool:
+    """Whether a block stack's attention goes through the flash kernels
+    in a training forward (``models/layers.py`` ``resolve_attn_impl``)."""
+    from jumbo_mae_tpu_tpu_torch.models.layers import resolve_attn_impl
+
+    impl = resolve_attn_impl(cfg.attn_impl, device_type=device_type, dropout=cfg.dropout, deterministic=False,
+                             head_dim=head_dim, dtype=cfg.compute_dtype)
+    return impl == "flash" or (impl == "ring" and cfg.ring_inner == "flash")
+
+
+def _recompute_flops_per_image(cfg, seq: int, tokens: int, layers: int, hidden: int, extra_mlp: float,
+                              device_type: str) -> float:
+    """Matmul FLOPs one image's checkpointed blocks run again in the
+    backward: ``seq`` tokens through attention, ``tokens`` through the
+    MLP, ``extra_mlp`` FLOPs a block beside (the jumbo MLP). Zero without
+    ``grad_ckpt``."""
+    if not cfg.grad_ckpt:
+        return 0.0
+    d = cfg.dim
+    scores = 2 * 2 * seq * seq * d
+    if cfg.remat_policy == "none":
+        return layers * (_attention_flops(seq, d) + _mlp_flops(tokens, d, hidden) + extra_mlp)
+    if cfg.remat_policy == "dots_no_batch" or _runs_flash(cfg, d // cfg.heads, device_type):
+        return layers * scores
+    return 0.0
+
+
+def train_step_flops(enc_cfg, dec_cfg=None, *, batch: int, linear: bool = False,
+                     device_type: str = "cuda") -> float:
+    """The FLOPs one train step runs: the analytic training count times
+    ``batch`` (MAE pretraining with ``dec_cfg``, else classification),
+    plus the checkpoint recompute; a linear probe's trunk runs forward
+    only (no backward, no recompute) and its head forward and backward."""
+    e = enc_cfg
+    jumbo = _mlp_flops(1, e.num_cls_tokens * e.dim, 4 * e.num_cls_tokens * e.dim)
+    if dec_cfg is not None:
+        seq = e.keep_len + e.num_cls_tokens
+        dseq = e.num_patches + e.num_cls_tokens
+        per_image = (pretrain_flops_per_image(e, dec_cfg)
+                     + _recompute_flops_per_image(e, seq, e.keep_len, e.layers, e.hidden_dim, jumbo, device_type)
+                     + _recompute_flops_per_image(dec_cfg, dseq, dseq, dec_cfg.layers, dec_cfg.hidden_dim, 0.0,
+                                                 device_type))
+    elif linear:
+        head = 2 * e.num_cls_tokens * e.dim * (e.labels or 0)
+        per_image = encoder_flops_per_image(e, masked=False) + 3 * head
+    else:
+        seq = e.num_patches + e.num_cls_tokens
+        per_image = classify_flops_per_image(e) + _recompute_flops_per_image(
+            e, seq, e.num_patches, e.layers, e.hidden_dim, jumbo, device_type)
+    return per_image * batch
+
+
+def train_step_cost(enc_cfg, dec_cfg=None, *, batch: int, param_bytes: float, opt_bytes: float,
+                    linear: bool = False, device_type: str = "cuda", peak_bytes: float | None = None
+                    ) -> ProgramCost:
+    """The :class:`ProgramCost` of one train step (module docstring):
+    ``param_bytes`` the parameters' stored bytes, ``opt_bytes`` the
+    optimizer state's (moments and master weights)."""
+    flops = train_step_flops(enc_cfg, dec_cfg, batch=batch, linear=linear, device_type=device_type)
+    ckpt = enc_cfg.grad_ckpt and not linear
+    forwards = 2 if ckpt else 1  # the recompute reads the weights again
+    backward = 0 if linear else 1
+    bytes_accessed = (param_bytes * (forwards + backward) + param_bytes * 2 * backward
+                      + (opt_bytes + param_bytes) * 2 + 2.0 * flops / max(enc_cfg.dim, 1))
+    return ProgramCost(program="train_step", flops=float(flops), bytes_accessed=float(bytes_accessed),
                        peak_bytes=None if peak_bytes is None else float(peak_bytes))
 
 

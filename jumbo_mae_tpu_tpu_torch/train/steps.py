@@ -41,8 +41,23 @@ Mixup permutation over the global batch; the port refuses both on a data
 axis above 1 until the statistics are reduced and the batch gathered over
 the data group (ROADMAP A6).
 
-Per-layer diagnostics (``diag``) and pipeline parallelism raise, naming
-ROADMAP A7 and A6.
+``diag=True`` adds the JAX step's per-layer-group diagnostics
+(``obs/modelstats.py``): ``finite_frac``, the finite share of the
+per-sample loss, on every step, and ``diag``, the ``(groups, 3)`` array
+of :func:`~jumbo_mae_tpu_tpu_torch.obs.modelstats.group_stats` over the
+parameters before the update, the gradients after ``grad_mult`` and
+1/accum, and the parameters after it. The optimizer updates in place, so
+a diag step first keeps a copy of the parameters in their stored dtype
+(1.62 GB at ViT-L/16 in float32, 3.1 GB at ViT-H/14): ``||new - old||``
+is then the difference of the stored values, as JAX's is, whatever the
+optimizer did (clipping, master weights, a guarded skip, whose update
+ratio is 0 and grad norms NaN). Reading the update off the optimizer
+instead would give the master weights' step, not the stored one's. The
+copy and the statistics cost a diag step only: ``train_step(...,
+diag=False)`` skips them on a step whose array nobody fetches (the CLI
+asks only on its ``run.diag_every`` cadence), and ``diag=False`` at the
+factory changes nothing at all. Pipeline parallelism raises, naming
+ROADMAP A6.
 """
 
 from __future__ import annotations
@@ -57,6 +72,7 @@ from torch import nn
 from jumbo_mae_tpu_tpu_torch.models.config import DecoderConfig, JumboViTConfig
 from jumbo_mae_tpu_tpu_torch.models.layers import BatchNorm
 from jumbo_mae_tpu_tpu_torch.models.mae import MAEPretrainModel
+from jumbo_mae_tpu_tpu_torch.obs.modelstats import group_stats
 from jumbo_mae_tpu_tpu_torch.parallel.mesh import ambient_mesh
 from jumbo_mae_tpu_tpu_torch.train.optim import Identity, OptimConfig, Optimizer, make_optimizer
 from jumbo_mae_tpu_tpu_torch.train.state import EVAL_DOMAIN, TrainState
@@ -68,7 +84,6 @@ GLOBAL_BATCH_NOT_PORTED = (
     "{what} on a data axis above 1 is not ported yet: ROADMAP queue A6 (the JAX step computes it over the "
     "global batch; the port would compute it over each rank's rows)"
 )
-DIAG_NOT_PORTED = "diag=True (per-layer-group diagnostics) is not ported yet: ROADMAP queue A7"
 PIPE_NOT_PORTED = "pipe_microbatches > 0 (pipeline parallelism) is not ported yet: ROADMAP queue A6"
 
 
@@ -177,21 +192,27 @@ def make_train_step(
     diag: bool = False,
     pipe_microbatches: int = 0,
 ) -> Callable[..., tuple[TrainState, dict]]:
-    """Build ``train_step(state, batch, inject=None) -> (state, metrics)``."""
+    """Build ``train_step(state, batch, inject=None, *, diag=None) ->
+    (state, metrics)``; the call's ``diag=False`` skips a ``diag=True``
+    step's group statistics (``finite_frac`` stays)."""
     _check_mode(mode)
-    if diag:
-        raise NotImplementedError(DIAG_NOT_PORTED)
     if pipe_microbatches:
         raise NotImplementedError(PIPE_NOT_PORTED)
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     names = ("loss",) if mode == "pretrain" else ("loss", "acc1", "acc5")
+    if diag:
+        names += ("finite_frac",)
+    factory_diag = diag
 
-    def train_step(state: TrainState, batch: dict, inject=None) -> tuple[TrainState, dict]:
+    def train_step(state: TrainState, batch: dict, inject=None, *, diag: bool | None = None
+                   ) -> tuple[TrainState, dict]:
         loss_mult, grad_mult = (1.0, 1.0) if inject is None else (float(inject[0]), float(inject[1]))
+        want_stats = factory_diag and diag is not False
         model = state.model.train()
         _refuse_global_batch_ops(model)
-        params = list(model.parameters())
+        named = list(model.named_parameters())
+        params = [p for _, p in named]
         for p in params:
             p.grad = None
         images = _micro(_to_device(batch["images"], state.device), grad_accum)
@@ -201,10 +222,13 @@ def make_train_step(
         sums = {k: torch.zeros((), device=state.device) for k in names}
         for micro, x in enumerate(images):
             gens = state.step_generators(micro=micro)
-            if labels is None:
-                out = model(x, generators=gens)
-            else:
-                out = {k: v.mean() for k, v in model(x, labels[micro], generators=gens).items()}
+            raw = model(x, generators=gens) if labels is None else model(x, labels[micro], generators=gens)
+            out = raw if labels is None else {k: v.mean() for k, v in raw.items()}
+            if factory_diag:
+                # the finite share of the per-sample loss (the classifier's
+                # "loss" is per sample), as the JAX step's loss_fn
+                ps = raw.get("loss_per_sample", raw["loss"]).detach()
+                out["finite_frac"] = torch.isfinite(ps).float().mean()
             (out["loss"] * loss_mult).backward()
             for k in names:
                 sums[k] = sums[k] + out[k].detach()
@@ -218,6 +242,8 @@ def make_train_step(
             torch._foreach_mul_(live, 1.0 / grad_accum)
         if grad_mult != 1.0:
             torch._foreach_mul_(live, grad_mult)
+        # the parameters before the update: the optimizer writes in place
+        old = torch._foreach_mul([p.detach() for p in params], 1.0) if want_stats else None  # x*1 keeps every bit
         apply = True
         if guard_nonfinite:
             grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(live)))
@@ -230,6 +256,9 @@ def make_train_step(
             # the forward moved the BatchNorm statistics before the guard
             # decided; a skipped step leaves them as they were
             torch._foreach_copy_(stats, stats_before)
+        if want_stats:
+            # one stacked (groups, 3) array: one small fetch per diag step
+            metrics["diag"] = group_stats(old, grads, [p.detach() for p in params], names=[n for n, _ in named])
         for p in params:
             p.grad = None
         state.step += 1

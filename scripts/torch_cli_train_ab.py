@@ -67,7 +67,7 @@ def one_run(cs, fa, sets: list[str], out: Path, before_step=None) -> dict:
         "step_ms": cs.TRAIN_BATCH * 1e3 / summary["perf/images_per_sec"],
         "dispatch_ms": 1e3 * statistics.mean(rec["dispatch_s"][4:]),
         "loader_ms": 1e3 * statistics.mean(loader) if loader else 0.0,
-        "cli_wait_ms": 1e3 * summary["perf/data_wait_s_per_step"],
+        "cli_wait_ms": 1e3 * summary["data/wait_s_per_step"],
     }
 
 

@@ -29,6 +29,8 @@
 - ``run.publish_dir``: a linear probe of the smoke recipe publishes a
   full artifact, then a delta one (the frozen trunk rides the base), each
   verified, and ``cli.predict --swap-watch`` promotes both;
+- ``run.diag_every=2`` journals the group statistics of every second step
+  and one ``compiled_program`` row;
 - each refusal raises and names its ROADMAP item.
 """
 
@@ -55,6 +57,7 @@ from jumbo_mae_tpu_tpu_torch.config import load_config
 from jumbo_mae_tpu_tpu_torch.data import tario as ttario
 from jumbo_mae_tpu_tpu_torch.data.tario import write_tar_samples
 from jumbo_mae_tpu_tpu_torch.interop import classifier_state_dict_from_jax, mae_state_dict_from_jax
+from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import read_state
 from jumbo_mae_tpu_tpu_torch.train.optim import make_optimizer
 from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
@@ -271,12 +274,33 @@ def test_slice_matches_the_jax_package(tmp_path, shard_root):
     ("mesh.pipe=2", "A6"),
     ("mesh.fsdp=2", "A6"),
     ("mesh.tensor=2", "A6"),
-    ("run.diag_every=1", "A7.3"),
 ])
 def test_refusals_name_their_roadmap_item(tmp_path, override, item):
     cfg = load_config(SMOKE, [f"run.output_dir={tmp_path}", override])
     with pytest.raises(NotImplementedError, match=item):
         ttrain.train(cfg, device="cpu")
+
+
+def test_diag_every_journals_the_group_statistics(tmp_path):
+    """``run.diag_every=2``: the group statistics of steps 2 and 4 reach
+    the ``step`` rows (4 steps, a log window a step), the others carry
+    none; ``run_start`` names the groups, and every step's flight-record
+    entry has ``finite_frac``."""
+    cfg = load_config(SMOKE, [f"run.output_dir={tmp_path}", "run.diag_every=2", "run.training_steps=4",
+                              "optim.training_steps=10", "run.log_interval=1", "run.eval_interval=100",
+                              "run.sanity_eval=false"])
+    out = ttrain.train(cfg, device="cpu")
+    assert out["_exit_reason"] == "completed" and out["train/finite_frac"] == 1.0
+    events = read_journal(tmp_path / "smoke_cpu")
+    start = next(e for e in events if e["type"] == "run_start")
+    assert start["diag_every"] == 2 and start["diag_groups"][0] == "patch_embed" and "decoder" in start["diag_groups"]
+    steps = [e for e in events if e["type"] == "step"]
+    assert [e.get("diag_step") for e in steps] == [None, 2, None, 4]
+    for e in steps[1::2]:
+        assert list(e["diag"]) == start["diag_groups"]
+        assert all(v["grad_norm"] > 0 and v["param_norm"] >= 0 and v["update_ratio"] >= 0 for v in e["diag"].values())
+    programs = [e for e in events if e["type"] == "compiled_program"]
+    assert len(programs) == 1 and programs[0]["source"] == "analytic" and programs[0]["peak_bytes"] is None
 
 
 def test_cli_flags_not_ported_raise():

@@ -14,11 +14,19 @@
     are the counters' deltas, the goodput reports' ``step``, ``reason``,
     ``steps``, ``recompute_steps``, ``conservation_error`` and bucket keys,
     and the ``train_*``, ``goodput_*`` and ``span_seconds`` family names
-    of the two registries. Left out: ``compiled_program`` (the step's
-    compiled cost, ROADMAP A7.3), and ``mem_leak_suspect`` with its
+    of the two registries. Left out: ``mem_leak_suspect`` with its
     ``mem_leak`` flight record: the JAX run's leak sentinel fires
     "unaccounted" on its own XLA compile growth on the CPU, which the
-    eager port does not have.
+    eager port does not have. With ``run.diag_every=1`` in both: the
+    same ``diag_groups``, every ``step`` row's ``diag`` with the same
+    groups and keys, the ``nonfinite_step`` flight record naming
+    ``patch_embed`` in both, one ``compiled_program`` row each with the
+    same keys, and the same ``perf/*`` keys in every ``step`` row. On
+    both journals the port's ``tools/run_doctor.py`` gives the JAX
+    doctor's markdown and exit code (the env line names torch on the
+    port's journal, where JAX's prints ``jax ?``), and the port's
+    ``tools/perf_doctor.py`` JAX's but for the drift line, which the JAX
+    doctor never prints on a CLI's journal (ROADMAP C.R6).
 (c) The port's rollback over steps 5-7, on tar shards through the data
     cursor, ends bit-identical to an uninterrupted 12-step run.
 (d) ``run.sentinel=false`` (no guard, no rollback) ends with a NaN loss.
@@ -55,15 +63,16 @@ from jumbo_mae_tpu_tpu_torch.faults import inject as tinject
 from jumbo_mae_tpu_tpu_torch.faults import sentinel as tsentinel
 from jumbo_mae_tpu_tpu_torch.obs import metrics as tmetrics
 from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
-from jumbo_mae_tpu_tpu_torch.tools import mem_doctor
+from jumbo_mae_tpu_tpu_torch.tools import mem_doctor, perf_doctor, run_doctor
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import read_state
 
 SMOKE = Path(__file__).resolve().parent.parent / "recipes" / "smoke_cpu.yaml"
 DIVERGE = ["run.faults=train.loss:nan@n=4..6", "run.log_interval=1", "run.eval_interval=4",
            "run.sentinel_patience=3"]
 SLO = "run.slo=p99_latency_ms<=250"
+DIAG = "run.diag_every=1"
 COMPARED = {"run_start", "step", "checkpoint_save", "sentinel_bad_step", "sentinel_loss_spike", "rollback",
-            "mem_sample", "goodput_report", "flight_record", "shutdown"}
+            "mem_sample", "goodput_report", "flight_record", "shutdown", "compiled_program"}
 FAMILIES = ("train_", "goodput_", "span_seconds")
 COUNTERS = [("train_steps_skipped_total", ""), ("train_loss_spikes_total", ""), ("train_rollbacks_total", ""),
             ("faults_injected_total", "train.loss,nan")]
@@ -194,19 +203,35 @@ def test_a_raising_event_callback_is_swallowed():
 # --------------------------------------------------------- (b) both CLIs, one divergence
 
 
-def test_scripted_divergence_journals_as_the_jax_cli(tmp_path):
+@pytest.fixture(scope="module")
+def divergence(tmp_path_factory):
+    """Both CLIs once under the scripted divergence, ``run.slo`` and
+    ``run.diag_every=1``: their outputs, counter deltas, journals and run
+    directories."""
     from jumbo_mae_tpu_tpu.cli.train import train as jtrain
     from jumbo_mae_tpu_tpu.config import load_config as jload_config
 
-    j0 = _counters(jmetrics.get_registry())
-    jout = jtrain(jload_config(SMOKE, _overrides(tmp_path / "jax", 12, *DIVERGE, SLO)))
-    jd = {k: v - j0[k] for k, v in _counters(jmetrics.get_registry()).items()}
-    t0 = _counters(tmetrics.get_registry())
-    tout = _port(tmp_path / "port", 12, *DIVERGE, SLO)
-    td = {k: v - t0[k] for k, v in _counters(tmetrics.get_registry()).items()}
+    root = tmp_path_factory.mktemp("divergence")
+    try:
+        j0 = _counters(jmetrics.get_registry())
+        jout = jtrain(jload_config(SMOKE, _overrides(root / "jax", 12, *DIVERGE, SLO, DIAG)))
+        jd = {k: v - j0[k] for k, v in _counters(jmetrics.get_registry()).items()}
+        t0 = _counters(tmetrics.get_registry())
+        tout = _port(root / "port", 12, *DIVERGE, SLO, DIAG)
+        td = {k: v - t0[k] for k, v in _counters(tmetrics.get_registry()).items()}
+    finally:
+        jinject.clear_plan()
+        tinject.clear_plan()
+        tinject._LEAK_BALLAST.clear()
+    jdir, tdir = root / "jax" / "smoke_cpu", root / "port" / "smoke_cpu"
+    return dict(jout=jout, tout=tout, jd=jd, td=td, jev=jread_journal(jdir), tev=read_journal(tdir), jdir=jdir,
+                tdir=tdir, families=[sorted(n for n in m.get_registry().snapshot() if n.startswith(FAMILIES))
+                                     for m in (tmetrics, jmetrics)])
 
-    jev = jread_journal(tmp_path / "jax" / "smoke_cpu")
-    tev = read_journal(tmp_path / "port" / "smoke_cpu")
+
+def test_scripted_divergence_journals_as_the_jax_cli(divergence):
+    jout, tout, jd, td = (divergence[k] for k in ("jout", "tout", "jd", "td"))
+    jev, tev = divergence["jev"], divergence["tev"]
     rows = _rows(tev)
     assert rows == _rows(jev)
     assert rows[0] == ("run_start", None) and rows[-1] == ("shutdown", 12)
@@ -236,11 +261,12 @@ def test_scripted_divergence_journals_as_the_jax_cli(tmp_path):
     assert (reports[-1]["steps"], reports[-1]["recompute_steps"], reports[-1]["conservation_error"]) == (11, 3, 0.0)
     # the black box: the first bad window (one dump for steps 5-7), then the rollback
     assert [r[1] for r in rows if r[0] == "flight_record"] == ["nonfinite_step", "sentinel_rollback"]
-    dumps = sorted((tmp_path / "port" / "smoke_cpu").glob("flightrec-*.json"))
+    dumps = sorted(divergence["tdir"].glob("flightrec-*.json"))
     assert [d.name.rsplit("-", 1)[-1] for d in dumps] == ["nonfinite_step.json", "sentinel_rollback.json"]
-    assert json.loads(dumps[0].read_text())["extra"] == {"bad_steps": [5], "first_nonfinite_group": None}
-    families = [sorted(n for n in m.get_registry().snapshot() if n.startswith(FAMILIES)) for m in (tmetrics, jmetrics)]
+    assert json.loads(dumps[0].read_text())["extra"] == {"bad_steps": [5], "first_nonfinite_group": "patch_embed"}
+    families = divergence["families"]
     assert families[0] == families[1] and "train_grad_norm" in families[0] and "goodput_fraction" in families[0]
+    assert "train_hardware_flops_utilization" in families[0]
     steps = [e for e in tev if e["type"] == "step"]
     assert [e.get("bad_steps") for e in steps[4:7]] == [[5], [6], [7]]
     # a window of skipped steps only has no loss: the guard refused it
@@ -250,6 +276,82 @@ def test_scripted_divergence_journals_as_the_jax_cli(tmp_path):
     assert all(e["rss_bytes"] > 0 and "fault_ballast" in e["components"] for e in mem)
     assert math.isfinite(tout["train/loss"]) and math.isfinite(jout["train/loss"])
     assert tout["_exit_reason"] == jout["_exit_reason"] == "completed"
+
+
+def test_scripted_divergence_diagnostics_as_the_jax_cli(divergence):
+    jev, tev = divergence["jev"], divergence["tev"]
+    starts = [next(e for e in evs if e["type"] == "run_start") for evs in (tev, jev)]
+    assert starts[0]["diag_every"] == starts[1]["diag_every"] == 1
+    groups = starts[0]["diag_groups"]
+    assert groups == starts[1]["diag_groups"] and groups[0] == "patch_embed" and groups[-1] == "decoder"
+    steps = [[e for e in evs if e["type"] == "step"] for evs in (tev, jev)]
+    assert len(steps[0]) == len(steps[1]) == 15
+    for t, j in zip(*steps):
+        assert t["diag_step"] == j["diag_step"] == t["step"]
+        assert list(t["diag"]) == list(j["diag"]) == groups
+        assert all(list(t["diag"][g]) == list(j["diag"][g]) == ["grad_norm", "param_norm", "update_ratio"]
+                   for g in groups)
+        bad = "bad_steps" in t
+        assert (t["diag"]["patch_embed"]["grad_norm"] == "nan") == bad == (j["diag"]["patch_embed"]["grad_norm"] == "nan")
+        # the same perf/* keys a window: throughput, MFU and HFU, the drift
+        assert sorted(k for k in t["metrics"] if k.startswith("perf/")) == sorted(
+            k for k in j["metrics"] if k.startswith("perf/"))
+    perf = [k for k in steps[0][-1]["metrics"] if k.startswith("perf/")]
+    assert {"perf/hardware_flops_utilization", "perf/predict_vs_measured", "perf/tflops_per_chip"} <= set(perf)
+    # smoke_cpu has no grad_ckpt: the step runs the model's FLOPs
+    last = steps[0][-1]["metrics"]
+    assert last["perf/hardware_flops_utilization"] == pytest.approx(last["perf/mfu"], rel=1e-12)
+    # the black box names the group that blew up first, in both
+    for d in (divergence["tdir"], divergence["jdir"]):
+        dump = json.loads(sorted(d.glob("flightrec-*nonfinite_step.json"))[0].read_text())
+        assert dump["extra"]["first_nonfinite_group"] == "patch_embed"
+        assert any("diag" in s for s in dump["steps"]) and any("finite_frac" in s for s in dump["steps"])
+    programs = [[e for e in evs if e["type"] == "compiled_program"] for evs in (tev, jev)]
+    assert len(programs[0]) == len(programs[1]) == 1 and programs[0][0].keys() == programs[1][0].keys()
+    assert programs[0][0]["source"] == "analytic" and programs[1][0]["source"] == "compiled"
+
+
+def _reports(port_main, jax_main, argv, capsys) -> list:
+    out = []
+    for main in (port_main, jax_main):
+        rc = main(list(argv))
+        out.append((rc, capsys.readouterr().out))
+    return out
+
+
+def test_run_doctor_equals_jax_on_both_journals(divergence, capsys):
+    import tools.run_doctor as jrun_doctor
+
+    for which in ("jdir", "tdir"):
+        d = divergence[which]
+        dump = sorted(d.glob("flightrec-*nonfinite_step.json"))[0]
+        for extra in ([], ["--flightrec", str(dump)]):
+            (rc, md), (jrc, jmd) = _reports(run_doctor.main, jrun_doctor.main, [str(d), *extra], capsys)
+            assert rc == jrc == 0
+            if which == "tdir":
+                # the one line that reads the framework: the port's journal has torch, no jax
+                env = next(e for e in divergence["tev"] if e["type"] == "run_start")["env"]
+                assert f", torch {env['torch']} (" in md and ", jax ? (" in jmd
+                md = md.replace(f", torch {env['torch']} (", ", jax ? (")
+            assert md == jmd
+            assert "first layer group to go non-finite (grad norm): **patch_embed**" in md
+            assert "per-layer-group diagnostics ON every 1 steps" in md and "`compiled_program`" in md
+    assert _reports(run_doctor.main, jrun_doctor.main, [str(divergence["tdir"] / "nothing")], capsys) == [
+        (2, ""), (2, "")]
+
+
+def test_perf_doctor_reads_the_nested_drift_unlike_jax(divergence, capsys):
+    import tools.perf_doctor as jperf_doctor
+
+    for which, source in (("jdir", "XLA"), ("tdir", "analytic")):
+        (rc, md), (jrc, jmd) = _reports(perf_doctor.main, jperf_doctor.main, [str(divergence[which])], capsys)
+        assert rc == jrc == 0
+        # C.R6: both CLIs nest the drift under each step row's metrics; the
+        # JAX doctor reads the top level only and never prints the line
+        drift = [ln for ln in md.splitlines() if ln.startswith("- predicted-vs-measured drift")]
+        assert len(drift) == 1 and "predicted-vs-measured" not in jmd
+        assert "1 compiled program(s) with XLA cost accounting" in jmd
+        assert md.replace(drift[0] + "\n", "").replace(f"with {source} cost", "with XLA cost") == jmd
 
 
 # ------------------------------------------- (c) the rollback ends where a clean run ends
