@@ -99,7 +99,8 @@ Phases, each of which exits non-zero when it fails:
    recipes/pretrain_vit_l16_in1k_800ep.yaml through ``cli.train.main`` in
    this process (batch 128, 0.75 epochs of 1024 toy images = 6 steps,
    warmup 0, 4 data workers, wandb off), on toy tar shards at 224 px
-   written here first (1024 train, 256 valid, 256 a shard): launch counts
+   (1024 train, 256 valid, 256 a shard) that a child process started at
+   the top of the run writes beside phases 2-12: launch counts
    set to 0 just before and read just after (K1 = 56 and K2 = K3 = 32 per
    train step, K1 = 32 per eval batch), every loss finite, a ``val/loss``
    in the metrics JSONL, the first batch not the synthetic one, a
@@ -137,7 +138,7 @@ Phases, each of which exits non-zero when it fails:
    MAE pretraining (600 steps) and GAP linear probes (400 steps) from it
    and from a random init, through ``cli.train.main`` on 32 px toy
    shards written here, in a fresh process with PyTorch's default
-   settings (two child processes, run beside phases 27 and 28): the
+   settings (two child processes, run beside phases 26-28): the
    pretrained probe above the random one by 0.1 and by 1.5x, and above
    0.25.
 19. serving the saves (run after phase 17, while the saves of phases 13,
@@ -184,7 +185,8 @@ Phases, each of which exits non-zero when it fails:
    load and write; first runs and captures), ``warm_hits``, misses and
    captures; the warm outputs bit-equal to the cold, the corrupted entry
    quarantined and counted as a miss with outputs still bit-equal, K1 =
-   12 (32 at ViT-L/16) x (dispatches + captures).
+   12 (32 at ViT-L/16) x (dispatches + captures); the two bf16 runs go
+   beside the three int8 runs.
 22. batch jobs: one image's features at every bucket 1-64 (bit-equal or
    not), then ``python -m jumbo_mae_tpu_tpu_torch.cli.batch`` over phase
    13's first 2 train shards (512 images) with ViT-B/16 features from
@@ -197,6 +199,7 @@ Phases, each of which exits non-zero when it fails:
    1e-2 and cosine 0.999 of it, and byte-identical on a one-bucket ladder
    (straight and SIGKILLed); ``python -m
    jumbo_mae_tpu_tpu_torch.tools.batch_doctor`` exits 0 after each run.
+   The straight run goes beside the SIGKILLed ones.
 23. billing, the autoscaler and the publisher (after phase 22, on phase
    16's ``best``, phase 19's 70 PNGs and phase 13's shards): (a)
    ``cli.predict --serve --replicas 1 --tenants web=interactive,
@@ -253,18 +256,18 @@ Phases, each of which exits non-zero when it fails:
    against their plain versions at the gates of phases 3-4 and timed as
    phase 5 times them; ``blockwise_attention`` against the full scores at
    (2, 4099, 16, 64), with and without a bias, its peak memory below
-   theirs; two native-reader streams of the same shards alike; the step
-   at batch 256 under ``remat_policy`` "dots" and "none" (launches per
-   step: K1 72, K2 = K3 40; step ms, peak memory) and at batch 8 without
-   gradient checkpointing (K1 40); then the recipe through ``cli.train``
-   ``main`` with ``mesh.data=1``, batch 256, ``data.use_native`` and
-   ``data.valid_cache``: 3 steps (K1 72, K2 = K3 40 a step, finite
+   theirs; two native-reader streams of the same shards alike; the
+   recipe through ``cli.train`` ``main`` with ``mesh.data=1``, batch
+   256, ``data.use_native`` and ``data.valid_cache``: 3 steps (K1 72, K2 = K3 40 a step, finite
    losses, one analytic ``compiled_program`` row with the card's peak,
-   HFU ≥ MFU; the step's cost row and HFU/MFU printed for the "dots"
-   and "none" steps above too), one eval (K1 40, the cache written), a save; a second eval
-   of the saved state through the CLI's eval step and valid iterator that
-   opens no shard and gives the same loss bit for bit; and the
-   reconstruction figure drawn from the save by
+   HFU ≥ MFU), one eval (K1 40, the cache written), a save; a second
+   eval of the saved state through the CLI's eval step and valid iterator
+   that opens no shard and gives the same loss bit for bit; on that state
+   the step at batch 256 under ``remat_policy`` "dots" and "none"
+   (launches per step: K1 72, K2 = K3 40; step ms, peak memory; the
+   step's cost row and HFU/MFU printed) and at batch 8 without gradient
+   checkpointing (K1 40), and the loss and gradients of the three alike
+   bit for bit; and the reconstruction figure drawn from the save by
    ``tools/reconstruct.py`` (8 rows, 1806 x 902 px, the original panels
    bit-equal to the validation images, K1 = 40 x forwards).
 26. the training run's safety layers (after phase 25, on phase 13's
@@ -301,7 +304,7 @@ Phases, each of which exits non-zero when it fails:
    and one ``train_step`` span a dispatch in the chrome trace, and K1, K2
    and K3 named in the ``torch.profiler`` trace as many times as their
    launch counters counted (the trace's bytes and export seconds).
-28. the hang, beside phase 27 in a child process of ``python -m
+28. the hang, beside phases 26 and 27 in a child process of ``python -m
    jumbo_mae_tpu_tpu_torch.cli.train``: phase 13's recipe and shards, 4
    steps, ``run.hangwatch_deadline_s=10`` and
    ``run.faults=fleet.wedge:delay(600)@key~3,n<1``: exit code 44 within
@@ -309,6 +312,27 @@ Phases, each of which exits non-zero when it fails:
    journaled with ``stalled_s`` >= 10, a final goodput report with
    ``reason: "hang"`` and ``hang_latency`` >= 10, a ``hang_detected``
    flight record and ``[train] HANG`` on its stdout.
+29. a save's host copy and ``--distributed`` (on phase 13's shards; (a)
+   beside phases 15-17, (b) and (c) beside phases 21-22, where no gate
+   rides on timing or on the card's free memory; alone, one leg after
+   the other: scripts/torch_distributed.py), each leg in fresh child
+   processes of
+   ``cli.train.main`` with the launch counts set to 0 before and read
+   after: (a) phase 13's recipe, 6 steps, a log window a step, a save
+   every 2 steps, memwatch at its defaults and no fault plan: no
+   ``mem_leak_suspect``, the host copy named ``ckpt_host_copy`` in every
+   memory sample, the resident set after each save printed; (b) two ranks
+   of ``--distributed --coordinator 127.0.0.1:PORT`` sharing the card
+   over gloo (the backend rule's choice, printed), ``mesh.data=2`` (64
+   rows each), 4 steps, saves at 2 and 4 and the final eval: K1 56 and
+   K2 = K3 32 a step in each rank and K1 32 an eval batch, finite losses
+   equal on both, the final parameters' digests equal, rank 0's saves
+   committed with both cursors (``per_process``), ``shard_cursor`` rows
+   at ``world: 2`` in ``journal/`` and ``journal-host1/``, one
+   ``val/loss`` although rank 1's stripe of the one valid shard is empty,
+   and the gradient all-reduce's share of a step (two ranks on one card:
+   not a scaling figure); (c) one process ``run.eval_only`` on (b)'s
+   step-4 save within 1e-3 relative of (b)'s final eval.
 
 Phases 3-5 hold K1-K3 at the finetune shape (256, 199, 12, 64) too, with
 NaN past the sequence inert, and time them there against SDPA.
@@ -474,13 +498,60 @@ BWD_SHAPES = [
 ]
 
 
+T_IMPORT = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line of the run's log, with the seconds since this module was
+    imported (where the run's time goes, read off its log)."""
+    print(f"[chip_smoke {time.perf_counter() - T_IMPORT:.1f}s] {msg}", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
-        raise SystemExit(f"[chip_smoke] FAIL: {what}")
+        raise SystemExit(f"[chip_smoke {time.perf_counter() - T_IMPORT:.1f}s] FAIL: {what}")
+
+
+# the child processes of phases that run beside others: killed by
+# :func:`kill_children` when the run ends before they do
+LIVE_CHILDREN: set = set()
+
+
+def kill_children() -> None:
+    for proc in list(LIVE_CHILDREN):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    LIVE_CHILDREN.clear()
+
+
+class Background:
+    """``fn(*args)`` on a thread of its own while the caller runs other
+    phases; :meth:`join` waits for it and gives its result, or raises its
+    failure (a failed ``check`` included). Its phases run only child
+    processes, so the launch counters of this process stay the caller's."""
+
+    def __init__(self, fn, *args):
+        self.t0 = time.perf_counter()
+        self.seconds = self.waited_s = 0.0
+        self._box: dict = {}
+        self._thread = threading.Thread(target=self._run, args=(fn, args), daemon=True)
+        self._thread.start()
+
+    def _run(self, fn, args) -> None:
+        try:
+            self._box["result"] = fn(*args)
+        except BaseException as exc:  # noqa: BLE001 - a failed check is a SystemExit, raised again by join()
+            self._box["error"] = exc
+        self.seconds = time.perf_counter() - self.t0
+
+    def join(self):
+        t0 = time.perf_counter()
+        self._thread.join()
+        self.waited_s = time.perf_counter() - t0
+        if "error" in self._box:
+            raise self._box["error"]
+        return self._box["result"]
 
 
 def nvidia_smi_line() -> str:
@@ -1844,10 +1915,11 @@ def _digest(images) -> str:
 
 
 @contextlib.contextmanager
-def instrumented_driver(fa, before_step=None):
+def instrumented_driver(fa, before_step=None, keep_images: bool = True):
     """Record what one ``cli.train.main`` run does, without changing it:
     every host batch the loader hands out (in order; hashed into
-    ``digests`` after the run, off the timed path), the host seconds of
+    ``digests`` after the run, off the timed path; ``keep_images=False``
+    keeps none, for a run whose resident set is measured), the host seconds of
     each loader call and of each train-step call, every train step's
     fetched metrics, the K1 launches and batches of every evaluation,
     every checkpoint save and restore. ``before_step(i)``, if given, runs
@@ -1868,7 +1940,8 @@ def instrumented_driver(fa, before_step=None):
         t0 = time.perf_counter()
         batch = next_batch(self)
         rec["loader_wait_s"].append(time.perf_counter() - t0)
-        rec["images"].append(batch["images"])  # a reference: the prefetch copies, nothing writes it
+        if keep_images:
+            rec["images"].append(batch["images"])  # a reference: the prefetch copies, nothing writes it
         return batch
 
     def make_train_step(**kw):
@@ -1926,15 +1999,16 @@ def instrumented_driver(fa, before_step=None):
     rec["digests"] = [_digest(images) for images in rec.pop("images")]
 
 
-def run_driver(fa, argv: list[str], *, keep_state_at: int | None = None, before_step=None) -> dict:
+def run_driver(fa, argv: list[str], *, keep_state_at: int | None = None, before_step=None,
+               keep_images: bool = True) -> dict:
     """One ``cli.train.main(argv)`` run with the launch counts set to 0 just
     before and read just after. ``keep_state_at``: keep a host copy of the
-    state saved at that step (for the resume check); ``before_step``: as
-    :func:`instrumented_driver`'s."""
+    state saved at that step (for the resume check); ``before_step`` and
+    ``keep_images``: as :func:`instrumented_driver`'s."""
     from jumbo_mae_tpu_tpu_torch.cli import train as cli
     from jumbo_mae_tpu_tpu_torch.train.checkpoint import host_state
 
-    with instrumented_driver(fa, before_step) as rec:
+    with instrumented_driver(fa, before_step, keep_images) as rec:
         if keep_state_at is not None:
             from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer
 
@@ -1958,21 +2032,54 @@ def _jsonl(out_dir: Path, name: str = "pretrain_vit_l16_in1k_800ep") -> list[dic
     return [json.loads(x) for x in (out_dir / name / f"{name}-metrics.jsonl").read_text().splitlines() if x.strip()]
 
 
-def phase_driver(fa, smi: str, tmp: Path, train_step_ms: float) -> dict:
+# phase 13's toy shards, written by a child process started at the top of
+# the run (the writing is host work that the kernel phases leave idle)
+SHARDS_CODE = ("import json, sys, time\n"
+               "from jumbo_mae_tpu_tpu_torch.data.toy import write_toy_shards\n"
+               "t0 = time.perf_counter()\n"
+               "urls = write_toy_shards(sys.argv[1], image_size=224, n_train=1024, n_val=256, shard_size=256)\n"
+               "print(json.dumps({'urls': urls, 'seconds': time.perf_counter() - t0}), flush=True)\n")
+
+
+def start_shards(tmp: Path) -> dict:
+    """Phase 13's toy shards (1024 train, 256 valid images at 224 px, 256 a
+    shard), started: written into ``tmp/shards`` by a child process."""
+    proc = subprocess.Popen([sys.executable, "-c", SHARDS_CODE, str(tmp / "shards")], cwd=HERE,
+                            stdout=subprocess.PIPE, text=True)
+    LIVE_CHILDREN.add(proc)
+    return {"proc": proc, "t0": time.perf_counter()}
+
+
+def finish_shards(started: dict, timeout_s: float = 300.0) -> dict:
+    """The shards' URLs, once the child that writes them has ended."""
+    proc = started["proc"]
+    t0 = time.perf_counter()
+    try:
+        out, _ = proc.communicate(timeout=timeout_s)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        LIVE_CHILDREN.discard(proc)
+    check(proc.returncode == 0, f"driver: the shard writer exited {proc.returncode}")
+    res = json.loads(out.strip().splitlines()[-1])
+    log(f"driver: toy shards (1024 train, 256 valid, 224 px PNG) written in {res['seconds']:.1f} s by a child "
+        f"process beside phases 2-12; waited for it {time.perf_counter() - t0:.1f} s")
+    return res["urls"]
+
+
+def phase_driver(fa, smi: str, tmp: Path, train_step_ms: float, shards: dict) -> dict:
     """Phase 13: ViT-L/16 MAE pretraining from its recipe through the CLI's
-    ``main`` in this process, on toy shards at 224 px written here first
-    (1024 train, 256 valid images, 256 per shard): 4 worker interpreters,
-    the CUDA-stream prefetch, a sanity eval, 6 steps, the final eval and
-    the checkpoint."""
+    ``main`` in this process, on toy shards at 224 px (1024 train, 256
+    valid images, 256 per shard; ``shards`` from :func:`start_shards`): 4
+    worker interpreters, the CUDA-stream prefetch, a sanity eval, 6 steps,
+    the final eval and the checkpoint."""
     import numpy as np
 
     from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
-    from jumbo_mae_tpu_tpu_torch.data.toy import write_toy_shards
     from jumbo_mae_tpu_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
 
-    t0 = time.perf_counter()
-    urls = write_toy_shards(tmp / "shards", image_size=224, n_train=1024, n_val=256, shard_size=256)
-    log(f"driver: toy shards (1024 train, 256 valid, 224 px PNG) written in {time.perf_counter() - t0:.1f} s")
+    urls = finish_shards(shards)
     sets = DRIVER_SETS + [f"data.train_shards={urls['train']}", f"data.valid_shards={urls['val']}"]
     out = tmp / "a"
     rec = run_driver(fa, ["--config", str(HERE / RECIPE), "--set", *sets, f"run.output_dir={out}"])
@@ -2444,7 +2551,15 @@ def start_toy_proof(tmp: Path) -> dict:
             "(tmp / 'result.json').write_text(json.dumps(res))")
     dirs = {which: tmp / which for which in ("pretrained", "random")}
     procs = [subprocess.Popen([sys.executable, "-c", code, str(HERE), str(d), which]) for which, d in dirs.items()]
-    return {"procs": procs, "dirs": dirs, "t0": time.perf_counter()}
+    started = {"procs": procs, "dirs": dirs, "t0": time.perf_counter(), "ends": {}}
+
+    def stamp(i: int, proc: subprocess.Popen) -> None:  # each exit's time, however late the reaping
+        proc.wait()
+        started["ends"][i] = time.perf_counter()
+
+    for i, proc in enumerate(procs):
+        threading.Thread(target=stamp, args=(i, proc), daemon=True).start()
+    return started
 
 
 def finish_toy_proof(smi: str, started: dict) -> dict:
@@ -2469,7 +2584,8 @@ def finish_toy_proof(smi: str, started: dict) -> dict:
     check(a > r + 0.1, f"toy proof: pretrained probe {a} not above random {r} + 0.1")
     check(a > 1.5 * r, f"toy proof: pretrained probe {a} not above 1.5 x random {r}")
     check(a > 0.25, f"toy proof: pretrained probe {a} not above 0.25")
-    res["seconds"] = time.perf_counter() - started["t0"]
+    ends = started["ends"]
+    res["seconds"] = (max(ends.values()) if len(ends) == len(procs) else time.perf_counter()) - started["t0"]
     return res
 
 SERVE_IMAGES = 70
@@ -3036,6 +3152,7 @@ def spawn(argv: list[str], env: dict | None = None) -> tuple[subprocess.Popen, f
     checkout, and its start time."""
     proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env={**os.environ, **(env or {})})
+    LIVE_CHILDREN.add(proc)
     return proc, time.perf_counter()
 
 
@@ -3044,6 +3161,7 @@ def spawn_code(code: str, argv: list[str]) -> tuple[subprocess.Popen, float]:
     checkout, and its start time."""
     proc = subprocess.Popen([sys.executable, "-c", code, *argv], cwd=HERE, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, env=dict(os.environ))
+    LIVE_CHILDREN.add(proc)
     return proc, time.perf_counter()
 
 
@@ -3057,6 +3175,7 @@ def reap(started: tuple[subprocess.Popen, float], timeout_s: float = 300.0) -> t
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+        LIVE_CHILDREN.discard(proc)
     wall = time.perf_counter() - t0
     if proc.returncode != 0 or not out.strip():
         log(f"child {proc.args[2]} exited {proc.returncode}; its stderr ends:\n{err[-3000:]}")
@@ -3102,11 +3221,13 @@ def phase_warm_restart(smi: str, tmp: Path) -> dict:
     run and serves bit-equal outputs; the corrupted entry lands in
     ``quarantine/``, counts as a miss, and the run still serves bit-equal
     outputs; K1 = 12 x (dispatches + captures) at ViT-B/16 and 32 x at
-    ViT-L/16."""
+    ViT-L/16. The two bf16 runs (each on a directory of its own) run one
+    after the other beside the int8 runs' sequence."""
     import numpy as np
 
     t_start = time.perf_counter()
     res: dict = {"k1": 0, "runs": {}}
+    counted = threading.Lock()  # the bf16 runs report from a thread of their own
 
     def probe(name: str, run: str) -> dict:
         recipe, ckpt, tasks, quant, k1_fwd = WARM_PROBES[name]
@@ -3119,15 +3240,16 @@ def phase_warm_restart(smi: str, tmp: Path) -> dict:
         rep["wall_s"] = wall
         rep["outputs"] = dict(np.load(out))
         k1 = rep["launches"]["K1"]
-        res["k1"] += k1
         check(k1 == k1_fwd * (rep["dispatches"] + rep["captures"]),
               f"warm {name} {run}: {k1} K1 in {rep['dispatches']} dispatches and {rep['captures']} captures")
         check(rep["hot_path_captures"] == 0, f"warm {name} {run}: the request path captured")
         log(f"warm {name} {run}: {_split_text(rep)}; process {wall:.2f} s; {rep['warmcache']}")
-        res["runs"][f"{name}/{run}"] = {k: rep[k] for k in ("init_s", "warmup_s", "restore_s", "build", "first_run_s",
-                                                             "capture_s", "captures", "dispatches", "warm_hits",
-                                                             "wall_s")}
-        res["runs"][f"{name}/{run}"]["warmcache"] = {k: v for k, v in rep["warmcache"].items() if k != "root"}
+        with counted:
+            res["k1"] += k1
+            res["runs"][f"{name}/{run}"] = {k: rep[k] for k in ("init_s", "warmup_s", "restore_s", "build",
+                                                                 "first_run_s", "capture_s", "captures", "dispatches",
+                                                                 "warm_hits", "wall_s")}
+            res["runs"][f"{name}/{run}"]["warmcache"] = {k: v for k, v in rep["warmcache"].items() if k != "root"}
         return rep
 
     def same(a: dict, b: dict) -> bool:
@@ -3136,41 +3258,55 @@ def phase_warm_restart(smi: str, tmp: Path) -> dict:
     def puts_s(rep: dict) -> float:
         return sum(split.get("put_s", 0.0) for split in rep["build"].values())
 
-    for name in ("b16", "l16_recon"):
+    def save_only() -> dict:
+        out = {}
+        for name in ("b16", "l16_recon"):
+            cold = probe(name, "cold")
+            wc = cold["warmcache"]
+            check(cold["warm_hits"] == 0 and (wc["hits"], wc["misses"], wc["puts"], wc["entries"]) == (0, 0, 0, 0),
+                  f"warm {name}: a save-only build used the cache {wc}")
+            out[name] = {"cold_s": cold["init_s"] + cold["warmup_s"], "cold_wall_s": cold["wall_s"]}
+        return out
+
+    def int8() -> None:
+        """The int8 runs, one after the other: cold against an empty
+        directory, warm against the same directory, then after one entry
+        is corrupted."""
+        name = "b16_int8"
+        tasks = WARM_PROBES[name][2]
         cold = probe(name, "cold")
         wc = cold["warmcache"]
-        check(cold["warm_hits"] == 0 and (wc["hits"], wc["misses"], wc["puts"], wc["entries"]) == (0, 0, 0, 0),
-              f"warm {name}: a save-only build used the cache {wc}")
-        res[name] = {"cold_s": cold["init_s"] + cold["warmup_s"], "cold_wall_s": cold["wall_s"]}
-    name = "b16_int8"
-    tasks = WARM_PROBES[name][2]
-    cold = probe(name, "cold")
-    wc = cold["warmcache"]
-    check(cold["warm_hits"] == 0 and wc["misses"] == len(tasks) and wc["puts"] == len(tasks),
-          f"warm {name}: the cold run's cache {wc}")
-    warm = probe(name, "warm")
-    wc = warm["warmcache"]
-    check(warm["warm_hits"] == len(tasks) and wc["misses"] == 0 and wc["quarantined"] == 0,
-          f"warm {name}: the warm run's cache {wc}")
-    check(warm["captures"] == cold["captures"], f"warm {name}: {warm['captures']} captures, cold {cold['captures']}")
-    check(same(cold["outputs"], warm["outputs"]), f"warm {name}: the warm outputs differ from the cold")
-    cold_s, warm_s = cold["init_s"] + cold["warmup_s"], warm["init_s"] + warm["warmup_s"]
-    log(f"warm {name}: build + warmup {warm_s:.3f} s warm against {cold_s:.3f} s cold ({cold_s - puts_s(cold):.3f} s "
-        f"less its puts); process {warm['wall_s']:.2f} s against {cold['wall_s']:.2f} s, on {smi}")
-    res[name] = {"cold_s": cold_s, "cold_less_puts_s": cold_s - puts_s(cold), "warm_s": warm_s,
-                 "cold_wall_s": cold["wall_s"], "warm_wall_s": warm["wall_s"]}
-    d = tmp / "warm" / name
-    entry = next(p for p in sorted(d.glob("*.exe")) if "-features-" in p.name)
-    blob = bytearray(entry.read_bytes())
-    blob[len(blob) // 2] ^= 0xFF
-    entry.write_bytes(bytes(blob))
-    bad = probe(name, "corrupt")
-    wc = bad["warmcache"]
-    quarantined = sorted(p.name for p in (d / "quarantine").iterdir())
-    check(wc["quarantined"] == 1 and wc["misses"] == 1 and bad["warm_hits"] == len(tasks) - 1
-          and len(quarantined) == 1 and quarantined[0].startswith(entry.name),
-          f"warm {name}: the corrupted entry's run {wc}, quarantine {quarantined}")
-    check(same(cold["outputs"], bad["outputs"]), f"warm {name}: outputs after the corrupted entry differ")
+        check(cold["warm_hits"] == 0 and wc["misses"] == len(tasks) and wc["puts"] == len(tasks),
+              f"warm {name}: the cold run's cache {wc}")
+        warm = probe(name, "warm")
+        wc = warm["warmcache"]
+        check(warm["warm_hits"] == len(tasks) and wc["misses"] == 0 and wc["quarantined"] == 0,
+              f"warm {name}: the warm run's cache {wc}")
+        check(warm["captures"] == cold["captures"],
+              f"warm {name}: {warm['captures']} captures, cold {cold['captures']}")
+        check(same(cold["outputs"], warm["outputs"]), f"warm {name}: the warm outputs differ from the cold")
+        cold_s, warm_s = cold["init_s"] + cold["warmup_s"], warm["init_s"] + warm["warmup_s"]
+        log(f"warm {name}: build + warmup {warm_s:.3f} s warm against {cold_s:.3f} s cold "
+            f"({cold_s - puts_s(cold):.3f} s less its puts); process {warm['wall_s']:.2f} s against "
+            f"{cold['wall_s']:.2f} s, on {smi}")
+        res[name] = {"cold_s": cold_s, "cold_less_puts_s": cold_s - puts_s(cold), "warm_s": warm_s,
+                     "cold_wall_s": cold["wall_s"], "warm_wall_s": warm["wall_s"]}
+        d = tmp / "warm" / name
+        entry = next(p for p in sorted(d.glob("*.exe")) if "-features-" in p.name)
+        blob = bytearray(entry.read_bytes())
+        blob[len(blob) // 2] ^= 0xFF
+        entry.write_bytes(bytes(blob))
+        bad = probe(name, "corrupt")
+        wc = bad["warmcache"]
+        quarantined = sorted(p.name for p in (d / "quarantine").iterdir())
+        check(wc["quarantined"] == 1 and wc["misses"] == 1 and bad["warm_hits"] == len(tasks) - 1
+              and len(quarantined) == 1 and quarantined[0].startswith(entry.name),
+              f"warm {name}: the corrupted entry's run {wc}, quarantine {quarantined}")
+        check(same(cold["outputs"], bad["outputs"]), f"warm {name}: outputs after the corrupted entry differ")
+
+    bf16_runs = Background(save_only)  # beside the int8 runs
+    int8()
+    res.update(bf16_runs.join())
     res["seconds"] = time.perf_counter() - t_start
     log(f"warm: phase 21 in {res['seconds']:.1f} s, {res['k1']} K1 launches in its runs")
     return res
@@ -3220,8 +3356,10 @@ def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
     counts with every record within relative error 1e-2 and cosine >=
     0.999 of the straight run's, and the byte-identical gate runs on a
     one-bucket ladder (buckets of 1, 1 worker), straight and SIGKILLed.
-    Only the straight run has the card alone. K1 = 12 x (dispatches +
-    captures) in every run; ``python -m
+    The straight run and the SIGKILLed ones run side by side (in
+    chip_smoke.py phase 29's (b) and (c) share the card with the whole
+    phase). K1 = 12
+    x (dispatches + captures) in every run; ``python -m
     jumbo_mae_tpu_tpu_torch.tools.batch_doctor`` exits 0 after each."""
     import signal
 
@@ -3312,19 +3450,22 @@ def phase_batch_job(smi: str, tmp: Path, urls: dict) -> dict:
         finished(name, summary, wall, out)
         check(summary["samples_resumed"] > 0, f"batch {name}: the restart resumed nothing")
 
-    # ---- 1. straight through (alone: its rate is the one reported);
-    # then, with two jobs on the card at once (neither's time is reported
-    # as a rate): 2. SIGKILL and restart, beside the one-bucket ladder's
-    # SIGKILL where the buckets disagree; 3. a worker killed, beside the
-    # one-bucket ladder's straight run
+    # ---- 1. straight through, beside 2. SIGKILL and restart and the
+    # one-bucket ladder's SIGKILL where the buckets disagree (each job a
+    # process of its own on a directory of its own; the rates are those of
+    # jobs sharing the card); then 3. a worker killed, beside the one-bucket
+    # ladder's straight run
     straight = root / "straight"
-    summary, wall = child_json(cmd(straight, 64, workers=2))
-    finished("straight", summary, wall, straight)
-    with ThreadPoolExecutor(max_workers=2) as px:
-        kills = [px.submit(killed, "sigkill", root / "sigkill", 64)]
+
+    def straight_run() -> None:
+        summary, wall = child_json(cmd(straight, 64, workers=2))
+        finished("straight", summary, wall, straight)
+
+    with ThreadPoolExecutor(max_workers=3) as px:
+        runs = [px.submit(straight_run), px.submit(killed, "sigkill", root / "sigkill", 64)]
         if not invariant:
-            kills.append(px.submit(killed, "one_bucket_sigkill", root / "one_bucket_sigkill", 1))
-        for f in kills:
+            runs.append(px.submit(killed, "one_bucket_sigkill", root / "one_bucket_sigkill", 1))
+        for f in runs:
             f.result()
     fault, one = root / "fault", root / "one_bucket"
     faulted = spawn(cmd(fault, 64, "--lease-s", "3", workers=2),
@@ -4055,7 +4196,7 @@ def h14_blockwise() -> dict:
     return res
 
 
-def h14_policies(fa, smi: str) -> dict:
+def h14_policies(fa, smi: str, state) -> dict:
     """The ViT-H/14 MAE step at batch 256 on one synthetic batch under
     ``"dots"`` and ``"none"`` in turns (dots, none, none, dots; one model,
     its encoder config switched): K1-K3 per step, peak card memory, step
@@ -4064,20 +4205,20 @@ def h14_policies(fa, smi: str) -> dict:
     batch 8 without gradient checkpointing for its launch counts; then, at
     batch 8 from one state and batch, the loss and every parameter gradient
     under "dots", "none" and no checkpointing, which must agree bit for bit
-    (the recompute runs the same ops, K1 among them, on the same inputs)."""
+    (the recompute runs the same ops, K1 among them, on the same inputs).
+    ``state`` is the recipe's run's own, as it saved it (its model and
+    optimizer; the steps move it in place)."""
     import numpy as np
     import torch
 
     from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
     from jumbo_mae_tpu_tpu_torch.obs.mfu import mfu, pretrain_flops_per_image
-    from jumbo_mae_tpu_tpu_torch.train.steps import create_state, make_train_step
+    from jumbo_mae_tpu_tpu_torch.train.steps import make_train_step
 
-    enc, dec, opt = vit_h14_mae()
-    t0 = time.perf_counter()
-    state = create_state((enc, dec, True), opt, device="cuda", init_seed=0, rng_seed=0,
-                         global_batch_size=H14_BATCH)
+    enc, dec = state.model.encoder.cfg, state.model.decoder_cfg
+    check(enc.grad_ckpt and enc.remat_policy == "dots", f"h14: the recipe's encoder {enc}")
     nparams = sum(p.numel() for p in state.model.parameters())
-    log(f"h14: train state built in {time.perf_counter() - t0:.1f} s, {nparams} params")
+    log(f"h14: the policies on the run's saved state, {nparams} params")
     step = make_train_step(mode="pretrain")
     flops = pretrain_flops_per_image(enc, dec)
     out = {"params": nparams, "gflop_per_image": flops / 1e9}
@@ -4121,8 +4262,6 @@ def h14_policies(fa, smi: str) -> dict:
     out["gradients"] = h14_policy_gradients(state, (("dots", enc), ("none", none),
                                                     ("no checkpointing", enc.replace(grad_ckpt=False))), smi)
     state.model.encoder.cfg = enc
-    del state
-    torch.cuda.empty_cache()
     return out
 
 
@@ -4239,10 +4378,11 @@ def phase_h14(fa, smi: str, tmp: Path, urls: dict) -> dict:
     the native tar reader and the validation cache, on phase 13's shards:
     K1-K3 at the slice's shapes against their plain versions and timed,
     ``blockwise_attention`` against the full scores, two native streams
-    alike, the step under "dots" and "none", then the run (3 steps, one
-    eval filling the cache, a save), a second eval of the saved state
-    through the CLI's eval step and valid iterator (no shard opened, the
-    same loss bit for bit) and the reconstruction figure from the save."""
+    alike, then the run (3 steps, one eval filling the cache, a save), a
+    second eval of the saved state through the CLI's eval step and valid
+    iterator (no shard opened, the same loss bit for bit), the step under
+    "dots" and "none" on that state, and the reconstruction figure from
+    the save."""
     import hashlib
 
     import numpy as np
@@ -4281,9 +4421,6 @@ def phase_h14(fa, smi: str, tmp: Path, urls: dict) -> dict:
     log(f"h14: two native streams (4 reader threads) of phase 13's shards, 64 samples each: digests {digests}")
     res["native_digests"] = digests
 
-    res["policies"] = h14_policies(fa, smi)
-    t_policies = time.perf_counter() - t0
-
     # ---- the main path: the recipe through cli/train.py, counts from 0
     opens = []
     real_open = tario.open_url
@@ -4307,8 +4444,14 @@ def phase_h14(fa, smi: str, tmp: Path, urls: dict) -> dict:
         eval_opens = len(opens) - run_opens
     finally:
         tario.open_url = real_open
+    # the policies on the state the run saved: the run built it, from the
+    # recipe, so no second build of the 775M parameters
+    t1 = time.perf_counter()
+    res["policies"] = h14_policies(fa, smi, saved)
+    t_policies = time.perf_counter() - t1
     del saved
     rec["saves"].clear()
+    torch.cuda.empty_cache()
     steps = len(rec["metrics"])
     losses = [m["loss"] for m in rec["metrics"]]
     check(steps == H14_STEPS, f"h14: cli/train.py ran {steps} steps, want {H14_STEPS}")
@@ -4385,7 +4528,7 @@ def phase_h14(fa, smi: str, tmp: Path, urls: dict) -> dict:
     log(f"h14: figure {grid.shape[1]}x{grid.shape[0]} px from the save in {fig_s:.1f} s, K1 {fig_k1} = "
         f"{H14_EVAL_K1} x {ran(made[0])} forwards, originals bit-equal to the validation images")
     res["seconds"] = time.perf_counter() - t0
-    log(f"h14: phase 25 in {res['seconds']:.1f} s (kernels {t_kernels:.1f}, policies {t_policies - t_kernels:.1f})")
+    log(f"h14: phase 25 in {res['seconds']:.1f} s (kernels {t_kernels:.1f}, policies {t_policies:.1f})")
     return res
 
 
@@ -4788,7 +4931,15 @@ def start_hang(tmp: Path, driver: dict) -> dict:
     proc = subprocess.Popen([sys.executable, "-m", "jumbo_mae_tpu_tpu_torch.cli.train", "--config", str(HERE / RECIPE),
                              "--set", *sets], cwd=HERE, stdout=logf, stderr=subprocess.STDOUT,
                             env={**os.environ, "PYTHONUNBUFFERED": "1"}, start_new_session=True)
-    return {"proc": proc, "log": logf, "out": out, "sets": sets, "t0": time.perf_counter()}
+    started = {"proc": proc, "log": logf, "out": out, "sets": sets, "t0": time.perf_counter(), "exit": {}}
+
+    def stamp() -> None:  # the exit's time, however late the reaping
+        proc.wait()
+        started["exit"].update(time=time.time(), perf=time.perf_counter())
+
+    started["stamp"] = threading.Thread(target=stamp, daemon=True)
+    started["stamp"].start()
+    return started
 
 
 def finish_hang(smi: str, started: dict, timeout_s: float = 300.0) -> dict:
@@ -4806,7 +4957,7 @@ def finish_hang(smi: str, started: dict, timeout_s: float = 300.0) -> dict:
     proc = started["proc"]
     try:
         rc = proc.wait(timeout=timeout_s)
-        t_exit = time.time()
+        started["stamp"].join(timeout=10)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -4814,7 +4965,8 @@ def finish_hang(smi: str, started: dict, timeout_s: float = 300.0) -> dict:
         with contextlib.suppress(ProcessLookupError):
             os.killpg(proc.pid, signal.SIGKILL)
         started["log"].close()
-    wall = time.perf_counter() - started["t0"]
+    t_exit = started["exit"]["time"]
+    wall = started["exit"]["perf"] - started["t0"]
     text = (started["out"] / "child.log").read_text()
     if rc != 44:
         log(f"hang: the child exited {rc}; its output ends:\n{text[-3000:]}")
@@ -4843,6 +4995,276 @@ def finish_hang(smi: str, started: dict, timeout_s: float = 300.0) -> dict:
     return res
 
 
+# ------------------------------------------- phase 29: a save's host copy and --distributed
+
+# phase 13's recipe and shards in fresh processes, no sanity eval: (a) 6
+# steps, a log window a step, a save every 2 steps, memwatch at its
+# defaults (the leak sentinel's window and threshold under which phase 26's
+# 16 MB a step is named), no fault plan; (b) two ranks on the one card,
+# mesh.data=2 (64 rows each), 4 steps, saves at 2 and 4, the final eval,
+# 2 workers a rank (each rank's stripe is 2 of the 4 train shards); (c) one
+# process evaluating (b)'s step-4 save
+C10_SETS = ["run.log_interval=1", "run.ckpt_every=2", "run.sanity_eval=false"]
+DIST_SETS = ["run.epochs=0.5", "run.log_interval=1", "run.ckpt_every=2", "run.sanity_eval=false", "mesh.data=2",
+             "data.workers=2"]
+DIST_STEPS = 4
+EVAL_ONLY_SETS = ["run.eval_only=true", "run.resume=true", "run.sanity_eval=false"]
+EVAL_RTOL = 1e-3  # (c) against (b): other rows per batch, so other mask draws
+PHASE29_MARK = "[phase29] "
+PHASE29_CODE = ("import json, sys, chip_smoke\n"
+                "res = chip_smoke.phase29_child(json.loads(sys.argv[1]))\n"
+                "print(chip_smoke.PHASE29_MARK + json.dumps(res), flush=True)\n")
+
+
+def _state_digest(state) -> str:
+    """A digest of every byte of the model's state dict."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+    for k, v in sorted(state.model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase29_child(spec: dict) -> dict:
+    """One process of phase 29: ``cli.train.main(spec["argv"])`` through
+    :func:`run_driver` (the launch counts set to 0 just before, read just
+    after), with the resident set after each save, the device-synchronized
+    seconds of each gradient all-reduce over the ``data`` group (with its
+    staging through the host under gloo) and a digest of the final
+    parameters."""
+    import torch
+
+    from jumbo_mae_tpu_tpu_torch.cli import train as cli
+    from jumbo_mae_tpu_tpu_torch.obs.memwatch import host_rss_bytes
+    from jumbo_mae_tpu_tpu_torch.ops.flash import attention as fa
+    from jumbo_mae_tpu_tpu_torch.train import steps
+    from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer
+
+    out = {"save_rss": [], "reduce_s": []}
+    final = {}
+    save, average, engine_cls = Checkpointer.save, steps._average_over_data, cli.RunEngine
+
+    def save_rss(self, step, state, metrics=None, extra=None):
+        r = save(self, step, state, metrics=metrics, extra=extra)
+        out["save_rss"].append({"step": step, "rss_bytes": host_rss_bytes(),
+                                "host_copy_bytes": self.host_copy_bytes()})
+        return r
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+    def timed_average(*args):
+        sync()
+        t0 = time.perf_counter()
+        r = average(*args)
+        sync()
+        out["reduce_s"].append(time.perf_counter() - t0)
+        return r
+
+    class Kept(engine_cls):
+        def run(self, state):
+            try:
+                return super().run(state)
+            finally:
+                final["state"] = self.state
+
+    Checkpointer.save, steps._average_over_data, cli.RunEngine = save_rss, timed_average, Kept
+    try:
+        # no batch kept: 18.4 MiB a step held by the recorder would read as a leak
+        rec = run_driver(fa, spec["argv"], keep_images=False)
+    finally:
+        Checkpointer.save, steps._average_over_data, cli.RunEngine = save, average, engine_cls
+    out.update(counts=rec["counts"], eval_k1=rec["eval_k1"], eval_batches=rec["eval_batches"],
+               losses=[m["loss"] for m in rec["metrics"]], evals=rec["evals"], wall_s=rec["wall_s"],
+               dispatch_s=rec["dispatch_s"], rss_end_bytes=host_rss_bytes())
+    if "state" in final:
+        out["digest"] = _state_digest(final["state"])
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase29_children(argvs: list[list[str]], logs: list[Path], timeout_s: float = 600.0) -> list[dict]:
+    """Run :func:`phase29_child` in one fresh process per argv, all at
+    once, to their ends: their results. Output goes to files (ranks in a
+    collective must never block on a full pipe); when one fails, the
+    others are killed, not waited out, and the phase fails with the end of
+    its log."""
+    procs = []
+    for argv, path in zip(argvs, logs):
+        f = open(path, "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", PHASE29_CODE, json.dumps({"argv": argv})], cwd=HERE,
+                                       stdout=f, stderr=subprocess.STDOUT, env={**os.environ, "PYTHONUNBUFFERED": "1"}),
+                      f))
+        LIVE_CHILDREN.add(procs[-1][0])
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            if any(p.poll() not in (None, 0) for p, _ in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p, f in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+            f.close()
+            LIVE_CHILDREN.discard(p)
+    res = []
+    for (p, _), path in zip(procs, logs):
+        text = path.read_text()
+        if p.returncode != 0:
+            log(f"phase 29: a child exited {p.returncode}; its output ends:\n{text[-4000:]}")
+        check(p.returncode == 0, f"phase 29: the child of {path.name} exited {p.returncode}")
+        line = [x for x in text.splitlines() if x.startswith(PHASE29_MARK)][-1]
+        res.append({**json.loads(line[len(PHASE29_MARK):]), "log": text})
+    return res
+
+
+def _check_launches(what: str, rec: dict, steps: int, eval_batches: int) -> None:
+    c = rec["counts"]
+    check(rec["eval_batches"] == eval_batches and rec["eval_k1"] == 32 * eval_batches,
+          f"{what}: {rec['eval_batches']} eval batches, {rec['eval_k1']} eval K1 launches (want {eval_batches} and "
+          f"{32 * eval_batches})")
+    check(c["K1"] - rec["eval_k1"] == 56 * steps and c["K2"] == c["K3"] == 32 * steps,
+          f"{what}: launches {c} over {steps} steps (want K1 56 and K2 = K3 32 a step)")
+
+
+def phase_distributed(smi: str, tmp: Path, driver: dict) -> dict:
+    """Phase 29 alone, its legs one after the other: (a) from
+    :func:`phase29_c10`, then (b) and (c) from :func:`phase29_dist`."""
+    t0 = time.perf_counter()
+    res = {"c10": phase29_c10(smi, tmp, driver), **phase29_dist(smi, tmp, driver)}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"distributed: phase 29 in {res['seconds']:.1f} s, on {smi}")
+    return res
+
+
+def _phase29_base(driver: dict) -> tuple[list[str], str]:
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+
+    urls = driver["urls"]
+    base = ["--config", str(HERE / RECIPE), "--set", *DRIVER_SETS, f"data.train_shards={urls['train']}",
+            f"data.valid_shards={urls['val']}"]
+    return base, load_config(HERE / RECIPE, []).run.name
+
+
+def phase29_c10(smi: str, tmp: Path, driver: dict) -> dict:
+    """Phase 29 (a), C10's gate: phase 13's run alone in a fresh process
+    with saves at steps 2, 4 and 6 and the leak sentinel at its defaults:
+    no ``mem_leak_suspect``, the save's host copy named ``ckpt_host_copy``
+    from the first memory sample on, the resident set after each save. It
+    runs only a child process (:class:`Background` can run it beside
+    other phases): the sentinel reads that process's own resident set."""
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+
+    t0 = time.perf_counter()
+    base, name = _phase29_base(driver)
+    out_a = tmp / "c10"
+    (a,) = phase29_children([base + [f"run.output_dir={out_a}", *C10_SETS]], [tmp / "c10.log"])
+    _check_launches("c10", a, DRIVER_STEPS, 2)
+    events = read_journal(out_a / name)
+    samples = [e for e in events if e["type"] == "mem_sample"]
+    leaks = [e for e in events if e["type"] == "mem_leak_suspect"]
+    copies = {e["components"].get("ckpt_host_copy") for e in samples}
+    rss = [e["rss_bytes"] for e in samples]
+    log(f"c10: RSS GB at each sample {[round(x / 2**30, 3) for x in rss]}; after each save "
+        f"{[(s['step'], round(s['rss_bytes'] / 2**30, 3)) for s in a['save_rss']]}; ckpt_host_copy "
+        f"{sorted(c / 2**30 for c in copies if c)} GB; leak suspects {leaks}; on {smi}")
+    check(len(samples) == DRIVER_STEPS and len(copies) == 1 and (next(iter(copies)) or 0) > 2**30,
+          f"c10: {len(samples)} memory samples, ckpt_host_copy {copies}")
+    check(not leaks, f"c10: the leak sentinel fired without a leak: {leaks}")
+    check([s["step"] for s in a["save_rss"]] == [2, 4, 6], f"c10: saves {a['save_rss']}")
+    res = dict(rss_gb=[x / 2**30 for x in rss], save_rss_gb=[s["rss_bytes"] / 2**30 for s in a["save_rss"]],
+               host_copy_gb=next(iter(copies)) / 2**30, growth_gb=(max(rss) - rss[0]) / 2**30,
+               wall_s=a["wall_s"])
+    shutil.rmtree(out_a)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"c10: phase 29 (a) in {res['seconds']:.1f} s, on {smi}")
+    return res
+
+
+def phase29_dist(smi: str, tmp: Path, driver: dict) -> dict:
+    """Phase 29 (b) and (c): ``--distributed`` on two ranks sharing the
+    card over gloo (the backend rule's choice, printed), ``mesh.data=2``:
+    launches per rank, finite losses equal on both, the final parameters
+    bit-equal, process 0's saves committed with both cursors, both
+    journals' ``shard_cursor`` rows at ``world: 2``, one ``val/loss``
+    though rank 1's stripe of the one valid shard is empty; the gradient
+    all-reduce's share of a step; then one process evaluating (b)'s
+    step-4 save (``run.eval_only``) within 1e-3 relative of (b)'s final
+    eval. Only child processes, as :func:`phase29_c10`."""
+    import numpy as np
+
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+
+    t0 = time.perf_counter()
+    base, name = _phase29_base(driver)
+    res: dict = {}
+
+    # (b) two ranks on the one card
+    out_b = tmp / "dist"
+    port = _free_port()
+    argvs = [base + [f"run.output_dir={out_b}", *DIST_SETS, "--distributed", "--coordinator", f"127.0.0.1:{port}",
+                     "--num-processes", "2", "--process-id", str(r)] for r in (0, 1)]
+    t_b = time.perf_counter()
+    ranks = phase29_children(argvs, [tmp / "dist0.log", tmp / "dist1.log"])
+    t_b = time.perf_counter() - t_b
+    starts = [next(x for x in r["log"].splitlines() if x.startswith("[train] --distributed:")) for r in ranks]
+    log(f"dist: {starts[0]} | {starts[1]}")
+    check(all("backend gloo (more processes than cards" in s for s in starts), f"dist: backends {starts}")
+    for r, rec in enumerate(ranks):
+        _check_launches(f"dist rank {r}", rec, DIST_STEPS, 4 if r == 0 else 0)
+    losses = [rec["losses"] for rec in ranks]
+    check(len(losses[0]) == DIST_STEPS and all(np.isfinite(losses[0])) and losses[0] == losses[1],
+          f"dist: losses {losses}")
+    check(ranks[0]["digest"] == ranks[1]["digest"], f"dist: parameter digests {[r['digest'] for r in ranks]}")
+    vals = [rec["evals"][-1]["val/loss"] for rec in ranks]
+    check(vals[0] == vals[1] and np.isfinite(vals[0]), f"dist: val/loss {vals}")
+    run_b = out_b / name
+    for step in (2, 4):
+        d = run_b / "ckpt" / "last" / str(step)
+        cur = json.loads((d / "extra.json").read_text())["data_cursor"]
+        check((d / "COMMIT").exists() and cur["process_count"] == 2 and len(cur["per_process"]) == 2,
+              f"dist: save {step}: committed {(d / 'COMMIT').exists()}, cursor {cur}")
+    for journal in ("journal", "journal-host1"):
+        rows = [(e["step"], e["world"]) for e in read_journal(run_b / journal) if e["type"] == "shard_cursor"]
+        check(rows == [(2, 2), (4, 2)], f"dist: {journal}'s shard_cursor rows {rows}")
+    step_ms = [1e3 * float(np.mean(rec["dispatch_s"][1:])) for rec in ranks]
+    reduce_ms = [1e3 * float(np.mean(rec["reduce_s"][1:])) for rec in ranks]
+    share = [r / s for r, s in zip(reduce_ms, step_ms)]
+    log(f"dist: losses {losses[0]}, val/loss {vals[0]}, digest {ranks[0]['digest']}; steps 2-{DIST_STEPS}: the "
+        f"dispatch {step_ms[0]:.1f} / {step_ms[1]:.1f} ms (rank 0 / 1), the gradient all-reduce with its host staging "
+        f"{reduce_ms[0]:.1f} / {reduce_ms[1]:.1f} ms ({100 * share[0]:.1f} / {100 * share[1]:.1f} % of it; two ranks "
+        f"on one card, not a scaling figure); launches {[r['counts'] for r in ranks]}; (b) in {t_b:.1f} s; on {smi}")
+    res["dist"] = dict(losses=losses[0], val_loss=vals[0], step_ms=step_ms, reduce_ms=reduce_ms, reduce_share=share,
+                       counts=[r["counts"] for r in ranks], wall_s=t_b)
+
+    # (c) the save under one process
+    (c,) = phase29_children([base + [f"run.output_dir={out_b}", *EVAL_ONLY_SETS]], [tmp / "eval_only.log"])
+    check(c["eval_batches"] == 2 and c["eval_k1"] == c["counts"]["K1"] == 64,
+          f"eval_only: {c['eval_batches']} batches, launches {c['counts']}")
+    val_c = c["evals"][-1]["val/loss"]
+    rel = abs(val_c - vals[0]) / abs(vals[0])
+    log(f"eval_only: one process on (b)'s step-4 save val/loss {val_c} against (b)'s {vals[0]}: relative "
+        f"difference {rel:.3e} (limit {EVAL_RTOL:g}); on {smi}")
+    check(rel <= EVAL_RTOL, f"eval_only: val/loss {val_c} against {vals[0]}, relative {rel:.3e}")
+    res["eval_only"] = dict(val_loss=val_c, rel_diff=rel)
+    shutil.rmtree(out_b)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"distributed: phase 29 (b) and (c) in {res['seconds']:.1f} s, on {smi}")
+    return res
+
+
 def main() -> None:
     import gc
 
@@ -4864,29 +5286,39 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     log(f"device: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
-    build_kernels(_build)
-
-    errs = phase_kernels(fa)
-    bwd_errs = phase_bwd_kernels(fa)
-    k1_timings = phase_timings(fa)
-    bwd_timings = phase_bwd_timings(fa, k1_timings)
-    serve_launches, dispatches = phase_slice(fa, smi, FT_RECIPE, "cuda")
-    log(f"serving path: {serve_launches} K1 launches over {dispatches} dispatches")
-    train = phase_train(fa, smi)
-    phase_train_f32_vs_cpu()
-    phase_auto_head_dims(fa)
-    k4_errs = phase_k4(fa)
-    k4_timing = phase_k4_timing(fa)
-    phase_ring_op(fa)
-    seq_train = phase_seq_train(fa, smi)
-    log(f"sequence-parallel step {seq_train['step_ms']:.2f} ms against {train['step_ms']:.2f} ms without the "
-        f"ring (phase 7), on {smi}")
-    phase_ring_f32_vs_plain()
-    backends = phase_backends()
+    # phase 13's shards are written by a child process beside phases 2-12
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_driver_"))
     try:
-        driver = phase_driver(fa, smi, tmp, train["step_ms"])
+        shards = start_shards(tmp)
+        build_kernels(_build)
+
+        errs = phase_kernels(fa)
+        bwd_errs = phase_bwd_kernels(fa)
+        k1_timings = phase_timings(fa)
+        bwd_timings = phase_bwd_timings(fa, k1_timings)
+        serve_launches, dispatches = phase_slice(fa, smi, FT_RECIPE, "cuda")
+        log(f"serving path: {serve_launches} K1 launches over {dispatches} dispatches")
+        train = phase_train(fa, smi)
+        phase_train_f32_vs_cpu()
+        phase_auto_head_dims(fa)
+        k4_errs = phase_k4(fa)
+        k4_timing = phase_k4_timing(fa)
+        phase_ring_op(fa)
+        seq_train = phase_seq_train(fa, smi)
+        log(f"sequence-parallel step {seq_train['step_ms']:.2f} ms against {train['step_ms']:.2f} ms without the "
+            f"ring (phase 7), on {smi}")
+        phase_ring_f32_vs_plain()
+        backends = phase_backends()
+        driver = phase_driver(fa, smi, tmp, train["step_ms"], shards)
         resume = phase_resume(fa, smi, tmp, driver)
+        # phase 29 runs only child processes on phase 13's shards: (a) beside
+        # phases 15-17, (b) and (c) beside phases 21-22 (not beside the
+        # serving phases 19-20 and 23-24, whose gates ride on timing, or
+        # whose ballast fills the card); the card's memory this process
+        # keeps cached goes back first
+        gc.collect()
+        torch.cuda.empty_cache()
+        c10_run = Background(phase29_c10, smi, tmp, driver)
         t0 = time.perf_counter()
         mae_b16 = phase_mae_b16_save(fa, tmp, driver["urls"])
         t1 = time.perf_counter()
@@ -4897,61 +5329,77 @@ def main() -> None:
         # phase 13's ViT-L/16 save, read before its directory goes
         linear = phase_linear(fa, smi, tmp, driver["urls"], tmp / "a" / "pretrain_vit_l16_in1k_800ep" / "ckpt")
         t4 = time.perf_counter()
+        c10 = c10_run.join()
+        t4b = time.perf_counter()
         # the saves of phases 13, 16 and 17, served before their directory goes
         served = phase_serve_saves(fa, smi, tmp, driver["urls"])
         t5 = time.perf_counter()
         replicated = phase_replicated(fa, smi, tmp, driver["urls"])
         t6 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist_run = Background(phase29_dist, smi, tmp, driver)
         warm = phase_warm_restart(smi, tmp)
         t7 = time.perf_counter()
         batch = phase_batch_job(smi, tmp, driver["urls"])
         t8 = time.perf_counter()
+        dist = dist_run.join()
+        t8b = time.perf_counter()
+        distributed = {"c10": c10, **dist}
         billing = phase_billing(fa, smi, tmp, driver["urls"], train["step_ms"])
         t9 = time.perf_counter()
         telemetry = phase_telemetry(fa, smi, tmp)
         t10 = time.perf_counter()
         h14 = phase_h14(fa, smi, tmp, driver["urls"])
         t11 = time.perf_counter()
-        # the earlier phases' cyclic garbage (engines, memory-mapped saves)
-        # goes now: collected inside phase 26's run, its freed gigabytes land
-        # in the leak sentinel's RSS window (a 7-GB drop at the third sample
-        # in a run without this). Phase 26 reads only phase 13's shards: the
-        # earlier phases' saves (tens of GB) go too, so that its own saves
-        # can take their blocks; the card's machine caps what one call
-        # writes to its disk
-        gc.collect()
-        used = shutil.disk_usage(tmp).used
-        for child in tmp.iterdir():
-            if child.name != "shards":
-                shutil.rmtree(child) if child.is_dir() else child.unlink()
-        log(f"disk: {used / 2**30:.1f} GiB used after phase 25, {shutil.disk_usage(tmp).used / 2**30:.1f} GiB with "
-            "only phase 13's shards kept")
-        rollback = phase_rollback(fa, smi, tmp, driver)
-        log(f"disk: {shutil.disk_usage(tmp).used / 2**30:.1f} GiB used after phase 26")
-        t12 = time.perf_counter()
-        shutil.rmtree(tmp / "rollback")
-        # phase 28's child and phase 18's two run beside phase 27: their
-        # gates are exit codes, journals and accuracies, not speeds
+        # phase 18's two children run beside phases 26-28 (after phase 25's
+        # kernel timings): their gates are exit codes and accuracies, not
+        # speeds, and each is a process of its own with PyTorch's defaults
         toy_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_toy_"))
         toy_run = start_toy_proof(toy_tmp)
         try:
+            # the earlier phases' cyclic garbage (engines, memory-mapped saves)
+            # goes now: collected inside phase 26's run, its freed gigabytes land
+            # in the leak sentinel's RSS window (a 7-GB drop at the third sample
+            # in a run without this). Phase 26 reads only phase 13's shards: the
+            # earlier phases' saves (tens of GB) go too, so that its own saves
+            # can take their blocks; the card's machine caps what one call
+            # writes to its disk
+            gc.collect()
+            used = shutil.disk_usage(tmp).used
+            for child in tmp.iterdir():
+                if child.name != "shards":
+                    shutil.rmtree(child) if child.is_dir() else child.unlink()
+            log(f"disk: {used / 2**30:.1f} GiB used after phase 25, {shutil.disk_usage(tmp).used / 2**30:.1f} GiB "
+                "with only phase 13's shards kept")
+            # phase 28's child runs beside phases 26-27: its gates are an
+            # exit code, its own step beats and a journal, not speeds
             hang_run = start_hang(tmp, driver)
             try:
+                rollback = phase_rollback(fa, smi, tmp, driver)
+                log(f"disk: {shutil.disk_usage(tmp).used / 2**30:.1f} GiB used after phase 26")
+                t12 = time.perf_counter()
+                shutil.rmtree(tmp / "rollback")
                 traces = phase_traces(fa, smi, tmp, driver)
             finally:
                 hang = finish_hang(smi, hang_run)
+            t13 = time.perf_counter()
         finally:
             try:
                 toy = finish_toy_proof(smi, toy_run)
             finally:
                 shutil.rmtree(toy_tmp, ignore_errors=True)
-        t13 = time.perf_counter()
+        t14 = time.perf_counter()
         log(f"seconds: phase 15 {t1 - t0:.1f}, phase 16 {t2 - t1:.1f}, its f32 step {t3 - t2:.1f}, phase 17 "
-            f"{t4 - t3:.1f}, phase 19 {t5 - t4:.1f}, phase 20 {t6 - t5:.1f}, phase 21 {t7 - t6:.1f}, phase 22 "
-            f"{t8 - t7:.1f}, phase 23 {t9 - t8:.1f}, phase 24 {t10 - t9:.1f}, phase 25 {t11 - t10:.1f}, phase 26 "
-            f"{t12 - t11:.1f}, phases 27, 28 and 18 side by side {t13 - t12:.1f} (27 {traces['seconds']:.1f}, 28's "
-            f"child {hang['wall_s']:.1f}, 18's children {toy['seconds']:.1f}); phases 1-14 took {t0 - t_start:.1f}")
+            f"{t4 - t3:.1f}, then waited {t4b - t4:.1f} for phase 29 (a) (beside phases 15-17, {c10_run.seconds:.1f} "
+            f"s), phase 19 {t5 - t4b:.1f}, phase 20 {t6 - t5:.1f}, phase 21 {t7 - t6:.1f}, phase 22 {t8 - t7:.1f}, "
+            f"then waited {t8b - t8:.1f} for phase 29 (b) and (c) (beside phases 21-22, {dist_run.seconds:.1f} s), "
+            f"phase 23 {t9 - t8b:.1f}, phase 24 {t10 - t9:.1f}, phase 25 {t11 - t10:.1f}, phase 26 {t12 - t11:.1f}, "
+            f"phase 27 {t13 - t12:.1f} (in it {traces['seconds']:.1f}; phase 28's child beside phases 26-27 "
+            f"{hang['wall_s']:.1f}), then waited {t14 - t13:.1f} for phase 18's children (beside phases 26-28, "
+            f"{toy['seconds']:.1f} s); phases 1-14 took {t0 - t_start:.1f}")
     finally:
+        kill_children()
         shutil.rmtree(tmp, ignore_errors=True)
     keys = ("step_ms", "images_per_s", "mfu", "data_wait_s_per_step", "loader_wait_s", "dispatch_s", "save_s", "write_s",
             "save_bytes")
@@ -4972,6 +5420,7 @@ def main() -> None:
     log(f"the run's safety layers: {json.dumps(rollback)} on {smi}")
     log(f"the run's traces: {json.dumps(traces)} on {smi}")
     log(f"the hang: {json.dumps(hang)} on {smi}")
+    log(f"a save's host copy and --distributed: {json.dumps(distributed)} on {smi}")
 
     # every number of the line comes from the training slice (the main
     # path): launches from its run, errors and times at its decoder shape.

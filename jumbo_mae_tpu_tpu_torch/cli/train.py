@@ -118,10 +118,42 @@ What diagnoses the run, in the same order:
   a run from its journal and ``tools/perf_doctor.py`` reads the cost rows
   (or a ``BENCH_HISTORY.jsonl``, ``obs/perfledger.py``).
 
+The data side of the run's faults, in the same order: each decode of the
+train streams crosses the ``data.decode`` fault site and the decode
+metrics (``data/loader.py``); each log window journals the shards
+newly quarantined in this process (``quarantine``), and each save,
+a preemption save too, journals this process's consumed-shard ledger
+(``shard_cursor``, with ``world``), which the save's ``extra.json`` also
+keeps.
+
+``--distributed`` trains on several processes (``parallel/distributed.py``):
+
+    torchrun --nproc-per-node 2 -m jumbo_mae_tpu_tpu_torch.cli.train --distributed \\
+        --config recipes/pretrain_vit_l16_in1k_800ep.yaml --set mesh.data=2 ...
+    python -m jumbo_mae_tpu_tpu_torch.cli.train --distributed --coordinator 127.0.0.1:29500 \\
+        --num-processes 2 --process-id 0 --config ... --set mesh.data=2 ...
+
+Each process takes ``train_batch_size / processes`` rows of the global
+batch (its stripe of the shards), the step averages the gradients over
+the mesh's ``data`` group, and the random draws cover the global batch, so
+N processes take the step one process takes on the whole batch. The
+preemption flag is agreed on (the maximum of every process's), so a
+SIGTERM to any process stops all of them at one step, with a save. Process
+0 writes the saves (the state is replicated), with every process's data
+cursor gathered into its ``extra.json``; a barrier keeps every process
+from reading ``last/`` before a save is whole, and every process restores
+from the same directory. Each process evaluates its stripe of the
+validation set and the sums are added over the processes before the
+division. Process 0 alone prints the parameter table, logs the metrics
+and runs the exporter, the chrome trace and the publisher; every process
+keeps its own journal (``journal-host<i>`` past process 0), flight
+recorder and goodput ledger.
+
 Everything runs on ``"cuda"`` unless ``--device cpu`` (``device="cpu"``)
 asks for the CPU. What the port does not have yet raises, naming its
-ROADMAP item: FSDP, tensor and pipeline parallelism, ``--distributed`` and
-``--elastic`` (A6). The fleet beacons, on by default, are named once at start as not ported
+ROADMAP item: FSDP, tensor and pipeline parallelism (A6.3-A6.5), ``seq``
+over processes through this driver (A6.8) and ``--elastic`` (A7.4). The
+fleet beacons, on by default, are named once at start as not ported
 (A7.4) and the run goes on without them.
 """
 
@@ -129,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import signal
 import time
 from pathlib import Path
@@ -140,7 +173,7 @@ from jumbo_mae_tpu_tpu_torch.config import TrainConfig, config_to_dict, load_con
 from jumbo_mae_tpu_tpu_torch.data.loader import TrainLoader, prefetch_to_device, split_for_accum, valid_loader
 from jumbo_mae_tpu_tpu_torch.data.synthetic import synthetic_batches
 from jumbo_mae_tpu_tpu_torch.faults.inject import (
-    fault_point, faults_active, host_leak_tick, install_plan, leak_ballast_bytes,
+    fault_point, faults_active, host_leak_tick, install_plan, leak_ballast_bytes, set_host_index,
 )
 from jumbo_mae_tpu_tpu_torch.faults.sentinel import DivergenceError, DivergenceSentinel, SentinelConfig
 from jumbo_mae_tpu_tpu_torch.models.classifier import ClassificationModel
@@ -153,7 +186,9 @@ from jumbo_mae_tpu_tpu_torch.obs.flightrec import FlightRecorder
 from jumbo_mae_tpu_tpu_torch.obs.goodput import GoodputLedger
 from jumbo_mae_tpu_tpu_torch.obs.hangwatch import HangWatchdog
 from jumbo_mae_tpu_tpu_torch.obs.journal import RunJournal, env_fingerprint
-from jumbo_mae_tpu_tpu_torch.obs.memwatch import MB, LeakSentinel, MemAccountant, MemoryWatcher, tree_nbytes
+from jumbo_mae_tpu_tpu_torch.obs.memwatch import (
+    MB, LeakSentinel, MemAccountant, MemoryWatcher, fix_mmap_threshold, tree_nbytes,
+)
 from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
 from jumbo_mae_tpu_tpu_torch.obs.mfu import (
     H100_PEAK_BF16_TFLOPS,
@@ -165,7 +200,8 @@ from jumbo_mae_tpu_tpu_torch.obs.modelstats import first_nonfinite_group, group_
 from jumbo_mae_tpu_tpu_torch.obs.perfmodel import detect_chip, publish_drift, roofline
 from jumbo_mae_tpu_tpu_torch.obs.retrace import RetraceSentinel
 from jumbo_mae_tpu_tpu_torch.obs.trace import export_chrome_trace, span_timer, start_chrome_trace, stop_chrome_trace, trace
-from jumbo_mae_tpu_tpu_torch.parallel.mesh import create_mesh
+from jumbo_mae_tpu_tpu_torch.parallel import distributed as pdist
+from jumbo_mae_tpu_tpu_torch.parallel.mesh import create_mesh, set_mesh
 from jumbo_mae_tpu_tpu_torch.train import engine as engine_mod
 from jumbo_mae_tpu_tpu_torch.train.checkpoint import Checkpointer, load_pretrained_params
 from jumbo_mae_tpu_tpu_torch.train.engine import EXIT_FATAL, EXIT_HANG, EXIT_OK, RunEngine, exit_code_for
@@ -192,7 +228,7 @@ def _refuse_unported(cfg: TrainConfig) -> None:
     if run.mode not in ("pretrain", "finetune", "linear"):
         raise ValueError(f"run.mode must be pretrain, finetune or linear, got {run.mode!r}")
     if mesh.pipe > 1:
-        raise NotImplementedError(NOT_PORTED.format(what="mesh.pipe > 1 (the GPipe pipeline)", item="A6"))
+        raise NotImplementedError(NOT_PORTED.format(what="mesh.pipe > 1 (the GPipe pipeline)", item="A6.5"))
     if run.eval_only and not (cfg.data.valid_shards or run.synthetic_data):
         raise ValueError("run.eval_only requires validation data (data.valid_shards or run.synthetic_data)")
     if run.eval_which not in ("last", "best"):
@@ -236,13 +272,18 @@ def make_train_iterator(
     *,
     num_labels: int = 1000,
     device: str | torch.device = "cuda",
+    process_index: int = 0,
+    process_count: int = 1,
 ):
-    """The train batches, copied to ``device`` ahead of the step.
+    """The train batches of process ``process_index`` of
+    ``process_count``, copied to ``device`` ahead of the step.
 
     With a checkpointed ``data_cursor`` the loader continues the stream
-    sample-exactly; without one it restarts the stream at the epoch the
-    resumed step falls in (shard order and shuffles are keyed on (seed,
-    epoch)). One stream epoch yields ``dataset_size × repeats`` samples.
+    sample-exactly (this process's entry of a gathered cursor,
+    :func:`_pick_process_cursor`); without one it restarts the stream at
+    the epoch the resumed step falls in (shard order and shuffles are
+    keyed on (seed, epoch)). One stream epoch yields ``dataset_size ×
+    repeats`` samples.
 
     Returns ``(iterator, source, cursor_log, shard_log)``: ``source`` is
     the :class:`TrainLoader` (``None`` for synthetic data); ``cursor_log``
@@ -260,15 +301,17 @@ def make_train_iterator(
         it = synthetic_batches(per_process, data.image_size, labels=labels, grad_accum=run.grad_accum, seed=run.seed)
         source = None
     else:
+        data_cursor = _pick_process_cursor(data_cursor, process_index, process_count)
+        where = dict(process_index=process_index, process_count=process_count, start_epoch=start_epoch)
         try:
-            source = TrainLoader(data, per_process, cursor=data_cursor, start_epoch=start_epoch)
+            source = TrainLoader(data, per_process, cursor=data_cursor, **where)
             if data_cursor is not None:
                 print(f"[train] data cursor: sample-exact resume at epoch/offset {data_cursor['workers']}")
         except ValueError as e:
             if data_cursor is None:
                 raise
             print(f"[train] WARNING: {e}; falling back to epoch-{start_epoch} resume")
-            source = TrainLoader(data, per_process, start_epoch=start_epoch)
+            source = TrainLoader(data, per_process, **where)
 
         def tracked():
             step = start_step
@@ -287,10 +330,12 @@ def make_train_iterator(
 
 
 def make_valid_iterator(cfg: TrainConfig, per_process: int, *, num_labels: int = 1000,
-                        device: str | torch.device = "cuda", keys: tuple[str, ...] | None = None):
-    """A factory of fresh eval iterators on ``device``, or ``None`` without
-    validation data. Synthetic data gives 4 batches from ``seed + 1``.
-    A batch holds ``keys`` where the data has them (default: what the
+                        device: str | torch.device = "cuda", keys: tuple[str, ...] | None = None,
+                        process_index: int = 0, process_count: int = 1):
+    """A factory of fresh eval iterators on ``device`` over process
+    ``process_index``'s stripe of the validation shards, or ``None``
+    without validation data. Synthetic data gives 4 batches from ``seed +
+    1``. A batch holds ``keys`` where the data has them (default: what the
     eval step reads, and ``valid``)."""
     keys = (*_model_keys(cfg), "valid") if keys is None else keys
     if cfg.run.synthetic_data:
@@ -303,7 +348,8 @@ def make_valid_iterator(cfg: TrainConfig, per_process: int, *, num_labels: int =
 
         batches = gen
     elif cfg.data.valid_shards:
-        batches = lambda: valid_loader(cfg.data, per_process)  # noqa: E731
+        batches = lambda: valid_loader(cfg.data, per_process, process_index=process_index,  # noqa: E731
+                                       process_count=process_count)
     else:
         return None
     return lambda: prefetch_to_device(({k: b[k] for k in keys if k in b} for b in batches()), device)
@@ -311,14 +357,71 @@ def make_valid_iterator(cfg: TrainConfig, per_process: int, *, num_labels: int =
 
 def evaluate(eval_step, state, batches) -> dict[str, float]:
     """The exact weighted mean over the valid rows (padded rows count
-    nothing): per-batch sums stay on the device and are fetched once."""
+    nothing): per-batch sums stay on the device and are fetched once.
+
+    Over several processes each sums its own stripe, and the totals
+    (``eval_step.sums``) are added over the processes in one all-reduce
+    before the division. The eval step holds no collective, so a process
+    whose stripe runs out first, or is empty, needs no padding batches to
+    keep in step with the others."""
     pending = [eval_step(state, batch, i) for i, batch in enumerate(batches)]
     totals: dict[str, float] = {}
     for sums in engine_mod.fetch_metrics(pending):
         for k, v in sums.items():
             totals[k] = totals.get(k, 0.0) + v
+    if pdist.process_topology()[0] > 1:
+        keys = eval_step.sums
+        totals = dict(zip(keys, pdist.all_reduce_host([totals.get(k, 0.0) for k in keys]).tolist()))
     n = max(totals.pop("num_samples", 0.0), 1.0)
     return {f"val/{k}": v / n for k, v in totals.items()}
+
+
+def _agree_on_preemption(flagged: bool, process_count: int) -> bool:
+    """Whether to take the preemption exit. Every process must agree (the
+    save is collective): any process's flag stops them all."""
+    if process_count == 1:
+        return flagged
+    return bool(pdist.all_reduce_host([flagged], op="max", dtype=np.int64)[0])
+
+
+def _pick_process_cursor(data_cursor: dict | None, process_index: int, process_count: int) -> dict | None:
+    """This process's cursor out of a saved one (:func:`_gather_data_cursor`
+    wrote every process's). A sample-exact resume holds only at the saving
+    process count (stripes and per-process batches depend on it), so any
+    other count drops every process to the epoch resume together."""
+    if data_cursor is None:
+        return None
+    saved = int(data_cursor.get("process_count", 1))
+    if saved != process_count:
+        print(f"[train] WARNING: checkpoint data cursor was saved with {saved} processes but this run has "
+              f"{process_count}; falling back to epoch resume")
+        return None
+    if "per_process" in data_cursor:
+        picked = {"workers": data_cursor["per_process"][process_index], "batches": data_cursor["batches"]}
+        if data_cursor.get("native_threads") is not None:
+            picked["native_threads"] = data_cursor["native_threads"]
+        return picked
+    return data_cursor
+
+
+def _gather_data_cursor(snap: dict | None, process_count: int) -> dict | None:
+    """A loader snapshot fit for the save: process 0 writes the save, so
+    every process's cursor is gathered into it (``per_process``), with the
+    saving ``process_count``, the native reader's thread count and the
+    ``override_epoch`` marker when any process's streams are inside an
+    override epoch. Collective: every process calls it at the same step."""
+    if snap is None:
+        return None
+    if process_count == 1:
+        return {**snap, "process_count": 1}
+    gathered = pdist.all_gather_host(snap["workers"])
+    override = pdist.all_gather_host(-1 if snap.get("override_epoch") is None else int(snap["override_epoch"]))
+    out = {"per_process": gathered.tolist(), "batches": snap["batches"], "process_count": process_count}
+    if snap.get("native_threads") is not None:
+        out["native_threads"] = snap["native_threads"]
+    if int(override.max()) >= 0:
+        out["override_epoch"] = int(override.max())
+    return out
 
 
 def _warm_start(model, path: str) -> dict:
@@ -359,19 +462,35 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
     # process's wall clock lands in exactly one bucket
     ledger = GoodputLedger(generation=0)  # one process generation until A7.4
     dev = resolve_device(device)
-    create_mesh(cfg.mesh, device=dev)  # refuses fsdp/tensor > 1 (A6) and axes beyond this device
-    if run.train_batch_size % run.grad_accum:
-        raise ValueError(f"grad_accum ({run.grad_accum}) must divide the global batch size ({run.train_batch_size})")
+    # the topology: a process of a group joined by --distributed, or alone
+    process_count, host_index = pdist.process_topology()
+    is_main = host_index == 0
+    if process_count > 1:
+        # the fault layer's `@host=` identity before any site can fire,
+        # mirrored into GRAFT_HOST for the data workers
+        set_host_index(host_index)
+    # refuses fsdp/tensor > 1 (A6.3, A6.4) and a mesh that does not cover the processes
+    mesh = create_mesh(cfg.mesh, device=dev)
+    if process_count > 1 and mesh.shape["seq"] > 1:
+        raise NotImplementedError(NOT_PORTED.format(
+            what="mesh.seq > 1 over processes through cli/train.py (each seq rank needs its data rank's rows)",
+            item="A6.8"))
+    if run.train_batch_size % (process_count * run.grad_accum):
+        raise ValueError(f"process_count * grad_accum ({process_count} * {run.grad_accum}) must divide the global "
+                         f"batch size ({run.train_batch_size})")
     skipped = [f"run.{k}: {what}" for k, what in DEFAULT_LAYERS_NOT_PORTED.items() if getattr(run, k) > 0]
-    if skipped:
+    if skipped and is_main:
         print("[train] not ported yet (ROADMAP A7), running without: " + "; ".join(skipped))
-    per_process = run.train_batch_size
-    per_process_valid = max(1, run.valid_batch_size)
+    per_process = run.train_batch_size // process_count
+    per_process_valid = max(1, run.valid_batch_size // process_count)
     mode = "pretrain" if run.mode == "pretrain" else "classify"
 
     model, enc_cfg, flops_per_image = build_model(cfg, device=dev)
-    # an eval_only run without resume never saves: no checkpoint directory
-    ckpt = None if run.eval_only and not run.resume else Checkpointer(cfg.checkpoint_config())
+    # an eval_only run without resume never saves: no checkpoint directory.
+    # Process 0 writes (the state is replicated); the barrier keeps every
+    # process from reading last/ before a save is whole
+    ckpt = None if run.eval_only and not run.resume else Checkpointer(
+        cfg.checkpoint_config(), writer=is_main, barrier=pdist.barrier if process_count > 1 else None)
     resuming = run.resume and ckpt is not None and ckpt.latest_step(run.eval_which) is not None
     if run.eval_only and run.resume and not resuming:
         # a restore asked for and impossible must not fall through to
@@ -409,7 +528,8 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         print(f"[train] resumed from step {start_step} in {ckpt.last_restore_s:.2f} s")
 
     eval_step = make_eval_step(mode=mode)
-    print(param_summary(state.model))
+    if is_main:
+        print(param_summary(state.model))
 
     # graceful preemption: SIGTERM/SIGINT ask the engine to checkpoint and
     # exit at the next step boundary. Installed BEFORE the flight recorder,
@@ -440,21 +560,23 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
     telemetry = logger = journal = flightrec = hangwatch = source = None
     run_dir = Path(run.output_dir) / run.name
     try:
-        if run.telemetry:
+        if run.telemetry and is_main:
             telemetry = TelemetryServer(health=health, host=run.telemetry_host, port=run.telemetry_port).start()
             print(f"[obs] exporter on {run.telemetry_host}:{telemetry.port} (/metrics, /healthz)")
         logger = MetricLogger(
-            run_dir, name=run.name, config=config_to_dict(cfg), use_wandb=run.use_wandb,
+            run_dir, name=run.name, config=config_to_dict(cfg), enabled=is_main, use_wandb=run.use_wandb,
             wandb_project=run.wandb_project, wandb_entity=run.wandb_entity,
             wandb_tags=tuple(run.wandb_tags), wandb_id=run.wandb_id,
         )
         num_labels = enc_cfg.labels or 1000
-        valid_factory = make_valid_iterator(cfg, per_process_valid, num_labels=num_labels, device=dev)
+        valid_factory = make_valid_iterator(cfg, per_process_valid, num_labels=num_labels, device=dev,
+                                            process_index=host_index, process_count=process_count)
         if run.eval_only:
-            if not (resuming or run.pretrained_ckpt):
+            if not (resuming or run.pretrained_ckpt) and is_main:
                 print("[eval] WARNING: eval_only on a fresh random init; set run.pretrained_ckpt or "
                       "run.resume=true to restore weights")
-            val = evaluate(eval_step, state, valid_factory())
+            with set_mesh(mesh):
+                val = evaluate(eval_step, state, valid_factory())
             logger.log(val, step=start_step)
             print(f"[eval] step {start_step}: {val}")
             return {**val, "_exit_reason": "completed"}
@@ -466,13 +588,16 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         train_step = make_train_step(mode=mode, grad_accum=run.grad_accum, guard_nonfinite=run.sentinel,
                                      diag=diag_on)
         if run.sanity_eval and valid_factory is not None:
-            print("[train] sanity eval:", evaluate(eval_step, state, valid_factory()))
+            with set_mesh(mesh):
+                print("[train] sanity eval:", evaluate(eval_step, state, valid_factory()))
 
         # the run's history, crash-safe, and the black box: every layer below
         # reports through _emit, into the journal and the flight ring
-        journal = RunJournal(run_dir / "journal", host=0) if run.journal else None  # one process until A6.1
+        # every process keeps its own: host 0 under journal/, host i under journal-host<i>/
+        journal_dir = run_dir / ("journal" if is_main else f"journal-host{host_index}")
+        journal = RunJournal(journal_dir, host=host_index) if run.journal else None
         if run.flightrec_steps > 0:
-            flightrec = FlightRecorder(run_dir, capacity=run.flightrec_steps, host=0)
+            flightrec = FlightRecorder(run_dir, capacity=run.flightrec_steps, host=host_index)
             flightrec.install()
 
         def _emit(etype: str, **fields) -> None:
@@ -503,6 +628,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             if retrace is None:
                 return fn
 
+            @functools.wraps(fn)  # eval_step.sums goes along
             def call(state_now, batch, *rest, **kw):
                 retrace.dispatch(tag, batch)
                 return fn(state_now, batch, *rest, **kw)
@@ -521,11 +647,12 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         # stops them, and at the deadline the watchdog journals the stall,
         # drains the checkpoint writer (bounded) and exits EXIT_HANG
         if run.hangwatch_deadline_s > 0:
-            hangwatch = HangWatchdog(run.hangwatch_deadline_s, exit_code=EXIT_HANG, drain=ckpt.wait)
+            # the drain joins the writer only: the watchdog's thread enters no collective
+            hangwatch = HangWatchdog(run.hangwatch_deadline_s, exit_code=EXIT_HANG, drain=ckpt.drain)
 
             @hangwatch.on_fire
             def _hang_fired(info):
-                _emit("hang_detected", host=0, **info)
+                _emit("hang_detected", host=host_index, **info)
                 # the stall the watchdog sat through is detection latency; a
                 # final cumulative report reaches the journal before os._exit
                 ledger.add("hang_latency", float(info.get("stalled_s") or 0.0))
@@ -549,9 +676,10 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             sit outside every such window."""
             return hangwatch.expected(reason) if hangwatch is not None else contextlib.nullcontext()
 
-        train_iter, source, cursor_log, shard_log = make_train_iterator(
-            cfg, per_process, start_step, data_cursor, num_labels=num_labels, device=dev
-        )
+        where = dict(num_labels=num_labels, device=dev, process_index=host_index, process_count=process_count)
+        train_iter, source, cursor_log, shard_log = make_train_iterator(cfg, per_process, start_step, data_cursor,
+                                                                        **where)
+        seen_quarantine: set = set()  # shards already journaled as quarantined
         meter = AverageMeter()
         timer = StepTimer(warmup_steps=min(2, max(1, run.training_steps - 1)))
         last_metrics: dict[str, float] = {}
@@ -602,6 +730,11 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 accountant.register("flightrec_ring", flightrec.ring_bytes)
             if journal is not None:
                 accountant.register("journal_file", lambda: journal.path.stat().st_size)
+            if ckpt is not None:
+                # the save's host copy, kept from save to save and taken now,
+                # before the first sample
+                ckpt.reserve(state)
+                accountant.register("ckpt_host_copy", ckpt.host_copy_bytes)
             memwatch = MemoryWatcher(accountant=accountant, chip=chip, device=dev)
             leak_sentinel = LeakSentinel(window=run.memwatch_leak_window, min_growth_mb=run.memwatch_leak_mb)
             health.probe("memory", memwatch.last_sample)
@@ -610,7 +743,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         # liveness: a wedged step or a dead loader turns /healthz to 503
         health.watch("train_step", max_age_s=3600.0)
         health.watch("data_batch", max_age_s=3600.0)
-        if run.chrome_trace:
+        if run.chrome_trace and is_main:
             start_chrome_trace()
 
         def _next_batch(step_now: int):
@@ -652,7 +785,9 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             ckpt_interval=run.ckpt_every,
             next_batch=_next_batch,
             dispatch=_dispatch,
-            should_stop=lambda: bool(preempted),
+            process_count=process_count,
+            # the maximum of every process's flag: a SIGTERM to any stops all at one step
+            should_stop=lambda: _agree_on_preemption(bool(preempted), process_count),
         )
 
         @engine.pre_step
@@ -733,24 +868,26 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 # the step's cost, once: the card's peak since the loop began
                 # covers the first window's steps
                 opt = eng.state.opt_state
+                # what this process's card runs: its rows of the global batch
                 step_cost = train_step_cost(
-                    enc_cfg, getattr(eng.state.model, "decoder_cfg", None), batch=run.train_batch_size,
+                    enc_cfg, getattr(eng.state.model, "decoder_cfg", None), batch=per_process,
                     param_bytes=tree_nbytes(list(eng.state.model.parameters())),
                     opt_bytes=tree_nbytes([getattr(opt, k) for k in opt.SLOTS] + [opt.master]),
                     linear=run.mode == "linear", device_type=dev.type,
                     peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None,
                 )
                 publish_cost(step_cost, bucket="", dtype=cfg.model.overrides.get("dtype", ""))
-                _emit("compiled_program", batch=run.train_batch_size, **cost_asdict(step_cost))
+                _emit("compiled_program", batch=per_process, **cost_asdict(step_cost))
             sps = timer.steps_per_sec
             if sps:
                 imgs = sps * run.train_batch_size
-                util = utilization_report(flops_per_image * run.train_batch_size, step_cost.flops, sps,
+                # one card a process: the per-chip figures are this process's
+                util = utilization_report(flops_per_image * per_process, step_cost.flops, sps,
                                           peak_tflops=H100_PEAK_BF16_TFLOPS)
                 summary |= {
                     "perf/images_per_sec": imgs,
-                    "perf/images_per_sec_per_chip": imgs,  # one card a process until A6.1
-                    "perf/mfu": mfu(imgs, flops_per_image),
+                    "perf/images_per_sec_per_chip": imgs / process_count,
+                    "perf/mfu": mfu(imgs / process_count, flops_per_image),
                     "perf/tflops_per_chip": util.achieved_model_tflops,
                     # MFU (the model's FLOPs) against HFU (the recompute counted)
                     "perf/model_flops_utilization": util.model_flops_utilization,
@@ -790,6 +927,11 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 row["diag_step"] = latest_diag[0]
                 row["diag"] = latest_diag[1]
             _emit("step", **row)
+            # the shards the retry layer gave up on in this process since the last window
+            new_q = set(QUARANTINE.snapshot()) - seen_quarantine
+            if new_q:
+                seen_quarantine.update(new_q)
+                _emit("quarantine", shards=sorted(new_q))
             if msnap is not None:
                 _emit("mem_sample", step=win.step, **{k: v for k, v in msnap.items() if k != "ts"})
                 fired = leak_sentinel.observe(msnap)
@@ -837,7 +979,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
                 source.close()
             with _hw_expected("rollback-restart"):
                 train_iter, source, cursor_log, shard_log = make_train_iterator(
-                    cfg, per_process, new_step, extra.get("data_cursor"), num_labels=num_labels, device=dev
+                    cfg, per_process, new_step, extra.get("data_cursor"), **where
                 )
             return new_step
 
@@ -858,31 +1000,40 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             last_metrics |= val
             return val
 
+        def _emit_shard_cursor(step: int) -> None:
+            # every process journals its consumed-shard ledger at the saved
+            # step: the per-process cursor a resized resume merges
+            shards = shard_log.get(step)
+            if shards is not None:
+                _emit("shard_cursor", step=step, world=process_count, **shards)
+
         @engine.on_checkpoint
         def _checkpoint(eng, cev):
             step = cev.step
             extra = {}
-            if cursor_log.get(step) is not None:
-                extra["data_cursor"] = {**cursor_log[step], "process_count": 1}
+            snap = _gather_data_cursor(cursor_log.get(step), process_count)  # collective
+            if snap is not None:
+                extra["data_cursor"] = snap
             if shard_log.get(step) is not None:
                 extra["shard_cursor"] = shard_log[step]
             with _hw_expected("checkpoint"), sp_ckpt:
                 ckpt.save(step, eng.state, metrics=cev.metrics, extra=extra)
             ledger.add("ckpt_save", sp_ckpt.last_s)
             cev.save_seconds = round(sp_ckpt.last_s, 3)
-            for log in (cursor_log, shard_log):
-                for k in [k for k in log if k <= step]:
-                    del log[k]
             logger.log({"ckpt/save_s": ckpt.last_save_s}, step=step)
             print(f"[train] checkpoint at step {step} ({cev.reason}): {ckpt.last_save_s:.3f} s blocking")
             if cev.reason == "preemption":
                 _emit("checkpoint_save", step=step, preemption=True)
-                return
-            _emit("checkpoint_save", step=step, eval_metrics=cev.metrics, save_seconds=cev.save_seconds)
-            # a cumulative attribution a committed save: the offline
-            # stitcher keys lost work off these
-            ledger.publish()
-            _emit("goodput_report", **ledger.report(step=step))
+            else:
+                _emit("checkpoint_save", step=step, eval_metrics=cev.metrics, save_seconds=cev.save_seconds)
+                # a cumulative attribution a committed save: the offline
+                # stitcher keys lost work off these
+                ledger.publish()
+                _emit("goodput_report", **ledger.report(step=step))
+            _emit_shard_cursor(step)
+            for log in (cursor_log, shard_log):
+                for k in [k for k in log if k <= step]:
+                    del log[k]
 
         @engine.on_crash
         def _crash(eng, exc):
@@ -903,7 +1054,10 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             if hangwatch is not None:
                 hangwatch.disarm()
                 hangwatch.stop()
-            ckpt.wait()
+            if reason.startswith("exception:"):
+                ckpt.drain()  # the other processes may never reach the barrier
+            else:
+                ckpt.wait()
             if ckpt.last_write_s is not None:
                 logger.log({"ckpt/write_s": ckpt.last_write_s, "ckpt/bytes": ckpt.last_save_bytes}, step=step)
                 print(f"[train] last checkpoint written in {ckpt.last_write_s:.3f} s, {ckpt.last_save_bytes} bytes")
@@ -928,7 +1082,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
 
         # continuous deployment: registered last, so a publish follows its
         # checkpoint and sees the restore of a rollback
-        if run.publish_dir:
+        if run.publish_dir and is_main:
             from jumbo_mae_tpu_tpu_torch.serve.publisher import CheckpointPublisher
 
             CheckpointPublisher(
@@ -941,9 +1095,9 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
         if dev.type == "cuda":
             # the step's peak_bytes: the allocator's high-water mark from here
             torch.cuda.reset_peak_memory_stats(dev)
-        with trace(run.profile_dir or None):
+        with set_mesh(mesh), trace(run.profile_dir or None):
             engine.run(state)
-        if run.chrome_trace:
+        if run.chrome_trace and is_main:
             print(f"[obs] chrome trace -> {export_chrome_trace(run.chrome_trace)}")
         if source is not None:
             print(f"[train] host seconds waiting on the loader: {source.wait_s:.3f} over {engine.step - start_step} steps")
@@ -959,7 +1113,7 @@ def train(cfg: TrainConfig, *, device: str | torch.device = "cuda") -> dict:
             flightrec.uninstall()
         for sig, h in handlers.items():
             signal.signal(sig, h)
-        if run.chrome_trace:
+        if run.chrome_trace and is_main:
             stop_chrome_trace()
         if source is not None:
             source.close()
@@ -978,22 +1132,39 @@ def build_parser() -> argparse.ArgumentParser:
         "--set", dest="overrides", nargs="*", action="extend", default=[],
         help="dotted config overrides, e.g. optim.learning_rate=1e-3 (repeatable)",
     )
-    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--distributed", action="store_true", help="multi-process training: not ported yet (ROADMAP A6)")
-    p.add_argument("--elastic", type=int, default=0, metavar="N", help="elastic supervisor: not ported yet (ROADMAP A6)")
+    p.add_argument("--device", default="cuda", help="cuda (default: cuda:{LOCAL_RANK %% cards}) or cpu")
+    p.add_argument("--distributed", action="store_true",
+                   help="train on several processes: the rendezvous is --coordinator or torchrun's environment")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="HOST:PORT where the processes of --distributed meet (process 0 listens)")
+    p.add_argument("--num-processes", type=int, default=None, help="the process count, with --coordinator")
+    p.add_argument("--process-id", type=int, default=None, help="this process's index, with --coordinator")
+    p.add_argument("--elastic", type=int, default=0, metavar="N", help="elastic supervisor: not ported yet (ROADMAP A7.4)")
     return p
 
 
 def main(argv: list[str] | None = None) -> None:
     args = build_parser().parse_args(argv)
-    if args.distributed or args.elastic:
-        raise NotImplementedError(NOT_PORTED.format(what="--distributed / --elastic", item="A6"))
+    if args.elastic:
+        raise NotImplementedError(NOT_PORTED.format(what="--elastic (the elastic supervisor)", item="A7.4"))
+    # freed batch buffers leave the resident set, which the leak sentinel reads
+    fix_mmap_threshold()
+    device = args.device
+    if args.distributed:
+        rdv = pdist.rendezvous(args.coordinator, args.num_processes, args.process_id)
+        device, backend = pdist.init_distributed(rdv, args.device)
+        print(f"[train] --distributed: process {rdv.rank} of {rdv.world_size} ({rdv.local_world_size} on this node) "
+              f"on {device}, backend {backend} ({'the CPU' if device.type == 'cpu' else 'more processes than cards'} "
+              f"-> gloo, else nccl)", flush=True)
     try:
-        metrics = train(load_config(args.config, args.overrides), device=args.device)
+        metrics = train(load_config(args.config, args.overrides), device=device)
     except DivergenceError as e:
         # deterministic: a supervisor must not spend restarts proving it again
         print(f"[train] FATAL: {e}")
         raise SystemExit(EXIT_FATAL) from e
+    finally:
+        if args.distributed:
+            torch.distributed.destroy_process_group()
     reason = str(metrics.pop("_exit_reason", "completed"))
     print("[train] done:", metrics)
     code = exit_code_for(reason)

@@ -62,6 +62,8 @@ from jumbo_mae_tpu_tpu_torch.data.transforms import (
     simple_resize_crop,
 )
 from jumbo_mae_tpu_tpu_torch.data.valcache import ValidSampleCache
+from jumbo_mae_tpu_tpu_torch.faults.inject import fault_point
+from jumbo_mae_tpu_tpu_torch.obs.metrics import get_registry
 
 
 @dataclass(frozen=True)
@@ -162,6 +164,15 @@ def _shuffle_stream(it: Iterator, buffer_size: int, rng: np.random.Generator) ->
     yield from buf
 
 
+def _decode_metrics():
+    """The per-sample decode time and the failed-decode count of the
+    process registry: a worker interpreter's land in its own registry
+    (not exported), the inline and native streams' feed the exporter."""
+    reg = get_registry()
+    return (reg.histogram("data_decode_seconds", "image decode time per sample"),
+            reg.counter("data_decode_failures_total", "samples dropped by a failed decode"))
+
+
 def train_sample_stream(
     cfg: DataConfig,
     *,
@@ -180,9 +191,13 @@ def train_sample_stream(
     epoch: shard order, shuffle draws and decode replay, the augmentation
     is skipped, and per-sample generators keep the rest of the stream
     bit-identical to an uninterrupted one. ``ledger`` tracks which epoch
-    shards have been fully yielded."""
+    shards have been fully yielded. Each decode crosses the ``data.decode``
+    fault site, keyed by the sample's ``__key__``, and is timed into
+    ``data_decode_seconds``; a sample that does not decode is dropped and
+    counted in ``data_decode_failures_total``."""
     shards = expand_shards(cfg.train_shards)
     transform = TrainTransform(cfg)
+    m_decode, m_decode_fail = _decode_metrics()
     retry = _retry_policy(cfg)
     epoch = start_epoch
     to_skip = max(0, skip_samples)
@@ -206,8 +221,12 @@ def train_sample_stream(
                     img_key = find_image_key(sample)
                     if img_key is None:
                         continue
-                    img = decode_image(sample[img_key])  # type: ignore[arg-type]
+                    t0 = time.perf_counter()
+                    payload = fault_point("data.decode", key=str(sample.get("__key__", "")), data=sample[img_key])
+                    img = decode_image(payload)  # type: ignore[arg-type]
+                    m_decode.observe(time.perf_counter() - t0)
                     if img is None:
+                        m_decode_fail.inc()
                         continue
                     label = decode_label(sample["cls"]) if "cls" in sample else -1
                     if ledger is not None:
@@ -270,20 +289,29 @@ def native_train_stream(
     the reader merges the threads' queues in strict round-robin. So
     ``skip_samples`` replays the consumed prefix exactly (decode and
     shuffle draws replay; the augmentation is skipped), the same contract
-    as :func:`train_sample_stream`, for the same thread count."""
+    as :func:`train_sample_stream`, for the same thread count. Each decode
+    crosses the ``data.decode`` fault site (with no key: the reader hands
+    out bytes and labels only) and the two decode metrics."""
     from concurrent.futures import ThreadPoolExecutor
 
     from jumbo_mae_tpu_tpu_torch.data.native import NativeShardReader
 
     shards = expand_shards(cfg.train_shards)
     transform = TrainTransform(cfg)
+    m_decode, m_decode_fail = _decode_metrics()
     epoch = start_epoch
     to_skip = max(0, skip_samples)
 
     def decode_one(pair):
         payload, label = pair
+        t0 = time.perf_counter()
+        payload = fault_point("data.decode", data=payload)
         img = decode_image(payload)
-        return None if img is None else (img, label)
+        m_decode.observe(time.perf_counter() - t0)
+        if img is None:
+            m_decode_fail.inc()
+            return None
+        return (img, label)
 
     with ThreadPoolExecutor(max_workers=max(1, cfg.decode_threads)) as pool:
 

@@ -84,8 +84,12 @@ once a train step (:func:`host_leak_tick`: ``corrupt(n)`` retains n MB in
 a module ballast each time it fires, ``raise`` clears it);
 ``ckpt.save`` at every save (``key`` = the step) and ``ckpt.load`` at
 every step a restore tries (``key`` = that step: ``raise`` makes the
-restore walk back). ``fleet.wedge`` waits for the hang watchdog (ROADMAP
-A7.2) and ``data.decode`` for the decode path's site (ROADMAP A7).
+restore walk back); ``fleet.wedge`` once a train step (``key`` = the
+step; ``delay`` past the hang watchdog's deadline wedges it). The data
+sites: ``data.shard_open`` at each shard open (``data/tario.py``) and
+``data.decode`` before each decode of the train streams
+(``data/loader.py``; ``key`` = the sample's ``__key__``, none in the
+native reader's stream).
 ``corrupt`` flips bytes of a bytes payload and
 sign-flips tensors of a flat ``{name: tensor | ndarray}`` tree; its draws
 are seeded with an integer derived from (plan seed, firing, size), where

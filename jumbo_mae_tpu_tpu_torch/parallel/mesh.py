@@ -11,7 +11,7 @@ mesh of ``utils/compat.py:18-60``. The axes are the JAX package's,
   sequence's activations, as GSPMD presents them outside ``shard_map``;
   attention takes its chunk and rotates K/V around the ring;
 - ``fsdp``, ``tensor`` and ``pipe`` above 1 are not ported yet (ROADMAP
-  A6) and raise.
+  A6.3, A6.4, A6.5) and raise.
 
 Under ``torch.distributed`` the mesh is a ``DeviceMesh`` over the four
 axes, one process per device, and the ``seq`` ring runs over the ``seq``
@@ -37,10 +37,13 @@ from jumbo_mae_tpu_tpu_torch.utils.device import resolve_device
 AXES = ("data", "fsdp", "tensor", "seq")
 
 NOT_PORTED = (
-    "mesh {axes} > 1 is not ported yet: ROADMAP queue A6 (FSDP2 for "
-    "'fsdp', tensor parallelism, the GPipe pipeline); the port shards "
-    "'data' and 'seq'"
+    "mesh {axes} > 1 is not ported yet: ROADMAP queue {items}; the port "
+    "shards 'data' and 'seq' (over several processes, set mesh.data to "
+    "their count)"
 )
+# the ROADMAP item of each axis the port refuses
+AXIS_ITEMS = {"fsdp": "A6.3 (FSDP2 for 'fsdp')", "tensor": "A6.4 (tensor parallelism)",
+              "pipe": "A6.5 (the GPipe pipeline)"}
 
 
 @dataclass(frozen=True)
@@ -114,7 +117,8 @@ class Mesh:
 def _refuse_unported(sizes: dict[str, int]) -> None:
     unported = [a for a in ("fsdp", "tensor", "pipe") if sizes.get(a, 1) > 1]
     if unported:
-        raise NotImplementedError(NOT_PORTED.format(axes=" and ".join(repr(a) for a in unported)))
+        raise NotImplementedError(NOT_PORTED.format(axes=" and ".join(repr(a) for a in unported),
+                                                    items=", ".join(AXIS_ITEMS[a] for a in unported)))
 
 
 def create_mesh(
@@ -150,7 +154,10 @@ def create_mesh(
             )
         from torch.distributed.device_mesh import init_device_mesh
 
-        dm = init_device_mesh(dev.type, tuple(per_process.values()), mesh_dim_names=AXES)
+        # gloo's collectives run on the host: its mesh is a CPU mesh, whatever
+        # device the ranks compute on
+        mesh_type = "cpu" if dist.get_backend() == "gloo" else dev.type
+        dm = init_device_mesh(mesh_type, tuple(per_process.values()), mesh_dim_names=AXES)
         groups = {a: dm.get_group(a) for a in ("data", "seq") if per_process[a] > 1}
         return Mesh(sizes, one_process_seq, groups)
     return Mesh(sizes, one_process_seq)

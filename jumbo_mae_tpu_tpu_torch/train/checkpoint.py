@@ -23,9 +23,11 @@ a whole save or none. ``last/`` keeps the newest ``max_keep_last`` saves;
 ``best/`` keeps the single best by ``metric_key`` under ``best_mode``
 (hard links to the ``last/`` files, so a best save costs no second write).
 
-The save blocks the caller only for the device → host copy; the files are
-written by a writer thread (``async_save``), which :meth:`Checkpointer.wait`
-joins, raising what it raised. :meth:`Checkpointer.restore` walks back past
+The save blocks the caller only for the device → host copy, into host
+tensors the checkpointer keeps from save to save; the files are written by
+a writer thread (``async_save``), which :meth:`Checkpointer.wait` joins,
+raising what it raised. In a run of several processes one of them writes
+and :meth:`Checkpointer.wait` ends at a barrier of all of them. :meth:`Checkpointer.restore` walks back past
 a save that fails to load — torn, truncated or uncommitted — over at most
 ``fallback_steps`` older saves. The fault sites ``ckpt.save`` (at every
 save, keyed by the step) and ``ckpt.load`` (at every step a restore tries,
@@ -123,13 +125,23 @@ def _load_save(d: Path, *, mmap: bool = False) -> tuple[dict, dict]:
     return payload, json.loads((d / EXTRA_FILE).read_text())
 
 
-def host_state(state) -> dict:
+def _state_tensors(state) -> list[torch.Tensor]:
+    """Every tensor :func:`host_state` copies, in its order."""
+    return [*state.model.state_dict().values(), *(t for ts in state.opt_state.slots().values() for t in ts)]
+
+
+def host_state(state, staging: list[torch.Tensor] | None = None) -> dict:
     """A host copy of everything :meth:`Checkpointer.save` stores for a
     ``train.state.TrainState``: the device → host copy, the only part of a
-    save the step waits for."""
+    save the step waits for. With ``staging`` (CPU tensors of the shapes
+    and dtypes of :func:`_state_tensors`, in its order) the copy goes into
+    those tensors, and the payload holds them; without, into new ones."""
+    dst = iter(staging) if staging is not None else None
 
     def host(t: torch.Tensor) -> torch.Tensor:
-        return t.detach().to("cpu", copy=True)
+        if dst is None:
+            return t.detach().to("cpu", copy=True)
+        return next(dst).copy_(t.detach())
 
     opt = state.opt_state
     return {
@@ -151,21 +163,39 @@ class Checkpointer:
     ``best`` when ``metrics[metric_key]`` improves; ``restore`` loads a
     save into a live state in place. ``last_save_s`` is the blocking part
     of the last save (the host copy), ``last_write_s`` its file writing,
-    ``last_save_bytes`` its bytes on disk."""
+    ``last_save_bytes`` its bytes on disk.
 
-    def __init__(self, cfg: CheckpointConfig):
+    The host copy goes into one set of CPU tensors the checkpointer keeps
+    from save to save (the staging; :meth:`reserve` takes it ahead of the
+    first save, :meth:`host_copy_bytes` is its size): a copy made anew and
+    freed each save leaves its pages with the C allocator, and the
+    process's resident set then grows by up to a whole copy without
+    anything holding it. Reused, the copy costs its bytes once.
+
+    In a run of several processes the state is replicated over ``data``:
+    one process writes (``writer=True``) and the others take every call,
+    with no copy and no file. ``barrier`` (a callable every process runs)
+    then ends :meth:`wait`, so no process reads ``last/`` before the
+    writer's save is whole; every process restores from the same
+    directory (a filesystem they share)."""
+
+    def __init__(self, cfg: CheckpointConfig, *, writer: bool = True, barrier=None):
         if cfg.best_mode not in ("min", "max"):
             raise ValueError(f"best_mode must be 'min' or 'max', got {cfg.best_mode!r}")
         self.cfg = cfg
         self.root = Path(cfg.directory).absolute()
+        self.writer = writer
+        self._barrier = barrier
         for slot in ("last", "best"):
             d = self.root / slot
             d.mkdir(parents=True, exist_ok=True)
-            for stale in d.glob(".tmp-*"):  # a writer that died mid-save
-                shutil.rmtree(stale, ignore_errors=True)
+            if writer:
+                for stale in d.glob(".tmp-*"):  # a writer that died mid-save
+                    shutil.rmtree(stale, ignore_errors=True)
         self._best_metric = self._read_best_metric()
         self._writer: threading.Thread | None = None
         self._writer_error: BaseException | None = None
+        self._staging: list[torch.Tensor] | None = None
         self.last_save_s: float | None = None
         self.last_write_s: float | None = None
         self.last_save_bytes: int | None = None
@@ -204,21 +234,48 @@ class Checkpointer:
 
     # ------------------------------------------------------------ save
 
+    def _staging_for(self, state) -> list[torch.Tensor]:
+        """The staging of ``state``'s tensors, taken anew only when their
+        shapes or dtypes changed. Each tensor is written once here, so its
+        pages are resident from now on."""
+        live = _state_tensors(state)
+        if self._staging is None or [(t.shape, t.dtype) for t in self._staging] != [(t.shape, t.dtype) for t in live]:
+            self._staging = None  # the old staging goes before the new one is taken
+            self._staging = [torch.empty(t.shape, dtype=t.dtype).fill_(0) for t in live]
+        return self._staging
+
+    def reserve(self, state) -> None:
+        """Take the host staging of ``state`` now, ahead of the first save
+        (the train CLI does it before its first step, so the memory
+        samples see its bytes from the start). A process that does not
+        write takes none. Not collective: it waits for no other process."""
+        if self.writer:
+            self.drain()  # a save in flight still reads the staging
+            self._staging_for(state)
+
+    def host_copy_bytes(self) -> int:
+        """The bytes of the host staging (the ``ckpt_host_copy`` component
+        of the train CLI's memory accountant)."""
+        return sum(t.numel() * t.element_size() for t in self._staging or ())
+
     def save(self, step: int, state, metrics: dict[str, float] | None = None, extra: dict | None = None) -> bool:
         """Save ``last``; promote to ``best`` on metric improvement. Returns
         True if this step became the new best. Blocks for the host copy;
         the writing runs on the writer thread when ``async_save``."""
-        self.wait()  # one save in flight: saves land in order
+        self.wait()  # one save in flight: saves land in order; the staging is free again
         t0 = time.perf_counter()
         # a failing checkpoint store, injectable without a flaky filesystem
         fault_point("ckpt.save", key=str(step))
-        payload = host_state(state)
         value = None if metrics is None else metrics.get(self.cfg.metric_key)
         is_best = value is not None and self._improved(float(value))
         extra = dict(extra or {})
         if is_best:
             self._best_metric = float(value)
             extra["_best_metric"] = self._best_metric
+        if not self.writer:
+            self.last_save_s = time.perf_counter() - t0
+            return is_best
+        payload = host_state(state, self._staging_for(state))
         extra_bytes = json.dumps(extra, default=float).encode()
         self.last_save_s = time.perf_counter() - t0
         if self.cfg.async_save:
@@ -276,11 +333,20 @@ class Checkpointer:
         os.replace(tmp, final)
         _fsync_dir(final.parent)
 
-    def wait(self) -> None:
-        """Join the writer thread; re-raise what the last write raised."""
+    def drain(self) -> None:
+        """Join the writer thread, nothing more (the hang watchdog's drain,
+        which runs on a thread of its own and must not enter a
+        collective)."""
         if self._writer is not None:
             self._writer.join()
             self._writer = None
+
+    def wait(self) -> None:
+        """Join the writer thread, then pass the barrier, if any; re-raise
+        what the last write raised."""
+        self.drain()
+        if self._barrier is not None:
+            self._barrier()
         if self._writer_error is not None:
             err, self._writer_error = self._writer_error, None
             raise err

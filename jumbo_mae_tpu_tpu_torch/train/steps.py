@@ -173,7 +173,13 @@ def _average_over_data(params: list[torch.Tensor], grads: list[torch.Tensor | No
             grads[i] = torch.zeros_like(p)
     dt = grads[0].dtype
     flat = torch.cat([g.reshape(-1) for g in grads] + [m.reshape(1).to(dt) for m in scalars])
-    dist.all_reduce(flat, group=group)
+    if flat.is_cuda and dist.get_backend(group) == "gloo":
+        # gloo reduces on the host (ranks sharing a card): staged there explicitly
+        host = flat.cpu()
+        dist.all_reduce(host, group=group)
+        flat.copy_(host)
+    else:
+        dist.all_reduce(flat, group=group)
     flat /= dist.get_world_size(group)
     parts = flat.split([g.numel() for g in grads] + [1] * len(scalars))
     torch._foreach_copy_(grads, [c.view_as(g) for c, g in zip(parts, grads)])
@@ -274,7 +280,9 @@ def make_eval_step(*, mode: Mode = "pretrain") -> Callable[..., dict]:
     ``loss``, ``acc1`` and ``acc5`` in classification) and
     ``num_samples``, the valid count; the caller divides at the end (an
     exact weighted mean with ragged last batches). ``batch_idx`` varies the
-    MAE mask draw, on a stream kept apart from training's."""
+    MAE mask draw, on a stream kept apart from training's; under a mesh
+    with a ``data`` axis the draw covers the global batch, as in training.
+    ``eval_step.sums`` names the keys of the sums."""
     _check_mode(mode)
 
     @torch.no_grad()
@@ -298,4 +306,7 @@ def make_eval_step(*, mode: Mode = "pretrain") -> Callable[..., dict]:
         sums["num_samples"] = valid.sum()
         return sums
 
+    # the keys of every call's sums, so that a process with no batch can
+    # still take its part in a sum over processes
+    eval_step.sums = ("loss", "num_samples") if mode == "pretrain" else ("loss", "acc1", "acc5", "num_samples")
     return eval_step

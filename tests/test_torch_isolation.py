@@ -383,6 +383,7 @@ def test_module_list_covers_the_slice():
         "jumbo_mae_tpu_tpu_torch.train.steps",
         "jumbo_mae_tpu_tpu_torch.parallel",
         "jumbo_mae_tpu_tpu_torch.parallel.mesh",
+        "jumbo_mae_tpu_tpu_torch.parallel.distributed",
         "jumbo_mae_tpu_tpu_torch.parallel.ring_attention",
         "jumbo_mae_tpu_tpu_torch.config",
         "jumbo_mae_tpu_tpu_torch.data.shards",

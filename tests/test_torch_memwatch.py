@@ -195,3 +195,133 @@ def test_card_headroom_refusal_names_the_card(monkeypatch):
     assert "host memory" in w.headroom_check(60 * 1024 * MB, 1)  # the host is checked first
     cpu = pmw.MemoryWatcher(registry=MetricsRegistry(), device="cpu")
     assert cpu.headroom_check(100 * MB, 512 * MB) is None  # a CPU watcher checks no card
+
+
+# ------------------------------------------------- a save's host copy (C10)
+
+
+def _small_state():
+    """A train state of a few MB on the CPU (AdamW: master, mu, nu)."""
+    from jumbo_mae_tpu_tpu_torch.config import OptimConfig
+    from jumbo_mae_tpu_tpu_torch.train.optim import make_optimizer
+    from jumbo_mae_tpu_tpu_torch.train.steps import create_state
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(512, 512), torch.nn.Linear(512, 256))
+    return create_state(model, make_optimizer(OptimConfig(), 16), device="cpu")
+
+
+def test_a_save_host_copy_is_one_staging_accounted_by_name(tmp_path):
+    """The checkpointer copies every save into one set of host tensors it
+    keeps (taken by ``reserve``), and the accountant names their bytes
+    ``ckpt_host_copy``: the pages a save's copy leaves resident are
+    accounted, not an ``unaccounted`` leak. The writer thread keeps no
+    payload of its own once ``wait`` returns, and each save lands whole."""
+    import weakref
+
+    from jumbo_mae_tpu_tpu_torch.train import checkpoint as ck
+
+    state = _small_state()
+    live = ck._state_tensors(state)
+    nbytes = sum(t.numel() * t.element_size() for t in live)
+    assert nbytes > 2 * 2**20
+    cp = ck.Checkpointer(ck.CheckpointConfig(str(tmp_path / "ckpt")))
+    acc = pmw.MemAccountant(registry=MetricsRegistry())
+    acc.register("ckpt_host_copy", cp.host_copy_bytes)
+    assert acc.sample() == {"ckpt_host_copy": 0}
+    cp.reserve(state)
+    assert acc.sample() == {"ckpt_host_copy": nbytes}
+    staging = [weakref.ref(t) for t in cp._staging]
+    ptrs = [t.data_ptr() for t in cp._staging]
+    for step in (1, 2, 3):
+        with torch.no_grad():
+            for p in state.model.parameters():
+                p.add_(1.0)
+        cp.save(step, state)
+        cp.wait()
+        assert cp._writer is None
+        assert acc.sample() == {"ckpt_host_copy": nbytes}
+        got = ck.read_state(tmp_path / "ckpt")
+        assert got["step"] == state.step
+        for k, v in state.model.state_dict().items():
+            torch.testing.assert_close(got["model"][k], v, atol=0, rtol=0)
+    del got
+    import gc
+
+    gc.collect()
+    # every save went through the same tensors, and nothing else holds a copy
+    assert [t.data_ptr() for t in cp._staging] == ptrs
+    assert _alive(staging) == len(ptrs)
+    cp.close()
+    acc.unregister("ckpt_host_copy")  # its probe is the last reference to the checkpointer
+    del cp
+    gc.collect()
+    assert _alive(staging) == 0
+
+
+def _alive(refs) -> int:
+    return sum(r() is not None for r in refs)
+
+
+def test_a_process_that_does_not_write_takes_no_copy(tmp_path):
+    """In a run of several processes the others take every save call with
+    no host copy and no file; the barrier ends ``wait``."""
+    from jumbo_mae_tpu_tpu_torch.train import checkpoint as ck
+
+    passed = []
+    cp = ck.Checkpointer(ck.CheckpointConfig(str(tmp_path / "ckpt")), writer=False, barrier=lambda: passed.append(1))
+    state = _small_state()
+    cp.reserve(state)
+    assert cp.host_copy_bytes() == 0 and passed == []  # reserve enters no collective
+    cp.save(1, state)
+    cp.wait()
+    assert cp.host_copy_bytes() == 0 and cp.latest_step() is None and len(passed) == 2
+    cp.drain()
+    assert len(passed) == 2  # the drain (the hang watchdog's) passes no barrier
+
+
+def test_the_train_cli_accounts_the_host_copy_from_its_first_sample(tmp_path):
+    """Through ``cli/train.py``: every memory sample names the staging's
+    bytes under ``ckpt_host_copy``, the same before and after the saves."""
+    from pathlib import Path
+
+    from jumbo_mae_tpu_tpu_torch.cli import train as ttrain
+    from jumbo_mae_tpu_tpu_torch.config import load_config
+    from jumbo_mae_tpu_tpu_torch.obs.journal import read_journal
+
+    smoke = Path(__file__).resolve().parent.parent / "recipes" / "smoke_cpu.yaml"
+    ttrain.train(load_config(smoke, [f"run.output_dir={tmp_path}", "run.training_steps=4", "optim.training_steps=10",
+                                     "run.log_interval=1", "run.ckpt_every=2", "run.eval_interval=0",
+                                     "run.sanity_eval=false"]), device="cpu")
+    samples = [e for e in read_journal(tmp_path / "smoke_cpu") if e["type"] == "mem_sample"]
+    copies = {e["components"]["ckpt_host_copy"] for e in samples}
+    assert len(samples) == 4 and len(copies) == 1 and copies.pop() > 0
+    assert not [e for e in read_journal(tmp_path / "smoke_cpu") if e["type"] == "mem_leak_suspect"]
+
+
+@pytest.mark.parametrize("fixed", [False, True])
+def test_fixed_mmap_threshold_returns_a_freed_block(fixed):
+    """After a 24-MiB block is freed glibc serves a 16-MiB one from its heap
+    and keeps its pages when it is freed (the train batches' case); with
+    ``fix_mmap_threshold`` it is a mapping of its own and leaves the
+    resident set. In a fresh interpreter: the setting is process-wide."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys, numpy as np\n"
+        "from jumbo_mae_tpu_tpu_torch.obs import memwatch as m\n"
+        f"assert m.fix_mmap_threshold() if {fixed} else True\n"
+        "a = np.ones(24 << 20, np.uint8); del a\n"
+        "b = np.ones(16 << 20, np.uint8); c = np.ones(1 << 16, np.uint8)\n"
+        "r1 = m.host_rss_bytes(); del b; print((r1 - m.host_rss_bytes()) / m.MB)\n"
+    )
+    from pathlib import Path
+
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, timeout=120,
+                         cwd=Path(__file__).resolve().parent.parent)
+    returned_mb = float(out.stdout.strip().splitlines()[-1])
+    if fixed:
+        assert returned_mb >= 15.9
+    else:
+        assert returned_mb < 1.0  # the fault the setting repairs
